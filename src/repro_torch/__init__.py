@@ -1,0 +1,15 @@
+"""repro_torch — the PyTorch / CUDA port of ``repro`` for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference; this package imports nothing
+from it and no JAX.  Each module keeps its twin's path and public names
+(``repro_torch.runtime.rounds`` ↔ ``repro.runtime.rounds``).  Every
+Pallas kernel on a ported path is a CUDA kernel written by hand for
+``sm_90a`` (``kernels/csrc/``), with a plain PyTorch version beside it.
+Entry points run on the card by default (``device="cuda"``) and on the
+CPU only when the caller passes ``device="cpu"``.
+
+Ported so far: the G-LFQ round engine (``runtime``), its four kernels
+(``kernels``) and round-engine BFS (``apps.bfs``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,171 @@
+"""BFS on the deterministic round engine — the PyTorch twin of the
+round-engine half of ``repro/apps/bfs.py``.
+
+The graph generators mirror the Table IV families (road-like, kron-like,
+delaunay-like) and produce CSR arrays identical to the reference's.
+``bfs_rounds`` runs BFS through ``RoundRunner``: the ring carries vertex
+ids, and one step relaxes a batch of vertices against a dense padded
+adjacency table and spawns the neighbours it newly claims.  The
+queue-kernel, host-runtime and mesh BFS variants come with their slices.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels._build import resolve_device
+from ..runtime import RoundRunner
+
+
+@dataclass
+class CSRGraph:
+    row_ptr: np.ndarray  # (n+1,) int32
+    col_idx: np.ndarray  # (m,) int32
+    name: str = "g"
+
+    @property
+    def n(self) -> int:
+        return len(self.row_ptr) - 1
+
+    @property
+    def m(self) -> int:
+        return len(self.col_idx)
+
+
+def road_like(n: int, seed: int = 0) -> CSRGraph:
+    """Grid graph: low average degree, long diameter (road_usa family).
+    Neighbours of each vertex come in the order (0,1), (1,0), (0,-1),
+    (-1,0), as in the reference's loop."""
+    side = int(np.sqrt(n))
+    n = side * side
+    v = np.arange(n, dtype=np.int64)
+    r, c = v // side, v % side
+    nbrs, ok = [], []
+    for dr, dc in ((0, 1), (1, 0), (0, -1), (-1, 0)):
+        rr, cc = r + dr, c + dc
+        ok.append((rr >= 0) & (rr < side) & (cc >= 0) & (cc < side))
+        nbrs.append(rr * side + cc)
+    ok = np.stack(ok, 1).reshape(-1)          # vertex-major, direction-minor
+    rows = np.repeat(v, 4)[ok]
+    cols = np.stack(nbrs, 1).reshape(-1)[ok]
+    return _to_csr(n, rows, cols, f"road_{n}")
+
+
+def kron_like(n: int, avg_deg: int = 16, seed: int = 0) -> CSRGraph:
+    """Power-law graph (kron_g500 / hollywood family)."""
+    rng = np.random.default_rng(seed)
+    m = n * avg_deg
+    w = 1.0 / np.arange(1, n + 1) ** 0.6
+    p = w / w.sum()
+    src = rng.choice(n, m, p=p)
+    dst = rng.choice(n, m, p=p)
+    keep = src != dst
+    return _to_csr(n, src[keep], dst[keep], f"kron_{n}")
+
+
+def delaunay_like(n: int, deg: int = 6, seed: int = 0) -> CSRGraph:
+    """Constant-degree random graph (delaunay family)."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, n * deg)
+    return _to_csr(n, src, dst, f"delaunay_{n}")
+
+
+def _to_csr(n: int, rows, cols, name: str) -> CSRGraph:
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    order = np.argsort(rows, kind="stable")
+    rows, cols = rows[order], cols[order]
+    row_ptr = np.zeros(n + 1, np.int32)
+    np.add.at(row_ptr, rows + 1, 1)
+    row_ptr = np.cumsum(row_ptr).astype(np.int32)
+    return CSRGraph(row_ptr, cols.astype(np.int32), name)
+
+
+def bfs_rounds_runner(g: CSRGraph, *, batch: int = 64, fused: bool = True,
+                      sync_every: int = 0, compact=None, device="cuda"):
+    """Build the round-engine BFS runner for ``g`` on ``device`` (see
+    ``bfs_rounds``).  Returns ``(runner, init_fn)`` where
+    ``init_fn(source)`` makes the distance accumulator — callers that run
+    BFS repeatedly reuse the runner and its adjacency table."""
+    dev = resolve_device(device)
+    n = g.n
+    deg = np.diff(g.row_ptr).astype(np.int64)
+    fan = max(int(deg.max()) if n else 0, 1)
+    nbr = np.full((n, fan), -1, np.int32)
+    rows = np.repeat(np.arange(n), deg)
+    pos = np.arange(g.m) - np.repeat(g.row_ptr[:-1].astype(np.int64), deg)
+    nbr[rows, pos] = g.col_idx
+    nbr_t = torch.from_numpy(nbr).to(dev)
+    big = np.iinfo(np.int32).max
+    order = torch.arange(batch * fan, dtype=torch.int32, device=dev)
+
+    def step(dist, vals, valid):
+        v = torch.where(valid, vals, 0)
+        dv = torch.where(valid, dist[v], 0)
+        w = torch.where(valid[:, None], nbr_t[v], -1)           # (B, F)
+        wc = w.clamp(0, n - 1)
+        eligible = (w >= 0) & (dist[wc] < 0)
+        b, f = w.shape
+        wf = w.reshape(-1)
+        elig_f = eligible.reshape(-1)
+        tgt = torch.where(elig_f, wf, n).long()                 # n = trash slot
+        # first parent wins: a scatter-min of the row-major lane order
+        claim = torch.full((n + 1,), big, dtype=torch.int32, device=dev)
+        claim.scatter_reduce_(0, tgt, order[:b * f], "amin")
+        win = elig_f & (claim[tgt] == order[:b * f])
+        ndist = (dv + 1).repeat_interleave(f)
+        # losers write into the trash slot n, which is then cut off
+        ext = torch.cat([dist, dist.new_full((1,), -1)])
+        ext[torch.where(win, wf, n).long()] = ndist
+        return ext[:n], wc, win.reshape(b, f)
+
+    capacity_log2 = max(int(np.ceil(np.log2(max(n + 1, 2 * batch)))), 4)
+    runner = RoundRunner(step, capacity_log2=capacity_log2, batch=batch,
+                         fused=fused, sync_every=sync_every, compact=compact,
+                         device=dev)
+
+    def init_fn(source: int):
+        dist = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        dist[source] = 0
+        return dist
+
+    return runner, init_fn
+
+
+def bfs_rounds(g: CSRGraph, source: int = 0, *, batch: int = 64,
+               fused: bool = True, sync_every: int = 0,
+               max_rounds: int = 100_000, device="cuda"
+               ) -> Tuple[np.ndarray, Dict]:
+    """BFS on the deterministic round engine, on ``device`` ("cuda" by
+    default).  Within a batch, a vertex reached by several parents goes
+    to the row-major-first parent (a scatter-min claim), the batched
+    analogue of the sequential queue's first-visit rule, so distances are
+    exact.  ``fused=True`` keeps the loop on the device with a readback
+    per chunk of rounds; ``fused=False`` is the legacy per-round path.
+    Both are bit-identical.  Returns (dist as numpy int32, stats)."""
+    runner, init_fn = bfs_rounds_runner(g, batch=batch, fused=fused,
+                                        sync_every=sync_every, device=device)
+    dist, _ = runner.run([source], acc=init_fn(source),
+                         max_rounds=max_rounds)
+    return dist.cpu().numpy(), dict(runner.stats)
+
+
+def bfs_reference(g: CSRGraph, source: int = 0) -> np.ndarray:
+    """Plain numpy BFS oracle."""
+    dist = np.full(g.n, -1, np.int32)
+    dist[source] = 0
+    dq = deque([source])
+    while dq:
+        u = dq.popleft()
+        for k in range(g.row_ptr[u], g.row_ptr[u + 1]):
+            v = g.col_idx[k]
+            if dist[v] < 0:
+                dist[v] = dist[u] + 1
+                dq.append(v)
+    return dist

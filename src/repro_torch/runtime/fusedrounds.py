@@ -1,0 +1,203 @@
+"""Chip-local fused round engine — the FIFO half of
+``repro/runtime/fusedrounds.py`` as a configuration of the engine core.
+
+One round runs entirely on the device:
+
+    dequeue wave (``ring_dequeue``) → the user's step →
+    child tickets (``wavefaa`` ballot, or ``wave_compact`` when the child
+    wave is wider than the ring) → enqueue wave (``ring_enqueue``)
+
+with head/tail as 0-d device tensors.  The host reads back once per
+chunk of rounds (``enginecore``), not once per round.  Within a round
+the engine issues exactly the reference's tickets (ballot ranks =
+row-major child order, Lemma III.1) through the same plane updates, so
+acc, planes, head/tail and the stats counters are bit-identical to the
+reference engine and to the legacy per-round loop.
+
+Every round is predicated on the chunk's ``live`` flag: a round that is
+not live dequeues nothing (its tickets are all -1), spawns nothing (the
+step's child mask is ANDed with ``live``) and installs nothing, and the
+core masks the step's acc update, so it is a bit-exact no-op whatever the
+step function does.  The heap half of the reference (``HeapEngine``)
+comes with the priority slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels._build import resolve_device
+from ..kernels.compact import compact_width, wave_compact
+from ..kernels.ring_slots import ring_dequeue, ring_enqueue
+from ..kernels.wavefaa import LANES, wavefaa
+from .enginecore import EngineCore, _sds, reject_obs, tree_to
+
+IDX_BOT = 2 ** 31 - 1           # ⊥ (⊥_c = IDX_BOT - 1); payloads must be smaller
+
+
+class RingState(NamedTuple):
+    """Field planes of the 2n-slot ring plus head/tail tickets (ints on
+    the host side, 0-d int32 tensors inside the engine)."""
+    cycles: torch.Tensor
+    safes: torch.Tensor
+    enqs: torch.Tensor
+    idxs: torch.Tensor
+    head: Any
+    tail: Any
+
+    @property
+    def occupancy(self):
+        return self.tail - self.head
+
+
+def ring_init(capacity_log2: int, device="cuda") -> RingState:
+    """Ring with logical capacity 2^capacity_log2 (2n physical slots).
+    Head = Tail = 2n, so first tickets carry cycle 1 over cycle-0 slots."""
+    dev = resolve_device(device)
+    nslots = 2 << capacity_log2
+    i32 = dict(dtype=torch.int32, device=dev)
+    return RingState(
+        cycles=torch.zeros(nslots, **i32),
+        safes=torch.ones(nslots, **i32),
+        enqs=torch.zeros(nslots, **i32),
+        idxs=torch.full((nslots,), IDX_BOT, **i32),
+        head=nslots, tail=nslots,
+    )
+
+
+# StepFn: (acc, vals (B,) int32, valid (B,) bool)
+#      -> (acc, child_vals (B,F), child_mask (B,F) or (B,1))
+# The step must be functional: it returns a new acc and modifies none of
+# its arguments in place (the engine keeps the old acc for no-op rounds).
+StepFn = Callable[[Any, torch.Tensor, torch.Tensor],
+                  Tuple[Any, torch.Tensor, torch.Tensor]]
+
+
+def _pad_lanes(mask: torch.Tensor) -> torch.Tensor:
+    """Pad a flat (N,) spawn mask up to a LANES multiple for wavefaa."""
+    n = mask.shape[0]
+    npad = -(-n // LANES) * LANES
+    if npad == n:
+        return mask
+    out = mask.new_zeros(npad)
+    out[:n] = mask
+    return out
+
+
+class RingEngine(EngineCore):
+    """The FIFO megaround configuration: ring planes + device head/tail
+    under the core's predicated chunks.  Same contract as the legacy
+    ``RoundRunner.run`` (exact tickets, row-major child order,
+    quiescence).  Runs on ``device`` ("cuda" by default; "cpu" runs the
+    kernels' plain versions)."""
+
+    def __init__(self, step_fn: StepFn, *, capacity_log2: int = 10,
+                 batch: int = 64, sync_every: int = 0, telemetry=None,
+                 spans=None, compact=None, device="cuda") -> None:
+        reject_obs(telemetry, spans)
+        self.step_fn = step_fn
+        self.capacity_log2 = capacity_log2
+        self.nslots_log2 = capacity_log2 + 1
+        self.capacity = 1 << capacity_log2
+        self.batch = batch
+        if batch > self.capacity:
+            raise ValueError(f"batch {batch} exceeds ring capacity "
+                             f"{self.capacity}")
+        self.sync_every = sync_every
+        self.compact = compact
+        self.device = resolve_device(device)
+        self._lane = torch.arange(batch, dtype=torch.int32,
+                                  device=self.device)
+        self._reset()
+        nslots = 2 << capacity_log2
+        self.registry.register("ring", (_sds((nslots,)),) * 4
+                               + (_sds(()), _sds(())))    # planes + head/tail
+
+    @staticmethod
+    def _occ_of(q):
+        return q.tail - q.head
+
+    def _round(self, st, acc, live):
+        capacity, nslots_log2 = self.capacity, self.nslots_log2
+        cyc, saf, enq, idx, head, tail = st
+        k = torch.where(live, torch.clamp(tail - head, max=self.batch), 0)
+        dtickets = torch.where(self._lane < k, head + self._lane, -1)
+        cyc, saf, enq, idx, vals, ok = ring_dequeue(
+            cyc, saf, enq, idx, dtickets, nslots_log2=nslots_log2,
+            idx_bot=IDX_BOT)
+        head = head + k
+        acc, cvals, cmask = self.step_fn(acc, vals, ok)
+        cm = torch.broadcast_to(cmask.bool(), cvals.shape).reshape(-1) & live
+        cv = cvals.reshape(-1).to(torch.int32)
+        # dense-wave rule: compact the sparse child wave down to the
+        # capacity bound before installing (a static decision per shape)
+        wdth = compact_width(cv.shape[0], capacity, self.compact)
+        if wdth is None:
+            # in-round leader FAA: child tickets from the spawn-mask ballot
+            etickets, newctr = wavefaa(_pad_lanes(cm), tail.reshape(1))
+            etickets = etickets[:cv.shape[0]]
+            n_child = newctr[0] - tail
+            over = (tail + n_child - head) > capacity
+            etickets = torch.where(over, -1, etickets)  # suppress install
+        else:
+            # the dense wave IS the children in ballot rank order, so the
+            # tickets are the contiguous run tail + [0, n_child)
+            (cv,), n_child = wave_compact(cm, (cv,), width=wdth)
+            over = (tail + n_child - head) > capacity
+            lane_w = torch.arange(wdth, dtype=torch.int32, device=cv.device)
+            etickets = torch.where((lane_w < n_child) & ~over,
+                                   tail + lane_w, -1)
+        cyc, saf, enq, idx, _ = ring_enqueue(
+            cyc, saf, enq, idx, etickets, cv, head,
+            nslots_log2=nslots_log2, idx_bot=IDX_BOT)
+        tail = torch.where(over, tail, tail + n_child)
+        total = torch.where(over, 0, n_child)
+        return RingState(cyc, saf, enq, idx, head, tail), acc, k, total, over
+
+    def _seed(self, st: RingState, initial: np.ndarray) -> RingState:
+        n = len(initial)
+        if n > self.capacity:
+            raise RuntimeError(
+                f"ring overflow: {n} seed values exceed capacity "
+                f"{self.capacity} (raise capacity_log2)")
+        if n == 0:
+            return st
+        tickets = torch.as_tensor(
+            (st.tail + np.arange(n, dtype=np.int64)).astype(np.int32),
+            device=self.device)
+        cyc, saf, enq, idx, ok = ring_enqueue(
+            st.cycles, st.safes, st.enqs, st.idxs, tickets,
+            torch.as_tensor(initial, device=self.device), st.head,
+            nslots_log2=self.nslots_log2, idx_bot=IDX_BOT)
+        assert bool(ok.all()), "exact tickets cannot miss"
+        return RingState(cyc, saf, enq, idx, st.head, st.tail + n)
+
+    def run(self, initial: np.ndarray, acc: Any = None,
+            max_rounds: int = 10_000) -> Tuple[Any, RingState]:
+        """Seed the ring and run predicated rounds to quiescence.  The
+        host reads back once per chunk (see ``EngineCore._drive`` for the
+        chunk lengths); ``stats`` and ``sync_log`` are filled at each
+        readback, and ``stats["host_syncs"]`` counts those readbacks —
+        the one stat that differs from the reference, whose single
+        ``while_loop`` syncs once per ``sync_every`` chunk.  Every other
+        stat, acc, the planes and head/tail are bit-identical to the
+        reference.  Raises ``RuntimeError`` on ring overflow or
+        ``max_rounds`` truncation at the readback after the flagged
+        round.  Returns ``(acc, final RingState)`` with int head/tail."""
+        self._reset()
+        st = self._seed(ring_init(self.capacity_log2, self.device),
+                        np.asarray(initial, np.int32).reshape(-1))
+        acc = tree_to(acc, self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        q = RingState(st.cycles, st.safes, st.enqs, st.idxs,
+                      torch.tensor(st.head, **i32),
+                      torch.tensor(st.tail, **i32))
+        state = [q, acc, torch.zeros((), **i32), torch.zeros((), **i32),
+                 torch.tensor(st.tail - st.head, **i32)]
+        self._run_chunks(state, self._occ_of, "ring", max_rounds)
+        q, acc = state[0], state[1]
+        return acc, RingState(q.cycles, q.safes, q.enqs, q.idxs,
+                              int(q.head), int(q.tail))

@@ -1,0 +1,154 @@
+"""Round-based deterministic task loop on the G-LFQ ring — the PyTorch
+twin of ``RoundRunner`` in ``repro/runtime/rounds.py``.
+
+One round dequeues a batch of task values from the ring, runs the user's
+step function on the batch, and enqueues the children it emits in
+row-major order; every queue operation is ordered by ticket, so the run
+is deterministic.  Two engines share this contract:
+
+* **fused** (default) — ``fusedrounds.RingEngine``: the whole round runs
+  on the device with head/tail as device tensors and ``wavefaa`` as the
+  child-ticket source; the host reads back once per chunk of rounds.
+* **legacy** (``fused=False``) — one host-driven round per iteration:
+  head/tail as host ints, ``np.arange`` tickets, one kernel launch per
+  wave and a readback after each.  Slower, but each round is a separate,
+  inspectable step.
+
+Both are bit-identical (acc, planes, head/tail, stats other than
+``host_syncs``) and raise ``RuntimeError`` on ring overflow and on
+``max_rounds`` truncation.  The priority and mesh runners come with their
+slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels._build import resolve_device
+from ..kernels.ring_slots import ring_dequeue, ring_enqueue
+from .enginecore import register_engine, reject_obs, tree_to
+from .fusedrounds import IDX_BOT, RingEngine, RingState, StepFn, ring_init
+
+__all__ = ["IDX_BOT", "RingState", "RoundRunner", "StepFn", "ring_init"]
+
+
+class RoundRunner:
+    """Drives ``step_fn`` to quiescence through the G-LFQ ring on
+    ``device`` ("cuda" by default; "cpu" runs the kernels' plain
+    versions).
+
+    ``fused=True`` (default) delegates to the device-resident
+    ``RingEngine``; ``fused=False`` keeps the legacy host-driven loop.
+    Both fill ``stats`` with rounds / processed / spawned / max_occupancy
+    / drained / host_syncs / fused and raise on overflow or truncation."""
+
+    def __init__(self, step_fn: StepFn, *, capacity_log2: int = 10,
+                 batch: int = 64, fused: bool = True, sync_every: int = 0,
+                 telemetry=None, spans=None, compact=None,
+                 device="cuda") -> None:
+        reject_obs(telemetry, spans)
+        self.step_fn = step_fn
+        self.capacity_log2 = capacity_log2
+        self.nslots_log2 = capacity_log2 + 1
+        self.capacity = 1 << capacity_log2
+        self.batch = batch
+        self.fused = fused
+        self.device = resolve_device(device)
+        self.stats: Dict[str, int] = {}
+        self.sync_log: List = []
+        if fused:
+            self._engine = RingEngine(
+                step_fn, capacity_log2=capacity_log2, batch=batch,
+                sync_every=sync_every, compact=compact, device=self.device)
+        else:
+            self._engine = None
+            # legacy-path op buffers, reused across rounds (safe because
+            # torch.tensor copies them onto the device)
+            self._enq_t = np.empty(batch, np.int32)
+            self._enq_v = np.empty(batch, np.int32)
+            self._deq_t = np.empty(batch, np.int32)
+
+    def _on_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)
+
+    def _enq_chunk(self, st: RingState, vals: np.ndarray) -> RingState:
+        k = len(vals)
+        assert k <= self.batch
+        if st.occupancy + k > self.capacity:
+            raise RuntimeError(
+                f"ring overflow: occupancy {st.occupancy} + {k} children "
+                f"exceeds capacity {self.capacity} (raise capacity_log2 or "
+                f"lower the fanout)")
+        self._enq_t.fill(-1)
+        self._enq_t[:k] = st.tail + np.arange(k, dtype=np.int32)
+        self._enq_v.fill(-1)
+        self._enq_v[:k] = vals
+        cyc, saf, enq, idx, ok = ring_enqueue(
+            st.cycles, st.safes, st.enqs, st.idxs,
+            self._on_device(self._enq_t), self._on_device(self._enq_v),
+            st.head, nslots_log2=self.nslots_log2, idx_bot=IDX_BOT)
+        self._host_syncs += 1
+        assert bool(ok[:k].all()), "exact tickets cannot miss"
+        return RingState(cyc, saf, enq, idx, st.head, st.tail + k)
+
+    def run(self, initial: np.ndarray, acc: Any = None,
+            max_rounds: int = 10_000) -> Tuple[Any, RingState]:
+        """Seed the ring with ``initial`` task values, run rounds until the
+        ring drains.  Returns (acc, final ring state with int head/tail);
+        raises RuntimeError if ``max_rounds`` is hit before quiescence."""
+        if self._engine is not None:
+            try:
+                return self._engine.run(initial, acc, max_rounds)
+            finally:
+                self.stats = dict(self._engine.stats, fused=1)
+                self.sync_log = self._engine.sync_log
+        self.stats = {}
+        self.sync_log = []
+        self._host_syncs = 0
+        st = ring_init(self.capacity_log2, self.device)
+        initial = np.asarray(initial, np.int32)
+        for i in range(0, len(initial), self.batch):
+            st = self._enq_chunk(st, initial[i:i + self.batch])
+        acc = tree_to(acc, self.device)
+        rounds = processed = spawned = 0
+        max_occ = st.occupancy
+        while st.occupancy > 0 and rounds < max_rounds:
+            k = min(self.batch, st.occupancy)
+            self._deq_t.fill(-1)
+            self._deq_t[:k] = st.head + np.arange(k, dtype=np.int32)
+            cyc, saf, enq, idx, vals, ok = ring_dequeue(
+                st.cycles, st.safes, st.enqs, st.idxs,
+                self._on_device(self._deq_t), nslots_log2=self.nslots_log2,
+                idx_bot=IDX_BOT)
+            self._host_syncs += 1
+            assert bool(ok[:k].all()), "exact tickets cannot miss"
+            st = RingState(cyc, saf, enq, idx, st.head + k, st.tail)
+            acc, cvals, cmask = self.step_fn(acc, vals, ok)
+            cv = cvals.reshape(-1).cpu().numpy()
+            cm = np.broadcast_to(cmask.bool().cpu().numpy(),
+                                 tuple(cvals.shape)).reshape(-1)
+            self._host_syncs += 1
+            children = cv[cm]                      # row-major ⇒ deterministic
+            for i in range(0, len(children), self.batch):
+                st = self._enq_chunk(st, children[i:i + self.batch])
+            rounds += 1
+            processed += k
+            spawned += len(children)
+            max_occ = max(max_occ, st.occupancy)
+        self.stats = {"rounds": rounds, "processed": processed,
+                      "spawned": spawned, "max_occupancy": max_occ,
+                      "drained": int(st.occupancy == 0),
+                      "host_syncs": self._host_syncs, "fused": 0}
+        if st.occupancy > 0:
+            raise RuntimeError(
+                f"round loop truncated at max_rounds={max_rounds} with "
+                f"occupancy {st.occupancy}: not quiescent "
+                f"(stats['drained']=0)")
+        return acc, st
+
+
+# engine-matrix row
+register_engine("rounds", RoundRunner, priority=False, mesh=False)
