@@ -9,32 +9,68 @@ the CUDA toolkit:
 It imports nothing of JAX or of the JAX package.  Each phase prints one
 JSON line; any failure raises and exits non-zero with no result line:
 
-1. build   — compile every kernel of ``src/repro_torch/kernels/csrc``
-             with nvcc for sm_90a (nvcc version and build seconds).
-2. compare — each kernel (wavefaa, ring_dequeue, ring_enqueue,
-             wave_compact) against its plain PyTorch version on the card,
-             bit-exact, at the main path's shapes and at the CPU tests'
-             edge cases (wrapping counters, width overflow, multi-block
-             waves of 1.26 M lanes).
-3. road    — the main path: ``bfs_rounds`` on road_like(2048 * 2048)
-             (4,194,304 vertices) at batch 1024 on the fused engine;
-             dist[v] must be row(v) + col(v) everywhere and wavefaa and
-             both ring waves must have launched.
-4. kron    — the compaction path: ``bfs_rounds`` on
-             kron_like(65536, avg_deg=4, seed=1) at batch 1024; dist must
-             equal the sequential BFS oracle and wave_compact must have
-             launched.
-5. kernels — per kernel: launches in phases 3-4, exactness, its device
-             time per call at the main path's shape (profiler) beside its
-             plain version's, the torch.cumsum time for the two scans, the
-             least time the card could take (bytes over 3.35 TB/s, or
-             operations), and the wall time per call of back-to-back
-             calls, which includes the host's launch cost.
+1. build    — compile every kernel of ``src/repro_torch/kernels/csrc``
+              with nvcc for sm_90a, one nvcc per source, all at once
+              (nvcc version and build seconds).
+2. compare  — each kernel (wavefaa, ring_dequeue, ring_enqueue,
+              wave_compact, heap_apply, frontier_expand) against its plain
+              PyTorch version on the card, bit-exact, at the paths' shapes
+              and at the CPU tests' edge cases (wrapping counters, width
+              overflow, multi-block waves of 1.26 M lanes; heap batches
+              into a full and out of an empty heap at 2^4, 2^6 and 2^20
+              slots with NOP lanes, duplicate and KEY_INF keys, and the
+              heap path's 1,024-pop / 2,048-insert batches; frontier
+              levels with -1 slots, duplicate neighbours, max_out
+              overflow, and the largest real level of each graph of
+              phase 6).
+3. road     — ``bfs_rounds`` on road_like(2048 * 2048) (4,194,304
+              vertices) at batch 1024 on the fused engine; dist[v] must be
+              row(v) + col(v) everywhere and wavefaa and both ring waves
+              must have launched.
+4. kron     — the compaction path: ``bfs_rounds`` on
+              kron_like(65536, avg_deg=4, seed=1) at batch 1024; dist must
+              equal the sequential BFS oracle and wave_compact must have
+              launched.
+5. heap     — the priority path.  First the ``heap_sssp`` golden run of
+              the JAX package's tests on the card (fused and legacy:
+              stats [10, 124, 122, 46, 1] and the acc and plane digests).
+              Then ``PriorityRoundRunner`` at capacity_log2=20 (two 4 MB
+              planes, 4-ary) and batch 1024, fused and legacy, on a
+              priority task tree: 65,536 seeds, keys uniform in [0, 16)
+              and vals uniform in [0, 2^31 - 1) from
+              numpy.random.default_rng(12); each pop (key, val) offers two
+              children c = 0, 1 with h = tree_hash(val, c), child key
+              key + 1 + ((h >> 8) & 3), child val (h >> 1) & 0x7FFFFFFF,
+              spawned iff key < 26 and (h & 15) < 10 (1.25 children per
+              pop below the horizon).  That pops about 1.86 M items in
+              about 1,800 rounds with the heap peaking near 420 K (between
+              2^18 and 2^20, no overflow).  acc (pops per val % 4096),
+              processed and spawned must equal a numpy closure of the
+              seeds under the child rule; fused must equal legacy bit for
+              bit; heap_apply must launch at least twice per round.
+6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
+              (a plain dense sweep) on the road graph of phase 3 and on
+              kron_like(2^20, avg_deg=16, seed=1); road dist must be
+              row + col, kron dist must equal a vectorised numpy level
+              sweep, the two must agree, and frontier_expand must launch
+              once per level.
+7. kernels  — per kernel: launches on each path (phases 3-6),
+              exactness, its device time per call at its path's shape
+              (profiler) beside its plain version's, one PyTorch library
+              call's time where one computes the same function, the least
+              time the card could take (bytes over 3.35 TB/s, or
+              operations), and the wall time per call of back-to-back
+              calls, which includes the host's launch cost.
 
-Then the card's name and power limit as nvidia-smi prints them, and a last
-line ``{"ok": true, "device": {...}}``.
+Phases 3, 5 and 6 also re-run their path under the profiler and report
+the card's idle share against the unprofiled wall time.  Every phase
+line carries ``elapsed_s``, the seconds since the script started, and
+every kernel row ``timing_s``, the seconds its timing took.  Then the
+card's name and power limit as nvidia-smi prints them, and a last line
+``{"ok": true, "device": {...}}``.
 """
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -49,10 +85,28 @@ BATCH = 1024
 ROAD_SIDE = 2048
 KRON_N = 65536
 IDX_BOT = 2 ** 31 - 1
+KEY_INF = 2 ** 31 - 1
+HEAP_CAP_LOG2 = 20       # the priority path's heap: 2^20 slots
+HEAP_SEEDS = 65536
+HEAP_HORIZON = 26        # children only below this key
+HEAP_SPAWN = 10          # a child is offered with probability 10/16
+QKRON_N = 1 << 20        # bfs_queue's kron graph
+QKRON_DEG = 16
+# the heap_sssp golden of the JAX package's tests (tests/test_enginecore.py)
+HEAP_GOLDEN = {"stats": [10, 124, 122, 46, 1], "acc": "17210d10068cbe8b",
+               "planes": "3e13f886f2e96c70"}
+
+
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def emit_phase(obj) -> None:
+    """A phase line, with the seconds since the script started."""
+    emit(dict(obj, elapsed_s=time.perf_counter() - START))
 
 
 def die(msg: str) -> None:
@@ -65,6 +119,70 @@ def i32(x: int) -> int:
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
+def digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def tree_hash(v, c):
+    """32-bit mix of (val, child index) on int64 numpy arrays or torch
+    tensors alike (every product stays below 2^63)."""
+    h = (v * 0x7FEB352D + c * 0x2545F491 + 0x1B873593) & 0xFFFFFFFF
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & 0xFFFFFFFF
+    return h ^ (h >> 12)
+
+
+def tree_children(keys, vals, xp_arange, valid=None):
+    """The priority task tree's child rule on (B,) keys and vals (numpy
+    or torch int64): child keys, vals and mask, each (B, 2)."""
+    h = tree_hash(vals[:, None], xp_arange(2)[None, :])
+    ck = keys[:, None] + 1 + ((h >> 8) & 3)
+    cv = (h >> 1) & 0x7FFFFFFF
+    cm = (keys[:, None] < HEAP_HORIZON) & ((h & 15) < HEAP_SPAWN)
+    if valid is not None:
+        cm = cm & valid[:, None]
+    return ck, cv, cm
+
+
+def heap_closure(np, keys, vals):
+    """Every item the tree holds, generation by generation: (pops per
+    val % 4096, processed, spawned).  Children depend only on their
+    parent, so these do not depend on the order of the pops."""
+    acc = np.zeros(4096, np.int64)
+    k, v = keys.astype(np.int64), vals.astype(np.int64)
+    processed = 0
+    while len(k):
+        processed += len(k)
+        acc += np.bincount(v % 4096, minlength=4096)
+        ck, cv, cm = tree_children(k, v, np.arange)
+        k, v = ck[cm], cv[cm]
+    return acc, processed, processed - len(keys)
+
+
+def bfs_levels(np, g, source):
+    """Vectorised numpy level sweep: BFS distances by definition, one
+    level at a time, independent of the port's code."""
+    rp = g.row_ptr.astype(np.int64)
+    dist = np.full(g.n, -1, np.int32)
+    dist[source] = 0
+    front, level = np.array([source]), 0
+    while len(front):
+        level += 1
+        start, deg = rp[front], rp[front + 1] - rp[front]
+        idx = (np.repeat(start - np.cumsum(deg) + deg, deg)
+               + np.arange(deg.sum()))
+        nb = g.col_idx[idx]
+        front = np.unique(nb[dist[nb] < 0])
+        dist[front] = level
+    return dist
+
+
+STATS = ("rounds", "processed", "spawned", "max_occupancy", "drained")
+
+
 class Smoke:
     def __init__(self, torch, np):
         self.torch, self.np = torch, np
@@ -72,6 +190,8 @@ class Smoke:
         self.rng = np.random.default_rng(0)
         self.err = {}             # kernel -> max |kernel - plain| seen
         self.cases = {}           # kernel -> comparisons made
+        self.launches = {"road": {}, "kron": {}, "heap": {},
+                         "queue": {}}   # path -> kernel launches
 
     # -- helpers -------------------------------------------------------------
 
@@ -201,6 +321,90 @@ class Smoke:
                 self.same("ring_dequeue", got, want)
                 head += b_deq
 
+    def heap_batch(self, b, share, lo=-20, hi=40):
+        """A random op batch: INSERT with probability ``share``, else mostly
+        DELETE-MIN and some NOP lanes; duplicate and negative keys, 5 %
+        KEY_INF keys and a few -2^31 keys."""
+        np = self.np
+        r = self.rng.random(b)
+        ops = np.where(r < share, 0,
+                       np.where(r < share + (1 - share) * 0.85, 1, -1))
+        keys = self.rng.integers(lo, hi, b)
+        sp = self.rng.random(b)
+        keys = np.where(sp < 0.05, KEY_INF, np.where(sp > 0.99, -2 ** 31,
+                                                     keys))
+        vals = self.rng.integers(0, 1 << 30, b)
+        return [self.t(x.astype(np.int32)) for x in (ops, keys, vals)]
+
+    def compare_heap(self, K):
+        """Heap batches on both faces from the same state: at 2^4 and 2^6
+        slots, batches that fill the heap past full and drain it past
+        empty; at 2^20 slots, a 131,072-insert seed and the priority
+        path's batches (1,024 pops, then 2,048 insert lanes)."""
+        np, torch = self.np, self.torch
+        card = dict(dtype=torch.int32, device=self.dev)
+        for arity in (1, 2):
+            for c in (4, 6, HEAP_CAP_LOG2):
+                cap = 1 << c
+                kern = [torch.full((cap,), KEY_INF, **card),
+                        torch.full((cap,), -1, **card)]
+                plain = [p.clone() for p in kern]
+                sk = sp = torch.zeros((), **card)
+                if c < HEAP_CAP_LOG2:
+                    nb = 2 * cap // 16 + 2
+                    batches = [self.heap_batch(16, share) for share in
+                               [0.9] * nb + [0.1] * nb + [0.5] * 4]
+                else:
+                    batches = [self.heap_batch(1 << 17, 1.0, 0, 16)]
+                    for _ in range(3):
+                        pops = [self.t(np.full(BATCH, x, np.int32))
+                                for x in (1, KEY_INF, -1)]
+                        batches += [pops, self.heap_batch(2 * BATCH, 0.6,
+                                                          0, 30)]
+                for ops, keys, vals in batches:
+                    got = K.heap_apply(*kern, sk, ops, keys, vals,
+                                       cap_log2=c, arity_log2=arity)
+                    want = K.heap_apply_plain(*plain, sp, ops, keys, vals,
+                                              cap_log2=c,
+                                              arity_log2=arity)
+                    self.same("heap_apply", got, want)
+                    sk, sp = got[2], want[2]
+
+    def frontier_case(self, K, rp, col, frontier, visited, max_out):
+        kw = dict(max_out=max_out)
+        got = K.frontier_expand(rp, col, frontier, visited.clone(), **kw)
+        want = K.frontier_expand_plain(rp, col, frontier, visited.clone(),
+                                       **kw)
+        self.same("frontier_expand", got, want)
+
+    def compare_frontier(self, K, graphs):
+        """Synthetic levels (-1 slots inside the frontier, repeated
+        frontier vertices, duplicate neighbours, max_out overflow, the CPU
+        tests' overflow case) and the level with the most edges of each
+        graph in ``graphs`` (name -> (graph, dist))."""
+        np = self.np
+        t = self.t
+        self.frontier_case(K, t(np.array([0, 3, 6, 6, 8, 8, 8, 8, 8],
+                                         np.int32)),
+                           t(np.array([4, 5, 6, 5, 7, 1, 2, 3], np.int32)),
+                           t(np.array([0, -1, 1, 3, -1, -1, -1, -1],
+                                      np.int32)),
+                           t(np.array([1, 1, 0, 1, 0, 0, 0, 0], np.int32)),
+                           3)
+        for n, deg, fl in ((64, 5, 12), (5000, 7, 3000), (70000, 3, 40000)):
+            col = self.rng.integers(0, n, n * deg).astype(np.int32)
+            rp = np.arange(0, n * deg + 1, deg, dtype=np.int32)
+            for max_out in (n, 257, 1):
+                f = self.rng.integers(0, n, fl).astype(np.int32)
+                f[self.rng.random(fl) < 0.25] = -1
+                vis = (self.rng.random(n) < 0.3).astype(np.int32)
+                self.frontier_case(K, t(rp), t(col), t(f), t(vis), max_out)
+        for g, dist in graphs.values():
+            level = busiest_level(np, g, dist)
+            f, vis = level_input(np, dist, level)
+            self.frontier_case(K, t(g.row_ptr), t(g.col_idx), t(f), t(vis),
+                               max(g.n, 16))
+
     # -- phases 3/4: the paths ------------------------------------------------
 
     def run_path(self, label, g, K, bfs):
@@ -220,11 +424,13 @@ class Smoke:
         stats = dict(runner.stats)
         # the same run again under the profiler: the card's busy time
         # (its idle share is read against the unprofiled run's wall time)
+        t0 = time.perf_counter()
         with self.profile() as prof:
             runner.run([0], acc=init_fn(0), max_rounds=1_000_000)
             torch.cuda.synchronize()
-        busy_s = device_us(prof) / 1e6
-        top = sorted(prof.key_averages(), key=self_device_us, reverse=True)
+        times = device_times(prof)
+        busy_s = sum(times.values()) / 1e6
+        profile_s = time.perf_counter() - t0
         fan = max(int(self.np.diff(g.row_ptr).max()), 1)
         return dist.cpu().numpy(), {
             "phase": label, "graph": g.name, "n": g.n, "m": g.m,
@@ -238,24 +444,201 @@ class Smoke:
             "launches_per_round": {k: v / stats["rounds"]
                                    for k, v in launches.items()},
             "device_busy_s": busy_s, "idle_share": 1 - busy_s / run_s,
-            "top_device_ms": {e.key[:60]: self_device_us(e) / 1e3
-                              for e in top[:6]},
+            "profile_s": profile_s,
+            "top_device_ms": top_ms(times, 6),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
+    # -- phase 5: the priority path ------------------------------------------
 
-def self_device_us(event) -> float:
-    """Self device time of a profiler entry, in microseconds."""
-    t = getattr(event, "self_device_time_total", None)
-    return float(t if t is not None else event.self_cuda_time_total)
+    def heap_golden(self, rt):
+        """The JAX package's heap_sssp golden run, on the card."""
+        torch = self.torch
+
+        def step(acc, keys, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals % 97, 0),
+                                valid.int())
+            ck = torch.stack([keys + 3, keys + 7], -1).int()
+            cv = torch.stack([vals * 2 + 1, vals * 2 + 2], -1).int()
+            return acc, ck, cv, (valid & (keys < 24))[:, None]
+
+        out = {}
+        for fused in (True, False):
+            r = rt.PriorityRoundRunner(step, capacity_log2=9, batch=16,
+                                       fused=fused)
+            acc, st = r.run([5, 1], [1, 2],
+                            acc=torch.zeros(97, dtype=torch.int32,
+                                            device=self.dev))
+            got = {"stats": [r.stats[k] for k in STATS],
+                   "acc": digest(acc.cpu().numpy()),
+                   "planes": digest(st.keys.cpu().numpy(),
+                                    st.vals.cpu().numpy())}
+            if got != HEAP_GOLDEN or st.size != 0:
+                raise AssertionError(f"heap golden (fused={fused}): {got}")
+            out["fused" if fused else "legacy"] = got
+        return out
+
+    def heap_path(self, K, rt):
+        """The full-size priority task tree, fused and legacy, against the
+        closure oracle and each other; then the fused run again under the
+        profiler."""
+        np, torch = self.np, self.torch
+        rng = np.random.default_rng(12)
+        ik = rng.integers(0, 16, HEAP_SEEDS).astype(np.int32)
+        iv = rng.integers(0, 2 ** 31 - 1, HEAP_SEEDS).astype(np.int32)
+        t0 = time.perf_counter()
+        want_acc, want_proc, want_spawn = heap_closure(np, ik, iv)
+        oracle_s = time.perf_counter() - t0
+
+        def step(acc, keys, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals % 4096, 0),
+                                valid.int())
+            ck, cv, cm = tree_children(
+                keys.long(), vals.long(),
+                lambda n: torch.arange(n, device=keys.device), valid)
+            return acc, ck.int(), cv.int(), cm
+
+        def run(fused):
+            r = rt.PriorityRoundRunner(step, capacity_log2=HEAP_CAP_LOG2,
+                                       batch=BATCH, fused=fused)
+            acc = torch.zeros(4096, dtype=torch.int32, device=self.dev)
+            out = r.run(ik, iv, acc=acc, max_rounds=1_000_000)
+            torch.cuda.synchronize()
+            return r, out
+
+        info = {"phase": "heap", "golden": self.heap_golden(rt),
+                "capacity": 1 << HEAP_CAP_LOG2, "batch": BATCH,
+                "seeds": HEAP_SEEDS, "oracle_s": oracle_s}
+        runs = {}
+        for fused in (True, False):
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r, (acc, st) = run(fused)
+            wall = time.perf_counter() - t0
+            runs[fused] = (r, acc.cpu().numpy(), st)
+            name = "fused" if fused else "legacy"
+            info[name] = {
+                "rounds": r.stats["rounds"],
+                "processed": r.stats["processed"],
+                "spawned": r.stats["spawned"],
+                "max_occupancy": r.stats["max_occupancy"],
+                "readbacks": r.stats["host_syncs"], "run_s": wall,
+                "rounds_per_s": r.stats["rounds"] / wall,
+                "launches": dict(K.LAUNCHES),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if fused:
+                self.launches["heap"] = dict(K.LAUNCHES)
+        (rf, af, sf), (rl, al, sl) = runs[True], runs[False]
+        if not (np.array_equal(af, want_acc)
+                and rf.stats["processed"] == want_proc
+                and rf.stats["spawned"] == want_spawn):
+            raise AssertionError("heap: fused run != closure oracle")
+        same = (np.array_equal(af, al) and sf.size == sl.size == 0
+                and torch.equal(sf.keys, sl.keys)
+                and torch.equal(sf.vals, sl.vals)
+                and all(rf.stats[k] == rl.stats[k] for k in STATS))
+        if not same:
+            raise AssertionError("heap: fused != legacy")
+        st = rf.stats
+        if not (1 << 18 <= st["max_occupancy"] <= 1 << HEAP_CAP_LOG2
+                and st["rounds"] >= 500
+                and 1_000_000 <= st["processed"] <= 4_000_000):
+            raise AssertionError(f"heap: the run left its design range: "
+                                 f"{st}")
+        if self.launches["heap"]["heap_apply"] < 2 * st["rounds"]:
+            raise AssertionError("heap: heap_apply launched fewer than two "
+                                 "times per round")
+        t0 = time.perf_counter()
+        with self.profile() as prof:
+            run(True)
+        times = device_times(prof)
+        busy = sum(times.values()) / 1e6
+        info.update(oracle_exact=True, fused_equals_legacy=True,
+                    device_busy_s=busy, profile_s=time.perf_counter() - t0,
+                    idle_share=1 - busy / info["fused"]["run_s"],
+                    top_device_ms=top_ms(times, 6))
+        return info
+
+    # -- phase 6: queue-driven BFS -------------------------------------------
+
+    def queue_path(self, label, g, K, bfs, want):
+        """bfs_queue and bfs_baseline on ``g``; both must give ``want``."""
+        torch = self.torch
+        info = {"phase": "bfs_queue", "graph": g.name, "n": g.n, "m": g.m}
+        for fn in (bfs.bfs_queue, bfs.bfs_baseline):
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dist, st = fn(g, 0)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            if not self.np.array_equal(dist, want):
+                raise AssertionError(f"{label}: {fn.__name__} dist wrong")
+            t0 = time.perf_counter()
+            with self.profile() as prof:
+                fn(g, 0)
+                torch.cuda.synchronize()
+            times = device_times(prof)
+            busy = sum(times.values()) / 1e6
+            info[fn.__name__] = dict(
+                st, run_s=wall, launches=launches, device_busy_s=busy,
+                idle_share=1 - busy / wall,
+                profile_s=time.perf_counter() - t0,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                top_device_ms=top_ms(times, 4))
+            if fn is bfs.bfs_queue:
+                if launches["frontier_expand"] != st["levels"]:
+                    raise AssertionError(f"{label}: frontier_expand "
+                                         f"launches != levels")
+                q = self.launches["queue"]
+                for k, v in launches.items():
+                    q[k] = q.get(k, 0) + v
+        if info["bfs_queue"]["levels"] != info["bfs_baseline"]["levels"]:
+            raise AssertionError(f"{label}: level counts differ")
+        info["dist_exact"] = True
+        return info
+
+
+def busiest_level(np, g, dist):
+    """The BFS level whose frontier scans the most edges."""
+    deg = np.diff(g.row_ptr).astype(np.int64)
+    reached = dist >= 0
+    return int(np.argmax(np.bincount(dist[reached], weights=deg[reached])))
+
+
+def level_input(np, dist, level):
+    """The frontier (vertices at ``level``, ascending) and visited map
+    (vertices at levels <= ``level``) that expand into ``level + 1``."""
+    f = np.flatnonzero(dist == level).astype(np.int32)
+    vis = ((dist >= 0) & (dist <= level)).astype(np.int32)
+    return f, vis
+
+
+def device_times(prof) -> dict:
+    """Device microseconds by name (kernels, copies, sets) of everything a
+    profiler recorded on the card, summed from its raw trace: building the
+    profiler's event tree (``key_averages``) for a run of thousands of
+    rounds takes many times longer than the run.  Raises when it recorded
+    no device time (the tracer does not reach the card)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e3
+    if sum(out.values()) <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return out
 
 
 def device_us(prof) -> float:
-    """All CUDA activity a profiler recorded, in microseconds; raises when
-    it recorded none (the tracer does not reach the card)."""
-    us = sum(self_device_us(e) for e in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us
+    """All device time a profiler recorded, in microseconds."""
+    return sum(device_times(prof).values())
+
+
+def top_ms(times: dict, k: int) -> dict:
+    """The ``k`` names with the most device time, in milliseconds."""
+    top = sorted(times.items(), key=lambda kv: kv[1], reverse=True)[:k]
+    return {name[:60]: us / 1e3 for name, us in top}
 
 
 def main() -> int:
@@ -280,33 +663,45 @@ def main() -> int:
     regs = {name: [ln.split("info    : ")[-1] for ln in log.splitlines()
                    if "registers" in ln]
             for name, log in info["ptxas"].items()}
-    emit({"phase": "build", "nvcc": info["nvcc"], "seconds": info["seconds"],
-          "built": info["built"], "ptxas": regs})
+    emit_phase({"phase": "build", "nvcc": info["nvcc"],
+                "seconds": info["seconds"], "built": info["built"],
+                "ptxas": regs})
 
     smoke = Smoke(torch, np)
+    from repro_torch import runtime as rt
     kron = bfs.kron_like(KRON_N, avg_deg=4, seed=1)
     kron_lanes = BATCH * int(np.diff(kron.row_ptr).max())
+    road = bfs.road_like(ROAD_SIDE * ROAD_SIDE)
+    v = np.arange(road.n)
+    road_dist = (v // ROAD_SIDE + v % ROAD_SIDE).astype(np.int32)
+    t0 = time.perf_counter()
+    qkron = bfs.kron_like(QKRON_N, avg_deg=QKRON_DEG, seed=1)
+    qkron_dist = bfs_levels(np, qkron, 0)
+    qkron_s = time.perf_counter() - t0
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     smoke.compare_wavefaa(K)
     smoke.compare_ring(K)
     smoke.compare_compact(K, kron_lanes)
+    smoke.compare_heap(K)
+    smoke.compare_frontier(K, {"road": (road, road_dist),
+                               "kron": (qkron, qkron_dist)})
     torch.cuda.synchronize()
-    emit({"phase": "compare", "exact": True, "cases": smoke.cases,
-          "max_abs_err": smoke.err, "seconds": time.perf_counter() - t0})
+    emit_phase({"phase": "compare", "exact": True, "cases": smoke.cases,
+                "max_abs_err": smoke.err,
+                "seconds": time.perf_counter() - t0})
 
     # 3. main path: road BFS at full size
-    road = bfs.road_like(ROAD_SIDE * ROAD_SIDE)
     dist, road_info = smoke.run_path("road", road, K, bfs)
-    v = np.arange(road.n)
-    if not np.array_equal(dist, v // ROAD_SIDE + v % ROAD_SIDE):
+    if not np.array_equal(dist, road_dist):
         raise AssertionError("road: dist != row + col")
     for name in ("wavefaa", "ring_dequeue", "ring_enqueue"):
         if road_info["launches"][name] <= 0:
             raise AssertionError(f"road: {name} was not launched")
     road_info["dist_exact"] = True
-    emit(road_info)
+    emit_phase(road_info)
+    smoke.launches["road"] = road_info["launches"]
 
     # 4. compaction path: kron BFS
     dist, kron_info = smoke.run_path("kron", kron, K, bfs)
@@ -316,10 +711,22 @@ def main() -> int:
         if kron_info["launches"][name] <= 0:
             raise AssertionError(f"kron: {name} was not launched")
     kron_info["dist_exact"] = True
-    emit(kron_info)
+    emit_phase(kron_info)
+    smoke.launches["kron"] = kron_info["launches"]
 
-    # 5. kernel times at the main path's shapes
-    emit({"kernels": kernel_rows(smoke, K, road_info, kron_info)})
+    # 5. priority path: the golden run, then the full-size task tree
+    heap_info = smoke.heap_path(K, rt)
+    emit_phase(heap_info)
+
+    # 6. queue-driven BFS on road 2048^2 and kron 2^20
+    emit_phase(smoke.queue_path("road", road, K, bfs, road_dist))
+    kron_q = smoke.queue_path("kron", qkron, K, bfs, qkron_dist)
+    kron_q["setup_s"] = qkron_s
+    emit_phase(kron_q)
+
+    # 7. kernel times at the paths' shapes
+    emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
+                                 (qkron, qkron_dist))})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -331,13 +738,15 @@ def main() -> int:
     return 0
 
 
-def kernel_rows(smoke, K, road, kron):
+def kernel_rows(smoke, K, road, kron, heap, qkron):
     """Time each kernel, its plain version and (for the scans) one
-    torch.cumsum at the main path's shapes, with the densities the two
-    runs produced; compute each one's bound from the same inputs."""
+    torch.cumsum at its path's shapes, with the densities the runs
+    produced; compute each one's bound from the same inputs.  ``qkron``
+    is the bfs_queue kron graph and its distances."""
     torch, np, dev = smoke.torch, smoke.np, smoke.dev
     rng = np.random.default_rng(1)
     rows = []
+    last = [time.perf_counter()]
 
     def bound(nbytes, ops):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -347,18 +756,19 @@ def kernel_rows(smoke, K, road, kron):
     def row(name, source, replaces, kern, plain, lib, nbytes, ops, shape):
         """``kern``/``plain``/``lib`` are (device_ms, wall_ms) pairs."""
         b, by = bound(nbytes, ops)
+        by_path = {k: p.get(name, 0) for k, p in smoke.launches.items()}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": road["launches"][name] + kron["launches"][name],
-            "launches_by_path": {"road": road["launches"][name],
-                                 "kron": kron["launches"][name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "exact": smoke.err[name] == 0, "max_abs_err": smoke.err[name],
             "ms": kern[0], "plain_ms": plain[0], "bound_ms": b,
             "bound_by": by, "library_ms": lib[0] if lib else None,
             "wall_ms": {"kernel": kern[1], "plain": plain[1],
                         "library": lib[1] if lib else None},
-            "shape": shape})
+            "shape": shape, "timing_s": time.perf_counter() - last[0]})
+        last[0] = time.perf_counter()
 
     csrc = "src/repro_torch/kernels/csrc/"
     # B1 wavefaa: the road run's child wave (batch x fanout lanes)
@@ -467,6 +877,107 @@ def kernel_rows(smoke, K, road, kron):
         # count out
         n3 * 1 + active3 * 4 + width * 4 + 4, n3,
         {"lanes": n3, "active": active3, "width": width, "mask": "bool"})
+
+    # B4 heap_apply: the priority path's batches on its 2^20-slot heap
+    # holding half the run's peak occupancy; even calls pop 1,024, odd
+    # calls insert 2,048 lanes at the run's child density.  The plain
+    # version is a host loop over the planes copied off the card, so its
+    # time is wall time.  No single PyTorch call maintains a heap.
+    hf = heap["fused"]
+    c4, occ = HEAP_CAP_LOG2, hf["max_occupancy"] // 2
+    card = dict(dtype=torch.int32, device=dev)
+    heap_k = torch.full((1 << c4,), KEY_INF, **card)
+    heap_v = torch.full((1 << c4,), -1, **card)
+    seed = torch.as_tensor(rng.integers(0, HEAP_HORIZON, occ,
+                                        dtype=np.int32), device=dev)
+    K.heap_apply(heap_k, heap_v, 0, torch.zeros(occ, **card), seed, seed,
+                 cap_log2=c4)
+    pops = (torch.ones(BATCH, **card), torch.full((BATCH,), KEY_INF, **card),
+            torch.full((BATCH,), -1, **card))
+    density4 = hf["spawned"] / (hf["rounds"] * 2 * BATCH)
+    act4 = rng.random(2 * BATCH) < density4
+    inserts = (torch.as_tensor(np.where(act4, 0, -1).astype(np.int32),
+                               device=dev),
+               torch.as_tensor(rng.integers(0, HEAP_HORIZON + 4, 2 * BATCH,
+                                            dtype=np.int32), device=dev),
+               torch.as_tensor(rng.integers(0, 1 << 30, 2 * BATCH,
+                                            dtype=np.int32), device=dev))
+    n_act4 = int(act4.sum())
+
+    def heap_setup():
+        return [heap_k.clone(), heap_v.clone(),
+                torch.tensor(occ, **card)]
+
+    def heap_call(fn):
+        def launch(st, i):
+            st[2] = fn(st[0], st[1], st[2], *(pops if i % 2 == 0
+                                              else inserts),
+                       cap_log2=c4)[2]
+        return launch
+
+    plain4 = smoke.time_ms(heap_setup, heap_call(K.heap_apply_plain),
+                           iters=4, reps=2)
+    depth4 = max(int(np.ceil(np.log(occ) / np.log(4))), 1)
+    row("heap_apply", csrc + "heap_batch.cu",
+        "src/repro/kernels/heap_batch.py:47",
+        smoke.time_ms(heap_setup, heap_call(K.heap_apply)),
+        (plain4[1], plain4[1]), None,
+        # per call, the mean of a pop call and an insert call: the opcode
+        # of every lane in (4 B) and the key and val of each INSERT lane
+        # (8 B), results out (9 B a lane), the size word each way.  A pop
+        # reads the root and the last leaf and scrubs the leaf's slot
+        # (24 B), and the leaf sifts down from the root through about
+        # log_4(size) levels, each reading 4 child keys and the winner's
+        # val and writing one key + val (28 B); an applied insert reads a
+        # parent key and writes its node (12 B).  Compares: 4 children per
+        # level on a pop's path.
+        (BATCH * (4 + 9 + 24 + depth4 * 28) + 2 * BATCH * (4 + 9)
+         + n_act4 * (8 + 12) + 16) / 2, BATCH * depth4 * 4 / 2,
+        {"heap_slots": 1 << c4, "occupancy": occ, "pop_lanes": BATCH,
+         "insert_lanes": 2 * BATCH, "insert_active": n_act4,
+         "plain_ms_is": "wall (host loop)"})
+
+    # B5 frontier_expand: the kron 2^20 BFS's level with the most edges,
+    # each call from that level's own visited map.  No single PyTorch
+    # call expands a BFS level in discovery order.
+    g5, dist5 = qkron
+    lvl = busiest_level(np, g5, dist5)
+    f5, vis5 = level_input(np, dist5, lvl)
+    rp5, col5, ft5, vt5 = (torch.as_tensor(x, device=dev) for x in
+                           (g5.row_ptr, g5.col_idx, f5, vis5))
+    max_out5, iters5 = max(g5.n, 16), 20
+    scratch5 = K.frontier_scratch(g5.n, dev)
+    edges5 = int(np.diff(g5.row_ptr)[f5].sum())
+    fresh5 = int((dist5 == lvl + 1).sum())
+    # the distinct row_ptr words (f and f + 1 of each frontier vertex) and
+    # the distinct targets of the level's edges: each is read once at least
+    start5 = g5.row_ptr[f5].astype(np.int64)
+    deg5 = np.diff(g5.row_ptr)[f5].astype(np.int64)
+    eidx5 = (np.repeat(start5 - np.cumsum(deg5) + deg5, deg5)
+             + np.arange(edges5))
+    targets5 = len(np.unique(g5.col_idx[eidx5]))
+    rp_words5 = len(np.union1d(f5, f5 + 1))
+
+    def fr_setup():
+        return [vt5.clone() for _ in range(iters5)]
+
+    row("frontier_expand", csrc + "frontier.cu",
+        "src/repro/kernels/frontier.py:25",
+        smoke.time_ms(fr_setup, lambda v, i: K.frontier_expand(
+            rp5, col5, ft5, v[i], max_out=max_out5, scratch=scratch5),
+            iters=iters5),
+        smoke.time_ms(fr_setup, lambda v, i: K.frontier_expand_plain(
+            rp5, col5, ft5, v[i], max_out=max_out5), iters=iters5),
+        None,
+        # the frontier and its distinct row_ptr words in; per scanned edge
+        # its col word; per distinct target its visited word in; per fresh
+        # vertex its visited word out; the whole -1-padded output and the
+        # count out
+        len(f5) * 4 + rp_words5 * 4 + edges5 * 4 + targets5 * 4
+        + fresh5 * 4 + max_out5 * 4 + 4, edges5,
+        {"graph": g5.name, "level": lvl, "frontier": len(f5),
+         "edges": edges5, "targets": targets5, "fresh": fresh5,
+         "max_out": max_out5})
     return rows
 
 

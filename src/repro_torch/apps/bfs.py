@@ -1,12 +1,19 @@
-"""BFS on the deterministic round engine — the PyTorch twin of the
-round-engine half of ``repro/apps/bfs.py``.
+"""BFS over CSR graphs — the PyTorch twin of the round-engine and
+queue-kernel halves of ``repro/apps/bfs.py``.
 
 The graph generators mirror the Table IV families (road-like, kron-like,
 delaunay-like) and produce CSR arrays identical to the reference's.
-``bfs_rounds`` runs BFS through ``RoundRunner``: the ring carries vertex
-ids, and one step relaxes a batch of vertices against a dense padded
-adjacency table and spawns the neighbours it newly claims.  The
-queue-kernel, host-runtime and mesh BFS variants come with their slices.
+
+* ``bfs_rounds`` runs BFS through ``RoundRunner``: the ring carries
+  vertex ids, and one step relaxes a batch of vertices against a dense
+  padded adjacency table and spawns the neighbours it newly claims.
+* ``bfs_queue`` is the paper's level-synchronous design (§ V-B-a): two
+  frontier queues alternate across levels, and ``frontier_expand``
+  expands one into the other with ticket-ordered appends.
+* ``bfs_baseline`` is the Gunrock-style comparison: a dense frontier mask
+  swept over every edge each level, with no queue.
+
+The host-runtime and mesh BFS variants come with their slices.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from ..kernels._build import resolve_device
+from ..kernels.frontier import frontier_level, frontier_scratch
 from ..runtime import RoundRunner
 
 
@@ -154,6 +162,73 @@ def bfs_rounds(g: CSRGraph, source: int = 0, *, batch: int = 64,
     dist, _ = runner.run([source], acc=init_fn(source),
                          max_rounds=max_rounds)
     return dist.cpu().numpy(), dict(runner.stats)
+
+
+def bfs_queue(g: CSRGraph, source: int = 0, *, device="cuda"
+              ) -> Tuple[np.ndarray, Dict]:
+    """Queue-driven BFS on ``device`` ("cuda" by default): alternate two
+    frontier queues across levels through ``frontier_expand``.  Each level
+    hands the kernel the live prefix ``frontier[:count]`` of the last
+    level's output (the reference hands it the whole -1-padded buffer,
+    whose -1 slots are skipped, so the result is the same and a level's
+    work follows the frontier, not n).  ``visited`` stays on the device
+    and is updated in place; the host reads two ints per level, the
+    level's edge count (which also sizes the kernel's grid and is summed
+    into ``edges_scanned``) and its fresh count.  Returns (dist as numpy int32,
+    {"levels", "edges_scanned"}) — ``levels`` counts the last, empty
+    expansion, as the reference does."""
+    dev = resolve_device(device)
+    n = g.n
+    row_ptr = torch.from_numpy(g.row_ptr).to(dev)
+    col_idx = torch.from_numpy(g.col_idx).to(dev)
+    visited = torch.zeros(n, dtype=torch.int32, device=dev)
+    visited[source] = 1
+    dist = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    dist[source] = 0
+    scratch = frontier_scratch(n, dev)
+    frontier = torch.tensor([source], dtype=torch.int32, device=dev)
+    level, flen, edges = 0, 1, 0
+    while flen > 0:
+        nxt, cnt, visited, scanned = frontier_level(
+            row_ptr, col_idx, frontier, visited, max_out=max(n, 16),
+            scratch=scratch)
+        edges += scanned
+        flen = int(cnt[0])
+        level += 1
+        frontier = nxt[:flen]
+        dist[frontier.long()] = level
+    return dist.cpu().numpy(), {"levels": level, "edges_scanned": edges}
+
+
+def bfs_baseline(g: CSRGraph, source: int = 0, *, device="cuda"
+                 ) -> Tuple[np.ndarray, Dict]:
+    """Gunrock-style dense sweep on ``device`` ("cuda" by default): per
+    level, gather the frontier mask at every edge's source and
+    scatter-max it onto the edge's target (no queue, no compaction).
+    Plain PyTorch; the host reads one flag per level.  Returns (dist as
+    numpy int32, {"levels"}), with the reference's level count."""
+    dev = resolve_device(device)
+    n = g.n
+    src = torch.repeat_interleave(
+        torch.arange(n, device=dev),
+        torch.from_numpy(np.diff(g.row_ptr).astype(np.int64)).to(dev))
+    col = torch.from_numpy(g.col_idx).to(dev).long()
+    front = torch.zeros(n, dtype=torch.bool, device=dev)
+    front[source] = True
+    visited = front.clone()
+    dist = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    dist[source] = 0
+    level = 0
+    while True:
+        touched = torch.zeros(n, dtype=torch.int32, device=dev)
+        touched.scatter_reduce_(0, col, front[src].int(), "amax")
+        front = (touched > 0) & ~visited
+        visited |= front
+        level += 1
+        dist = torch.where(front & (dist == -1), level, dist)
+        if not bool(front.any()):
+            break
+    return dist.cpu().numpy(), {"levels": level}
 
 
 def bfs_reference(g: CSRGraph, source: int = 0) -> np.ndarray:

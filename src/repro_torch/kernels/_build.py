@@ -50,11 +50,17 @@ SIGNATURES = {
                                _P),
     },
     "compact": {"repro_wave_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
+    "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P)},
+    "frontier": {
+        "repro_frontier_offsets": (_P, _P, _P, _P, _I, _P),
+        "repro_frontier_expand": (_P,) * 9 + (_I, _I, _I, _P),
+    },
 }
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
-                            "ring_enqueue": 0, "wave_compact": 0}
+                            "ring_enqueue": 0, "wave_compact": 0,
+                            "heap_apply": 0, "frontier_expand": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

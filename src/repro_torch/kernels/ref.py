@@ -1,6 +1,7 @@
 """Sequential oracles for the ported kernels — the PyTorch twin of
 ``repro/kernels/ref.py`` (``wavefaa_ref``, ``ring_enqueue_ref``,
-``ring_dequeue_ref``; the other oracles come with their kernels).
+``ring_dequeue_ref``, ``frontier_expand_ref``; the other oracles come with
+their kernels).
 
 Each applies its wave one lane at a time in lane (= ticket) order, the
 linearization order, on host integers with explicit 32-bit wraparound.
@@ -92,3 +93,32 @@ def ring_dequeue_ref(cycles, safes, enqs, idxs, tickets, nslots_log2: int,
               for p in (cyc, saf, enq, idx)),
             torch.tensor(vals, dtype=torch.int32),
             torch.tensor(ok, dtype=torch.bool))
+
+
+def frontier_expand_ref(row_ptr, col_idx, frontier, frontier_len, visited,
+                        max_out: int):
+    """Level-synchronous BFS frontier expansion (paper § V-B-a): for each
+    frontier vertex in order (-1 slots skipped), scan its CSR neighbours;
+    each unvisited one is marked and takes ticket = running count in the
+    next frontier.  A ticket >= ``max_out`` is DROPPED (the reference
+    oracle's out-of-range scatter), where the Pallas kernel and
+    ``kernels.frontier`` clamp it to the last slot.  ``frontier_len`` is
+    ignored, as in the reference.  Returns (next_frontier (max_out,)
+    padded -1, count (0-d int32), visited')."""
+    rp, col = row_ptr.tolist(), col_idx.tolist()
+    vis = visited.tolist()
+    out = [-1] * max_out
+    cnt = 0
+    for u in frontier.tolist():
+        if u < 0:
+            continue
+        for k in range(rp[u], rp[u + 1]):
+            v = col[k]
+            if vis[v] == 0:
+                if cnt < max_out:
+                    out[cnt] = v
+                cnt += 1
+            vis[v] = 1
+    return (torch.tensor(out, dtype=torch.int32),
+            torch.tensor(cnt, dtype=torch.int32),
+            torch.tensor(vis, dtype=torch.int32))

@@ -1,16 +1,19 @@
-"""repro_torch.runtime — the deterministic device round engine of the
-PyTorch port: ``RoundRunner`` (fused by default, legacy per-round loop
-with ``fused=False``) over ``fusedrounds.RingEngine``, a configuration of
-``enginecore.EngineCore``.  The priority, mesh and host task-pool faces
-of ``repro.runtime`` come with later slices."""
+"""repro_torch.runtime — the deterministic device round engines of the
+PyTorch port: ``RoundRunner`` over ``fusedrounds.RingEngine`` (FIFO) and
+``PriorityRoundRunner`` over ``fusedrounds.HeapEngine`` (priority), each
+fused by default with a legacy per-round loop under ``fused=False``, and
+both configurations of ``enginecore.EngineCore``.  The mesh and host
+task-pool faces of ``repro.runtime`` come with later slices."""
 
 from .enginecore import (ENGINE_REGISTRY, EngineCore, EngineEntry,
                          PlaneGroup, PlaneRegistry, register_engine)
-from .fusedrounds import IDX_BOT, RingEngine, RingState, StepFn, ring_init
-from .rounds import RoundRunner
+from .fusedrounds import (IDX_BOT, HeapEngine, HeapState, PriorityStepFn,
+                          RingEngine, RingState, StepFn, heap_init, ring_init)
+from .rounds import PriorityRoundRunner, RoundRunner
 
 __all__ = [
-    "ENGINE_REGISTRY", "EngineCore", "EngineEntry", "IDX_BOT", "PlaneGroup",
-    "PlaneRegistry", "RingEngine", "RingState", "RoundRunner", "StepFn",
-    "register_engine", "ring_init",
+    "ENGINE_REGISTRY", "EngineCore", "EngineEntry", "HeapEngine",
+    "HeapState", "IDX_BOT", "PlaneGroup", "PlaneRegistry",
+    "PriorityRoundRunner", "PriorityStepFn", "RingEngine", "RingState",
+    "RoundRunner", "StepFn", "heap_init", "register_engine", "ring_init",
 ]

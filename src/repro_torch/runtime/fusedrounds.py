@@ -1,7 +1,8 @@
-"""Chip-local fused round engine — the FIFO half of
-``repro/runtime/fusedrounds.py`` as a configuration of the engine core.
+"""Chip-local fused round engines — ``repro/runtime/fusedrounds.py`` as
+two configurations of the engine core: ``RingEngine`` (FIFO) and
+``HeapEngine`` (priority).
 
-One round runs entirely on the device:
+One FIFO round runs entirely on the device:
 
     dequeue wave (``ring_dequeue``) → the user's step →
     child tickets (``wavefaa`` ballot, or ``wave_compact`` when the child
@@ -18,8 +19,14 @@ Every round is predicated on the chunk's ``live`` flag: a round that is
 not live dequeues nothing (its tickets are all -1), spawns nothing (the
 step's child mask is ANDed with ``live``) and installs nothing, and the
 core masks the step's acc update, so it is a bit-exact no-op whatever the
-step function does.  The heap half of the reference (``HeapEngine``)
-comes with the priority slice.
+step function does.
+
+``HeapEngine`` is the priority configuration: a pop batch of
+``heap_apply`` (the ``min(batch, size)`` smallest keys), the user's
+step, and one insert batch of the children in row-major order (or of the
+dense wave of ``wave_compact`` when the child wave is wider than the
+heap), with the heap size as a 0-d device tensor.  Its predicated rounds
+pop nothing (``k = 0``) and turn every insert lane into ``OP_NOP``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 
 from ..kernels._build import resolve_device
 from ..kernels.compact import compact_width, wave_compact
+from ..kernels.heap_batch import (KEY_INF as HEAP_KEY_INF, OP_DELMIN,
+                                  OP_INSERT, OP_NOP, heap_apply)
 from ..kernels.ring_slots import ring_dequeue, ring_enqueue
 from ..kernels.wavefaa import LANES, wavefaa
 from .enginecore import EngineCore, _sds, reject_obs, tree_to
@@ -68,12 +77,42 @@ def ring_init(capacity_log2: int, device="cuda") -> RingState:
     )
 
 
+class HeapState(NamedTuple):
+    """Field planes of the device heap plus its size (an int on the host
+    side, a 0-d int32 tensor inside the engine)."""
+    keys: torch.Tensor
+    vals: torch.Tensor
+    size: Any
+
+    @property
+    def occupancy(self):
+        return self.size
+
+
+def heap_init(capacity_log2: int, device="cuda") -> HeapState:
+    """Empty heap of 2^capacity_log2 slots (keys ``KEY_INF``, vals -1)."""
+    dev = resolve_device(device)
+    cap = 1 << capacity_log2
+    return HeapState(
+        keys=torch.full((cap,), HEAP_KEY_INF, dtype=torch.int32, device=dev),
+        vals=torch.full((cap,), -1, dtype=torch.int32, device=dev),
+        size=0,
+    )
+
+
 # StepFn: (acc, vals (B,) int32, valid (B,) bool)
 #      -> (acc, child_vals (B,F), child_mask (B,F) or (B,1))
 # The step must be functional: it returns a new acc and modifies none of
 # its arguments in place (the engine keeps the old acc for no-op rounds).
 StepFn = Callable[[Any, torch.Tensor, torch.Tensor],
                   Tuple[Any, torch.Tensor, torch.Tensor]]
+
+# PriorityStepFn: (acc, keys (B,), vals (B,), valid (B,))
+#   -> (acc, child_keys (B,F), child_vals (B,F), child_mask (B,F) or (B,1))
+# Functional, as StepFn.
+PriorityStepFn = Callable[
+    [Any, torch.Tensor, torch.Tensor, torch.Tensor],
+    Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def _pad_lanes(mask: torch.Tensor) -> torch.Tensor:
@@ -201,3 +240,121 @@ class RingEngine(EngineCore):
         q, acc = state[0], state[1]
         return acc, RingState(q.cycles, q.safes, q.enqs, q.idxs,
                               int(q.head), int(q.tail))
+
+
+class HeapEngine(EngineCore):
+    """``RingEngine``'s priority configuration: ``heap_apply`` pop and
+    insert batches under the core's predicated chunks, with the heap size
+    as a device tensor.  Children insert as one masked batch in row-major
+    order — the same heap evolution as the legacy chunked inserts, so
+    acc, planes, size and the stats counters are bit-identical to the
+    reference engine and to the legacy loop.  Runs on ``device`` ("cuda"
+    by default; "cpu" runs the kernels' plain versions)."""
+
+    def __init__(self, step_fn: PriorityStepFn, *, capacity_log2: int = 10,
+                 batch: int = 64, arity_log2: int = 2, sync_every: int = 0,
+                 telemetry=None, spans=None, compact=None,
+                 device="cuda") -> None:
+        reject_obs(telemetry, spans)
+        self.step_fn = step_fn
+        self.capacity_log2 = capacity_log2
+        self.capacity = 1 << capacity_log2
+        self.batch = batch
+        if batch > self.capacity:
+            raise ValueError(f"batch {batch} exceeds heap capacity "
+                             f"{self.capacity}")
+        self.arity_log2 = arity_log2
+        self.sync_every = sync_every
+        self.compact = compact
+        self.device = resolve_device(device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._lane = torch.arange(batch, **i32)
+        self._pad = torch.full((batch,), HEAP_KEY_INF, **i32)
+        self._reset()
+        cap = self.capacity
+        self.registry.register("heap", (_sds((cap,)), _sds((cap,)),
+                                        _sds(())))       # keys/vals + size
+
+    @staticmethod
+    def _occ_of(q):
+        return q.size
+
+    def _heap(self, keys, vals, size, ops, okeys, ovals):
+        return heap_apply(keys, vals, size, ops, okeys, ovals,
+                          cap_log2=self.capacity_log2,
+                          arity_log2=self.arity_log2)
+
+    def _round(self, st, acc, live):
+        capacity = self.capacity
+        keys, vals, size = st
+        k = torch.where(live, torch.clamp(size, max=self.batch), 0)
+        pop_ops = torch.where(self._lane < k, OP_DELMIN, OP_NOP).int()
+        keys, vals, size, outk, outv, ok = self._heap(
+            keys, vals, size, pop_ops, self._pad, self._pad)
+        acc, ckeys, cvals, cmask = self.step_fn(acc, outk, outv, ok)
+        cm = (torch.broadcast_to(cmask.bool(), ckeys.shape).reshape(-1)
+              & live)
+        ckf = ckeys.reshape(-1).to(torch.int32)
+        cvf = cvals.reshape(-1).to(torch.int32)
+        # dense-wave rule: compact before the insert batch — the dense
+        # wave keeps row-major lane order, so the insert sequence (hence
+        # the heap evolution) is the sparse one's
+        wdth = compact_width(ckf.shape[0], capacity, self.compact)
+        if wdth is None:
+            n_child = cm.sum(dtype=torch.int32)
+            over = size + n_child > capacity
+            ins_ops = torch.where(cm & ~over, OP_INSERT, OP_NOP).int()
+        else:
+            (ckf, cvf), n_child = wave_compact(cm, (ckf, cvf), width=wdth)
+            over = size + n_child > capacity
+            lane_w = torch.arange(wdth, dtype=torch.int32,
+                                  device=ckf.device)
+            ins_ops = torch.where((lane_w < n_child) & ~over, OP_INSERT,
+                                  OP_NOP).int()
+        keys, vals, size, _, _, _ = self._heap(keys, vals, size, ins_ops,
+                                               ckf, cvf)
+        total = torch.where(over, 0, n_child)
+        return HeapState(keys, vals, size), acc, k, total, over
+
+    def _seed(self, st: HeapState, ik: np.ndarray,
+              iv: np.ndarray) -> HeapState:
+        n = len(ik)
+        if st.size + n > self.capacity:
+            raise RuntimeError(
+                f"heap overflow: {n} seed values exceed capacity "
+                f"{self.capacity} (raise capacity_log2)")
+        if n == 0:
+            return st
+        ops = torch.full((n,), OP_INSERT, dtype=torch.int32,
+                         device=self.device)
+        keys, vals, size, _, _, ok = self._heap(
+            st.keys, st.vals, st.size, ops,
+            torch.as_tensor(ik, device=self.device),
+            torch.as_tensor(iv, device=self.device))
+        assert bool(ok.all()), "capacity was checked: inserts cannot miss"
+        return HeapState(keys, vals, st.size + n)
+
+    def run(self, initial_keys: np.ndarray, initial_vals: np.ndarray,
+            acc: Any = None, max_rounds: int = 10_000
+            ) -> Tuple[Any, HeapState]:
+        """Seed the heap and run predicated priority rounds to quiescence,
+        with pops in exact min-key order within each round.  Same
+        readback and error contract as ``RingEngine.run`` (one readback
+        per chunk; ``RuntimeError`` on heap overflow or ``max_rounds``
+        truncation).  Returns ``(acc, HeapState)`` with an int size."""
+        self._reset()
+        ik = np.asarray(initial_keys, np.int32).reshape(-1)
+        iv = np.asarray(initial_vals, np.int32).reshape(-1)
+        if ik.shape != iv.shape:
+            raise ValueError("initial_keys and initial_vals must have one "
+                             "shape")
+        st = self._seed(heap_init(self.capacity_log2, self.device), ik, iv)
+        acc = tree_to(acc, self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        size = torch.tensor(st.size, **i32)
+        state = [HeapState(st.keys, st.vals, size), acc,
+                 torch.zeros((), **i32), torch.zeros((), **i32),
+                 size.clone()]
+        self._run_chunks(state, self._occ_of, "heap", max_rounds)
+        q = state[0]
+        return state[1], HeapState(q.keys, q.vals, int(q.size))

@@ -1,0 +1,219 @@
+"""The port's heap kernel faces (``repro_torch.kernels.heap_batch``) on the
+CPU, held bit-exact against ``repro.kernels.heap_batch``: ``heap_apply``
+against the Pallas kernel (interpret mode) on random op sweeps that fill
+the heap past full and drain it past empty, with NOP lanes, duplicate,
+negative and ``KEY_INF`` keys; a heapq oracle; ``heap_planes`` with a
+rider plane; and the partial waves ``heap_pop_count`` /
+``heap_insert_masked``.  Everything is int32, so every comparison is
+exact."""
+
+import heapq
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import heap_batch as jheap  # noqa: E402
+from repro_torch.kernels import heap_batch as heap  # noqa: E402
+
+KEY_INF = heap.KEY_INF
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _empty(cap_log2):
+    cap = 1 << cap_log2
+    return (np.full(cap, KEY_INF, np.int32), np.full(cap, -1, np.int32))
+
+
+def _batches(rng, cap_log2, b):
+    """Op batches that fill the heap past full, drain it past empty, then
+    mix: insert share 0.9, then 0.1, then 0.5."""
+    nb = 2 * (1 << cap_log2) // b + 2
+    out = []
+    for share in [0.9] * nb + [0.1] * nb + [0.5] * 4:
+        r = rng.random(b)
+        ops = np.where(r < share, heap.OP_INSERT,
+                       np.where(r < share + (1 - share) * 0.85,
+                                heap.OP_DELMIN, heap.OP_NOP))
+        keys = rng.integers(-20, 40, b)            # duplicates, negatives
+        special = rng.random(b)
+        keys = np.where(special < 0.05, KEY_INF, keys)
+        keys = np.where(special > 0.98, -2 ** 31, keys)
+        out.append((ops.astype(np.int32), keys.astype(np.int32),
+                    rng.integers(0, 1000, b).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("cap_log2", [4, 6, 8])
+@pytest.mark.parametrize("arity_log2", [1, 2])
+def test_heap_apply_matches_reference(arity_log2, cap_log2):
+    rng = np.random.default_rng(100 * arity_log2 + cap_log2)
+    kw = dict(cap_log2=cap_log2, arity_log2=arity_log2)
+    jk, jv = map(jnp.asarray, _empty(cap_log2))
+    jsize = jnp.asarray(0, jnp.int32)
+    keys, vals = map(torch.from_numpy, _empty(cap_log2))
+    size = torch.tensor(0, dtype=torch.int32)
+    seen_full = seen_empty = False
+    for ops, ks, vs in _batches(rng, cap_log2, 16):
+        jk, jv, jsize, jok_k, jok_v, jok = jheap.heap_apply(
+            jk, jv, jsize, *map(jnp.asarray, (ops, ks, vs)), **kw)
+        keys, vals, size, outk, outv, ok = heap.heap_apply(
+            keys, vals, size, *map(torch.from_numpy, (ops, ks, vs)), **kw)
+        for a, b in zip((keys, vals, size, outk, outv, ok),
+                        (jk, jv, jsize, jok_k, jok_v, jok)):
+            np.testing.assert_array_equal(_np(a), np.asarray(b))
+        assert size.dtype == torch.int32 and size.dim() == 0
+        assert ok.dtype == torch.bool
+        seen_full |= bool(((ops == heap.OP_INSERT) & ~ok.numpy()).any())
+        seen_empty |= bool(((ops == heap.OP_DELMIN) & ~ok.numpy()).any())
+    assert seen_full and seen_empty
+
+
+def test_heap_apply_is_in_place():
+    keys, vals = map(torch.from_numpy, _empty(4))
+    ops = torch.tensor([0, 0, 1], dtype=torch.int32)
+    k, v, size, outk, _, _ = heap.heap_apply(
+        keys, vals, 0, ops, torch.tensor([5, 3, 0], dtype=torch.int32),
+        torch.tensor([50, 30, 0], dtype=torch.int32), cap_log2=4)
+    assert k is keys and v is vals
+    assert int(size) == 1 and outk.tolist() == [KEY_INF, KEY_INF, 3]
+    assert keys[:2].tolist() == [5, KEY_INF] and vals[0] == 50
+
+
+def test_heap_apply_matches_host_oracle():
+    """Mirror of ``tests/test_sched.py:227``: pops come out in heapq
+    order, inserts are accepted, pops on an empty heap are rejected."""
+    rng = random.Random(7)
+    for arity_log2 in (1, 2):
+        keys, vals = map(torch.from_numpy, _empty(6))
+        size = torch.tensor(0, dtype=torch.int32)
+        oracle = []
+        for _ in range(6):
+            ops, ks, vs = [], [], []
+            for _ in range(8):
+                r = rng.random()
+                if r < 0.55:
+                    ops.append(0)
+                    ks.append(rng.randrange(100))
+                    vs.append(rng.randrange(1000))
+                elif r < 0.9:
+                    ops.append(1)
+                    ks.append(KEY_INF)
+                    vs.append(-1)
+                else:
+                    ops.append(-1)
+                    ks.append(KEY_INF)
+                    vs.append(-1)
+            keys, vals, size, outk, outv, ok = heap.heap_apply(
+                keys, vals, size, *(torch.tensor(x, dtype=torch.int32)
+                                    for x in (ops, ks, vs)),
+                cap_log2=6, arity_log2=arity_log2)
+            for i, op in enumerate(ops):
+                if op == 0:
+                    assert bool(ok[i])
+                    heapq.heappush(oracle, ks[i])
+                elif op == 1 and oracle:
+                    assert bool(ok[i])
+                    assert int(outk[i]) == heapq.heappop(oracle)
+                else:
+                    assert not bool(ok[i])
+            assert int(size) == len(oracle)
+
+
+@pytest.mark.parametrize("oprider", ["none", "scalar", "vector"])
+def test_heap_planes_rider_matches_reference(oprider):
+    rng = np.random.default_rng(5)
+    cap_log2, b = 6, 16
+    jk, jv = map(jnp.asarray, _empty(cap_log2))
+    jr = jnp.full(1 << cap_log2, -1, jnp.int32)
+    jsize = jnp.asarray(0, jnp.int32)
+    keys, vals = map(torch.from_numpy, _empty(cap_log2))
+    rider = torch.full((1 << cap_log2,), -1, dtype=torch.int32)
+    size = torch.tensor(0, dtype=torch.int32)
+    for step, (ops, ks, vs) in enumerate(_batches(rng, cap_log2, b)):
+        opr = {"none": None, "scalar": step,
+               "vector": rng.integers(0, 99, b).astype(np.int32)}[oprider]
+        jout = jheap.heap_planes(
+            jk, jv, jsize, *map(jnp.asarray, (ops, ks, vs)),
+            cap_log2=cap_log2, rider=jr,
+            oprider=None if opr is None else jnp.asarray(opr))
+        before = keys.clone()
+        out = heap.heap_planes(
+            keys, vals, size, *map(torch.from_numpy, (ops, ks, vs)),
+            cap_log2=cap_log2, rider=rider,
+            oprider=None if opr is None else torch.as_tensor(opr))
+        assert torch.equal(keys, before)              # functional
+        assert len(out) == len(jout) == 8
+        for a, bb in zip(out, jout):
+            np.testing.assert_array_equal(_np(a), np.asarray(bb))
+        jk, jv, jsize, _, _, _, jr, _ = jout
+        keys, vals, size, _, _, _, rider, _ = out
+    # without a rider the tuple and the planes are the single-plane ones
+    got = heap.heap_planes(keys, vals, size, *map(torch.from_numpy,
+                                                  (ops, ks, vs)),
+                           cap_log2=cap_log2)
+    want = jheap.heap_apply(jk, jv, jsize, *map(jnp.asarray, (ops, ks, vs)),
+                            cap_log2=cap_log2)
+    assert len(got) == 6
+    for a, bb in zip(got, want):
+        np.testing.assert_array_equal(_np(a), np.asarray(bb))
+
+
+@pytest.mark.parametrize("with_rider", [False, True])
+def test_partial_waves_match_reference(with_rider):
+    rng = np.random.default_rng(11)
+    cap_log2, b = 6, 16
+    jk, jv = map(jnp.asarray, _empty(cap_log2))
+    keys, vals = map(torch.from_numpy, _empty(cap_log2))
+    jsize, size = jnp.asarray(0, jnp.int32), torch.tensor(0,
+                                                          dtype=torch.int32)
+    jr = jnp.zeros(1 << cap_log2, jnp.int32) if with_rider else None
+    rider = (torch.zeros(1 << cap_log2, dtype=torch.int32) if with_rider
+             else None)
+    for step in range(12):
+        ks = rng.integers(0, 30, b).astype(np.int32)
+        vs = rng.integers(0, 500, b).astype(np.int32)
+        mask = rng.random(b) < 0.6
+        ins_kw = dict(cap_log2=cap_log2, oprider=step) if with_rider else \
+            dict(cap_log2=cap_log2)
+        jout = jheap.heap_insert_masked(
+            jk, jv, jsize, jnp.asarray(ks), jnp.asarray(vs),
+            jnp.asarray(mask), rider=jr, **ins_kw)
+        out = heap.heap_insert_masked(
+            keys, vals, size, torch.from_numpy(ks), torch.from_numpy(vs),
+            torch.from_numpy(mask), rider=rider, **ins_kw)
+        for a, bb in zip(out, jout):
+            np.testing.assert_array_equal(_np(a), np.asarray(bb))
+        count = int(rng.integers(0, b + 1))
+        jout = jheap.heap_pop_count(jout[0], jout[1], jout[2], count,
+                                    batch=b, cap_log2=cap_log2,
+                                    rider=jout[6] if with_rider else None)
+        out = heap.heap_pop_count(out[0], out[1], out[2], count, batch=b,
+                                  cap_log2=cap_log2,
+                                  rider=out[6] if with_rider else None)
+        for a, bb in zip(out, jout):
+            np.testing.assert_array_equal(_np(a), np.asarray(bb))
+        n_ok = int(out[5].sum())
+        assert out[5].tolist() == [i < n_ok for i in range(b)]
+        jk, jv, jsize = jout[:3]
+        keys, vals, size = out[:3]
+        if with_rider:
+            jr, rider = jout[6], out[6]
+
+
+@pytest.mark.parametrize("arity_log2", [0, 3])
+def test_heap_apply_refuses_unbuilt_arities(arity_log2):
+    """Both faces accept only the arities the kernel is built and checked
+    for."""
+    keys, vals = map(torch.from_numpy, _empty(4))
+    lanes = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="arity_log2"):
+        heap.heap_apply(keys, vals, 0, lanes, lanes, lanes, cap_log2=4,
+                        arity_log2=arity_log2)

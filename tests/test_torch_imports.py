@@ -16,8 +16,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.apps import bfs  # noqa: E402
-from repro_torch.kernels import ring_dequeue, wave_compact, wavefaa  # noqa
-from repro_torch.runtime import RingEngine, RoundRunner, ring_init  # noqa
+from repro_torch.kernels import (frontier_expand, heap_apply,  # noqa: E402
+                                 heap_insert_masked, heap_planes,
+                                 heap_pop_count, ring_dequeue, wave_compact,
+                                 wavefaa)
+from repro_torch.runtime import (HeapEngine, PriorityRoundRunner,  # noqa
+                                 RingEngine, RoundRunner, heap_init,
+                                 ring_init)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -61,6 +66,10 @@ def _step(acc, vals, valid):
     return acc, vals[:, None], valid[:, None] & False
 
 
+def _pstep(acc, keys, vals, valid):
+    return acc, keys[:, None], vals[:, None], valid[:, None] & False
+
+
 @pytest.mark.parametrize("entry", [
     lambda: RoundRunner(_step),
     lambda: RoundRunner(_step, fused=False),
@@ -68,8 +77,16 @@ def _step(acc, vals, valid):
     lambda: ring_init(4),
     lambda: bfs.bfs_rounds_runner(bfs.road_like(16)),
     lambda: bfs.bfs_rounds(bfs.road_like(16)),
+    lambda: PriorityRoundRunner(_pstep),
+    lambda: PriorityRoundRunner(_pstep, fused=False),
+    lambda: HeapEngine(_pstep),
+    lambda: heap_init(4),
+    lambda: bfs.bfs_queue(bfs.road_like(16)),
+    lambda: bfs.bfs_baseline(bfs.road_like(16)),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
-        "bfs_rounds_runner", "bfs_rounds"])
+        "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
+        "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
+        "bfs_queue", "bfs_baseline"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -91,6 +108,23 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ring_dequeue(*planes, torch.zeros(8, dtype=torch.int32, **meta),
                      nslots_log2=5, idx_bot=2 ** 31 - 1)
+    lanes = [torch.zeros(8, dtype=torch.int32, **meta) for _ in range(3)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        heap_apply(*planes[:2], torch.zeros(1, dtype=torch.int32, **meta),
+                   *lanes, cap_log2=5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        frontier_expand(torch.zeros(33, dtype=torch.int32, **meta),
+                        *lanes[:2], planes[0], max_out=32)
+    # the plain-only heap faces have no kernel: they refuse every tensor
+    # off the CPU instead of copying it to the host and back
+    size = torch.zeros(1, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        heap_planes(*planes[:2], size, *lanes, cap_log2=5)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        heap_pop_count(*planes[:2], size, 4, batch=8, cap_log2=5)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        heap_insert_masked(*planes[:2], size, *lanes[:2],
+                           lanes[2].bool(), cap_log2=5)
 
 
 def test_cpu_entry_point_runs():
