@@ -13,16 +13,28 @@ JSON line; any failure raises and exits non-zero with no result line:
               with nvcc for sm_90a, one nvcc per source, all at once
               (nvcc version and build seconds).
 2. compare  — each kernel (wavefaa, ring_dequeue, ring_enqueue,
-              wave_compact, heap_apply, frontier_expand) against its plain
-              PyTorch version on the card, bit-exact, at the paths' shapes
-              and at the CPU tests' edge cases (wrapping counters, width
-              overflow, multi-block waves of 1.26 M lanes; heap batches
-              into a full and out of an empty heap at 2^4, 2^6 and 2^20
-              slots with NOP lanes, duplicate and KEY_INF keys, and the
-              heap path's 1,024-pop / 2,048-insert batches; frontier
-              levels with -1 slots, duplicate neighbours, max_out
-              overflow, and the largest real level of each graph of
-              phase 6).
+              wave_compact, heap_apply, frontier_expand, expert_tickets,
+              flash_attention) against its plain PyTorch version on the
+              card, at the paths' shapes and at the CPU tests' edge cases
+              (wrapping counters, width overflow, multi-block waves of
+              1.26 M lanes; heap batches into a full and out of an empty
+              heap at 2^4, 2^6 and 2^20 slots with NOP lanes, duplicate
+              and KEY_INF keys, and the heap path's 1,024-pop / 2,048-
+              insert batches; frontier levels with -1 slots, duplicate
+              neighbours, max_out overflow, and the largest real level of
+              each graph of phase 6; expert tickets for N of 32 to 65,536,
+              8, 40 and 64 experts, -1 lanes, capacities 0, 1, below and
+              above the largest expert count, all pairs on one expert;
+              flash attention on the four configurations of the JAX
+              package's kernel tests in float32, the prefill shape in
+              bfloat16, a gemma2-style window of 4,096 with softcap 50 at
+              S = 8,192, Sq < Sk, hd 80 (h2o-danube-1.8b), and the
+              model's strided layout).  The integer kernels must be
+              bit-exact; flash attention is held against its plain
+              version at the kernel's tiles, element by element (one ulp
+              of the output plus 2^-5 of its rms in bfloat16) and in the
+              Frobenius norm (2^-10 in bfloat16; 1e-5 throughout in
+              float32), as ``FLASH_TOL`` states.
 3. road     — ``bfs_rounds`` on road_like(2048 * 2048) (4,194,304
               vertices) at batch 1024 on the fused engine; dist[v] must be
               row(v) + col(v) everywhere and wavefaa and both ring waves
@@ -54,16 +66,37 @@ JSON line; any failure raises and exits non-zero with no result line:
               row + col, kron dist must equal a vectorised numpy level
               sweep, the two must agree, and frontier_expand must launch
               once per level.
-7. kernels  — per kernel: launches on each path (phases 3-6),
-              exactness, its device time per call at its path's shape
-              (profiler) beside its plain version's, one PyTorch library
-              call's time where one computes the same function, the least
-              time the card could take (bytes over 3.35 TB/s, or
-              operations), and the wall time per call of back-to-back
-              calls, which includes the host's launch cost.
+7. kernels  — per kernel: launches on each path (phases 3-6 and 8),
+              exactness or max error, its device time per call at its
+              path's shape (CUDA events around calls queued behind a
+              sleep, so no host gap counts) beside its plain version's, one
+              PyTorch library call's time where one computes the same
+              function, the least time the card could take (bytes over
+              3.35 TB/s, or operations over the card's rate for their
+              type), and the wall time per call of back-to-back calls,
+              which includes the host's launch cost.
+8. serve    — the model path at full width: granite-moe-3b-a800m (32
+              layers, d_model 1536, 40 experts top-8, 3,374,295,552
+              parameters in bfloat16) from ``init_params`` with a
+              torch.Generator seeded 0 on the card.  Two 4,096-token
+              prompts (numpy.random.default_rng(13)) through ``prefill``:
+              flash_attention must launch once per layer and
+              expert_tickets once per MoE layer, the last-token logits
+              must be finite, and both kernels are held against their
+              plain versions on the q/k/v and expert ids of the first and
+              the last layer of that very prefill.  Then ``ServingEngine``
+              (4 slots, 32 pages of 32 tokens, max_seq 64) answers 8
+              requests of 16 prompt tokens and 16 new tokens: 8 completed,
+              128 tokens out, expert_tickets launched once per MoE layer
+              per decode step, and admitted, decode steps, page stalls
+              and the admission order equal to the port's own CPU run of
+              the same trace at the reduced width (the schedule does not
+              depend on the width).  Prefill tokens/s, decode tokens/s and
+              readbacks; both re-run under the profiler.
 
-Phases 3, 5 and 6 also re-run their path under the profiler and report
-the card's idle share against the unprofiled wall time.  Every phase
+Phases 3, 5, 6 and 8 also re-run their path under the profiler and
+report the card's idle share against the unprofiled wall time.  Phase 8
+runs before phase 7, whose line needs its launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -71,6 +104,7 @@ card's name and power limit as nvidia-smi prints them, and a last line
 """
 
 import hashlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -81,6 +115,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12        # H100 SXM non-tensor-core fp32 rate
+BF16_TC_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate, data sheet
+GPU_CYCLES_PER_S = 1.98e9    # H100 SXM boost clock: sizes the timing backlog
 BATCH = 1024
 ROAD_SIDE = 2048
 KRON_N = 65536
@@ -95,6 +131,18 @@ QKRON_DEG = 16
 # the heap_sssp golden of the JAX package's tests (tests/test_enginecore.py)
 HEAP_GOLDEN = {"stats": [10, 124, 122, 46, 1], "acc": "17210d10068cbe8b",
                "planes": "3e13f886f2e96c70"}
+SERVE_ARCH = "granite-moe-3b-a800m"
+PREFILL_BATCH, PREFILL_LEN = 2, 4096
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
+SERVE_VOCAB = 512        # prompt ids valid at full and at reduced width
+# flash attention against its plain version at the kernel's tiles, element
+# by element and as a whole: |kernel - plain| <= rtol * |plain| + atol *
+# rms(plain) and ||kernel - plain|| <= frob * ||plain||.  bf16: one ulp of
+# the output (2^-7), 2^-5 of the rms for p's rounding, 2^-10 overall;
+# float32: 1e-5 each.
+FLASH_TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol_rms": 2.0 ** -5,
+                          "frob": 2.0 ** -10},
+             "float32": {"rtol": 1e-5, "atol_rms": 1e-5, "frob": 1e-5}}
 
 
 START = time.perf_counter()
@@ -189,9 +237,12 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.rng = np.random.default_rng(0)
         self.err = {}             # kernel -> max |kernel - plain| seen
+        self.bound_used = {}      # float kernel -> largest share of a bound
+        self.rejected = {}        # wrong flash results -> shares of bounds
         self.cases = {}           # kernel -> comparisons made
         self.launches = {"road": {}, "kron": {}, "heap": {},
-                         "queue": {}}   # path -> kernel launches
+                         "queue": {}, "prefill": {},
+                         "serve": {}}   # path -> kernel launches
 
     # -- helpers -------------------------------------------------------------
 
@@ -216,35 +267,81 @@ class Smoke:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
 
+    def bound_shares(self, got, want):
+        """(max |got - want|, the largest share of the element bound, the
+        share of the Frobenius bound) under ``FLASH_TOL`` of the dtype."""
+        tol = FLASH_TOL[str(want.dtype).split(".")[-1]]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{got.shape} {got.dtype} != "
+                                 f"{want.shape} {want.dtype}")
+        g, w = got.float(), want.float()
+        if not bool(self.torch.isfinite(g).all()):
+            raise AssertionError("the kernel gave non-finite values")
+        diff = (g - w).abs()
+        rms = float(w.pow(2).mean().sqrt())
+        bound = tol["rtol"] * w.abs() + tol["atol_rms"] * rms
+        elem = float((diff / bound.clamp(min=1e-30)).max())
+        frob = (float((g - w).norm()) / max(float(w.norm()), 1e-30)
+                / tol["frob"])
+        return float(diff.max()), elem, frob
+
+    def close(self, name, got, want):
+        """Float comparison within ``FLASH_TOL`` of the dtype, element by
+        element and in the Frobenius norm; records the largest error and
+        each bound's largest share used."""
+        err, elem, frob = self.bound_shares(got, want)
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        used = self.bound_used.setdefault(name, {"element": 0.0,
+                                                 "frobenius": 0.0})
+        used["element"] = max(used["element"], elem)
+        used["frobenius"] = max(used["frobenius"], frob)
+        self.cases[name] = self.cases.get(name, 0) + 1
+        if elem > 1 or frob > 1:
+            raise AssertionError(
+                f"{name}: kernel differs from its plain version by "
+                f"{elem:.3g} of the element bound and {frob:.3g} of the "
+                f"Frobenius bound (max |diff| {err})")
+
     def time_ms(self, setup, launch, iters=50, reps=5):
         """Per-call milliseconds of ``iters`` calls of ``launch(args, i)``,
         each batch after an untimed ``setup()``: the median over ``reps``
-        batches of (device, wall) time.  Device time is the sum of the
-        CUDA activity the profiler (CUPTI) records, per call; wall time is
-        CUDA events around back-to-back calls, so it includes the host's
-        launch cost whenever the host is slower than the card."""
+        batches of (device, wall) time, both from CUDA events around the
+        batch.  Wall: the calls issued back to back, so it includes the
+        host's launch cost whenever the host is slower than the card.
+        Device: the same batch queued behind a ``torch.cuda._sleep`` that
+        outlasts three times the host's time to issue it, so the card runs
+        the calls back to back and the events see no host gap (a call
+        that reads a value back drains that queue: its device time then
+        includes the readback).  The profiler is not used here: after
+        many sessions in one process it was seen to drop kernel records
+        (B7 summed to 1.09 ms a call where events and the profile of the
+        prefill saw 1.70 ms) or to record none."""
         torch = self.torch
-        wall, dev = [], []
-        for r in range(reps + 1):
-            args = setup()
-            torch.cuda.synchronize()
+
+        def batch(args, backlog_cycles):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            if backlog_cycles:
+                torch.cuda._sleep(backlog_cycles)
+            t0 = time.perf_counter()
             start.record()
             for i in range(iters):
                 launch(args, i)
             end.record()
+            host_s = time.perf_counter() - t0
             end.synchronize()
-            if r:                                    # batch 0 warms up
-                wall.append(start.elapsed_time(end) / iters)
+            return start.elapsed_time(end) / iters, host_s
+
+        wall, dev, host = [], [], 0.0
+        for r in range(reps + 1):                    # batch 0 warms up
+            ms, host_s = batch(setup(), 0)
+            host = max(host, host_s)
+            if r:
+                wall.append(ms)
+        cycles = int(3 * host * GPU_CYCLES_PER_S) + 1_000_000
         for _ in range(reps):
-            args = setup()
-            torch.cuda.synchronize()
-            with self.profile() as prof:
-                for i in range(iters):
-                    launch(args, i)
-                torch.cuda.synchronize()
-            dev.append(device_us(prof) / 1e3 / iters)
+            dev.append(batch(setup(), cycles)[0])
         return statistics.median(dev), statistics.median(wall)
 
     def profile(self):
@@ -404,6 +501,96 @@ class Smoke:
             f, vis = level_input(np, dist, level)
             self.frontier_case(K, t(g.row_ptr), t(g.col_idx), t(f), t(vis),
                                max(g.n, 16))
+
+    def tickets_case(self, K, ids, e, cap):
+        kw = dict(num_experts=e, capacity=cap)
+        self.same("expert_tickets", (K.expert_tickets(ids, **kw),),
+                  (K.expert_tickets_plain(ids, **kw),))
+
+    def compare_moe(self, K):
+        """Expert tickets bit-exact: N of 32 (a decode step), 127, 128,
+        1,000 and 65,536 (a prefill), 8, 40 and 64 experts, a share of -1
+        lanes, capacities 0, 1, half and past the largest expert count,
+        and all pairs on one expert."""
+        np, torch = self.np, self.torch
+        for n in (32, 127, 128, 1000, 65536):
+            for e in (8, 40, 64):
+                for inactive in (0.0, 0.2):
+                    ids = self.rng.integers(0, e, n)
+                    ids[self.rng.random(n) < inactive] = -1
+                    top = int(np.bincount(ids[ids >= 0], minlength=e).max()) \
+                        if (ids >= 0).any() else 0
+                    t = self.t(ids.astype(np.int32))
+                    for cap in (0, 1, max(top // 2, 1), top + 5):
+                        self.tickets_case(K, t, e, cap)
+            one = torch.full((n,), 7, dtype=torch.int32, device=self.dev)
+            for cap in (0, 1, n // 2, n):
+                self.tickets_case(K, one, 40, cap)
+
+    def flash_case(self, K, q, k, v, **kw):
+        """The kernel against the plain version at the kernel's tiles (in
+        place of any blocks the caller's ``kw`` names); returns the plain
+        version's output."""
+        bq, bk = K.flash_attn.KERNEL_TILES[q.dtype]
+        want = K.flash_attention_plain(q, k, v, **{**kw, "bq": bq, "bk": bk})
+        self.close("flash_attention", K.flash_attention(q, k, v, **kw), want)
+        return want
+
+    def compare_flash(self, K):
+        """Flash attention within ``FLASH_TOL``: the four configurations
+        of the JAX package's kernel tests (tests/test_kernels.py) in
+        float32 and bfloat16, the prefill shape in bfloat16 (also in the
+        model's strided layout), a gemma2-style window of 4,096 with
+        softcap 50 at S = 8,192, Sq < Sk, and hd 80 (h2o-danube-1.8b).
+        Then two wrong results, which the check must reject."""
+        torch = self.torch
+
+        def qkv(b, h, kv, sq, sk, hd, dtype, seed):
+            g = torch.Generator(device=self.dev)
+            g.manual_seed(seed)
+            return [(torch.randn(shape, generator=g, device=self.dev) * 0.5)
+                    .to(dtype) for shape in ((b, h, sq, hd), (b, kv, sk, hd),
+                                             (b, kv, sk, hd))]
+
+        for i, (b, h, kv, sq, sk, hd, causal, win, cap) in enumerate((
+                (1, 4, 2, 512, 512, 64, True, 0, 0.0),
+                (2, 8, 4, 1024, 1024, 64, True, 128, 0.0),
+                (1, 4, 4, 512, 1024, 32, True, 0, 50.0),
+                (1, 2, 2, 512, 512, 64, False, 0, 0.0))):
+            for dtype in (torch.float32, torch.bfloat16):
+                self.flash_case(K, *qkv(b, h, kv, sq, sk, hd, dtype, i),
+                                causal=causal, window=win, softcap_val=cap)
+        cfg = (PREFILL_BATCH, 24, 8, PREFILL_LEN, PREFILL_LEN, 64)
+        q, k, v = qkv(*cfg, torch.bfloat16, 10)
+        want_prefill = self.flash_case(K, q, k, v)
+        # the model's (B, S, H, hd) activations as (B, H, S, hd) views
+        self.flash_case(K, *(x.transpose(1, 2).contiguous().transpose(1, 2)
+                             for x in (q, k, v)))
+        gemma = qkv(1, 8, 4, 8192, 8192, 128, torch.bfloat16, 11)
+        want_gemma = self.flash_case(K, *gemma, window=4096,
+                                     softcap_val=50.0)
+        self.flash_case(K, *qkv(1, 4, 2, 1024, 2048, 64, torch.bfloat16,
+                                12))
+        self.flash_case(K, *qkv(1, 4, 2, 1024, 2048, 32, torch.float32,
+                                13), window=300)
+        # hd 80: h2o-danube-1.8b's heads at a prompt of 2,048
+        self.flash_case(K, *qkv(1, 32, 8, 2048, 2048, 80, torch.bfloat16,
+                                14))
+
+        # the check must reject a wrong kernel: the window's edge one key
+        # short, and one key tile left out of P V (its v zeroed)
+        v0 = v.clone()
+        v0[:, :, 1024:1024 + K.flash_attn.KERNEL_TILES[v.dtype][1]] = 0
+        for name, got, want in (
+                ("window_edge", K.flash_attention(*gemma, window=4095,
+                                                  softcap_val=50.0),
+                 want_gemma),
+                ("key_tile", K.flash_attention(q, k, v0), want_prefill)):
+            _, elem, frob = self.bound_shares(got, want)
+            self.rejected[name] = {"element": elem, "frobenius": frob}
+            if elem <= 1 and frob <= 1:
+                raise AssertionError(f"flash_attention: the check passed "
+                                     f"a wrong kernel ({name})")
 
     # -- phases 3/4: the paths ------------------------------------------------
 
@@ -599,6 +786,167 @@ class Smoke:
         return info
 
 
+    # -- phase 8: serving granite-moe-3b-a800m at full width -----------------
+
+    def serve_trace(self):
+        rng = self.np.random.default_rng(0)
+        return [rng.integers(0, SERVE_VOCAB, SERVE_PROMPT)
+                .astype(self.np.int32) for _ in range(SERVE_REQUESTS)]
+
+    def serve_run(self, serving, cfg, params, device):
+        """The request trace through a fresh ``ServingEngine``."""
+        eng = serving.ServingEngine(
+            cfg, params, serving.EngineConfig(max_slots=4, page_size=32,
+                                              num_pages=32, max_seq=64),
+            device=device)
+        for rid, prompt in enumerate(self.serve_trace()):
+            if not eng.submit(serving.Request(rid=rid, prompt=prompt,
+                                              max_new_tokens=SERVE_NEW)):
+                raise AssertionError("serve: the request pool refused a "
+                                     "request")
+        t0 = time.perf_counter()
+        metrics = eng.run(max_ticks=10_000)
+        if self.torch.device(device).type == "cuda":
+            self.torch.cuda.synchronize()
+        return eng, metrics, time.perf_counter() - t0
+
+    def serve_path(self, K, configs, models, serving):
+        """Phase 8; returns its line and the recorded kernel inputs of the
+        prefill (for the rows of phase 7)."""
+        np, torch = self.np, self.torch
+        from repro_torch.models import layers
+        # the module (the package exports a function of the same name)
+        moe_route = importlib.import_module("repro_torch.kernels.moe_route")
+        cfg = configs.get_config(SERVE_ARCH)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(0)
+        params = models.init_params(cfg, gen, device=self.dev)
+        torch.cuda.synchronize()
+        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
+                    + sum(v.numel() for v in params["layers"].values()))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"serve: {n_params} parameters, the config "
+                                 f"counts {cfg.param_count()}")
+        info = {"phase": "serve", "arch": cfg.name, "params": n_params,
+                "init_s": time.perf_counter() - t0}
+        tokens = torch.as_tensor(np.random.default_rng(13).integers(
+            0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=self.dev)
+
+        # record the kernels' inputs of the first and the last layer
+        seen = {"flash": [], "tickets": []}
+        real_flash, real_tickets = (layers.flash_attention,
+                                    moe_route.expert_tickets)
+
+        def flash_spy(q, k, v, **kw):
+            seen["flash"].append((q, k, v, kw))
+            return real_flash(q, k, v, **kw)
+
+        def tickets_spy(ids, **kw):
+            seen["tickets"].append((ids, kw))
+            return real_tickets(ids, **kw)
+
+        models.prefill(params, tokens, cfg)            # warm-up
+        torch.cuda.synchronize()
+        layers.flash_attention, moe_route.expert_tickets = (flash_spy,
+                                                            tickets_spy)
+        try:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            logits, caches = models.prefill(params, tokens, cfg)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+        finally:
+            layers.flash_attention, moe_route.expert_tickets = (
+                real_flash, real_tickets)
+        self.launches["prefill"] = launches
+        L = cfg.n_layers
+        if launches["flash_attention"] != L or \
+                launches["expert_tickets"] != L:
+            raise AssertionError(f"prefill: launches {launches}, expected "
+                                 f"{L} flash_attention and {L} "
+                                 f"expert_tickets")
+        if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill: last-token logits not finite")
+        if caches["k"].shape != (L, PREFILL_BATCH, PREFILL_LEN,
+                                 cfg.n_kv_heads, cfg.hd):
+            raise AssertionError("prefill: cache shape")
+        for i in (0, L - 1):
+            q, k, v, kw = seen["flash"][i]
+            self.flash_case(K, q, k, v, **kw)
+            ids, kw = seen["tickets"][i]
+            self.tickets_case(K, ids, kw["num_experts"], kw["capacity"])
+        ids, kw = seen["tickets"][0]
+        dropped = float((real_tickets(ids, **kw) < 0).float().mean())
+        info["prefill"] = {
+            "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN,
+            "run_s": prefill_s,
+            "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+            "launches": launches, "capacity": seen["tickets"][0][1]
+            ["capacity"], "dropped_share_layer0": dropped,
+            "kernels_held_on_layers": [0, L - 1],
+            "logits_finite": True}
+
+        # serve at full width on the card, then the same trace at reduced
+        # width on the CPU
+        self.serve_run(serving, cfg, params, self.dev)   # warm-up
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        eng, metrics, serve_s = self.serve_run(serving, cfg, params,
+                                               self.dev)
+        launches = dict(K.LAUNCHES)
+        self.launches["serve"] = launches
+        small = cfg.reduced()
+        cpu_gen = torch.Generator()
+        cpu_gen.manual_seed(0)
+        cpu_params = models.init_params(small, cpu_gen, device="cpu")
+        t0 = time.perf_counter()
+        ceng, cmetrics, _ = self.serve_run(serving, small, cpu_params, "cpu")
+        cpu_s = time.perf_counter() - t0
+        want = (SERVE_REQUESTS, SERVE_REQUESTS * SERVE_NEW)
+        if (metrics["completed"], metrics["tokens_out"]) != want:
+            raise AssertionError(f"serve: {metrics}")
+        keys = ("admitted", "decode_steps", "page_stalls")
+        if [metrics[k] for k in keys] != [cmetrics[k] for k in keys] or \
+                eng.admission_log != ceng.admission_log:
+            raise AssertionError(f"serve: card {metrics} "
+                                 f"{eng.admission_log} != CPU {cmetrics} "
+                                 f"{ceng.admission_log}")
+        if launches["expert_tickets"] != L * metrics["decode_steps"]:
+            raise AssertionError(f"serve: expert_tickets launched "
+                                 f"{launches['expert_tickets']} times in "
+                                 f"{metrics['decode_steps']} steps")
+        info["serve"] = {
+            "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
+            "max_new": SERVE_NEW, "metrics": metrics,
+            "admission_log": eng.admission_log, "run_s": serve_s,
+            "tokens_out_per_s": metrics["tokens_out"] / serve_s,
+            "decode_steps_per_s": metrics["decode_steps"] / serve_s,
+            "readbacks": eng.host_syncs, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cpu_reduced_run": {"metrics": cmetrics, "run_s": cpu_s},
+            "schedule_equals_cpu": True}
+
+        # both again under the profiler
+        for name, run in (("prefill", lambda: models.prefill(params, tokens,
+                                                             cfg)),
+                          ("serve", lambda: self.serve_run(
+                              serving, cfg, params, self.dev))):
+            t0 = time.perf_counter()
+            with self.profile() as prof:
+                run()
+                torch.cuda.synchronize()
+            times = device_times(prof)
+            busy = sum(times.values()) / 1e6
+            info[name].update(device_busy_s=busy,
+                              idle_share=1 - busy / info[name]["run_s"],
+                              profile_s=time.perf_counter() - t0,
+                              top_device_ms=top_ms(times, 6))
+        return info, seen
+
+
 def busiest_level(np, g, dist):
     """The BFS level whose frontier scans the most edges."""
     deg = np.diff(g.row_ptr).astype(np.int64)
@@ -630,11 +978,6 @@ def device_times(prof) -> dict:
     return out
 
 
-def device_us(prof) -> float:
-    """All device time a profiler recorded, in microseconds."""
-    return sum(device_times(prof).values())
-
-
 def top_ms(times: dict, k: int) -> dict:
     """The ``k`` names with the most device time, in milliseconds."""
     top = sorted(times.items(), key=lambda kv: kv[1], reverse=True)[:k]
@@ -654,6 +997,10 @@ def main() -> int:
         die(f"the port's sources are not under {ROOT / 'src'}: run from a "
             f"checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    # float32 products in full float32 (the plain versions' reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import configs, models, serving
     from repro_torch import kernels as K
     from repro_torch.apps import bfs
     from repro_torch.kernels import _build
@@ -687,9 +1034,16 @@ def main() -> int:
     smoke.compare_heap(K)
     smoke.compare_frontier(K, {"road": (road, road_dist),
                                "kron": (qkron, qkron_dist)})
+    smoke.compare_moe(K)
+    smoke.compare_flash(K)
     torch.cuda.synchronize()
-    emit_phase({"phase": "compare", "exact": True, "cases": smoke.cases,
-                "max_abs_err": smoke.err,
+    emit_phase({"phase": "compare",
+                "exact": sorted(k for k in smoke.cases
+                                if k != "flash_attention"),
+                "within_tolerance": {"flash_attention": FLASH_TOL},
+                "cases": smoke.cases, "max_abs_err": smoke.err,
+                "bound_used": smoke.bound_used,
+                "wrong_results_rejected": smoke.rejected,
                 "seconds": time.perf_counter() - t0})
 
     # 3. main path: road BFS at full size
@@ -724,9 +1078,13 @@ def main() -> int:
     kron_q["setup_s"] = qkron_s
     emit_phase(kron_q)
 
+    # 8. serving granite-moe-3b-a800m at full width
+    serve_info, seen = smoke.serve_path(K, configs, models, serving)
+    emit_phase(serve_info)
+
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
-                                 (qkron, qkron_dist))})
+                                 (qkron, qkron_dist), seen)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -738,31 +1096,37 @@ def main() -> int:
     return 0
 
 
-def kernel_rows(smoke, K, road, kron, heap, qkron):
-    """Time each kernel, its plain version and (for the scans) one
-    torch.cumsum at its path's shapes, with the densities the runs
-    produced; compute each one's bound from the same inputs.  ``qkron``
-    is the bfs_queue kron graph and its distances."""
+def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
+    """Time each kernel, its plain version and one PyTorch library call
+    where one computes the same function (torch.cumsum for the scans,
+    scaled_dot_product_attention for flash attention) at its path's
+    shapes, with the densities the runs produced; compute each one's
+    bound from the same inputs.  ``qkron`` is the bfs_queue kron graph and
+    its distances, ``seen`` the kernel inputs recorded in phase 8's
+    prefill."""
     torch, np, dev = smoke.torch, smoke.np, smoke.dev
     rng = np.random.default_rng(1)
     rows = []
     last = [time.perf_counter()]
 
-    def bound(nbytes, ops):
+    def bound(nbytes, ops, rate):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = ops / ALU_OPS_PER_S * 1e3
+        o_ms = ops / rate * 1e3
         return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
-    def row(name, source, replaces, kern, plain, lib, nbytes, ops, shape):
-        """``kern``/``plain``/``lib`` are (device_ms, wall_ms) pairs."""
-        b, by = bound(nbytes, ops)
+    def row(name, source, replaces, kern, plain, lib, nbytes, ops, shape,
+            rate=ALU_OPS_PER_S):
+        """``kern``/``plain``/``lib`` are (device_ms, wall_ms) pairs; ops
+        are counted against ``rate``."""
+        b, by = bound(nbytes, ops, rate)
         by_path = {k: p.get(name, 0) for k, p in smoke.launches.items()}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "exact": smoke.err[name] == 0, "max_abs_err": smoke.err[name],
+            "exact": smoke.err[name] == 0 and name != "flash_attention",
+            "max_abs_err": smoke.err[name],
             "ms": kern[0], "plain_ms": plain[0], "bound_ms": b,
             "bound_by": by, "library_ms": lib[0] if lib else None,
             "wall_ms": {"kernel": kern[1], "plain": plain[1],
@@ -978,6 +1342,63 @@ def kernel_rows(smoke, K, road, kron, heap, qkron):
         {"graph": g5.name, "level": lvl, "frontier": len(f5),
          "edges": edges5, "targets": targets5, "fresh": fresh5,
          "max_out": max_out5})
+
+    # B6 expert_tickets: the expert ids of the serve prefill's first MoE
+    # layer (2 x 4,096 tokens x top-8 = 65,536 pairs, 40 experts).  The
+    # library call is an int32 torch.cumsum of the one-hot, the scan B1/B3
+    # are timed against, laid out (E, N) so that it runs along the
+    # contiguous axis; the (N, E) layout's scan down the strided axis is
+    # timed beside it.  The one-hots are built untimed.
+    ids6, kw6 = seen["tickets"][0]
+    n6, e6 = ids6.shape[0], kw6["num_experts"]
+    onehot6 = torch.nn.functional.one_hot(ids6.long(), e6).int()
+    onehot6_t = onehot6.t().contiguous()
+    strided6 = smoke.time_ms(lambda: None, lambda a, i: torch.cumsum(
+        onehot6, 0, dtype=torch.int32), iters=10, reps=3)
+    row("expert_tickets", csrc + "moe_route.cu",
+        "src/repro/kernels/moe_route.py:25",
+        smoke.time_ms(lambda: None,
+                      lambda a, i: K.expert_tickets(ids6, **kw6)),
+        smoke.time_ms(lambda: None,
+                      lambda a, i: K.expert_tickets_plain(ids6, **kw6),
+                      iters=20, reps=3),
+        smoke.time_ms(lambda: None, lambda a, i: torch.cumsum(
+            onehot6_t, 1, dtype=torch.int32)),
+        # the ids in, the slots out
+        8 * n6, n6,
+        {"pairs": n6, "experts": e6, "capacity": kw6["capacity"],
+         "dropped": int((K.expert_tickets(ids6, **kw6) < 0).sum()),
+         "library": "torch.cumsum of the (E, N) int32 one-hot along N",
+         "library_ms_n_e_layout": strided6[0]})
+
+    # B7 flash_attention: the q/k/v of the serve prefill's first layer,
+    # the model's (B, S, H, hd) bfloat16 activations as (B, H, S, hd)
+    # views.  Library: scaled_dot_product_attention with the same causal
+    # mask and GQA, timed here only (the port never calls it).
+    q7, k7, v7, kw7 = seen["flash"][0]
+    b7, h7, s7, hd7 = q7.shape
+    kvh7 = k7.shape[1]
+    pairs7 = s7 * (s7 + 1) // 2          # causal (query, key) pairs
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row("flash_attention", csrc + "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:38",
+        smoke.time_ms(lambda: None,
+                      lambda a, i: K.flash_attention(q7, k7, v7, **kw7),
+                      iters=20),
+        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_plain(
+            q7, k7, v7, **kw7), iters=5, reps=3),
+        smoke.time_ms(lambda: None, lambda a, i: sdpa(
+            q7, k7, v7, is_causal=True, enable_gqa=True), iters=20),
+        # q and out (B, H, S, hd), k and v (B, KV, S, hd), bfloat16; two
+        # products of 2 * hd flop per causal (query, key) pair and head
+        2 * (2 * b7 * h7 * s7 * hd7 + 2 * b7 * kvh7 * s7 * hd7),
+        4 * b7 * h7 * pairs7 * hd7,
+        {"q": [b7, h7, s7, hd7], "kv_heads": kvh7, "dtype": "bfloat16",
+         "causal": kw7["causal"], "window": kw7["window"],
+         "softcap": kw7["softcap_val"], "tolerance": FLASH_TOL,
+         "bound_used": smoke.bound_used["flash_attention"],
+         "layout": "(B, S, H, hd) strided"},
+        rate=BF16_TC_FLOP_PER_S)
     return rows
 
 

@@ -1,13 +1,14 @@
 """Carrying state between the JAX reference and the port as numpy arrays.
 
-A test builds a ring, a heap or a graph on either side, hands it over as numpy
-arrays, and drives both packages from the same state.  Nothing here
-imports JAX: the reference's arrays arrive as ``np.asarray(...)``.
+A test builds a ring, a heap, a graph or a model's parameters on either
+side, hands it over as numpy arrays, and drives both packages from the
+same state.  Nothing here imports JAX: the reference's arrays arrive as
+``np.asarray(...)``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -57,3 +58,45 @@ def csr_from_arrays(row_ptr, col_idx, name: str = "g") -> CSRGraph:
     """A port ``CSRGraph`` from CSR arrays (int32 copies)."""
     return CSRGraph(np.array(row_ptr, np.int32), np.array(col_idx, np.int32),
                     name)
+
+
+def _leaf_to_torch(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: same bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
+
+
+def params_from_numpy(tree: Any, *, device="cuda") -> Any:
+    """The reference's parameter tree (nested dicts and lists of numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's: the
+    same keys and shapes, each leaf a tensor on ``device``.  bfloat16
+    leaves keep their bits."""
+    dev = resolve_device(device)
+
+    def go(node):
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v) for v in node)
+        return _leaf_to_torch(node, dev)
+    return go(tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of ``params_from_numpy``: every tensor to a numpy array
+    on the host.  bfloat16 tensors become ``ml_dtypes.bfloat16`` arrays
+    (the type JAX hands out), which needs the ``ml_dtypes`` package."""
+    def go(node):
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v) for v in node)
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return go(tree)

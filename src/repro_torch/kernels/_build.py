@@ -40,7 +40,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
 #: ``csrc/scan.cuh``): one scratch count per block
 BLOCK = 1024
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every entry point, by source file
 SIGNATURES = {
     "wavefaa": {"repro_wavefaa": (_P, _P, _P, _P, _P, _I, _P)},
@@ -55,12 +55,15 @@ SIGNATURES = {
         "repro_frontier_offsets": (_P, _P, _P, _P, _I, _P),
         "repro_frontier_expand": (_P,) * 9 + (_I, _I, _I, _P),
     },
+    "moe_route": {"repro_expert_tickets": (_P, _P, _P, _I, _I, _I, _P)},
+    "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
 }
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
                             "ring_enqueue": 0, "wave_compact": 0,
-                            "heap_apply": 0, "frontier_expand": 0}
+                            "heap_apply": 0, "frontier_expand": 0,
+                            "expert_tickets": 0, "flash_attention": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

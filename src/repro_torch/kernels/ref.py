@@ -1,13 +1,14 @@
 """Sequential oracles for the ported kernels — the PyTorch twin of
-``repro/kernels/ref.py`` (``wavefaa_ref``, ``ring_enqueue_ref``,
-``ring_dequeue_ref``, ``frontier_expand_ref``; the other oracles come with
-their kernels).
+``repro/kernels/ref.py``: ``wavefaa_ref``, ``ring_enqueue_ref``,
+``ring_dequeue_ref``, ``frontier_expand_ref``, ``moe_route_ref`` and
+``flash_attention_ref``.
 
-Each applies its wave one lane at a time in lane (= ticket) order, the
-linearization order, on host integers with explicit 32-bit wraparound.
-They share no code with the kernels or their plain versions, which is
-what makes them oracles.  Inputs are CPU tensors; outputs are new
-tensors (the inputs are not changed).
+The integer oracles apply their wave one lane at a time in lane (=
+ticket) order, the linearization order, on host integers with explicit
+32-bit wraparound.  ``flash_attention_ref`` is plain masked softmax
+attention over the whole key axis.  They share no code with the kernels
+or their plain versions, which is what makes them oracles.  Inputs are
+CPU tensors; outputs are new tensors (the inputs are not changed).
 """
 
 from __future__ import annotations
@@ -122,3 +123,57 @@ def frontier_expand_ref(row_ptr, col_idx, frontier, frontier_len, visited,
     return (torch.tensor(out, dtype=torch.int32),
             torch.tensor(cnt, dtype=torch.int32),
             torch.tensor(vis, dtype=torch.int32))
+
+
+def moe_route_ref(gates: torch.Tensor, k: int, capacity: int):
+    """Capacity-bounded top-k MoE dispatch by per-expert ticket
+    reservation, one (token, choice) pair at a time in token order, as a
+    per-pair FAA on the expert's tail would hand them out; pairs past an
+    expert's capacity are dropped (the bounded ring's RETRY path).  Top-k
+    picks the largest gates, equal gates in index order.  Returns
+    (dispatch (T, k) int32 slot or -1, expert ids (T, k) int32, combine
+    (T, k) float32: the softmax of the top-k gates, 0 where dropped)."""
+    rows = gates.tolist()
+    tail = [0] * gates.shape[1]
+    dispatch, experts, combine = [], [], []
+    for row in rows:
+        order = sorted(range(len(row)), key=lambda e: (-row[e], e))[:k]
+        top = torch.tensor([row[e] for e in order], dtype=gates.dtype)
+        probs = torch.softmax(top.float(), 0).tolist()
+        d, c = [], []
+        for e, pr in zip(order, probs):
+            slot = tail[e]
+            tail[e] += 1
+            ok = slot < capacity
+            d.append(slot if ok else -1)
+            c.append(pr if ok else 0.0)
+        dispatch.append(d)
+        experts.append(order)
+        combine.append(c)
+    return (torch.tensor(dispatch, dtype=torch.int32),
+            torch.tensor(experts, dtype=torch.int32),
+            torch.tensor(combine, dtype=torch.float32))
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap_val=0.0):
+    """Oracle for ``kernels.flash_attn``: plain masked softmax attention
+    over the whole key axis, with the kv heads repeated for GQA.
+    q (B, H, Sq, hd); k/v (B, KV, Sk, hd)."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    rep = h // kvh
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / (hd ** 0.5)
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window:
+        ok = ok & (kpos > qpos - window)
+    s = torch.where(ok, s, -1e30)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v)

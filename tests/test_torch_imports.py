@@ -16,13 +16,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.apps import bfs  # noqa: E402
-from repro_torch.kernels import (frontier_expand, heap_apply,  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
+                                 frontier_expand, heap_apply,
                                  heap_insert_masked, heap_planes,
                                  heap_pop_count, ring_dequeue, wave_compact,
                                  wavefaa)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import init_decode_cache, init_params  # noqa: E402
 from repro_torch.runtime import (HeapEngine, PriorityRoundRunner,  # noqa
                                  RingEngine, RoundRunner, heap_init,
                                  ring_init)
+from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -33,6 +38,9 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import json, sys\n"
             "import repro_torch, repro_torch.apps.bfs, repro_torch.runtime\n"
             "import repro_torch.kernels, repro_torch.interop\n"
+            "import repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.launch.serve, repro_torch.configs\n"
+            "import repro_torch.sched, repro_torch.data, repro_torch.obs\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -83,10 +91,16 @@ def _pstep(acc, keys, vals, valid):
     lambda: heap_init(4),
     lambda: bfs.bfs_queue(bfs.road_like(16)),
     lambda: bfs.bfs_baseline(bfs.road_like(16)),
+    lambda: init_params(get_config("granite-moe-3b-a800m-smoke")),
+    lambda: init_decode_cache(get_config("h2o-danube-1.8b-smoke"), 2, 8),
+    lambda: ServingEngine(get_config("h2o-danube-1.8b-smoke"), {},
+                          EngineConfig()),
+    lambda: serve.main(["--arch", "granite-moe-3b-a800m"]),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
-        "bfs_queue", "bfs_baseline"])
+        "bfs_queue", "bfs_baseline", "init_params", "init_decode_cache",
+        "ServingEngine", "launch.serve"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -115,6 +129,11 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         frontier_expand(torch.zeros(33, dtype=torch.int32, **meta),
                         *lanes[:2], planes[0], max_out=32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        expert_tickets(lanes[0], num_experts=8, capacity=4)
+    q = torch.zeros(1, 2, 64, 32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q)
     # the plain-only heap faces have no kernel: they refuse every tensor
     # off the CPU instead of copying it to the host and back
     size = torch.zeros(1, dtype=torch.int32, **meta)
