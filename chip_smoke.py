@@ -17,24 +17,28 @@ JSON line; any failure raises and exits non-zero with no result line:
               flash_attention) against its plain PyTorch version on the
               card, at the paths' shapes and at the CPU tests' edge cases
               (wrapping counters, width overflow, multi-block waves of
-              1.26 M lanes; heap batches into a full and out of an empty
-              heap at 2^4, 2^6 and 2^20 slots with NOP lanes, duplicate
-              and KEY_INF keys, and the heap path's 1,024-pop / 2,048-
-              insert batches; frontier levels with -1 slots, duplicate
-              neighbours, max_out overflow, and the largest real level of
-              each graph of phase 6; expert tickets for N of 32 to 65,536,
-              8, 40 and 64 experts, -1 lanes, capacities 0, 1, below and
-              above the largest expert count, all pairs on one expert;
-              flash attention on the four configurations of the JAX
-              package's kernel tests in float32, the prefill shape in
-              bfloat16, a gemma2-style window of 4,096 with softcap 50 at
-              S = 8,192, Sq < Sk, hd 80 (h2o-danube-1.8b), and the
-              model's strided layout).  The integer kernels must be
-              bit-exact; flash attention is held against its plain
-              version at the kernel's tiles, element by element (one ulp
-              of the output plus 2^-5 of its rms in bfloat16) and in the
-              Frobenius norm (2^-10 in bfloat16; 1e-5 throughout in
-              float32), as ``FLASH_TOL`` states.
+              1.26 M lanes; wave_compact also at 2^22 and 2^22 - 77 lanes,
+              every case as ten calls queued back to back on one scratch
+              with no synchronise between them; heap batches into a full
+              and out of an empty heap at 2^4, 2^6 and 2^20 slots with NOP
+              lanes, duplicate and KEY_INF keys, and the heap path's
+              1,024-pop / 2,048-insert batches; frontier levels with -1
+              slots, duplicate neighbours, max_out overflow, and the
+              largest real level of each graph of phase 6; expert tickets
+              for N of 32 to 65,536, 8, 40 and 64 experts, -1 lanes,
+              capacities 0, 1, below and above the largest expert count,
+              all pairs on one expert; flash attention on the four
+              configurations of the JAX package's kernel tests in float32
+              and bfloat16, the prefill shape in bfloat16, a gemma2-style
+              window of 4,096 with softcap 50 at S = 8,192, Sq < Sk, hd 80
+              (h2o-danube-1.8b), hd 128 causal with GQA at S = 4,096, Sk
+              not a multiple of the 128-key tile, and the model's strided
+              layout).  The integer kernels must be bit-exact; flash
+              attention is held against its plain version at the tiles
+              of the kernel that runs it (``KERNEL_TILES``), element by
+              element (one ulp of the output plus 2^-5 of its rms in
+              bfloat16) and in the Frobenius norm (2^-10 in bfloat16;
+              1e-5 throughout in float32), as ``FLASH_TOL`` states.
 3. road     — ``bfs_rounds`` on road_like(2048 * 2048) (4,194,304
               vertices) at batch 1024 on the fused engine; dist[v] must be
               row(v) + col(v) everywhere and wavefaa and both ring waves
@@ -74,7 +78,9 @@ JSON line; any failure raises and exits non-zero with no result line:
               function, the least time the card could take (bytes over
               3.35 TB/s, or operations over the card's rate for their
               type), and the wall time per call of back-to-back calls,
-              which includes the host's launch cost.
+              which includes the host's launch cost.  The flash attention
+              row also carries the same times at hd 128 (q (1, 32, 4096,
+              128), kv 8, causal) under ``hd128``.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -363,8 +369,15 @@ class Smoke:
                                   K.wavefaa_plain(m, c))
 
     def compare_compact(self, K, kron_lanes):
+        """Every case as ten calls queued back to back on one stream and
+        one scratch, with no synchronise between them, each held against
+        the plain version: a look-back status word or ticket counter left
+        stale by one call would break the next.  Waves of one tile, ragged
+        tails, the kron wave, 2^22 lanes (512 tiles) and 2^22 - 77."""
         torch = self.torch
-        for n in (256, 1024, 2500, 70000, kron_lanes):
+        for n in (256, 1024, 2500, 70000, kron_lanes, 1 << 22,
+                  (1 << 22) - 77):
+            scratch = K.compact_scratch(n, self.dev)
             for dens in (0.0, 0.003, 0.3, 1.0):
                 m = self.t(self.rng.random(n) < dens)
                 for k in (1, 2):
@@ -372,9 +385,15 @@ class Smoke:
                         self.t(self.rng.integers(1, 1 << 20, n), torch.int32)
                         for _ in range(k))
                     for width in (max(n // 8, 8), n, 1 << 17):
-                        d1, c1 = K.wave_compact(m, planes, width=width)
+                        got = [K.wave_compact(m, planes, width=width,
+                                              scratch=scratch)
+                               for _ in range(10)]
                         d2, c2 = K.compact_planes(m, planes, width=width)
-                        self.same("wave_compact", (*d1, c1), (*d2, c2))
+                        for d1, c1 in got:
+                            self.same("wave_compact", (*d1, c1), (*d2, c2))
+            if int(scratch.abs().sum()):
+                raise AssertionError("wave_compact: the kernel left its "
+                                     "scratch dirty")
 
     def compare_ring(self, K):
         """Random partial waves over several cycles on small rings (dirty
@@ -541,8 +560,9 @@ class Smoke:
         of the JAX package's kernel tests (tests/test_kernels.py) in
         float32 and bfloat16, the prefill shape in bfloat16 (also in the
         model's strided layout), a gemma2-style window of 4,096 with
-        softcap 50 at S = 8,192, Sq < Sk, and hd 80 (h2o-danube-1.8b).
-        Then two wrong results, which the check must reject."""
+        softcap 50 at S = 8,192, Sq < Sk, hd 80 (h2o-danube-1.8b), hd 128
+        causal at S = 4,096, and Sk not a multiple of the key tile.  Then
+        two wrong results, which the check must reject."""
         torch = self.torch
 
         def qkv(b, h, kv, sq, sk, hd, dtype, seed):
@@ -576,6 +596,15 @@ class Smoke:
         # hd 80: h2o-danube-1.8b's heads at a prompt of 2,048
         self.flash_case(K, *qkv(1, 32, 8, 2048, 2048, 80, torch.bfloat16,
                                 14))
+        # hd 128, causal, GQA 32/8 at S = 4,096 (the wgmma kernel's other
+        # width); Sk not a multiple of the 128-key tile, causal with Sq <
+        # Sk at hd 64 and with softcap at hd 128
+        self.flash_case(K, *qkv(1, 32, 8, 4096, 4096, 128, torch.bfloat16,
+                                15))
+        self.flash_case(K, *qkv(1, 8, 2, 1024, 1100, 64, torch.bfloat16,
+                                16))
+        self.flash_case(K, *qkv(1, 8, 2, 1024, 1000, 128, torch.bfloat16,
+                                17), causal=False, softcap_val=50.0)
 
         # the check must reject a wrong kernel: the window's edge one key
         # short, and one key tile left out of P V (its v zeroed)
@@ -1229,10 +1258,11 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
     p3 = (torch.as_tensor(rng.integers(0, 1 << 16, n3, dtype=np.int32),
                           device=dev),)
     active3 = int(m3.sum())
+    scratch3 = K.compact_scratch(n3, dev)      # as the engine keeps it
     row("wave_compact", csrc + "compact.cu",
         "src/repro/kernels/compact.py:94",
-        smoke.time_ms(lambda: None,
-                      lambda a, i: K.wave_compact(m3, p3, width=width)),
+        smoke.time_ms(lambda: None, lambda a, i: K.wave_compact(
+            m3, p3, width=width, scratch=scratch3)),
         smoke.time_ms(lambda: None,
                       lambda a, i: K.compact_planes(m3, p3, width=width)),
         smoke.time_ms(lambda: None,
@@ -1374,30 +1404,54 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
     # B7 flash_attention: the q/k/v of the serve prefill's first layer,
     # the model's (B, S, H, hd) bfloat16 activations as (B, H, S, hd)
     # views.  Library: scaled_dot_product_attention with the same causal
-    # mask and GQA, timed here only (the port never calls it).
-    q7, k7, v7, kw7 = seen["flash"][0]
-    b7, h7, s7, hd7 = q7.shape
-    kvh7 = k7.shape[1]
-    pairs7 = s7 * (s7 + 1) // 2          # causal (query, key) pairs
+    # mask and GQA, timed here only (the port never calls it).  The same
+    # timings at hd 128 (q (1, 32, 4096, 128), kv 8, causal) go into the
+    # row's ``hd128``: the wgmma kernel's other width, off the main path.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row("flash_attention", csrc + "flash_attn.cu",
-        "src/repro/kernels/flash_attn.py:38",
-        smoke.time_ms(lambda: None,
-                      lambda a, i: K.flash_attention(q7, k7, v7, **kw7),
-                      iters=20),
-        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_plain(
-            q7, k7, v7, **kw7), iters=5, reps=3),
-        smoke.time_ms(lambda: None, lambda a, i: sdpa(
-            q7, k7, v7, is_causal=True, enable_gqa=True), iters=20),
-        # q and out (B, H, S, hd), k and v (B, KV, S, hd), bfloat16; two
-        # products of 2 * hd flop per causal (query, key) pair and head
-        2 * (2 * b7 * h7 * s7 * hd7 + 2 * b7 * kvh7 * s7 * hd7),
-        4 * b7 * h7 * pairs7 * hd7,
-        {"q": [b7, h7, s7, hd7], "kv_heads": kvh7, "dtype": "bfloat16",
-         "causal": kw7["causal"], "window": kw7["window"],
-         "softcap": kw7["softcap_val"], "tolerance": FLASH_TOL,
+
+    def flash_times(q, k, v, kw):
+        b, h, s, hd = q.shape
+        kvh = k.shape[1]
+        pairs = s * (s + 1) // 2          # causal (query, key) pairs
+        return (smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
+                    q, k, v, **kw), iters=20),
+                smoke.time_ms(lambda: None, lambda a, i:
+                              K.flash_attention_plain(q, k, v, **kw),
+                              iters=5, reps=3),
+                smoke.time_ms(lambda: None, lambda a, i: sdpa(
+                    q, k, v, is_causal=True, enable_gqa=True), iters=20),
+                # q and out (B, H, S, hd), k and v (B, KV, S, hd),
+                # bfloat16; two products of 2 * hd flop per causal
+                # (query, key) pair and head
+                2 * (2 * b * h * s * hd + 2 * b * kvh * s * hd),
+                4 * b * h * pairs * hd)
+
+    q7, k7, v7, kw7 = seen["flash"][0]
+    g8 = torch.Generator(device=dev)
+    g8.manual_seed(18)
+    q8, k8, v8 = ((torch.randn(shape, generator=g8, device=dev) * 0.5)
+                  .to(torch.bfloat16) for shape in
+                  ((1, 32, 4096, 128), (1, 8, 4096, 128), (1, 8, 4096, 128)))
+    kw8 = dict(causal=True, window=0, softcap_val=0.0)
+    k8t, p8t, l8t, by8, op8 = flash_times(q8, k8, v8, kw8)
+    b8, b8_by = bound(by8, op8, BF16_TC_FLOP_PER_S)
+    hd128 = {"ms": k8t[0], "plain_ms": p8t[0], "library_ms": l8t[0],
+             "bound_ms": b8, "bound_by": b8_by,
+             "wall_ms": {"kernel": k8t[1], "plain": p8t[1],
+                         "library": l8t[1]},
+             "q": [1, 32, 4096, 128], "kv_heads": 8, "causal": True,
+             "layout": "(B, H, S, hd) contiguous"}
+    kern7, plain7, lib7, bytes7, ops7 = flash_times(q7, k7, v7, kw7)
+    b7, h7, s7, hd7 = q7.shape
+    row("flash_attention", csrc + "flash_wgmma.cu",
+        "src/repro/kernels/flash_attn.py:38", kern7, plain7, lib7,
+        bytes7, ops7,
+        {"q": [b7, h7, s7, hd7], "kv_heads": k7.shape[1],
+         "dtype": "bfloat16", "causal": kw7["causal"],
+         "window": kw7["window"], "softcap": kw7["softcap_val"],
+         "tolerance": FLASH_TOL,
          "bound_used": smoke.bound_used["flash_attention"],
-         "layout": "(B, S, H, hd) strided"},
+         "layout": "(B, S, H, hd) strided", "hd128": hd128},
         rate=BF16_TC_FLOP_PER_S)
     return rows
 

@@ -12,7 +12,8 @@ kernel of the reference.
 
 from . import ref
 from ._build import LAUNCHES, reset_launches
-from .compact import compact_planes, compact_width, wave_compact
+from .compact import (compact_planes, compact_scratch, compact_width,
+                      wave_compact)
 from .flash_attn import flash_attention, flash_attention_plain
 from .frontier import (frontier_expand, frontier_expand_plain,
                        frontier_level, frontier_scratch)
@@ -27,8 +28,8 @@ from .ring_slots import (cycle_lt, deq_planes, enq_planes, ring_dequeue,
 from .wavefaa import LANES, wavefaa, wavefaa_plain
 
 __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
-           "compact_planes", "compact_width", "cycle_lt", "deq_planes",
-           "enq_planes", "expert_tickets", "expert_tickets_plain",
+           "compact_planes", "compact_scratch", "compact_width", "cycle_lt",
+           "deq_planes", "enq_planes", "expert_tickets", "expert_tickets_plain",
            "flash_attention", "flash_attention_plain", "frontier_expand",
            "frontier_expand_plain", "frontier_level", "frontier_scratch",
            "heap_apply", "heap_apply_plain", "heap_insert_masked",

@@ -57,6 +57,8 @@ SIGNATURES = {
     },
     "moe_route": {"repro_expert_tickets": (_P, _P, _P, _I, _I, _I, _P)},
     "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
+    "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 6 + (_F, _F,
+                                                               _P)},
 }
 
 #: kernel launches per wrapper (reset with ``reset_launches``)

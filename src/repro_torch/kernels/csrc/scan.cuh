@@ -1,6 +1,7 @@
-// Block-level ballot scan helpers shared by wavefaa.cu and compact.cu.
+// Block-level ballot scan helpers of wavefaa.cu and frontier.cu
+// (compact.cu ranks in one pass with lookback.cuh instead).
 //
-// Both kernels rank a wave's active lanes in lane order across the whole
+// wavefaa.cu ranks a wave's active lanes in lane order across the whole
 // wave (Lemma III.1's ticket order).  A wave is cut into blocks of
 // blockDim.x lanes, one lane per thread.  Pass 1 counts each block's
 // active lanes; pass 2 gives each block the sum of the counts of the

@@ -10,12 +10,14 @@ output like q.  The numerics are the Pallas body's: the logits are
 is floored at 1e-30.
 
 * ``flash_attention`` — the wrapper.  A CPU tensor goes to
-  ``flash_attention_plain``; a CUDA tensor launches the kernel of
-  ``csrc/flash_attn.cu`` (bfloat16 on the tensor cores, hd 32, 64, 80
-  or 128; or float32, hd 32 or 64) or raises.  The kernel reads every
-  tensor through its strides (unit stride along hd), so the model's
-  (B, S, H, hd) activations pass as transposed views without a copy, and
-  the output takes q's layout.
+  ``flash_attention_plain``; a CUDA tensor launches a kernel or raises.
+  The kernel is chosen by dtype: bfloat16 (hd 32, 64, 80 or 128) runs
+  ``csrc/flash_wgmma.cu`` (wgmma for both products, K/V by TMA into an
+  mbarrier ring, 128-key tiles); float32 (hd 32 or 64, the reference's
+  float32 tests) runs ``csrc/flash_attn.cu`` (scalar FMAs).  The kernels
+  read every tensor through its strides (unit stride along hd), so the
+  model's (B, S, H, hd) activations pass as transposed views without a
+  copy, and the output takes q's layout.
   ``bq``/``bk`` size the plain version's blocks; the kernel's tiles are
   its own (``KERNEL_TILES``).  The plain version at the kernel's tiles
   rescales its running sums at the same keys, so the two differ only by
@@ -35,10 +37,14 @@ from . import _build
 
 DEFAULT_BQ = 512
 DEFAULT_BK = 512
-#: head widths the kernel is built for, by dtype
+#: head widths the kernels are built for, by dtype
 HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 128), torch.float32: (32, 64)}
-#: the kernel's (query rows, keys) per tile, by dtype
-KERNEL_TILES = {torch.bfloat16: (64, 64), torch.float32: (64, 32)}
+#: (query rows, keys) per block at which the plain version matches each
+#: kernel: both rescale their running sums at the same keys.  The wgmma
+#: kernel (bfloat16) walks 128-key tiles with CTAs of 192 query rows at
+#: hd <= 64 and 128 at hd 80 and 128; rows are independent, so the query
+#: block only has to divide Sq.  The scalar kernel (float32): 64 x 32.
+KERNEL_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
 
 
 def _check(q, k, v):
@@ -63,15 +69,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           softcap_val: float = 0.0, bq: int = DEFAULT_BQ,
                           bk: int = DEFAULT_BK):
     """Plain PyTorch flash attention: blocks of ``bq`` query rows and ``bk``
-    keys, an online softmax over the key blocks in float32."""
+    keys, an online softmax over the key blocks in float32.  Sq must be a
+    multiple of ``bq``; the last key block may be short (the kernels weigh
+    the keys past Sk of their last tile exactly 0)."""
     _check(q, k, v)
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     rep = h // kvh
     bq, bk = min(bq, sq), min(bk, sk)
-    if sq % bq or sk % bk:
-        raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} must be "
-                         f"multiples of the blocks {bq}, {bk}")
+    if sq % bq:
+        raise ValueError(f"flash_attention: Sq={sq} is not in multiples "
+                         f"of the query block {bq}")
     scale = _scale(hd)
     dev = q.device
     qg = q.reshape(b, kvh, rep, sq, hd).float()
@@ -88,8 +96,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                              kf[:, :, k0:k0 + bk]) * scale
             if softcap_val:
                 s = softcap_val * torch.tanh(s / softcap_val)
-            kpos = torch.arange(k0, k0 + bk, device=dev)[None, :]
-            ok = torch.ones(bq, bk, dtype=torch.bool, device=dev)
+            kn = min(bk, sk - k0)
+            kpos = torch.arange(k0, k0 + kn, device=dev)[None, :]
+            ok = torch.ones(bq, kn, dtype=torch.bool, device=dev)
             if causal:
                 ok = ok & (kpos <= qpos)
             if window:
@@ -109,11 +118,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it through its strides (unit
-    stride along hd, 16-byte aligned rows), else a contiguous copy."""
+    """``t`` itself when the kernels can read it through its strides, else
+    a copy with the standard (B, H, S, hd) strides.  The wgmma kernel's TMA
+    takes a tensor as (hd, S, H, B) with its strides in bytes: unit stride
+    along hd, the base 16-byte aligned and the three other strides
+    multiples of 16 bytes (8 elements), size-1 dimensions included."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
           and all(s % 8 == 0 for s in t.stride()[:3]))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -150,8 +162,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                               int(window), int(q.dtype == torch.bfloat16))
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = _build.library("flash_attn")
-    _build.check(lib.repro_flash_attention(
+    if q.dtype == torch.bfloat16:
+        launch = _build.library("flash_wgmma").repro_flash_attention_wgmma
+    else:
+        launch = _build.library("flash_attn").repro_flash_attention
+    _build.check(launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dims,
         strides, ctypes.c_float(_scale(hd)),
         ctypes.c_float(float(softcap_val)), _build.stream_of(q)),

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..kernels._build import resolve_device
-from ..kernels.compact import compact_width, wave_compact
+from ..kernels.compact import (compact_scratch, compact_scratch_words,
+                               compact_width, wave_compact)
 from ..kernels.heap_batch import (KEY_INF as HEAP_KEY_INF, OP_DELMIN,
                                   OP_INSERT, OP_NOP, heap_apply)
 from ..kernels.ring_slots import ring_dequeue, ring_enqueue
@@ -126,6 +127,17 @@ def _pad_lanes(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _compact(engine, mask, planes, width):
+    """``wave_compact`` on the engine's own look-back scratch, allocated at
+    its first compacting round (the kernel leaves it zero every call)."""
+    scratch = engine._compact_scratch
+    if scratch is None or scratch.numel() < compact_scratch_words(
+            mask.shape[0]):
+        scratch = engine._compact_scratch = compact_scratch(mask.shape[0],
+                                                            mask.device)
+    return wave_compact(mask, planes, width=width, scratch=scratch)
+
+
 class RingEngine(EngineCore):
     """The FIFO megaround configuration: ring planes + device head/tail
     under the core's predicated chunks.  Same contract as the legacy
@@ -150,6 +162,7 @@ class RingEngine(EngineCore):
         self.device = resolve_device(device)
         self._lane = torch.arange(batch, dtype=torch.int32,
                                   device=self.device)
+        self._compact_scratch = None
         self._reset()
         nslots = 2 << capacity_log2
         self.registry.register("ring", (_sds((nslots,)),) * 4
@@ -184,7 +197,7 @@ class RingEngine(EngineCore):
         else:
             # the dense wave IS the children in ballot rank order, so the
             # tickets are the contiguous run tail + [0, n_child)
-            (cv,), n_child = wave_compact(cm, (cv,), width=wdth)
+            (cv,), n_child = _compact(self, cm, (cv,), wdth)
             over = (tail + n_child - head) > capacity
             lane_w = torch.arange(wdth, dtype=torch.int32, device=cv.device)
             etickets = torch.where((lane_w < n_child) & ~over,
@@ -269,6 +282,7 @@ class HeapEngine(EngineCore):
         self.device = resolve_device(device)
         i32 = dict(dtype=torch.int32, device=self.device)
         self._lane = torch.arange(batch, **i32)
+        self._compact_scratch = None
         self._pad = torch.full((batch,), HEAP_KEY_INF, **i32)
         self._reset()
         cap = self.capacity
@@ -305,7 +319,7 @@ class HeapEngine(EngineCore):
             over = size + n_child > capacity
             ins_ops = torch.where(cm & ~over, OP_INSERT, OP_NOP).int()
         else:
-            (ckf, cvf), n_child = wave_compact(cm, (ckf, cvf), width=wdth)
+            (ckf, cvf), n_child = _compact(self, cm, (ckf, cvf), wdth)
             over = size + n_child > capacity
             lane_w = torch.arange(wdth, dtype=torch.int32,
                                   device=ckf.device)

@@ -28,6 +28,8 @@ from repro.kernels.flash_attn import flash_attention as jflash  # noqa: E402
 from repro.models.layers import _flash_core  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_plain, ref)
+from repro_torch.kernels.flash_attn import (KERNEL_TILES,  # noqa: E402
+                                            _kernel_view)
 
 CONFIGS = [
     dict(b=1, h=4, kv=2, sq=512, sk=512, hd=64, causal=True, win=0, cap=0.0),
@@ -36,6 +38,11 @@ CONFIGS = [
     dict(b=1, h=4, kv=4, sq=512, sk=1024, hd=32, causal=True, win=0,
          cap=50.0),
     dict(b=1, h=2, kv=2, sq=512, sk=512, hd=64, causal=False, win=0, cap=0.0),
+    # the kernel's other widths at small sizes: hd 128 (gemma2-27b,
+    # yi-34b, deepseek-moe) and hd 80 (h2o-danube-1.8b)
+    dict(b=1, h=4, kv=2, sq=256, sk=256, hd=128, causal=True, win=0, cap=0.0),
+    dict(b=1, h=4, kv=2, sq=256, sk=512, hd=80, causal=True, win=96,
+         cap=30.0),
 ]
 
 
@@ -131,3 +138,84 @@ def test_rejects_bad_shapes():
         flash_attention_plain(torch.zeros(1, 2, 96, 32),
                               torch.zeros(1, 2, 96, 32),
                               torch.zeros(1, 2, 96, 32), bq=64, bk=64)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=range(len(CONFIGS)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_at_kernel_tiles_matches_pallas_and_oracle(cfg, dtype):
+    """The plain version at the tiles of the kernel that runs this dtype
+    on the card (``KERNEL_TILES``: 128 x 128 for the wgmma kernel in
+    bfloat16, 64 x 32 in float32), which is what the card's check holds
+    the kernel against: within 1e-5 of the Pallas kernel and the oracle
+    in float32, 8e-3 of the Pallas kernel in bfloat16."""
+    q, k, v = _inputs(cfg, scale=0.3 if dtype == "float32" else 0.6)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    jin = [jnp.asarray(t.float().numpy(), getattr(jnp, dtype))
+           for t in (tq, tk, tv)]
+    bq, bk = KERNEL_TILES[tdt]
+    got = flash_attention_plain(tq, tk, tv, bq=bq, bk=bk, **_kw(cfg))
+    assert got.dtype == tdt
+    want = np.asarray(jflash(*jin, bq=256, bk=256, **_kw(cfg))
+                      .astype(jnp.float32))
+    tol = 1e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
+    if dtype == "float32":
+        oracle = np.asarray(jref.flash_attention_ref(*jin, **_kw(cfg)))
+        np.testing.assert_allclose(got.numpy(), oracle, atol=1e-5, rtol=0)
+
+
+def test_kernel_tiles():
+    """The plain version rescales at the wgmma kernel's 128-key tiles in
+    bfloat16 and at the scalar kernel's 32-key tiles in float32."""
+    assert KERNEL_TILES[torch.bfloat16] == (128, 128)
+    assert KERNEL_TILES[torch.float32] == (64, 32)
+
+
+@pytest.mark.parametrize("sk,causal,win", [(1000, False, 0), (700, True, 0),
+                                            (1000, True, 300)])
+def test_plain_ragged_last_key_block_matches_oracle(sk, causal, win):
+    """Sk that is not a multiple of the key block: the plain version's last
+    block is short, as the kernels weigh the keys past Sk 0."""
+    cfg = dict(b=1, h=4, kv=2, sq=512, sk=sk, hd=64, causal=causal, win=win,
+               cap=0.0)
+    q, k, v = _inputs(cfg)
+    oracle = np.asarray(jref.flash_attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v)), **_kw(cfg)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = flash_attention_plain(tq, tk, tv, bq=128, bk=128, **_kw(cfg))
+    np.testing.assert_allclose(got.numpy(), oracle, atol=1e-5, rtol=0)
+
+
+def _model_layout(b, s, h, hd, dtype=torch.bfloat16):
+    """A (B, S, H, hd) activation seen as (B, H, S, hd), as the model
+    hands it to the kernel."""
+    return torch.randn(b, s, h, hd).to(dtype).transpose(1, 2)
+
+
+def test_kernel_view_keeps_aligned_strided_views():
+    """The model's strided view (strides multiples of 16 bytes, base
+    16-byte aligned) goes to the kernel as it is, without a copy."""
+    for hd in (64, 128, 80, 32):
+        t = _model_layout(2, 64, 3, hd)
+        assert not t.is_contiguous()
+        out = _kernel_view(t)
+        assert out.data_ptr() == t.data_ptr()
+        assert out.stride() == t.stride()
+
+
+def test_kernel_view_copies_what_tma_refuses():
+    """A base that is not 16-byte aligned, a stride that is not a multiple
+    of 16 bytes, or a size-1 dimension with such a stride is copied into
+    the standard (B, H, S, hd) strides with the same values."""
+    flat = torch.randn(1 + 2 * 4 * 32 * 64).to(torch.bfloat16)
+    shifted = flat[1:].view(2, 4, 32, 64)               # base + 2 bytes
+    padded = torch.randn(2, 4, 32, 68).to(torch.bfloat16)[..., :64]
+    odd = torch.randn(4 * 32 * 64).to(torch.bfloat16).as_strided(
+        (1, 4, 32, 64), (3, 2048, 64, 1))               # size-1 dim
+    for t in (shifted, padded, odd):
+        out = _kernel_view(t)
+        assert out.data_ptr() != t.data_ptr()
+        assert out.stride() == (4 * 32 * 64, 32 * 64, 64, 1)
+        assert out.data_ptr() % 16 == 0
+        torch.testing.assert_close(out, t, atol=0, rtol=0)

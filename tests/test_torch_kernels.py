@@ -17,8 +17,8 @@ from repro.kernels import compact as jcompact  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ring_slots as jring  # noqa: E402
 from repro.kernels.wavefaa import wavefaa as jwavefaa  # noqa: E402
-from repro_torch.kernels import (compact_planes, compact_width,  # noqa: E402
-                                 deq_planes, enq_planes, ref, ring_dequeue,
+from repro_torch.kernels import (compact_planes, compact_scratch,  # noqa: E402
+                                 compact_width, deq_planes, enq_planes, ref, ring_dequeue,
                                  ring_enqueue, wave_compact, wavefaa)
 
 BOT = (1 << 31) - 1
@@ -255,6 +255,40 @@ def test_compact_pallas_multiblock():
     dense, count = compact_planes(_t(mask), (_t(plane),), width=width)
     _same(dense, want[0])
     assert int(count) == int(want[1])
+
+
+@pytest.mark.parametrize("density", [0.01, 0.3])
+def test_compact_kron_wave_width_below_popcount(density):
+    """The kron path's 1.26 M-lane child wave (1,024 x the graph's largest
+    fan-out) compacted to a width below its popcount: the dense prefix,
+    the dropped ranks and the TRUE count, against the reference twin."""
+    n = 1024 * 1233
+    rng = np.random.default_rng(int(density * 100))
+    mask = rng.random(n) < density
+    planes = [rng.integers(1, 1 << 20, n).astype(np.int32) for _ in range(2)]
+    width = int(mask.sum()) // 3
+    want = jcompact.compact_planes(jnp.asarray(mask.astype(np.int32)),
+                                   tuple(map(jnp.asarray, planes)),
+                                   width=width)
+    dense, count = compact_planes(_t(mask), tuple(map(_t, planes)),
+                                  width=width)
+    _same(dense, want[0])
+    assert int(count) == int(want[1]) == int(mask.sum()) > width
+
+
+def test_compact_scratch_and_cpu_face():
+    """The kernel's scratch is 4 words and one 64-bit status word per
+    8,192-lane tile, all zero; the CPU face takes it and ignores it."""
+    for n, words in ((1, 6), (8192, 6), (8193, 8), (1 << 22, 4 + 2 * 512)):
+        sc = compact_scratch(n, "cpu")
+        assert sc.dtype == torch.int32 and sc.shape == (words,)
+        assert int(sc.abs().sum()) == 0
+    mask = _t(np.array([0, 1, 1, 0, 1], np.int32))
+    plane = _t(np.arange(5, dtype=np.int32) + 10)
+    dense, count = wave_compact(mask, (plane,), width=4,
+                                scratch=compact_scratch(5, "cpu"))
+    _same(dense, ([11, 12, 14, 0],))
+    assert int(count) == 3
 
 
 @pytest.mark.parametrize("args", [(100, 64, False), (0, 64, None),
