@@ -19,12 +19,18 @@ JSON line; any failure raises and exits non-zero with no result line:
               (wrapping counters, width overflow, multi-block waves of
               1.26 M lanes; wave_compact also at 2^22 and 2^22 - 77 lanes,
               every case as ten calls queued back to back on one scratch
-              with no synchronise between them; heap batches into a full
-              and out of an empty heap at 2^4, 2^6 and 2^20 slots with NOP
-              lanes, duplicate and KEY_INF keys, and the heap path's
-              1,024-pop / 2,048-insert batches; frontier levels with -1
-              slots, duplicate neighbours, max_out overflow, and the
-              largest real level of each graph of phase 6; expert tickets
+              with no synchronise between them; heap batches, ten calls
+              queued back to back per case, into a full and out of an
+              empty heap at 2^4, 2^6, 2^15 and 2^20 slots with NOP lanes,
+              duplicate and KEY_INF keys, heaps just below, at and just
+              above the kernel's shared-memory top, pops and inserts
+              whose paths cross it, and the heap path's 1,024-pop /
+              2,048-insert batches; frontier levels, ten calls queued back
+              to back per case on one scratch and two kept output buffers,
+              with -1 slots, duplicate neighbours, no edges, max_out
+              overflow, and consecutive real levels of each graph of
+              phase 6 (its busiest, its median, an overflowing hub level),
+              edge counts included; expert tickets
               for N of 32 to 65,536, 8, 40 and 64 experts, -1 lanes,
               capacities 0, 1, below and above the largest expert count,
               all pairs on one expert; flash attention on the four
@@ -68,8 +74,9 @@ JSON line; any failure raises and exits non-zero with no result line:
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
               row + col, kron dist must equal a vectorised numpy level
-              sweep, the two must agree, and frontier_expand must launch
-              once per level.
+              sweep, the two must agree, frontier_expand must launch
+              once per level and bfs_queue read back one int per level
+              (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6 and 8),
               exactness or max error, its device time per call at its
               path's shape (CUDA events around calls queued behind a
@@ -78,9 +85,14 @@ JSON line; any failure raises and exits non-zero with no result line:
               function, the least time the card could take (bytes over
               3.35 TB/s, or operations over the card's rate for their
               type), and the wall time per call of back-to-back calls,
-              which includes the host's launch cost.  The flash attention
-              row also carries the same times at hd 128 (q (1, 32, 4096,
-              128), kv 8, causal) under ``hd128``.
+              which includes the host's launch cost, and what the paths
+              lose to it beyond its bound (launches x (time - bound)).
+              heap_apply is timed as a pop call and an insert call, each
+              also against a dependent-chain bound; frontier_expand at the
+              busiest level of kron 2^20 and at the busiest and the median
+              level of road.  The flash attention row also carries the
+              same times at hd 128 (q (1, 32, 4096, 128), kv 8, causal)
+              under ``hd128``.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -123,12 +135,17 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12        # H100 SXM non-tensor-core fp32 rate
 BF16_TC_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate, data sheet
 GPU_CYCLES_PER_S = 1.98e9    # H100 SXM boost clock: sizes the timing backlog
+SMEM_LATENCY_CYCLES = 30     # shared-memory load, Luo et al. 2024 (Hopper)
+L2_LATENCY_CYCLES = 260      # L2 hit, the same microbenchmarks
 BATCH = 1024
 ROAD_SIDE = 2048
 KRON_N = 65536
 IDX_BOT = 2 ** 31 - 1
 KEY_INF = 2 ** 31 - 1
 HEAP_CAP_LOG2 = 20       # the priority path's heap: 2^20 slots
+# nodes of the heap kernel's shared-memory top by arity_log2 (whole levels:
+# kResidentMax in csrc/heap_batch.cu)
+HEAP_R_MAX = {1: 16383, 2: 21845}
 HEAP_SEEDS = 65536
 HEAP_HORIZON = 26        # children only below this key
 HEAP_SPAWN = 10          # a child is offered with probability 10/16
@@ -452,74 +469,166 @@ class Smoke:
         vals = self.rng.integers(0, 1 << 30, b)
         return [self.t(x.astype(np.int32)) for x in (ops, keys, vals)]
 
+    def heap_calls(self, K, state, batches, c, arity):
+        """``batches`` applied as calls queued back to back on the card
+        (no synchronise between them, the size flowing from call to call
+        as a device tensor) and one at a time on the plain version's
+        planes; every call's outputs and the planes after the last are
+        held against each other.  ``state`` is [kernel planes, plain
+        planes, kernel size, plain size], updated."""
+        kern, plain, sk, sp = state
+        got = []
+        for ops, keys, vals in batches:
+            out = K.heap_apply(*kern, sk, ops, keys, vals, cap_log2=c,
+                               arity_log2=arity)
+            sk = out[2]
+            got.append(out[2:])
+        for (ops, keys, vals), g in zip(batches, got):
+            want = K.heap_apply_plain(*plain, sp, ops, keys, vals,
+                                      cap_log2=c, arity_log2=arity)
+            sp = want[2]
+            self.same("heap_apply", g, want[2:])
+        self.same("heap_apply", kern, plain)
+        state[2:] = [sk, sp]
+
+    def pop_batch(self, b):
+        return [self.t(self.np.full(b, x, self.np.int32))
+                for x in (1, KEY_INF, -1)]
+
     def compare_heap(self, K):
-        """Heap batches on both faces from the same state: at 2^4 and 2^6
-        slots, batches that fill the heap past full and drain it past
-        empty; at 2^20 slots, a 131,072-insert seed and the priority
+        """Heap cases on both faces from the same state, ten calls per
+        case queued back to back.  At 2^4 and 2^6 slots: batches that fill
+        the heap past full and drain it past empty.  At 2^15 slots, above
+        the kernel's shared-memory top (R_MAX nodes, whole levels): heaps
+        seeded just below, at and just above R_MAX; pop batches whose last
+        leaves lie in the kernel's tail window and ones (3,000 pops) that
+        run past it; insert batches of 5,000 keys below every key held,
+        whose holes start past the window and rise into the top; mixed
+        batches with NOP lanes; a batch that fills the heap and one that
+        empties it.  At 2^20 slots: a 131,072-insert seed and the priority
         path's batches (1,024 pops, then 2,048 insert lanes)."""
         np, torch = self.np, self.torch
         card = dict(dtype=torch.int32, device=self.dev)
         for arity in (1, 2):
-            for c in (4, 6, HEAP_CAP_LOG2):
-                cap = 1 << c
-                kern = [torch.full((cap,), KEY_INF, **card),
-                        torch.full((cap,), -1, **card)]
-                plain = [p.clone() for p in kern]
-                sk = sp = torch.zeros((), **card)
-                if c < HEAP_CAP_LOG2:
-                    nb = 2 * cap // 16 + 2
-                    batches = [self.heap_batch(16, share) for share in
-                               [0.9] * nb + [0.1] * nb + [0.5] * 4]
-                else:
-                    batches = [self.heap_batch(1 << 17, 1.0, 0, 16)]
-                    for _ in range(3):
-                        pops = [self.t(np.full(BATCH, x, np.int32))
-                                for x in (1, KEY_INF, -1)]
-                        batches += [pops, self.heap_batch(2 * BATCH, 0.6,
-                                                          0, 30)]
-                for ops, keys, vals in batches:
-                    got = K.heap_apply(*kern, sk, ops, keys, vals,
-                                       cap_log2=c, arity_log2=arity)
-                    want = K.heap_apply_plain(*plain, sp, ops, keys, vals,
-                                              cap_log2=c,
-                                              arity_log2=arity)
-                    self.same("heap_apply", got, want)
-                    sk, sp = got[2], want[2]
+            def fresh(c):
+                kern = [torch.full((1 << c,), KEY_INF, **card),
+                        torch.full((1 << c,), -1, **card)]
+                return [kern, [p.clone() for p in kern],
+                        torch.zeros((), **card), torch.zeros((), **card)]
+            for c in (4, 6):
+                st = fresh(c)
+                nb = 2 * (1 << c) // 16 + 2
+                batches = [self.heap_batch(16, share) for share in
+                           [0.9] * nb + [0.1] * nb + [0.5] * 4]
+                for i in range(0, len(batches), 10):
+                    self.heap_calls(K, st, batches[i:i + 10], c, arity)
+            r_max = HEAP_R_MAX[arity]
+            for seed in (r_max - 3, r_max, r_max + 5):
+                st = fresh(15)
+                self.heap_calls(K, st, [self.heap_batch(seed, 1.0, 0, 60)],
+                                15, arity)
+                self.heap_calls(K, st, [self.pop_batch(64)] * 10, 15, arity)
+                self.heap_calls(
+                    K, st, [self.heap_batch(64, 1.0, 0, 60)] * 5
+                    + [self.heap_batch(64, 0.5, 0, 60) for _ in range(5)],
+                    15, arity)
+                self.heap_calls(K, st, [self.heap_batch(5000, 1.0, -90, -30)]
+                                + [self.pop_batch(3000)]
+                                + [self.heap_batch(2048, 0.6, -40, 60)
+                                   for _ in range(8)], 15, arity)
+            st = fresh(15)
+            self.heap_calls(K, st, [self.heap_batch(35000, 0.99, -5, 200),
+                                    self.heap_batch(64, 0.5),
+                                    self.pop_batch(35000)]
+                            + [self.heap_batch(256, 0.7) for _ in range(7)],
+                            15, arity)
+            st = fresh(HEAP_CAP_LOG2)
+            batches = [self.heap_batch(1 << 17, 1.0, 0, 16)]
+            for _ in range(3):
+                batches += [self.pop_batch(BATCH),
+                            self.heap_batch(2 * BATCH, 0.6, 0, 30)]
+            self.heap_calls(K, st, batches + batches[1:3], HEAP_CAP_LOG2,
+                            arity)
 
-    def frontier_case(self, K, rp, col, frontier, visited, max_out):
-        kw = dict(max_out=max_out)
-        got = K.frontier_expand(rp, col, frontier, visited.clone(), **kw)
-        want = K.frontier_expand_plain(rp, col, frontier, visited.clone(),
-                                       **kw)
-        self.same("frontier_expand", got, want)
+    def frontier_calls(self, K, rp, col, n, levels, max_out):
+        """``levels`` (frontier, visited) as ``frontier_level`` calls queued
+        back to back on one scratch and two kept output buffers, used in
+        turn as ``bfs_queue`` does, with no synchronise between them; then
+        the plain version on its own two buffers.  Every call's next
+        frontier, count, visited map and edge count are held against each
+        other, and so are the buffers after the last call; the scratch
+        must be left as it was, but for the word that keeps the last
+        level's edge count (``FrontierState.edges``, word 4 of the state
+        after the (n,) plane)."""
+        t, torch = self.t, self.torch
+        scratch = K.frontier_scratch(n, self.dev,
+                                     max_frontier=max(len(f) for f, _ in
+                                                      levels))
+        before = scratch.clone()
+        bufs = [K.frontier_buffer(max_out, self.dev) for _ in range(2)]
+        pbufs = [b.clone() for b in bufs]
+        got = []
+        for i, (f, vis) in enumerate(levels):
+            out = K.frontier_level(rp, col, t(f), t(vis.copy()),
+                                   max_out=max_out,
+                                   scratch=scratch, out=bufs[i % 2])
+            got.append(tuple(x.clone() for x in out))
+        for i, (f, vis) in enumerate(levels):
+            want = K.frontier_level_plain(rp, col, t(f), t(vis.copy()),
+                                          max_out=max_out, out=pbufs[i % 2])
+            self.same("frontier_expand", got[i], want)
+        self.same("frontier_expand", bufs, pbufs)
+        edges_word = n + (n & 1) + 4
+        before[edges_word] = scratch[edges_word]
+        if not torch.equal(scratch, before):
+            raise AssertionError("frontier_expand: the kernel left its "
+                                 "scratch changed")
 
     def compare_frontier(self, K, graphs):
         """Synthetic levels (-1 slots inside the frontier, repeated
         frontier vertices, duplicate neighbours, max_out overflow, the CPU
-        tests' overflow case) and the level with the most edges of each
-        graph in ``graphs`` (name -> (graph, dist))."""
+        tests' overflow case, levels with no edges) and real levels of
+        each graph in ``graphs`` (name -> (graph, dist)): ten consecutive
+        levels from the one with the most edges and from the one with the
+        median edge count, the first ten levels, and the busiest
+        levels again into a max_out of 1,000 (overflow); on a graph of
+        fewer than ten levels every level.  Ten calls (or fewer for a
+        case of fewer levels) queued per case."""
         np = self.np
         t = self.t
-        self.frontier_case(K, t(np.array([0, 3, 6, 6, 8, 8, 8, 8, 8],
-                                         np.int32)),
-                           t(np.array([4, 5, 6, 5, 7, 1, 2, 3], np.int32)),
-                           t(np.array([0, -1, 1, 3, -1, -1, -1, -1],
-                                      np.int32)),
-                           t(np.array([1, 1, 0, 1, 0, 0, 0, 0], np.int32)),
-                           3)
+        self.frontier_calls(
+            K, t(np.array([0, 3, 6, 6, 8, 8, 8, 8, 8], np.int32)),
+            t(np.array([4, 5, 6, 5, 7, 1, 2, 3], np.int32)), 8,
+            [(np.array([0, -1, 1, 3, -1, -1, -1, -1], np.int32),
+              np.array([1, 1, 0, 1, 0, 0, 0, 0], np.int32)),
+             (np.array([-1, 2, 4, -1], np.int32),       # no edges
+              np.array([1, 1, 1, 1, 1, 1, 1, 1], np.int32))] * 5, 3)
         for n, deg, fl in ((64, 5, 12), (5000, 7, 3000), (70000, 3, 40000)):
             col = self.rng.integers(0, n, n * deg).astype(np.int32)
             rp = np.arange(0, n * deg + 1, deg, dtype=np.int32)
             for max_out in (n, 257, 1):
-                f = self.rng.integers(0, n, fl).astype(np.int32)
-                f[self.rng.random(fl) < 0.25] = -1
-                vis = (self.rng.random(n) < 0.3).astype(np.int32)
-                self.frontier_case(K, t(rp), t(col), t(f), t(vis), max_out)
+                levels = []
+                for _ in range(10):
+                    f = self.rng.integers(0, n, fl).astype(np.int32)
+                    f[self.rng.random(fl) < 0.25] = -1
+                    vis = (self.rng.random(n) < 0.3).astype(np.int32)
+                    levels.append((f, vis))
+                self.frontier_calls(K, t(rp), t(col), n, levels, max_out)
         for g, dist in graphs.values():
-            level = busiest_level(np, g, dist)
-            f, vis = level_input(np, dist, level)
-            self.frontier_case(K, t(g.row_ptr), t(g.col_idx), t(f), t(vis),
-                               max(g.n, 16))
+            rp, col = t(g.row_ptr), t(g.col_idx)
+            deg = np.diff(g.row_ptr).astype(np.int64)
+            reached = dist >= 0
+            edges = np.bincount(dist[reached], weights=deg[reached])
+            top = int(dist.max())
+            busiest = int(np.argmax(edges))
+            median = int(np.argsort(edges)[len(edges) // 2])
+            for first, cases, max_out in (
+                    (busiest, 10, max(g.n, 16)), (median, 10, max(g.n, 16)),
+                    (0, top + 1, max(g.n, 16)), (busiest, 3, 1000)):
+                lo = max(0, min(first - cases // 2, top + 1 - cases))
+                levels = [level_input(np, dist, lvl) for lvl in
+                          range(lo, min(lo + min(cases, 10), top + 1))]
+                self.frontier_calls(K, rp, col, g.n, levels, max_out)
 
     def tickets_case(self, K, ids, e, cap):
         kw = dict(num_experts=e, capacity=cap)
@@ -796,13 +905,20 @@ class Smoke:
                 torch.cuda.synchronize()
             times = device_times(prof)
             busy = sum(times.values()) / 1e6
+            reads = readbacks(prof)
             info[fn.__name__] = dict(
                 st, run_s=wall, launches=launches, device_busy_s=busy,
+                readbacks=reads, readbacks_per_level=reads / st["levels"],
                 idle_share=1 - busy / wall,
                 profile_s=time.perf_counter() - t0,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 top_device_ms=top_ms(times, 4))
             if fn is bfs.bfs_queue:
+                # a fresh count per level, then the edge total and dist
+                if reads > st["levels"] + 2:
+                    raise AssertionError(f"{label}: bfs_queue read back "
+                                         f"{reads} times in {st['levels']} "
+                                         f"levels")
                 if launches["frontier_expand"] != st["levels"]:
                     raise AssertionError(f"{label}: frontier_expand "
                                          f"launches != levels")
@@ -1007,6 +1123,14 @@ def device_times(prof) -> dict:
     return out
 
 
+def readbacks(prof) -> int:
+    """Copies from the card to the host that a profiler recorded."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and e.name().startswith("Memcpy DtoH"))
+
+
 def top_ms(times: dict, k: int) -> dict:
     """The ``k`` names with the most device time, in milliseconds."""
     top = sorted(times.items(), key=lambda kv: kv[1], reverse=True)[:k]
@@ -1113,7 +1237,8 @@ def main() -> int:
 
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
-                                 (qkron, qkron_dist), seen)})
+                                 (qkron, qkron_dist), seen, road,
+                                 road_dist)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1125,7 +1250,8 @@ def main() -> int:
     return 0
 
 
-def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
+def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
+                road_dist):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -1144,9 +1270,11 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
         return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
     def row(name, source, replaces, kern, plain, lib, nbytes, ops, shape,
-            rate=ALU_OPS_PER_S):
+            rate=ALU_OPS_PER_S, excess=None):
         """``kern``/``plain``/``lib`` are (device_ms, wall_ms) pairs; ops
-        are counted against ``rate``."""
+        are counted against ``rate``.  ``excess``: what the paths lose to
+        the kernel beyond its bound, where each path's own shape gives it
+        (else launches x (ms - bound_ms))."""
         b, by = bound(nbytes, ops, rate)
         by_path = {k: p.get(name, 0) for k, p in smoke.launches.items()}
         rows.append({
@@ -1154,6 +1282,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "excess_ms": (sum(by_path.values()) * (kern[0] - b)
+                          if excess is None else excess),
             "exact": smoke.err[name] == 0 and name != "flash_attention",
             "max_abs_err": smoke.err[name],
             "ms": kern[0], "plain_ms": plain[0], "bound_ms": b,
@@ -1273,10 +1403,11 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
         {"lanes": n3, "active": active3, "width": width, "mask": "bool"})
 
     # B4 heap_apply: the priority path's batches on its 2^20-slot heap
-    # holding half the run's peak occupancy; even calls pop 1,024, odd
-    # calls insert 2,048 lanes at the run's child density.  The plain
-    # version is a host loop over the planes copied off the card, so its
-    # time is wall time.  No single PyTorch call maintains a heap.
+    # holding half the run's peak occupancy: pop calls of 1,024 and insert
+    # calls of 2,048 lanes at the run's child density, each timed on its
+    # own (the row's ms is their mean).  The plain version is a host loop
+    # over the planes copied off the card, so its time is wall time.  No
+    # single PyTorch call maintains a heap.
     hf = heap["fused"]
     c4, occ = HEAP_CAP_LOG2, hf["max_occupancy"] // 2
     card = dict(dtype=torch.int32, device=dev)
@@ -1299,79 +1430,128 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen):
     n_act4 = int(act4.sum())
 
     def heap_setup():
-        return [heap_k.clone(), heap_v.clone(),
-                torch.tensor(occ, **card)]
+        return [heap_k.clone(), heap_v.clone(), torch.tensor(occ, **card)]
 
-    def heap_call(fn):
+    def heap_call(fn, batch):
         def launch(st, i):
-            st[2] = fn(st[0], st[1], st[2], *(pops if i % 2 == 0
-                                              else inserts),
-                       cap_log2=c4)[2]
+            st[2] = fn(st[0], st[1], st[2], *batch, cap_log2=c4)[2]
         return launch
 
-    plain4 = smoke.time_ms(heap_setup, heap_call(K.heap_apply_plain),
-                           iters=4, reps=2)
-    depth4 = max(int(np.ceil(np.log(occ) / np.log(4))), 1)
+    # levels of a heap of `occ` nodes, those in the kernel's shared-memory
+    # top, and those left in the global planes (L2-resident at 8 MB)
+    levels4 = max(int(np.ceil(np.log(3 * occ + 1) / np.log(4))), 1)
+    top4 = int(round(np.log(3 * HEAP_R_MAX[2] + 1) / np.log(4)))
+    l2_levels4 = max(levels4 - top4, 0)
+    # bytes (see csrc/heap_batch.cu): the opcode of every lane in (4 B),
+    # the key and val of each INSERT lane (8 B), results out (9 B a lane),
+    # the size word each way; a pop reads the root and the last leaf and
+    # scrubs the leaf's slot (24 B) and its leaf sifts down about `levels4`
+    # levels, each reading 4 child keys and the winner's val and writing
+    # one key + val (28 B); an applied insert reads a parent key and writes
+    # its node (12 B).  Compares: 4 children per level on a pop's path.
+    pop_bytes = BATCH * (4 + 9 + 24 + levels4 * 28) + 8
+    ins_bytes = 2 * BATCH * (4 + 9) + n_act4 * (8 + 12) + 8
+    # dependent chain: one serial thread; a pop's level costs at least one
+    # shared-memory round trip in the top and one L2 round trip below it
+    # (latencies from Luo et al., "Benchmarking and Dissecting the Nvidia
+    # Hopper GPU Architecture", 2024: about 30 and 260 cycles at the boost
+    # clock); an applied insert at least one shared-memory round trip for
+    # its parent's key
+    pop_chain_ms = BATCH * (top4 * SMEM_LATENCY_CYCLES
+                            + l2_levels4 * L2_LATENCY_CYCLES) \
+        / GPU_CYCLES_PER_S * 1e3
+    ins_chain_ms = n_act4 * SMEM_LATENCY_CYCLES / GPU_CYCLES_PER_S * 1e3
+    sub4 = {}
+    for name, batch, nbytes, ops, chain in (
+            ("pop", pops, pop_bytes, BATCH * levels4 * 4, pop_chain_ms),
+            ("insert", inserts, ins_bytes, n_act4, ins_chain_ms)):
+        kern = smoke.time_ms(heap_setup, heap_call(K.heap_apply, batch))
+        plain = smoke.time_ms(heap_setup,
+                              heap_call(K.heap_apply_plain, batch),
+                              iters=2, reps=2)
+        b, by = bound(nbytes, ops, ALU_OPS_PER_S)
+        sub4[name] = {"ms": kern[0], "wall_ms": kern[1],
+                      "plain_ms": plain[1], "bound_ms": b, "bound_by": by,
+                      "chain_bound_ms": chain}
     row("heap_apply", csrc + "heap_batch.cu",
         "src/repro/kernels/heap_batch.py:47",
-        smoke.time_ms(heap_setup, heap_call(K.heap_apply)),
-        (plain4[1], plain4[1]), None,
-        # per call, the mean of a pop call and an insert call: the opcode
-        # of every lane in (4 B) and the key and val of each INSERT lane
-        # (8 B), results out (9 B a lane), the size word each way.  A pop
-        # reads the root and the last leaf and scrubs the leaf's slot
-        # (24 B), and the leaf sifts down from the root through about
-        # log_4(size) levels, each reading 4 child keys and the winner's
-        # val and writing one key + val (28 B); an applied insert reads a
-        # parent key and writes its node (12 B).  Compares: 4 children per
-        # level on a pop's path.
-        (BATCH * (4 + 9 + 24 + depth4 * 28) + 2 * BATCH * (4 + 9)
-         + n_act4 * (8 + 12) + 16) / 2, BATCH * depth4 * 4 / 2,
-        {"heap_slots": 1 << c4, "occupancy": occ, "pop_lanes": BATCH,
-         "insert_lanes": 2 * BATCH, "insert_active": n_act4,
-         "plain_ms_is": "wall (host loop)"})
+        ((sub4["pop"]["ms"] + sub4["insert"]["ms"]) / 2,
+         (sub4["pop"]["wall_ms"] + sub4["insert"]["wall_ms"]) / 2),
+        ((sub4["pop"]["plain_ms"] + sub4["insert"]["plain_ms"]) / 2,) * 2,
+        None, (pop_bytes + ins_bytes) / 2,
+        (BATCH * levels4 * 4 + n_act4) / 2,
+        {"heap_slots": 1 << c4, "occupancy": occ, "levels": levels4,
+         "levels_in_shared_memory": top4, "levels_in_l2": l2_levels4,
+         "pop_lanes": BATCH, "insert_lanes": 2 * BATCH,
+         "insert_active": n_act4, "plain_ms_is": "wall (host loop)",
+         "ms_is": "mean of a pop call and an insert call",
+         "pop": sub4["pop"], "insert": sub4["insert"],
+         "chain_bound_ms": (pop_chain_ms + ins_chain_ms) / 2})
 
-    # B5 frontier_expand: the kron 2^20 BFS's level with the most edges,
-    # each call from that level's own visited map.  No single PyTorch
-    # call expands a BFS level in discovery order.
-    g5, dist5 = qkron
-    lvl = busiest_level(np, g5, dist5)
-    f5, vis5 = level_input(np, dist5, lvl)
-    rp5, col5, ft5, vt5 = (torch.as_tensor(x, device=dev) for x in
-                           (g5.row_ptr, g5.col_idx, f5, vis5))
-    max_out5, iters5 = max(g5.n, 16), 20
-    scratch5 = K.frontier_scratch(g5.n, dev)
-    edges5 = int(np.diff(g5.row_ptr)[f5].sum())
-    fresh5 = int((dist5 == lvl + 1).sum())
-    # the distinct row_ptr words (f and f + 1 of each frontier vertex) and
-    # the distinct targets of the level's edges: each is read once at least
-    start5 = g5.row_ptr[f5].astype(np.int64)
-    deg5 = np.diff(g5.row_ptr)[f5].astype(np.int64)
-    eidx5 = (np.repeat(start5 - np.cumsum(deg5) + deg5, deg5)
-             + np.arange(edges5))
-    targets5 = len(np.unique(g5.col_idx[eidx5]))
-    rp_words5 = len(np.union1d(f5, f5 + 1))
+    # B5 frontier_expand: the BFS level with the most edges of the kron
+    # 2^20 graph (the row's ms), and of the road graph and its level with
+    # the median edge count, each call from that level's own visited map
+    # on a kept output buffer and scratch, as bfs_queue runs it.  No single
+    # PyTorch call expands a BFS level in discovery order.
+    def level_times(g, dist, lvl):
+        f, vis = level_input(np, dist, lvl)
+        rp, col, ft, vt = (torch.as_tensor(x, device=dev) for x in
+                           (g.row_ptr, g.col_idx, f, vis))
+        max_out, iters = max(g.n, 16), 20
+        scratch = K.frontier_scratch(g.n, dev)
+        bufs = [K.frontier_buffer(max_out, dev) for _ in range(2)]
+        edges = int(np.diff(g.row_ptr)[f].sum())
+        fresh = int((dist == lvl + 1).sum())
+        # the distinct row_ptr words (f and f + 1 of each frontier vertex)
+        # and the distinct targets of the level's edges: each is read once
+        # at least
+        start = g.row_ptr[f].astype(np.int64)
+        deg = np.diff(g.row_ptr)[f].astype(np.int64)
+        eidx = np.repeat(start - np.cumsum(deg) + deg, deg) + np.arange(edges)
+        targets = len(np.unique(g.col_idx[eidx]))
+        rp_words = len(np.union1d(f, f + 1))
 
-    def fr_setup():
-        return [vt5.clone() for _ in range(iters5)]
+        def setup():
+            return [vt.clone() for _ in range(iters)]
 
-    row("frontier_expand", csrc + "frontier.cu",
-        "src/repro/kernels/frontier.py:25",
-        smoke.time_ms(fr_setup, lambda v, i: K.frontier_expand(
-            rp5, col5, ft5, v[i], max_out=max_out5, scratch=scratch5),
-            iters=iters5),
-        smoke.time_ms(fr_setup, lambda v, i: K.frontier_expand_plain(
-            rp5, col5, ft5, v[i], max_out=max_out5), iters=iters5),
-        None,
+        kern = smoke.time_ms(setup, lambda v, i: K.frontier_expand(
+            rp, col, ft, v[i], max_out=max_out, scratch=scratch,
+            out=bufs[i % 2]), iters=iters)
+        plain = smoke.time_ms(setup, lambda v, i: K.frontier_expand_plain(
+            rp, col, ft, v[i], max_out=max_out), iters=iters)
         # the frontier and its distinct row_ptr words in; per scanned edge
         # its col word; per distinct target its visited word in; per fresh
-        # vertex its visited word out; the whole -1-padded output and the
-        # count out
-        len(f5) * 4 + rp_words5 * 4 + edges5 * 4 + targets5 * 4
-        + fresh5 * 4 + max_out5 * 4 + 4, edges5,
-        {"graph": g5.name, "level": lvl, "frontier": len(f5),
-         "edges": edges5, "targets": targets5, "fresh": fresh5,
-         "max_out": max_out5})
+        # vertex its visited word and its output slot out; the count out
+        nbytes = (len(f) * 4 + rp_words * 4 + edges * 4 + targets * 4
+                  + fresh * 8 + 4)
+        b, by = bound(nbytes, edges, ALU_OPS_PER_S)
+        return kern, plain, nbytes, edges, {
+            "graph": g.name, "level": lvl, "frontier": len(f),
+            "edges": edges, "targets": targets, "fresh": fresh,
+            "max_out": max_out, "ms": kern[0], "wall_ms": kern[1],
+            "plain_ms": plain[0], "bound_ms": b, "bound_by": by}
+
+    g5, dist5 = qkron
+    kern5, plain5, bytes5, edges5, kron5 = level_times(
+        g5, dist5, busiest_level(np, g5, dist5))
+    deg_r = np.diff(road_g.row_ptr).astype(np.int64)
+    edges_r = np.bincount(road_dist, weights=deg_r)
+    road_busy = level_times(road_g, road_dist, int(np.argmax(edges_r)))[4]
+    road_med = level_times(road_g, road_dist,
+                           int(np.argsort(edges_r)[len(edges_r) // 2]))[4]
+    # the queue path's launches at their own shapes: road's levels at its
+    # median level, kron's at its busiest (an upper bound for its six)
+    q = smoke.launches["queue"].get("frontier_expand", 0)
+    levels_r = len(edges_r)
+    by_path5 = {"queue_road": levels_r * (road_med["ms"]
+                                          - road_med["bound_ms"]),
+                "queue_kron": (q - levels_r) * (kron5["ms"]
+                                                - kron5["bound_ms"])}
+    row("frontier_expand", csrc + "frontier.cu",
+        "src/repro/kernels/frontier.py:25", kern5, plain5, None, bytes5,
+        edges5, dict(kron5, road_busiest=road_busy, road_median=road_med,
+                     excess_ms_by_path=by_path5),
+        excess=sum(by_path5.values()))
 
     # B6 expert_tickets: the expert ids of the serve prefill's first MoE
     # layer (2 x 4,096 tokens x top-8 = 65,536 pairs, 40 experts).  The

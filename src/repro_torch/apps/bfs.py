@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..kernels._build import resolve_device
-from ..kernels.frontier import frontier_level, frontier_scratch
+from ..kernels.frontier import (frontier_buffer, frontier_level,
+                                frontier_scratch)
 from ..runtime import RoundRunner
 
 
@@ -171,12 +172,13 @@ def bfs_queue(g: CSRGraph, source: int = 0, *, device="cuda"
     hands the kernel the live prefix ``frontier[:count]`` of the last
     level's output (the reference hands it the whole -1-padded buffer,
     whose -1 slots are skipped, so the result is the same and a level's
-    work follows the frontier, not n).  ``visited`` stays on the device
-    and is updated in place; the host reads two ints per level, the
-    level's edge count (which also sizes the kernel's grid and is summed
-    into ``edges_scanned``) and its fresh count.  Returns (dist as numpy int32,
-    {"levels", "edges_scanned"}) — ``levels`` counts the last, empty
-    expansion, as the reference does."""
+    work follows the frontier, not n).  The two queues are kept output
+    buffers (``frontier_buffer``), filled with -1 once: each level resets
+    only the prefix its buffer held two levels before.  ``visited`` and
+    the scanned-edge total stay on the device; the host reads one int per
+    level, its fresh count, and the edge total once at the end.  Returns
+    (dist as numpy int32, {"levels", "edges_scanned"}) — ``levels`` counts
+    the last, empty expansion, as the reference does."""
     dev = resolve_device(device)
     n = g.n
     row_ptr = torch.from_numpy(g.row_ptr).to(dev)
@@ -185,19 +187,23 @@ def bfs_queue(g: CSRGraph, source: int = 0, *, device="cuda"
     visited[source] = 1
     dist = torch.full((n,), -1, dtype=torch.int32, device=dev)
     dist[source] = 0
+    max_out = max(n, 16)
     scratch = frontier_scratch(n, dev)
+    queues = [frontier_buffer(max_out, dev), frontier_buffer(max_out, dev)]
+    edges = torch.zeros((), dtype=torch.int64, device=dev)
     frontier = torch.tensor([source], dtype=torch.int32, device=dev)
-    level, flen, edges = 0, 1, 0
+    level, flen = 0, 1
     while flen > 0:
         nxt, cnt, visited, scanned = frontier_level(
-            row_ptr, col_idx, frontier, visited, max_out=max(n, 16),
-            scratch=scratch)
-        edges += scanned
+            row_ptr, col_idx, frontier, visited, max_out=max_out,
+            scratch=scratch, out=queues[level % 2])
+        edges += scanned[0]
         flen = int(cnt[0])
         level += 1
         frontier = nxt[:flen]
         dist[frontier.long()] = level
-    return dist.cpu().numpy(), {"levels": level, "edges_scanned": edges}
+    return dist.cpu().numpy(), {"levels": level,
+                                "edges_scanned": int(edges)}
 
 
 def bfs_baseline(g: CSRGraph, source: int = 0, *, device="cuda"

@@ -15,8 +15,9 @@ from ._build import LAUNCHES, reset_launches
 from .compact import (compact_planes, compact_scratch, compact_width,
                       wave_compact)
 from .flash_attn import flash_attention, flash_attention_plain
-from .frontier import (frontier_expand, frontier_expand_plain,
-                       frontier_level, frontier_scratch)
+from .frontier import (frontier_buffer, frontier_expand,
+                       frontier_expand_plain, frontier_level,
+                       frontier_level_plain, frontier_scratch)
 from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP, heap_apply,
                          heap_apply_plain, heap_insert_masked, heap_planes,
                          heap_pop_count)
@@ -30,10 +31,11 @@ from .wavefaa import LANES, wavefaa, wavefaa_plain
 __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "compact_planes", "compact_scratch", "compact_width", "cycle_lt",
            "deq_planes", "enq_planes", "expert_tickets", "expert_tickets_plain",
-           "flash_attention", "flash_attention_plain", "frontier_expand",
-           "frontier_expand_plain", "frontier_level", "frontier_scratch",
-           "heap_apply", "heap_apply_plain", "heap_insert_masked",
-           "heap_planes", "heap_pop_count", "moe_route", "ref",
+           "flash_attention", "flash_attention_plain", "frontier_buffer",
+           "frontier_expand", "frontier_expand_plain", "frontier_level",
+           "frontier_level_plain", "frontier_scratch", "heap_apply",
+           "heap_apply_plain", "heap_insert_masked", "heap_planes",
+           "heap_pop_count", "moe_route", "ref",
            "reset_launches", "ring_dequeue", "ring_dequeue_plain",
            "ring_enqueue", "ring_enqueue_plain", "ticket_cycle",
            "top_k_stable", "wave_compact", "wavefaa", "wavefaa_plain"]

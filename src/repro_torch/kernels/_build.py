@@ -51,10 +51,7 @@ SIGNATURES = {
     },
     "compact": {"repro_wave_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
     "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P)},
-    "frontier": {
-        "repro_frontier_offsets": (_P, _P, _P, _P, _I, _P),
-        "repro_frontier_expand": (_P,) * 9 + (_I, _I, _I, _P),
-    },
+    "frontier": {"repro_frontier_level": (_P,) * 10 + (_I, _I, _I, _P)},
     "moe_route": {"repro_expert_tickets": (_P, _P, _P, _I, _I, _I, _P)},
     "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
     "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 6 + (_F, _F,

@@ -13,36 +13,182 @@
 // the Pallas moving flag drops and never run longer, so the planes agree
 // bit for bit.
 //
-// The ops are serial by definition, so one thread applies them.  The
-// block's other threads stage the op batch into shared memory in chunks
-// (coalesced loads) and write the chunk's results back, so the serial
-// thread touches device memory only for heap nodes.  The planes are
-// updated in place (the Pallas kernel copies both per batch) and the size
-// goes from a device scalar to a device scalar: the host reads nothing.
-//
 // Bound: a chain of dependent loads.  A pop reads the d children of each
-// level before it knows where to go next, so a batch costs about
-// ops x depth dependent loads (depth = log_d(size), about 10 on a 2^19-
-// node 4-ary heap); both planes of a 2^20-slot heap (8 MB) sit in the
-// 50 MB L2.  Its bytes bound counts the opcodes in (4 B per op) and the
-// key and val of each INSERT lane (8 B), the results out (9 B per op),
-// the size word each way, per pop the root, the last leaf and its scrub
-// (24 B) and per sift-down level d child keys, the winner's val and one
-// node written (4d + 12 B), and per applied insert one parent key read
-// and its node written (12 B): tens of
-// nanoseconds at HBM rate for the priority path's batches, far under the
-// time of the dependent-load chain.
+// level before it knows where to go next, and the ops are serial by
+// definition (batch order is the linearization order), so one thread
+// applies them and a batch costs about pops x depth dependent loads, each
+// paying the full latency of every instruction on its path (no other warp
+// runs beside it).  The design shortens each link of that chain:
+//
+//   * Resident top.  The block loads nodes [0, R) of both planes into
+//     dynamic shared memory as interleaved (key, val) pairs, R =
+//     min(2^cap_log2, R_max).  R_max is the largest whole number of levels
+//     that fits beside the tail window and the op staging in the 227 KB a
+//     block may opt into: levels 0-7 of a 4-ary heap (21,845 nodes, 174,760
+//     B) or levels 0-13 of a binary one (16,383 nodes, 131,064 B).  Node j
+//     sits at slot j + d - 1, so each sibling group is one or two aligned
+//     128-bit loads.  A pop's sift runs through the top in a loop with no
+//     region tests and 32-bit indices.
+//   * Tail window.  kWindow nodes from kWindow / 2 below the call's first
+//     size (whole sibling groups past the top) are resident too: there a
+//     pop takes its last leaf and scrubs it, and an insert opens its hole.
+//   * Heaps of up to R nodes never touch device memory inside the call; at
+//     the end the block writes back the resident nodes below the largest
+//     size of the call.
+//   * The d children (key and val) are independent loads and the winner
+//     comes from a compare tree that keeps the serial scan's choice: the
+//     lowest index among the strict minima, none when all are KEY_INF.
+//     Below the top, the grandchildren are loaded while the children are
+//     decided, so two levels cost one round trip.
+//   * An insert loads its grandparent while it tests its parent.
+//   * The block stages only the INSERT and DELETE-MIN lanes of each chunk,
+//     in lane order (a block scan), and writes every other lane's outputs
+//     itself, so NOP lanes cost the serial thread nothing.
+//
+// Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700.00 W) on the
+// priority path's 2^20-slot heap at 211,890 nodes: 1.20 ms a 1,024-pop
+// call and 0.33 ms a 2,048-lane insert call, 0.76 ms their mean (the
+// serial design this replaces: 0.91 ms).  A pop's level below the top,
+// an L2 round trip, is most of what is left.  Tried and slower on the
+// card: a pop that first walks the whole path of least children, two top
+// levels a step, the warp in lockstep holding the first levels below the
+// top in registers, and L1 or L2 prefetches of those levels.
+//
+// Its bytes bound counts the opcodes in (4 B per op) and the key and val
+// of each INSERT lane (8 B), the results out (9 B per op), the size word
+// each way, per pop the root, the last leaf and its scrub (24 B) and per
+// sift-down level d child keys, the winner's val and one node written
+// (4d + 12 B), and per applied insert one parent key read and its node
+// written (12 B): tens of nanoseconds at HBM rate.  Its dependent-chain
+// bound (chip_smoke.py) is pops x (levels in the top x a shared-memory
+// round trip + levels below it x an L2 round trip).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lookback.cuh"
 
 namespace repro {
 
 constexpr int32_t kKeyInf = 0x7fffffff;
 constexpr int32_t kOpInsert = 0;
 constexpr int32_t kOpDelmin = 1;
+constexpr int32_t kOpNop = -1;
 constexpr int kHeapThreads = 256;
-constexpr int kChunk = 2048;  // ops staged in shared memory at a time
+constexpr int kChunk = 1024;  // ops staged in shared memory at a time
+constexpr int kOpsPerThread = kChunk / kHeapThreads;
+constexpr int kStageBytes = kChunk * (5 * 4 + 1);
+// The tail window: nodes around the call's first size, where its pops
+// take their last leaves (and scrub them) and its inserts open their holes.
+constexpr int kWindow = 4096;
+
+// Nodes in the whole levels that fit in shared memory: sum of d^l.
+template <int A>
+constexpr int kResidentMax = A == 2 ? 21845 : 16383;
+
+// Shared memory: the top (node j at slot j + D - 1, so that every sibling
+// group starts on a 16- or 32-byte boundary, and D - 1 + D slots of
+// padding), the window, then the op staging.
+template <int A>
+constexpr int kTopSlots = (kResidentMax<A> + 2 * (1 << A) + 3) & ~3;
+template <int A>
+constexpr int kSmemBytes = (kTopSlots<A> + kWindow) * 8 + kStageBytes;
+
+template <int A>
+struct Heap {
+  static constexpr int D = 1 << A;
+  int2* top;  // node j < r at top[j + D - 1], as (key, val)
+  int2* win;  // node j in [w0, w0 + wn) at win[j - w0]; w0 = 1 mod D
+  int32_t* keys;
+  int32_t* vals;
+  uint32_t r, w0, wn;
+
+  __device__ __forceinline__ int2 node(uint32_t j) const {
+    if (j < r) return top[j + D - 1];
+    if (j - w0 < wn) return win[j - w0];
+    return make_int2(keys[j], vals[j]);
+  }
+  __device__ __forceinline__ void put(uint32_t j, int32_t k, int32_t v) const {
+    if (j < r) {
+      top[j + D - 1] = make_int2(k, v);
+    } else if (j - w0 < wn) {
+      win[j - w0] = make_int2(k, v);
+    } else {
+      keys[j] = k;
+      vals[j] = v;
+    }
+  }
+  // the sibling group from `base` (= 1 mod D) at `g` in shared memory,
+  // (KEY_INF, -1) at or past `size`
+  __device__ __forceinline__ static void smem_group(const int2* g,
+                                                    uint32_t base,
+                                                    uint32_t size, int32_t* k,
+                                                    int32_t* v) {
+    const int4 a = reinterpret_cast<const int4*>(g)[0];
+    int32_t x[2 * D] = {a.x, a.y, a.z, a.w};
+    if (D == 4) {
+      const int4 b = reinterpret_cast<const int4*>(g)[1];
+      x[4 % (2 * D)] = b.x;
+      x[5 % (2 * D)] = b.y;
+      x[6 % (2 * D)] = b.z;
+      x[7 % (2 * D)] = b.w;
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      const bool in = base + c < size;
+      k[c] = in ? x[2 * c] : kKeyInf;
+      v[c] = in ? x[2 * c + 1] : -1;
+    }
+  }
+  // the same wherever the group lies.  A group lies whole in one region:
+  // r is a whole number of levels or the capacity, w0 = 1 mod D and wn a
+  // multiple of D or the rest of the planes.
+  __device__ __forceinline__ void group(uint32_t base, uint32_t size,
+                                        int32_t* k, int32_t* v) const {
+    if (base < r) {
+      smem_group(top + base + D - 1, base, size, k, v);
+    } else if (base - w0 < wn) {
+      smem_group(win + (base - w0), base, size, k, v);
+    } else {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        const bool in = base + c < size;
+        k[c] = in ? keys[base + c] : kKeyInf;
+        v[c] = in ? vals[base + c] : -1;
+      }
+    }
+  }
+};
+
+// Lowest index among the strict minima of k[0..N), or -1 when all are
+// KEY_INF: the serial scan from (KEY_INF, -1) that takes strictly smaller
+// keys, as a compare tree.  *bk / *bv get the winner's key and val.
+template <int N>
+__device__ __forceinline__ int min_child(const int32_t* k, const int32_t* v,
+                                         int32_t* bk, int32_t* bv) {
+  int32_t kk[N], vv[N];
+  int ii[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    kk[c] = k[c];
+    vv[c] = v[c];
+    ii[c] = c;
+  }
+#pragma unroll
+  for (int w = 1; w < N; w <<= 1) {
+#pragma unroll
+    for (int c = 0; c + w < N; c += 2 * w) {
+      if (kk[c + w] < kk[c]) {  // ties keep the lower index
+        kk[c] = kk[c + w];
+        vv[c] = vv[c + w];
+        ii[c] = ii[c + w];
+      }
+    }
+  }
+  *bk = kk[0];
+  *bv = vv[0];
+  return kk[0] < kKeyInf ? ii[0] : -1;
+}
 
 template <int A>
 __global__ void __launch_bounds__(kHeapThreads)
@@ -55,75 +201,159 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                   uint8_t* __restrict__ ok, int32_t* __restrict__ size_out,
                   int b, int cap_log2, int max_depth) {
   constexpr int D = 1 << A;
-  __shared__ int32_t s_op[kChunk], s_key[kChunk], s_val[kChunk];
-  __shared__ int32_t s_outk[kChunk], s_outv[kChunk];
-  __shared__ uint8_t s_ok[kChunk];
-  const int32_t cap = static_cast<int32_t>(1u << cap_log2);
-  int32_t size = 0;
-  if (threadIdx.x == 0) size = *size_in;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t cap = 1u << cap_log2;
+  const uint32_t r = cap < kResidentMax<A> ? cap : kResidentMax<A>;
+  int32_t size = *size_in;
+  // the window: kWindow nodes from about kWindow / 2 below the first
+  // size, a whole number of sibling groups past the top, within the planes
+  int64_t lo = static_cast<int64_t>(size) - kWindow / 2 - 1;
+  lo = lo > 0 ? lo / D * D + 1 : 1;
+  const uint32_t w0 = lo > r ? static_cast<uint32_t>(lo) : r;
+  const uint32_t wn = w0 >= cap ? 0u : (cap - w0 < kWindow ? cap - w0
+                                                            : kWindow);
+  int2* top = reinterpret_cast<int2*>(smem);
+  int2* win = top + kTopSlots<A>;
+  int32_t* s_op = reinterpret_cast<int32_t*>(win + kWindow);
+  int32_t* s_key = s_op + kChunk;
+  int32_t* s_val = s_key + kChunk;
+  int32_t* s_outk = s_val + kChunk;
+  int32_t* s_outv = s_outk + kChunk;
+  uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_outv + kChunk);
+  const Heap<A> h{top, win, keys, vals, r, w0, wn};
+
+  // nodes past `size` are written before they are read, so only the live
+  // part of the top and of the window is loaded
+  const uint32_t usize = static_cast<uint32_t>(size);
+  const uint32_t live = usize < r ? usize : r;
+#pragma unroll 4
+  for (uint32_t j = threadIdx.x; j < live; j += kHeapThreads)
+    top[j + D - 1] = make_int2(keys[j], vals[j]);
+  for (uint32_t j = threadIdx.x; j < wn && w0 + j < usize;
+       j += kHeapThreads)
+    win[j] = make_int2(keys[w0 + j], vals[w0 + j]);
+  int32_t hi = size;  // the largest size of the call (thread 0)
+
   for (int c0 = 0; c0 < b; c0 += kChunk) {
     const int n = b - c0 < kChunk ? b - c0 : kChunk;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      s_op[t] = ops[c0 + t];
-      s_key[t] = okeys[c0 + t];
-      s_val[t] = ovals[c0 + t];
+    // stage the chunk's INSERT and DELETE-MIN lanes, in lane order, as
+    // (lane << 1 | op, key, val); every lane's outputs start as a NOP's
+    int32_t op4[kOpsPerThread];
+    uint32_t live = 0;
+    const int q0 = threadIdx.x * kOpsPerThread;
+#pragma unroll
+    for (int q = 0; q < kOpsPerThread; ++q) {
+      op4[q] = q0 + q < n ? ops[c0 + q0 + q] : kOpNop;
+      live += op4[q] == kOpInsert || op4[q] == kOpDelmin;
+      if (q0 + q < n) {
+        s_outk[q0 + q] = kKeyInf;
+        s_outv[q0 + q] = -1;
+        s_ok[q0 + q] = 0;
+      }
+    }
+    uint32_t nlive;
+    uint32_t at = block_exclusive_sum(live, &nlive);
+#pragma unroll
+    for (int q = 0; q < kOpsPerThread; ++q) {
+      if (op4[q] == kOpInsert || op4[q] == kOpDelmin) {
+        s_op[at] = ((q0 + q) << 1) | op4[q];
+        s_key[at] = okeys[c0 + q0 + q];
+        s_val[at] = ovals[c0 + q0 + q];
+        ++at;
+      }
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int i = 0; i < n; ++i) {
-        const int32_t op = s_op[i];
+      for (uint32_t a = 0; a < nlive; ++a) {
+        const int i = s_op[a] >> 1;
+        const int32_t op = s_op[a] & 1;
         int32_t rk = kKeyInf, rv = -1;
         uint8_t applied = 0;
-        if (op == kOpInsert && size < cap) {
-          // hole starts at `size`; parents move down while larger
-          const int32_t key = s_key[i];
-          int32_t j = size;
-          for (int t = 0; t < max_depth && j > 0; ++t) {
-            const int32_t p = (j - 1) >> A;
-            const int32_t pk = keys[p];
-            if (!(pk > key)) break;
-            keys[j] = pk;
-            vals[j] = vals[p];
-            j = p;
+        if (op == kOpInsert && static_cast<uint32_t>(size) < cap) {
+          // hole starts at `size`; parents move down while larger.  Each
+          // step loads the grandparent before it tests the parent, so a
+          // global level costs one round trip and no store waits on a
+          // load.
+          const int32_t key = s_key[a], val = s_val[a];
+          uint32_t j = static_cast<uint32_t>(size);
+          if (j > 0) {
+            uint32_t p = (j - 1) >> A;
+            int2 pn = h.node(p);
+            for (int t = 0; t < max_depth && j > 0; ++t) {
+              const uint32_t g = p > 0 ? (p - 1) >> A : 0u;
+              const int2 gn = p > 0 ? h.node(g) : make_int2(kKeyInf, -1);
+              if (!(pn.x > key)) break;
+              h.put(j, pn.x, pn.y);
+              j = p;
+              p = g;
+              pn = gn;
+            }
           }
-          keys[j] = key;
-          vals[j] = s_val[i];
+          h.put(j, key, val);
           ++size;
+          hi = size > hi ? size : hi;
           applied = 1;
         } else if (op == kOpDelmin && size > 0) {
-          // root out; the last node sifts down into the hole
-          rk = keys[0];
-          rv = vals[0];
-          const int32_t nsize = size - 1;
-          const int32_t lk = keys[nsize];
-          const int32_t lv = vals[nsize];
+          // root out; the last node sifts down into the hole: first
+          // through the top, in shared memory with no region tests, then
+          // below it, where the grandchildren are loaded while the
+          // children are decided
+          const uint32_t nsize = static_cast<uint32_t>(size) - 1;
+          const int2 last = h.node(nsize);
+          const int2 root = h.node(0);
+          rk = root.x;
+          rv = root.y;
           if (nsize > 0) {
-            int32_t j = 0;
-            for (int t = 0; t < max_depth; ++t) {
-              const int64_t base = (static_cast<int64_t>(j) << A) + 1;
-              int32_t ck[D];
+            uint32_t j = 0, base = 1;
+            int32_t ck[D], cv[D], bk, bv;
+            int t = 0;
+            bool moving = true;
+            for (; t < max_depth && base < r; ++t) {
+              Heap<A>::smem_group(top + base + D - 1, base, nsize, ck, cv);
+              const int w = min_child<D>(ck, cv, &bk, &bv);
+              if (w < 0 || !(bk < last.x)) {
+                moving = false;
+                break;
+              }
+              top[j + D - 1] = make_int2(bk, bv);
+              j = base + w;
+              base = (j << A) + 1;
+            }
+            if (moving && t < max_depth && base < nsize) {
+              h.group(base, nsize, ck, cv);
+              for (; t < max_depth; ++t) {
+                const uint32_t gbase = (base << A) + 1;
+                const bool ahead = gbase < nsize;
+                int32_t gk[D * D], gv[D * D];
+                if (ahead) {
 #pragma unroll
-              for (int c = 0; c < D; ++c)
-                ck[c] = base + c < nsize ? keys[base + c] : kKeyInf;
-              int32_t bk = kKeyInf, bj = -1;
+                  for (int c = 0; c < D; ++c)
+                    h.group(gbase + c * D, nsize, gk + c * D, gv + c * D);
+                }
+                const int w = min_child<D>(ck, cv, &bk, &bv);
+                if (w < 0 || !(bk < last.x)) break;
+                h.put(j, bk, bv);
+                j = base + w;
+                base = gbase + (static_cast<uint32_t>(w) << A);
+                if (!ahead) break;  // no grandchildren: j is a leaf
 #pragma unroll
-              for (int c = 0; c < D; ++c) {
-                if (ck[c] < bk) {
-                  bk = ck[c];
-                  bj = static_cast<int32_t>(base + c);
+                for (int c = 0; c < D; ++c) {
+                  ck[c] = gk[c];
+                  cv[c] = gv[c];
+#pragma unroll
+                  for (int q = 1; q < D; ++q) {
+                    if (w == q) {
+                      ck[c] = gk[q * D + c];
+                      cv[c] = gv[q * D + c];
+                    }
+                  }
                 }
               }
-              if (bj < 0 || !(bk < lk)) break;
-              keys[j] = bk;
-              vals[j] = vals[bj];
-              j = bj;
             }
-            keys[j] = lk;
-            vals[j] = lv;
+            h.put(j, last.x, last.y);
           }
           // scrub the vacated tail slot so stale keys can't resurface
-          keys[nsize] = kKeyInf;
-          vals[nsize] = -1;
+          h.put(nsize, kKeyInf, -1);
           size = nsize;
           applied = 1;
         }
@@ -133,14 +363,51 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
       }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    for (int t = threadIdx.x; t < n; t += kHeapThreads) {
       outk[c0 + t] = s_outk[t];
       outv[c0 + t] = s_outv[t];
       ok[c0 + t] = s_ok[t];
     }
     __syncthreads();  // the next chunk overwrites the staging buffers
   }
-  if (threadIdx.x == 0) *size_out = size;
+  // every resident node the call could have changed goes back
+  __shared__ int32_t s_hi;
+  if (threadIdx.x == 0) {
+    s_hi = hi;
+    *size_out = size;
+  }
+  __syncthreads();
+  const uint32_t shi = static_cast<uint32_t>(s_hi);
+  const uint32_t back = shi < r ? shi : r;
+#pragma unroll 4
+  for (uint32_t j = threadIdx.x; j < back; j += kHeapThreads) {
+    const int2 x = top[j + D - 1];
+    keys[j] = x.x;
+    vals[j] = x.y;
+  }
+  for (uint32_t j = threadIdx.x; j < wn && w0 + j < shi; j += kHeapThreads) {
+    const int2 x = win[j];
+    keys[w0 + j] = x.x;
+    vals[w0 + j] = x.y;
+  }
+}
+
+template <int A>
+int launch_heap(int32_t* k, int32_t* v, const int32_t* si, const int32_t* o,
+                const int32_t* ok_, const int32_t* ov, int32_t* rk,
+                int32_t* rv, uint8_t* a, int32_t* so, int b, int cap_log2,
+                int max_depth, cudaStream_t s) {
+  static bool opted_in = false;  // one attribute call per process
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        heap_apply_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes<A>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  heap_apply_kernel<A><<<1, kHeapThreads, kSmemBytes<A>, s>>>(
+      k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2, max_depth);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro
@@ -148,7 +415,8 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
 // keys/vals: (2^cap_log2,) int32, updated in place; size_in: (1,) int32;
 // ops/okeys/ovals: (b,) int32; outk/outv: (b,) int32; ok: (b,) bool;
 // size_out: (1,) int32.  b > 0, 0 < cap_log2 <= 30, arity_log2 in 1..2,
-// max_depth = ceil(cap_log2 / arity_log2) + 1.  Returns
+// max_depth = ceil(cap_log2 / arity_log2) + 1.  One launch of one block
+// with up to 217,768 B of dynamic shared memory.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without a
 // launch, for an arity it was not built for).
 extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
@@ -171,15 +439,12 @@ extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
   auto* so = static_cast<int32_t*>(size_out);
   switch (arity_log2) {
     case 1:
-      heap_apply_kernel<1><<<1, kHeapThreads, 0, s>>>(
-          k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2, max_depth);
-      break;
+      return launch_heap<1>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
+                            max_depth, s);
     case 2:
-      heap_apply_kernel<2><<<1, kHeapThreads, 0, s>>>(
-          k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2, max_depth);
-      break;
+      return launch_heap<2>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
+                            max_depth, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

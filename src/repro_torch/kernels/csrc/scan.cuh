@@ -1,5 +1,5 @@
-// Block-level ballot scan helpers of wavefaa.cu and frontier.cu
-// (compact.cu ranks in one pass with lookback.cuh instead).
+// Block-level ballot scan helpers of wavefaa.cu (compact.cu and frontier.cu
+// rank in one pass with lookback.cuh instead).
 //
 // wavefaa.cu ranks a wave's active lanes in lane order across the whole
 // wave (Lemma III.1's ticket order).  A wave is cut into blocks of

@@ -32,7 +32,10 @@ Faces:
 
 ``heap_apply`` and ``heap_apply_plain`` update ``keys``/``vals`` IN
 PLACE and return them, as the ring wrappers do; the Pallas kernel copies
-both planes per batch.
+both planes per batch.  The card's kernel is one launch of one block
+that applies the batch serially with the heap's top levels (up to 21,845
+nodes 4-ary, 16,383 binary) and a window around its last leaf held in
+up to 227 KB of shared memory, and writes them back at the end.
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ from repro.apps import bfs as jbfs  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.frontier import frontier_expand as jfrontier  # noqa
 from repro_torch.apps import bfs  # noqa: E402
-from repro_torch.kernels import (frontier_expand, frontier_level,  # noqa
-                                 ref)
+from repro_torch.kernels import (frontier_buffer, frontier_expand,  # noqa
+                                 frontier_level, frontier_level_plain,
+                                 frontier_scratch, ref)
 
 # the overflow case: vertex 0 -> 4, 5, 6; vertex 1 -> 5, 7; vertex 3 ->
 # 1, 2, 3 (all but 1 and 3 fresh): five fresh vertices into three slots
@@ -91,7 +92,9 @@ def test_frontier_expand_matches_pallas_kernel(case):
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_frontier_level_counts_scanned_edges(case):
     """``frontier_level`` is ``frontier_expand`` plus the level's edge
-    count: the degrees of the frontier's live slots, summed."""
+    count: the degrees of the frontier's live slots, summed, as a (1,)
+    int32 tensor on the frontier's device (the card reads nothing
+    back)."""
     rp, col, frontier, vis, max_out = CASES[case]
     args = [torch.from_numpy(x) for x in (rp, col, frontier)]
     want = frontier_expand(*args, torch.from_numpy(vis.copy()),
@@ -101,8 +104,14 @@ def test_frontier_level_counts_scanned_edges(case):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     live = frontier[frontier >= 0]
-    assert edges == int((rp[live + 1] - rp[live]).sum())
-    assert isinstance(edges, int)
+    assert isinstance(edges, torch.Tensor)
+    assert edges.shape == (1,) and edges.dtype == torch.int32
+    assert edges.device == args[2].device
+    assert int(edges[0]) == int((rp[live + 1] - rp[live]).sum())
+    plain = frontier_level_plain(*args, torch.from_numpy(vis.copy()),
+                                 max_out=max_out)
+    for a, b in zip(plain, (*got, edges)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -129,6 +138,22 @@ def test_overflow_rules_differ_as_documented():
     assert rout.tolist() == [4, 5, 6] and int(rcnt) == 5
 
 
+def test_buffer_and_scratch_layout():
+    """A kept buffer is (max_out + 1,) of -1 with a zero written-prefix
+    word; the scratch starts with the (n,) INT_MAX plane and is zero
+    after it, sized for the frontiers it is asked for."""
+    buf = frontier_buffer(5, "cpu")
+    assert buf.tolist() == [-1] * 5 + [0] and buf.dtype == torch.int32
+    scr = frontier_scratch(7, "cpu")
+    assert (scr[:7] == 2 ** 31 - 1).all() and (scr[7:] == 0).all()
+    assert (frontier_scratch(7, "cpu", max_frontier=5000).shape[0]
+            > scr.shape[0])
+    c = {k: torch.tensor(v, dtype=torch.int32) for k, v in OVERFLOW.items()}
+    with pytest.raises(ValueError, match="max_out"):
+        frontier_level(c["row_ptr"], c["col"], c["frontier"],
+                       c["visited"].clone(), max_out=3, out=buf)
+
+
 GRAPHS = {
     "road": lambda m: m.road_like(256),
     "road300": lambda m: m.road_like(300, seed=3),
@@ -153,3 +178,45 @@ def test_bfs_queue_and_baseline_match_reference(name):
         assert bstats == jbstats
         np.testing.assert_array_equal(dist, bfs.bfs_reference(g, source))
         np.testing.assert_array_equal(bdist, dist)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_kept_buffers_over_a_bfs_equal_fresh_ones(name):
+    """A whole BFS through two kept output buffers, used in turn as
+    ``bfs_queue`` does (each call resets only the prefix its buffer held
+    before), gives at every level the same next frontier, count, visited
+    map and edge count as fresh buffers; each kept buffer is -1 past the
+    prefix its last word records."""
+    g = GRAPHS[name](bfs)
+    n, max_out = g.n, max(g.n, 16)
+    rp, col = torch.from_numpy(g.row_ptr), torch.from_numpy(g.col_idx)
+    bufs = [frontier_buffer(max_out, "cpu") for _ in range(2)]
+    vk = torch.zeros(n, dtype=torch.int32)
+    vk[0] = 1
+    vf = vk.clone()
+    frontier = torch.tensor([0], dtype=torch.int32)
+    level, lens = 0, []
+    while frontier.numel():
+        got = frontier_level(rp, col, frontier, vk, max_out=max_out,
+                             out=bufs[level % 2])
+        want = frontier_level(rp, col, frontier, vf, max_out=max_out)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        buf, cnt = bufs[level % 2], int(got[1][0])
+        assert int(buf[max_out]) == min(cnt, max_out)
+        assert (buf[min(cnt, max_out):max_out] == -1).all()
+        lens.append(cnt)
+        frontier = got[0][:cnt].clone()
+        level += 1
+    assert len(set(lens)) > 2          # prefixes of several lengths reset
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bfs_queue_edges_scanned(name):
+    """``edges_scanned`` (summed on the device, read once) is every
+    reached vertex's degree, counted once: each is in one frontier."""
+    g = GRAPHS[name](bfs)
+    dist, stats = bfs.bfs_queue(g, 0, device="cpu")
+    deg = np.diff(g.row_ptr)
+    assert stats["edges_scanned"] == int(deg[dist >= 0].sum())
+    assert isinstance(stats["edges_scanned"], int)

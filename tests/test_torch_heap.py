@@ -2,11 +2,14 @@
 CPU, held bit-exact against ``repro.kernels.heap_batch``: ``heap_apply``
 against the Pallas kernel (interpret mode) on random op sweeps that fill
 the heap past full and drain it past empty, with NOP lanes, duplicate,
-negative and ``KEY_INF`` keys; a heapq oracle; ``heap_planes`` with a
-rider plane; and the partial waves ``heap_pop_count`` /
-``heap_insert_masked``.  Everything is int32, so every comparison is
-exact."""
+negative and ``KEY_INF`` keys; against the jitted ``heap_planes`` at
+2^15 slots, where the card's kernel splits the heap between its
+shared-memory top and the planes in device memory; a heapq oracle;
+``heap_planes`` with a rider plane; and the partial waves
+``heap_pop_count`` / ``heap_insert_masked``.  Everything is int32, so
+every comparison is exact."""
 
+import functools
 import heapq
 import random
 
@@ -15,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import heap_batch as jheap  # noqa: E402
@@ -74,6 +78,85 @@ def test_heap_apply_matches_reference(arity_log2, cap_log2):
         seen_full |= bool(((ops == heap.OP_INSERT) & ~ok.numpy()).any())
         seen_empty |= bool(((ops == heap.OP_DELMIN) & ~ok.numpy()).any())
     assert seen_full and seen_empty
+
+
+#: nodes of the card kernel's shared-memory top by arity_log2 (whole
+#: levels: ``kResidentMax`` in ``csrc/heap_batch.cu``)
+R_MAX = {1: 16383, 2: 21845}
+
+
+def _lanes(b, ops, keys, vals):
+    """A (b,)-lane batch: the given ops first, NOP lanes after."""
+    pad = b - len(ops)
+    return (np.concatenate([ops, np.full(pad, heap.OP_NOP)]).astype(np.int32),
+            np.concatenate([keys, np.full(pad, KEY_INF)]).astype(np.int32),
+            np.concatenate([vals, np.full(pad, -1)]).astype(np.int32))
+
+
+def _boundary_batches(rng, arity_log2, offset, b=4096):
+    """Batches at 2^15 slots whose paths cross the kernel's shared-memory
+    top: a seed to R_MAX + offset nodes, a pop batch, inserts below every
+    key held (holes past the top that rise into it), a long pop batch,
+    mixed batches with NOP lanes; at offset 0, batches that fill the heap
+    past full and empty it past empty."""
+    out = []
+    seed = R_MAX[arity_log2] + offset
+    for i in range(0, seed, b):
+        n = min(b, seed - i)
+        out.append(_lanes(b, np.zeros(n), rng.integers(0, 60, n),
+                          rng.integers(0, 1 << 30, n)))
+    out.append(_lanes(b, np.ones(64), np.full(64, KEY_INF), np.full(64, -1)))
+    out.append(_lanes(b, np.zeros(3000), rng.integers(-90, -30, 3000),
+                      rng.integers(0, 1 << 30, 3000)))
+    out.append(_lanes(b, np.ones(3000), np.full(3000, KEY_INF),
+                      np.full(3000, -1)))
+    for _ in range(2):
+        r = rng.random(b)
+        ops = np.where(r < 0.6, heap.OP_INSERT,
+                       np.where(r < 0.95, heap.OP_DELMIN, heap.OP_NOP))
+        keys = rng.integers(-40, 60, b)
+        keys = np.where(rng.random(b) < 0.05, KEY_INF, keys)
+        out.append((ops.astype(np.int32), keys.astype(np.int32),
+                    rng.integers(0, 1 << 30, b).astype(np.int32)))
+    full = (1 << 15) + 100 if offset == 0 else 0
+    for i in range(0, full, b):
+        out.append(_lanes(b, np.zeros(b), rng.integers(-5, 200, b),
+                          rng.integers(0, 1 << 30, b)))
+    for i in range(0, full, b):
+        out.append(_lanes(b, np.ones(b), np.full(b, KEY_INF),
+                          np.full(b, -1)))
+    return out
+
+
+@pytest.mark.parametrize("offset", [-3, 0, 5])
+@pytest.mark.parametrize("arity_log2", [1, 2])
+def test_heap_apply_across_the_shared_memory_top(arity_log2, offset):
+    """At 2^15 slots, above the card kernel's shared-memory top: heaps
+    seeded just below, at and just above R_MAX nodes, then pops, inserts
+    and mixed batches whose sifts cross it, up to full and back to empty;
+    every batch bit-exact against the jitted ``heap_planes``."""
+    cap_log2 = 15
+    rng = np.random.default_rng(1000 * arity_log2 + offset + 3)
+    jfn = jax.jit(functools.partial(jheap.heap_planes, cap_log2=cap_log2,
+                                    arity_log2=arity_log2))
+    jk, jv = map(jnp.asarray, _empty(cap_log2))
+    jsize = jnp.asarray(0, jnp.int32)
+    keys, vals = map(torch.from_numpy, _empty(cap_log2))
+    size = torch.tensor(0, dtype=torch.int32)
+    sizes = []
+    for ops, ks, vs in _boundary_batches(rng, arity_log2, offset):
+        jk, jv, jsize, jok_k, jok_v, jok = jfn(
+            jk, jv, jsize, *map(jnp.asarray, (ops, ks, vs)))
+        keys, vals, size, outk, outv, ok = heap.heap_apply(
+            keys, vals, size, *map(torch.from_numpy, (ops, ks, vs)),
+            cap_log2=cap_log2, arity_log2=arity_log2)
+        for a, b in zip((keys, vals, size, outk, outv, ok),
+                        (jk, jv, jsize, jok_k, jok_v, jok)):
+            np.testing.assert_array_equal(_np(a), np.asarray(b))
+        sizes.append(int(size))
+    assert R_MAX[arity_log2] + offset in sizes
+    if offset == 0:
+        assert max(sizes) == 1 << 15 and sizes[-1] == 0
 
 
 def test_heap_apply_is_in_place():
