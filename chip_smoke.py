@@ -16,12 +16,14 @@ JSON line; any failure raises and exits non-zero with no result line:
               wave_compact, heap_apply, frontier_expand, expert_tickets,
               flash_attention) against its plain PyTorch version on the
               card, at the paths' shapes and at the CPU tests' edge cases
-              (wrapping counters, width overflow, multi-block waves of
-              1.26 M lanes; wave_compact also at 2^22 and 2^22 - 77 lanes,
-              every case as ten calls queued back to back on one scratch
-              with no synchronise between them; heap batches, ten calls
-              queued back to back per case, into a full and out of an
-              empty heap at 2^4, 2^6, 2^15 and 2^20 slots with NOP lanes,
+              (wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
+              2^22 lanes with wrapping counters, wave_compact also at 2^22
+              and 2^22 - 77 lanes with width overflow, every case of both
+              as ten calls queued back to back on one scratch with no
+              synchronise between them; heap batches at arities 2, 4 and
+              8, ten calls queued back to back per case, into a full and
+              out of an empty heap at 2^4, 2^6, 2^15 and 2^20 slots with
+              NOP lanes,
               duplicate and KEY_INF keys, heaps just below, at and just
               above the kernel's shared-memory top, pops and inserts
               whose paths cross it, and the heap path's 1,024-pop /
@@ -30,32 +32,45 @@ JSON line; any failure raises and exits non-zero with no result line:
               with -1 slots, duplicate neighbours, no edges, max_out
               overflow, and consecutive real levels of each graph of
               phase 6 (its busiest, its median, an overflowing hub level),
-              edge counts included; expert tickets
-              for N of 32 to 65,536, 8, 40 and 64 experts, -1 lanes,
-              capacities 0, 1, below and above the largest expert count,
-              all pairs on one expert; flash attention on the four
+              edge counts included; expert tickets, ten calls back to
+              back per case, for N of 32 to 65,536 (1,024 and 1,025
+              across the kernel's one-block limit), 8, 40, 64, 128 and 257
+              experts, -1 lanes and ids past E, capacities 0, 1, below
+              and above the largest expert count, all pairs on one
+              expert; flash attention on the four
               configurations of the JAX package's kernel tests in float32
               and bfloat16, the prefill shape in bfloat16, a gemma2-style
               window of 4,096 with softcap 50 at S = 8,192, Sq < Sk, hd 80
               (h2o-danube-1.8b), hd 128 causal with GQA at S = 4,096, Sk
-              not a multiple of the 128-key tile, and the model's strided
-              layout).  The integer kernels must be bit-exact; flash
-              attention is held against its plain version at the tiles
-              of the kernel that runs it (``KERNEL_TILES``), element by
+              not a multiple of the 128-key tile, the model's strided
+              layout, gemma3-4b's hd 256 at its prefill shape (GQA 8/4,
+              window 1,024 and causal) and with Sq < Sk and softcap, and
+              float32 at hd 80, 128 and 256).  The integer kernels must be
+              bit-exact; flash attention is held against its plain version
+              at the tiles of the kernel that runs it (``kernel_tiles``),
+              element by
               element (one ulp of the output plus 2^-5 of its rms in
               bfloat16) and in the Frobenius norm (2^-10 in bfloat16;
               1e-5 throughout in float32), as ``FLASH_TOL`` states.
-3. road     — ``bfs_rounds`` on road_like(2048 * 2048) (4,194,304
-              vertices) at batch 1024 on the fused engine; dist[v] must be
-              row(v) + col(v) everywhere and wavefaa and both ring waves
-              must have launched.
+3. road     — first the ``fifo_fanout`` golden run of the JAX package's
+              tests (fused, with host_syncs 1, and legacy).  Then
+              ``bfs_rounds`` on road_like(2048 * 2048) (4,194,304
+              vertices) at batch 1024 on the fused engine's device loop
+              (a drained run is one CUDA graph launch whose conditional
+              WHILE node replays the round, and one readback: host_syncs
+              1 and sync_log [(rounds, 0)]); dist[v] must be row(v) +
+              col(v) everywhere and wavefaa and both ring waves must have
+              launched.  The same engine's rounds issued eagerly from the
+              host, 64 to a readback, must give the same dist and stats;
+              both are timed (host clock and CUDA events around the run).
 4. kron     — the compaction path: ``bfs_rounds`` on
-              kron_like(65536, avg_deg=4, seed=1) at batch 1024; dist must
-              equal the sequential BFS oracle and wave_compact must have
-              launched.
+              kron_like(65536, avg_deg=4, seed=1) at batch 1024 as in
+              phase 3; dist must equal the sequential BFS oracle and
+              wave_compact must have launched.
 5. heap     — the priority path.  First the ``heap_sssp`` golden run of
               the JAX package's tests on the card (fused and legacy:
-              stats [10, 124, 122, 46, 1] and the acc and plane digests).
+              stats [10, 124, 122, 46, 1], the acc and plane digests, and
+              host_syncs 1 fused).
               Then ``PriorityRoundRunner`` at capacity_log2=20 (two 4 MB
               planes, 4-ary) and batch 1024, fused and legacy, on a
               priority task tree: 65,536 seeds, keys uniform in [0, 16)
@@ -68,8 +83,9 @@ JSON line; any failure raises and exits non-zero with no result line:
               about 1,800 rounds with the heap peaking near 420 K (between
               2^18 and 2^20, no overflow).  acc (pops per val % 4096),
               processed and spawned must equal a numpy closure of the
-              seeds under the child rule; fused must equal legacy bit for
-              bit; heap_apply must launch at least twice per round.
+              seeds under the child rule; fused (one readback) must equal
+              legacy and the eager 64-round chunks bit for bit; heap_apply
+              must launch at least twice per round.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -77,7 +93,9 @@ JSON line; any failure raises and exits non-zero with no result line:
               sweep, the two must agree, frontier_expand must launch
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
-7. kernels  — per kernel: launches on each path (phases 3-6 and 8),
+7. kernels  — per kernel: launches on each path (phases 3-6, 8 and 9;
+              a kernel inside the device loop's graph counts once per
+              round it ran),
               exactness or max error, its device time per call at its
               path's shape (CUDA events around calls queued behind a
               sleep, so no host gap counts) beside its plain version's, one
@@ -90,9 +108,15 @@ JSON line; any failure raises and exits non-zero with no result line:
               heap_apply is timed as a pop call and an insert call, each
               also against a dependent-chain bound; frontier_expand at the
               busiest level of kron 2^20 and at the busiest and the median
-              level of road.  The flash attention row also carries the
-              same times at hd 128 (q (1, 32, 4096, 128), kv 8, causal)
-              under ``hd128``.
+              level of road.  wavefaa also at 2^22 lanes, expert_tickets
+              also at a decode step's 32 pairs.  The flash attention row
+              also carries the same times at hd 128 (q (1, 32, 4096, 128),
+              kv 8, causal) under ``hd128`` and on gemma3-4b's layer 5
+              (global) and layer 0 (window 1,024) inputs of phase 9 under
+              ``hd256_global`` and ``hd256_local``.  ``device_loop``
+              (csrc/loop.cu) is the WHILE node's own cost a round on a
+              one-kernel body, against the same body issued from the host
+              with a readback a round.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -111,10 +135,21 @@ JSON line; any failure raises and exits non-zero with no result line:
               the same trace at the reduced width (the schedule does not
               depend on the width).  Prefill tokens/s, decode tokens/s and
               readbacks; both re-run under the profiler.
+9. prefill_gemma3 — gemma3-4b at full width (34 layers, d_model 2,560,
+              8/4 heads of 256, five local layers of window 1,024 to a
+              global one, vocab 262,144; 4,550,996,480 parameters in
+              bfloat16 from a torch.Generator seeded 1; granite's weights
+              are freed first) prefills the same two 4,096-token prompts
+              shape (numpy.random.default_rng(14)): flash_attention at hd
+              256 must launch once per layer, the last-token logits must
+              be finite, and the kernel is held against the plain version
+              on layer 0's (local) and layer 5's (global) q/k/v.
 
-Phases 3, 5, 6 and 8 also re-run their path under the profiler and
-report the card's idle share against the unprofiled wall time.  Phase 8
-runs before phase 7, whose line needs its launch counts.  Every phase
+Phases 3-6, 8 and 9 also re-run their path under the profiler and
+report the card's idle share against the unprofiled wall time (where the
+profiler drops a long graph run's records, the events' span stands in).
+Phases 8 and 9 run before phase 7, whose line needs their launch
+counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -145,15 +180,21 @@ KEY_INF = 2 ** 31 - 1
 HEAP_CAP_LOG2 = 20       # the priority path's heap: 2^20 slots
 # nodes of the heap kernel's shared-memory top by arity_log2 (whole levels:
 # kResidentMax in csrc/heap_batch.cu)
-HEAP_R_MAX = {1: 16383, 2: 21845}
+HEAP_R_MAX = {1: 16383, 2: 21845, 3: 4681}
 HEAP_SEEDS = 65536
 HEAP_HORIZON = 26        # children only below this key
 HEAP_SPAWN = 10          # a child is offered with probability 10/16
 QKRON_N = 1 << 20        # bfs_queue's kron graph
 QKRON_DEG = 16
-# the heap_sssp golden of the JAX package's tests (tests/test_enginecore.py)
+# the heap_sssp and fifo_fanout goldens of the JAX package's tests
+# (tests/test_enginecore.py); host_syncs is the fused engine's
 HEAP_GOLDEN = {"stats": [10, 124, 122, 46, 1], "acc": "17210d10068cbe8b",
-               "planes": "3e13f886f2e96c70"}
+               "planes": "3e13f886f2e96c70", "host_syncs": 1}
+FIFO_GOLDEN = {"stats": [7, 63, 62, 32, 1], "acc": "b8d77df0675e0603",
+               "planes": "1a0afe86d6513a2a", "head_tail": [575, 575],
+               "host_syncs": 1}
+EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
+GEMMA_ARCH = "gemma3-4b"
 SERVE_ARCH = "granite-moe-3b-a800m"
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
@@ -264,8 +305,8 @@ class Smoke:
         self.rejected = {}        # wrong flash results -> shares of bounds
         self.cases = {}           # kernel -> comparisons made
         self.launches = {"road": {}, "kron": {}, "heap": {},
-                         "queue": {}, "prefill": {},
-                         "serve": {}}   # path -> kernel launches
+                         "queue": {}, "prefill": {}, "serve": {},
+                         "prefill_gemma3": {}}   # path -> kernel launches
 
     # -- helpers -------------------------------------------------------------
 
@@ -374,16 +415,28 @@ class Smoke:
     # -- phase 2: kernels against plain versions -----------------------------
 
     def compare_wavefaa(self, K):
+        """Every case as ten calls queued back to back on one scratch,
+        with no synchronise between them: waves of one block (1,024 lanes,
+        road's 4,096-lane child wave, a whole 8,192-lane tile) and of many
+        tiles ranked by look-back (1.26 M lanes and 2^22), bool and int32
+        masks, counters that wrap past 2^31 and 2^32."""
         np, torch = self.np, self.torch
-        for n in (1024, 4096, 1230 * 1024):
+        for n in (1024, 4096, 8192, 1230 * 1024, 1 << 22):
+            scratch = K.wavefaa_scratch(n, self.dev)
             for dens in (0.0, 0.18, 1.0):
                 a = self.rng.random(n) < dens
                 for dtype in (torch.bool, torch.int32):
                     for c0 in (2 << 23, 2 ** 31 - 5, 2 ** 32 - 5):
                         m = self.t(a, dtype)
                         c = self.t(np.array([i32(c0)], np.int32))
-                        self.same("wavefaa", K.wavefaa(m, c),
-                                  K.wavefaa_plain(m, c))
+                        got = [K.wavefaa(m, c, scratch=scratch)
+                               for _ in range(10)]
+                        want = K.wavefaa_plain(m, c)
+                        for g in got:
+                            self.same("wavefaa", g, want)
+            if int(scratch.abs().sum()):
+                raise AssertionError("wavefaa: the kernel left its scratch "
+                                     "dirty")
 
     def compare_compact(self, K, kron_lanes):
         """Every case as ten calls queued back to back on one stream and
@@ -509,7 +562,7 @@ class Smoke:
         path's batches (1,024 pops, then 2,048 insert lanes)."""
         np, torch = self.np, self.torch
         card = dict(dtype=torch.int32, device=self.dev)
-        for arity in (1, 2):
+        for arity in (1, 2, 3):
             def fresh(c):
                 kern = [torch.full((1 << c,), KEY_INF, **card),
                         torch.full((1 << c,), -1, **card)]
@@ -630,36 +683,43 @@ class Smoke:
                           range(lo, min(lo + min(cases, 10), top + 1))]
                 self.frontier_calls(K, rp, col, g.n, levels, max_out)
 
-    def tickets_case(self, K, ids, e, cap):
+    def tickets_case(self, K, ids, e, cap, calls=1):
+        """``calls`` kernel calls queued back to back (on the kept
+        look-back scratch), each held against the plain version."""
         kw = dict(num_experts=e, capacity=cap)
-        self.same("expert_tickets", (K.expert_tickets(ids, **kw),),
-                  (K.expert_tickets_plain(ids, **kw),))
+        got = [K.expert_tickets(ids, **kw) for _ in range(calls)]
+        want = K.expert_tickets_plain(ids, **kw)
+        for g in got:
+            self.same("expert_tickets", (g,), (want,))
 
     def compare_moe(self, K):
-        """Expert tickets bit-exact: N of 32 (a decode step), 127, 128,
-        1,000 and 65,536 (a prefill), 8, 40 and 64 experts, a share of -1
-        lanes, capacities 0, 1, half and past the largest expert count,
-        and all pairs on one expert."""
+        """Expert tickets bit-exact, ten calls back to back per case: N of
+        32 (a decode step), 127, 128, 1,000, 1,024 (one tile), 1,025 (the
+        first look-back) and 65,536 (a prefill), 8, 40, 64, 128 and 257
+        experts, a share of -1 lanes and of ids past E, capacities 0, 1,
+        half and past the largest expert count, and all pairs on one
+        expert."""
         np, torch = self.np, self.torch
-        for n in (32, 127, 128, 1000, 65536):
-            for e in (8, 40, 64):
+        for n in (32, 127, 128, 1000, 1024, 1025, 65536):
+            for e in (8, 40, 64, 128, 257):
                 for inactive in (0.0, 0.2):
                     ids = self.rng.integers(0, e, n)
                     ids[self.rng.random(n) < inactive] = -1
+                    ids[self.rng.random(n) < inactive / 20] = e + 1
                     top = int(np.bincount(ids[ids >= 0], minlength=e).max()) \
                         if (ids >= 0).any() else 0
                     t = self.t(ids.astype(np.int32))
                     for cap in (0, 1, max(top // 2, 1), top + 5):
-                        self.tickets_case(K, t, e, cap)
+                        self.tickets_case(K, t, e, cap, calls=10)
             one = torch.full((n,), 7, dtype=torch.int32, device=self.dev)
             for cap in (0, 1, n // 2, n):
-                self.tickets_case(K, one, 40, cap)
+                self.tickets_case(K, one, 40, cap, calls=10)
 
     def flash_case(self, K, q, k, v, **kw):
         """The kernel against the plain version at the kernel's tiles (in
         place of any blocks the caller's ``kw`` names); returns the plain
         version's output."""
-        bq, bk = K.flash_attn.KERNEL_TILES[q.dtype]
+        bq, bk = K.flash_attn.kernel_tiles(q.dtype, q.shape[-1])
         want = K.flash_attention_plain(q, k, v, **{**kw, "bq": bq, "bk": bk})
         self.close("flash_attention", K.flash_attention(q, k, v, **kw), want)
         return want
@@ -714,6 +774,23 @@ class Smoke:
                                 16))
         self.flash_case(K, *qkv(1, 8, 2, 1024, 1000, 128, torch.bfloat16,
                                 17), causal=False, softcap_val=50.0)
+        # hd 256 (gemma3-4b): its prefill's shape, GQA 8/4, a local
+        # layer's window of 1,024 and a global causal layer; Sq < Sk, Sk
+        # not a multiple of the 64-key tile, softcap without a mask
+        g3 = qkv(PREFILL_BATCH, 8, 4, PREFILL_LEN, PREFILL_LEN, 256,
+                 torch.bfloat16, 19)
+        self.flash_case(K, *g3, window=1024)
+        self.flash_case(K, *g3)
+        self.flash_case(K, *qkv(1, 8, 4, 1024, 2100, 256, torch.bfloat16,
+                                20))
+        self.flash_case(K, *qkv(1, 8, 2, 1024, 1000, 256, torch.bfloat16,
+                                21), causal=False, softcap_val=50.0)
+        # float32 at the scalar kernel's wider heads
+        for hd in (80, 128, 256):
+            self.flash_case(K, *qkv(1, 4, 2, 1024, 1024, hd, torch.float32,
+                                    22 + hd))
+            self.flash_case(K, *qkv(1, 4, 2, 512, 1000, hd, torch.float32,
+                                    23 + hd), window=300, softcap_val=30.0)
 
         # the check must reject a wrong kernel: the window's edge one key
         # short, and one key tile left out of P V (its v zeroed)
@@ -732,21 +809,113 @@ class Smoke:
 
     # -- phases 3/4: the paths ------------------------------------------------
 
-    def run_path(self, label, g, K, bfs):
+    def eager_chunks(self, engine, q, acc, occ0, max_rounds):
+        """``engine``'s rounds issued from the host in chunks of
+        ``EAGER_CHUNK``, each round predicated on the device flag ``live =
+        (occupancy > 0) & ~overflow`` and each chunk ending in one
+        readback: the port's round loop before the device loop, kept here
+        as the yardstick of the device loop and not in the package.  ``q``
+        and ``acc`` as the engine's run starts them.  Returns (q, acc,
+        stats)."""
         torch = self.torch
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        processed, spawned = (torch.zeros((), **i32) for _ in range(2))
+        max_occ = torch.tensor(occ0, **i32)
+        rounds = readbacks = 0
+        while True:
+            oflow = torch.zeros((), dtype=torch.bool, device=self.dev)
+            live_rounds = torch.zeros((), **i32)
+            for _ in range(EAGER_CHUNK):
+                live = (engine._occ_of(q) > 0) & ~oflow
+                q, new_acc, k, total, over = engine._round(q, acc, live)
+                acc = torch.where(live, new_acc, acc)
+                processed += k
+                spawned += total
+                max_occ = torch.where(
+                    live, torch.maximum(max_occ, engine._occ_of(q)), max_occ)
+                oflow = oflow | (over & live)
+                live_rounds += live.to(torch.int32)
+            occ, r, of = torch.stack([engine._occ_of(q), live_rounds,
+                                      oflow.to(torch.int32)]).tolist()
+            readbacks += 1
+            rounds += r
+            if of:
+                raise AssertionError("eager rounds overflowed")
+            if occ == 0 or rounds >= max_rounds:
+                break
+        return q, acc, {"rounds": rounds, "processed": int(processed),
+                        "spawned": int(spawned),
+                        "max_occupancy": int(max_occ), "readbacks": readbacks}
+
+    def timed(self, fn):
+        """``fn()`` between two CUDA events and a host clock, then a
+        synchronise: (result, wall s, device span s)."""
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+    def loop_checks(self, label, stats, sync_log):
+        """A drained run of the device loop reads back once, as the
+        reference's one ``while_loop`` chunk does."""
+        got = [(p.rounds, p.occupancy) for p in sync_log]
+        if stats["host_syncs"] != 1 or got != [(stats["rounds"], 0)]:
+            raise AssertionError(f"{label}: host_syncs "
+                                 f"{stats['host_syncs']}, sync_log {got}")
+
+    def fifo_golden(self, rt):
+        """The JAX package's fifo_fanout golden run, on the card, host_syncs
+        included (fused); the legacy loop reads back once per wave."""
+        torch = self.torch
+
+        def step(acc, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
+            cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
+            return acc, cv, (valid & (vals < 32))[:, None]
+
+        out = {}
+        for fused in (True, False):
+            r = rt.RoundRunner(step, capacity_log2=8, batch=16, fused=fused)
+            acc, st = r.run([1], acc=torch.zeros(80, dtype=torch.int32,
+                                                 device=self.dev))
+            got = {"stats": [r.stats[k] for k in STATS],
+                   "acc": digest(acc.cpu().numpy()),
+                   "planes": digest(*(p.cpu().numpy() for p in st[:4])),
+                   "head_tail": [st.head, st.tail]}
+            want = {k: v for k, v in FIFO_GOLDEN.items() if k != "host_syncs"}
+            if got != want:
+                raise AssertionError(f"fifo golden (fused={fused}): {got}")
+            if fused:
+                self.loop_checks("fifo golden", r.stats, r.sync_log)
+                got["host_syncs"] = r.stats["host_syncs"]
+            out["fused" if fused else "legacy"] = got
+        return out
+
+    def run_path(self, label, g, K, bfs):
+        np, torch = self.np, self.torch
+        from repro_torch.runtime import RingState, ring_init
         t0 = time.perf_counter()
         runner, init_fn = bfs.bfs_rounds_runner(g, batch=BATCH)
         acc = init_fn(0)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        # the first run builds the engine's device loop (warm-up round and
+        # capture); it is timed on its own
+        _, capture_s, _ = self.timed(lambda: runner.run(
+            [0], acc=init_fn(0), max_rounds=1_000_000))
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
-        t0 = time.perf_counter()
-        dist, st = runner.run([0], acc=acc, max_rounds=1_000_000)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        (dist, st), run_s, span_s = self.timed(lambda: runner.run(
+            [0], acc=acc, max_rounds=1_000_000))
         launches = dict(K.LAUNCHES)
         stats = dict(runner.stats)
+        self.loop_checks(label, stats, runner.sync_log)
         # the same run again under the profiler: the card's busy time
         # (its idle share is read against the unprofiled run's wall time)
         t0 = time.perf_counter()
@@ -756,22 +925,52 @@ class Smoke:
         times = device_times(prof)
         busy_s = sum(times.values()) / 1e6
         profile_s = time.perf_counter() - t0
-        fan = max(int(self.np.diff(g.row_ptr).max()), 1)
+        # the same engine's rounds issued eagerly, 64 to a readback
+        eng = runner._engine
+        seeded = eng._seed(ring_init(eng.capacity_log2, self.dev),
+                           np.array([0], np.int32))
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        q0 = RingState(*seeded[:4], torch.tensor(seeded.head, **i32),
+                       torch.tensor(seeded.tail, **i32))
+        (_, eacc, est), eager_s, eager_span_s = self.timed(
+            lambda: self.eager_chunks(eng, q0, init_fn(0), 1, 1_000_000))
+        if not (torch.equal(eacc, dist)
+                and all(est[k] == stats[k] for k in STATS[:4])):
+            raise AssertionError(f"{label}: eager rounds != device loop")
+        self.err["device_loop"] = 0
+        self.cases["device_loop"] = self.cases.get("device_loop", 0) + 1
+        fan = max(int(np.diff(g.row_ptr).max()), 1)
         return dist.cpu().numpy(), {
             "phase": label, "graph": g.name, "n": g.n, "m": g.m,
             "batch": BATCH, "fanout": fan, "capacity": runner.capacity,
             "rounds": stats["rounds"], "processed": stats["processed"],
             "spawned": stats["spawned"],
             "max_occupancy": stats["max_occupancy"],
-            "readbacks": stats["host_syncs"], "setup_s": setup_s,
+            "readbacks": stats["host_syncs"],
+            "sync_log": [(p.rounds, p.occupancy) for p in runner.sync_log],
+            "setup_s": setup_s, "first_run_s": capture_s,
             "run_s": run_s, "rounds_per_s": stats["rounds"] / run_s,
+            "device_span_s": span_s,
+            "device_us_per_round": span_s / stats["rounds"] * 1e6,
             "launches": launches,
             "launches_per_round": {k: v / stats["rounds"]
                                    for k, v in launches.items()},
-            "device_busy_s": busy_s, "idle_share": 1 - busy_s / run_s,
+            # the profiler may drop the records of a long graph run (road:
+            # 0.66 ms recorded of a 749 ms launch); then only the events'
+            # span, the one graph launch from start to end, says how busy
+            # the card was
+            "device_busy_s": busy_s if busy_s >= 0.5 * span_s else None,
+            "idle_share": (1 - busy_s / run_s if busy_s >= 0.5 * span_s
+                           else None),
+            "profiler_recorded_s": busy_s,
+            "span_idle_share": 1 - span_s / run_s,
             "profile_s": profile_s,
             "top_device_ms": top_ms(times, 6),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "eager_chunks_of_64": {
+                "run_s": eager_s, "rounds_per_s": est["rounds"] / eager_s,
+                "readbacks": est["readbacks"], "device_span_s": eager_span_s,
+                "rounds": est["rounds"], "equals_device_loop": True}}
 
     # -- phase 5: the priority path ------------------------------------------
 
@@ -797,8 +996,12 @@ class Smoke:
                    "acc": digest(acc.cpu().numpy()),
                    "planes": digest(st.keys.cpu().numpy(),
                                     st.vals.cpu().numpy())}
-            if got != HEAP_GOLDEN or st.size != 0:
+            want = {k: v for k, v in HEAP_GOLDEN.items() if k != "host_syncs"}
+            if got != want or st.size != 0:
                 raise AssertionError(f"heap golden (fused={fused}): {got}")
+            if fused:
+                self.loop_checks("heap golden", r.stats, r.sync_log)
+                got["host_syncs"] = r.stats["host_syncs"]
             out["fused" if fused else "legacy"] = got
         return out
 
@@ -822,9 +1025,12 @@ class Smoke:
                 lambda n: torch.arange(n, device=keys.device), valid)
             return acc, ck.int(), cv.int(), cm
 
+        runners = {fused: rt.PriorityRoundRunner(
+            step, capacity_log2=HEAP_CAP_LOG2, batch=BATCH, fused=fused)
+            for fused in (True, False)}
+
         def run(fused):
-            r = rt.PriorityRoundRunner(step, capacity_log2=HEAP_CAP_LOG2,
-                                       batch=BATCH, fused=fused)
+            r = runners[fused]
             acc = torch.zeros(4096, dtype=torch.int32, device=self.dev)
             out = r.run(ik, iv, acc=acc, max_rounds=1_000_000)
             torch.cuda.synchronize()
@@ -833,13 +1039,13 @@ class Smoke:
         info = {"phase": "heap", "golden": self.heap_golden(rt),
                 "capacity": 1 << HEAP_CAP_LOG2, "batch": BATCH,
                 "seeds": HEAP_SEEDS, "oracle_s": oracle_s}
+        # the first fused run builds the engine's device loop
+        info["first_run_s"] = self.timed(lambda: run(True))[1]
         runs = {}
         for fused in (True, False):
             K.reset_launches()
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            r, (acc, st) = run(fused)
-            wall = time.perf_counter() - t0
+            (r, (acc, st)), wall, span = self.timed(lambda: run(fused))
             runs[fused] = (r, acc.cpu().numpy(), st)
             name = "fused" if fused else "legacy"
             info[name] = {
@@ -849,10 +1055,15 @@ class Smoke:
                 "max_occupancy": r.stats["max_occupancy"],
                 "readbacks": r.stats["host_syncs"], "run_s": wall,
                 "rounds_per_s": r.stats["rounds"] / wall,
+                "device_span_s": span,
+                "device_us_per_round": span / r.stats["rounds"] * 1e6,
                 "launches": dict(K.LAUNCHES),
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
             if fused:
                 self.launches["heap"] = dict(K.LAUNCHES)
+                self.loop_checks("heap", r.stats, r.sync_log)
+                info[name]["sync_log"] = [(p.rounds, p.occupancy)
+                                          for p in r.sync_log]
         (rf, af, sf), (rl, al, sl) = runs[True], runs[False]
         if not (np.array_equal(af, want_acc)
                 and rf.stats["processed"] == want_proc
@@ -882,6 +1093,27 @@ class Smoke:
                     device_busy_s=busy, profile_s=time.perf_counter() - t0,
                     idle_share=1 - busy / info["fused"]["run_s"],
                     top_device_ms=top_ms(times, 6))
+        # the same engine's rounds issued eagerly, 64 to a readback
+        from repro_torch.runtime import HeapState, heap_init
+        eng = rf._engine
+        seeded = eng._seed(heap_init(HEAP_CAP_LOG2, self.dev), ik, iv)
+        q0 = HeapState(seeded.keys, seeded.vals,
+                       torch.tensor(seeded.size, dtype=torch.int32,
+                                    device=self.dev))
+        (_, eacc, est), eager_s, eager_span = self.timed(
+            lambda: self.eager_chunks(
+                eng, q0, torch.zeros(4096, dtype=torch.int32,
+                                     device=self.dev), HEAP_SEEDS,
+                1_000_000))
+        if not (np.array_equal(eacc.cpu().numpy(), af)
+                and all(est[k] == rf.stats[k] for k in STATS[:4])):
+            raise AssertionError("heap: eager rounds != device loop")
+        self.err["device_loop"] = 0
+        self.cases["device_loop"] = self.cases.get("device_loop", 0) + 1
+        info["eager_chunks_of_64"] = {
+            "run_s": eager_s, "rounds_per_s": est["rounds"] / eager_s,
+            "readbacks": est["readbacks"], "device_span_s": eager_span,
+            "rounds": est["rounds"], "equals_device_loop": True}
         return info
 
     # -- phase 6: queue-driven BFS -------------------------------------------
@@ -1091,6 +1323,93 @@ class Smoke:
                               top_device_ms=top_ms(times, 6))
         return info, seen
 
+    # -- phase 9: gemma3-4b prefill at full width ---------------------------
+
+    def gemma_path(self, K, configs, models):
+        """gemma3-4b at full width prefills 2 x 4,096 tokens on the hd-256
+        flash kernel in every layer; layers 0 (local, window 1,024) and 5
+        (the first global one) are held against the plain attention on
+        their own q/k/v.  Returns its line and those inputs."""
+        torch = self.torch
+        from repro_torch.models import layers
+        cfg = configs.get_config(GEMMA_ARCH)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(1)
+        params = models.init_params(cfg, gen, device=self.dev)
+        torch.cuda.synchronize()
+        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
+                    + sum(v.numel() for v in params["layers"].values()))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"gemma: {n_params} parameters, the config "
+                                 f"counts {cfg.param_count()}")
+        info = {"phase": "prefill_gemma3", "arch": cfg.name,
+                "params": n_params, "hd": cfg.hd,
+                "window": cfg.sliding_window,
+                "init_s": time.perf_counter() - t0}
+        tokens = torch.as_tensor(self.np.random.default_rng(14).integers(
+            0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=self.dev)
+        held = (0, 5)
+        seen, calls = {}, [0]
+        real_flash = layers.flash_attention
+
+        def flash_spy(q, k, v, **kw):
+            if calls[0] in held:
+                seen[calls[0]] = (q, k, v, kw)
+            calls[0] += 1
+            return real_flash(q, k, v, **kw)
+
+        models.prefill(params, tokens, cfg)            # warm-up
+        torch.cuda.synchronize()
+        layers.flash_attention = flash_spy
+        try:
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, caches = models.prefill(params, tokens, cfg)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+        finally:
+            layers.flash_attention = real_flash
+        self.launches["prefill_gemma3"] = launches
+        L = cfg.n_layers
+        self.gemma_windows = [cfg.window_for_layer(i) for i in range(L)]
+        if launches["flash_attention"] != L:
+            raise AssertionError(f"gemma prefill: launches {launches}, "
+                                 f"expected {L} flash_attention")
+        if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("gemma prefill: last-token logits not "
+                                 "finite")
+        if caches["k"].shape != (L, PREFILL_BATCH, PREFILL_LEN,
+                                 cfg.n_kv_heads, cfg.hd):
+            raise AssertionError("gemma prefill: cache shape")
+        for i in held:
+            q, k, v, kw = seen[i]
+            if kw["window"] != cfg.window_for_layer(i) or q.shape[-1] != 256:
+                raise AssertionError(f"gemma layer {i}: {kw}, {q.shape}")
+            self.flash_case(K, q, k, v, **kw)
+        info["prefill"] = {
+            "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN,
+            "run_s": prefill_s,
+            "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+            "launches": launches, "kernels_held_on_layers": list(held),
+            "windows_held": [seen[i][3]["window"] for i in held],
+            "logits_finite": True,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        t0 = time.perf_counter()
+        with self.profile() as prof:
+            models.prefill(params, tokens, cfg)
+            torch.cuda.synchronize()
+        times = device_times(prof)
+        busy = sum(times.values()) / 1e6
+        info["prefill"].update(device_busy_s=busy,
+                               idle_share=1 - busy / prefill_s,
+                               profile_s=time.perf_counter() - t0,
+                               top_device_ms=top_ms(times, 6))
+        return info, seen
+
 
 def busiest_level(np, g, dist):
     """The BFS level whose frontier scans the most edges."""
@@ -1199,8 +1518,10 @@ def main() -> int:
                 "wrong_results_rejected": smoke.rejected,
                 "seconds": time.perf_counter() - t0})
 
-    # 3. main path: road BFS at full size
+    # 3. main path: road BFS at full size, after the fifo_fanout golden
+    fifo_info = smoke.fifo_golden(rt)
     dist, road_info = smoke.run_path("road", road, K, bfs)
+    road_info["fifo_golden"] = fifo_info
     if not np.array_equal(dist, road_dist):
         raise AssertionError("road: dist != row + col")
     for name in ("wavefaa", "ring_dequeue", "ring_enqueue"):
@@ -1235,10 +1556,15 @@ def main() -> int:
     serve_info, seen = smoke.serve_path(K, configs, models, serving)
     emit_phase(serve_info)
 
+    # 9. gemma3-4b prefill at full width (granite's weights are freed)
+    torch.cuda.empty_cache()
+    gemma_info, seen_gemma = smoke.gemma_path(K, configs, models)
+    emit_phase(gemma_info)
+
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
-                                 road_dist)})
+                                 road_dist, seen_gemma)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1251,7 +1577,7 @@ def main() -> int:
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
-                road_dist):
+                road_dist, seen_gemma):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -1300,13 +1626,26 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     m1 = torch.as_tensor(rng.random(n1) < dens1, device=dev)
     c1 = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
     active1 = int(m1.sum())
+    # and a wave of 2^22 lanes at the same density: 512 tiles ranked by
+    # look-back on one kept scratch
+    n1w = 1 << 22
+    m1w = torch.as_tensor(rng.random(n1w) < dens1, device=dev)
+    s1w = K.wavefaa_scratch(n1w, dev)
+    wide1 = smoke.time_ms(lambda: None,
+                          lambda a, i: K.wavefaa(m1w, c1, scratch=s1w))
+    wide1_plain = smoke.time_ms(lambda: None,
+                                lambda a, i: K.wavefaa_plain(m1w, c1))
+    b1w, b1w_by = bound(n1w * 5 + 8, n1w, ALU_OPS_PER_S)
     row("wavefaa", csrc + "wavefaa.cu", "src/repro/kernels/wavefaa.py:29",
         smoke.time_ms(lambda: None, lambda a, i: K.wavefaa(m1, c1)),
         smoke.time_ms(lambda: None, lambda a, i: K.wavefaa_plain(m1, c1)),
         smoke.time_ms(lambda: None,
                       lambda a, i: torch.cumsum(m1, 0, dtype=torch.int32)),
         n1 * 1 + 4 + n1 * 4 + 4, n1,
-        {"lanes": n1, "active": active1, "mask": "bool"})
+        {"lanes": n1, "active": active1, "mask": "bool",
+         "lanes_4194304": {"ms": wide1[0], "wall_ms": wide1[1],
+                           "plain_ms": wide1_plain[0], "bound_ms": b1w,
+                           "bound_by": b1w_by}})
 
     # B2 ring waves on the road run's 2^24-slot ring: dequeue waves of
     # `batch` tickets, enqueue waves of batch x fanout lanes of which the
@@ -1565,10 +1904,23 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     onehot6_t = onehot6.t().contiguous()
     strided6 = smoke.time_ms(lambda: None, lambda a, i: torch.cumsum(
         onehot6, 0, dtype=torch.int32), iters=10, reps=3)
+    # a decode step's call: 4 rows x top-8 = 32 pairs over the same
+    # experts, as the serve cell makes it 5,120 times
+    ids6d = torch.as_tensor(rng.integers(0, e6, 32, dtype=np.int32),
+                            device=dev)
+    oh6d = torch.nn.functional.one_hot(ids6d.long(), e6).int().t() \
+        .contiguous()
+    dec6 = smoke.time_ms(lambda: None, lambda a, i: K.expert_tickets(
+        ids6d, **kw6))
+    dec6_plain = smoke.time_ms(lambda: None, lambda a, i:
+                               K.expert_tickets_plain(ids6d, **kw6))
+    dec6_lib = smoke.time_ms(lambda: None, lambda a, i: torch.cumsum(
+        oh6d, 1, dtype=torch.int32))
+    b6d, b6d_by = bound(8 * 32, 32, ALU_OPS_PER_S)
+    prefill6 = smoke.time_ms(lambda: None,
+                             lambda a, i: K.expert_tickets(ids6, **kw6))
     row("expert_tickets", csrc + "moe_route.cu",
-        "src/repro/kernels/moe_route.py:25",
-        smoke.time_ms(lambda: None,
-                      lambda a, i: K.expert_tickets(ids6, **kw6)),
+        "src/repro/kernels/moe_route.py:25", prefill6,
         smoke.time_ms(lambda: None,
                       lambda a, i: K.expert_tickets_plain(ids6, **kw6),
                       iters=20, reps=3),
@@ -1579,7 +1931,16 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         {"pairs": n6, "experts": e6, "capacity": kw6["capacity"],
          "dropped": int((K.expert_tickets(ids6, **kw6) < 0).sum()),
          "library": "torch.cumsum of the (E, N) int32 one-hot along N",
-         "library_ms_n_e_layout": strided6[0]})
+         "library_ms_n_e_layout": strided6[0],
+         "decode_32_pairs": {"ms": dec6[0], "wall_ms": dec6[1],
+                             "plain_ms": dec6_plain[0],
+                             "library_ms": dec6_lib[0], "bound_ms": b6d,
+                             "bound_by": b6d_by}},
+        # the prefill's calls at its shape, serve's decode calls at theirs
+        excess=(smoke.launches["prefill"].get("expert_tickets", 0)
+                * (prefill6[0] - bound(8 * n6, n6, ALU_OPS_PER_S)[0])
+                + smoke.launches["serve"].get("expert_tickets", 0)
+                * (dec6[0] - b6d)))
 
     # B7 flash_attention: the q/k/v of the serve prefill's first layer,
     # the model's (B, S, H, hd) bfloat16 activations as (B, H, S, hd)
@@ -1621,6 +1982,40 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                          "library": l8t[1]},
              "q": [1, 32, 4096, 128], "kv_heads": 8, "causal": True,
              "layout": "(B, H, S, hd) contiguous"}
+    # hd 256: gemma3-4b's prefill, layer 5 (global, causal) and layer 0
+    # (local, window 1,024), on their own q/k/v (the model's strided
+    # views).  The local layer's library call is SDPA with the band as a
+    # boolean mask; its bound counts the (query, key) pairs in the window.
+    def sub(kern, plain, lib, nbytes, ops, extra):
+        b, by = bound(nbytes, ops, BF16_TC_FLOP_PER_S)
+        return dict({"ms": kern[0], "plain_ms": plain[0],
+                     "library_ms": lib[0], "bound_ms": b, "bound_by": by,
+                     "wall_ms": {"kernel": kern[1], "plain": plain[1],
+                                 "library": lib[1]}}, **extra)
+
+    q9, k9, v9, kw9 = seen_gemma[5]
+    hd256 = sub(*flash_times(q9, k9, v9, kw9),
+                {"q": list(q9.shape), "kv_heads": k9.shape[1],
+                 "causal": True, "window": 0, "layer": 5})
+    q10, k10, v10, kw10 = seen_gemma[0]
+    b10, h10, s10, hd10 = q10.shape
+    win = kw10["window"]
+    pos = torch.arange(s10, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    pairs10 = int(band.sum())
+    hd256_local = sub(
+        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
+            q10, k10, v10, **kw10), iters=20),
+        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_plain(
+            q10, k10, v10, **kw10), iters=5, reps=3),
+        smoke.time_ms(lambda: None, lambda a, i: sdpa(
+            q10, k10, v10, attn_mask=band, enable_gqa=True), iters=20),
+        2 * (2 * b10 * h10 * s10 * hd10 + 2 * b10 * k10.shape[1] * s10
+             * hd10), 4 * b10 * h10 * pairs10 * hd10,
+        {"q": list(q10.shape), "kv_heads": k10.shape[1], "causal": True,
+         "window": win, "pairs": pairs10, "layer": 0,
+         "library": "scaled_dot_product_attention with the band as a "
+                    "boolean mask"})
     kern7, plain7, lib7, bytes7, ops7 = flash_times(q7, k7, v7, kw7)
     b7, h7, s7, hd7 = q7.shape
     row("flash_attention", csrc + "flash_wgmma.cu",
@@ -1631,8 +2026,66 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "window": kw7["window"], "softcap": kw7["softcap_val"],
          "tolerance": FLASH_TOL,
          "bound_used": smoke.bound_used["flash_attention"],
-         "layout": "(B, S, H, hd) strided", "hd128": hd128},
-        rate=BF16_TC_FLOP_PER_S)
+         "layout": "(B, S, H, hd) strided", "hd128": hd128,
+         "hd256_global": hd256, "hd256_local": hd256_local},
+        rate=BF16_TC_FLOP_PER_S,
+        # granite's prefill at its shape; gemma3's local and global layers
+        # each at their own
+        excess=(smoke.launches["prefill"].get("flash_attention", 0)
+                * (kern7[0] - bound(bytes7, ops7, BF16_TC_FLOP_PER_S)[0])
+                + sum(1 for w in smoke.gemma_windows if w)
+                * (hd256_local["ms"] - hd256_local["bound_ms"])
+                + sum(1 for w in smoke.gemma_windows if not w)
+                * (hd256["ms"] - hd256["bound_ms"])))
+
+    # device_loop: the conditional WHILE node's own cost a round, on a
+    # body of one kernel (occupancy - 1) and its round count: a chunk of
+    # 1,024 rounds as one graph launch, against the same body issued from
+    # the host with the condition read back after every round (the loop
+    # the CPU runs).  Bound: the body's and the condition kernel's words
+    # (occupancy and round count read and written, the flag and the limit
+    # read), 29 B a round.  Its launches are graph launches (one a drained
+    # run); what the paths lose to it is rounds x (ms - bound).
+    from repro_torch.runtime.enginecore import DeviceLoop, new_carry
+    lc = new_carry(None, None, dev)
+    n_loop = 1024
+
+    def loop_body(c):
+        c.occ.sub_(1)
+        c.rounds.add_(1)
+
+    def loop_setup():
+        lc.occ.fill_(n_loop)
+        lc.limit.fill_(n_loop)
+
+    def host_loop(a, i):
+        lc.rounds.zero_()
+        while int(lc.occ) > 0 and int(lc.rounds) < n_loop:
+            loop_body(lc)
+
+    before = dict(K.LAUNCHES)
+    dloop = DeviceLoop(loop_body, lc)
+    stream = torch.cuda.current_stream().cuda_stream
+    kern_l = smoke.time_ms(loop_setup, lambda a, i: dloop.launch(stream),
+                           iters=1)
+    loop_setup()
+    dloop.launch(stream)
+    if int(lc.occ) != 0 or int(lc.rounds) != n_loop:
+        raise AssertionError("device_loop: the timing loop ran "
+                             f"{int(lc.rounds)} rounds")
+    plain_l = smoke.time_ms(loop_setup, host_loop, iters=1, reps=3)
+    K.LAUNCHES.update(before)             # timing launches do not count
+    per = [x / n_loop for x in kern_l]
+    plain_per = [x / n_loop for x in plain_l]
+    b_l, _ = bound(29, 0, ALU_OPS_PER_S)
+    rounds_paths = road["rounds"] + kron["rounds"] + heap["fused"]["rounds"]
+    row("device_loop", csrc + "loop.cu",
+        "src/repro/runtime/enginecore.py:330 (fused_loop's lax.while_loop)",
+        per, plain_per, None, 29, 0,
+        {"unit": "one round of a one-kernel body", "rounds": n_loop,
+         "chunk_ms": kern_l[0], "host_loop_chunk_ms": plain_l[0],
+         "rounds_on_paths": rounds_paths},
+        excess=rounds_paths * (per[0] - b_l))
     return rows
 
 

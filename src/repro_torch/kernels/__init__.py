@@ -7,7 +7,8 @@ there is no fallback between the two.  ``ref`` holds the sequential
 oracles.  Ported: ``wavefaa``, ``ring_enqueue``/``ring_dequeue``,
 ``wave_compact``, ``heap_apply``, ``frontier_expand``,
 ``expert_tickets`` (MoE dispatch) and ``flash_attention`` — every Pallas
-kernel of the reference.
+kernel of the reference.  ``csrc/loop.cu`` (the round engines' device
+loop) is driven from ``runtime/enginecore.py``.
 """
 
 from . import ref
@@ -26,7 +27,7 @@ from .moe_route import (expert_tickets, expert_tickets_plain, moe_route,
 from .ring_slots import (cycle_lt, deq_planes, enq_planes, ring_dequeue,
                          ring_dequeue_plain, ring_enqueue, ring_enqueue_plain,
                          ticket_cycle)
-from .wavefaa import LANES, wavefaa, wavefaa_plain
+from .wavefaa import LANES, wavefaa, wavefaa_plain, wavefaa_scratch
 
 __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "compact_planes", "compact_scratch", "compact_width", "cycle_lt",
@@ -38,4 +39,5 @@ __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "heap_pop_count", "moe_route", "ref",
            "reset_launches", "ring_dequeue", "ring_dequeue_plain",
            "ring_enqueue", "ring_enqueue_plain", "ticket_cycle",
-           "top_k_stable", "wave_compact", "wavefaa", "wavefaa_plain"]
+           "top_k_stable", "wave_compact", "wavefaa", "wavefaa_plain",
+           "wavefaa_scratch"]

@@ -11,9 +11,12 @@ Libraries are loaded with ``ctypes``: pointers and the stream pass as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
 ``check`` turns into an exception.
 
-``LAUNCHES`` is the one piece of global state in the package: a plain
-integer per kernel wrapper, incremented where the wrapper launches its
-kernel and nowhere else, so a run can show it went through the kernels.
+``LAUNCHES`` holds a plain integer per kernel wrapper, incremented where
+the wrapper launches its kernel and nowhere else, so a run can show it
+went through the kernels.  A kernel inside a CUDA graph launches once per
+replay: the round engines' device loop (``runtime/enginecore.py:
+DeviceLoop``) counts its graph launches under ``device_loop`` and adds
+its captured round's launches once per round it ran.
 """
 
 from __future__ import annotations
@@ -36,10 +39,6 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
-#: lanes per CUDA block in the ballot-scan kernels (``kBlock`` in
-#: ``csrc/scan.cuh``): one scratch count per block
-BLOCK = 1024
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every entry point, by source file
 SIGNATURES = {
@@ -56,13 +55,16 @@ SIGNATURES = {
     "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
     "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 6 + (_F, _F,
                                                                _P)},
+    "loop": {"repro_loop_create": (_P,) * 7, "repro_loop_launch": (_P, _P),
+             "repro_loop_destroy": (_P, _P)},
 }
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
                             "ring_enqueue": 0, "wave_compact": 0,
                             "heap_apply": 0, "frontier_expand": 0,
-                            "expert_tickets": 0, "flash_attention": 0}
+                            "expert_tickets": 0, "flash_attention": 0,
+                            "device_loop": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -17,9 +17,12 @@
 // -inf, so they weigh exactly 0.
 //
 // The TPU kernel carried (m, l, acc) in VMEM across the sequential key
-// grid dimension of 512 x 512 tiles.  Here one CTA owns 64 query rows,
-// one per thread, and loops over key tiles of 32 staged in shared memory,
-// keeping m, l and acc in registers (scalar FMAs, hd 32 or 64).  Key
+// grid dimension of 512 x 512 tiles.  Here one CTA owns 64 query rows
+// and loops over key tiles of 32 staged in dynamic shared memory, keeping
+// m, l and acc in registers (scalar FMAs).  At hd 32 and 64 a row is one
+// thread; at hd 80, 128 and 256 a row is four neighbouring lanes, each
+// holding a quarter of q and acc (20, 32 or 64 floats), which sum their
+// partial dot products with two shuffles.  Key
 // tiles wholly above the causal diagonal or wholly before the window of
 // every row of the CTA are skipped when Sq <= Sk (then every row keeps
 // its own position, so it has a valid key): the Pallas kernel's
@@ -73,30 +76,39 @@ __device__ __forceinline__ void key_range(const FlashParams& p, int q0,
   }
 }
 
-constexpr int kRowsF = 64;  // query rows per CTA, one per thread
+constexpr int kRowsF = 64;  // query rows per CTA
 constexpr int kKeysF = 32;  // keys per tile
-// A thread keeps its query row, its accumulator and a tile of logits in
-// registers: up to hd 64 that fits without spilling (the reference's
-// float32 kernel tests have hd 32 or 64).
+// A thread keeps its share of the query row and of the accumulator and a
+// tile of logits in registers: whole rows up to hd 64, quarter rows above
+// (64 + 64 + 32 floats at hd 256).
+template <int HD>
+constexpr int kLanesPerRow = HD <= 64 ? 1 : 4;
+template <int HD>
+constexpr int kSmemF = 2 * kKeysF * HD * static_cast<int>(sizeof(float));
 
 template <int HD>
-__global__ void __launch_bounds__(kRowsF)
+__global__ void __launch_bounds__(kRowsF * kLanesPerRow<HD>)
     flash_f32_kernel(const FlashParams p) {
-  __shared__ float ks[kKeysF][HD];
-  __shared__ float vs[kKeysF][HD];
+  constexpr int R = kLanesPerRow<HD>;  // lanes per query row
+  constexpr int DP = HD / R;           // dims a lane holds
+  constexpr int kThreads = kRowsF * R;
+  extern __shared__ float smem_f[];
+  float(*ks)[HD] = reinterpret_cast<float(*)[HD]>(smem_f);
+  float(*vs)[HD] = reinterpret_cast<float(*)[HD]>(smem_f + kKeysF * HD);
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRowsF;
   const int kvh = h / p.rep;
-  const int row = q0 + threadIdx.x;
+  const int row = q0 + static_cast<int>(threadIdx.x) / R;
+  const int d0 = (static_cast<int>(threadIdx.x) % R) * DP;
   const float* qb = static_cast<const float*>(p.q) + b * p.qs[0] +
                     h * p.qs[1];
   const float* kb = static_cast<const float*>(p.k) + b * p.ks[0] +
                     kvh * p.ks[1];
   const float* vb = static_cast<const float*>(p.v) + b * p.vs[0] +
                     kvh * p.vs[1];
-  float q[HD], acc[HD];
+  float q[DP], acc[DP];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    q[d] = row < p.sq ? qb[row * p.qs[2] + d] : 0.f;
+  for (int d = 0; d < DP; ++d) {
+    q[d] = row < p.sq ? qb[row * p.qs[2] + d0 + d] : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -105,7 +117,7 @@ __global__ void __launch_bounds__(kRowsF)
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kKeysF;
     __syncthreads();
-    for (int c = threadIdx.x; c < kKeysF * HD; c += kRowsF) {
+    for (int c = threadIdx.x; c < kKeysF * HD; c += kThreads) {
       const int r = c / HD, d = c % HD;
       const bool in = k0 + r < p.sk;
       ks[r][d] = in ? kb[(k0 + r) * p.ks[2] + d] : 0.f;
@@ -118,7 +130,10 @@ __global__ void __launch_bounds__(kRowsF)
     for (int j = 0; j < kKeysF; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(q[d], ks[j][d], dot);
+      for (int d = 0; d < DP; ++d) dot = fmaf(q[d], ks[j][d0 + d], dot);
+#pragma unroll
+      for (int off = 1; off < R; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       s[j] = logit(dot, p, row, k0 + j);
       tmax = fmaxf(tmax, s[j]);
     }
@@ -133,10 +148,10 @@ __global__ void __launch_bounds__(kRowsF)
     }
     l = l * corr + rsum;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float a = acc[d] * corr;
 #pragma unroll
-      for (int j = 0; j < kKeysF; ++j) a = fmaf(s[j], vs[j][d], a);
+      for (int j = 0; j < kKeysF; ++j) a = fmaf(s[j], vs[j][d0 + d], a);
       acc[d] = a;
     }
   }
@@ -145,13 +160,22 @@ __global__ void __launch_bounds__(kRowsF)
               row * p.os[2];
   const float lf = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int d = 0; d < HD; ++d) ob[d] = acc[d] / lf;
+  for (int d = 0; d < DP; ++d) ob[d0 + d] = acc[d] / lf;
 }
 
 template <int HD>
 cudaError_t launch(const FlashParams& p, int batch, cudaStream_t s) {
+  static bool sized = false;  // one attribute call per instance
+  if (!sized && kSmemF<HD> > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemF<HD>);
+    if (e != cudaSuccess) return e;
+  }
+  sized = true;
   dim3 grid((p.sq + kRowsF - 1) / kRowsF, p.heads, batch);
-  flash_f32_kernel<HD><<<grid, kRowsF, 0, s>>>(p);
+  flash_f32_kernel<HD><<<grid, kRowsF * kLanesPerRow<HD>, kSmemF<HD>, s>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -160,7 +184,7 @@ cudaError_t launch(const FlashParams& p, int batch, cudaStream_t s) {
 // q, k, v, o: device pointers.  dims: {B, H, KV, Sq, Sk, hd, causal,
 // window, bf16}; strides: {q, k, v, o} x {batch, head, position}, in
 // elements (unit stride along hd).  float32 only: bf16 must be 0 (bfloat16
-// goes to flash_wgmma.cu).  hd is 32 or 64.  scale is the reference's
+// goes to flash_wgmma.cu).  hd is 32, 64, 80, 128 or 256.  scale is the reference's
 // 1 / sqrt(hd) rounded to float32.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -199,6 +223,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   switch (hd) {
     case 32: return static_cast<int>(launch<32>(p, batch, s));
     case 64: return static_cast<int>(launch<64>(p, batch, s));
+    case 80: return static_cast<int>(launch<80>(p, batch, s));
+    case 128: return static_cast<int>(launch<128>(p, batch, s));
+    case 256: return static_cast<int>(launch<256>(p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bfloat16, hd 32, 64, 80
-// and 128: wgmma for both products, K/V brought in by TMA into an
+// Flash attention forward for Hopper (sm_90a), bfloat16, hd 32, 64, 80,
+// 128 and 256: wgmma for both products, K/V brought in by TMA into an
 // mbarrier-tracked ring in shared memory, warp-specialised.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attn.py:_flash_kernel
@@ -16,23 +16,25 @@
 // below 2^-126 flush to 0), and the divisions are __fdividef (2 ulp).
 //
 // CTA: one per SM.  Three consumer warpgroups of 64 query rows each at
-// hd <= 64 (192 rows a CTA), two at hd 80 and 128 (128 rows), and a
+// hd <= 64 (192 rows a CTA), two at hd 80, 128 and 256 (128 rows), and a
 // producer warpgroup, which hands its registers to the consumers
 // (setmaxnreg) and whose first thread issues every TMA load.  Q is loaded
 // once.  K and V tiles of 128 keys sit in a ring of 3 stages
 // (512 bytes of K and V per unit of hd: 32 KB at hd 64, 64 KB at hd
-// 128), each with a full barrier (the producer's expect_tx; TMA
+// 128); at hd 256 tiles of 64 keys in a ring of 2 (64 KB a stage), each
+// with a full barrier (the producer's expect_tx; TMA
 // completes it) and an empty barrier (one arrival per consumer warp).
 // TMA reads the tensors as 4-D (hd, S, heads, B) through their own
 // strides, so the model's (B, S, H, hd) activations need no copy, in
 // boxes of a tile's rows swizzled at their row width (Layout below): 64
-// columns with the 128-byte swizzle at hd 64 and 128, 32 columns with the
+// columns with the 128-byte swizzle at hd 64, 128 and 256, 32 columns with the
 // 64-byte swizzle at hd 32, 16 columns with the 32-byte swizzle at hd 80
 // (160-byte rows).  The tensor maps are encoded on the host with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda).
 //
-// S = Q K^T: wgmma m64n128k16, Q and K both K-major from shared memory
+// S = Q K^T: wgmma m64n128k16 (m64n64k16 at hd 256), Q and K both
+// K-major from shared memory
 // (descriptors with the boxes' swizzle).  The S accumulator is
 // laid out as wgmma's A fragment, so P is converted to bf16 in registers
 // and P V runs as wgmma m64n{hd}k16 with A from registers and V from
@@ -78,24 +80,33 @@ struct FlashParams {
 };
 
 constexpr float kMasked = -1e30f;
-constexpr int kBN = 128;             // keys per tile
 
 // The CTA: kWGs consumer warpgroups of 64 query rows each, then a
 // producer warpgroup.  Three consumers at hd <= 64, where a K/V tile is
 // cheap to compute on and the reads of K and V from L2 set the pace (the
-// more rows share a tile, the fewer bytes a product needs); two at hd 80
-// and 128, whose accumulators leave no registers for a third.  The
+// more rows share a tile, the fewer bytes a product needs); two at hd 80,
+// 128 and 256, whose accumulators leave no registers for a third.  The
 // producer gives its registers to the consumers (setmaxnreg).
 //
-// A tile of rows (kBM query rows, or 128 keys) by hd columns is kBoxes
+// Key tiles are kBN = 128 keys, but 64 at hd 256: there a consumer holds
+// o[128] (the P V accumulator, m64n256), and S over 128 keys (64 more
+// registers, and 32 for P) would pass its 240; and a stage of 128 keys
+// of K and V would be 128 KB, so the ring could not hold two beside Q.
+// At hd 256 the ring has two stages: 1 KB + Q's 64 KB + 2 x 64 KB = 193
+// KB of the 227 KB.
+//
+// A tile of rows (kBM query rows, or kBN keys) by hd columns is kBoxes
 // TMA boxes side by side, each kBoxCols columns wide and swizzled at its
-// row width: hd 64 and 128 in boxes of 64 columns (128-byte rows, the
-// 128-byte swizzle), hd 32 in one box of 32 (64 bytes), hd 80 in five
+// row width: hd 64, 128 and 256 in boxes of 64 columns (128-byte rows,
+// the 128-byte swizzle), hd 32 in one box of 32 (64 bytes), hd 80 in five
 // boxes of 16 (32 bytes).  The swizzle repeats every 8 rows.
 template <int HD>
 struct Layout {
   static constexpr int kWGs = HD <= 64 ? 3 : 2;
   static constexpr int kBM = 64 * kWGs;  // query rows per CTA
+  static constexpr int kBN = HD == 256 ? 64 : 128;  // keys per tile
+  static constexpr int kSRegs = kBN / 2;  // S accumulator registers
+  static constexpr int kPSteps = kBN / 16;  // P V products, 16 keys each
   static constexpr int kConsumerWarps = 4 * kWGs;
   static constexpr int kThreads = 32 * kConsumerWarps + 128;
   // registers a thread: the launch splits 65,536 evenly; the producer
@@ -104,16 +115,16 @@ struct Layout {
   static constexpr int kBoxCols = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kRowBytes = 2 * kBoxCols;
-  static constexpr int kBoxBytes = 128 * kRowBytes;  // 128 keys
+  static constexpr int kBoxBytes = kBN * kRowBytes;  // kBN keys
   static constexpr int kQBoxBytes = kBM * kRowBytes;
   static constexpr int kAtomBytes = 8 * kRowBytes;
   // wgmma descriptor layout type: 1, 2, 3 for the 128-, 64-, 32-byte
   // swizzle
   static constexpr int kSwizzleType = kRowBytes == 128 ? 1
                                       : kRowBytes == 64 ? 2 : 3;
-  static constexpr int kStages = 3;
+  static constexpr int kStages = HD == 256 ? 2 : 3;
   static constexpr int kQBytes = kBoxes * kQBoxBytes;    // kBM rows
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // 128 keys
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // kBN keys
   static constexpr int kStageBytes = 2 * kTileBytes;     // K then V
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes;
 };
@@ -246,6 +257,24 @@ __device__ __forceinline__ void wgmma_ss_m64n128(
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_m64n64(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n32(
     float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
@@ -328,6 +357,49 @@ __device__ __forceinline__ void wgmma_rs_m64n128(
         "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n256(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -336,6 +408,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The key tiles [lo, hi) that query rows [q0, q0 + rows) must visit:
 // tiles wholly above the causal diagonal or before the window of every
 // row are left out when Sq <= Sk (then every row has a valid key).
+template <int kBN>
 __device__ __forceinline__ void key_range(const FlashParams& p, int q0,
                                           int rows, int* lo, int* hi) {
   const int nk = (p.sk + kBN - 1) / kBN;
@@ -353,11 +426,12 @@ __device__ __forceinline__ void key_range(const FlashParams& p, int q0,
 // -1e30 on masked keys and -inf past Sk, on a tile that crosses the
 // diagonal, the window edge or Sk.  Register 4 j + e of S holds row
 // (e < 2 ? r0 : r1) and key k0 + 8 j + 2 t + (e & 1).
-__device__ __forceinline__ void mask_tile(float (&s)[64],
+template <int R>
+__device__ __forceinline__ void mask_tile(float (&s)[R],
                                           const FlashParams& p, int k0,
                                           int r0, int r1, int t) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kpos = k0 + 8 * j + 2 * t + (e & 1);
@@ -378,6 +452,8 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
                        const FlashParams p, int batch) {
   using L = Layout<HD>;
   constexpr int kStages = L::kStages;
+  constexpr int kBN = L::kBN;
+  constexpr int kS = L::kSRegs;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
   // 1024-byte aligned: the 128-byte swizzle repeats every 8 rows of 128 B
@@ -410,7 +486,7 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
   }
   __syncthreads();
   int lo, hi;
-  key_range(p, q0, L::kBM, &lo, &hi);
+  key_range<kBN>(p, q0, L::kBM, &lo, &hi);
 
   if (warp >= L::kConsumerWarps) {
     // ---- producer warpgroup: gives its registers to the consumers; one
@@ -447,19 +523,19 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
   const int r0 = q0w + 16 * (warp & 3) + g, r1 = r0 + 8;
   const int row_last = min(q0w + 63, p.sq - 1);
   int wlo = 0, whi = 0;
-  if (q0w < p.sq) key_range(p, q0w, 64, &wlo, &whi);
+  if (q0w < p.sq) key_range<kBN>(p, q0w, 64, &wlo, &whi);
   // logits in log2 units: exp2f(s2 - m2) with s2 = s * log2(e)
   constexpr float kLog2e = 1.4426950408889634f;
   const float scale2 = p.softcap != 0.f ? p.scale : p.scale * kLog2e;
 
-  float o[HD / 2], sa[64];
-  uint32_t pa[8][4];
+  float o[HD / 2], sa[kS];
+  uint32_t pa[L::kPSteps][4];
 #pragma unroll
   for (int r = 0; r < HD / 2; ++r) o[r] = 0.f;
 #pragma unroll
-  for (int r = 0; r < 64; ++r) sa[r] = 0.f;
+  for (int r = 0; r < kS; ++r) sa[r] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < L::kPSteps; ++kk)
     pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t q_wg = q_s + wg * 64 * L::kRowBytes;
@@ -485,15 +561,20 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
     if (s_on) {
       // S = Q K^T, both K-major, 16 columns of hd per product: a box's
       // 8-row groups kAtomBytes apart, the 16 columns 32 bytes into a row
+      // (Q's boxes are kQBoxBytes apart, K's kBoxBytes)
       const uint32_t k_src = kv_s + s * L::kStageBytes;
 #pragma unroll
       for (int kc = 0; kc < HD / 16; ++kc) {
-        const uint32_t off = (16 * kc / L::kBoxCols) * L::kBoxBytes +
-                             (16 * kc % L::kBoxCols) * 2;
-        wgmma_ss_m64n128(
-            sa, smem_desc(q_wg + off, 16, L::kAtomBytes, L::kSwizzleType),
-            smem_desc(k_src + off, 16, L::kAtomBytes, L::kSwizzleType),
-            kc > 0);
+        const uint32_t box = 16 * kc / L::kBoxCols;
+        const uint32_t col = (16 * kc % L::kBoxCols) * 2;
+        const uint64_t dq = smem_desc(q_wg + box * L::kQBoxBytes + col, 16,
+                                      L::kAtomBytes, L::kSwizzleType);
+        const uint64_t dk = smem_desc(k_src + box * L::kBoxBytes + col, 16,
+                                      L::kAtomBytes, L::kSwizzleType);
+        if constexpr (kBN == 64)
+          wgmma_ss_m64n64(sa, dq, dk, kc > 0);
+        else
+          wgmma_ss_m64n128(sa, dq, dk, kc > 0);
       }
     }
     if (pv_on) {
@@ -501,7 +582,7 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
       // apart (SBO), boxes of columns kBoxBytes apart (LBO)
       const uint32_t v_src = kv_s + sp * L::kStageBytes + L::kTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < L::kPSteps; ++kk) {
         const uint64_t dv =
             smem_desc(v_src + kk * 16 * L::kRowBytes, L::kBoxBytes,
                       L::kAtomBytes, L::kSwizzleType);
@@ -511,19 +592,21 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
           wgmma_rs_m64n64(o, pa[kk], dv, 1);
         else if constexpr (HD == 80)
           wgmma_rs_m64n80(o, pa[kk], dv, 1);
-        else
+        else if constexpr (HD == 128)
           wgmma_rs_m64n128(o, pa[kk], dv, 1);
+        else
+          wgmma_rs_m64n256(o, pa[kk], dv, 1);
       }
     }
     wgmma_commit();
     if (wg != L::kWGs - 1 || j < n) named_arrive(next);
     wgmma_wait<0>();
 #pragma unroll
-    for (int r = 0; r < 64; ++r) fence_reg(sa[r]);
+    for (int r = 0; r < kS; ++r) fence_reg(sa[r]);
 #pragma unroll
     for (int r = 0; r < HD / 2; ++r) fence_reg(o[r]);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < L::kPSteps; ++kk) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) fence_reg(pa[kk][x]);
     }
@@ -536,10 +619,10 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
     // scale after the product, cap, then mask only where a mask reaches
     const int k0 = kt * kBN;
 #pragma unroll
-    for (int r = 0; r < 64; ++r) sa[r] *= scale2;
+    for (int r = 0; r < kS; ++r) sa[r] *= scale2;
     if (p.softcap != 0.f) {
 #pragma unroll
-      for (int r = 0; r < 64; ++r)
+      for (int r = 0; r < kS; ++r)
         sa[r] = p.softcap * tanhf(__fdividef(sa[r], p.softcap)) * kLog2e;
     }
     const bool edge = k0 + kBN > p.sk || (p.causal && k0 + kBN - 1 > q0w) ||
@@ -549,7 +632,7 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
     // online softmax over the tile; a row lives in the 4 lanes of a quad
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 64; ++r)
+    for (int r = 0; r < kS; ++r)
       tmax[(r >> 1) & 1] = fmaxf(tmax[(r >> 1) & 1], sa[r]);
     float corr[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -561,7 +644,7 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
       m[x] = m_new;
     }
 #pragma unroll
-    for (int r = 0; r < 64; ++r) {
+    for (int r = 0; r < kS; ++r) {
       sa[r] = exp2_ftz(sa[r] - m[(r >> 1) & 1]);
       rsum[(r >> 1) & 1] += sa[r];
     }
@@ -575,7 +658,7 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
     for (int r = 0; r < HD / 2; ++r) o[r] *= corr[(r >> 1) & 1];
     // P in bf16 as wgmma's A fragments: 16 keys per product
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < L::kPSteps; ++kk) {
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         pa[kk][x] = pack_bf16(sa[8 * kk + 2 * x], sa[8 * kk + 2 * x + 1]);
@@ -629,9 +712,9 @@ EncodeTiled encode_tiled() {
 }
 
 // A (hd, rows, heads, batch) bf16 tensor map with (batch, head, position)
-// strides `st` in elements, in boxes of Layout<HD>::kBoxCols columns x 128
-// rows swizzled at the box's row width; positions past `rows` read as
-// zero.
+// strides `st` in elements, in boxes of Layout<HD>::kBoxCols columns x
+// `box_rows` rows swizzled at the box's row width; positions past `rows`
+// read as zero.
 template <int HD>
 bool encode_map(CUtensorMap* map, const void* base, int rows, int heads,
                 int batch, const long long* st, int box_rows) {
@@ -666,8 +749,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   p.n_qtiles = (p.sq + L::kBM - 1) / L::kBM;
   CUtensorMap tq, tk, tv;
   if (!encode_map<HD>(&tq, q, p.sq, p.heads, batch, strides, L::kBM) ||
-      !encode_map<HD>(&tk, k, p.sk, kv_heads, batch, strides + 3, kBN) ||
-      !encode_map<HD>(&tv, v, p.sk, kv_heads, batch, strides + 6, kBN))
+      !encode_map<HD>(&tk, k, p.sk, kv_heads, batch, strides + 3,
+                      L::kBN) ||
+      !encode_map<HD>(&tv, v, p.sk, kv_heads, batch, strides + 6, L::kBN))
     return cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
@@ -689,7 +773,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q, k, v, o: device pointers, bfloat16, 16-byte aligned.  dims: {B, H,
 // KV, Sq, Sk, hd, causal, window, bf16}; strides: {q, k, v, o} x {batch,
 // head, position} in elements, each a multiple of 8 (unit stride along
-// hd).  hd is 32, 64, 80 or 128 and bf16 must be nonzero.  scale is the
+// hd).  hd is 32, 64, 80, 128 or 256 and bf16 must be nonzero.  scale is the
 // reference's 1 / sqrt(hd) rounded to float32.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
 // arguments or a tensor map are refused.
@@ -723,6 +807,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
     case 64: return launch<64>(q, k, v, strides, p, kv_heads, batch, s);
     case 80: return launch<80>(q, k, v, strides, p, kv_heads, batch, s);
     case 128: return launch<128>(q, k, v, strides, p, kv_heads, batch, s);
+    case 256: return launch<256>(q, k, v, strides, p, kv_heads, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

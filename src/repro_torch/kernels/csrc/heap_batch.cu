@@ -25,9 +25,10 @@
 //     min(2^cap_log2, R_max).  R_max is the largest whole number of levels
 //     that fits beside the tail window and the op staging in the 227 KB a
 //     block may opt into: levels 0-7 of a 4-ary heap (21,845 nodes, 174,760
-//     B) or levels 0-13 of a binary one (16,383 nodes, 131,064 B).  Node j
-//     sits at slot j + d - 1, so each sibling group is one or two aligned
-//     128-bit loads.  A pop's sift runs through the top in a loop with no
+//     B), levels 0-13 of a binary one (16,383 nodes, 131,064 B) or levels
+//     0-4 of an 8-ary one (4,681 nodes, 37,448 B).  Node j sits at slot
+//     j + d - 1, so each sibling group is one, two or four aligned 128-bit
+//     loads.  A pop's sift runs through the top in a loop with no
 //     region tests and 32-bit indices.
 //   * Tail window.  kWindow nodes from kWindow / 2 below the call's first
 //     size (whole sibling groups past the top) are resident too: there a
@@ -39,7 +40,8 @@
 //     comes from a compare tree that keeps the serial scan's choice: the
 //     lowest index among the strict minima, none when all are KEY_INF.
 //     Below the top, the grandchildren are loaded while the children are
-//     decided, so two levels cost one round trip.
+//     decided, so two levels cost one round trip (binary and 4-ary; an
+//     8-ary group's 64 grandchildren would not fit in registers).
 //   * An insert loads its grandparent while it tests its parent.
 //   * The block stages only the INSERT and DELETE-MIN lanes of each chunk,
 //     in lane order (a block scan), and writes every other lane's outputs
@@ -82,9 +84,15 @@ constexpr int kStageBytes = kChunk * (5 * 4 + 1);
 // take their last leaves (and scrub them) and its inserts open their holes.
 constexpr int kWindow = 4096;
 
-// Nodes in the whole levels that fit in shared memory: sum of d^l.
+// Nodes in the whole levels that fit in shared memory: sum of d^l
+// (levels 0-13 binary, 0-7 4-ary, 0-4 8-ary).
 template <int A>
-constexpr int kResidentMax = A == 2 ? 21845 : 16383;
+constexpr int kResidentMax = A == 1 ? 16383 : A == 2 ? 21845 : 4681;
+// Below the top a pop loads its grandchildren while it decides between
+// the children: D^2 keys and vals in registers, 32 at 4-ary; at 8-ary
+// (128) they would not fit, so each level loads its own children there.
+template <int A>
+constexpr bool kLookAhead = A <= 2;
 
 // Shared memory: the top (node j at slot j + D - 1, so that every sibling
 // group starts on a 16- or 32-byte boundary, and D - 1 + D slots of
@@ -124,14 +132,14 @@ struct Heap {
                                                     uint32_t base,
                                                     uint32_t size, int32_t* k,
                                                     int32_t* v) {
-    const int4 a = reinterpret_cast<const int4*>(g)[0];
-    int32_t x[2 * D] = {a.x, a.y, a.z, a.w};
-    if (D == 4) {
-      const int4 b = reinterpret_cast<const int4*>(g)[1];
-      x[4 % (2 * D)] = b.x;
-      x[5 % (2 * D)] = b.y;
-      x[6 % (2 * D)] = b.z;
-      x[7 % (2 * D)] = b.w;
+    int32_t x[2 * D];
+#pragma unroll
+    for (int q = 0; q < D / 2; ++q) {
+      const int4 a = reinterpret_cast<const int4*>(g)[q];
+      x[4 * q] = a.x;
+      x[4 * q + 1] = a.y;
+      x[4 * q + 2] = a.z;
+      x[4 * q + 3] = a.w;
     }
 #pragma unroll
     for (int c = 0; c < D; ++c) {
@@ -319,7 +327,17 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
               j = base + w;
               base = (j << A) + 1;
             }
-            if (moving && t < max_depth && base < nsize) {
+            if constexpr (!kLookAhead<A>) {
+              // 8-ary: one sibling group a level, loaded when it is needed
+              for (; moving && t < max_depth && base < nsize; ++t) {
+                h.group(base, nsize, ck, cv);
+                const int w = min_child<D>(ck, cv, &bk, &bv);
+                if (w < 0 || !(bk < last.x)) break;
+                h.put(j, bk, bv);
+                j = base + w;
+                base = (j << A) + 1;
+              }
+            } else if (moving && t < max_depth && base < nsize) {
               h.group(base, nsize, ck, cv);
               for (; t < max_depth; ++t) {
                 const uint32_t gbase = (base << A) + 1;
@@ -414,7 +432,7 @@ int launch_heap(int32_t* k, int32_t* v, const int32_t* si, const int32_t* o,
 
 // keys/vals: (2^cap_log2,) int32, updated in place; size_in: (1,) int32;
 // ops/okeys/ovals: (b,) int32; outk/outv: (b,) int32; ok: (b,) bool;
-// size_out: (1,) int32.  b > 0, 0 < cap_log2 <= 30, arity_log2 in 1..2,
+// size_out: (1,) int32.  b > 0, 0 < cap_log2 <= 30, arity_log2 in 1..3,
 // max_depth = ceil(cap_log2 / arity_log2) + 1.  One launch of one block
 // with up to 217,768 B of dynamic shared memory.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without a
@@ -443,6 +461,9 @@ extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
                             max_depth, s);
     case 2:
       return launch_heap<2>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
+                            max_depth, s);
+    case 3:
+      return launch_heap<3>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
                             max_depth, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

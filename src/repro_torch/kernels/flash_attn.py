@@ -11,15 +11,16 @@ is floored at 1e-30.
 
 * ``flash_attention`` — the wrapper.  A CPU tensor goes to
   ``flash_attention_plain``; a CUDA tensor launches a kernel or raises.
-  The kernel is chosen by dtype: bfloat16 (hd 32, 64, 80 or 128) runs
-  ``csrc/flash_wgmma.cu`` (wgmma for both products, K/V by TMA into an
-  mbarrier ring, 128-key tiles); float32 (hd 32 or 64, the reference's
-  float32 tests) runs ``csrc/flash_attn.cu`` (scalar FMAs).  The kernels
+  The kernel is chosen by dtype: bfloat16 runs ``csrc/flash_wgmma.cu``
+  (wgmma for both products, K/V by TMA into an mbarrier ring, 128-key
+  tiles, 64-key tiles at hd 256); float32 (the reference's float32 tests)
+  runs ``csrc/flash_attn.cu`` (scalar FMAs).  Both take hd 32, 64, 80, 128
+  and 256 (``HEAD_DIMS``): every head width of a ported config.  The kernels
   read every tensor through its strides (unit stride along hd), so the
   model's (B, S, H, hd) activations pass as transposed views without a
   copy, and the output takes q's layout.
   ``bq``/``bk`` size the plain version's blocks; the kernel's tiles are
-  its own (``KERNEL_TILES``).  The plain version at the kernel's tiles
+  its own (``kernel_tiles``).  The plain version at the kernel's tiles
   rescales its running sums at the same keys, so the two differ only by
   the order of float32 sums and by exp's last place.
 * ``flash_attention_plain`` — the blocked loop of the reference's XLA
@@ -38,13 +39,23 @@ from . import _build
 DEFAULT_BQ = 512
 DEFAULT_BK = 512
 #: head widths the kernels are built for, by dtype
-HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 128), torch.float32: (32, 64)}
+HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 128, 256),
+             torch.float32: (32, 64, 80, 128, 256)}
 #: (query rows, keys) per block at which the plain version matches each
-#: kernel: both rescale their running sums at the same keys.  The wgmma
-#: kernel (bfloat16) walks 128-key tiles with CTAs of 192 query rows at
-#: hd <= 64 and 128 at hd 80 and 128; rows are independent, so the query
-#: block only has to divide Sq.  The scalar kernel (float32): 64 x 32.
+#: kernel below hd 256: both rescale their running sums at the same keys.
+#: The wgmma kernel (bfloat16) walks 128-key tiles with CTAs of 192 query
+#: rows at hd <= 64 and 128 at hd 80 and 128; rows are independent, so the
+#: query block only has to divide Sq.  The scalar kernel (float32): 64 x
+#: 32 at every hd.
 KERNEL_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
+
+
+def kernel_tiles(dtype: torch.dtype, hd: int):
+    """``KERNEL_TILES`` at head width ``hd``: the wgmma kernel walks
+    64-key tiles with CTAs of 128 query rows at hd 256."""
+    if dtype == torch.bfloat16 and hd == 256:
+        return (128, 64)
+    return KERNEL_TILES[dtype]
 
 
 def _check(q, k, v):

@@ -34,8 +34,10 @@ Faces:
 PLACE and return them, as the ring wrappers do; the Pallas kernel copies
 both planes per batch.  The card's kernel is one launch of one block
 that applies the batch serially with the heap's top levels (up to 21,845
-nodes 4-ary, 16,383 binary) and a window around its last leaf held in
-up to 227 KB of shared memory, and writes them back at the end.
+nodes 4-ary, 16,383 binary, 4,681 8-ary) and a window around its last
+leaf held in up to 227 KB of shared memory, and writes them back at the
+end.  The plain faces take any ``arity_log2 >= 1``; the kernel is built
+for arity_log2 1, 2 and 3 and refuses the others by name.
 """
 
 from __future__ import annotations
@@ -51,8 +53,9 @@ KEY_INF = 2 ** 31 - 1    # empty-slot / inactive-lane key sentinel
 
 OP_INSERT, OP_DELMIN, OP_NOP = 0, 1, -1
 
-#: arities the kernel is built for and checked at (d = 2^arity_log2)
-ARITY_LOG2 = (1, 2)
+#: arities the kernel is built for and checked at (d = 2^arity_log2); the
+#: plain faces take any ``arity_log2 >= 1``
+ARITY_LOG2 = (1, 2, 3)
 
 
 def max_depth(cap_log2: int, arity_log2: int) -> int:
@@ -131,9 +134,9 @@ def _apply_serial(keys: np.ndarray, vplanes: Sequence[np.ndarray], size: int,
 
 def _check_planes(name, keys, planes, ops, opkeys, opvals, cap_log2,
                   arity_log2):
-    if arity_log2 not in ARITY_LOG2:
-        raise ValueError(f"{name}: arity_log2={arity_log2} not in "
-                         f"{ARITY_LOG2}")
+    if arity_log2 < 1:
+        raise ValueError(f"{name}: arity_log2={arity_log2} must be >= 1 "
+                         f"(the heap's levels divide by it)")
     if not 0 < cap_log2 <= 30:
         raise ValueError(f"{name}: cap_log2={cap_log2} out of range")
     for p in (keys,) + tuple(planes):
@@ -204,6 +207,10 @@ def heap_apply(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
     _build.require_cuda("heap_apply", keys, vals, size, ops, opkeys, opvals)
     _check_planes("heap_apply", keys, (vals,), ops, opkeys, opvals,
                   cap_log2, arity_log2)
+    if arity_log2 not in ARITY_LOG2:
+        raise ValueError(f"heap_apply: the kernel is built for arity_log2 "
+                         f"in {ARITY_LOG2}, got arity_log2={arity_log2} "
+                         f"(a {1 << arity_log2}-ary heap)")
     b = ops.shape[0]
     dev = keys.device
     outk = torch.empty(b, dtype=torch.int32, device=dev)

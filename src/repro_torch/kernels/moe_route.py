@@ -10,9 +10,12 @@ slot.  A dropped pair still counts toward its expert, as in the Pallas
 kernel's per-tile ``base`` update.
 
 * ``expert_tickets`` — the wrapper.  A CPU tensor goes to
-  ``expert_tickets_plain``; a CUDA tensor launches the kernels of
-  ``csrc/moe_route.cu`` or raises.  Unlike the Pallas kernel it takes any
-  N, not only multiples of 128.
+  ``expert_tickets_plain``; a CUDA tensor launches the kernel of
+  ``csrc/moe_route.cu`` (one launch: one block for up to 1,024 pairs, a
+  decoupled look-back over tiles for more, on a scratch the wrapper keeps
+  per card and every call leaves zero) or raises.  Unlike the Pallas
+  kernel it takes any N, not only multiples of 128, and up to
+  ``MAX_EXPERTS`` experts (its two E-wide tables live in shared memory).
 * ``expert_tickets_plain`` — an exclusive cumsum of the (N, E) one-hot.
 * ``moe_route`` — top-k gating, softmax combine weights and tickets, the
   reference's ``moe_route``.
@@ -28,12 +31,39 @@ so equal gates pick the same experts in the same order on both sides.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from . import _build
 
-#: the kernel's per-block expert table holds this many experts
-MAX_EXPERTS = 64
+#: pairs per tile of the kernel (``kPairs`` in ``csrc/moe_route.cu``): a
+#: call of up to this many pairs is one block and needs no scratch
+TILE_PAIRS = 1024
+#: experts the kernel's two shared-memory tables (counts and bases, one
+#: int each per expert) hold (``kMaxExperts``)
+MAX_EXPERTS = 24576
+
+#: the look-back scratch of calls wider than one tile, kept per card and
+#: grown as needed; the kernel leaves it zero, so calls on one stream
+#: share it
+_SCRATCH: Dict[int, torch.Tensor] = {}
+
+
+def tickets_scratch_words(n: int, num_experts: int) -> int:
+    """int32 words of the kernel's look-back scratch for ``n`` pairs over
+    ``num_experts`` experts: a ticket and a done counter (and two spare
+    words), then one 64-bit status word per (tile, expert)."""
+    return 4 + 2 * max(-(-int(n) // TILE_PAIRS), 1) * int(num_experts)
+
+
+def _scratch(dev: torch.device, words: int) -> torch.Tensor:
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
+                                          device=dev)
+    return buf
 
 
 def _check(expert_ids: torch.Tensor, num_experts: int, capacity: int):
@@ -72,20 +102,21 @@ def expert_tickets(expert_ids: torch.Tensor, *, num_experts: int,
                                     capacity=capacity)
     _build.require_cuda("expert_tickets", expert_ids)
     if num_experts > MAX_EXPERTS:
-        raise ValueError(f"expert_tickets: the kernel takes at most "
-                         f"{MAX_EXPERTS} experts, got {num_experts}")
+        raise ValueError(f"expert_tickets: the kernel's shared-memory tables "
+                         f"take at most {MAX_EXPERTS} experts, got "
+                         f"{num_experts}")
     n = expert_ids.shape[0]
     dev = expert_ids.device
     slots = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return slots
-    blocks = -(-n // _build.BLOCK)
-    counts = torch.empty(blocks * num_experts, dtype=torch.int32, device=dev)
+    ptr = 0
+    if n > TILE_PAIRS:
+        ptr = _scratch(dev, tickets_scratch_words(n, num_experts)).data_ptr()
     lib = _build.library("moe_route")
     _build.check(lib.repro_expert_tickets(
-        expert_ids.data_ptr(), slots.data_ptr(), counts.data_ptr(), n,
-        num_experts, capacity, _build.stream_of(expert_ids)),
-        "expert_tickets")
+        expert_ids.data_ptr(), slots.data_ptr(), ptr, n, num_experts,
+        capacity, _build.stream_of(expert_ids)), "expert_tickets")
     _build.LAUNCHES["expert_tickets"] += 1
     return slots
 

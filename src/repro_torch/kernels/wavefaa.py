@@ -5,9 +5,11 @@ A wave ballots, a leader fetch-and-adds the popcount, and each active
 lane adds its prefix rank: active lane i gets ``counter + (active lanes
 before i)``, inactive lanes get -1, and the new counter is ``counter +
 popcount``.  ``wavefaa`` launches the CUDA kernel in ``csrc/wavefaa.cu``
-for a CUDA tensor (two passes: per-block popcounts, then block-ordered
-bases and ``__ballot_sync`` ranks) and the plain ``wavefaa_plain`` for a
-CPU tensor.  The counter stays a device tensor; nothing is read back.
+for a CUDA tensor (one launch: a wave of up to ``TILE_LANES`` lanes is one
+block; a wider one ranks its tiles with a decoupled look-back over a
+kept scratch, ``wavefaa_scratch``, which every call leaves zero) and the
+plain ``wavefaa_plain`` for a CPU tensor.  The counter stays a device
+tensor; nothing is read back.
 """
 
 from __future__ import annotations
@@ -17,6 +19,23 @@ import torch
 from . import _build
 
 LANES = 8 * 128  # the reference's block: masks are padded to a multiple
+#: lanes per tile of the CUDA kernel (``kFaaTileLanes`` in
+#: ``csrc/wavefaa.cu``): a wave of up to this many lanes needs no scratch
+TILE_LANES = 8192
+
+
+def wavefaa_scratch_words(n: int) -> int:
+    """int32 words of the kernel's look-back scratch for a wave of ``n``
+    lanes: a ticket and a done counter (and two spare words), then one
+    64-bit status word per tile."""
+    return 4 + 2 * max(-(-int(n) // TILE_LANES), 1)
+
+
+def wavefaa_scratch(n: int, device) -> torch.Tensor:
+    """The kernel's zeroed scratch for waves of up to ``n`` lanes.  Every
+    call leaves it zero; calls that may run at once need their own."""
+    return torch.zeros(wavefaa_scratch_words(n), dtype=torch.int32,
+                       device=device)
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -44,11 +63,13 @@ def wavefaa_plain(active: torch.Tensor, counter: torch.Tensor):
     return tickets, _i32(counter.long().reshape(1) + a.sum())
 
 
-def wavefaa(active: torch.Tensor, counter: torch.Tensor):
+def wavefaa(active: torch.Tensor, counter: torch.Tensor, scratch=None):
     """``active``: (N,) bool, or int32 holding 0/1, with N % 1024 == 0;
     ``counter``: (1,) int32.  Returns (tickets (N,) int32, new_counter
     (1,) int32).  The kernel reads a bool mask: an int32 mask on the
-    card is turned into ``active > 0`` first."""
+    card is turned into ``active > 0`` first.  ``scratch``: from
+    ``wavefaa_scratch`` for at least N lanes, used only by a wave of more
+    than ``TILE_LANES`` lanes (allocated here, one memset, when None)."""
     _check_mask("wavefaa", active)
     n = active.shape[0]
     if n % LANES:
@@ -67,13 +88,22 @@ def wavefaa(active: torch.Tensor, counter: torch.Tensor):
         new_counter.copy_(counter)
         return torch.empty(0, dtype=torch.int32,
                            device=active.device), new_counter
+    ptr = 0
+    if n > TILE_LANES:
+        if scratch is None:
+            scratch = wavefaa_scratch(n, active.device)
+        _build.require_cuda("wavefaa", scratch)
+        if (scratch.dim() != 1 or scratch.device != active.device
+                or scratch.data_ptr() % 8
+                or scratch.numel() < wavefaa_scratch_words(n)):
+            raise ValueError(f"wavefaa: scratch must be wavefaa_scratch(n) "
+                             f"for n >= {n}, on the mask's card")
+        ptr = scratch.data_ptr()
     tickets = torch.empty(n, dtype=torch.int32, device=active.device)
-    counts = torch.empty(n // _build.BLOCK, dtype=torch.int32,
-                         device=active.device)
     lib = _build.library("wavefaa")
     _build.check(lib.repro_wavefaa(
         active.data_ptr(), counter.data_ptr(), tickets.data_ptr(),
-        new_counter.data_ptr(), counts.data_ptr(), n,
-        _build.stream_of(active)), "wavefaa")
+        new_counter.data_ptr(), ptr, n, _build.stream_of(active)),
+        "wavefaa")
     _build.LAUNCHES["wavefaa"] += 1
     return tickets, new_counter

@@ -9,18 +9,32 @@ An engine is a configuration of this core:
   ``total`` the installed-children count (0 when ``over``), ``over`` the
   overflow flag.  ``live`` is a 0-d bool device tensor; a round with
   ``live`` false must leave the queue state untouched and return
-  ``k = total = 0`` and ``over = False``.  The core masks ``acc`` itself.
+  ``k = total = 0`` and ``over = False``.  The core runs rounds only while
+  the loop condition holds, so it always passes a true ``live``.
 * ``_occ_of(qstate)`` — the occupancy as a 0-d int32 device tensor.
 * a ``PlaneRegistry`` describing the queue planes the engine carries.
 
-PyTorch has no ``lax.while_loop``.  ``fused_loop`` stands in for it: it
-runs a chunk of exactly ``limit`` rounds, each predicated on the device
-flag ``live = (occupancy > 0) & ~overflow & (rounds < limit)``, so a
-drained, overflowed or finished loop runs on as bit-exact no-ops and the
-host reads nothing between rounds.  ``_run_chunks`` reads back
-``(occupancy, rounds, overflow, processed, spawned, max_occupancy)`` once
-per chunk, and ``_drive`` raises the reference's overflow and truncation
-errors, word for word, at the readback after the flagged round.
+A chunk is the reference's ``lax.while_loop``: rounds run while
+``occupancy > 0 and not overflow and rounds < limit``, the condition
+tested before every round, and the chunk ends in ONE readback of
+``(occupancy, rounds, overflow, processed, spawned, max_occupancy)``.  A
+chunk is ``sync_every`` rounds, or ``max_rounds`` when ``sync_every`` is
+0, so a drained run reads back once, as in the reference, and
+``host_syncs`` and ``sync_log`` are the reference's.  ``_drive`` raises
+the reference's overflow and truncation errors, word for word, at the
+readback after the flagged round.
+
+Each round is ``_round_into``: the engine's round on the chunk's carried
+buffers (``Carry``), written back into them IN PLACE.  On the card a
+chunk is one launch of a ``DeviceLoop``: a CUDA graph whose conditional
+WHILE node (``csrc/loop.cu``) replays the round body, captured once per
+engine and shape, and tests the condition on the card; nothing is read
+back between rounds.  On the CPU the same body runs in a Python loop that
+tests the same condition after every round.  A round body therefore may
+not read anything back to the host (no ``.item()``, ``bool()`` or
+``.tolist()`` of a device tensor, no copy of a Python value to the card)
+and must launch the same kernels every round; its allocations come from
+the graph's private pool at capture time.
 
 The trace and span planes of the reference wait for the observability
 slice: passing ``telemetry`` or ``spans`` raises ``NotImplementedError``.
@@ -28,16 +42,16 @@ slice: passing ``telemetry`` or ``spans`` raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import ctypes
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..obs.trace import SyncPoint
-
-#: longest chunk between two readbacks when ``sync_every=0``
-MAX_CHUNK = 64
 
 
 def _sds(shape, dtype=torch.int32) -> torch.Tensor:
@@ -57,6 +71,22 @@ def tree_leaves(tree) -> List[torch.Tensor]:
         tree = [tree[k] for k in sorted(tree)]
     if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
+    raise TypeError(f"unsupported tree node {type(tree).__name__}")
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor leaf of a nest of tuples (named
+    tuples included), lists and dicts; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
     raise TypeError(f"unsupported tree node {type(tree).__name__}")
 
 
@@ -80,17 +110,90 @@ def tree_to(tree, device: torch.device):
     return torch.as_tensor(a, device=device)
 
 
-def tree_where(live: torch.Tensor, new, old):
-    """``torch.where(live, new, old)`` leaf by leaf."""
-    if new is None:
-        return None
-    if isinstance(new, torch.Tensor):
-        return torch.where(live, new, old)
-    if isinstance(new, dict):
-        return {k: tree_where(live, new[k], old[k]) for k in new}
-    if isinstance(new, (tuple, list)):
-        return type(new)(tree_where(live, a, b) for a, b in zip(new, old))
-    raise TypeError(f"unsupported tree node {type(new).__name__}")
+def tree_copy_(dst, src) -> None:
+    """Write the leaves of ``src`` into those of ``dst`` (one structure),
+    in place; a leaf that already is its destination is left alone."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        if d is not s:
+            d.copy_(s)
+
+
+class Carry(NamedTuple):
+    """The buffers one chunk of rounds runs on, updated in place: the
+    queue state and acc, the run's counters (0-d int32: processed,
+    spawned, max_occ), the chunk's (oflow, a 0-d bool; rounds), the
+    occupancy after the last round, the chunk's round limit, and a true
+    ``live`` flag for ``_round``."""
+    q: Any
+    acc: Any
+    processed: torch.Tensor
+    spawned: torch.Tensor
+    max_occ: torch.Tensor
+    oflow: torch.Tensor
+    rounds: torch.Tensor
+    occ: torch.Tensor
+    limit: torch.Tensor
+    live: torch.Tensor
+
+
+def new_carry(q, acc, device: torch.device) -> Carry:
+    """A ``Carry`` over ``q`` and ``acc`` with zeroed counters and a true
+    ``live``."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return Carry(q, acc, *(torch.zeros((), **i32) for _ in range(3)),
+                 torch.zeros((), dtype=torch.bool, device=device),
+                 *(torch.zeros((), **i32) for _ in range(3)),
+                 torch.ones((), dtype=torch.bool, device=device))
+
+
+class DeviceLoop:
+    """A chunk of rounds as one CUDA graph launch: ``body(carry)`` (one
+    round, written back into ``carry``) is captured once with
+    ``torch.cuda.graph`` after one uncaptured warm-up on a copy of the
+    carry (which builds the kernels, sets their attributes and allocates
+    the engine's kept scratch), and ``csrc/loop.cu`` wraps the captured
+    graph in a conditional WHILE node over ``carry.occ``, ``.oflow``,
+    ``.rounds`` and ``.limit``.
+
+    ``_build.LAUNCHES`` is counted by the kernel wrappers, which run once,
+    at capture; ``per_round`` is what the capture counted (taken back out
+    of ``LAUNCHES``), and ``count(rounds)`` adds it once per replayed
+    round.  Failing to capture or to build the node raises: nothing falls
+    back to eager rounds."""
+
+    def __init__(self, body: Callable[[Carry], None], carry: Carry) -> None:
+        lib = _build.library("loop")
+        body(tree_map(torch.clone, carry))            # warm-up, on a copy
+        torch.cuda.synchronize(carry.occ.device)
+        before = dict(_build.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(self.graph):
+                body(carry)
+        finally:
+            self.per_round = {k: v - before[k]
+                              for k, v in _build.LAUNCHES.items()
+                              if v != before[k]}
+            _build.LAUNCHES.update(before)
+        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.check(lib.repro_loop_create(
+            self.graph.raw_cuda_graph(), carry.occ.data_ptr(),
+            carry.oflow.data_ptr(), carry.rounds.data_ptr(),
+            carry.limit.data_ptr(), ctypes.byref(graph), ctypes.byref(exe)),
+            "device loop: building the conditional WHILE graph")
+        self._lib = lib
+        self._exec = exe.value
+        self._free = weakref.finalize(self, lib.repro_loop_destroy,
+                                      graph.value, exe.value)
+
+    def launch(self, stream: int) -> None:
+        _build.check(self._lib.repro_loop_launch(self._exec, stream),
+                     "device loop: graph launch")
+        _build.LAUNCHES["device_loop"] += 1
+
+    def count(self, rounds: int) -> None:
+        for k, v in self.per_round.items():
+            _build.LAUNCHES[k] += v * rounds
 
 
 class PlaneGroup(NamedTuple):
@@ -161,13 +264,15 @@ def reject_obs(telemetry, spans) -> None:
 
 
 class EngineCore:
-    """Shared core of every fused round engine: the predicated chunk
-    runner (``fused_loop``), the chunked host driver (``_run_chunks`` /
+    """Shared core of every fused round engine: the in-place round body
+    (``_round_into``), the chunk runners (a ``DeviceLoop`` on the card, a
+    Python loop on the CPU), the host side (``_run_chunks`` /
     ``_drive``) and the plane registry.  Subclasses configure ``_round``
     and ``_occ_of``."""
 
     sync_every: int
     capacity: int
+    device: torch.device
 
     def _reset(self) -> None:
         self.stats: Dict[str, int] = {}
@@ -185,63 +290,86 @@ class EngineCore:
         return self.registry.bytes_per_shard(
             shards if shards is not None else getattr(self, "shards", 1))
 
-    def fused_loop(self, round_fn, occ_of, qstate, acc, processed, spawned,
-                   max_occ, limit: int):
-        """Run exactly ``limit`` occupancy-predicated rounds on the
-        device, with no readback.  Returns ``(qstate, acc, processed,
-        spawned, max_occ, oflow, rounds)``: the counters are 0-d device
-        tensors and ``rounds`` counts the live rounds only.  The counter
-        updates are the reference's ``fused_loop`` updates, applied only
-        where ``live``."""
-        dev = processed.device
-        oflow = torch.zeros((), dtype=torch.bool, device=dev)
-        rounds = torch.zeros((), dtype=torch.int32, device=dev)
-        for _ in range(limit):
-            live = (occ_of(qstate) > 0) & ~oflow & (rounds < limit)
-            qstate, new_acc, k, total, over = round_fn(qstate, acc, live)
-            acc = tree_where(live, new_acc, acc)
-            processed = processed + k
-            spawned = spawned + total
-            max_occ = torch.where(live,
-                                  torch.maximum(max_occ, occ_of(qstate)),
-                                  max_occ)
-            oflow = oflow | (over & live)
-            rounds = rounds + live.to(torch.int32)
-        return qstate, acc, processed, spawned, max_occ, oflow, rounds
+    def _round_into(self, c: Carry) -> None:
+        """One round on the carried buffers, written back into them in
+        place, with the reference's ``fused_loop`` counter updates."""
+        q, acc, k, total, over = self._round(c.q, c.acc, c.live)
+        tree_copy_(c.q, q)
+        tree_copy_(c.acc, acc)
+        occ = self._occ_of(c.q)
+        c.processed.add_(k)
+        c.spawned.add_(total)
+        torch.maximum(c.max_occ, occ, out=c.max_occ)
+        c.oflow.logical_or_(over)
+        c.rounds.add_(1)
+        c.occ.copy_(occ)
+
+    def _device_loop(self, q, acc) -> Tuple[Carry, DeviceLoop]:
+        """The engine's kept carry and device loop for this shape of queue
+        state and acc, built (and the round captured) at first use."""
+        loops = self.__dict__.setdefault("_loops", {})
+        key = tuple((tuple(t.shape), t.dtype)
+                    for t in tree_leaves(q) + tree_leaves(acc))
+        if key not in loops:
+            carry = new_carry(tree_map(torch.clone, q),
+                              tree_map(torch.clone, acc), self.device)
+            loops[key] = (carry, DeviceLoop(self._round_into, carry))
+        return loops[key]
 
     # -- host drivers --------------------------------------------------------
 
-    def _run_chunks(self, state, occ_of, what: str, max_rounds: int) -> None:
-        """Drive ``fused_loop`` over ``self._round`` to quiescence.
-        ``state = [qstate, acc, processed, spawned, max_occ]`` is updated
-        in place; each chunk ends in ONE readback of six integers."""
+    def _run_chunks(self, q, acc, max_occ: int, what: str,
+                    max_rounds: int):
+        """Run rounds from queue state ``q`` and ``acc`` to quiescence, in
+        chunks that each end in ONE readback of six integers; ``max_occ``
+        is the occupancy the run starts at.  ``acc`` is not changed; on
+        the CPU ``q``'s tensors are updated in place.  Returns the final
+        ``(q, acc)``."""
+        if self.device.type == "cuda":
+            carry, loop = self._device_loop(q, acc)
+            tree_copy_(carry.q, q)
+            tree_copy_(carry.acc, acc)
+        else:
+            loop = None
+            carry = new_carry(q, tree_map(torch.clone, acc), self.device)
+        carry.processed.zero_()
+        carry.spawned.zero_()
+        carry.max_occ.fill_(max_occ)
+        carry.occ.copy_(self._occ_of(carry.q))
 
         def chunk_fn(limit):
-            out = self.fused_loop(self._round, occ_of, *state, limit)
-            state[:] = out[:5]
-            oflow, r = out[5], out[6]
+            if loop is not None:
+                carry.limit.fill_(limit)
+                loop.launch(_build.stream_of(carry.occ))
+            else:
+                carry.rounds.zero_()
+                carry.oflow.zero_()
+                while (int(carry.occ) > 0 and not bool(carry.oflow)
+                       and int(carry.rounds) < limit):
+                    self._round_into(carry)
             occ, r, oflow, processed, spawned, max_occ = torch.stack(
-                [occ_of(state[0]), r, oflow.to(torch.int32), state[2],
-                 state[3], state[4]]).tolist()          # THE host sync
+                [carry.occ, carry.rounds, carry.oflow.to(torch.int32),
+                 carry.processed, carry.spawned,
+                 carry.max_occ]).tolist()                # THE host sync
+            if loop is not None:
+                loop.count(r)
             return occ, r, bool(oflow), processed, spawned, max_occ
 
         self._drive(chunk_fn, max_rounds, what)
+        if loop is not None:         # the kept buffers serve the next run
+            return tree_map(torch.clone, carry.q), tree_map(torch.clone,
+                                                            carry.acc)
+        return carry.q, carry.acc
 
     def _drive(self, chunk_fn, max_rounds: int, what: str) -> None:
         """``chunk_fn(limit)`` advances the state by up to ``limit`` rounds
         and returns (occupancy, rounds_delta, overflow, processed,
         spawned, max_occ) — one host sync per call.  Chunks are
-        ``sync_every`` rounds long, or, with ``sync_every=0``, 1, 2, 4, ...
-        rounds, doubling up to ``MAX_CHUNK``: a short run reads back about
-        log2 of its length times and wastes fewer predicated no-op rounds
-        than it ran, a long run reads back once per ``MAX_CHUNK`` rounds."""
+        ``sync_every`` rounds long, or ``max_rounds`` with
+        ``sync_every=0``, as in the reference."""
+        chunk = self.sync_every if self.sync_every > 0 else max_rounds
         rounds = host_syncs = 0
-        grow = 1
         while True:
-            if self.sync_every > 0:
-                chunk = self.sync_every
-            else:
-                chunk, grow = grow, min(2 * grow, MAX_CHUNK)
             limit = min(chunk, max_rounds - rounds)
             occ, r, oflow, processed, spawned, max_occ = chunk_fn(limit)
             rounds += r

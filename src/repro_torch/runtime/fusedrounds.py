@@ -9,24 +9,26 @@ One FIFO round runs entirely on the device:
     wave is wider than the ring) → enqueue wave (``ring_enqueue``)
 
 with head/tail as 0-d device tensors.  The host reads back once per
-chunk of rounds (``enginecore``), not once per round.  Within a round
-the engine issues exactly the reference's tickets (ballot ranks =
-row-major child order, Lemma III.1) through the same plane updates, so
+chunk of rounds (``enginecore``: a drained run is one chunk, on the card
+one CUDA graph launch whose WHILE node replays the round), not once per
+round.  Within a round the engine issues exactly the reference's tickets
+(ballot ranks = row-major child order, Lemma III.1) through the same
+plane updates, so
 acc, planes, head/tail and the stats counters are bit-identical to the
 reference engine and to the legacy per-round loop.
 
-Every round is predicated on the chunk's ``live`` flag: a round that is
-not live dequeues nothing (its tickets are all -1), spawns nothing (the
-step's child mask is ANDed with ``live``) and installs nothing, and the
-core masks the step's acc update, so it is a bit-exact no-op whatever the
-step function does.
+Every round is predicated on a ``live`` flag: a round that is not live
+dequeues nothing (its tickets are all -1), spawns nothing (the step's
+child mask is ANDed with ``live``) and installs nothing.  The core runs a
+round only while its loop condition holds, so it passes a true flag.
 
 ``HeapEngine`` is the priority configuration: a pop batch of
 ``heap_apply`` (the ``min(batch, size)`` smallest keys), the user's
 step, and one insert batch of the children in row-major order (or of the
 dense wave of ``wave_compact`` when the child wave is wider than the
-heap), with the heap size as a 0-d device tensor.  Its predicated rounds
-pop nothing (``k = 0``) and turn every insert lane into ``OP_NOP``.
+heap), with the heap size as a 0-d device tensor.  A round that is not
+live pops nothing (``k = 0``) and turns every insert lane into
+``OP_NOP``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from ..kernels.compact import (compact_scratch, compact_scratch_words,
 from ..kernels.heap_batch import (KEY_INF as HEAP_KEY_INF, OP_DELMIN,
                                   OP_INSERT, OP_NOP, heap_apply)
 from ..kernels.ring_slots import ring_dequeue, ring_enqueue
-from ..kernels.wavefaa import LANES, wavefaa
+from ..kernels.wavefaa import (LANES, wavefaa, wavefaa_scratch,
+                               wavefaa_scratch_words)
 from .enginecore import EngineCore, _sds, reject_obs, tree_to
 
 IDX_BOT = 2 ** 31 - 1           # ⊥ (⊥_c = IDX_BOT - 1); payloads must be smaller
@@ -127,6 +130,17 @@ def _pad_lanes(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _wavefaa(engine, mask, counter):
+    """``wavefaa`` on the engine's own look-back scratch, allocated at its
+    first round (the kernel leaves it zero every call)."""
+    scratch = engine._wavefaa_scratch
+    if scratch is None or scratch.numel() < wavefaa_scratch_words(
+            mask.shape[0]):
+        scratch = engine._wavefaa_scratch = wavefaa_scratch(mask.shape[0],
+                                                            mask.device)
+    return wavefaa(mask, counter, scratch=scratch)
+
+
 def _compact(engine, mask, planes, width):
     """``wave_compact`` on the engine's own look-back scratch, allocated at
     its first compacting round (the kernel leaves it zero every call)."""
@@ -140,7 +154,7 @@ def _compact(engine, mask, planes, width):
 
 class RingEngine(EngineCore):
     """The FIFO megaround configuration: ring planes + device head/tail
-    under the core's predicated chunks.  Same contract as the legacy
+    under the core's chunks of rounds.  Same contract as the legacy
     ``RoundRunner.run`` (exact tickets, row-major child order,
     quiescence).  Runs on ``device`` ("cuda" by default; "cpu" runs the
     kernels' plain versions)."""
@@ -162,7 +176,7 @@ class RingEngine(EngineCore):
         self.device = resolve_device(device)
         self._lane = torch.arange(batch, dtype=torch.int32,
                                   device=self.device)
-        self._compact_scratch = None
+        self._compact_scratch = self._wavefaa_scratch = None
         self._reset()
         nslots = 2 << capacity_log2
         self.registry.register("ring", (_sds((nslots,)),) * 4
@@ -189,7 +203,8 @@ class RingEngine(EngineCore):
         wdth = compact_width(cv.shape[0], capacity, self.compact)
         if wdth is None:
             # in-round leader FAA: child tickets from the spawn-mask ballot
-            etickets, newctr = wavefaa(_pad_lanes(cm), tail.reshape(1))
+            etickets, newctr = _wavefaa(self, _pad_lanes(cm),
+                                        tail.reshape(1))
             etickets = etickets[:cv.shape[0]]
             n_child = newctr[0] - tail
             over = (tail + n_child - head) > capacity
@@ -229,35 +244,30 @@ class RingEngine(EngineCore):
 
     def run(self, initial: np.ndarray, acc: Any = None,
             max_rounds: int = 10_000) -> Tuple[Any, RingState]:
-        """Seed the ring and run predicated rounds to quiescence.  The
-        host reads back once per chunk (see ``EngineCore._drive`` for the
-        chunk lengths); ``stats`` and ``sync_log`` are filled at each
-        readback, and ``stats["host_syncs"]`` counts those readbacks —
-        the one stat that differs from the reference, whose single
-        ``while_loop`` syncs once per ``sync_every`` chunk.  Every other
-        stat, acc, the planes and head/tail are bit-identical to the
+        """Seed the ring and run rounds to quiescence.  The host reads
+        back once per chunk (``sync_every`` rounds, or the whole run with
+        ``sync_every=0``, as in the reference); ``stats`` and ``sync_log``
+        are filled at each readback.  The stats (``host_syncs`` too), the
+        sync log, acc, the planes and head/tail are bit-identical to the
         reference.  Raises ``RuntimeError`` on ring overflow or
         ``max_rounds`` truncation at the readback after the flagged
         round.  Returns ``(acc, final RingState)`` with int head/tail."""
         self._reset()
         st = self._seed(ring_init(self.capacity_log2, self.device),
                         np.asarray(initial, np.int32).reshape(-1))
-        acc = tree_to(acc, self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
         q = RingState(st.cycles, st.safes, st.enqs, st.idxs,
                       torch.tensor(st.head, **i32),
                       torch.tensor(st.tail, **i32))
-        state = [q, acc, torch.zeros((), **i32), torch.zeros((), **i32),
-                 torch.tensor(st.tail - st.head, **i32)]
-        self._run_chunks(state, self._occ_of, "ring", max_rounds)
-        q, acc = state[0], state[1]
+        q, acc = self._run_chunks(q, tree_to(acc, self.device),
+                                  st.tail - st.head, "ring", max_rounds)
         return acc, RingState(q.cycles, q.safes, q.enqs, q.idxs,
                               int(q.head), int(q.tail))
 
 
 class HeapEngine(EngineCore):
     """``RingEngine``'s priority configuration: ``heap_apply`` pop and
-    insert batches under the core's predicated chunks, with the heap size
+    insert batches under the core's chunks of rounds, with the heap size
     as a device tensor.  Children insert as one masked batch in row-major
     order — the same heap evolution as the legacy chunked inserts, so
     acc, planes, size and the stats counters are bit-identical to the
@@ -351,7 +361,7 @@ class HeapEngine(EngineCore):
     def run(self, initial_keys: np.ndarray, initial_vals: np.ndarray,
             acc: Any = None, max_rounds: int = 10_000
             ) -> Tuple[Any, HeapState]:
-        """Seed the heap and run predicated priority rounds to quiescence,
+        """Seed the heap and run priority rounds to quiescence,
         with pops in exact min-key order within each round.  Same
         readback and error contract as ``RingEngine.run`` (one readback
         per chunk; ``RuntimeError`` on heap overflow or ``max_rounds``
@@ -363,12 +373,9 @@ class HeapEngine(EngineCore):
             raise ValueError("initial_keys and initial_vals must have one "
                              "shape")
         st = self._seed(heap_init(self.capacity_log2, self.device), ik, iv)
-        acc = tree_to(acc, self.device)
-        i32 = dict(dtype=torch.int32, device=self.device)
-        size = torch.tensor(st.size, **i32)
-        state = [HeapState(st.keys, st.vals, size), acc,
-                 torch.zeros((), **i32), torch.zeros((), **i32),
-                 size.clone()]
-        self._run_chunks(state, self._occ_of, "heap", max_rounds)
-        q = state[0]
-        return state[1], HeapState(q.keys, q.vals, int(q.size))
+        q = HeapState(st.keys, st.vals,
+                      torch.tensor(st.size, dtype=torch.int32,
+                                   device=self.device))
+        q, acc = self._run_chunks(q, tree_to(acc, self.device), st.size,
+                                  "heap", max_rounds)
+        return acc, HeapState(q.keys, q.vals, int(q.size))

@@ -16,6 +16,8 @@ from repro.sched.hostpq import HostPriorityPool as JPool  # noqa: E402
 from repro.sched.policy import make_policy as jmake_policy  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import HostRing  # noqa: E402
+from repro_torch.kernels.flash_attn import HEAD_DIMS  # noqa: E402
+from repro_torch.models.transformer import PORTED_FAMILIES  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.sched import HostPriorityPool, make_policy  # noqa: E402
 
@@ -44,6 +46,16 @@ def test_config_equal_field_by_field(name, reduced):
         (want.hd, want.param_count(), want.active_param_count())
     assert [got.window_for_layer(i) for i in range(got.n_layers)] == \
         [want.window_for_layer(i) for i in range(want.n_layers)]
+
+
+@pytest.mark.parametrize("name", [
+    n for n in NAMES if configs.get_config(n).family in PORTED_FAMILIES])
+def test_ported_head_widths_have_a_kernel(name):
+    """Every head width of a ported config is one the flash kernels are
+    built for, in bfloat16 (the model's type) and float32: the card's
+    prefill never refuses a ported config's attention."""
+    hd = configs.get_config(name).hd
+    assert hd in HEAD_DIMS[torch.bfloat16] and hd in HEAD_DIMS[torch.float32]
 
 
 def test_granite_full_width_counts():

@@ -28,8 +28,9 @@ from repro.kernels.flash_attn import flash_attention as jflash  # noqa: E402
 from repro.models.layers import _flash_core  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_plain, ref)
-from repro_torch.kernels.flash_attn import (KERNEL_TILES,  # noqa: E402
-                                            _kernel_view)
+from repro_torch.kernels.flash_attn import (HEAD_DIMS,  # noqa: E402
+                                            KERNEL_TILES, _kernel_view,
+                                            kernel_tiles)
 
 CONFIGS = [
     dict(b=1, h=4, kv=2, sq=512, sk=512, hd=64, causal=True, win=0, cap=0.0),
@@ -43,6 +44,11 @@ CONFIGS = [
     dict(b=1, h=4, kv=2, sq=256, sk=256, hd=128, causal=True, win=0, cap=0.0),
     dict(b=1, h=4, kv=2, sq=256, sk=512, hd=80, causal=True, win=96,
          cap=30.0),
+    # hd 256 (gemma3-4b): a local layer's window and a global layer
+    dict(b=1, h=4, kv=2, sq=256, sk=256, hd=256, causal=True, win=96,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=256, sk=512, hd=256, causal=True, win=0,
+         cap=0.0),
 ]
 
 
@@ -144,8 +150,9 @@ def test_rejects_bad_shapes():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_at_kernel_tiles_matches_pallas_and_oracle(cfg, dtype):
     """The plain version at the tiles of the kernel that runs this dtype
-    on the card (``KERNEL_TILES``: 128 x 128 for the wgmma kernel in
-    bfloat16, 64 x 32 in float32), which is what the card's check holds
+    on the card (``kernel_tiles``: 128 x 128 for the wgmma kernel in
+    bfloat16, 128 x 64 at hd 256, 64 x 32 in float32), which is what the
+    card's check holds
     the kernel against: within 1e-5 of the Pallas kernel and the oracle
     in float32, 8e-3 of the Pallas kernel in bfloat16."""
     q, k, v = _inputs(cfg, scale=0.3 if dtype == "float32" else 0.6)
@@ -153,7 +160,7 @@ def test_plain_at_kernel_tiles_matches_pallas_and_oracle(cfg, dtype):
     tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
     jin = [jnp.asarray(t.float().numpy(), getattr(jnp, dtype))
            for t in (tq, tk, tv)]
-    bq, bk = KERNEL_TILES[tdt]
+    bq, bk = kernel_tiles(tdt, cfg["hd"])
     got = flash_attention_plain(tq, tk, tv, bq=bq, bk=bk, **_kw(cfg))
     assert got.dtype == tdt
     want = np.asarray(jflash(*jin, bq=256, bk=256, **_kw(cfg))
@@ -167,9 +174,16 @@ def test_plain_at_kernel_tiles_matches_pallas_and_oracle(cfg, dtype):
 
 def test_kernel_tiles():
     """The plain version rescales at the wgmma kernel's 128-key tiles in
-    bfloat16 and at the scalar kernel's 32-key tiles in float32."""
+    bfloat16 (64-key tiles at hd 256) and at the scalar kernel's 32-key
+    tiles in float32, at every head width the kernels are built for."""
     assert KERNEL_TILES[torch.bfloat16] == (128, 128)
     assert KERNEL_TILES[torch.float32] == (64, 32)
+    for dtype, hds in HEAD_DIMS.items():
+        assert hds == (32, 64, 80, 128, 256)
+        for hd in hds:
+            want = (128, 64) if (dtype, hd) == (torch.bfloat16, 256) \
+                else KERNEL_TILES[dtype]
+            assert kernel_tiles(dtype, hd) == want
 
 
 @pytest.mark.parametrize("sk,causal,win", [(1000, False, 0), (700, True, 0),

@@ -56,7 +56,7 @@ def _batches(rng, cap_log2, b):
 
 
 @pytest.mark.parametrize("cap_log2", [4, 6, 8])
-@pytest.mark.parametrize("arity_log2", [1, 2])
+@pytest.mark.parametrize("arity_log2", [1, 2, 3])
 def test_heap_apply_matches_reference(arity_log2, cap_log2):
     rng = np.random.default_rng(100 * arity_log2 + cap_log2)
     kw = dict(cap_log2=cap_log2, arity_log2=arity_log2)
@@ -82,7 +82,7 @@ def test_heap_apply_matches_reference(arity_log2, cap_log2):
 
 #: nodes of the card kernel's shared-memory top by arity_log2 (whole
 #: levels: ``kResidentMax`` in ``csrc/heap_batch.cu``)
-R_MAX = {1: 16383, 2: 21845}
+R_MAX = {1: 16383, 2: 21845, 3: 4681}
 
 
 def _lanes(b, ops, keys, vals):
@@ -129,7 +129,7 @@ def _boundary_batches(rng, arity_log2, offset, b=4096):
 
 
 @pytest.mark.parametrize("offset", [-3, 0, 5])
-@pytest.mark.parametrize("arity_log2", [1, 2])
+@pytest.mark.parametrize("arity_log2", [1, 2, 3])
 def test_heap_apply_across_the_shared_memory_top(arity_log2, offset):
     """At 2^15 slots, above the card kernel's shared-memory top: heaps
     seeded just below, at and just above R_MAX nodes, then pops, inserts
@@ -293,10 +293,38 @@ def test_partial_waves_match_reference(with_rider):
 
 @pytest.mark.parametrize("arity_log2", [0, 3])
 def test_heap_apply_refuses_unbuilt_arities(arity_log2):
-    """Both faces accept only the arities the kernel is built and checked
-    for."""
-    keys, vals = map(torch.from_numpy, _empty(4))
-    lanes = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="arity_log2"):
-        heap.heap_apply(keys, vals, 0, lanes, lanes, lanes, cap_log2=4,
-                        arity_log2=arity_log2)
+    """arity_log2 0 is refused on both faces (the reference's levels
+    divide by it).  arity_log2 3 (an 8-ary heap), which both faces once
+    refused, is bit-exact against the reference's ``heap_planes``: three
+    inserts and a pop at 2^6 slots, then a sweep that fills the heap past
+    full and drains it past empty."""
+    if arity_log2 == 0:
+        keys, vals = map(torch.from_numpy, _empty(4))
+        lanes = torch.zeros(4, dtype=torch.int32)
+        with pytest.raises(ValueError, match="arity_log2"):
+            heap.heap_apply(keys, vals, 0, lanes, lanes, lanes, cap_log2=4,
+                            arity_log2=arity_log2)
+        with pytest.raises(ValueError, match="arity_log2"):
+            heap.heap_apply_plain(keys, vals, 0, lanes, lanes, lanes,
+                                  cap_log2=4, arity_log2=arity_log2)
+        return
+    kw = dict(cap_log2=6, arity_log2=arity_log2)
+    first = (np.array([0, 0, 0, 1], np.int32), np.array([7, 3, 9, 0],
+                                                         np.int32),
+             np.array([70, 30, 90, 0], np.int32))
+    rng = np.random.default_rng(3)
+    jk, jv = map(jnp.asarray, _empty(6))
+    jsize = jnp.asarray(0, jnp.int32)
+    keys, vals = map(torch.from_numpy, _empty(6))
+    size = torch.tensor(0, dtype=torch.int32)
+    jfn = jax.jit(functools.partial(jheap.heap_planes, **kw))
+    for i, (ops, ks, vs) in enumerate([first] + _batches(rng, 6, 16)):
+        jout = jfn(jk, jv, jsize, *map(jnp.asarray, (ops, ks, vs)))
+        out = heap.heap_planes(keys, vals, size,
+                               *map(torch.from_numpy, (ops, ks, vs)), **kw)
+        for a, b in zip(out, jout):
+            np.testing.assert_array_equal(_np(a), np.asarray(b))
+        if i == 0:
+            assert (int(out[3][3]), int(out[4][3])) == (3, 30)
+        jk, jv, jsize = jout[:3]
+        keys, vals, size = out[:3]

@@ -19,7 +19,8 @@ from repro.kernels import ring_slots as jring  # noqa: E402
 from repro.kernels.wavefaa import wavefaa as jwavefaa  # noqa: E402
 from repro_torch.kernels import (compact_planes, compact_scratch,  # noqa: E402
                                  compact_width, deq_planes, enq_planes, ref, ring_dequeue,
-                                 ring_enqueue, wave_compact, wavefaa)
+                                 ring_enqueue, wave_compact, wavefaa,
+                                 wavefaa_scratch)
 
 BOT = (1 << 31) - 1
 
@@ -296,3 +297,20 @@ def test_compact_scratch_and_cpu_face():
                                   (32, 64, True), (3, 0, True)])
 def test_compact_width_rule(args):
     assert compact_width(*args) == jcompact.compact_width(*args)
+
+
+def test_wavefaa_scratch_and_cpu_face():
+    """The kernel's look-back scratch is 4 words and one 64-bit status
+    word per 8,192-lane tile, all zero; a wave of one tile needs none, and
+    the CPU face takes a scratch and ignores it."""
+    for n, words in ((1024, 6), (8192, 6), (9216, 8), (1 << 22, 4 + 2 * 512)):
+        sc = wavefaa_scratch(n, "cpu")
+        assert sc.dtype == torch.int32 and sc.shape == (words,)
+        assert int(sc.abs().sum()) == 0
+    rng = np.random.default_rng(11)
+    mask = _t(rng.random(3 * 1024) < 0.4)
+    ctr = _t(np.array([2 ** 31 - 9], np.int32))
+    got = wavefaa(mask, ctr, scratch=wavefaa_scratch(3 * 1024, "cpu"))
+    want = jwavefaa(jnp.asarray(mask.numpy()), jnp.asarray(ctr.numpy()))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -356,3 +356,37 @@ def test_params_round_trip_keeps_bits():
     assert tp["layers"]["e_gate"].dtype == torch.bfloat16
     again = params_from_numpy(back, device="cpu")
     assert torch.equal(again["embed"], tp["embed"])
+
+
+def test_gemma3_prefill_at_head_width_256(monkeypatch):
+    """gemma3-4b's reduced config at its full head width of 256 (the flash
+    kernels' widest instance): a 2,048-token prompt takes the flash path
+    in all six layers, five windowed and one global, and the prefill's
+    last-token logits and caches match the reference's forward and
+    prefill."""
+    jcfg, cfg, jp, tp = _model("gemma3-4b", head_dim=256)
+    assert cfg.hd == 256 and cfg.n_layers == 6
+    calls = []
+    real = TL.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(kw["window"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TL, "flash_attention", spy)
+    toks = _tokens(cfg, 1, 2048, 21)
+    lg, caches = TT.prefill(tp, torch.from_numpy(toks).long(), cfg)
+    assert calls == [cfg.window_for_layer(i) for i in range(6)]
+    assert calls.count(0) == 1 and cfg.window_for_layer(5) == 0
+    want = np.asarray(JT.forward(jp, jnp.asarray(toks), jcfg))
+    np.testing.assert_allclose(lg.numpy(), want[:, -1:], **LOGITS)
+    jlg, jcaches = JT.prefill(jp, jnp.asarray(toks), jcfg)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **LOGITS)
+    # roped K at positions up to 2,047: a rope frequency one float32 ulp
+    # apart on the two sides (``test_rope``) turns the angle by up to
+    # position x ulp, about 2e-4 here, and the layers after the first
+    # carry that into their K and V (2.5e-4 measured, values near 1)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(caches[key].numpy(),
+                                   np.asarray(jcaches[key]), atol=5e-4,
+                                   rtol=0)

@@ -18,6 +18,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.moe_route import expert_tickets as jtickets  # noqa: E402
 from repro_torch.kernels import (expert_tickets,  # noqa: E402
                                  expert_tickets_plain, moe_route, ref)
+from repro_torch.kernels.moe_route import (MAX_EXPERTS,  # noqa: E402
+                                           TILE_PAIRS,
+                                           tickets_scratch_words)
 
 
 def _ids(rng, n, e, inactive=0.0):
@@ -117,3 +120,35 @@ def test_moe_capacity_is_respected():
     granted = d.numpy()[:, 0]
     assert (granted >= 0).sum() == cap
     assert sorted(granted[granted >= 0].tolist()) == list(range(cap))
+
+
+@pytest.mark.parametrize("n", [32, 1024, 1025, 65536])
+@pytest.mark.parametrize("e", [40, 64, 128, 257])
+def test_tickets_match_pallas_kernel_at_any_expert_count(n, e):
+    """Beyond the 64 experts the card's first kernel held: the plain B6
+    against the Pallas kernel (interpret mode) at a decode step's 32
+    pairs, one and just over one of the card kernel's 1,024-pair tiles,
+    and the prefill's 65,536.  N that is not a multiple of the Pallas
+    tile is padded with inactive pairs, which take no slot."""
+    rng = np.random.default_rng(7 * n + e)
+    ids = _ids(rng, n, e, 0.1)
+    ids[rng.random(n) < 0.01] = e + 2             # matches no expert
+    pad = -n % 128
+    padded = np.concatenate([ids, np.full(pad, -1, np.int32)])
+    top = int(np.bincount(ids[(ids >= 0) & (ids < e)], minlength=e).max())
+    for cap in (0, max(top // 2, 1), top + 1):
+        want = np.asarray(jtickets(jnp.asarray(padded), num_experts=e,
+                                   capacity=cap, interpret=True))[:n]
+        got = expert_tickets_plain(torch.from_numpy(ids), num_experts=e,
+                                   capacity=cap).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_port(ids, e, cap), want)
+
+
+def test_tickets_scratch_words():
+    """A call of up to one 1,024-pair tile needs no scratch; a wider one
+    keeps 4 words and one 64-bit status word per (tile, expert)."""
+    assert tickets_scratch_words(1024, 40) == 4 + 2 * 40
+    assert tickets_scratch_words(1025, 40) == 4 + 2 * 2 * 40
+    assert tickets_scratch_words(65536, 257) == 4 + 2 * 64 * 257
+    assert TILE_PAIRS == 1024 and MAX_EXPERTS >= 257

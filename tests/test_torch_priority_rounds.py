@@ -3,8 +3,9 @@
 ``heap_sssp`` golden digests side by side with the reference runner,
 fused vs legacy, the heap-overflow, seed-overflow and truncation errors
 word for word, compaction on vs off, exactly-once and min-key pop order,
-predicated no-op rounds past quiescence, and heap state carried across
-with ``repro_torch.interop``."""
+chunks that stop at quiescence, the readback log at every
+``sync_every``, and heap state carried across with
+``repro_torch.interop``."""
 
 import hashlib
 
@@ -23,10 +24,10 @@ from repro_torch.runtime import (ENGINE_REGISTRY, HeapEngine,  # noqa: E402
                                  PriorityRoundRunner)
 
 STATS = ("rounds", "processed", "spawned", "max_occupancy", "drained")
-# GOLDEN["heap_sssp"] of tests/test_enginecore.py (host_syncs dropped:
-# the port counts its own chunk readbacks)
+# GOLDEN["heap_sssp"] of tests/test_enginecore.py; its last stat,
+# host_syncs, is the fused engine's (the legacy loop reads back per wave)
 GOLDEN = {"stats": [10, 124, 122, 46, 1], "acc": "17210d10068cbe8b",
-          "planes": "3e13f886f2e96c70", "size": 0}
+          "planes": "3e13f886f2e96c70", "size": 0, "host_syncs": 1}
 
 
 def _digest(*arrays):
@@ -121,10 +122,32 @@ def test_heap_sssp_matches_golden_and_reference(fused):
                                  batch=16, fused=fused)
     jacc, jst = jr.run([5, 1], [1, 2], acc=jnp.zeros(97, jnp.int32))
     assert _stats(r.stats) == _stats(jr.stats)
+    assert r.stats["host_syncs"] == jr.stats["host_syncs"]
+    if fused:
+        assert r.stats["host_syncs"] == GOLDEN["host_syncs"]
+        assert ([(p.rounds, p.occupancy) for p in r.sync_log]
+                == [(p.rounds, p.occupancy) for p in jr.sync_log]
+                == [(10, 0)])
     np.testing.assert_array_equal(_np(acc), np.asarray(jacc))
     np.testing.assert_array_equal(_np(st.keys), np.asarray(jst.keys))
     np.testing.assert_array_equal(_np(st.vals), np.asarray(jst.vals))
     assert st.size == int(jst.size)
+
+
+@pytest.mark.parametrize("sync_every", [0, 1, 3])
+def test_sync_log_matches_reference_at_every_sync_every(sync_every):
+    """A chunk is ``sync_every`` rounds (the whole run at 0) that stops at
+    quiescence: the readbacks, their log and the stats are the
+    reference's."""
+    r, acc, _ = _golden_run(True, sync_every=sync_every)
+    jr = jrt.PriorityRoundRunner(jax_golden_step, capacity_log2=9,
+                                 batch=16, sync_every=sync_every)
+    jacc, _ = jr.run([5, 1], [1, 2], acc=jnp.zeros(97, jnp.int32))
+    np.testing.assert_array_equal(_np(acc), np.asarray(jacc))
+    assert ([(p.rounds, p.occupancy, p.host_syncs) for p in r.sync_log]
+            == [(p.rounds, p.occupancy, p.host_syncs) for p in jr.sync_log])
+    assert r.stats == {k: int(v) for k, v in jr.stats.items()}
+    assert r.stats["host_syncs"] == {0: 1, 1: 10, 3: 4}[sync_every]
 
 
 def test_fused_matches_legacy():
@@ -273,10 +296,11 @@ def test_pops_in_key_order(fused):
 
 
 def test_predicated_rounds_are_noops_past_quiescence():
-    """A chunk longer than the run needs leaves the state exactly as the
-    run left it, even with a step that bumps acc on every call and spawns
-    from every lane of an empty wave.  One 40-round chunk (30 rounds past
-    quiescence) equals one-round chunks and the reference."""
+    """A chunk longer than the run needs stops at quiescence and leaves
+    the state exactly as the run left it, even with a step that bumps acc
+    on every call and spawns from every lane of an empty wave.  One
+    40-round chunk (30 rounds longer than the run) equals one-round
+    chunks and the reference."""
     def noisy(acc, keys, vals, valid):
         acc, ck, cv, cm = golden_step(acc, keys, vals, valid)
         return acc + 1, ck, cv, cm | ~valid.any()

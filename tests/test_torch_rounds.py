@@ -1,9 +1,10 @@
 """The port's round engine (``repro_torch.runtime``) on the CPU, held
 bit-exact against the JAX reference engine: the ``fifo_fanout`` golden
-digests, live reference runs, fused vs legacy, the ``sync_every``
-heartbeat, the predicated no-op rounds, the overflow and truncation
-errors word for word, compaction on vs off, and state carried across
-with ``repro_torch.interop``."""
+digests (``host_syncs`` included), live reference runs, fused vs legacy,
+the ``sync_every`` heartbeat and its readback log at every
+``sync_every``, chunks that stop at quiescence, the overflow and
+truncation errors word for word, compaction on vs off, and state carried
+across with ``repro_torch.interop``."""
 
 import hashlib
 
@@ -23,10 +24,11 @@ from repro_torch.runtime import (ENGINE_REGISTRY, IDX_BOT,  # noqa: E402
 from repro_torch.runtime.enginecore import _sds  # noqa: E402
 
 STATS = ("rounds", "processed", "spawned", "max_occupancy", "drained")
-# GOLDEN["fifo_fanout"] of tests/test_enginecore.py (host_syncs dropped:
-# the port counts its own chunk readbacks)
+# GOLDEN["fifo_fanout"] of tests/test_enginecore.py; its last stat,
+# host_syncs, is the fused engine's (the legacy loop reads back per wave)
 GOLDEN = {"stats": [7, 63, 62, 32, 1], "acc": "b8d77df0675e0603",
-          "planes": "1a0afe86d6513a2a", "head_tail": [575, 575]}
+          "planes": "1a0afe86d6513a2a", "head_tail": [575, 575],
+          "host_syncs": 1}
 
 
 def _digest(*arrays):
@@ -99,6 +101,12 @@ def test_fifo_fanout_matches_golden_and_reference(fused):
     assert r.stats["fused"] == int(fused)
     jr, jacc, jst = _jax_run(fused=fused)
     assert _stats(r.stats) == _stats(jr.stats)
+    assert r.stats["host_syncs"] == jr.stats["host_syncs"]
+    if fused:
+        assert r.stats["host_syncs"] == GOLDEN["host_syncs"]
+        assert ([(p.rounds, p.occupancy) for p in r.sync_log]
+                == [(p.rounds, p.occupancy) for p in jr.sync_log]
+                == [(7, 0)])
     np.testing.assert_array_equal(_np(acc), np.asarray(jacc))
     for a, b in zip(st[:4], jst[:4]):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
@@ -126,12 +134,27 @@ def test_sync_every_log_matches_reference():
     assert r.sync_log[-1]["occupancy"] == 0
 
 
+@pytest.mark.parametrize("sync_every", [0, 1, 3])
+def test_sync_log_matches_reference_at_every_sync_every(sync_every):
+    """A chunk is ``sync_every`` rounds (the whole run at 0) that stops at
+    quiescence: the readbacks, their log and the stats are the
+    reference's."""
+    r, acc, _ = _run(tree_step, sync_every=sync_every)
+    jr, jacc, _ = _jax_run(sync_every=sync_every)
+    np.testing.assert_array_equal(_np(acc), np.asarray(jacc))
+    assert ([(p.rounds, p.occupancy, p.host_syncs) for p in r.sync_log]
+            == [(p.rounds, p.occupancy, p.host_syncs) for p in jr.sync_log])
+    assert r.stats == {k: int(v) for k, v in jr.stats.items()}
+    assert r.stats["host_syncs"] == {0: 1, 1: 7, 3: 3}[sync_every]
+
+
 def test_predicated_rounds_are_noops_past_quiescence():
-    """A chunk longer than the run needs leaves the state exactly as the
-    run left it, even with a step that is not a no-op on an empty wave:
-    it bumps acc every call and spawns from every lane of an empty wave.
-    One 40-round chunk (33 rounds past quiescence) equals one-round
-    chunks and the reference's ``while_loop``."""
+    """A chunk longer than the run needs stops at quiescence and leaves
+    the state exactly as the run left it, even with a step that is not a
+    no-op on an empty wave: it bumps acc every call and spawns from every
+    lane of an empty wave.  One 40-round chunk (33 rounds longer than
+    the run) equals one-round chunks and the reference's
+    ``while_loop``."""
     def noisy(acc, vals, valid):
         acc, cv, cm = tree_step(acc, vals, valid)
         return acc + 1, cv, cm | ~valid.any()
