@@ -13,10 +13,18 @@ JSON line; any failure raises and exits non-zero with no result line:
               with nvcc for sm_90a, one nvcc per source, all at once
               (nvcc version and build seconds).
 2. compare  — each kernel (wavefaa, ring_dequeue, ring_enqueue,
-              wave_compact, heap_apply, frontier_expand, expert_tickets,
+              ring_dequeue_wave, ring_enqueue_wave, wave_compact,
+              heap_apply, frontier_expand, expert_tickets,
               flash_attention) against its plain PyTorch version on the
               card, at the paths' shapes and at the CPU tests' edge cases
-              (wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
+              (the round's two wave kernels at road's shape (2^24 slots,
+              batch 1,024, 4,096-lane ballots), in kron's dense mode, at
+              batches of 3,000 and 8,192 with a three-tile ballot, with
+              counters that wrap past 2^31 and 2^32, on a ring that
+              overflows, with live=False calls, empty and full masks and
+              k = 0, 1, below and at the batch, every case at least ten
+              calls queued back to back;
+              wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
               2^22 lanes with wrapping counters, wave_compact also at 2^22
               and 2^22 - 77 lanes with width overflow, every case of both
               as ten calls queued back to back on one scratch with no
@@ -59,14 +67,19 @@ JSON line; any failure raises and exits non-zero with no result line:
               (a drained run is one CUDA graph launch whose conditional
               WHILE node replays the round, and one readback: host_syncs
               1 and sync_log [(rounds, 0)]); dist[v] must be row(v) +
-              col(v) everywhere and wavefaa and both ring waves must have
-              launched.  The same engine's rounds issued eagerly from the
-              host, 64 to a readback, must give the same dist and stats;
-              both are timed (host clock and CUDA events around the run).
+              col(v) everywhere, and ring_dequeue_wave and
+              ring_enqueue_wave must have launched once a round, wavefaa
+              and the standalone ring_dequeue never and ring_enqueue once
+              (the seed).  The same engine's rounds issued eagerly from
+              the host, 64 to a readback, must give the same dist and
+              stats; both are timed (host clock and CUDA events around the
+              run), and the nodes of the captured round are counted
+              (``graph_nodes``: total, by type, kernels by name).
 4. kron     — the compaction path: ``bfs_rounds`` on
               kron_like(65536, avg_deg=4, seed=1) at batch 1024 as in
               phase 3; dist must equal the sequential BFS oracle and
-              wave_compact must have launched.
+              wave_compact and both wave kernels must have launched once
+              a round.
 5. heap     — the priority path.  First the ``heap_sssp`` golden run of
               the JAX package's tests on the card (fused and legacy:
               stats [10, 124, 122, 46, 1], the acc and plane digests, and
@@ -109,14 +122,17 @@ JSON line; any failure raises and exits non-zero with no result line:
               also against a dependent-chain bound; frontier_expand at the
               busiest level of kron 2^20 and at the busiest and the median
               level of road.  wavefaa also at 2^22 lanes, expert_tickets
-              also at a decode step's 32 pairs.  The flash attention row
+              also at a decode step's 32 pairs.  The two wave kernels at
+              road's shape (the row) and kron's (its ``kron``).  The flash
+              attention row
               also carries the same times at hd 128 (q (1, 32, 4096, 128),
               kv 8, causal) under ``hd128`` and on gemma3-4b's layer 5
               (global) and layer 0 (window 1,024) inputs of phase 9 under
               ``hd256_global`` and ``hd256_local``.  ``device_loop``
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
-              with a readback a round.
+              with a readback a round; its row also carries the nodes of
+              each engine's captured round (road, kron, heap).
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -290,6 +306,68 @@ def bfs_levels(np, g, source):
         front = np.unique(nb[dist[nb] < 0])
         dist[front] = level
     return dist
+
+
+def heap_tree_step(torch):
+    """The priority task tree's step: pops counted by val % 4096, children
+    by ``tree_children``."""
+    def step(acc, keys, vals, valid):
+        acc = acc.index_add(0, torch.where(valid, vals % 4096, 0),
+                            valid.int())
+        ck, cv, cm = tree_children(
+            keys.long(), vals.long(),
+            lambda n: torch.arange(n, device=keys.device), valid)
+        return acc, ck.int(), cv.int(), cm
+    return step
+
+
+# CUgraphNodeType of the CUDA driver API (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free",
+                    13: "conditional"}
+
+
+def graph_nodes(engine) -> dict:
+    """The nodes of the round an engine's device loop captured (its one
+    ``DeviceLoop``'s graph, before the WHILE node wraps it), read with the
+    driver's ``cuGraphGetNodes``: the total, the count by node type and
+    the kernel nodes by kernel name (the first 100 characters)."""
+    import ctypes
+    (_, loop), = engine._loops.values()
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    cu.cuGraphGetNodes.argtypes = [vp, vp, ctypes.POINTER(sz)]
+    cu.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphKernelNodeGetParams_v2.argtypes = [vp, vp]
+    cu.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), vp]
+    graph = vp(loop.graph.raw_cuda_graph())
+    n = sz(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (vp * n.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    by_type, kernels = {}, {}
+    for node in nodes:
+        t = ctypes.c_int()
+        if cu.cuGraphNodeGetType(vp(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(t.value, str(t.value))
+        by_type[name] = by_type.get(name, 0) + 1
+        if t.value != 0:
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction is its first word
+        params = (ctypes.c_uint64 * 16)()
+        fname = ctypes.c_char_p()
+        if (cu.cuGraphKernelNodeGetParams_v2(vp(node), params)
+                or not params[0]
+                or cu.cuFuncGetName(ctypes.byref(fname), vp(params[0]))):
+            key = "(name not read)"
+        else:
+            key = fname.value.decode()[:100]
+        kernels[key] = kernels.get(key, 0) + 1
+    return {"nodes": n.value, "by_type": by_type, "kernels": kernels}
 
 
 STATS = ("rounds", "processed", "spawned", "max_occupancy", "drained")
@@ -506,6 +584,110 @@ class Smoke:
                                             idx_bot=IDX_BOT)
                 self.same("ring_dequeue", got, want)
                 head += b_deq
+
+    def wave_calls(self, K, nsl2, start, calls):
+        """A ring of 2^nsl2 slots whose head and tail start at ``start``,
+        driven by ``calls``: ("deq", batch, live) for ``ring_dequeue_wave``
+        and ("enq", values, live, mask, count) for ``ring_enqueue_wave``
+        (ballot mode with a mask, dense mode with a count), at capacity
+        2^(nsl2 - 1).  The calls are queued back to back on the card with
+        no synchronise between them, then made one at a time on the plain
+        versions' own ring; every call's outputs and head and tail after
+        it, and the planes after the last, are held against each other."""
+        torch = self.torch
+        ns, cap = 1 << nsl2, 1 << (nsl2 - 1)
+        i32c = dict(dtype=torch.int32, device=self.dev)
+        cyc0 = i32(((start % 2 ** 32) >> nsl2) - 1)
+        kern = [torch.full((ns,), cyc0, **i32c), torch.ones(ns, **i32c),
+                torch.zeros(ns, **i32c), torch.full((ns,), IDX_BOT, **i32c)]
+        ring = {"kern": (kern, torch.tensor(i32(start), **i32c),
+                         torch.tensor(i32(start), **i32c)),
+                "plain": ([p.clone() for p in kern],
+                          torch.tensor(i32(start), **i32c),
+                          torch.tensor(i32(start), **i32c))}
+        kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT)
+        lives = {b: torch.tensor(b, device=self.dev) for b in (False, True)}
+        out = {}
+        for face, suffix in (("kern", ""), ("plain", "_plain")):
+            deq = getattr(K, "ring_dequeue_wave" + suffix)
+            enq = getattr(K, "ring_enqueue_wave" + suffix)
+            planes, head, tail = ring[face]
+            out[face] = []
+            for call in calls:
+                live = lives[call[2]]
+                if call[0] == "deq":
+                    got = deq(*planes, head, tail, live, batch=call[1], **kw)
+                else:
+                    got = enq(*planes, head, tail, call[1], live,
+                              capacity=cap, mask=call[3], count=call[4],
+                              **kw)
+                out[face].append((call[0], got + (head.clone(),
+                                                  tail.clone())))
+        for (op, got), (_, want) in zip(out["kern"], out["plain"]):
+            name = "ring_dequeue_wave" if op == "deq" else "ring_enqueue_wave"
+            self.same(name, got, want)
+        self.same("ring_enqueue_wave", ring["kern"][0], ring["plain"][0])
+
+    def compare_ring_waves(self, K):
+        """The round's two wave kernels against their plain versions, each
+        case at least ten calls queued back to back: road's shape (2^24
+        slots, batch 1,024, a 4,096-lane ballot at road's density), kron's
+        dense mode (2^18 slots, a 2^17-lane compacted wave, counts up to
+        and past the free space), batches above 1,024 (3,000 and 8,192:
+        the head hazard) with a three-tile ballot of 20,000 lanes, counters
+        that wrap past 2^31 and 2^32, a small ring that overflows, empty
+        and full masks, k = 0, 1, below and at the batch, and live=False
+        calls in every case."""
+        np, torch = self.np, self.torch
+
+        def vals(n):
+            return self.t(self.rng.integers(0, 1 << 30, n), torch.int32)
+
+        def ballot(n, dens, live=True):
+            return ("enq", vals(n), live,
+                    self.t(self.rng.random(n) < dens), None)
+
+        def dense(width, count, live=True):
+            return ("enq", vals(width), live, None,
+                    torch.tensor(count, dtype=torch.int32, device=self.dev))
+
+        def rounds(batch, lanes, dens, n, mode="ballot", counts=None):
+            calls = []
+            for r in range(n):
+                live = r % 4 != 3
+                calls.append(("deq", batch, live))
+                if mode == "ballot":
+                    calls.append(ballot(lanes, dens[r % len(dens)], live))
+                else:
+                    calls.append(dense(lanes, counts[r % len(counts)], live))
+            return calls
+
+        road_dens = (0.2, 0.0, 1.0, 0.25)
+        cases = [
+            # road: 2^24 slots, batch 1,024, 4,096-lane ballots; k = 0 on
+            # the empty ring first, then 1, then below and at the batch
+            (24, 1 << 24, [("deq", BATCH, True), dense(1, 1),
+                           ("deq", BATCH, True), dense(4096, 700)]
+             + rounds(BATCH, 4 * BATCH, road_dens, 10)),
+            # kron: dense waves of the 2^17 capacity, one past the space
+            (18, 1 << 18, [dense(1 << 17, 5000)]
+             + rounds(BATCH, 1 << 17, None, 10, "dense",
+                      [900, 0, 20000, 130000, 4000])),
+            # batches past one block's 1,024 lanes, a three-tile ballot
+            (16, 1 << 16, [dense(1 << 15, 12000)]
+             + rounds(3000, 20000, (0.3, 1.0, 0.05), 6)
+             + rounds(8192, 1 << 15, None, 4, "dense", [9000, 30000])),
+            # counters that wrap past 2^31 and 2^32
+            (12, 2 ** 31 - 3000, rounds(512, 2048, (0.25, 0.3, 0.2), 12)),
+            (12, 2 ** 32 - 3000, [dense(2048, 1500)]
+             + rounds(512, 2048, (0.25, 0.3, 0.2), 12)),
+            (12, 2 ** 32 - 3000, rounds(512, 2048, None, 12, "dense",
+                                        [400, 700, 1200, 3000])),
+            # a 32-slot capacity that overflows
+            (6, 1 << 6, rounds(16, 64, (0.8, 0.1, 0.5), 12)),
+        ]
+        for nsl2, start, calls in cases:
+            self.wave_calls(K, nsl2, start, calls)
 
     def heap_batch(self, b, share, lo=-20, hi=40):
         """A random op batch: INSERT with probability ``share``, else mostly
@@ -916,6 +1098,7 @@ class Smoke:
         launches = dict(K.LAUNCHES)
         stats = dict(runner.stats)
         self.loop_checks(label, stats, runner.sync_log)
+        round_graph = graph_nodes(runner._engine)
         # the same run again under the profiler: the card's busy time
         # (its idle share is read against the unprofiled run's wall time)
         t0 = time.perf_counter()
@@ -955,6 +1138,7 @@ class Smoke:
             "launches": launches,
             "launches_per_round": {k: v / stats["rounds"]
                                    for k, v in launches.items()},
+            "round_graph": round_graph,
             # the profiler may drop the records of a long graph run (road:
             # 0.66 ms recorded of a 749 ms launch); then only the events'
             # span, the one graph launch from start to end, says how busy
@@ -1017,17 +1201,9 @@ class Smoke:
         want_acc, want_proc, want_spawn = heap_closure(np, ik, iv)
         oracle_s = time.perf_counter() - t0
 
-        def step(acc, keys, vals, valid):
-            acc = acc.index_add(0, torch.where(valid, vals % 4096, 0),
-                                valid.int())
-            ck, cv, cm = tree_children(
-                keys.long(), vals.long(),
-                lambda n: torch.arange(n, device=keys.device), valid)
-            return acc, ck.int(), cv.int(), cm
-
         runners = {fused: rt.PriorityRoundRunner(
-            step, capacity_log2=HEAP_CAP_LOG2, batch=BATCH, fused=fused)
-            for fused in (True, False)}
+            heap_tree_step(torch), capacity_log2=HEAP_CAP_LOG2, batch=BATCH,
+            fused=fused) for fused in (True, False)}
 
         def run(fused):
             r = runners[fused]
@@ -1062,6 +1238,7 @@ class Smoke:
             if fused:
                 self.launches["heap"] = dict(K.LAUNCHES)
                 self.loop_checks("heap", r.stats, r.sync_log)
+                info[name]["round_graph"] = graph_nodes(r._engine)
                 info[name]["sync_log"] = [(p.rounds, p.occupancy)
                                           for p in r.sync_log]
         (rf, af, sf), (rl, al, sl) = runs[True], runs[False]
@@ -1411,6 +1588,22 @@ class Smoke:
         return info, seen
 
 
+def ring_launches(label, info, compacts):
+    """The ring round's launches on a path: both wave kernels (and
+    wave_compact where the child wave is wider than the ring) once a
+    round; B1 and the standalone dequeue wave never, the standalone
+    enqueue wave once, for the seed."""
+    got, rounds = info["launches"], info["rounds"]
+    want = {"ring_dequeue_wave": rounds, "ring_enqueue_wave": rounds,
+            "wave_compact": rounds if compacts else 0, "wavefaa": 0,
+            "ring_dequeue": 0, "ring_enqueue": 1}
+    for name, n in want.items():
+        if got.get(name, 0) != n:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{got.get(name, 0)} times in {rounds} "
+                                 f"rounds, not {n}")
+
+
 def busiest_level(np, g, dist):
     """The BFS level whose frontier scans the most edges."""
     deg = np.diff(g.row_ptr).astype(np.int64)
@@ -1502,6 +1695,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.compare_wavefaa(K)
     smoke.compare_ring(K)
+    smoke.compare_ring_waves(K)
     smoke.compare_compact(K, kron_lanes)
     smoke.compare_heap(K)
     smoke.compare_frontier(K, {"road": (road, road_dist),
@@ -1524,9 +1718,7 @@ def main() -> int:
     road_info["fifo_golden"] = fifo_info
     if not np.array_equal(dist, road_dist):
         raise AssertionError("road: dist != row + col")
-    for name in ("wavefaa", "ring_dequeue", "ring_enqueue"):
-        if road_info["launches"][name] <= 0:
-            raise AssertionError(f"road: {name} was not launched")
+    ring_launches("road", road_info, compacts=False)
     road_info["dist_exact"] = True
     emit_phase(road_info)
     smoke.launches["road"] = road_info["launches"]
@@ -1535,9 +1727,7 @@ def main() -> int:
     dist, kron_info = smoke.run_path("kron", kron, K, bfs)
     if not np.array_equal(dist, bfs.bfs_reference(kron, 0)):
         raise AssertionError("kron: dist != bfs_reference")
-    for name in ("wave_compact", "ring_dequeue", "ring_enqueue"):
-        if kron_info["launches"][name] <= 0:
-            raise AssertionError(f"kron: {name} was not launched")
+    ring_launches("kron", kron_info, compacts=True)
     kron_info["dist_exact"] = True
     emit_phase(kron_info)
     smoke.launches["kron"] = kron_info["launches"]
@@ -1718,6 +1908,106 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         b_enq * (4 + 1) + 4 + (n_installed // iters) * (4 + 12 + 16),
         b_enq, {"lanes": b_enq, "active": n_installed // iters,
                 "ring_slots": ns})
+
+    # the round's wave kernels at the paths' shapes: road's dequeue wave
+    # (batch 1,024 on its 2^24-slot ring) and ballot enqueue wave (batch x
+    # fanout lanes at the run's density), kron's dequeue wave on its
+    # 2^18-slot ring and dense enqueue wave (the 2^17-lane compacted wave
+    # holding the run's mean children a round).  Each launch consumes or
+    # installs for real: the ring holds a dequeue wave's 50 batches, and
+    # the enqueue waves never fill it.  No single PyTorch call runs a ring
+    # wave.
+    live = torch.ones((), dtype=torch.bool, device=dev)
+
+    def ring_at(nsl2, fill):
+        """[planes, head, tail] of a ring of 2^nsl2 slots holding
+        ``fill`` values from ticket 2^nsl2 on."""
+        n = 1 << nsl2
+        planes = [torch.zeros(n, dtype=torch.int32, device=dev),
+                  torch.ones(n, dtype=torch.int32, device=dev),
+                  torch.zeros(n, dtype=torch.int32, device=dev),
+                  torch.full((n,), IDX_BOT, dtype=torch.int32, device=dev)]
+        if fill:
+            K.ring_enqueue(*planes, torch.arange(n, n + fill,
+                                                 dtype=torch.int32,
+                                                 device=dev),
+                           torch.arange(fill, dtype=torch.int32, device=dev),
+                           n, nslots_log2=nsl2, idx_bot=IDX_BOT)
+        return [planes, torch.tensor(n, dtype=torch.int32, device=dev),
+                torch.tensor(n + fill, dtype=torch.int32, device=dev)]
+
+    def deq_wave_times(nsl2, batch):
+        kw = dict(batch=batch, nslots_log2=nsl2, idx_bot=IDX_BOT)
+        out = [smoke.time_ms(lambda: ring_at(nsl2, iters * batch),
+                             lambda r, i: fn(*r[0], r[1], r[2], live, **kw),
+                             iters=iters)
+               for fn in (K.ring_dequeue_wave, K.ring_dequeue_wave_plain)]
+        # per consuming lane three plane words in and one out, per lane
+        # vals and ok out; head in and out, tail, live and k
+        return out + [batch * (12 + 4 + 4 + 1) + 17, batch]
+
+    def enq_wave_times(nsl2, waves, nbytes, ops):
+        kw = dict(capacity=1 << (nsl2 - 1), nslots_log2=nsl2,
+                  idx_bot=IDX_BOT)
+        return [smoke.time_ms(lambda: ring_at(nsl2, 0),
+                              lambda r, i: fn(*r[0], r[1], r[2],
+                                              waves[i][0], live,
+                                              **waves[i][1], **kw),
+                              iters=iters)
+                for fn in (K.ring_enqueue_wave, K.ring_enqueue_wave_plain)] \
+            + [nbytes, ops]
+
+    kron_nsl2 = kron["capacity"].bit_length()
+    kron_child = kron["spawned"] // kron["rounds"]
+    deq_kron = deq_wave_times(kron_nsl2, kron["batch"])
+    deq_road = deq_wave_times(nsl2, b_deq)
+    road_waves, road_child = [], 0
+    for i in range(iters):
+        m = torch.as_tensor(rng.random(b_enq) < dens1, device=dev)
+        road_child += int(m.sum())
+        road_waves.append((torch.as_tensor(rng.integers(
+            0, 1 << 22, b_enq, dtype=np.int32), device=dev), {"mask": m}))
+    road_child //= iters
+    # the mask in; per child its value and three plane words in and four
+    # out; head, tail in and out, live, total and over
+    enq_road = enq_wave_times(nsl2, road_waves,
+                              b_enq + road_child * 32 + 18, b_enq)
+    kron_count = torch.tensor(kron_child, dtype=torch.int32, device=dev)
+    kron_waves = [(torch.as_tensor(rng.integers(0, 1 << 16, kron["capacity"],
+                                                dtype=np.int32), device=dev),
+                   {"count": kron_count})
+                  for _ in range(iters)]
+    # as above with the count in place of the mask
+    enq_kron = enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 21,
+                              kron_child)
+
+    def wave_row(name, replaces, road_t, kron_t, road_shape, kron_shape):
+        b_kron = bound(kron_t[2], kron_t[3], ALU_OPS_PER_S)
+        b_road = bound(road_t[2], road_t[3], ALU_OPS_PER_S)[0]
+        kron_sub = dict(kron_shape, ms=kron_t[0][0], wall_ms=kron_t[0][1],
+                        plain_ms=kron_t[1][0], bound_ms=b_kron[0],
+                        bound_by=b_kron[1])
+        row(name, csrc + "ring_slots.cu", replaces, road_t[0], road_t[1],
+            None, road_t[2], road_t[3], dict(road_shape, kron=kron_sub),
+            excess=(smoke.launches["road"].get(name, 0)
+                    * (road_t[0][0] - b_road)
+                    + smoke.launches["kron"].get(name, 0)
+                    * (kron_t[0][0] - b_kron[0])))
+
+    wave_row("ring_dequeue_wave", "src/repro/kernels/ring_slots.py:184",
+             deq_road, deq_kron,
+             {"batch": b_deq, "ring_slots": ns,
+              "with": "the round's dequeue arithmetic "
+                      "(src/repro/runtime/fusedrounds.py:166-181)"},
+             {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2})
+    wave_row("ring_enqueue_wave", "src/repro/kernels/ring_slots.py:170",
+             enq_road, enq_kron,
+             {"mode": "ballot", "lanes": b_enq, "children": road_child,
+              "ring_slots": ns,
+              "with": "B1's ballot, the overflow test and the new tail "
+                      "(src/repro/runtime/fusedrounds.py:194-222)"},
+             {"mode": "dense", "lanes": kron["capacity"],
+              "children": kron_child, "ring_slots": 1 << kron_nsl2})
 
     # B3 wave_compact: the kron run's child wave, compacted to capacity
     n3 = kron["batch"] * kron["fanout"]
@@ -2084,7 +2374,12 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         per, plain_per, None, 29, 0,
         {"unit": "one round of a one-kernel body", "rounds": n_loop,
          "chunk_ms": kern_l[0], "host_loop_chunk_ms": plain_l[0],
-         "rounds_on_paths": rounds_paths},
+         "rounds_on_paths": rounds_paths,
+         # the nodes of each engine's captured round (graph_nodes)
+         "round_graph_nodes": {
+             "road": road["round_graph"]["nodes"],
+             "kron": kron["round_graph"]["nodes"],
+             "heap": heap["fused"]["round_graph"]["nodes"]}},
         excess=rounds_paths * (per[0] - b_l))
     return rows
 

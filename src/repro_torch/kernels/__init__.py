@@ -4,7 +4,8 @@ PyTorch version.
 A wrapper sends CPU tensors to the plain version and launches its CUDA
 kernel (``csrc/``, built on first use by ``_build``) for CUDA tensors;
 there is no fallback between the two.  ``ref`` holds the sequential
-oracles.  Ported: ``wavefaa``, ``ring_enqueue``/``ring_dequeue``,
+oracles.  Ported: ``wavefaa``, ``ring_enqueue``/``ring_dequeue`` (and a
+ring round's queue side as ``ring_dequeue_wave``/``ring_enqueue_wave``),
 ``wave_compact``, ``heap_apply``, ``frontier_expand``,
 ``expert_tickets`` (MoE dispatch) and ``flash_attention`` — every Pallas
 kernel of the reference.  ``csrc/loop.cu`` (the round engines' device
@@ -25,8 +26,10 @@ from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP, heap_apply,
 from .moe_route import (expert_tickets, expert_tickets_plain, moe_route,
                         top_k_stable)
 from .ring_slots import (cycle_lt, deq_planes, enq_planes, ring_dequeue,
-                         ring_dequeue_plain, ring_enqueue, ring_enqueue_plain,
-                         ticket_cycle)
+                         ring_dequeue_plain, ring_dequeue_wave,
+                         ring_dequeue_wave_plain, ring_enqueue,
+                         ring_enqueue_plain, ring_enqueue_wave,
+                         ring_enqueue_wave_plain, ticket_cycle)
 from .wavefaa import LANES, wavefaa, wavefaa_plain, wavefaa_scratch
 
 __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
@@ -38,6 +41,8 @@ __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "heap_apply_plain", "heap_insert_masked", "heap_planes",
            "heap_pop_count", "moe_route", "ref",
            "reset_launches", "ring_dequeue", "ring_dequeue_plain",
-           "ring_enqueue", "ring_enqueue_plain", "ticket_cycle",
+           "ring_dequeue_wave", "ring_dequeue_wave_plain", "ring_enqueue",
+           "ring_enqueue_plain", "ring_enqueue_wave",
+           "ring_enqueue_wave_plain", "ticket_cycle",
            "top_k_stable", "wave_compact", "wavefaa", "wavefaa_plain",
            "wavefaa_scratch"]

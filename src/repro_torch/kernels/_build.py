@@ -47,6 +47,8 @@ SIGNATURES = {
         "repro_ring_dequeue": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
         "repro_ring_enqueue": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _P),
+        "repro_ring_dequeue_wave": (_P,) * 10 + (_I, _I, _I, _P),
+        "repro_ring_enqueue_wave": (_P,) * 12 + (_I, _I, _I, _I, _P),
     },
     "compact": {"repro_wave_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
     "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P)},
@@ -61,7 +63,8 @@ SIGNATURES = {
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
-                            "ring_enqueue": 0, "wave_compact": 0,
+                            "ring_enqueue": 0, "ring_dequeue_wave": 0,
+                            "ring_enqueue_wave": 0, "wave_compact": 0,
                             "heap_apply": 0, "frontier_expand": 0,
                             "expert_tickets": 0, "flash_attention": 0,
                             "device_loop": 0}

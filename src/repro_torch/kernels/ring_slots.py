@@ -17,6 +17,23 @@ Three faces of one wave:
 * ``enq_planes`` / ``deq_planes`` — functional forms (new planes, ``ok``
   as int32, optional ``active`` mask) matching the reference's names.
 
+A ring round's queue side comes as two more wrappers, each one launch on
+the card, each beside its plain version (``*_plain``, the round
+engine's elementwise chain built on the plain faces above):
+
+* ``ring_dequeue_wave`` — ``k = live ? min(tail - head, batch) : 0``,
+  tickets ``head + [0, k)`` consumed, ``head += k`` in place.
+* ``ring_enqueue_wave`` — the children's tickets from the spawn-mask
+  ballot (or ``tail + [0, count)`` for a wave compacted by
+  ``wave_compact``), the overflow test ``tail + n_child - head >
+  capacity`` for the whole wave, the installs unless it overflows, and
+  ``tail += n_child`` in place.
+
+They take each lane's activity from that arithmetic (``lane < k``, the
+ballot bit), not from the ticket's sign, so tickets past 2^31 move like
+any other; below 2^31, where every run of the round engine stays, they
+give what the reference round's -1-sentinel tickets give.
+
 Both the kernels and the plain versions update the planes IN PLACE and
 return them.  The Pallas kernel copies all four (2n,) planes per wave; in
 place a wave costs O(B) instead of O(2n) — on a 2^24-slot ring that is
@@ -34,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .wavefaa import _i32, wavefaa_plain
 
 _U32 = 0xFFFFFFFF
 _SIGN = 1 << 31
@@ -179,14 +197,166 @@ def ring_dequeue(cycles, safes, enqs, idxs, tickets, *, nslots_log2: int,
     return cycles, safes, enqs, idxs, vals, ok
 
 
-def _check_wave(name, planes, nslots_log2, tickets, *rest):
-    _build.require_cuda(name, *planes, tickets, *rest)
+def ring_dequeue_wave_plain(cycles, safes, enqs, idxs, head, tail, live, *,
+                            batch: int, nslots_log2: int, idx_bot: int):
+    """Plain PyTorch ``ring_dequeue_wave``: the round's dequeue chain on
+    ``ring_dequeue_plain``.  Updates the planes and ``head`` in place;
+    returns (vals (batch,) int32, ok (batch,) bool, k 0-d int32)."""
+    lane = torch.arange(batch, dtype=torch.int32, device=head.device)
+    k = torch.where(live, torch.clamp(_i32(tail.long() - head.long()),
+                                      max=batch), 0)
+    active = lane < k
+    tickets = torch.where(active, _i32(head.long() + lane), -1)
+    *_, vals, ok = ring_dequeue_plain(cycles, safes, enqs, idxs, tickets,
+                                      nslots_log2=nslots_log2,
+                                      idx_bot=idx_bot, active=active)
+    head.copy_(_i32(head.long() + k))
+    return vals, ok, k
+
+
+def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, head, tail, values,
+                            live, *, capacity: int, nslots_log2: int,
+                            idx_bot: int, mask=None, count=None):
+    """Plain PyTorch ``ring_enqueue_wave``: the round's enqueue chain on
+    ``wavefaa_plain`` and ``ring_enqueue_plain``.  Updates the planes and
+    ``tail`` in place; returns (total 0-d int32, over 0-d bool)."""
+    _wave_mode("ring_enqueue_wave", values, mask, count)
+    if mask is not None:
+        active = mask & live
+        tickets, newctr = wavefaa_plain(active, tail.reshape(1))
+        n_child = _i32(newctr[0].long() - tail.long())
+    else:
+        n_child = torch.where(live, count.reshape(()), 0)
+        lane = torch.arange(values.shape[0], dtype=torch.int32,
+                            device=tail.device)
+        active = lane < n_child
+        tickets = _i32(tail.long() + lane)
+    over = _i32(tail.long() + n_child.long() - head.long()) > capacity
+    ring_enqueue_plain(cycles, safes, enqs, idxs, tickets, values, head,
+                       nslots_log2=nslots_log2, idx_bot=idx_bot,
+                       active=active & ~over)
+    tail.copy_(torch.where(over, tail, _i32(tail.long() + n_child)))
+    return torch.where(over, 0, n_child), over
+
+
+def ring_dequeue_wave(cycles, safes, enqs, idxs, head, tail, live, *,
+                      batch: int, nslots_log2: int, idx_bot: int):
+    """A ring round's dequeue side in one launch.  Planes (2n,) int32,
+    ``head``/``tail`` 0-d int32, ``live`` 0-d bool: ``k = live ? min(tail
+    - head, batch) : 0`` lanes consume tickets ``head + [0, k)``; the
+    planes and ``head`` (advanced by ``k``) are updated in place.  Returns
+    (vals (batch,) int32 with -1 on a miss, ok (batch,) bool, k 0-d
+    int32)."""
+    if head.device.type == "cpu":
+        return ring_dequeue_wave_plain(cycles, safes, enqs, idxs, head, tail,
+                                       live, batch=batch,
+                                       nslots_log2=nslots_log2,
+                                       idx_bot=idx_bot)
+    planes = (cycles, safes, enqs, idxs)
+    _check_round("ring_dequeue_wave", planes, nslots_log2, head, tail, live)
+    if batch < 0:
+        raise ValueError(f"ring_dequeue_wave: batch={batch} must be >= 0")
+    dev = head.device
+    vals = torch.empty(batch, dtype=torch.int32, device=dev)
+    ok = torch.empty(batch, dtype=torch.bool, device=dev)
+    k = torch.empty((), dtype=torch.int32, device=dev)
+    lib = _build.library("ring_slots")
+    _build.check(lib.repro_ring_dequeue_wave(
+        *(p.data_ptr() for p in planes), head.data_ptr(), tail.data_ptr(),
+        live.data_ptr(), vals.data_ptr(), ok.data_ptr(), k.data_ptr(), batch,
+        nslots_log2, idx_bot, _build.stream_of(head)), "ring_dequeue_wave")
+    _build.LAUNCHES["ring_dequeue_wave"] += 1
+    return vals, ok, k
+
+
+def ring_enqueue_wave(cycles, safes, enqs, idxs, head, tail, values, live, *,
+                      capacity: int, nslots_log2: int, idx_bot: int,
+                      mask=None, count=None):
+    """A ring round's enqueue side in one launch.  ``values`` (N,) int32
+    are the children.  Ballot mode (``mask``, (N,) bool): the children
+    are the set lanes of ``mask & live``, ranked in lane order.
+    Dense mode (``count``, the 0-d int32 true popcount ``wave_compact``
+    returns with ``values`` as its dense wave): the children are lanes
+    ``[0, count)`` when ``live``.  ``over = tail + n_child - head >
+    capacity`` (int32, wrapping); unless it holds, child r installs with
+    ticket ``tail + r`` and ``tail`` advances by ``n_child``, in place.
+    Returns (total 0-d int32, 0 when over; over 0-d bool)."""
+    if head.device.type == "cpu":
+        return ring_enqueue_wave_plain(cycles, safes, enqs, idxs, head, tail,
+                                       values, live, capacity=capacity,
+                                       nslots_log2=nslots_log2,
+                                       idx_bot=idx_bot, mask=mask,
+                                       count=count)
+    planes = (cycles, safes, enqs, idxs)
+    _check_round("ring_enqueue_wave", planes, nslots_log2, head, tail, live,
+                 values)
+    _wave_mode("ring_enqueue_wave", values, mask, count)
+    if not 0 <= capacity < 1 << 31:
+        raise ValueError(f"ring_enqueue_wave: capacity={capacity} out of "
+                         f"range")
+    mask_ptr = count_ptr = 0
+    if mask is not None:
+        if mask.device != head.device or not mask.is_contiguous():
+            raise ValueError("ring_enqueue_wave: mask must be contiguous, "
+                             "on the ring's card")
+        mask_ptr = mask.data_ptr()
+    else:
+        _build.require_cuda("ring_enqueue_wave", count)
+        count_ptr = count.data_ptr()
+    dev = head.device
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    over = torch.empty((), dtype=torch.bool, device=dev)
+    lib = _build.library("ring_slots")
+    _build.check(lib.repro_ring_enqueue_wave(
+        *(p.data_ptr() for p in planes), head.data_ptr(), tail.data_ptr(),
+        live.data_ptr(), values.data_ptr(), mask_ptr, count_ptr,
+        total.data_ptr(), over.data_ptr(), values.shape[0], capacity,
+        nslots_log2, idx_bot, _build.stream_of(head)), "ring_enqueue_wave")
+    _build.LAUNCHES["ring_enqueue_wave"] += 1
+    return total, over
+
+
+def _wave_mode(name, values, mask, count):
+    """Exactly one of ballot mode (``mask``, as wide as ``values``) and
+    dense mode (``count``, one int)."""
+    if (mask is None) == (count is None):
+        raise ValueError(f"{name}: pass mask (ballot mode) or count (dense "
+                         f"mode), not both or neither")
+    if values.dim() != 1:
+        raise ValueError(f"{name}: values must be (N,)")
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != values.shape:
+            raise ValueError(f"{name}: mask must be a bool (N,) as wide as "
+                             f"values")
+    elif count.numel() != 1 or count.dtype != torch.int32:
+        raise ValueError(f"{name}: count must be one int32")
+
+
+def _check_round(name, planes, nslots_log2, head, tail, live, *rest):
+    """A wave kernel's inputs: the ring on the current card, 0-d int32
+    head and tail and a 0-d bool live flag there too."""
+    _build.require_cuda(name, *planes, head, tail, *rest)
+    _check_planes(name, planes, nslots_log2)
+    if head.dim() or tail.dim():
+        raise ValueError(f"{name}: head and tail must be 0-d")
+    if (live.dtype != torch.bool or live.dim()
+            or live.device != head.device):
+        raise ValueError(f"{name}: live must be a 0-d bool on the ring's "
+                         f"card")
+
+
+def _check_planes(name, planes, nslots_log2):
     if not 0 < nslots_log2 < 32:
         raise ValueError(f"{name}: nslots_log2={nslots_log2} out of range")
     for p in planes:
         if p.shape != (1 << nslots_log2,):
             raise ValueError(f"{name}: planes must be (2^{nslots_log2},), "
                              f"got {tuple(p.shape)}")
+
+
+def _check_wave(name, planes, nslots_log2, tickets, *rest):
+    _build.require_cuda(name, *planes, tickets, *rest)
+    _check_planes(name, planes, nslots_log2)
     for t in (tickets,) + rest[:1]:
         if t.dim() != 1 or t.shape[0] != tickets.shape[0]:
             raise ValueError(f"{name}: tickets/values must be (B,)")

@@ -4,23 +4,26 @@ two configurations of the engine core: ``RingEngine`` (FIFO) and
 
 One FIFO round runs entirely on the device:
 
-    dequeue wave (``ring_dequeue``) → the user's step →
-    child tickets (``wavefaa`` ballot, or ``wave_compact`` when the child
-    wave is wider than the ring) → enqueue wave (``ring_enqueue``)
+    dequeue wave (``ring_dequeue_wave``) → the user's step →
+    [``wave_compact`` when the child wave is wider than the ring] →
+    enqueue wave (``ring_enqueue_wave``: the ballot's tickets, the
+    overflow test and the installs)
 
-with head/tail as 0-d device tensors.  The host reads back once per
-chunk of rounds (``enginecore``: a drained run is one chunk, on the card
-one CUDA graph launch whose WHILE node replays the round), not once per
-round.  Within a round the engine issues exactly the reference's tickets
-(ballot ranks = row-major child order, Lemma III.1) through the same
-plane updates, so
+with head/tail as 0-d device tensors that the two waves advance in
+place: on the card the round's queue work is these two launches (three
+with compaction).  The host reads back once per chunk of rounds
+(``enginecore``: a drained run is one chunk, on the card one CUDA graph
+launch whose WHILE node replays the round), not once per round.  Within
+a round the engine issues exactly the reference's tickets (ballot ranks
+= row-major child order, Lemma III.1) through the same plane updates, so
 acc, planes, head/tail and the stats counters are bit-identical to the
 reference engine and to the legacy per-round loop.
 
 Every round is predicated on a ``live`` flag: a round that is not live
-dequeues nothing (its tickets are all -1), spawns nothing (the step's
-child mask is ANDed with ``live``) and installs nothing.  The core runs a
-round only while its loop condition holds, so it passes a true flag.
+dequeues nothing (``k = 0``) and spawns nothing (the enqueue wave counts
+none of the step's children), so it leaves the ring as it was.  The core
+runs a round only while its loop condition holds, so it passes a true
+flag.
 
 ``HeapEngine`` is the priority configuration: a pop batch of
 ``heap_apply`` (the ``min(batch, size)`` smallest keys), the user's
@@ -43,9 +46,8 @@ from ..kernels.compact import (compact_scratch, compact_scratch_words,
                                compact_width, wave_compact)
 from ..kernels.heap_batch import (KEY_INF as HEAP_KEY_INF, OP_DELMIN,
                                   OP_INSERT, OP_NOP, heap_apply)
-from ..kernels.ring_slots import ring_dequeue, ring_enqueue
-from ..kernels.wavefaa import (LANES, wavefaa, wavefaa_scratch,
-                               wavefaa_scratch_words)
+from ..kernels.ring_slots import (ring_dequeue_wave, ring_enqueue,
+                                  ring_enqueue_wave)
 from .enginecore import EngineCore, _sds, reject_obs, tree_to
 
 IDX_BOT = 2 ** 31 - 1           # ⊥ (⊥_c = IDX_BOT - 1); payloads must be smaller
@@ -119,28 +121,6 @@ PriorityStepFn = Callable[
     Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def _pad_lanes(mask: torch.Tensor) -> torch.Tensor:
-    """Pad a flat (N,) spawn mask up to a LANES multiple for wavefaa."""
-    n = mask.shape[0]
-    npad = -(-n // LANES) * LANES
-    if npad == n:
-        return mask
-    out = mask.new_zeros(npad)
-    out[:n] = mask
-    return out
-
-
-def _wavefaa(engine, mask, counter):
-    """``wavefaa`` on the engine's own look-back scratch, allocated at its
-    first round (the kernel leaves it zero every call)."""
-    scratch = engine._wavefaa_scratch
-    if scratch is None or scratch.numel() < wavefaa_scratch_words(
-            mask.shape[0]):
-        scratch = engine._wavefaa_scratch = wavefaa_scratch(mask.shape[0],
-                                                            mask.device)
-    return wavefaa(mask, counter, scratch=scratch)
-
-
 def _compact(engine, mask, planes, width):
     """``wave_compact`` on the engine's own look-back scratch, allocated at
     its first compacting round (the kernel leaves it zero every call)."""
@@ -174,9 +154,7 @@ class RingEngine(EngineCore):
         self.sync_every = sync_every
         self.compact = compact
         self.device = resolve_device(device)
-        self._lane = torch.arange(batch, dtype=torch.int32,
-                                  device=self.device)
-        self._compact_scratch = self._wavefaa_scratch = None
+        self._compact_scratch = None
         self._reset()
         nslots = 2 << capacity_log2
         self.registry.register("ring", (_sds((nslots,)),) * 4
@@ -187,42 +165,27 @@ class RingEngine(EngineCore):
         return q.tail - q.head
 
     def _round(self, st, acc, live):
-        capacity, nslots_log2 = self.capacity, self.nslots_log2
         cyc, saf, enq, idx, head, tail = st
-        k = torch.where(live, torch.clamp(tail - head, max=self.batch), 0)
-        dtickets = torch.where(self._lane < k, head + self._lane, -1)
-        cyc, saf, enq, idx, vals, ok = ring_dequeue(
-            cyc, saf, enq, idx, dtickets, nslots_log2=nslots_log2,
-            idx_bot=IDX_BOT)
-        head = head + k
+        kw = dict(nslots_log2=self.nslots_log2, idx_bot=IDX_BOT)
+        # head and tail advance in place, so the state returned is ``st``
+        vals, ok, k = ring_dequeue_wave(cyc, saf, enq, idx, head, tail, live,
+                                        batch=self.batch, **kw)
         acc, cvals, cmask = self.step_fn(acc, vals, ok)
-        cm = torch.broadcast_to(cmask.bool(), cvals.shape).reshape(-1) & live
+        cm = torch.broadcast_to(cmask.bool(), cvals.shape).reshape(-1)
         cv = cvals.reshape(-1).to(torch.int32)
         # dense-wave rule: compact the sparse child wave down to the
-        # capacity bound before installing (a static decision per shape)
-        wdth = compact_width(cv.shape[0], capacity, self.compact)
+        # capacity bound before installing (a static decision per shape);
+        # the dense wave IS the children in ballot rank order
+        wdth = compact_width(cv.shape[0], self.capacity, self.compact)
         if wdth is None:
-            # in-round leader FAA: child tickets from the spawn-mask ballot
-            etickets, newctr = _wavefaa(self, _pad_lanes(cm),
-                                        tail.reshape(1))
-            etickets = etickets[:cv.shape[0]]
-            n_child = newctr[0] - tail
-            over = (tail + n_child - head) > capacity
-            etickets = torch.where(over, -1, etickets)  # suppress install
+            wave = dict(mask=cm)
         else:
-            # the dense wave IS the children in ballot rank order, so the
-            # tickets are the contiguous run tail + [0, n_child)
             (cv,), n_child = _compact(self, cm, (cv,), wdth)
-            over = (tail + n_child - head) > capacity
-            lane_w = torch.arange(wdth, dtype=torch.int32, device=cv.device)
-            etickets = torch.where((lane_w < n_child) & ~over,
-                                   tail + lane_w, -1)
-        cyc, saf, enq, idx, _ = ring_enqueue(
-            cyc, saf, enq, idx, etickets, cv, head,
-            nslots_log2=nslots_log2, idx_bot=IDX_BOT)
-        tail = torch.where(over, tail, tail + n_child)
-        total = torch.where(over, 0, n_child)
-        return RingState(cyc, saf, enq, idx, head, tail), acc, k, total, over
+            wave = dict(count=n_child)
+        total, over = ring_enqueue_wave(cyc, saf, enq, idx, head, tail, cv,
+                                        live, capacity=self.capacity,
+                                        **wave, **kw)
+        return st, acc, k, total, over
 
     def _seed(self, st: RingState, initial: np.ndarray) -> RingState:
         n = len(initial)

@@ -8,8 +8,10 @@ row-major order; every queue operation is ordered by ticket, so the run
 is deterministic.  Two engines share this contract:
 
 * **fused** (default) — ``fusedrounds.RingEngine``: the whole round runs
-  on the device with head/tail as device tensors and ``wavefaa`` as the
-  child-ticket source; the host reads back once per chunk of rounds.
+  on the device with head/tail as device tensors, its queue side two
+  launches (``ring_dequeue_wave``, and ``ring_enqueue_wave`` whose ballot
+  is the child-ticket source); the host reads back once per chunk of
+  rounds.
 * **legacy** (``fused=False``) — one host-driven round per iteration:
   head/tail as host ints, ``np.arange`` tickets, one kernel launch per
   wave and a readback after each.  Slower, but each round is a separate,

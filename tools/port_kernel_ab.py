@@ -1,29 +1,104 @@
 #!/usr/bin/env python3
-"""Time one checkout's B1 (``wavefaa``) and B6 (``expert_tickets``)
-kernels of the PyTorch port on the card, so that two checkouts can be
-compared in one call.
+"""Time one checkout of the PyTorch port on the card, so that two
+checkouts can be compared in one call.
 
     python3 tools/port_kernel_ab.py --src PATH/TO/CHECKOUT/src --label A
 
 imports ``repro_torch`` from ``--src`` (its kernels build into that
-checkout's ``build/repro_torch``) and prints one JSON line: the per-call
-device time in microseconds of ``wavefaa`` at the road path's child wave
-(4,096 lanes at density 0.2) and of ``expert_tickets`` at a decode step
-(32 pairs) and at a prefill (65,536 pairs), 40 experts, each the median
-of 5 batches of 50 calls timed with CUDA events behind a
-``torch.cuda._sleep`` (``chip_smoke.py``'s ``Smoke.time_ms``), beside
-the card's name and power limit.  Run two checkouts in turns in one call
-(A, B, B, A): a number from another call does not compare.  Needs a CUDA
-card; exits 2 without one.
+checkout's ``build/repro_torch``) and prints one JSON line, beside the
+card's name and power limit:
+
+* the round engines' drained runs on their device loops, as
+  ``chip_smoke.py`` phases 3-5 run them: BFS on road_like(2048 * 2048)
+  and kron_like(65536, avg_deg=4, seed=1) at batch 1,024, and the
+  priority task tree (65,536 seeds, 2^20-slot heap, batch 1,024).  For
+  each, after one run that captures the round: the median over three runs
+  of the wall time (rounds/s) and of the device span between CUDA events
+  around the run (µs a round), and the nodes of the captured round
+  (``chip_smoke.graph_nodes``); road's and kron's dist and the heap run's
+  acc are checked against their oracles;
+* the per-call device time in microseconds of ``wavefaa`` at the road
+  path's child wave (4,096 lanes at density 0.2) and of
+  ``expert_tickets`` at a decode step (32 pairs) and at a prefill (65,536
+  pairs), 40 experts, each the median of 5 batches of 50 calls timed with
+  CUDA events behind a ``torch.cuda._sleep`` (``Smoke.time_ms``).
+
+Run two checkouts in turns in one call (A, B, B, A): a number from
+another call does not compare.  Needs a CUDA card; exits 2 without one.
 """
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+RUNS = 3
+
+
+def drained(torch, run, rounds_of):
+    """``run()`` once to capture, then RUNS times between CUDA events:
+    (last result, median rounds/s, median device µs a round)."""
+    out = run()
+    rates, us = [], []
+    for _ in range(RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = run()
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = rounds_of(out)
+        rates.append(rounds / wall)
+        us.append(start.elapsed_time(end) * 1e3 / rounds)
+    return out, statistics.median(rates), statistics.median(us)
+
+
+def engine_cells(np, torch, cs, dev):
+    """The road, kron and heap cells of one checkout."""
+    from repro_torch import runtime as rt
+    from repro_torch.apps import bfs
+    out = {}
+    road = bfs.road_like(cs.ROAD_SIDE * cs.ROAD_SIDE)
+    v = np.arange(road.n)
+    kron = bfs.kron_like(cs.KRON_N, avg_deg=4, seed=1)
+    for name, g, want in (
+            ("road", road, (v // cs.ROAD_SIDE + v % cs.ROAD_SIDE)),
+            ("kron", kron, bfs.bfs_reference(kron, 0))):
+        runner, init_fn = bfs.bfs_rounds_runner(g, batch=cs.BATCH)
+        (dist, _), rate, us = drained(
+            torch, lambda: runner.run([0], acc=init_fn(0),
+                                      max_rounds=1_000_000),
+            lambda _: runner.stats["rounds"])
+        if not np.array_equal(dist.cpu().numpy(), want):
+            raise AssertionError(f"{name}: dist differs from its oracle")
+        out[name] = {"rounds": runner.stats["rounds"],
+                     "readbacks": runner.stats["host_syncs"],
+                     "rounds_per_s": rate, "device_us_per_round": us,
+                     "round_graph": cs.graph_nodes(runner._engine)}
+    rng = np.random.default_rng(12)
+    ik = rng.integers(0, 16, cs.HEAP_SEEDS).astype(np.int32)
+    iv = rng.integers(0, 2 ** 31 - 1, cs.HEAP_SEEDS).astype(np.int32)
+    runner = rt.PriorityRoundRunner(cs.heap_tree_step(torch),
+                                    capacity_log2=cs.HEAP_CAP_LOG2,
+                                    batch=cs.BATCH)
+    (acc, _), rate, us = drained(
+        torch, lambda: runner.run(ik, iv, acc=torch.zeros(
+            4096, dtype=torch.int32, device=dev), max_rounds=1_000_000),
+        lambda _: runner.stats["rounds"])
+    if not np.array_equal(acc.cpu().numpy(), cs.heap_closure(np, ik, iv)[0]):
+        raise AssertionError("heap: acc differs from the closure oracle")
+    out["heap"] = {"rounds": runner.stats["rounds"],
+                   "readbacks": runner.stats["host_syncs"],
+                   "rounds_per_s": rate, "device_us_per_round": us,
+                   "round_graph": cs.graph_nodes(runner._engine)}
+    return out
 
 
 def main() -> int:
@@ -38,15 +113,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import Smoke
+    import chip_smoke as cs
     from repro_torch import kernels as K
-    smoke = Smoke(torch, np)
+    smoke = cs.Smoke(torch, np)
     dev = smoke.dev
+    out = {"label": args.label, "src": args.src,
+           "repro_torch": K.__file__}
+    out.update(engine_cells(np, torch, cs, dev))
     rng = np.random.default_rng(5)
     mask = torch.as_tensor(rng.random(4096) < 0.2, device=dev)
     counter = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
-    out = {"label": args.label, "src": args.src,
-           "repro_torch": K.__file__}
     out["wavefaa_4096_us"] = smoke.time_ms(
         lambda: None, lambda a, i: K.wavefaa(mask, counter))[0] * 1e3
     for name, n in (("decode_32", 32), ("prefill_65536", 65536)):
