@@ -13,8 +13,9 @@ JSON line; any failure raises and exits non-zero with no result line:
               with nvcc for sm_90a, one nvcc per source, all at once
               (nvcc version and build seconds).
 2. compare  — each kernel (wavefaa, ring_dequeue, ring_enqueue,
-              ring_dequeue_wave, ring_enqueue_wave, wave_compact,
-              heap_apply, frontier_expand, expert_tickets,
+              ring_dequeue_wave, ring_enqueue_wave and their packed
+              instances, wave_compact, heap_apply and its rider instance,
+              obs_record, frontier_expand, expert_tickets,
               flash_attention) against its plain PyTorch version on the
               card, at the paths' shapes and at the CPU tests' edge cases
               (the round's two wave kernels at road's shape (2^24 slots,
@@ -23,7 +24,15 @@ JSON line; any failure raises and exits non-zero with no result line:
               counters that wrap past 2^31 and 2^32, on a ring that
               overflows, with live=False calls, empty and full masks and
               k = 0, 1, below and at the batch, every case at least ten
-              calls queued back to back;
+              calls queued back to back; the packed waves (birth stamps)
+              at road's and kron's shapes with unpacked seeds (flag 1,
+              birth 0), birth rounds 0, 1 and 2^30 - 1, wrapping
+              counters, an overflowing ring and live=False calls;
+              heap_apply's rider instance at arities 2, 4 and 8 across
+              its own shared-memory top, the inserts' rider a 0-d device
+              word or one per lane; obs_record against the torch-op
+              record at road's and the goldens' shapes, with planes that
+              wrap, 3,000 lanes, class rows and each plane alone;
               wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
               2^22 lanes with wrapping counters, wave_compact also at 2^22
               and 2^22 - 77 lanes with width overflow, every case of both
@@ -99,6 +108,20 @@ JSON line; any failure raises and exits non-zero with no result line:
               seeds under the child rule; fused (one readback) must equal
               legacy and the eager 64-round chunks bit for bit; heap_apply
               must launch at least twice per round.
+5b. obs     — the observability slice: both goldens with
+              Telemetry(capacity=256) and Spans(classes=1, buckets=8) on
+              the device loop (their tel and spans digests, stats,
+              host_syncs 1); road 2048² with Telemetry(capacity=8,192)
+              and Spans(), and the 2^20 heap tree with
+              Telemetry(capacity=2,048) and Spans(): state, stats and
+              one readback equal to phases 3 and 5's obs-off runs (road's
+              dist = row + col, the heap's acc = the closure oracle), one
+              record a round, pops and pushes summing to processed and
+              spawned, the histogram's total = the pops; the packed
+              waves, the rider heap_apply and obs_record launched once a
+              round or more.  Each timed in turns with its obs-off twin
+              ((off, on, on, off) x 3: µs a round, rounds/s) and its captured
+              round's nodes counted with obs off and on.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -132,7 +155,12 @@ JSON line; any failure raises and exits non-zero with no result line:
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
               with a readback a round; its row also carries the nodes of
-              each engine's captured round (road, kron, heap).
+              each engine's captured round (road, kron, heap, and road
+              and heap with obs on).  The packed waves at road's and
+              kron's shapes, the rider heap_apply at the heap path's
+              (beside the rider-less instance's time) and obs_record at
+              one road round's record have rows of their own; their
+              launches come from phase 5b.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -161,11 +189,11 @@ JSON line; any failure raises and exits non-zero with no result line:
               be finite, and the kernel is held against the plain version
               on layer 0's (local) and layer 5's (global) q/k/v.
 
-Phases 3-6, 8 and 9 also re-run their path under the profiler and
-report the card's idle share against the unprofiled wall time (where the
-profiler drops a long graph run's records, the events' span stands in).
-Phases 8 and 9 run before phase 7, whose line needs their launch
-counts.  Every phase
+Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
+and report the card's idle share against the unprofiled wall time (where
+the profiler drops a long graph run's records, the events' span stands
+in).  Phases 5b, 8 and 9 run before phase 7, whose line needs their
+launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -194,9 +222,6 @@ KRON_N = 65536
 IDX_BOT = 2 ** 31 - 1
 KEY_INF = 2 ** 31 - 1
 HEAP_CAP_LOG2 = 20       # the priority path's heap: 2^20 slots
-# nodes of the heap kernel's shared-memory top by arity_log2 (whole levels:
-# kResidentMax in csrc/heap_batch.cu)
-HEAP_R_MAX = {1: 16383, 2: 21845, 3: 4681}
 HEAP_SEEDS = 65536
 HEAP_HORIZON = 26        # children only below this key
 HEAP_SPAWN = 10          # a child is offered with probability 10/16
@@ -209,6 +234,13 @@ HEAP_GOLDEN = {"stats": [10, 124, 122, 46, 1], "acc": "17210d10068cbe8b",
 FIFO_GOLDEN = {"stats": [7, 63, 62, 32, 1], "acc": "b8d77df0675e0603",
                "planes": "1a0afe86d6513a2a", "head_tail": [575, 575],
                "host_syncs": 1}
+# the goldens' trace and span digests (Telemetry(capacity=256),
+# Spans(classes=1, buckets=8)) and the obs phase's plane sizes: road's
+# 5,119 rounds fit the trace plane, the heap tree's 1,816 too
+OBS_GOLDEN = {"fifo": {"tel": "cb3aae309ae1f69f", "spans": "b5f891af2ff7334a"},
+              "heap": {"tel": "ef6805304552b52a", "spans": "bbf1586fce097a87"}}
+OBS_ROAD_CAPACITY = 8192
+OBS_HEAP_CAPACITY = 2048
 EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
 GEMMA_ARCH = "gemma3-4b"
 SERVE_ARCH = "granite-moe-3b-a800m"
@@ -384,7 +416,9 @@ class Smoke:
         self.cases = {}           # kernel -> comparisons made
         self.launches = {"road": {}, "kron": {}, "heap": {},
                          "queue": {}, "prefill": {}, "serve": {},
-                         "prefill_gemma3": {}}   # path -> kernel launches
+                         "prefill_gemma3": {}, "obs_road": {},
+                         "obs_heap": {}}   # path -> kernel launches
+        self.keep = {}            # path -> (runner, final state) for obs
 
     # -- helpers -------------------------------------------------------------
 
@@ -587,13 +621,15 @@ class Smoke:
 
     def wave_calls(self, K, nsl2, start, calls):
         """A ring of 2^nsl2 slots whose head and tail start at ``start``,
-        driven by ``calls``: ("deq", batch, live) for ``ring_dequeue_wave``
-        and ("enq", values, live, mask, count) for ``ring_enqueue_wave``
-        (ballot mode with a mask, dense mode with a count), at capacity
-        2^(nsl2 - 1).  The calls are queued back to back on the card with
-        no synchronise between them, then made one at a time on the plain
-        versions' own ring; every call's outputs and head and tail after
-        it, and the planes after the last, are held against each other."""
+        driven by ``calls``: ("deq", batch, live[, packed]) for
+        ``ring_dequeue_wave`` and ("enq", values, live, mask, count[,
+        birth]) for ``ring_enqueue_wave`` (ballot mode with a mask, dense
+        mode with a count; ``packed`` and a ``birth`` round take the
+        packed instances), at capacity 2^(nsl2 - 1).  The calls are queued
+        back to back on the card with no synchronise between them, then
+        made one at a time on the plain versions' own ring; every call's
+        outputs and head and tail after it, and the planes after the last,
+        are held against each other."""
         torch = self.torch
         ns, cap = 1 << nsl2, 1 << (nsl2 - 1)
         i32c = dict(dtype=torch.int32, device=self.dev)
@@ -607,6 +643,8 @@ class Smoke:
                           torch.tensor(i32(start), **i32c))}
         kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT)
         lives = {b: torch.tensor(b, device=self.dev) for b in (False, True)}
+        births = {c[5]: torch.tensor(c[5], **i32c) for c in calls
+                  if c[0] == "enq" and len(c) > 5 and c[5] is not None}
         out = {}
         for face, suffix in (("kern", ""), ("plain", "_plain")):
             deq = getattr(K, "ring_dequeue_wave" + suffix)
@@ -616,17 +654,22 @@ class Smoke:
             for call in calls:
                 live = lives[call[2]]
                 if call[0] == "deq":
-                    got = deq(*planes, head, tail, live, batch=call[1], **kw)
+                    packed = len(call) > 3 and call[3]
+                    got = deq(*planes, head, tail, live, batch=call[1],
+                              birth_packed=packed, **kw)
+                    name = "ring_dequeue_wave" + ("_packed" * packed)
                 else:
+                    birth = births.get(call[5]) if len(call) > 5 else None
                     got = enq(*planes, head, tail, call[1], live,
                               capacity=cap, mask=call[3], count=call[4],
-                              **kw)
-                out[face].append((call[0], got + (head.clone(),
-                                                  tail.clone())))
-        for (op, got), (_, want) in zip(out["kern"], out["plain"]):
-            name = "ring_dequeue_wave" if op == "deq" else "ring_enqueue_wave"
+                              birth_round=birth, **kw)
+                    name = "ring_enqueue_wave" + (
+                        "" if birth is None else "_packed")
+                out[face].append((name, got + (head.clone(),
+                                               tail.clone())))
+        for (name, got), (_, want) in zip(out["kern"], out["plain"]):
             self.same(name, got, want)
-        self.same("ring_enqueue_wave", ring["kern"][0], ring["plain"][0])
+        self.same(out["kern"][-1][0], ring["kern"][0], ring["plain"][0])
 
     def compare_ring_waves(self, K):
         """The round's two wave kernels against their plain versions, each
@@ -689,6 +732,60 @@ class Smoke:
         for nsl2, start, calls in cases:
             self.wave_calls(K, nsl2, start, calls)
 
+    def compare_packed_waves(self, K):
+        """The wave kernels' packed instances (birth stamps) against their
+        plain versions, each case at least ten calls queued back to back:
+        road's shape (2^24 slots, batch 1,024, 4,096-lane ballots) and
+        kron's dense mode (2^18 slots, 2^17-lane waves) with slots seeded
+        by the unpacked enqueue wave (flag 1, birth 0) and consumed by the
+        packed dequeue wave, birth rounds 0, 1 and 2^30 - 1 among others,
+        counters that wrap past 2^32, an overflowing ring, and live=False
+        calls in every case."""
+        np, torch = self.np, self.torch
+        top = 2 ** 30 - 1
+
+        def vals(n):
+            return self.t(self.rng.integers(0, 1 << 30, n), torch.int32)
+
+        def seed(n, count):
+            return ("enq", vals(n), True, None,
+                    torch.tensor(count, dtype=torch.int32, device=self.dev),
+                    None)
+
+        def rounds(batch, lanes, n, births, dens=None, counts=None):
+            calls = []
+            for r in range(n):
+                live = r % 4 != 3
+                birth = births[r % len(births)]
+                calls.append(("deq", batch, live, True))
+                if dens is not None:
+                    calls.append(("enq", vals(lanes), live,
+                                  self.t(self.rng.random(lanes)
+                                         < dens[r % len(dens)]),
+                                  None, birth))
+                else:
+                    calls.append(("enq", vals(lanes), live, None,
+                                  torch.tensor(counts[r % len(counts)],
+                                               dtype=torch.int32,
+                                               device=self.dev), birth))
+            return calls
+
+        births = (0, 1, top, 7, 2 ** 20 + 3)
+        cases = [
+            (24, 1 << 24, [seed(4096, 3000)]
+             + rounds(BATCH, 4 * BATCH, 12, births,
+                      dens=(0.2, 0.0, 1.0, 0.25))),
+            (18, 1 << 18, [seed(1 << 17, 5000)]
+             + rounds(BATCH, 1 << 17, 12, births,
+                      counts=[900, 0, 20000, 130000, 4000])),
+            (12, 2 ** 32 - 3000, [seed(2048, 1500)]
+             + rounds(512, 2048, 12, (top, 1, 0), dens=(0.25, 0.3, 0.2))),
+            (6, 1 << 6, rounds(16, 64, 12, (top, 0, 5),
+                               dens=(0.8, 0.1, 0.5))),
+        ]
+        for nsl2, start, calls in cases:
+            self.wave_calls(K, nsl2, start, calls)
+
     def heap_batch(self, b, share, lo=-20, hi=40):
         """A random op batch: INSERT with probability ``share``, else mostly
         DELETE-MIN and some NOP lanes; duplicate and negative keys, 5 %
@@ -726,6 +823,150 @@ class Smoke:
         self.same("heap_apply", kern, plain)
         state[2:] = [sk, sp]
 
+    def heap_rider_calls(self, K, state, batches, c, arity):
+        """``heap_calls`` for the rider instance: ``batches`` of (ops,
+        keys, vals, oprider) where oprider is a 0-d device tensor (the
+        round clock, as the priority round passes it) or one per lane;
+        ``state`` is [kernel planes (keys, vals, rider), plain planes,
+        kernel size, plain size].  Every call's outputs (size, popped keys,
+        vals and riders, ok) and the three planes after the last are held
+        against each other."""
+        kern, plain, sk, sp = state
+        got = []
+        for ops, keys, vals, opr in batches:
+            out = K.heap_apply(*kern[:2], sk, ops, keys, vals, cap_log2=c,
+                               arity_log2=arity, rider=kern[2], oprider=opr)
+            sk = out[2]
+            got.append(out[2:6] + out[7:])
+        for (ops, keys, vals, opr), g in zip(batches, got):
+            want = K.heap_apply_plain(*plain[:2], sp, ops, keys, vals,
+                                      cap_log2=c, arity_log2=arity,
+                                      rider=plain[2], oprider=opr)
+            sp = want[2]
+            self.same("heap_apply_rider", g, want[2:6] + want[7:])
+        self.same("heap_apply_rider", kern, plain)
+        state[2:] = [sk, sp]
+
+    def compare_heap_rider(self, K):
+        """The rider instance of ``heap_apply`` against its plain version
+        at arities 2, 4 and 8, ten calls per case queued back to back, the
+        inserts' rider a 0-d device tensor (or one per lane): at 2^6 slots
+        batches that fill the heap past full and drain it past empty; at
+        2^15 slots heaps seeded just below, at and just above the rider
+        instance's shared-memory top (R_MAX_RIDER nodes: one level fewer
+        than the rider-less top at arities 2 and 4) with pops and inserts
+        whose paths cross it; at 2^20 slots the priority path's batches."""
+        torch = self.torch
+        card = dict(dtype=torch.int32, device=self.dev)
+        clocks = [torch.tensor(v, **card) for v in (0, 1, 2 ** 30 - 1, 77)]
+
+        def rid(batch, i, vector=False):
+            ops, keys, vals = batch
+            opr = (self.t(self.rng.integers(0, 1 << 20, ops.shape[0]),
+                          torch.int32) if vector
+                   else clocks[i % len(clocks)])
+            return (ops, keys, vals, opr)
+
+        for arity in (1, 2, 3):
+            def fresh(c):
+                kern = [torch.full((1 << c,), KEY_INF, **card),
+                        torch.full((1 << c,), -1, **card),
+                        torch.zeros((1 << c,), **card)]
+                return [kern, [p.clone() for p in kern],
+                        torch.zeros((), **card), torch.zeros((), **card)]
+            st = fresh(6)
+            batches = [rid(self.heap_batch(16, share), i, i % 5 == 4)
+                       for i, share in enumerate([0.9] * 10 + [0.1] * 10
+                                                 + [0.5] * 4)]
+            for i in range(0, len(batches), 10):
+                self.heap_rider_calls(K, st, batches[i:i + 10], 6, arity)
+            r_max = K.heap_resident_max(arity, rider=True)
+            for seed in (r_max - 3, r_max, r_max + 5):
+                st = fresh(15)
+                self.heap_rider_calls(
+                    K, st, [rid(self.heap_batch(seed, 1.0, 0, 60), 3)],
+                    15, arity)
+                self.heap_rider_calls(
+                    K, st, [rid(self.pop_batch(64), i) for i in range(10)],
+                    15, arity)
+                self.heap_rider_calls(
+                    K, st, [rid(self.heap_batch(5000, 1.0, -90, -30), 1)]
+                    + [rid(self.pop_batch(3000), 0)]
+                    + [rid(self.heap_batch(2048, 0.6, -40, 60), i)
+                       for i in range(8)], 15, arity)
+            st = fresh(HEAP_CAP_LOG2)
+            batches = [rid(self.heap_batch(1 << 17, 1.0, 0, 16), 0)]
+            for i in range(3):
+                batches += [rid(self.pop_batch(BATCH), i),
+                            rid(self.heap_batch(2 * BATCH, 0.6, 0, 30), i)]
+            self.heap_rider_calls(K, st, batches + batches[1:3],
+                                  HEAP_CAP_LOG2, arity)
+
+    def compare_obs_record(self, K):
+        """``obs_record`` (the round's trace row and span update in one
+        launch) against ``obs_record_plain`` on the same planes, ten calls
+        per case queued back to back and every plane held against the
+        plain one's after each call: road's shape (1,024 lanes, a trace
+        plane of 8,192 and spans of 16 buckets), the goldens' (16 lanes,
+        8 buckets), a trace plane and a flow ring that wrap, 3,000 lanes
+        (more than one block's threads), class rows from a ``cls`` out of
+        range both ways, each plane alone, waves with no claims, births
+        from round 0 and near the 2^30 clock cap."""
+        np, torch = self.np, self.torch
+        from repro_torch.obs import (obs_record, obs_record_plain,
+                                     span_init, trace_init)
+        card = dict(dtype=torch.int32, device=self.dev)
+        for b, cap, k, nb, f, trace, spans, cls, clock0 in (
+                (BATCH, OBS_ROAD_CAPACITY, 1, 16, 64, True, True, False, 0),
+                (16, 256, 1, 8, 64, True, True, False, 5),
+                (BATCH, 4, 1, 16, 3, True, True, False, 2 ** 30 - 12),
+                (3000, 64, 3, 8, 5, True, True, True, 1000),
+                (BATCH, 64, 1, 16, 64, True, False, False, 0),
+                (BATCH, 64, 2, 16, 7, False, True, True, 40)):
+            planes = {}
+            for face in ("kern", "plain"):
+                tp = trace_init(cap, device=self.dev) if trace else None
+                sp = (span_init(k, buckets=nb, flow_capacity=f, lanes=b,
+                                device=self.dev) if spans else None)
+                if sp is not None:
+                    sp.round.fill_(clock0)
+                planes[face] = (tp, sp)
+            waves = []
+            for r in range(10):
+                rnd = clock0 + r
+                n_valid = int(self.rng.integers(0, b + 1)) if r % 4 else 0
+                valid = np.arange(b) < n_valid
+                if r == 7:
+                    valid = self.rng.random(b) < 0.5
+                births = np.where(valid, self.rng.integers(
+                    max(rnd - 5000, 0), rnd + 1, b), -1)
+                waves.append(dict(
+                    keys=self.t(self.rng.integers(-2 ** 31, 2 ** 31 - 1, b),
+                                torch.int32),
+                    valid=self.t(valid),
+                    ref=self.t(self.rng.integers(0, 1 << 30, b),
+                               torch.int32),
+                    births=self.t(births, torch.int32),
+                    cls=(self.t(self.rng.integers(-1, k + 1, b),
+                                torch.int32) if cls else None),
+                    k=torch.tensor(n_valid, **card),
+                    total=torch.tensor(int(self.rng.integers(0, 4 * b)),
+                                       **card),
+                    occ=torch.tensor(int(self.rng.integers(0, 1 << 20)),
+                                     **card),
+                    over=torch.tensor(r == 6, device=self.dev)))
+            out = {}
+            for face, fn in (("kern", obs_record), ("plain",
+                                                    obs_record_plain)):
+                tp, sp = planes[face]
+                out[face] = []
+                for w in waves:
+                    fn(tp, sp, **w)
+                    out[face].append([x.clone() for p in (tp, sp)
+                                      if p is not None for x in p])
+            for got, want in zip(out["kern"], out["plain"]):
+                self.same("obs_record", got, want)
+
     def pop_batch(self, b):
         return [self.t(self.np.full(b, x, self.np.int32))
                 for x in (1, KEY_INF, -1)]
@@ -757,7 +998,7 @@ class Smoke:
                            [0.9] * nb + [0.1] * nb + [0.5] * 4]
                 for i in range(0, len(batches), 10):
                     self.heap_calls(K, st, batches[i:i + 10], c, arity)
-            r_max = HEAP_R_MAX[arity]
+            r_max = K.heap_resident_max(arity)
             for seed in (r_max - 3, r_max, r_max + 5):
                 st = fresh(15)
                 self.heap_calls(K, st, [self.heap_batch(seed, 1.0, 0, 60)],
@@ -1009,7 +1250,7 @@ class Smoke:
             live_rounds = torch.zeros((), **i32)
             for _ in range(EAGER_CHUNK):
                 live = (engine._occ_of(q) > 0) & ~oflow
-                q, new_acc, k, total, over = engine._round(q, acc, live)
+                q, new_acc, k, total, over, _ = engine._round(q, acc, live)
                 acc = torch.where(live, new_acc, acc)
                 processed += k
                 spawned += total
@@ -1099,6 +1340,7 @@ class Smoke:
         stats = dict(runner.stats)
         self.loop_checks(label, stats, runner.sync_log)
         round_graph = graph_nodes(runner._engine)
+        self.keep[label] = (runner, init_fn, dist, st)
         # the same run again under the profiler: the card's busy time
         # (its idle share is read against the unprofiled run's wall time)
         t0 = time.perf_counter()
@@ -1223,6 +1465,8 @@ class Smoke:
             torch.cuda.reset_peak_memory_stats()
             (r, (acc, st)), wall, span = self.timed(lambda: run(fused))
             runs[fused] = (r, acc.cpu().numpy(), st)
+            if fused:
+                self.keep["heap"] = (r, ik, iv, acc, st)
             name = "fused" if fused else "legacy"
             info[name] = {
                 "rounds": r.stats["rounds"],
@@ -1291,6 +1535,193 @@ class Smoke:
             "run_s": eager_s, "rounds_per_s": est["rounds"] / eager_s,
             "readbacks": est["readbacks"], "device_span_s": eager_span,
             "rounds": est["rounds"], "equals_device_loop": True}
+        return info
+
+    # -- phase 5b: observability on the round engines ------------------------
+
+    def obs_golden(self, rt, obs):
+        """Both goldens with ``Telemetry(capacity=256)`` and
+        ``Spans(classes=1, buckets=8)`` on the device loop: the trace and
+        span digests, the stats and one readback."""
+        torch = self.torch
+
+        def tel_digest(tel):
+            rows = [(r.round, r.imbalance, r.min_key, r.max_key,
+                     int(r.overflow), tuple(r.pops), tuple(r.pushes),
+                     tuple(r.occupancy)) for r in tel.records]
+            return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
+
+        def fifo_step(acc, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
+            cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
+            return acc, cv, (valid & (vals < 32))[:, None]
+
+        def heap_step(acc, keys, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals % 97, 0),
+                                valid.int())
+            ck = torch.stack([keys + 3, keys + 7], -1).int()
+            cv = torch.stack([vals * 2 + 1, vals * 2 + 2], -1).int()
+            return acc, ck, cv, (valid & (keys < 24))[:, None]
+
+        out = {}
+        for name, golden in (("fifo", FIFO_GOLDEN), ("heap", HEAP_GOLDEN)):
+            tel = obs.Telemetry(capacity=256)
+            sp = obs.Spans(classes=1, buckets=8)
+            kw = dict(telemetry=tel, spans=sp, batch=16)
+            zeros = dict(dtype=torch.int32, device=self.dev)
+            if name == "fifo":
+                r = rt.RoundRunner(fifo_step, capacity_log2=8, **kw)
+                acc, st = r.run([1], acc=torch.zeros(80, **zeros))
+            else:
+                r = rt.PriorityRoundRunner(heap_step, capacity_log2=9, **kw)
+                acc, st = r.run([5, 1], [1, 2], acc=torch.zeros(97, **zeros))
+            got = {"stats": [r.stats[k] for k in STATS],
+                   "acc": digest(acc.cpu().numpy()),
+                   "tel": tel_digest(tel),
+                   "spans": digest(sp.hist, sp.max_wait)}
+            want = {"stats": golden["stats"], "acc": golden["acc"],
+                    **OBS_GOLDEN[name]}
+            if got != want:
+                raise AssertionError(f"{name} golden with obs: {got}")
+            self.loop_checks(f"{name} golden with obs", r.stats, r.sync_log)
+            got["host_syncs"] = r.stats["host_syncs"]
+            out[name] = got
+        return out
+
+    def obs_pair(self, K, label, off, on, run):
+        """``run(runner)`` for the kept obs-off runner and the obs-on one
+        (its first run builds its device loop), then timed in turns off,
+        on, on, off three times over (six runs a side, so that one slow
+        run shows as an outlier beside the median) with CUDA events and
+        the host clock; the obs-on runs' launches counted under
+        ``obs_<label>``.  Returns (the last obs-on run's result,
+        timings)."""
+        torch = self.torch
+        run(on)                               # capture
+        times = {"off": [], "on": []}
+        result = None
+        for flag in ("off", "on", "on", "off") * 3:
+            runner = on if flag == "on" else off
+            if flag == "on":
+                runner.telemetry.reset()
+                runner.spans.reset()
+                K.reset_launches()
+            res, wall, span = self.timed(lambda: run(runner))
+            rounds = runner.stats["rounds"]
+            times[flag].append({"run_s": wall, "rounds_per_s": rounds / wall,
+                                "device_span_s": span,
+                                "device_us_per_round": span / rounds * 1e6})
+            if flag == "on":
+                self.launches[f"obs_{label}"] = dict(K.LAUNCHES)
+                result = res
+        torch.cuda.synchronize()
+        med = {f: {k: statistics.median(t[k] for t in times[f])
+                   for k in times[f][0]} for f in times}
+        med["on_over_off_us_per_round"] = (
+            med["on"]["device_us_per_round"]
+            / med["off"]["device_us_per_round"])
+        return result, {"runs": times, "median": med}
+
+    def obs_checks(self, label, runner, off_stats, tel, sp, graph):
+        """One readback, one record a round summing to the stats, one
+        sojourn a pop, and no node added to the unobserved round."""
+        st = runner.stats
+        self.loop_checks(f"obs {label}", st, runner.sync_log)
+        if {k: st[k] for k in STATS} != {k: off_stats[k] for k in STATS}:
+            raise AssertionError(f"obs {label}: stats {st} != {off_stats}")
+        recs = tel.records
+        checks = {
+            "records": len(recs), "rounds": st["rounds"],
+            "pops": sum(r.pops[0] for r in recs),
+            "pushes": sum(r.pushes[0] for r in recs),
+            "hist_total": sp.total, "dropped": tel.dropped,
+            "last_occupancy": recs[-1].occupancy[0],
+            "max_wait": int(sp.max_wait.max()),
+            "p50": sp.percentile(0.5), "p99": sp.percentile(0.99)}
+        if not (checks["records"] == st["rounds"]
+                and [r.round for r in recs] == list(range(st["rounds"]))
+                and checks["pops"] == st["processed"]
+                and checks["pushes"] == st["spawned"]
+                and checks["hist_total"] == st["processed"]
+                and checks["dropped"] == 0
+                and checks["last_occupancy"] == 0):
+            raise AssertionError(f"obs {label}: {checks}")
+        checks["round_graph_on"] = graph
+        return checks
+
+    def obs_path(self, K, rt, bfs, road, road_dist):
+        """The observability phase: the goldens' digests on the card, then
+        road 2048² and the 2^20 heap tree with telemetry and spans on the
+        device loop, each held against the same path's obs-off run of
+        phases 3 and 5 (state, stats, one readback), timed in turns with
+        it, and its captured round's nodes counted."""
+        np, torch = self.np, self.torch
+        from repro_torch import obs
+        info = {"phase": "obs", "golden": self.obs_golden(rt, obs)}
+        # road: obs-off runner and final state of phase 3
+        off, init_fn, off_dist, off_st = self.keep.pop("road")
+        tel = obs.Telemetry(OBS_ROAD_CAPACITY, engine="road")
+        sp = obs.Spans(engine="road")
+        on, _ = bfs.bfs_rounds_runner(road, batch=BATCH, telemetry=tel,
+                                      spans=sp)
+        off_stats = dict(off.stats)
+        (dist, st), times = self.obs_pair(
+            K, "road", off, on, lambda r: r.run([0], acc=init_fn(0),
+                                             max_rounds=1_000_000))
+        if not (np.array_equal(dist.cpu().numpy(), road_dist)
+                and torch.equal(dist, off_dist)
+                and all(torch.equal(a, b) for a, b in zip(st[:4],
+                                                          off_st[:4]))
+                and (st.head, st.tail) == (off_st.head, off_st.tail)):
+            raise AssertionError("obs road: state != the obs-off run's")
+        road_info = self.obs_checks("road", on, off_stats, tel, sp,
+                                    graph_nodes(on._engine))
+        road_info.update(times=times, state_equals_obs_off=True,
+                         dist_exact=True,
+                         launches=self.launches["obs_road"],
+                         round_graph_off=graph_nodes(off._engine)["nodes"])
+        info["road"] = road_info
+        del off, on, off_dist, off_st, dist, st
+        # the heap tree: obs-off runner and final state of phase 5
+        off, ik, iv, off_acc, off_st = self.keep.pop("heap")
+        tel = obs.Telemetry(OBS_HEAP_CAPACITY, engine="heap")
+        sp = obs.Spans(engine="heap")
+        on = rt.PriorityRoundRunner(
+            heap_tree_step(torch), capacity_log2=HEAP_CAP_LOG2, batch=BATCH,
+            telemetry=tel, spans=sp)
+        off_stats = dict(off.stats)
+
+        def run_heap(r):
+            out = r.run(ik, iv, acc=torch.zeros(4096, dtype=torch.int32,
+                                                device=self.dev),
+                        max_rounds=1_000_000)
+            torch.cuda.synchronize()
+            return out
+
+        (acc, st), times = self.obs_pair(K, "heap", off, on, run_heap)
+        # phase 5 held the obs-off run against the closure oracle
+        if not (torch.equal(acc, off_acc) and st.size == off_st.size == 0
+                and torch.equal(st.keys, off_st.keys)
+                and torch.equal(st.vals, off_st.vals)):
+            raise AssertionError("obs heap: state != the obs-off run's")
+        heap_info = self.obs_checks("heap", on, off_stats, tel, sp,
+                                    graph_nodes(on._engine))
+        heap_info.update(times=times, state_equals_obs_off=True,
+                         oracle_exact=True,
+                         launches=self.launches["obs_heap"],
+                         round_graph_off=graph_nodes(off._engine)["nodes"])
+        info["heap"] = heap_info
+        for path, names in (("obs_road", ("ring_dequeue_wave_packed",
+                                          "ring_enqueue_wave_packed",
+                                          "obs_record")),
+                            ("obs_heap", ("heap_apply_rider",
+                                          "obs_record"))):
+            rounds = info[path[4:]]["rounds"]
+            for name in names:
+                if self.launches[path].get(name, 0) < rounds:
+                    raise AssertionError(f"{path}: {name} launched "
+                                         f"{self.launches[path].get(name)} "
+                                         f"times in {rounds} rounds")
         return info
 
     # -- phase 6: queue-driven BFS -------------------------------------------
@@ -1696,8 +2127,11 @@ def main() -> int:
     smoke.compare_wavefaa(K)
     smoke.compare_ring(K)
     smoke.compare_ring_waves(K)
+    smoke.compare_packed_waves(K)
     smoke.compare_compact(K, kron_lanes)
     smoke.compare_heap(K)
+    smoke.compare_heap_rider(K)
+    smoke.compare_obs_record(K)
     smoke.compare_frontier(K, {"road": (road, road_dist),
                                "kron": (qkron, qkron_dist)})
     smoke.compare_moe(K)
@@ -1736,6 +2170,11 @@ def main() -> int:
     heap_info = smoke.heap_path(K, rt)
     emit_phase(heap_info)
 
+    # 5b. observability: the goldens, road and the heap tree with
+    # telemetry and spans, against phases 3 and 5
+    obs_info = smoke.obs_path(K, rt, bfs, road, road_dist)
+    emit_phase(obs_info)
+
     # 6. queue-driven BFS on road 2048^2 and kron 2^20
     emit_phase(smoke.queue_path("road", road, K, bfs, road_dist))
     kron_q = smoke.queue_path("kron", qkron, K, bfs, qkron_dist)
@@ -1754,7 +2193,7 @@ def main() -> int:
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
-                                 road_dist, seen_gemma)})
+                                 road_dist, seen_gemma, obs_info)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1767,7 +2206,7 @@ def main() -> int:
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
-                road_dist, seen_gemma):
+                road_dist, seen_gemma, obs_info):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -1936,26 +2375,32 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         return [planes, torch.tensor(n, dtype=torch.int32, device=dev),
                 torch.tensor(n + fill, dtype=torch.int32, device=dev)]
 
-    def deq_wave_times(nsl2, batch):
-        kw = dict(batch=batch, nslots_log2=nsl2, idx_bot=IDX_BOT)
+    # the packed instances (spans on): the dequeue wave also writes each
+    # lane's birth (4 B a lane), the enqueue wave reads the round clock
+    # (4 B) and writes it into the flag word it writes anyway
+    clock = torch.tensor(5000, dtype=torch.int32, device=dev)
+
+    def deq_wave_times(nsl2, batch, packed=False):
+        kw = dict(batch=batch, nslots_log2=nsl2, idx_bot=IDX_BOT,
+                  birth_packed=packed)
         out = [smoke.time_ms(lambda: ring_at(nsl2, iters * batch),
                              lambda r, i: fn(*r[0], r[1], r[2], live, **kw),
                              iters=iters)
                for fn in (K.ring_dequeue_wave, K.ring_dequeue_wave_plain)]
         # per consuming lane three plane words in and one out, per lane
         # vals and ok out; head in and out, tail, live and k
-        return out + [batch * (12 + 4 + 4 + 1) + 17, batch]
+        return out + [batch * (12 + 4 + 4 + 1 + 4 * packed) + 17, batch]
 
-    def enq_wave_times(nsl2, waves, nbytes, ops):
+    def enq_wave_times(nsl2, waves, nbytes, ops, packed=False):
         kw = dict(capacity=1 << (nsl2 - 1), nslots_log2=nsl2,
-                  idx_bot=IDX_BOT)
+                  idx_bot=IDX_BOT, birth_round=clock if packed else None)
         return [smoke.time_ms(lambda: ring_at(nsl2, 0),
                               lambda r, i: fn(*r[0], r[1], r[2],
                                               waves[i][0], live,
                                               **waves[i][1], **kw),
                               iters=iters)
                 for fn in (K.ring_enqueue_wave, K.ring_enqueue_wave_plain)] \
-            + [nbytes, ops]
+            + [nbytes + 4 * packed, ops]
 
     kron_nsl2 = kron["capacity"].bit_length()
     kron_child = kron["spawned"] // kron["rounds"]
@@ -1981,7 +2426,10 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     enq_kron = enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 21,
                               kron_child)
 
-    def wave_row(name, replaces, road_t, kron_t, road_shape, kron_shape):
+    def wave_row(name, replaces, road_t, kron_t, road_shape, kron_shape,
+                 paths=("road", "kron")):
+        """``paths``: the launch counts charged at road's and at kron's
+        shape."""
         b_kron = bound(kron_t[2], kron_t[3], ALU_OPS_PER_S)
         b_road = bound(road_t[2], road_t[3], ALU_OPS_PER_S)[0]
         kron_sub = dict(kron_shape, ms=kron_t[0][0], wall_ms=kron_t[0][1],
@@ -1989,10 +2437,10 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                         bound_by=b_kron[1])
         row(name, csrc + "ring_slots.cu", replaces, road_t[0], road_t[1],
             None, road_t[2], road_t[3], dict(road_shape, kron=kron_sub),
-            excess=(smoke.launches["road"].get(name, 0)
+            excess=(smoke.launches[paths[0]].get(name, 0)
                     * (road_t[0][0] - b_road)
-                    + smoke.launches["kron"].get(name, 0)
-                    * (kron_t[0][0] - b_kron[0])))
+                    + (smoke.launches[paths[1]].get(name, 0)
+                       if paths[1] else 0) * (kron_t[0][0] - b_kron[0])))
 
     wave_row("ring_dequeue_wave", "src/repro/kernels/ring_slots.py:184",
              deq_road, deq_kron,
@@ -2008,6 +2456,28 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                       "(src/repro/runtime/fusedrounds.py:194-222)"},
              {"mode": "dense", "lanes": kron["capacity"],
               "children": kron_child, "ring_slots": 1 << kron_nsl2})
+    # the packed instances at the same shapes: the spanned road run is the
+    # path that launches them (kron runs no spans)
+    wave_row("ring_dequeue_wave_packed",
+             "src/repro/kernels/ring_slots.py:184 with deq_planes("
+             "birth_packed=True) (:130-167)",
+             deq_wave_times(nsl2, b_deq, True),
+             deq_wave_times(kron_nsl2, kron["batch"], True),
+             {"batch": b_deq, "ring_slots": ns, "births": "out"},
+             {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2},
+             paths=("obs_road", None))
+    wave_row("ring_enqueue_wave_packed",
+             "src/repro/kernels/ring_slots.py:170 with enq_planes("
+             "birth_round=) (:60-127)",
+             enq_wave_times(nsl2, road_waves, b_enq + road_child * 32 + 18,
+                            b_enq, True),
+             enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 21,
+                            kron_child, True),
+             {"mode": "ballot", "lanes": b_enq, "children": road_child,
+              "ring_slots": ns, "birth_round": int(clock)},
+             {"mode": "dense", "lanes": kron["capacity"],
+              "children": kron_child, "ring_slots": 1 << kron_nsl2},
+             paths=("obs_road", None))
 
     # B3 wave_compact: the kron run's child wave, compacted to capacity
     n3 = kron["batch"] * kron["fanout"]
@@ -2069,7 +2539,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     # levels of a heap of `occ` nodes, those in the kernel's shared-memory
     # top, and those left in the global planes (L2-resident at 8 MB)
     levels4 = max(int(np.ceil(np.log(3 * occ + 1) / np.log(4))), 1)
-    top4 = int(round(np.log(3 * HEAP_R_MAX[2] + 1) / np.log(4)))
+    top4 = int(round(np.log(3 * K.heap_resident_max(2) + 1) / np.log(4)))
     l2_levels4 = max(levels4 - top4, 0)
     # bytes (see csrc/heap_batch.cu): the opcode of every lane in (4 B),
     # the key and val of each INSERT lane (8 B), results out (9 B a lane),
@@ -2116,6 +2586,107 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "ms_is": "mean of a pop call and an insert call",
          "pop": sub4["pop"], "insert": sub4["insert"],
          "chain_bound_ms": (pop_chain_ms + ins_chain_ms) / 2})
+
+    # B4's rider instance (spans on): the same batches with a rider plane
+    # of zeros and the inserts' rider one device word, as the spanned
+    # priority round runs it; its shared-memory top is one level shorter
+    # (levels 0-6 of the 4-ary heap).  Bytes: the rider-less call's plus,
+    # per pop, the root's and the last leaf's riders, the scrub, the
+    # popped rider out and per level the winner's rider read and written
+    # (16 + 8 B a level), per applied insert its rider written and its
+    # parent's moved (8 B), and the clock word.
+    heap_r = torch.zeros(1 << c4, **card)
+    clock4 = torch.tensor(3, **card)
+    top4r = int(round(np.log(3 * K.heap_resident_max(2, rider=True) + 1)
+                      / np.log(4)))
+    l2_levels4r = max(levels4 - top4r, 0)
+    pop_bytes_r = pop_bytes + BATCH * (16 + levels4 * 8) + 4
+    ins_bytes_r = ins_bytes + n_act4 * 8 + 4
+    pop_chain_r = BATCH * (top4r * SMEM_LATENCY_CYCLES
+                           + l2_levels4r * L2_LATENCY_CYCLES) \
+        / GPU_CYCLES_PER_S * 1e3
+
+    def rider_setup():
+        return heap_setup() + [heap_r.clone()]
+
+    def rider_call(fn, batch):
+        def launch(st, i):
+            st[2] = fn(st[0], st[1], st[2], *batch, cap_log2=c4,
+                       rider=st[3], oprider=clock4)[2]
+        return launch
+
+    sub4r = {}
+    for name, batch, nbytes, ops, chain in (
+            ("pop", pops, pop_bytes_r, BATCH * levels4 * 4, pop_chain_r),
+            ("insert", inserts, ins_bytes_r, n_act4, ins_chain_ms)):
+        kern = smoke.time_ms(rider_setup, rider_call(K.heap_apply, batch))
+        plain = smoke.time_ms(rider_setup,
+                              rider_call(K.heap_apply_plain, batch),
+                              iters=2, reps=2)
+        b, by = bound(nbytes, ops, ALU_OPS_PER_S)
+        sub4r[name] = {"ms": kern[0], "wall_ms": kern[1],
+                       "plain_ms": plain[1], "bound_ms": b, "bound_by": by,
+                       "chain_bound_ms": chain,
+                       "riderless_ms": sub4[name]["ms"]}
+    row("heap_apply_rider", csrc + "heap_batch.cu",
+        "src/repro/kernels/heap_batch.py:47 with heap_planes(rider=) "
+        "(:183-296)",
+        ((sub4r["pop"]["ms"] + sub4r["insert"]["ms"]) / 2,
+         (sub4r["pop"]["wall_ms"] + sub4r["insert"]["wall_ms"]) / 2),
+        ((sub4r["pop"]["plain_ms"] + sub4r["insert"]["plain_ms"]) / 2,) * 2,
+        None, (pop_bytes_r + ins_bytes_r) / 2,
+        (BATCH * levels4 * 4 + n_act4) / 2,
+        {"heap_slots": 1 << c4, "occupancy": occ, "levels": levels4,
+         "levels_in_shared_memory": top4r, "levels_in_l2": l2_levels4r,
+         "pop_lanes": BATCH, "insert_lanes": 2 * BATCH,
+         "insert_active": n_act4, "plain_ms_is": "wall (host loop)",
+         "ms_is": "mean of a pop call and an insert call",
+         "pop": sub4r["pop"], "insert": sub4r["insert"],
+         "riderless_ms": (sub4["pop"]["ms"] + sub4["insert"]["ms"]) / 2,
+         "chain_bound_ms": (pop_chain_r + ins_chain_ms) / 2})
+
+    # obs_record (not a TPU kernel: the reference's XLA fuses the record
+    # into its round): one spanned road round's record, 1,024 lanes of
+    # which the run's mean claim count are valid, a trace plane of 8,192
+    # rows and spans of 16 buckets, births up to 4,000 rounds back.
+    # Bytes, as the function needs them on these inputs: valid for every
+    # lane (1 B); for each valid lane its key and birth in (8 B) and its
+    # bucket and max-wait words read and written (16 B); once: ref[0]
+    # (4 B), the trace row out (32 B), its cursor and the clock each way
+    # (16 B), the round's k, total, occ and over in (13 B), the flow row
+    # out (16 B) and its cursor each way (8 B).  No PyTorch call records
+    # a round.
+    from repro_torch.obs import (obs_record, obs_record_plain, span_init,
+                                 trace_init)
+    k_obs = road["processed"] // road["rounds"]
+    valid_o = torch.arange(BATCH, device=dev) < k_obs
+    wave_o = dict(
+        keys=torch.as_tensor(rng.integers(0, 1 << 22, BATCH,
+                                          dtype=np.int32), device=dev),
+        valid=valid_o,
+        births=torch.as_tensor(rng.integers(1000, 5000, BATCH,
+                                            dtype=np.int32), device=dev),
+        k=torch.tensor(k_obs, **card), total=torch.tensor(k_obs, **card),
+        occ=torch.tensor(1 << 20, **card),
+        over=torch.zeros((), dtype=torch.bool, device=dev))
+    wave_o["ref"] = wave_o["keys"]
+
+    def obs_setup():
+        sp = span_init(1, lanes=BATCH, device=dev)
+        sp.round.fill_(5000)
+        return (trace_init(OBS_ROAD_CAPACITY, device=dev), sp)
+
+    nbytes_o = BATCH * 1 + k_obs * (8 + 16) + 4 + 32 + 16 + 13 + 16 + 8
+    row("obs_record", csrc + "obs_record.cu",
+        "src/repro/runtime/enginecore.py:312-319 (fused_loop: "
+        "trace_record) and src/repro/runtime/fusedrounds.py:227-230 "
+        "(span_record, span_tick); no pallas_call",
+        smoke.time_ms(obs_setup, lambda p, i: obs_record(*p, **wave_o)),
+        smoke.time_ms(obs_setup,
+                      lambda p, i: obs_record_plain(*p, **wave_o)),
+        None, nbytes_o, BATCH,
+        {"lanes": BATCH, "valid": k_obs, "trace_capacity":
+         OBS_ROAD_CAPACITY, "classes": 1, "buckets": 16, "flows": 64})
 
     # B5 frontier_expand: the BFS level with the most edges of the kron
     # 2^20 graph (the row's ms), and of the road graph and its level with
@@ -2368,7 +2939,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     per = [x / n_loop for x in kern_l]
     plain_per = [x / n_loop for x in plain_l]
     b_l, _ = bound(29, 0, ALU_OPS_PER_S)
-    rounds_paths = road["rounds"] + kron["rounds"] + heap["fused"]["rounds"]
+    rounds_paths = (road["rounds"] + kron["rounds"] + heap["fused"]["rounds"]
+                    + obs_info["road"]["rounds"] + obs_info["heap"]["rounds"])
     row("device_loop", csrc + "loop.cu",
         "src/repro/runtime/enginecore.py:330 (fused_loop's lax.while_loop)",
         per, plain_per, None, 29, 0,
@@ -2379,7 +2951,9 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "round_graph_nodes": {
              "road": road["round_graph"]["nodes"],
              "kron": kron["round_graph"]["nodes"],
-             "heap": heap["fused"]["round_graph"]["nodes"]}},
+             "heap": heap["fused"]["round_graph"]["nodes"],
+             "road_obs": obs_info["road"]["round_graph_on"]["nodes"],
+             "heap_obs": obs_info["heap"]["round_graph_on"]["nodes"]}},
         excess=rounds_paths * (per[0] - b_l))
     return rows
 

@@ -8,9 +8,11 @@ Pallas kernel on a ported path is a CUDA kernel written by hand for
 Entry points run on the card by default (``device="cuda"``) and on the
 CPU only when the caller passes ``device="cpu"``.
 
-Ported so far: the G-LFQ and G-PQ round engines (``runtime``), their
-kernels and the BFS frontier kernel (``kernels``), and round-engine and
-queue-driven BFS (``apps.bfs``).
+Ported so far: the G-LFQ and G-PQ round engines (``runtime``) with their
+trace and span planes (``obs``), their kernels and the BFS frontier
+kernel (``kernels``), round-engine and queue-driven BFS (``apps.bfs``),
+and serving over the dense and MoE model families (``serving``,
+``models``, ``configs``).
 """
 
 __version__ = "0.1.0"

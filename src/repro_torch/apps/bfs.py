@@ -97,11 +97,14 @@ def _to_csr(n: int, rows, cols, name: str) -> CSRGraph:
 
 
 def bfs_rounds_runner(g: CSRGraph, *, batch: int = 64, fused: bool = True,
-                      sync_every: int = 0, compact=None, device="cuda"):
+                      sync_every: int = 0, telemetry=None, spans=None,
+                      compact=None, device="cuda"):
     """Build the round-engine BFS runner for ``g`` on ``device`` (see
     ``bfs_rounds``).  Returns ``(runner, init_fn)`` where
     ``init_fn(source)`` makes the distance accumulator — callers that run
-    BFS repeatedly reuse the runner and its adjacency table."""
+    BFS repeatedly reuse the runner and its adjacency table.
+    ``telemetry`` / ``spans`` (``repro_torch.obs`` collectors) go to the
+    fused engine."""
     dev = resolve_device(device)
     n = g.n
     deg = np.diff(g.row_ptr).astype(np.int64)
@@ -136,7 +139,8 @@ def bfs_rounds_runner(g: CSRGraph, *, batch: int = 64, fused: bool = True,
 
     capacity_log2 = max(int(np.ceil(np.log2(max(n + 1, 2 * batch)))), 4)
     runner = RoundRunner(step, capacity_log2=capacity_log2, batch=batch,
-                         fused=fused, sync_every=sync_every, compact=compact,
+                         fused=fused, sync_every=sync_every,
+                         telemetry=telemetry, spans=spans, compact=compact,
                          device=dev)
 
     def init_fn(source: int):
@@ -149,17 +153,20 @@ def bfs_rounds_runner(g: CSRGraph, *, batch: int = 64, fused: bool = True,
 
 def bfs_rounds(g: CSRGraph, source: int = 0, *, batch: int = 64,
                fused: bool = True, sync_every: int = 0,
-               max_rounds: int = 100_000, device="cuda"
-               ) -> Tuple[np.ndarray, Dict]:
+               max_rounds: int = 100_000, telemetry=None, spans=None,
+               device="cuda") -> Tuple[np.ndarray, Dict]:
     """BFS on the deterministic round engine, on ``device`` ("cuda" by
     default).  Within a batch, a vertex reached by several parents goes
     to the row-major-first parent (a scatter-min claim), the batched
     analogue of the sequential queue's first-visit rule, so distances are
     exact.  ``fused=True`` keeps the loop on the device with a readback
     per chunk of rounds; ``fused=False`` is the legacy per-round path.
-    Both are bit-identical.  Returns (dist as numpy int32, stats)."""
+    Both are bit-identical.  ``telemetry`` / ``spans`` collectors record
+    the fused run.  Returns (dist as numpy int32, stats)."""
     runner, init_fn = bfs_rounds_runner(g, batch=batch, fused=fused,
-                                        sync_every=sync_every, device=device)
+                                        sync_every=sync_every,
+                                        telemetry=telemetry, spans=spans,
+                                        device=device)
     dist, _ = runner.run([source], acc=init_fn(source),
                          max_rounds=max_rounds)
     return dist.cpu().numpy(), dict(runner.stats)

@@ -8,8 +8,11 @@ oracles.  Ported: ``wavefaa``, ``ring_enqueue``/``ring_dequeue`` (and a
 ring round's queue side as ``ring_dequeue_wave``/``ring_enqueue_wave``),
 ``wave_compact``, ``heap_apply``, ``frontier_expand``,
 ``expert_tickets`` (MoE dispatch) and ``flash_attention`` — every Pallas
-kernel of the reference.  ``csrc/loop.cu`` (the round engines' device
-loop) is driven from ``runtime/enginecore.py``.
+kernel of the reference — with the span layer's instances of the ring
+waves (packed birth stamps) and of ``heap_apply`` (a rider plane).
+``csrc/loop.cu`` (the round engines' device loop) is driven from
+``runtime/enginecore.py``, ``csrc/obs_record.cu`` (a round's trace and
+span record) from ``obs/record.py``.
 """
 
 from . import ref
@@ -22,7 +25,7 @@ from .frontier import (frontier_buffer, frontier_expand,
                        frontier_level_plain, frontier_scratch)
 from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP, heap_apply,
                          heap_apply_plain, heap_insert_masked, heap_planes,
-                         heap_pop_count)
+                         heap_pop_count, heap_resident_max)
 from .moe_route import (expert_tickets, expert_tickets_plain, moe_route,
                         top_k_stable)
 from .ring_slots import (cycle_lt, deq_planes, enq_planes, ring_dequeue,
@@ -39,7 +42,7 @@ __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "frontier_expand", "frontier_expand_plain", "frontier_level",
            "frontier_level_plain", "frontier_scratch", "heap_apply",
            "heap_apply_plain", "heap_insert_masked", "heap_planes",
-           "heap_pop_count", "moe_route", "ref",
+           "heap_pop_count", "heap_resident_max", "moe_route", "ref",
            "reset_launches", "ring_dequeue", "ring_dequeue_plain",
            "ring_dequeue_wave", "ring_dequeue_wave_plain", "ring_enqueue",
            "ring_enqueue_plain", "ring_enqueue_wave",

@@ -64,6 +64,22 @@
 // written (12 B): tens of nanoseconds at HBM rate.  Its dependent-chain
 // bound (chip_smoke.py) is pops x (levels in the top x a shared-memory
 // round trip + levels below it x an L2 round trip).
+//
+// The rider instance (heap_batch.py: heap_apply(rider=, oprider=), the
+// span layer's birth stamps; reference heap_planes(rider=)) moves a third
+// int32 plane with every node: INSERT lanes install oprider (one device
+// word, or one per lane), DELETE-MIN lanes return the popped node's
+// rider.  A node's rider sits beside its (key, val) in the same region:
+// a second shared-memory array with the top's and the window's slots, the
+// rider plane below them.  Every load of a node or a sibling group also
+// loads its riders, as independent loads in the same round trip, so the
+// dependent chain has no extra link; what the instance pays is shared
+// memory.  Twelve bytes a node do not fit the rider-less top (21,845
+// 4-ary nodes would take 262 KB), so the rider instance holds one level
+// fewer: levels 0-6 of a 4-ary heap (5,461 nodes), 0-12 of a binary one
+// (8,191), and the same levels 0-4 of an 8-ary one; below the top it
+// loads one level at a time (kLookAhead).  The rider-less instance is the
+// kernel above, unchanged.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,36 +95,50 @@ constexpr int32_t kOpNop = -1;
 constexpr int kHeapThreads = 256;
 constexpr int kChunk = 1024;  // ops staged in shared memory at a time
 constexpr int kOpsPerThread = kChunk / kHeapThreads;
-constexpr int kStageBytes = kChunk * (5 * 4 + 1);
+// staging: lane | op, key, val, the outputs (key, val, ok) and, for the
+// rider instance, the op's rider and the popped rider
+template <bool R>
+constexpr int kStageBytes = kChunk * ((R ? 7 : 5) * 4 + 1);
 // The tail window: nodes around the call's first size, where its pops
 // take their last leaves (and scrub them) and its inserts open their holes.
 constexpr int kWindow = 4096;
 
 // Nodes in the whole levels that fit in shared memory: sum of d^l
-// (levels 0-13 binary, 0-7 4-ary, 0-4 8-ary).
-template <int A>
-constexpr int kResidentMax = A == 1 ? 16383 : A == 2 ? 21845 : 4681;
+// (levels 0-13 binary, 0-7 4-ary, 0-4 8-ary; with a rider 0-12 binary,
+// 0-6 4-ary, 0-4 8-ary).
+template <int A, bool R>
+constexpr int kResidentMax = A == 1   ? (R ? 8191 : 16383)
+                             : A == 2 ? (R ? 5461 : 21845)
+                                      : 4681;
 // Below the top a pop loads its grandchildren while it decides between
 // the children: D^2 keys and vals in registers, 32 at 4-ary; at 8-ary
 // (128) they would not fit, so each level loads its own children there.
-template <int A>
-constexpr bool kLookAhead = A <= 2;
+// The rider instance loads each level's own children too: with riders a
+// 4-ary level keeps 48 loads in flight, and on the card that made its
+// pops slower than loading one level at a time.
+template <int A, bool R>
+constexpr bool kLookAhead = A <= 2 && !R;
 
 // Shared memory: the top (node j at slot j + D - 1, so that every sibling
 // group starts on a 16- or 32-byte boundary, and D - 1 + D slots of
-// padding), the window, then the op staging.
-template <int A>
-constexpr int kTopSlots = (kResidentMax<A> + 2 * (1 << A) + 3) & ~3;
-template <int A>
-constexpr int kSmemBytes = (kTopSlots<A> + kWindow) * 8 + kStageBytes;
+// padding), the window, for the rider instance the riders of the top and
+// of the window at the same slots, then the op staging.
+template <int A, bool R>
+constexpr int kTopSlots = (kResidentMax<A, R> + 2 * (1 << A) + 3) & ~3;
+template <int A, bool R>
+constexpr int kSmemBytes =
+    (kTopSlots<A, R> + kWindow) * (R ? 12 : 8) + kStageBytes<R>;
 
-template <int A>
+template <int A, bool R>
 struct Heap {
   static constexpr int D = 1 << A;
   int2* top;  // node j < r at top[j + D - 1], as (key, val)
   int2* win;  // node j in [w0, w0 + wn) at win[j - w0]; w0 = 1 mod D
+  int32_t* rtop;  // R: node j's rider at rtop[j + D - 1]
+  int32_t* rwin;  // R: node j's rider at rwin[j - w0]
   int32_t* keys;
   int32_t* vals;
+  int32_t* rid;   // R: the rider plane
   uint32_t r, w0, wn;
 
   __device__ __forceinline__ int2 node(uint32_t j) const {
@@ -116,22 +146,34 @@ struct Heap {
     if (j - w0 < wn) return win[j - w0];
     return make_int2(keys[j], vals[j]);
   }
-  __device__ __forceinline__ void put(uint32_t j, int32_t k, int32_t v) const {
+  __device__ __forceinline__ int32_t rider(uint32_t j) const {
+    if (j < r) return rtop[j + D - 1];
+    if (j - w0 < wn) return rwin[j - w0];
+    return rid[j];
+  }
+  // node j := (k, v), and its rider := rr in the rider instance
+  __device__ __forceinline__ void put(uint32_t j, int32_t k, int32_t v,
+                                      int32_t rr = 0) const {
     if (j < r) {
       top[j + D - 1] = make_int2(k, v);
+      if constexpr (R) rtop[j + D - 1] = rr;
     } else if (j - w0 < wn) {
       win[j - w0] = make_int2(k, v);
+      if constexpr (R) rwin[j - w0] = rr;
     } else {
       keys[j] = k;
       vals[j] = v;
+      if constexpr (R) rid[j] = rr;
     }
   }
   // the sibling group from `base` (= 1 mod D) at `g` in shared memory,
-  // (KEY_INF, -1) at or past `size`
+  // (KEY_INF, -1) at or past `size`; the rider instance also reads its
+  // riders from `rg` (-1 at or past `size`)
   __device__ __forceinline__ static void smem_group(const int2* g,
+                                                    const int32_t* rg,
                                                     uint32_t base,
                                                     uint32_t size, int32_t* k,
-                                                    int32_t* v) {
+                                                    int32_t* v, int32_t* rv) {
     int32_t x[2 * D];
 #pragma unroll
     for (int q = 0; q < D / 2; ++q) {
@@ -146,23 +188,28 @@ struct Heap {
       const bool in = base + c < size;
       k[c] = in ? x[2 * c] : kKeyInf;
       v[c] = in ? x[2 * c + 1] : -1;
+      if constexpr (R) rv[c] = in ? rg[c] : -1;
     }
   }
   // the same wherever the group lies.  A group lies whole in one region:
   // r is a whole number of levels or the capacity, w0 = 1 mod D and wn a
   // multiple of D or the rest of the planes.
   __device__ __forceinline__ void group(uint32_t base, uint32_t size,
-                                        int32_t* k, int32_t* v) const {
+                                        int32_t* k, int32_t* v,
+                                        int32_t* rv) const {
     if (base < r) {
-      smem_group(top + base + D - 1, base, size, k, v);
+      smem_group(top + base + D - 1, rtop + base + D - 1, base, size, k, v,
+                 rv);
     } else if (base - w0 < wn) {
-      smem_group(win + (base - w0), base, size, k, v);
+      smem_group(win + (base - w0), rwin + (base - w0), base, size, k, v,
+                 rv);
     } else {
 #pragma unroll
       for (int c = 0; c < D; ++c) {
         const bool in = base + c < size;
         k[c] = in ? keys[base + c] : kKeyInf;
         v[c] = in ? vals[base + c] : -1;
+        if constexpr (R) rv[c] = in ? rid[base + c] : -1;
       }
     }
   }
@@ -170,16 +217,19 @@ struct Heap {
 
 // Lowest index among the strict minima of k[0..N), or -1 when all are
 // KEY_INF: the serial scan from (KEY_INF, -1) that takes strictly smaller
-// keys, as a compare tree.  *bk / *bv get the winner's key and val.
-template <int N>
+// keys, as a compare tree.  *bk / *bv (and *br, with a rider) get the
+// winner's key and val (and rider).
+template <int N, bool R>
 __device__ __forceinline__ int min_child(const int32_t* k, const int32_t* v,
-                                         int32_t* bk, int32_t* bv) {
-  int32_t kk[N], vv[N];
+                                         const int32_t* rv, int32_t* bk,
+                                         int32_t* bv, int32_t* br) {
+  int32_t kk[N], vv[N], rr[N];
   int ii[N];
 #pragma unroll
   for (int c = 0; c < N; ++c) {
     kk[c] = k[c];
     vv[c] = v[c];
+    if constexpr (R) rr[c] = rv[c];
     ii[c] = c;
   }
 #pragma unroll
@@ -189,16 +239,20 @@ __device__ __forceinline__ int min_child(const int32_t* k, const int32_t* v,
       if (kk[c + w] < kk[c]) {  // ties keep the lower index
         kk[c] = kk[c + w];
         vv[c] = vv[c + w];
+        if constexpr (R) rr[c] = rr[c + w];
         ii[c] = ii[c + w];
       }
     }
   }
   *bk = kk[0];
   *bv = vv[0];
+  if constexpr (R) *br = rr[0];
   return kk[0] < kKeyInf ? ii[0] : -1;
 }
 
-template <int A>
+// R: rid is the rider plane, oprider[opr_stride * lane] an INSERT lane's
+// rider, outr[lane] a DELETE-MIN lane's popped rider (-1 elsewhere).
+template <int A, bool R>
 __global__ void __launch_bounds__(kHeapThreads)
 heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                   const int32_t* __restrict__ size_in,
@@ -207,11 +261,15 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                   const int32_t* __restrict__ ovals,
                   int32_t* __restrict__ outk, int32_t* __restrict__ outv,
                   uint8_t* __restrict__ ok, int32_t* __restrict__ size_out,
-                  int b, int cap_log2, int max_depth) {
+                  int b, int cap_log2, int max_depth,
+                  int32_t* __restrict__ rid,
+                  const int32_t* __restrict__ oprider, int opr_stride,
+                  int32_t* __restrict__ outr) {
   constexpr int D = 1 << A;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t cap = 1u << cap_log2;
-  const uint32_t r = cap < kResidentMax<A> ? cap : kResidentMax<A>;
+  const uint32_t r =
+      cap < kResidentMax<A, R> ? cap : kResidentMax<A, R>;
   int32_t size = *size_in;
   // the window: kWindow nodes from about kWindow / 2 below the first
   // size, a whole number of sibling groups past the top, within the planes
@@ -221,25 +279,33 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
   const uint32_t wn = w0 >= cap ? 0u : (cap - w0 < kWindow ? cap - w0
                                                             : kWindow);
   int2* top = reinterpret_cast<int2*>(smem);
-  int2* win = top + kTopSlots<A>;
-  int32_t* s_op = reinterpret_cast<int32_t*>(win + kWindow);
+  int2* win = top + kTopSlots<A, R>;
+  int32_t* rtop = reinterpret_cast<int32_t*>(win + kWindow);
+  int32_t* rwin = rtop + (R ? kTopSlots<A, R> : 0);
+  int32_t* s_op = rwin + (R ? kWindow : 0);
   int32_t* s_key = s_op + kChunk;
   int32_t* s_val = s_key + kChunk;
   int32_t* s_outk = s_val + kChunk;
   int32_t* s_outv = s_outk + kChunk;
-  uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_outv + kChunk);
-  const Heap<A> h{top, win, keys, vals, r, w0, wn};
+  int32_t* s_rid = s_outv + kChunk;            // R only
+  int32_t* s_outr = s_rid + kChunk;            // R only
+  uint8_t* s_ok = reinterpret_cast<uint8_t*>(R ? s_outr + kChunk : s_rid);
+  const Heap<A, R> h{top, win, rtop, rwin, keys, vals, rid, r, w0, wn};
 
   // nodes past `size` are written before they are read, so only the live
   // part of the top and of the window is loaded
   const uint32_t usize = static_cast<uint32_t>(size);
   const uint32_t live = usize < r ? usize : r;
 #pragma unroll 4
-  for (uint32_t j = threadIdx.x; j < live; j += kHeapThreads)
+  for (uint32_t j = threadIdx.x; j < live; j += kHeapThreads) {
     top[j + D - 1] = make_int2(keys[j], vals[j]);
+    if constexpr (R) rtop[j + D - 1] = rid[j];
+  }
   for (uint32_t j = threadIdx.x; j < wn && w0 + j < usize;
-       j += kHeapThreads)
+       j += kHeapThreads) {
     win[j] = make_int2(keys[w0 + j], vals[w0 + j]);
+    if constexpr (R) rwin[j] = rid[w0 + j];
+  }
   int32_t hi = size;  // the largest size of the call (thread 0)
 
   for (int c0 = 0; c0 < b; c0 += kChunk) {
@@ -257,6 +323,7 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
         s_outk[q0 + q] = kKeyInf;
         s_outv[q0 + q] = -1;
         s_ok[q0 + q] = 0;
+        if constexpr (R) s_outr[q0 + q] = -1;
       }
     }
     uint32_t nlive;
@@ -267,6 +334,9 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
         s_op[at] = ((q0 + q) << 1) | op4[q];
         s_key[at] = okeys[c0 + q0 + q];
         s_val[at] = ovals[c0 + q0 + q];
+        if constexpr (R)
+          s_rid[at] = oprider[static_cast<int64_t>(opr_stride) *
+                              (c0 + q0 + q)];
         ++at;
       }
     }
@@ -275,7 +345,7 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
       for (uint32_t a = 0; a < nlive; ++a) {
         const int i = s_op[a] >> 1;
         const int32_t op = s_op[a] & 1;
-        int32_t rk = kKeyInf, rv = -1;
+        int32_t rk = kKeyInf, rv = -1, rr = -1;
         uint8_t applied = 0;
         if (op == kOpInsert && static_cast<uint32_t>(size) < cap) {
           // hole starts at `size`; parents move down while larger.  Each
@@ -283,21 +353,27 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
           // global level costs one round trip and no store waits on a
           // load.
           const int32_t key = s_key[a], val = s_val[a];
+          int32_t orid = 0, pr = 0;
+          if constexpr (R) orid = s_rid[a];
           uint32_t j = static_cast<uint32_t>(size);
           if (j > 0) {
             uint32_t p = (j - 1) >> A;
             int2 pn = h.node(p);
+            if constexpr (R) pr = h.rider(p);
             for (int t = 0; t < max_depth && j > 0; ++t) {
               const uint32_t g = p > 0 ? (p - 1) >> A : 0u;
               const int2 gn = p > 0 ? h.node(g) : make_int2(kKeyInf, -1);
+              int32_t gr = 0;
+              if constexpr (R) gr = p > 0 ? h.rider(g) : -1;
               if (!(pn.x > key)) break;
-              h.put(j, pn.x, pn.y);
+              h.put(j, pn.x, pn.y, pr);
               j = p;
               p = g;
               pn = gn;
+              pr = gr;
             }
           }
-          h.put(j, key, val);
+          h.put(j, key, val, orid);
           ++size;
           hi = size > hi ? size : hi;
           applied = 1;
@@ -309,36 +385,44 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
           const uint32_t nsize = static_cast<uint32_t>(size) - 1;
           const int2 last = h.node(nsize);
           const int2 root = h.node(0);
+          int32_t lastr = 0;
+          if constexpr (R) {
+            lastr = h.rider(nsize);
+            rr = h.rider(0);
+          }
           rk = root.x;
           rv = root.y;
           if (nsize > 0) {
             uint32_t j = 0, base = 1;
-            int32_t ck[D], cv[D], bk, bv;
+            int32_t ck[D], cv[D], cr[D], bk, bv, br = 0;
             int t = 0;
             bool moving = true;
             for (; t < max_depth && base < r; ++t) {
-              Heap<A>::smem_group(top + base + D - 1, base, nsize, ck, cv);
-              const int w = min_child<D>(ck, cv, &bk, &bv);
+              Heap<A, R>::smem_group(top + base + D - 1, rtop + base + D - 1,
+                                     base, nsize, ck, cv, cr);
+              const int w = min_child<D, R>(ck, cv, cr, &bk, &bv, &br);
               if (w < 0 || !(bk < last.x)) {
                 moving = false;
                 break;
               }
               top[j + D - 1] = make_int2(bk, bv);
+              if constexpr (R) rtop[j + D - 1] = br;
               j = base + w;
               base = (j << A) + 1;
             }
-            if constexpr (!kLookAhead<A>) {
-              // 8-ary: one sibling group a level, loaded when it is needed
+            if constexpr (!kLookAhead<A, R>) {
+              // 8-ary and the rider instance: one sibling group a level,
+              // loaded when it is needed
               for (; moving && t < max_depth && base < nsize; ++t) {
-                h.group(base, nsize, ck, cv);
-                const int w = min_child<D>(ck, cv, &bk, &bv);
+                h.group(base, nsize, ck, cv, cr);
+                const int w = min_child<D, R>(ck, cv, cr, &bk, &bv, &br);
                 if (w < 0 || !(bk < last.x)) break;
-                h.put(j, bk, bv);
+                h.put(j, bk, bv, br);
                 j = base + w;
                 base = (j << A) + 1;
               }
             } else if (moving && t < max_depth && base < nsize) {
-              h.group(base, nsize, ck, cv);
+              h.group(base, nsize, ck, cv, cr);
               for (; t < max_depth; ++t) {
                 const uint32_t gbase = (base << A) + 1;
                 const bool ahead = gbase < nsize;
@@ -346,11 +430,12 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                 if (ahead) {
 #pragma unroll
                   for (int c = 0; c < D; ++c)
-                    h.group(gbase + c * D, nsize, gk + c * D, gv + c * D);
+                    h.group(gbase + c * D, nsize, gk + c * D, gv + c * D,
+                            nullptr);
                 }
-                const int w = min_child<D>(ck, cv, &bk, &bv);
+                const int w = min_child<D, R>(ck, cv, cr, &bk, &bv, &br);
                 if (w < 0 || !(bk < last.x)) break;
-                h.put(j, bk, bv);
+                h.put(j, bk, bv, br);
                 j = base + w;
                 base = gbase + (static_cast<uint32_t>(w) << A);
                 if (!ahead) break;  // no grandchildren: j is a leaf
@@ -368,15 +453,16 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                 }
               }
             }
-            h.put(j, last.x, last.y);
+            h.put(j, last.x, last.y, lastr);
           }
           // scrub the vacated tail slot so stale keys can't resurface
-          h.put(nsize, kKeyInf, -1);
+          h.put(nsize, kKeyInf, -1, -1);
           size = nsize;
           applied = 1;
         }
         s_outk[i] = rk;
         s_outv[i] = rv;
+        if constexpr (R) s_outr[i] = rr;
         s_ok[i] = applied;
       }
     }
@@ -385,6 +471,7 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
       outk[c0 + t] = s_outk[t];
       outv[c0 + t] = s_outv[t];
       ok[c0 + t] = s_ok[t];
+      if constexpr (R) outr[c0 + t] = s_outr[t];
     }
     __syncthreads();  // the next chunk overwrites the staging buffers
   }
@@ -402,30 +489,58 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
     const int2 x = top[j + D - 1];
     keys[j] = x.x;
     vals[j] = x.y;
+    if constexpr (R) rid[j] = rtop[j + D - 1];
   }
   for (uint32_t j = threadIdx.x; j < wn && w0 + j < shi; j += kHeapThreads) {
     const int2 x = win[j];
     keys[w0 + j] = x.x;
     vals[w0 + j] = x.y;
+    if constexpr (R) rid[w0 + j] = rwin[j];
   }
 }
 
-template <int A>
-int launch_heap(int32_t* k, int32_t* v, const int32_t* si, const int32_t* o,
-                const int32_t* ok_, const int32_t* ov, int32_t* rk,
-                int32_t* rv, uint8_t* a, int32_t* so, int b, int cap_log2,
-                int max_depth, cudaStream_t s) {
-  static bool opted_in = false;  // one attribute call per process
+// The launch arguments of one call (the rider's are null / 0 without one).
+struct HeapArgs {
+  int32_t *k, *v;
+  const int32_t *si, *o, *ok_, *ov;
+  int32_t *rk, *rv;
+  uint8_t* a;
+  int32_t* so;
+  int b, cap_log2, max_depth;
+  int32_t* rid;
+  const int32_t* opr;
+  int opr_stride;
+  int32_t* outr;
+};
+
+template <int A, bool R>
+int launch_heap(const HeapArgs& x, cudaStream_t s) {
+  static bool opted_in = false;  // one attribute call per instance
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        heap_apply_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes<A>);
+        heap_apply_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes<A, R>);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  heap_apply_kernel<A><<<1, kHeapThreads, kSmemBytes<A>, s>>>(
-      k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2, max_depth);
+  heap_apply_kernel<A, R><<<1, kHeapThreads, kSmemBytes<A, R>, s>>>(
+      x.k, x.v, x.si, x.o, x.ok_, x.ov, x.rk, x.rv, x.a, x.so, x.b,
+      x.cap_log2, x.max_depth, x.rid, x.opr, x.opr_stride, x.outr);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool R>
+int launch_arity(const HeapArgs& x, int arity_log2, cudaStream_t s) {
+  switch (arity_log2) {
+    case 1:
+      return launch_heap<1, R>(x, s);
+    case 2:
+      return launch_heap<2, R>(x, s);
+    case 3:
+      return launch_heap<3, R>(x, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace repro
@@ -444,28 +559,64 @@ extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
                                 int cap_log2, int arity_log2, int max_depth,
                                 void* stream) {
   using namespace repro;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* k = static_cast<int32_t*>(keys);
-  auto* v = static_cast<int32_t*>(vals);
-  auto* si = static_cast<const int32_t*>(size_in);
-  auto* o = static_cast<const int32_t*>(ops);
-  auto* ok_ = static_cast<const int32_t*>(okeys);
-  auto* ov = static_cast<const int32_t*>(ovals);
-  auto* rk = static_cast<int32_t*>(outk);
-  auto* rv = static_cast<int32_t*>(outv);
-  auto* a = static_cast<uint8_t*>(ok);
-  auto* so = static_cast<int32_t*>(size_out);
+  const HeapArgs x{static_cast<int32_t*>(keys),
+                   static_cast<int32_t*>(vals),
+                   static_cast<const int32_t*>(size_in),
+                   static_cast<const int32_t*>(ops),
+                   static_cast<const int32_t*>(okeys),
+                   static_cast<const int32_t*>(ovals),
+                   static_cast<int32_t*>(outk),
+                   static_cast<int32_t*>(outv),
+                   static_cast<uint8_t*>(ok),
+                   static_cast<int32_t*>(size_out),
+                   b, cap_log2, max_depth, nullptr, nullptr, 0, nullptr};
+  return launch_arity<false>(x, arity_log2,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The rider instance: as above, plus rider (2^cap_log2,) int32, updated in
+// place; oprider: one int32 (opr_stride 0) or (b,) int32 (opr_stride 1),
+// the rider INSERT lanes install; outr: (b,) int32, the popped riders.
+// Up to 177,200 B of dynamic shared memory.
+extern "C" int repro_heap_apply_rider(
+    void* keys, void* vals, void* rider, const void* size_in,
+    const void* ops, const void* okeys, const void* ovals,
+    const void* oprider, void* outk, void* outv, void* outr, void* ok,
+    void* size_out, int b, int cap_log2, int arity_log2, int max_depth,
+    int opr_stride, void* stream) {
+  using namespace repro;
+  if (opr_stride != 0 && opr_stride != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HeapArgs x{static_cast<int32_t*>(keys),
+                   static_cast<int32_t*>(vals),
+                   static_cast<const int32_t*>(size_in),
+                   static_cast<const int32_t*>(ops),
+                   static_cast<const int32_t*>(okeys),
+                   static_cast<const int32_t*>(ovals),
+                   static_cast<int32_t*>(outk),
+                   static_cast<int32_t*>(outv),
+                   static_cast<uint8_t*>(ok),
+                   static_cast<int32_t*>(size_out),
+                   b, cap_log2, max_depth, static_cast<int32_t*>(rider),
+                   static_cast<const int32_t*>(oprider), opr_stride,
+                   static_cast<int32_t*>(outr)};
+  return launch_arity<true>(x, arity_log2,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Nodes of the shared-memory top (kResidentMax) for arity_log2 in 1..3,
+// with the rider plane (rider != 0) or without; -1 for an arity that is
+// not built.  A host query: no launch.
+extern "C" int repro_heap_resident_max(int arity_log2, int rider) {
+  using namespace repro;
   switch (arity_log2) {
     case 1:
-      return launch_heap<1>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
-                            max_depth, s);
+      return rider ? kResidentMax<1, true> : kResidentMax<1, false>;
     case 2:
-      return launch_heap<2>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
-                            max_depth, s);
+      return rider ? kResidentMax<2, true> : kResidentMax<2, false>;
     case 3:
-      return launch_heap<3>(k, v, si, o, ok_, ov, rk, rv, a, so, b, cap_log2,
-                            max_depth, s);
+      return rider ? kResidentMax<3, true> : kResidentMax<3, false>;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return -1;
   }
 }

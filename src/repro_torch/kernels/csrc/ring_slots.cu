@@ -49,6 +49,17 @@
 // The wave kernels know which lanes are active from the round's own
 // arithmetic (lane < k, the ballot bit), so tickets past 2^31 are
 // consumed and installed like any other.
+//
+// Birth stamps (the span layer; ring_slots.py: enq_planes(birth_round=),
+// deq_planes(birth_packed=True)): each wave kernel has a packed instance.
+// The enqueue wave writes the flag (round << 1) | 1, round read from a
+// device word (the span plane's clock, so a graph replay reads the
+// round's own), instead of 1; the dequeue wave tests the flag's low bit
+// and writes each consumed lane's stamp enq >> 1 (-1 on a miss).  The
+// stamp rides the flag word the waves already read and write: no extra
+// plane, one extra int a dequeue lane out.  The flag stays positive for
+// rounds below 2^30, which the engine core enforces.  The unpacked
+// instances are the ones above, unchanged.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,21 +82,27 @@ __device__ __forceinline__ bool cycle_lt(int32_t a, int32_t b, int s) {
 
 // TRYDEQ of one active lane: consume on a cycle match (the value goes to
 // *v), advance a stale empty slot to the ticket's cycle, mark a stale live
-// slot unsafe.  Returns whether the lane consumed.
+// slot unsafe.  Returns whether the lane consumed.  kPacked: the flag is
+// the enq word's low bit, and a consume writes the stamp (its high bits)
+// to *birth.
+template <bool kPacked = false>
 __device__ __forceinline__ bool try_dequeue(int32_t* __restrict__ cyc,
                                             int32_t* __restrict__ saf,
                                             const int32_t* __restrict__ enq,
                                             int32_t* __restrict__ idx,
                                             uint32_t t, int s,
-                                            int32_t idx_bot, int32_t* v) {
+                                            int32_t idx_bot, int32_t* v,
+                                            int32_t* birth = nullptr) {
   const uint32_t j = t & ((1u << s) - 1u);
   const int32_t c = static_cast<int32_t>(t >> s);
   const int32_t e_c = cyc[j], e_e = enq[j], e_i = idx[j];
   const bool empty = e_i == idx_bot || e_i == idx_bot - 1;
-  const bool hit = e_c == c && !empty && e_e == 1;
+  const bool flag = kPacked ? (e_e & 1) == 1 : e_e == 1;
+  const bool hit = e_c == c && !empty && flag;
   if (hit) {
     idx[j] = idx_bot - 1;  // consume: index := bottom_c
     *v = e_i;
+    if constexpr (kPacked) *birth = e_e >> 1;
   } else if (cycle_lt(e_c, c, s)) {
     if (empty) cyc[j] = c;   // advance a stale empty slot
     else saf[j] = 0;         // mark a stale live slot unsafe
@@ -95,10 +112,11 @@ __device__ __forceinline__ bool try_dequeue(int32_t* __restrict__ cyc,
 
 // TRYENQ of one active lane in two steps: gather the ticket's slot, then
 // install where the slot's cycle is behind the ticket's, the slot is
-// empty, and the slot is safe or head <= ticket.  A thread with several
-// lanes gathers all their slots before it installs any: the lanes' slots
-// are pairwise distinct (Lemma III.1), so the gathers overlap in flight
-// and no install can change another lane's slot.
+// empty, and the slot is safe or head <= ticket, with the enq word `flag`
+// (1, or a packed birth stamp).  A thread with several lanes gathers all
+// their slots before it installs any: the lanes' slots are pairwise
+// distinct (Lemma III.1), so the gathers overlap in flight and no install
+// can change another lane's slot.
 struct EnqSlot {
   int32_t c, s, i;
 };
@@ -117,7 +135,8 @@ __device__ __forceinline__ bool enq_install(int32_t* __restrict__ cyc,
                                             int32_t* __restrict__ idx,
                                             EnqSlot e, uint32_t t,
                                             int32_t value, uint32_t head,
-                                            int s, int32_t idx_bot) {
+                                            int s, int32_t idx_bot,
+                                            int32_t flag = 1) {
   const uint32_t j = t & ((1u << s) - 1u);
   const int32_t c = static_cast<int32_t>(t >> s);
   const bool empty = e.i == idx_bot || e.i == idx_bot - 1;
@@ -126,7 +145,7 @@ __device__ __forceinline__ bool enq_install(int32_t* __restrict__ cyc,
   if (can) {
     cyc[j] = c;
     saf[j] = 1;
-    enq[j] = 1;
+    enq[j] = flag;
     idx[j] = value;
   }
   return can;
@@ -138,9 +157,10 @@ __device__ __forceinline__ bool try_enqueue(int32_t* __restrict__ cyc,
                                             int32_t* __restrict__ idx,
                                             uint32_t t, int32_t value,
                                             uint32_t head, int s,
-                                            int32_t idx_bot) {
+                                            int32_t idx_bot,
+                                            int32_t flag = 1) {
   return enq_install(cyc, saf, enq, idx, enq_gather(cyc, saf, idx, t, s), t,
-                     value, head, s, idx_bot);
+                     value, head, s, idx_bot, flag);
 }
 
 __global__ void ring_dequeue_kernel(int32_t* __restrict__ cyc,
@@ -185,6 +205,8 @@ __global__ void ring_enqueue_kernel(int32_t* __restrict__ cyc,
 // A round's dequeue side (fusedrounds.py: RingEngine._round before the
 // step): k = live ? min(tail - head, batch) : 0 in int32 arithmetic, lane
 // i < k consumes ticket head + i, and head += k in place.  One block.
+// kPacked: births[i] gets lane i's stamp (-1 on a miss).
+template <bool kPacked>
 __global__ void __launch_bounds__(kWaveThreads)
     ring_dequeue_wave_kernel(int32_t* __restrict__ cyc,
                              int32_t* __restrict__ saf,
@@ -195,7 +217,8 @@ __global__ void __launch_bounds__(kWaveThreads)
                              const bool* __restrict__ live,
                              int32_t* __restrict__ vals,
                              bool* __restrict__ ok,
-                             int32_t* __restrict__ k_out, int batch, int s,
+                             int32_t* __restrict__ k_out,
+                             int32_t* __restrict__ births, int batch, int s,
                              int32_t idx_bot) {
   __shared__ uint32_t s_head;
   __shared__ int32_t s_k;
@@ -210,13 +233,15 @@ __global__ void __launch_bounds__(kWaveThreads)
   const uint32_t h = s_head;
   const int32_t k = s_k;
   for (int i = threadIdx.x; i < batch; i += blockDim.x) {
-    int32_t v = -1;
+    int32_t v = -1, birth = -1;
     bool hit = false;
     if (i < k)
-      hit = try_dequeue(cyc, saf, enq, idx, h + static_cast<uint32_t>(i), s,
-                        idx_bot, &v);
+      hit = try_dequeue<kPacked>(cyc, saf, enq, idx,
+                                 h + static_cast<uint32_t>(i), s, idx_bot,
+                                 &v, &birth);
     vals[i] = v;
     ok[i] = hit;
+    if constexpr (kPacked) births[i] = birth;
   }
   // only thread 0 read head from memory, so it may write it back now
   if (threadIdx.x == 0) {
@@ -255,8 +280,9 @@ __device__ __forceinline__ uint32_t ballot_bits(const uint8_t* __restrict__ m,
 // live ? count : 0, lane i < n_child's ticket tail + i.  Both: over =
 // int32(tail + n_child - head) > capacity; unless over every ticket is
 // installed (TRYENQ) and tail += n_child in place; total = over ? 0 :
-// n_child.  One block.
-template <bool kBallot>
+// n_child.  kPacked: the enq flag installed is (*birth_round << 1) | 1.
+// One block.
+template <bool kBallot, bool kPacked>
 __global__ void __launch_bounds__(kWaveThreads)
     ring_enqueue_wave_kernel(int32_t* __restrict__ cyc,
                              int32_t* __restrict__ saf,
@@ -268,19 +294,25 @@ __global__ void __launch_bounds__(kWaveThreads)
                              const int32_t* __restrict__ values,
                              const uint8_t* __restrict__ mask,
                              const int32_t* __restrict__ count,
+                             const int32_t* __restrict__ birth_round,
                              int32_t* __restrict__ total_out,
                              bool* __restrict__ over_out, int n, int capacity,
                              int s, int32_t idx_bot) {
   __shared__ uint32_t s_head, s_tail, s_count;
+  __shared__ int32_t s_flag;
   __shared__ bool s_live;
   if (threadIdx.x == 0) {
     s_head = static_cast<uint32_t>(head[0]);
     s_tail = static_cast<uint32_t>(tail[0]);
     s_live = live[0];
     if (!kBallot) s_count = s_live ? static_cast<uint32_t>(count[0]) : 0u;
+    if (kPacked)
+      s_flag = static_cast<int32_t>(
+          (static_cast<uint32_t>(birth_round[0]) << 1) | 1u);
   }
   __syncthreads();
   const uint32_t h = s_head, t0 = s_tail;
+  const int32_t flag = kPacked ? s_flag : 1;
   const int ntiles = (n + kWaveTileLanes - 1) / kWaveTileLanes;
   uint32_t n_child, bits0 = 0, before0 = 0;
   if (kBallot) {
@@ -327,7 +359,7 @@ __global__ void __launch_bounds__(kWaveThreads)
         for (int j = 0; j < kWaveLanesPerThread; ++j)
           if ((b >> j) & 1u)
             enq_install(cyc, saf, enq, idx, e[j], tk[j], v[j], h, s,
-                        idx_bot);
+                        idx_bot, flag);
         base += tile_count;
       }
     } else {
@@ -335,7 +367,7 @@ __global__ void __launch_bounds__(kWaveThreads)
           static_cast<int>(min(n_child, static_cast<uint32_t>(n)));
       for (int i = threadIdx.x; i < lanes; i += blockDim.x)
         try_enqueue(cyc, saf, enq, idx, t0 + static_cast<uint32_t>(i),
-                    values[i], h, s, idx_bot);
+                    values[i], h, s, idx_bot, flag);
     }
   }
   // only thread 0 read tail from memory, so it may write it back now
@@ -389,35 +421,41 @@ extern "C" int repro_ring_enqueue(void* cyc, void* saf, void* enq, void* idx,
 }
 
 // Planes: four (1 << s,) int32; head (updated in place), tail, k: 0-d
-// int32; live: 0-d bool; vals: (batch,) int32; ok: (batch,) bool.
+// int32; live: 0-d bool; vals: (batch,) int32; ok: (batch,) bool; births:
+// (batch,) int32 for the packed instance, or null for the unpacked one.
 // batch >= 0.  Returns cudaGetLastError() after the one launch.
 extern "C" int repro_ring_dequeue_wave(void* cyc, void* saf, const void* enq,
                                        void* idx, void* head,
                                        const void* tail, const void* live,
                                        void* vals, void* ok, void* k,
-                                       int batch, int s, int idx_bot,
-                                       void* stream) {
+                                       void* births, int batch, int s,
+                                       int idx_bot, void* stream) {
+  using namespace repro;
   if (batch < 0) return static_cast<int>(cudaErrorInvalidValue);
-  repro::ring_dequeue_wave_kernel<<<1, repro::wave_threads(batch), 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = births != nullptr ? ring_dequeue_wave_kernel<true>
+                                   : ring_dequeue_wave_kernel<false>;
+  kernel<<<1, wave_threads(batch), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(cyc), static_cast<int32_t*>(saf),
       static_cast<const int32_t*>(enq), static_cast<int32_t*>(idx),
       static_cast<int32_t*>(head), static_cast<const int32_t*>(tail),
       static_cast<const bool*>(live), static_cast<int32_t*>(vals),
-      static_cast<bool*>(ok), static_cast<int32_t*>(k), batch, s, idx_bot);
+      static_cast<bool*>(ok), static_cast<int32_t*>(k),
+      static_cast<int32_t*>(births), batch, s, idx_bot);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Planes: four (1 << s,) int32; head, total: 0-d int32; tail: 0-d int32,
 // updated in place; live, over: 0-d bool; values: (n,) int32.  Ballot
 // mode: mask (n,) bool and count null.  Dense mode: mask null and count a
-// 0-d int32 (the compacted wave's true popcount).  n >= 0.  Returns
-// cudaGetLastError() after the one launch.
+// 0-d int32 (the compacted wave's true popcount).  birth_round: a 0-d
+// int32 for the packed instance, or null for the unpacked one.  n >= 0.
+// Returns cudaGetLastError() after the one launch.
 extern "C" int repro_ring_enqueue_wave(void* cyc, void* saf, void* enq,
                                        void* idx, const void* head,
                                        void* tail, const void* live,
                                        const void* values, const void* mask,
-                                       const void* count, void* total,
+                                       const void* count,
+                                       const void* birth_round, void* total,
                                        void* over, int n, int capacity,
                                        int s, int idx_bot, void* stream) {
   using namespace repro;
@@ -431,15 +469,18 @@ extern "C" int repro_ring_enqueue_wave(void* cyc, void* saf, void* enq,
           ? kWaveThreads
           : wave_threads((static_cast<int64_t>(n) + kWaveLanesPerThread - 1) /
                          kWaveLanesPerThread);
-  auto* kernel = ballot ? ring_enqueue_wave_kernel<true>
-                        : ring_enqueue_wave_kernel<false>;
+  const bool packed = birth_round != nullptr;
+  auto* kernel = ballot ? (packed ? ring_enqueue_wave_kernel<true, true>
+                                  : ring_enqueue_wave_kernel<true, false>)
+                        : (packed ? ring_enqueue_wave_kernel<false, true>
+                                  : ring_enqueue_wave_kernel<false, false>);
   kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(cyc), static_cast<int32_t*>(saf),
       static_cast<int32_t*>(enq), static_cast<int32_t*>(idx),
       static_cast<const int32_t*>(head), static_cast<int32_t*>(tail),
       static_cast<const bool*>(live), static_cast<const int32_t*>(values),
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(count),
-      static_cast<int32_t*>(total), static_cast<bool*>(over), n, capacity, s,
-      idx_bot);
+      static_cast<const int32_t*>(birth_round), static_cast<int32_t*>(total),
+      static_cast<bool*>(over), n, capacity, s, idx_bot);
   return static_cast<int>(cudaGetLastError());
 }

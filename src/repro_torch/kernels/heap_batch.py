@@ -19,16 +19,18 @@ Faces:
   a CUDA tensor launches the hand-written kernel in
   ``csrc/heap_batch.cu`` or raises.  ``size`` goes in as a device tensor
   and the new size comes back as a 0-d device tensor: nothing is read
-  back, so the round engine's predicated rounds stay on the card.
+  back, so the round engine's predicated rounds stay on the card.  An
+  optional ``rider`` plane moves in lockstep with ``vals`` through every
+  sift (the span layer's birth stamps): INSERT lanes install
+  ``oprider``, DELETE-MIN lanes return the popped rider.  On the card
+  it is the kernel's rider instance.
 * ``heap_apply_plain`` — the same batch applied one op at a time on the
   host (a CUDA heap is copied off the card and back).  It is the CPU
   path and the kernel's oracle on the card.
-* ``heap_planes`` — functional form (new planes) with an optional
-  ``rider`` value plane that moves in lockstep with ``vals``, and
-  ``heap_pop_count`` / ``heap_insert_masked`` on top of it: the partial
-  waves of the priority mesh rounds.  Plain only, and for CPU tensors
-  only: they have no kernel yet, and a CUDA tensor raises rather than
-  going through the host.
+* ``heap_planes`` — functional form (new planes, the inputs unchanged),
+  and ``heap_pop_count`` / ``heap_insert_masked`` on top of it: the
+  partial waves of the priority mesh rounds.  They run ``heap_apply`` on
+  copies, so a CUDA tensor launches the kernel.
 
 ``heap_apply`` and ``heap_apply_plain`` update ``keys``/``vals`` IN
 PLACE and return them, as the ring wrappers do; the Pallas kernel copies
@@ -62,6 +64,18 @@ def max_depth(cap_log2: int, arity_log2: int) -> int:
     """The Pallas loops' fixed trip count: levels needed to cover 2^cap_log2
     nodes with arity 2^arity_log2, plus one."""
     return -(-cap_log2 // arity_log2) + 1
+
+
+def heap_resident_max(arity_log2: int, rider: bool = False) -> int:
+    """Nodes of the kernel's shared-memory top (whole levels) at
+    ``arity_log2``, for the rider instance or the rider-less one, as
+    ``csrc/heap_batch.cu`` defines them.  Builds the kernel on first use:
+    a card's machine only."""
+    if arity_log2 not in ARITY_LOG2:
+        raise ValueError(f"heap_resident_max: the kernel is built for "
+                         f"arity_log2 in {ARITY_LOG2}, got {arity_log2}")
+    return _build.library("heap_batch").repro_heap_resident_max(
+        arity_log2, int(rider))
 
 
 def _apply_serial(keys: np.ndarray, vplanes: Sequence[np.ndarray], size: int,
@@ -171,41 +185,56 @@ def _host_apply(name, keys, vplanes, size, ops, opkeys, opvals_t, *,
             torch.tensor(ok, dtype=torch.bool, device=dev))
 
 
-def _require_cpu(name, *tensors) -> None:
-    """The functional faces run on the host only: refuse other devices."""
-    for t in tensors:
-        if t is not None and torch.as_tensor(t).device.type != "cpu":
-            raise ValueError(f"{name}: has no kernel yet and takes CPU "
-                             f"tensors only, got {torch.as_tensor(t).device}")
+def _oprider(oprider, ops) -> torch.Tensor:
+    """The riders INSERT lanes install: ``oprider`` (one value or (B,))
+    as int32 on the ops' device; 0 when omitted."""
+    if oprider is None:
+        return torch.zeros((), dtype=torch.int32, device=ops.device)
+    return torch.as_tensor(oprider, device=ops.device).to(torch.int32)
 
 
 def heap_apply_plain(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
-                     arity_log2: int = 2):
+                     arity_log2: int = 2, rider=None, oprider=None):
     """Plain ``heap_apply``: the batch applied one op at a time, in place.
     Returns ``(keys, vals, new_size (0-d int32), out_keys, out_vals, ok
-    (B,) bool)``."""
-    nsize, outk, (outv,), ok = _host_apply(
-        "heap_apply", keys, (vals,), size, ops, opkeys, (opvals,),
+    (B,) bool)``, and with a ``rider`` also ``(rider, out_rider)``."""
+    vplanes, opvals_t = (vals,), (opvals,)
+    if rider is not None:
+        vplanes += (rider,)
+        opvals_t += (torch.broadcast_to(_oprider(oprider, ops), ops.shape),)
+    nsize, outk, outvs, ok = _host_apply(
+        "heap_apply", keys, vplanes, size, ops, opkeys, opvals_t,
         cap_log2=cap_log2, arity_log2=arity_log2)
-    return keys, vals, nsize, outk, outv, ok
+    if rider is None:
+        return keys, vals, nsize, outk, outvs[0], ok
+    return keys, vals, nsize, outk, outvs[0], ok, rider, outvs[1]
 
 
 def heap_apply(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
-               arity_log2: int = 2):
+               arity_log2: int = 2, rider=None, oprider=None):
     """Apply a batch of heap ops in batch order, IN PLACE.  ``keys``/
     ``vals`` are (2^cap_log2,) int32 planes, ``size`` a one-element int32
     tensor (or an int), ``ops``/``opkeys``/``opvals`` (B,) int32.  Returns
     ``(keys, vals, new_size, out_keys, out_vals, ok)``: ``new_size`` a
     0-d int32 tensor on the planes' device, ``out_*[i]`` the DELETE-MIN
     results (``KEY_INF`` / -1 elsewhere), ``ok[i]`` (bool) whether op i
-    applied.  On the card nothing is read back."""
+    applied.  On the card nothing is read back.
+
+    ``rider`` (a third (2^cap_log2,) int32 plane, updated in place) moves
+    with ``vals``; INSERT lanes install ``oprider`` (one int32 or (B,),
+    a tensor on the planes' device to keep the call free of copies; 0
+    when omitted) and the tuple grows to ``(..., ok, rider, out_rider)``,
+    ``out_rider[i]`` the popped rider (-1 off DELETE-MIN lanes)."""
     if keys.device.type == "cpu":
         return heap_apply_plain(keys, vals, size, ops, opkeys, opvals,
-                                cap_log2=cap_log2, arity_log2=arity_log2)
+                                cap_log2=cap_log2, arity_log2=arity_log2,
+                                rider=rider, oprider=oprider)
     size = torch.as_tensor(size, dtype=torch.int32,
                            device=keys.device).reshape(1)
-    _build.require_cuda("heap_apply", keys, vals, size, ops, opkeys, opvals)
-    _check_planes("heap_apply", keys, (vals,), ops, opkeys, opvals,
+    vplanes = (vals,) if rider is None else (vals, rider)
+    _build.require_cuda("heap_apply", keys, *vplanes, size, ops, opkeys,
+                        opvals)
+    _check_planes("heap_apply", keys, vplanes, ops, opkeys, opvals,
                   cap_log2, arity_log2)
     if arity_log2 not in ARITY_LOG2:
         raise ValueError(f"heap_apply: the kernel is built for arity_log2 "
@@ -217,18 +246,37 @@ def heap_apply(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
     outv = torch.empty(b, dtype=torch.int32, device=dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
     nsize = torch.empty((), dtype=torch.int32, device=dev)
+    out = (keys, vals, nsize, outk, outv, ok)
+    if rider is not None:
+        opr = _oprider(oprider, ops)
+        _build.require_cuda("heap_apply", opr)
+        if opr.numel() not in (1, b):
+            raise ValueError("heap_apply: oprider must be one int32 or "
+                             "(B,)")
+        out += (rider, torch.empty(b, dtype=torch.int32, device=dev))
     if b == 0:
         nsize.copy_(size.reshape(()))
-        return keys, vals, nsize, outk, outv, ok
+        return out
     lib = _build.library("heap_batch")
-    _build.check(lib.repro_heap_apply(
-        keys.data_ptr(), vals.data_ptr(), size.data_ptr(), ops.data_ptr(),
-        opkeys.data_ptr(), opvals.data_ptr(), outk.data_ptr(),
-        outv.data_ptr(), ok.data_ptr(), nsize.data_ptr(), b, cap_log2,
-        arity_log2, max_depth(cap_log2, arity_log2),
-        _build.stream_of(keys)), "heap_apply")
-    _build.LAUNCHES["heap_apply"] += 1
-    return keys, vals, nsize, outk, outv, ok
+    common = (ops.data_ptr(), opkeys.data_ptr(), opvals.data_ptr())
+    if rider is None:
+        _build.check(lib.repro_heap_apply(
+            keys.data_ptr(), vals.data_ptr(), size.data_ptr(), *common,
+            outk.data_ptr(), outv.data_ptr(), ok.data_ptr(),
+            nsize.data_ptr(), b, cap_log2, arity_log2,
+            max_depth(cap_log2, arity_log2), _build.stream_of(keys)),
+            "heap_apply")
+        _build.LAUNCHES["heap_apply"] += 1
+    else:
+        _build.check(lib.repro_heap_apply_rider(
+            keys.data_ptr(), vals.data_ptr(), rider.data_ptr(),
+            size.data_ptr(), *common, opr.data_ptr(), outk.data_ptr(),
+            outv.data_ptr(), out[7].data_ptr(), ok.data_ptr(),
+            nsize.data_ptr(), b, cap_log2, arity_log2,
+            max_depth(cap_log2, arity_log2), int(opr.numel() != 1),
+            _build.stream_of(keys)), "heap_apply (rider)")
+        _build.LAUNCHES["heap_apply_rider"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -239,44 +287,29 @@ def heap_apply(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
 def heap_planes(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
                 arity_log2: int = 2, rider=None, oprider=None):
     """Apply a batch of heap ops in batch order on NEW planes (the inputs
-    are not changed).  Same results as ``heap_apply``.  Returns ``(keys,
-    vals, new_size, out_keys, out_vals, ok)``.
+    are not changed): ``heap_apply`` on copies, so a CUDA tensor launches
+    the kernel.  Returns ``(keys, vals, new_size, out_keys, out_vals,
+    ok)``.
 
     ``rider`` is an optional second (cap,) value plane that moves in
     lockstep with ``vals`` through every sift (the span layer's
     birth-stamp plane); ``oprider`` is the rider value INSERT lanes
     install (scalar or (B,); 0 when omitted).  With a rider the tuple
-    grows to ``(..., ok, rider, out_rider)``.  CPU tensors only."""
-    _require_cpu("heap_planes", keys, vals, size, ops, opkeys, opvals, rider,
-                 oprider)
-    ops = torch.as_tensor(ops).to(torch.int32)
-    vplanes = [vals.clone()]
-    opvals_t = [torch.as_tensor(opvals).to(torch.int32)]
-    if rider is not None:
-        vplanes.append(rider.clone())
-        opr = (torch.zeros_like(ops) if oprider is None
-               else torch.broadcast_to(torch.as_tensor(
-                   oprider, dtype=torch.int32, device=ops.device),
-                   ops.shape))
-        opvals_t.append(opr)
-    keys = keys.clone()
-    nsize, outk, outvs, ok = _host_apply(
-        "heap_planes", keys, vplanes, size, ops,
-        torch.as_tensor(opkeys).to(torch.int32), opvals_t,
-        cap_log2=cap_log2, arity_log2=arity_log2)
-    if rider is None:
-        return keys, vplanes[0], nsize, outk, outvs[0], ok
-    return (keys, vplanes[0], nsize, outk, outvs[0], ok, vplanes[1],
-            outvs[1])
+    grows to ``(..., ok, rider, out_rider)``."""
+    dev = keys.device
+    ops, opkeys, opvals = (torch.as_tensor(x, device=dev).to(torch.int32)
+                           for x in (ops, opkeys, opvals))
+    return heap_apply(keys.clone(), vals.clone(), size, ops, opkeys, opvals,
+                      cap_log2=cap_log2, arity_log2=arity_log2,
+                      rider=None if rider is None else rider.clone(),
+                      oprider=oprider)
 
 
 def heap_pop_count(keys, vals, size, count, *, batch: int, cap_log2: int,
                    arity_log2: int = 2, rider=None):
     """Pop the ``count`` smallest (key, val) pairs through a ``batch``-wide
     wave whose lanes ``>= count`` are ``OP_NOP``.  Returns the
-    ``heap_planes`` tuple; ``ok[i] = i < min(count, size)``.  CPU tensors
-    only."""
-    _require_cpu("heap_pop_count", keys, vals, size, count, rider)
+    ``heap_planes`` tuple; ``ok[i] = i < min(count, size)``."""
     lane = torch.arange(batch, dtype=torch.int32, device=keys.device)
     count = torch.as_tensor(count, dtype=torch.int32, device=keys.device)
     ops = torch.where(lane < count, OP_DELMIN, OP_NOP).int()
@@ -291,10 +324,7 @@ def heap_insert_masked(keys, vals, size, inkeys, invals, mask, *,
                        oprider=None) -> Tuple[torch.Tensor, ...]:
     """Install the masked subset of a (key, val) wave in lane order
     (masked-out lanes are ``OP_NOP``).  Returns the ``heap_planes``
-    tuple; with a rider, applied lanes install ``oprider``.  CPU tensors
-    only."""
-    _require_cpu("heap_insert_masked", keys, vals, size, inkeys, invals,
-                 mask, rider, oprider)
+    tuple; with a rider, applied lanes install ``oprider``."""
     ops = torch.where(torch.as_tensor(mask).bool(), OP_INSERT, OP_NOP).int()
     return heap_planes(keys, vals, size, ops, inkeys, invals,
                        cap_log2=cap_log2, arity_log2=arity_log2,

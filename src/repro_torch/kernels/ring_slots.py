@@ -42,8 +42,20 @@ about 256 MB of traffic per wave avoided.
 Tickets are unsigned mod-2^32 counters carried in int32.  PyTorch's int32
 ``>>`` is arithmetic and int32 ``<<`` overflow is not defined behaviour to
 rely on, so the plain versions compute in int64 with explicit 32-bit
-masks.  The packed birth-stamp span modes of the reference wait for the
-observability slice.
+masks.
+
+Birth stamps (the span layer, ``obs.spans``) come in the reference's two
+layouts.  Packed: an install writes ``(birth_round << 1) | 1`` into the
+enq-flag plane instead of 1, a consume tests the low bit and returns the
+stamp ``enq >> 1``; seeds installed unpacked carry flag 1, birth 0, and
+``enqs & 1`` gives back the unpacked plane.  The stamp keeps the flag
+word positive only below ``SPAN_ROUND_CAP`` = 2^30 (``enq_planes``
+refuses a round past it; the engine core stops a spanned run before
+it).  Separate: a (2n,) ``births`` plane beside the four, written and
+read at the same slots.  The round's wave kernels carry the packed
+layout (``ring_enqueue_wave(birth_round=)``, ``ring_dequeue_wave(
+birth_packed=True)``, instances of their own in ``csrc/ring_slots.cu``);
+the functional faces carry both.
 """
 
 from __future__ import annotations
@@ -55,6 +67,10 @@ from .wavefaa import _i32, wavefaa_plain
 
 _U32 = 0xFFFFFFFF
 _SIGN = 1 << 31
+
+#: Round-clock ceiling of the packed birth stamp ``(birth << 1) | 1``: a
+#: round of 2^30 or more would reach the flag word's sign bit
+SPAN_ROUND_CAP = 1 << 30
 
 
 def ticket_cycle(tickets: torch.Tensor, nslots_log2: int) -> torch.Tensor:
@@ -85,13 +101,25 @@ def _slots(tickets, nslots_log2, active):
     return active, j, c
 
 
+def _packed_flag(birth_round, device) -> torch.Tensor:
+    """``(birth_round << 1) | 1`` as int32, computed in int64."""
+    r = torch.as_tensor(birth_round, device=device).long().reshape(())
+    return _i32(((r << 1) | 1) & _U32)
+
+
 def ring_enqueue_plain(cycles, safes, enqs, idxs, tickets, values, head, *,
-                       nslots_log2: int, idx_bot: int, active=None):
+                       nslots_log2: int, idx_bot: int, active=None,
+                       births=None, birth_round=None):
     """One TRYENQ wave in plain PyTorch, in place: a lane installs its
     value where the slot's cycle is behind the ticket's, the slot is
     empty, and the slot is safe or ``head <= ticket``.  ``active``
     defaults to ``tickets >= 0``.  Returns (cycles, safes, enqs, idxs,
-    ok (B,) bool)."""
+    ok (B,) bool).
+
+    Birth stamps: with a ``births`` plane an install also writes
+    ``birth_round`` there (and the tuple ends with ``births``); with
+    ``birth_round`` alone the flag written is the packed
+    ``(birth_round << 1) | 1``."""
     active, j, c = _slots(tickets, nslots_log2, active)
     head = torch.as_tensor(head, dtype=torch.int32,
                            device=tickets.device).reshape(-1)[0]
@@ -102,50 +130,84 @@ def ring_enqueue_plain(cycles, safes, enqs, idxs, tickets, values, head, *,
     w = j[can]
     cycles[w] = c[can]
     safes[w] = 1
-    enqs[w] = 1
+    packed = births is None and birth_round is not None
+    enqs[w] = _packed_flag(birth_round, enqs.device) if packed else 1
     idxs[w] = values.to(torch.int32)[can]
-    return cycles, safes, enqs, idxs, can
+    if births is None:
+        return cycles, safes, enqs, idxs, can
+    births[w] = torch.as_tensor(birth_round, device=births.device).to(
+        torch.int32)
+    return cycles, safes, enqs, idxs, can, births
 
 
 def ring_dequeue_plain(cycles, safes, enqs, idxs, tickets, *,
-                       nslots_log2: int, idx_bot: int, active=None):
+                       nslots_log2: int, idx_bot: int, active=None,
+                       births=None, birth_packed: bool = False):
     """One TRYDEQ wave in plain PyTorch, in place: consume on a cycle
     match, advance stale empty slots to the ticket's cycle, mark stale
     live slots unsafe.  Returns (cycles, safes, enqs, idxs, vals (B,)
-    int32 with -1 on a miss, ok (B,) bool)."""
+    int32 with -1 on a miss, ok (B,) bool).
+
+    Birth stamps: ``birth_packed`` tests the flag's low bit and reads the
+    stamp from its high bits, ``births`` reads it from that plane; either
+    appends the consumed lanes' births ((B,) int32, -1 on a miss)."""
     active, j, c = _slots(tickets, nslots_log2, active)
     e_c, e_e, e_i = cycles[j], enqs[j], idxs[j]
     empty = (e_i == idx_bot) | (e_i == idx_bot - 1)
-    hit = active & (e_c == c) & ~empty & (e_e == 1)
+    flag = (e_e & 1) if birth_packed else e_e
+    hit = active & (e_c == c) & ~empty & (flag == 1)
     behind = active & ~hit & cycle_lt(e_c, c, nslots_log2)
     adv, uns = behind & empty, behind & ~empty
     idxs[j[hit]] = idx_bot - 1
     cycles[j[adv]] = c[adv]
     safes[j[uns]] = 0
     vals = torch.where(hit, e_i, -1)
-    return cycles, safes, enqs, idxs, vals, hit
+    if birth_packed:
+        return cycles, safes, enqs, idxs, vals, hit, torch.where(
+            hit, e_e >> 1, -1)
+    if births is None:
+        return cycles, safes, enqs, idxs, vals, hit
+    return cycles, safes, enqs, idxs, vals, hit, torch.where(
+        hit, births[j], -1)
 
 
 def enq_planes(cycles, safes, enqs, idxs, tickets, values, head, *,
-               nslots_log2: int, idx_bot: int, active=None):
-    """Functional TRYENQ wave (reference ``enq_planes`` without the span
-    modes): new planes, ``ok`` as int32."""
+               nslots_log2: int, idx_bot: int, active=None, births=None,
+               birth_round=None):
+    """Functional TRYENQ wave (reference ``enq_planes``): new planes,
+    ``ok`` as int32, and with ``births`` the new births plane last.  A
+    packed ``birth_round`` (no ``births``) given as an int or a CPU
+    tensor must lie below ``SPAN_ROUND_CAP``."""
+    if births is None and birth_round is not None:
+        concrete = (not isinstance(birth_round, torch.Tensor)
+                    or birth_round.device.type == "cpu")
+        if concrete and int(birth_round) >= SPAN_ROUND_CAP:
+            raise ValueError(
+                f"birth_round {int(birth_round)} exceeds the packed "
+                f"birth-stamp cap SPAN_ROUND_CAP={SPAN_ROUND_CAP}: the "
+                f"(birth << 1) | 1 layout caps the round clock at 2^30 "
+                f"(use the separate births plane for longer clocks)")
     planes = [p.clone() for p in (cycles, safes, enqs, idxs)]
-    *planes, ok = ring_enqueue_plain(*planes, tickets, values, head,
-                                     nslots_log2=nslots_log2,
-                                     idx_bot=idx_bot, active=active)
-    return (*planes, ok.int())
+    if births is not None:
+        births = births.clone()
+    out = ring_enqueue_plain(*planes, tickets, values, head,
+                             nslots_log2=nslots_log2, idx_bot=idx_bot,
+                             active=active, births=births,
+                             birth_round=birth_round)
+    return (*out[:4], out[4].int(), *out[5:])
 
 
 def deq_planes(cycles, safes, enqs, idxs, tickets, *, nslots_log2: int,
-               idx_bot: int, active=None):
-    """Functional TRYDEQ wave (reference ``deq_planes`` without the span
-    modes): new planes, values, ``ok`` as int32."""
+               idx_bot: int, active=None, births=None,
+               birth_packed: bool = False):
+    """Functional TRYDEQ wave (reference ``deq_planes``): new planes,
+    values, ``ok`` as int32, and with ``births`` or ``birth_packed`` the
+    consumed lanes' births last."""
     planes = [p.clone() for p in (cycles, safes, enqs, idxs)]
-    *planes, vals, ok = ring_dequeue_plain(*planes, tickets,
-                                           nslots_log2=nslots_log2,
-                                           idx_bot=idx_bot, active=active)
-    return (*planes, vals, ok.int())
+    out = ring_dequeue_plain(*planes, tickets, nslots_log2=nslots_log2,
+                             idx_bot=idx_bot, active=active, births=births,
+                             birth_packed=birth_packed)
+    return (*out[:5], out[5].int(), *out[6:])
 
 
 def ring_enqueue(cycles, safes, enqs, idxs, tickets, values, head, *,
@@ -198,28 +260,32 @@ def ring_dequeue(cycles, safes, enqs, idxs, tickets, *, nslots_log2: int,
 
 
 def ring_dequeue_wave_plain(cycles, safes, enqs, idxs, head, tail, live, *,
-                            batch: int, nslots_log2: int, idx_bot: int):
+                            batch: int, nslots_log2: int, idx_bot: int,
+                            birth_packed: bool = False):
     """Plain PyTorch ``ring_dequeue_wave``: the round's dequeue chain on
     ``ring_dequeue_plain``.  Updates the planes and ``head`` in place;
-    returns (vals (batch,) int32, ok (batch,) bool, k 0-d int32)."""
+    returns (vals (batch,) int32, ok (batch,) bool, k 0-d int32), and
+    with ``birth_packed`` the births (batch,) int32 last."""
     lane = torch.arange(batch, dtype=torch.int32, device=head.device)
     k = torch.where(live, torch.clamp(_i32(tail.long() - head.long()),
                                       max=batch), 0)
     active = lane < k
     tickets = torch.where(active, _i32(head.long() + lane), -1)
-    *_, vals, ok = ring_dequeue_plain(cycles, safes, enqs, idxs, tickets,
-                                      nslots_log2=nslots_log2,
-                                      idx_bot=idx_bot, active=active)
+    out = ring_dequeue_plain(cycles, safes, enqs, idxs, tickets,
+                             nslots_log2=nslots_log2, idx_bot=idx_bot,
+                             active=active, birth_packed=birth_packed)
     head.copy_(_i32(head.long() + k))
-    return vals, ok, k
+    return (out[4], out[5], k, *out[6:])
 
 
 def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, head, tail, values,
                             live, *, capacity: int, nslots_log2: int,
-                            idx_bot: int, mask=None, count=None):
+                            idx_bot: int, mask=None, count=None,
+                            birth_round=None):
     """Plain PyTorch ``ring_enqueue_wave``: the round's enqueue chain on
-    ``wavefaa_plain`` and ``ring_enqueue_plain``.  Updates the planes and
-    ``tail`` in place; returns (total 0-d int32, over 0-d bool)."""
+    ``wavefaa_plain`` and ``ring_enqueue_plain`` (packed stamps with
+    ``birth_round``).  Updates the planes and ``tail`` in place; returns
+    (total 0-d int32, over 0-d bool)."""
     _wave_mode("ring_enqueue_wave", values, mask, count)
     if mask is not None:
         active = mask & live
@@ -234,24 +300,28 @@ def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, head, tail, values,
     over = _i32(tail.long() + n_child.long() - head.long()) > capacity
     ring_enqueue_plain(cycles, safes, enqs, idxs, tickets, values, head,
                        nslots_log2=nslots_log2, idx_bot=idx_bot,
-                       active=active & ~over)
+                       active=active & ~over, birth_round=birth_round)
     tail.copy_(torch.where(over, tail, _i32(tail.long() + n_child)))
     return torch.where(over, 0, n_child), over
 
 
 def ring_dequeue_wave(cycles, safes, enqs, idxs, head, tail, live, *,
-                      batch: int, nslots_log2: int, idx_bot: int):
+                      batch: int, nslots_log2: int, idx_bot: int,
+                      birth_packed: bool = False):
     """A ring round's dequeue side in one launch.  Planes (2n,) int32,
     ``head``/``tail`` 0-d int32, ``live`` 0-d bool: ``k = live ? min(tail
     - head, batch) : 0`` lanes consume tickets ``head + [0, k)``; the
     planes and ``head`` (advanced by ``k``) are updated in place.  Returns
     (vals (batch,) int32 with -1 on a miss, ok (batch,) bool, k 0-d
-    int32)."""
+    int32).  ``birth_packed`` (the kernel's packed instance) takes the
+    enq flag's low bit as the flag and appends the consumed lanes' birth
+    stamps ``enq >> 1`` ((batch,) int32, -1 on a miss)."""
     if head.device.type == "cpu":
         return ring_dequeue_wave_plain(cycles, safes, enqs, idxs, head, tail,
                                        live, batch=batch,
                                        nslots_log2=nslots_log2,
-                                       idx_bot=idx_bot)
+                                       idx_bot=idx_bot,
+                                       birth_packed=birth_packed)
     planes = (cycles, safes, enqs, idxs)
     _check_round("ring_dequeue_wave", planes, nslots_log2, head, tail, live)
     if batch < 0:
@@ -260,18 +330,22 @@ def ring_dequeue_wave(cycles, safes, enqs, idxs, head, tail, live, *,
     vals = torch.empty(batch, dtype=torch.int32, device=dev)
     ok = torch.empty(batch, dtype=torch.bool, device=dev)
     k = torch.empty((), dtype=torch.int32, device=dev)
+    births = (torch.empty(batch, dtype=torch.int32, device=dev)
+              if birth_packed else None)
+    name = "ring_dequeue_wave_packed" if birth_packed else "ring_dequeue_wave"
     lib = _build.library("ring_slots")
     _build.check(lib.repro_ring_dequeue_wave(
         *(p.data_ptr() for p in planes), head.data_ptr(), tail.data_ptr(),
-        live.data_ptr(), vals.data_ptr(), ok.data_ptr(), k.data_ptr(), batch,
-        nslots_log2, idx_bot, _build.stream_of(head)), "ring_dequeue_wave")
-    _build.LAUNCHES["ring_dequeue_wave"] += 1
-    return vals, ok, k
+        live.data_ptr(), vals.data_ptr(), ok.data_ptr(), k.data_ptr(),
+        births.data_ptr() if birth_packed else 0, batch, nslots_log2,
+        idx_bot, _build.stream_of(head)), name)
+    _build.LAUNCHES[name] += 1
+    return (vals, ok, k) if births is None else (vals, ok, k, births)
 
 
 def ring_enqueue_wave(cycles, safes, enqs, idxs, head, tail, values, live, *,
                       capacity: int, nslots_log2: int, idx_bot: int,
-                      mask=None, count=None):
+                      mask=None, count=None, birth_round=None):
     """A ring round's enqueue side in one launch.  ``values`` (N,) int32
     are the children.  Ballot mode (``mask``, (N,) bool): the children
     are the set lanes of ``mask & live``, ranked in lane order.
@@ -280,13 +354,16 @@ def ring_enqueue_wave(cycles, safes, enqs, idxs, head, tail, values, live, *,
     ``[0, count)`` when ``live``.  ``over = tail + n_child - head >
     capacity`` (int32, wrapping); unless it holds, child r installs with
     ticket ``tail + r`` and ``tail`` advances by ``n_child``, in place.
-    Returns (total 0-d int32, 0 when over; over 0-d bool)."""
+    ``birth_round`` (a 0-d int32 tensor on the ring's card, read there;
+    the kernel's packed instance) makes the flag written ``(birth_round
+    << 1) | 1``.  Returns (total 0-d int32, 0 when over; over 0-d
+    bool)."""
     if head.device.type == "cpu":
         return ring_enqueue_wave_plain(cycles, safes, enqs, idxs, head, tail,
                                        values, live, capacity=capacity,
                                        nslots_log2=nslots_log2,
                                        idx_bot=idx_bot, mask=mask,
-                                       count=count)
+                                       count=count, birth_round=birth_round)
     planes = (cycles, safes, enqs, idxs)
     _check_round("ring_enqueue_wave", planes, nslots_log2, head, tail, live,
                  values)
@@ -303,16 +380,25 @@ def ring_enqueue_wave(cycles, safes, enqs, idxs, head, tail, values, live, *,
     else:
         _build.require_cuda("ring_enqueue_wave", count)
         count_ptr = count.data_ptr()
+    birth_ptr = 0
+    if birth_round is not None:
+        _build.require_cuda("ring_enqueue_wave", birth_round)
+        if birth_round.numel() != 1 or birth_round.device != head.device:
+            raise ValueError("ring_enqueue_wave: birth_round must be one "
+                             "int32 on the ring's card")
+        birth_ptr = birth_round.data_ptr()
     dev = head.device
     total = torch.empty((), dtype=torch.int32, device=dev)
     over = torch.empty((), dtype=torch.bool, device=dev)
+    name = ("ring_enqueue_wave" if birth_round is None
+            else "ring_enqueue_wave_packed")
     lib = _build.library("ring_slots")
     _build.check(lib.repro_ring_enqueue_wave(
         *(p.data_ptr() for p in planes), head.data_ptr(), tail.data_ptr(),
-        live.data_ptr(), values.data_ptr(), mask_ptr, count_ptr,
+        live.data_ptr(), values.data_ptr(), mask_ptr, count_ptr, birth_ptr,
         total.data_ptr(), over.data_ptr(), values.shape[0], capacity,
-        nslots_log2, idx_bot, _build.stream_of(head)), "ring_enqueue_wave")
-    _build.LAUNCHES["ring_enqueue_wave"] += 1
+        nslots_log2, idx_bot, _build.stream_of(head)), name)
+    _build.LAUNCHES[name] += 1
     return total, over
 
 

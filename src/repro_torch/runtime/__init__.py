@@ -2,7 +2,9 @@
 PyTorch port: ``RoundRunner`` over ``fusedrounds.RingEngine`` (FIFO) and
 ``PriorityRoundRunner`` over ``fusedrounds.HeapEngine`` (priority), each
 fused by default with a legacy per-round loop under ``fused=False``, and
-both configurations of ``enginecore.EngineCore``.  The mesh and host
+both configurations of ``enginecore.EngineCore``.  The fused engines
+carry ``repro_torch.obs`` trace and span planes when given
+``telemetry=`` / ``spans=``.  The mesh and host
 task-pool faces of ``repro.runtime`` come with later slices."""
 
 from .enginecore import (ENGINE_REGISTRY, EngineCore, EngineEntry,

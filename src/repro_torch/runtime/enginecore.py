@@ -4,13 +4,17 @@ one host driver behind every round engine.
 
 An engine is a configuration of this core:
 
-* ``_round(qstate, acc, live)`` — the one-round body.  Returns
-  ``(qstate, acc, k, total, over)``: ``k`` the round's claim count,
-  ``total`` the installed-children count (0 when ``over``), ``over`` the
-  overflow flag.  ``live`` is a 0-d bool device tensor; a round with
-  ``live`` false must leave the queue state untouched and return
-  ``k = total = 0`` and ``over = False``.  The core runs rounds only while
-  the loop condition holds, so it always passes a true ``live``.
+* ``_round(qstate, acc, live, sp=None, births=None)`` — the one-round
+  body.  Returns ``(qstate, acc, k, total, over, wave)``: ``k`` the
+  round's claim count, ``total`` the installed-children count (0 when
+  ``over``), ``over`` the overflow flag, ``wave`` the claim wave's
+  ``ObsWave`` when telemetry or spans are on (else None).  ``live`` is a
+  0-d bool device tensor; a round with ``live`` false must leave the
+  queue state untouched and return ``k = total = 0`` and ``over =
+  False``.  The core runs rounds only while the loop condition holds, so
+  it always passes a true ``live``.  ``sp`` (the span plane) and
+  ``births`` (the heap's stamp plane) are given when spans are on: the
+  round stamps its installs with ``sp.round``.
 * ``_occ_of(qstate)`` — the occupancy as a 0-d int32 device tensor.
 * a ``PlaneRegistry`` describing the queue planes the engine carries.
 
@@ -25,7 +29,10 @@ the reference's overflow and truncation errors, word for word, at the
 readback after the flagged round.
 
 Each round is ``_round_into``: the engine's round on the chunk's carried
-buffers (``Carry``), written back into them IN PLACE.  On the card a
+buffers (``Carry``), written back into them IN PLACE, then, with
+telemetry or spans on, the round's record (``obs.record.obs_record``:
+the trace row and the span histogram, one launch on the card) where the
+reference's ``fused_loop`` calls ``trace_record``.  On the card a
 chunk is one launch of a ``DeviceLoop``: a CUDA graph whose conditional
 WHILE node (``csrc/loop.cu``) replays the round body, captured once per
 engine and shape, and tests the condition on the card; nothing is read
@@ -36,8 +43,16 @@ not read anything back to the host (no ``.item()``, ``bool()`` or
 and must launch the same kernels every round; its allocations come from
 the graph's private pool at capture time.
 
-The trace and span planes of the reference wait for the observability
-slice: passing ``telemetry`` or ``spans`` raises ``NotImplementedError``.
+Observability (``repro_torch.obs``): with a ``Telemetry`` or ``Spans``
+collector the carry holds a trace plane, a span plane and (heap) a
+births plane beside the queue state, zeroed at the start of a run
+outside the captured round; ``_drive`` drains them at each chunk's
+readback (trace plane first, then span plane, as in the reference), so
+``host_syncs`` and ``sync_log`` are the unobserved run's.  Packed ring
+stamps cap the round clock at ``SPAN_ROUND_CAP``: with spans on, the
+chunk loop clamps each chunk to it and raises the reference's error past
+it.  With both collectors off the captured round is the unobserved one,
+node for node.
 """
 
 from __future__ import annotations
@@ -51,7 +66,10 @@ import numpy as np
 import torch
 
 from ..kernels import _build
-from ..obs.trace import SyncPoint
+from ..kernels.ring_slots import SPAN_ROUND_CAP
+from ..obs.record import obs_record
+from ..obs.spans import Spans, span_init
+from ..obs.trace import SyncPoint, Telemetry, trace_init
 
 
 def _sds(shape, dtype=torch.int32) -> torch.Tensor:
@@ -122,8 +140,10 @@ class Carry(NamedTuple):
     """The buffers one chunk of rounds runs on, updated in place: the
     queue state and acc, the run's counters (0-d int32: processed,
     spawned, max_occ), the chunk's (oflow, a 0-d bool; rounds), the
-    occupancy after the last round, the chunk's round limit, and a true
-    ``live`` flag for ``_round``."""
+    occupancy after the last round, the chunk's round limit, a true
+    ``live`` flag for ``_round``, and the observability planes (the
+    trace plane, the span plane, the heap's births plane; None when
+    off)."""
     q: Any
     acc: Any
     processed: torch.Tensor
@@ -134,16 +154,30 @@ class Carry(NamedTuple):
     occ: torch.Tensor
     limit: torch.Tensor
     live: torch.Tensor
+    tp: Any = None
+    sp: Any = None
+    births: Any = None
 
 
-def new_carry(q, acc, device: torch.device) -> Carry:
-    """A ``Carry`` over ``q`` and ``acc`` with zeroed counters and a true
-    ``live``."""
+class ObsWave(NamedTuple):
+    """What a round hands its record: the claim wave's keys (the popped
+    keys, or the FIFO payloads: the trace row's extrema and ``class_of``'s
+    input), its ``valid`` lanes, the payloads (``ref``) and, with spans
+    on, the claimed items' birth rounds."""
+    keys: torch.Tensor
+    valid: torch.Tensor
+    ref: torch.Tensor
+    births: Optional[torch.Tensor]
+
+
+def new_carry(q, acc, device: torch.device, obs=(None, None, None)) -> Carry:
+    """A ``Carry`` over ``q``, ``acc`` and the observability planes
+    ``obs`` = (tp, sp, births) with zeroed counters and a true ``live``."""
     i32 = dict(dtype=torch.int32, device=device)
     return Carry(q, acc, *(torch.zeros((), **i32) for _ in range(3)),
                  torch.zeros((), dtype=torch.bool, device=device),
                  *(torch.zeros((), **i32) for _ in range(3)),
-                 torch.ones((), dtype=torch.bool, device=device))
+                 torch.ones((), dtype=torch.bool, device=device), *obs)
 
 
 class DeviceLoop:
@@ -254,29 +288,32 @@ def register_engine(name: str, runner: type, *, priority: bool, mesh: bool,
                                         dict(kwargs or {}), spans_ok)
 
 
-def reject_obs(telemetry, spans) -> None:
-    """Trace and span planes are not ported yet: refuse them loudly."""
-    if telemetry is not None or spans is not None:
-        raise NotImplementedError(
-            "telemetry and spans planes come with the observability slice "
-            "of the PyTorch port (repro_torch.obs); pass telemetry=None and "
-            "spans=None")
-
-
 class EngineCore:
     """Shared core of every fused round engine: the in-place round body
     (``_round_into``), the chunk runners (a ``DeviceLoop`` on the card, a
     Python loop on the CPU), the host side (``_run_chunks`` /
-    ``_drive``) and the plane registry.  Subclasses configure ``_round``
-    and ``_occ_of``."""
+    ``_drive``), the observability planes' lifecycle and the plane
+    registry.  Subclasses configure ``_round`` and ``_occ_of``."""
 
     sync_every: int
     capacity: int
+    batch: int
     device: torch.device
+    telemetry: Optional[Telemetry] = None
+    spans: Optional[Spans] = None
+    span_round_cap: int = SPAN_ROUND_CAP
 
     def _reset(self) -> None:
         self.stats: Dict[str, int] = {}
         self.sync_log: List[SyncPoint] = []
+        if self.telemetry is not None:
+            self.telemetry.begin_run()
+        if self.spans is not None:
+            self.spans.begin_run()
+
+    @property
+    def _observed(self) -> bool:
+        return self.telemetry is not None or self.spans is not None
 
     @property
     def registry(self) -> PlaneRegistry:
@@ -284,16 +321,82 @@ class EngineCore:
             self._registry = PlaneRegistry()
         return self._registry
 
+    def _register_obs_planes(self, births_shape=None) -> None:
+        """Register the trace, span and births groups (empty when their
+        collector is off), as the reference does; ``births_shape`` is the
+        heap's stamp plane (the ring packs its stamps into a flag
+        plane)."""
+        reg = self.registry
+        self._births_shape = births_shape
+        tel = spn = births = None
+        if self.telemetry is not None:
+            c = self.telemetry.capacity
+            tel = (_sds((c, 5)), _sds((c, 1, 3)), _sds(()))
+        if self.spans is not None:
+            sp = self.spans
+            spn = (_sds((self.batch, sp.classes, sp.buckets + 1)),
+                   _sds((sp.flow_capacity, 4)), _sds(()), _sds(()))
+            if births_shape is not None:
+                births = _sds(births_shape)
+        reg.register("trace", tel)
+        reg.register("span", spn)
+        reg.register("births", births)
+
     def loop_carry_bytes(self, shards: Optional[int] = None) -> int:
-        """Per-shard bytes of registered carried planes (the workload's
-        acc is excluded: it is the caller's state, not the engine's)."""
+        """Per-shard bytes of registered carried planes, observability
+        planes included (the workload's acc is excluded: it is the
+        caller's state, not the engine's)."""
         return self.registry.bytes_per_shard(
             shards if shards is not None else getattr(self, "shards", 1))
 
+    # -- observability planes -------------------------------------------------
+
+    def _tel_init(self):
+        """A fresh one-shard trace plane on the engine's device (telemetry
+        on), else None."""
+        if self.telemetry is None:
+            return None
+        return trace_init(self.telemetry.capacity, device=self.device)
+
+    def _span_init(self):
+        """A fresh span plane, one accumulator slice per batch lane (spans
+        on), else None."""
+        if self.spans is None:
+            return None
+        sp = self.spans
+        return span_init(sp.classes, buckets=sp.buckets,
+                         flow_capacity=sp.flow_capacity, lanes=self.batch,
+                         device=self.device)
+
+    def _births_init(self, shape):
+        """A zeroed birth-stamp plane (spans on), else None: seeds are
+        born at round 0."""
+        if self.spans is None or shape is None:
+            return None
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _obs_init(self):
+        """Fresh (trace, span, births) planes for one run."""
+        return (self._tel_init(), self._span_init(),
+                self._births_init(self._births_shape))
+
+    def _span_cls(self, keys_or_vals):
+        """Per-lane class rows: the collector's ``class_of`` applied to
+        the popped keys (priority) or payloads (FIFO), else None (class
+        0)."""
+        if self.spans is not None and self.spans.class_of is not None:
+            return torch.as_tensor(self.spans.class_of(keys_or_vals)).to(
+                torch.int32)
+        return None
+
+    # -- the round ------------------------------------------------------------
+
     def _round_into(self, c: Carry) -> None:
         """One round on the carried buffers, written back into them in
-        place, with the reference's ``fused_loop`` counter updates."""
-        q, acc, k, total, over = self._round(c.q, c.acc, c.live)
+        place, with the reference's ``fused_loop`` counter updates and,
+        when observed, the round's trace and span record."""
+        q, acc, k, total, over, wave = self._round(c.q, c.acc, c.live,
+                                                   c.sp, c.births)
         tree_copy_(c.q, q)
         tree_copy_(c.acc, acc)
         occ = self._occ_of(c.q)
@@ -303,16 +406,25 @@ class EngineCore:
         c.oflow.logical_or_(over)
         c.rounds.add_(1)
         c.occ.copy_(occ)
+        if wave is not None:
+            obs_record(c.tp, c.sp, keys=wave.keys, valid=wave.valid,
+                       ref=wave.ref, births=wave.births,
+                       cls=self._span_cls(wave.keys), k=k, total=total,
+                       occ=occ, over=over)
 
-    def _device_loop(self, q, acc) -> Tuple[Carry, DeviceLoop]:
+    def _device_loop(self, q, acc, obs) -> Tuple[Carry, DeviceLoop]:
         """The engine's kept carry and device loop for this shape of queue
-        state and acc, built (and the round captured) at first use."""
+        state, acc and observability planes (and ``class_of``), built
+        (and the round captured) at first use."""
         loops = self.__dict__.setdefault("_loops", {})
-        key = tuple((tuple(t.shape), t.dtype)
-                    for t in tree_leaves(q) + tree_leaves(acc))
+        key = tuple((tuple(t.shape), t.dtype) for t in
+                    tree_leaves(q) + tree_leaves(acc) + tree_leaves(obs))
+        key += (tuple(x is None for x in obs),
+                id(getattr(self.spans, "class_of", None)))
         if key not in loops:
             carry = new_carry(tree_map(torch.clone, q),
-                              tree_map(torch.clone, acc), self.device)
+                              tree_map(torch.clone, acc), self.device,
+                              tree_map(torch.clone, obs))
             loops[key] = (carry, DeviceLoop(self._round_into, carry))
         return loops[key]
 
@@ -323,15 +435,19 @@ class EngineCore:
         """Run rounds from queue state ``q`` and ``acc`` to quiescence, in
         chunks that each end in ONE readback of six integers; ``max_occ``
         is the occupancy the run starts at.  ``acc`` is not changed; on
-        the CPU ``q``'s tensors are updated in place.  Returns the final
-        ``(q, acc)``."""
+        the CPU ``q``'s tensors are updated in place.  The observability
+        planes start fresh (zeroed outside the captured round).  Returns
+        the final ``(q, acc)``."""
+        obs = self._obs_init()
         if self.device.type == "cuda":
-            carry, loop = self._device_loop(q, acc)
+            carry, loop = self._device_loop(q, acc, obs)
             tree_copy_(carry.q, q)
             tree_copy_(carry.acc, acc)
+            tree_copy_((carry.tp, carry.sp, carry.births), obs)
         else:
             loop = None
-            carry = new_carry(q, tree_map(torch.clone, acc), self.device)
+            carry = new_carry(q, tree_map(torch.clone, acc), self.device,
+                              obs)
         carry.processed.zero_()
         carry.spawned.zero_()
         carry.max_occ.fill_(max_occ)
@@ -355,33 +471,48 @@ class EngineCore:
                 loop.count(r)
             return occ, r, bool(oflow), processed, spawned, max_occ
 
-        self._drive(chunk_fn, max_rounds, what)
+        self._drive(chunk_fn, max_rounds, what, carry.tp, carry.sp)
         if loop is not None:         # the kept buffers serve the next run
             return tree_map(torch.clone, carry.q), tree_map(torch.clone,
                                                             carry.acc)
         return carry.q, carry.acc
 
-    def _drive(self, chunk_fn, max_rounds: int, what: str) -> None:
+    def _drive(self, chunk_fn, max_rounds: int, what: str, tp=None,
+               sp=None) -> None:
         """``chunk_fn(limit)`` advances the state by up to ``limit`` rounds
         and returns (occupancy, rounds_delta, overflow, processed,
         spawned, max_occ) — one host sync per call.  Chunks are
         ``sync_every`` rounds long, or ``max_rounds`` with
-        ``sync_every=0``, as in the reference."""
+        ``sync_every=0``, as in the reference; with spans on no chunk
+        runs past ``span_round_cap``.  After each readback the trace plane
+        ``tp`` and the span plane ``sp`` are drained into their
+        collectors."""
         chunk = self.sync_every if self.sync_every > 0 else max_rounds
         rounds = host_syncs = 0
         while True:
             limit = min(chunk, max_rounds - rounds)
+            if self.spans is not None:
+                # no round past the cap writes a packed stamp
+                limit = min(limit, self.span_round_cap - rounds)
             occ, r, oflow, processed, spawned, max_occ = chunk_fn(limit)
             rounds += r
             host_syncs += 1
-            self.sync_log.append(SyncPoint(rounds=rounds, occupancy=occ,
-                                           wall_time=time.time(),
-                                           host_syncs=host_syncs))
+            now = time.time()
+            point = SyncPoint(rounds=rounds, occupancy=occ, wall_time=now,
+                              host_syncs=host_syncs)
+            self.sync_log.append(point)
             self.stats = {
                 "rounds": rounds, "processed": processed, "spawned": spawned,
                 "max_occupancy": max_occ, "drained": int(occ == 0),
                 "host_syncs": host_syncs,
             }
+            if self.telemetry is not None:
+                self.telemetry.drain(tp, sync=host_syncs - 1, wall_time=now)
+                self.telemetry.heartbeat(point)
+                self.telemetry.finish(self.stats)
+            if self.spans is not None:
+                self.spans.drain(sp, wall_time=now)
+                self.spans.finish(self.stats)
             if oflow:
                 raise RuntimeError(
                     f"{what} overflow: occupancy {occ} + spawned children "
@@ -389,6 +520,13 @@ class EngineCore:
                     f"(raise capacity_log2 or lower the fanout)")
             if occ == 0:
                 return
+            if self.spans is not None and rounds >= self.span_round_cap:
+                raise RuntimeError(
+                    f"{what} span round clock reached the packed "
+                    f"birth-stamp cap ({self.span_round_cap} rounds) with "
+                    f"occupancy {occ}: stamps would wrap the "
+                    f"(birth << 1) | 1 flag plane (run without spans or "
+                    f"split the run)")
             if rounds >= max_rounds:
                 raise RuntimeError(
                     f"{what} round loop truncated at max_rounds="

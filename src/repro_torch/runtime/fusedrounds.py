@@ -32,6 +32,14 @@ dense wave of ``wave_compact`` when the child wave is wider than the
 heap), with the heap size as a 0-d device tensor.  A round that is not
 live pops nothing (``k = 0``) and turns every insert lane into
 ``OP_NOP``.
+
+With ``telemetry=`` / ``spans=`` (``repro_torch.obs``) the round hands
+the core its claim wave for the record.  With spans on, the ring runs
+the packed waves (the birth stamp ``(round << 1) | 1`` in the enq-flag
+plane, ``run`` returns the flags stripped back to ``enq & 1``) and the
+heap runs ``heap_apply``'s rider instance with a births plane; the
+sojourn is ``round - birth`` (reference ``fusedrounds.py:168-183,
+333-369``).
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from ..kernels.heap_batch import (KEY_INF as HEAP_KEY_INF, OP_DELMIN,
                                   OP_INSERT, OP_NOP, heap_apply)
 from ..kernels.ring_slots import (ring_dequeue_wave, ring_enqueue,
                                   ring_enqueue_wave)
-from .enginecore import EngineCore, _sds, reject_obs, tree_to
+from .enginecore import EngineCore, ObsWave, _sds, tree_to
 
 IDX_BOT = 2 ** 31 - 1           # ⊥ (⊥_c = IDX_BOT - 1); payloads must be smaller
 
@@ -142,7 +150,6 @@ class RingEngine(EngineCore):
     def __init__(self, step_fn: StepFn, *, capacity_log2: int = 10,
                  batch: int = 64, sync_every: int = 0, telemetry=None,
                  spans=None, compact=None, device="cuda") -> None:
-        reject_obs(telemetry, spans)
         self.step_fn = step_fn
         self.capacity_log2 = capacity_log2
         self.nslots_log2 = capacity_log2 + 1
@@ -152,6 +159,8 @@ class RingEngine(EngineCore):
             raise ValueError(f"batch {batch} exceeds ring capacity "
                              f"{self.capacity}")
         self.sync_every = sync_every
+        self.telemetry = telemetry
+        self.spans = spans
         self.compact = compact
         self.device = resolve_device(device)
         self._compact_scratch = None
@@ -159,17 +168,22 @@ class RingEngine(EngineCore):
         nslots = 2 << capacity_log2
         self.registry.register("ring", (_sds((nslots,)),) * 4
                                + (_sds(()), _sds(())))    # planes + head/tail
+        # no births plane: the FIFO stamps pack into the enq-flag plane
+        self._register_obs_planes()
 
     @staticmethod
     def _occ_of(q):
         return q.tail - q.head
 
-    def _round(self, st, acc, live):
+    def _round(self, st, acc, live, sp=None, births=None):
         cyc, saf, enq, idx, head, tail = st
         kw = dict(nslots_log2=self.nslots_log2, idx_bot=IDX_BOT)
-        # head and tail advance in place, so the state returned is ``st``
-        vals, ok, k = ring_dequeue_wave(cyc, saf, enq, idx, head, tail, live,
-                                        batch=self.batch, **kw)
+        # head and tail advance in place, so the state returned is ``st``;
+        # with spans the waves carry packed birth stamps
+        deq = ring_dequeue_wave(cyc, saf, enq, idx, head, tail, live,
+                                batch=self.batch, birth_packed=sp is not None,
+                                **kw)
+        vals, ok, k = deq[:3]
         acc, cvals, cmask = self.step_fn(acc, vals, ok)
         cm = torch.broadcast_to(cmask.bool(), cvals.shape).reshape(-1)
         cv = cvals.reshape(-1).to(torch.int32)
@@ -182,10 +196,13 @@ class RingEngine(EngineCore):
         else:
             (cv,), n_child = _compact(self, cm, (cv,), wdth)
             wave = dict(count=n_child)
-        total, over = ring_enqueue_wave(cyc, saf, enq, idx, head, tail, cv,
-                                        live, capacity=self.capacity,
-                                        **wave, **kw)
-        return st, acc, k, total, over
+        total, over = ring_enqueue_wave(
+            cyc, saf, enq, idx, head, tail, cv, live, capacity=self.capacity,
+            birth_round=None if sp is None else sp.round, **wave, **kw)
+        obs = None
+        if self._observed:               # FIFO: payload extrema and refs
+            obs = ObsWave(vals, ok, vals, deq[3] if sp is not None else None)
+        return st, acc, k, total, over, obs
 
     def _seed(self, st: RingState, initial: np.ndarray) -> RingState:
         n = len(initial)
@@ -224,7 +241,10 @@ class RingEngine(EngineCore):
                       torch.tensor(st.tail, **i32))
         q, acc = self._run_chunks(q, tree_to(acc, self.device),
                                   st.tail - st.head, "ring", max_rounds)
-        return acc, RingState(q.cycles, q.safes, q.enqs, q.idxs,
+        # with spans the flags carry packed stamps: strip them to the
+        # unspanned plane
+        enqs = q.enqs if self.spans is None else q.enqs & 1
+        return acc, RingState(q.cycles, q.safes, enqs, q.idxs,
                               int(q.head), int(q.tail))
 
 
@@ -241,7 +261,6 @@ class HeapEngine(EngineCore):
                  batch: int = 64, arity_log2: int = 2, sync_every: int = 0,
                  telemetry=None, spans=None, compact=None,
                  device="cuda") -> None:
-        reject_obs(telemetry, spans)
         self.step_fn = step_fn
         self.capacity_log2 = capacity_log2
         self.capacity = 1 << capacity_log2
@@ -251,6 +270,8 @@ class HeapEngine(EngineCore):
                              f"{self.capacity}")
         self.arity_log2 = arity_log2
         self.sync_every = sync_every
+        self.telemetry = telemetry
+        self.spans = spans
         self.compact = compact
         self.device = resolve_device(device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -261,23 +282,28 @@ class HeapEngine(EngineCore):
         cap = self.capacity
         self.registry.register("heap", (_sds((cap,)), _sds((cap,)),
                                         _sds(())))       # keys/vals + size
+        self._register_obs_planes(births_shape=(cap,))
 
     @staticmethod
     def _occ_of(q):
         return q.size
 
-    def _heap(self, keys, vals, size, ops, okeys, ovals):
+    def _heap(self, keys, vals, size, ops, okeys, ovals, **rider):
         return heap_apply(keys, vals, size, ops, okeys, ovals,
                           cap_log2=self.capacity_log2,
-                          arity_log2=self.arity_log2)
+                          arity_log2=self.arity_log2, **rider)
 
-    def _round(self, st, acc, live):
+    def _round(self, st, acc, live, sp=None, births=None):
         capacity = self.capacity
         keys, vals, size = st
+        # with spans the births plane rides every sift and inserts stamp
+        # the round (pops install nothing, so they take the same word)
+        rider = {} if sp is None else dict(rider=births, oprider=sp.round)
         k = torch.where(live, torch.clamp(size, max=self.batch), 0)
         pop_ops = torch.where(self._lane < k, OP_DELMIN, OP_NOP).int()
-        keys, vals, size, outk, outv, ok = self._heap(
-            keys, vals, size, pop_ops, self._pad, self._pad)
+        popped = self._heap(keys, vals, size, pop_ops, self._pad, self._pad,
+                            **rider)
+        keys, vals, size, outk, outv, ok = popped[:6]
         acc, ckeys, cvals, cmask = self.step_fn(acc, outk, outv, ok)
         cm = (torch.broadcast_to(cmask.bool(), ckeys.shape).reshape(-1)
               & live)
@@ -298,10 +324,14 @@ class HeapEngine(EngineCore):
                                   device=ckf.device)
             ins_ops = torch.where((lane_w < n_child) & ~over, OP_INSERT,
                                   OP_NOP).int()
-        keys, vals, size, _, _, _ = self._heap(keys, vals, size, ins_ops,
-                                               ckf, cvf)
+        keys, vals, size = self._heap(keys, vals, size, ins_ops, ckf, cvf,
+                                      **rider)[:3]
         total = torch.where(over, 0, n_child)
-        return HeapState(keys, vals, size), acc, k, total, over
+        obs = None
+        if self._observed:               # priority: popped-key extrema
+            obs = ObsWave(outk, ok, outv,
+                          popped[7] if sp is not None else None)
+        return HeapState(keys, vals, size), acc, k, total, over, obs
 
     def _seed(self, st: HeapState, ik: np.ndarray,
               iv: np.ndarray) -> HeapState:

@@ -19,7 +19,10 @@ is deterministic.  Two engines share this contract:
 
 Both are bit-identical (acc, planes, head/tail, stats other than
 ``host_syncs``) and raise ``RuntimeError`` on ring overflow and on
-``max_rounds`` truncation.  ``PriorityRoundRunner`` has the same two
+``max_rounds`` truncation.  ``telemetry=`` and ``spans=``
+(``repro_torch.obs``) go to the fused engine; their planes are in-round
+state, so the legacy loop refuses them with the reference's
+``ValueError``.  ``PriorityRoundRunner`` has the same two
 modes over ``fusedrounds.HeapEngine`` and the ``heap_apply`` kernel.  The
 mesh runners come with their slice.
 """
@@ -35,12 +38,23 @@ from ..kernels._build import resolve_device
 from ..kernels.heap_batch import KEY_INF as HEAP_KEY_INF
 from ..kernels.heap_batch import heap_apply
 from ..kernels.ring_slots import ring_dequeue, ring_enqueue
-from .enginecore import register_engine, reject_obs, tree_to
+from .enginecore import register_engine, tree_to
 from .fusedrounds import (IDX_BOT, HeapEngine, HeapState, PriorityStepFn,
                           RingEngine, RingState, StepFn, heap_init, ring_init)
 
 __all__ = ["HeapState", "IDX_BOT", "PriorityRoundRunner", "PriorityStepFn",
            "RingState", "RoundRunner", "StepFn", "heap_init", "ring_init"]
+
+
+def _legacy_obs(fused: bool, telemetry, spans) -> None:
+    """The legacy loop has no in-round planes: refuse the collectors, as
+    the reference does."""
+    if telemetry is not None and not fused:
+        raise ValueError("trace planes are in-loop state: telemetry "
+                         "needs the fused engine (fused=True)")
+    if spans is not None and not fused:
+        raise ValueError("span planes are in-loop state: spans needs "
+                         "the fused engine (fused=True)")
 
 
 class RoundRunner:
@@ -57,20 +71,23 @@ class RoundRunner:
                  batch: int = 64, fused: bool = True, sync_every: int = 0,
                  telemetry=None, spans=None, compact=None,
                  device="cuda") -> None:
-        reject_obs(telemetry, spans)
         self.step_fn = step_fn
         self.capacity_log2 = capacity_log2
         self.nslots_log2 = capacity_log2 + 1
         self.capacity = 1 << capacity_log2
         self.batch = batch
         self.fused = fused
+        self.telemetry = telemetry
+        self.spans = spans
         self.device = resolve_device(device)
         self.stats: Dict[str, int] = {}
         self.sync_log: List = []
+        _legacy_obs(fused, telemetry, spans)
         if fused:
             self._engine = RingEngine(
                 step_fn, capacity_log2=capacity_log2, batch=batch,
-                sync_every=sync_every, compact=compact, device=self.device)
+                sync_every=sync_every, telemetry=telemetry, spans=spans,
+                compact=compact, device=self.device)
         else:
             self._engine = None
             # legacy-path op buffers, reused across rounds (safe because
@@ -177,21 +194,24 @@ class PriorityRoundRunner:
                  batch: int = 64, arity_log2: int = 2, fused: bool = True,
                  sync_every: int = 0, telemetry=None, spans=None,
                  compact=None, device="cuda") -> None:
-        reject_obs(telemetry, spans)
         self.step_fn = step_fn
         self.capacity_log2 = capacity_log2
         self.capacity = 1 << capacity_log2
         self.batch = batch
         self.arity_log2 = arity_log2
         self.fused = fused
+        self.telemetry = telemetry
+        self.spans = spans
         self.device = resolve_device(device)
         self.stats: Dict[str, int] = {}
         self.sync_log: List = []
+        _legacy_obs(fused, telemetry, spans)
         if fused:
             self._engine = HeapEngine(
                 step_fn, capacity_log2=capacity_log2, batch=batch,
                 arity_log2=arity_log2, sync_every=sync_every,
-                compact=compact, device=self.device)
+                telemetry=telemetry, spans=spans, compact=compact,
+                device=self.device)
         else:
             self._engine = None
             # legacy-path op buffers, reused across rounds (safe because

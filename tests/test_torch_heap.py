@@ -328,3 +328,43 @@ def test_heap_apply_refuses_unbuilt_arities(arity_log2):
             assert (int(out[3][3]), int(out[4][3])) == (3, 30)
         jk, jv, jsize = jout[:3]
         keys, vals, size = out[:3]
+
+
+@pytest.mark.parametrize("arity_log2", [1, 2, 3])
+@pytest.mark.parametrize("oprider", ["device_word", "vector"])
+def test_heap_apply_rider_matches_reference(arity_log2, oprider):
+    """``heap_apply(rider=, oprider=)`` — the priority round's span path,
+    in place, with the inserts' rider a 0-d tensor as the engine passes
+    its round clock (or one per lane) — bit for bit against the JAX
+    package's ``heap_planes`` with a rider; on CPU tensors it launches
+    nothing."""
+    from repro_torch.kernels import LAUNCHES
+    rng = np.random.default_rng(31 + arity_log2)
+    cap_log2, b = 6, 16
+    kw = dict(cap_log2=cap_log2, arity_log2=arity_log2)
+    jk, jv = map(jnp.asarray, _empty(cap_log2))
+    jr = jnp.zeros(1 << cap_log2, jnp.int32)
+    jsize = jnp.asarray(0, jnp.int32)
+    keys, vals = map(torch.from_numpy, _empty(cap_log2))
+    rider = torch.zeros(1 << cap_log2, dtype=torch.int32)
+    size = torch.tensor(0, dtype=torch.int32)
+    before = dict(LAUNCHES)
+    popped = 0
+    for step, (ops, ks, vs) in enumerate(_batches(rng, cap_log2, b)):
+        opr = (np.int32(step) if oprider == "device_word"
+               else rng.integers(0, 99, b).astype(np.int32))
+        jout = jheap.heap_planes(jk, jv, jsize,
+                                 *map(jnp.asarray, (ops, ks, vs)), rider=jr,
+                                 oprider=jnp.asarray(opr), **kw)
+        out = heap.heap_apply(keys, vals, size,
+                              *map(torch.from_numpy, (ops, ks, vs)),
+                              rider=rider, oprider=torch.as_tensor(opr),
+                              **kw)
+        assert len(out) == len(jout) == 8
+        assert out[0] is keys and out[6] is rider      # in place
+        for a, w in zip(out, jout):
+            np.testing.assert_array_equal(_np(a), np.asarray(w))
+        jk, jv, jsize, _, _, _, jr, _ = jout
+        size = out[2]
+        popped += int((out[7] > 0).sum())
+    assert popped > 0 and dict(LAUNCHES) == before

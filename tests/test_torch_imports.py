@@ -20,8 +20,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
                                  frontier_expand, heap_apply,
                                  heap_insert_masked, heap_planes,
-                                 heap_pop_count, ring_dequeue, wave_compact,
-                                 wavefaa)
+                                 heap_pop_count, ring_dequeue,
+                                 ring_dequeue_wave, ring_enqueue_wave,
+                                 wave_compact, wavefaa)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
 from repro_torch.runtime import (HeapEngine, PriorityRoundRunner,  # noqa
@@ -134,16 +135,49 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     q = torch.zeros(1, 2, 64, 32, **meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, q, q)
-    # the plain-only heap faces have no kernel: they refuse every tensor
-    # off the CPU instead of copying it to the host and back
+    # the functional heap faces (rider included) run heap_apply on
+    # copies: a tensor off the CPU goes to the kernel or raises, and is
+    # never copied to the host and back
     size = torch.zeros(1, dtype=torch.int32, **meta)
-    with pytest.raises(ValueError, match="CPU tensors only"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         heap_planes(*planes[:2], size, *lanes, cap_log2=5)
-    with pytest.raises(ValueError, match="CPU tensors only"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        heap_planes(*planes[:2], size, *lanes, cap_log2=5, rider=planes[2],
+                    oprider=lanes[0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
         heap_pop_count(*planes[:2], size, 4, batch=8, cap_log2=5)
-    with pytest.raises(ValueError, match="CPU tensors only"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         heap_insert_masked(*planes[:2], size, *lanes[:2],
                            lanes[2].bool(), cap_log2=5)
+    # the packed ring waves and the round's record
+    head = torch.zeros((), dtype=torch.int32, **meta)
+    live = torch.ones((), dtype=torch.bool, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_dequeue_wave(*planes, head, head, live, batch=8,
+                          nslots_log2=5, idx_bot=2 ** 31 - 1,
+                          birth_packed=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_enqueue_wave(*planes, head, head, lanes[0], live, capacity=16,
+                          nslots_log2=5, idx_bot=2 ** 31 - 1,
+                          mask=lanes[1].bool(), birth_round=head)
+    from repro_torch.obs import obs_record, span_init, trace_init
+    tp = trace_init(4, device="cpu")._replace(count=head)
+    sp = span_init(1, lanes=8, device="cpu")._replace(round=head)
+    wave = dict(keys=lanes[0], valid=lanes[1].bool(), ref=lanes[0],
+                births=lanes[2], k=head, total=head, occ=head, over=live)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        obs_record(tp, sp, **wave)
+    # the kernel reads raw memory: what the plain version would convert
+    # (another integer type, a strided lane, a missing input) is refused
+    strided = torch.zeros(16, dtype=torch.int32, **meta)[::2]
+    for key, bad, match in [("keys", lanes[0].long(), "keys must be"),
+                            ("births", strided, "births must be a contig"),
+                            ("cls", lanes[2].long(), "cls must be"),
+                            ("k", head.long(), "k must be"),
+                            ("over", head, "over must be"),
+                            ("ref", None, "ref is required")]:
+        with pytest.raises(ValueError, match=match):
+            obs_record(tp, sp, **{**wave, key: bad})
 
 
 def test_cpu_entry_point_runs():

@@ -274,3 +274,183 @@ def test_enqueue_wave_takes_one_mode():
         with pytest.raises(ValueError, match="bool .* as wide as values"):
             ring_enqueue_wave(*args, mask=mask, **kw)
 
+
+
+# -- birth stamps (the span layer) --------------------------------------------
+
+
+def _wave(rng, ns, b, start):
+    """A random TRYENQ / TRYDEQ wave of ``b`` tickets from ``start`` with
+    inactive (-1) lanes."""
+    t = np.array([_i32(start + i) for i in range(b)], np.int32)
+    return np.where(rng.random(b) < 0.8, t, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["packed", "separate"])
+def test_birth_modes_of_the_plane_faces_match_reference(layout):
+    """``enq_planes(birth_round=)`` / ``deq_planes(birth_packed=True)`` and
+    the separate ``births`` plane, bit for bit against the JAX package's
+    over cycles of random waves, seeds installed unpacked (flag 1, birth
+    0) and birth rounds 0, 1 and 2^30 - 1."""
+    from repro_torch.kernels import deq_planes, enq_planes
+    rng = np.random.default_rng(17)
+    nsl2, b = 6, 24
+    ns = 1 << nsl2
+    planes = [np.zeros(ns, np.int32), np.ones(ns, np.int32),
+              np.zeros(ns, np.int32), np.full(ns, BOT, np.int32)]
+    births = np.zeros(ns, np.int32) if layout == "separate" else None
+    head = tail = ns
+    kw = dict(nslots_log2=nsl2, idx_bot=BOT)
+    seed = np.arange(tail, tail + 8, dtype=np.int32)
+    want = jring.enq_planes(*map(jnp.asarray, planes), jnp.asarray(seed),
+                            jnp.arange(8, dtype=jnp.int32),
+                            jnp.int32(head), **kw)
+    got = enq_planes(*map(_t, planes), _t(seed),
+                     torch.arange(8, dtype=torch.int32), head, **kw)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+    planes = [np.asarray(p) for p in want[:4]]
+    tail += 8
+    for r, rnd in enumerate([0, 1, 5, 2 ** 30 - 1] * 4):
+        t = _wave(rng, ns, b, tail)
+        v = rng.integers(0, 1 << 30, b).astype(np.int32)
+        extra = ({"birth_round": rnd} if births is None
+                 else {"births": births, "birth_round": rnd})
+        want = jring.enq_planes(
+            *map(jnp.asarray, planes), jnp.asarray(t), jnp.asarray(v),
+            jnp.int32(head), **kw,
+            **{k: jnp.asarray(x) if k == "births" else jnp.int32(x)
+               for k, x in extra.items()})
+        got = enq_planes(*map(_t, planes), _t(t), _t(v), head, **kw,
+                         **{k: _t(x) if k == "births" else x
+                            for k, x in extra.items()})
+        assert len(got) == len(want)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        planes = [np.asarray(p) for p in want[:4]]
+        if births is not None:
+            births = np.asarray(want[5])
+        tail += b
+        d = _wave(rng, ns, b, head)
+        extra = ({"birth_packed": True} if births is None
+                 else {"births": births})
+        want = jring.deq_planes(*map(jnp.asarray, planes), jnp.asarray(d),
+                                **kw, **{k: jnp.asarray(x) if k == "births"
+                                         else x for k, x in extra.items()})
+        got = deq_planes(*map(_t, planes), _t(d), **kw,
+                         **{k: _t(x) if k == "births" else x
+                            for k, x in extra.items()})
+        assert len(got) == len(want) == 7
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        planes = [np.asarray(p) for p in want[:4]]
+        head += b
+    if births is None:          # the packed planes hold real stamps
+        assert int(planes[2].max()) > 1
+
+
+def test_span_round_cap_is_refused_at_stamp_time():
+    """A packed stamp at ``SPAN_ROUND_CAP`` raises the reference's
+    ``ValueError``; one round under it stamps."""
+    from repro_torch.kernels import enq_planes
+    from repro_torch.kernels.ring_slots import SPAN_ROUND_CAP
+    assert SPAN_ROUND_CAP == jring.SPAN_ROUND_CAP == 1 << 30
+    planes = [np.zeros(16, np.int32), np.ones(16, np.int32),
+              np.zeros(16, np.int32), np.full(16, BOT, np.int32)]
+    t = np.arange(16, 20, dtype=np.int32)       # cycle 1 over cycle 0
+    kw = dict(nslots_log2=4, idx_bot=BOT)
+    with pytest.raises(ValueError) as want:
+        jring.enq_planes(*map(jnp.asarray, planes), jnp.asarray(t),
+                         jnp.asarray(t), jnp.int32(0), **kw,
+                         birth_round=SPAN_ROUND_CAP)
+    for rnd in (SPAN_ROUND_CAP, torch.tensor(SPAN_ROUND_CAP)):
+        with pytest.raises(ValueError) as got:
+            enq_planes(*map(_t, planes), _t(t), _t(t), 0, **kw,
+                       birth_round=rnd)
+        assert str(got.value) == str(want.value)
+    out = enq_planes(*map(_t, planes), _t(t), _t(t), 0, **kw,
+                     birth_round=SPAN_ROUND_CAP - 1)
+    assert int(out[2][0]) == 2 ** 31 - 1       # (2^30 - 1) << 1 | 1
+
+
+def jax_packed_round(ring, batch, values, live, rnd, mask=None, count=None):
+    """The reference's spanned round on the ring (fusedrounds.py:166-222
+    with ``sp``): the packed dequeue, then the packed enqueue of the
+    children at birth round ``rnd``.  Returns the births and the
+    enqueue's (total, over)."""
+    head, tail = jnp.int32(ring.head), jnp.int32(ring.tail)
+    lane = jnp.arange(batch, dtype=jnp.int32)
+    k = jnp.where(live, jnp.minimum(jnp.int32(batch), tail - head), 0)
+    out = jring.deq_planes(*map(jnp.asarray, ring.np),
+                           jnp.where(lane < k, head + lane, -1),
+                           nslots_log2=ring.nsl2, idx_bot=BOT,
+                           active=lane < k, birth_packed=True)
+    ring.np = [np.asarray(p) for p in out[:4]]
+    head = head + k
+    ring.head = int(head)
+    if mask is not None:
+        cm = jnp.asarray(mask) & live
+        tickets, newctr = jref.wavefaa_ref(cm.astype(jnp.int32),
+                                           jnp.reshape(tail, (1,)))
+        n_child, active = newctr[0] - tail, cm
+    else:
+        n_child = jnp.where(live, jnp.int32(count), 0)
+        lw = jnp.arange(len(values), dtype=jnp.int32)
+        tickets, active = tail + lw, lw < n_child
+    over = (tail + n_child - head) > CAP
+    enq = jring.enq_planes(*map(jnp.asarray, ring.np), tickets,
+                           jnp.asarray(values), head, nslots_log2=ring.nsl2,
+                           idx_bot=BOT, active=active & ~over,
+                           birth_round=jnp.int32(rnd))
+    ring.np = [np.asarray(p) for p in enq[:4]]
+    ring.tail = int(jnp.where(over, tail, tail + n_child))
+    return (np.asarray(out[6]), np.asarray(out[4]),
+            (int(jnp.where(over, 0, n_child)), bool(over)))
+
+
+@pytest.mark.parametrize("mode", ["ballot", "dense"])
+@pytest.mark.parametrize("face", ["plain", "wrapper"])
+def test_packed_waves_match_reference_round(mode, face):
+    """The packed waves (``birth_packed`` / ``birth_round``), as the
+    spanned round runs them, against the reference's spanned round over
+    40 rounds that wrap the ring: births, values, head/tail and the
+    planes with their stamps, bit for bit; live=False rounds and
+    overflowing ones; the wrappers on CPU tensors launch nothing."""
+    rng = np.random.default_rng(23)
+    ring = Ring(2 ** 31 - 500)
+    enq_both(ring, np.arange(60, dtype=np.int32), True, count=60)
+    deq = ring_dequeue_wave if face == "wrapper" else ring_dequeue_wave_plain
+    enq = ring_enqueue_wave if face == "wrapper" else ring_enqueue_wave_plain
+    before = dict(LAUNCHES)
+    batch, overs, stamped = 128, 0, 0
+    clock = torch.tensor(0, dtype=torch.int32)
+    for r in range(40):
+        live = r % 9 != 8
+        n = 4 * batch
+        values = rng.integers(0, 1 << 30, n).astype(np.int32)
+        dens = rng.choice([0.0, 0.3, 0.6, 1.0])
+        mask = rng.random(n) < dens
+        kw = ({"mask": mask} if mode == "ballot"
+              else {"count": int(mask.sum())})
+        births, vals, want = jax_packed_round(ring, batch, values, live, r,
+                                              **kw)
+        got = deq(*ring.planes, ring.th, ring.tt, torch.tensor(live),
+                  batch=batch, nslots_log2=ring.nsl2, idx_bot=BOT,
+                  birth_packed=True)
+        assert len(got) == 4
+        np.testing.assert_array_equal(got[0].numpy(), vals)
+        np.testing.assert_array_equal(got[3].numpy(), births)
+        clock.fill_(r)
+        total, over = enq(
+            *ring.planes, ring.th, ring.tt, _t(values), torch.tensor(live),
+            capacity=CAP, nslots_log2=ring.nsl2, idx_bot=BOT,
+            birth_round=clock,
+            mask=_t(mask) if mode == "ballot" else None,
+            count=(None if mode == "ballot"
+                   else torch.tensor(kw["count"], dtype=torch.int32)))
+        assert (int(total), bool(over)) == want
+        ring.same()
+        overs += want[1]
+        stamped += int((births > 0).sum())
+    assert overs > 0 and stamped > 0
+    assert dict(LAUNCHES) == before

@@ -262,5 +262,18 @@ def test_registries():
 
 
 def test_obs_planes_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        RoundRunner(tree_step, device="cpu", telemetry=object())
+    """Trace and span planes are in-round state: the legacy loop refuses
+    them with the reference's ``ValueError`` (the fused engine takes
+    them: ``tests/test_torch_obs.py``)."""
+    from repro import obs as jobs
+    from repro_torch import obs
+    for kw, what in (("telemetry", "telemetry needs"),
+                     ("spans", "spans needs")):
+        name = "Telemetry" if kw == "telemetry" else "Spans"
+        with pytest.raises(ValueError, match=what) as got:
+            RoundRunner(tree_step, device="cpu", fused=False,
+                  **{kw: getattr(obs, name)()})
+        with pytest.raises(ValueError, match=what) as want:
+            jrt.RoundRunner(tree_step, fused=False,
+                  **{kw: getattr(jobs, name)()})
+        assert str(got.value) == str(want.value)

@@ -21,7 +21,14 @@ card's name and power limit:
   path's child wave (4,096 lanes at density 0.2) and of
   ``expert_tickets`` at a decode step (32 pairs) and at a prefill (65,536
   pairs), 40 experts, each the median of 5 batches of 50 calls timed with
-  CUDA events behind a ``torch.cuda._sleep`` (``Smoke.time_ms``).
+  CUDA events behind a ``torch.cuda._sleep`` (``Smoke.time_ms``);
+* road and the task tree with ``Telemetry`` and ``Spans`` on, sized as
+  ``chip_smoke.py`` phase 5b sizes them, each in turns with its obs-off
+  twin (off, on, on, off, three times over: the median of six runs a
+  side, every run kept), with one record a round and a histogram total
+  equal to the pops checked, and the per-call time of ``obs_record`` at
+  road's wave (1,024 lanes, 819 of them valid, a trace plane of 8,192
+  rows, spans of 16 buckets), timed as above.
 
 Run two checkouts in turns in one call (A, B, B, A): a number from
 another call does not compare.  Needs a CUDA card; exits 2 without one.
@@ -101,6 +108,86 @@ def engine_cells(np, torch, cs, dev):
     return out
 
 
+def obs_cells(np, torch, cs, dev, smoke):
+    """Road and the task tree with obs off and on in turns, and the
+    per-call time of ``obs_record`` at road's wave."""
+    from repro_torch import obs
+    from repro_torch import runtime as rt
+    from repro_torch.apps import bfs
+    out = {}
+    road = bfs.road_like(cs.ROAD_SIDE * cs.ROAD_SIDE)
+    rng = np.random.default_rng(12)
+    ik = rng.integers(0, 16, cs.HEAP_SEEDS).astype(np.int32)
+    iv = rng.integers(0, 2 ** 31 - 1, cs.HEAP_SEEDS).astype(np.int32)
+
+    def road_runner(**kw):
+        runner, init_fn = bfs.bfs_rounds_runner(road, batch=cs.BATCH, **kw)
+        return runner, lambda: runner.run([0], acc=init_fn(0),
+                                          max_rounds=1_000_000)
+
+    def heap_runner(**kw):
+        runner = rt.PriorityRoundRunner(
+            cs.heap_tree_step(torch), capacity_log2=cs.HEAP_CAP_LOG2,
+            batch=cs.BATCH, **kw)
+        return runner, lambda: runner.run(ik, iv, acc=torch.zeros(
+            4096, dtype=torch.int32, device=dev), max_rounds=1_000_000)
+
+    for name, make, cap in (("road", road_runner, cs.OBS_ROAD_CAPACITY),
+                            ("heap", heap_runner, cs.OBS_HEAP_CAPACITY)):
+        tel, sp = obs.Telemetry(cap, engine=name), obs.Spans(engine=name)
+        runners = {"off": make(), "on": make(telemetry=tel, spans=sp)}
+        for _, run in runners.values():
+            run()                                    # capture
+        runs = {"off": [], "on": []}
+        for flag in ("off", "on", "on", "off") * 3:
+            runner, run = runners[flag]
+            if flag == "on":
+                tel.reset()
+                sp.reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            runs[flag].append(start.elapsed_time(end) * 1e3
+                              / runner.stats["rounds"])
+        st = runners["on"][0].stats
+        if not (len(tel.records) == st["rounds"]
+                and sum(r.pops[0] for r in tel.records) == st["processed"]
+                and sp.total == st["processed"]):
+            raise AssertionError(f"obs {name}: records or histogram wrong")
+        off_us = statistics.median(runs["off"])
+        on_us = statistics.median(runs["on"])
+        out[f"obs_{name}"] = {
+            "rounds": st["rounds"], "device_us_per_round_off": off_us,
+            "device_us_per_round_on": on_us, "on_minus_off_us": on_us - off_us,
+            "runs_us": runs,
+            "round_graph_on": cs.graph_nodes(runners["on"][0]._engine)}
+    card = dict(dtype=torch.int32, device=dev)
+    k_obs = 819
+    wave = dict(
+        keys=torch.as_tensor(rng.integers(0, 1 << 22, cs.BATCH,
+                                          dtype=np.int32), device=dev),
+        valid=torch.arange(cs.BATCH, device=dev) < k_obs,
+        births=torch.as_tensor(rng.integers(1000, 5000, cs.BATCH,
+                                            dtype=np.int32), device=dev),
+        k=torch.tensor(k_obs, **card), total=torch.tensor(k_obs, **card),
+        occ=torch.tensor(1 << 20, **card),
+        over=torch.zeros((), dtype=torch.bool, device=dev))
+    wave["ref"] = wave["keys"]
+
+    def setup():
+        sp = obs.span_init(1, lanes=cs.BATCH, device=dev)
+        sp.round.fill_(5000)
+        return obs.trace_init(cs.OBS_ROAD_CAPACITY, device=dev), sp
+
+    out["obs_record_us"] = smoke.time_ms(
+        setup, lambda p, i: obs.obs_record(*p, **wave))[0] * 1e3
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
@@ -120,6 +207,7 @@ def main() -> int:
     out = {"label": args.label, "src": args.src,
            "repro_torch": K.__file__}
     out.update(engine_cells(np, torch, cs, dev))
+    out.update(obs_cells(np, torch, cs, dev, smoke))
     rng = np.random.default_rng(5)
     mask = torch.as_tensor(rng.random(4096) < 0.2, device=dev)
     counter = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
