@@ -13,12 +13,14 @@ JSON line; any failure raises and exits non-zero with no result line:
               with nvcc for sm_90a, one nvcc per source, all at once
               (nvcc version and build seconds).
 2. compare  — each kernel (wavefaa, ring_dequeue, ring_enqueue,
-              ring_dequeue_wave, ring_enqueue_wave and their packed
-              instances, wave_compact, heap_apply and its rider instance,
+              ring_dequeue_wave, ring_enqueue_wave and their packed and
+              sharded instances, wave_compact, heap_apply and its rider
+              instance,
               obs_record, frontier_expand, expert_tickets,
               flash_attention) against its plain PyTorch version on the
               card, at the paths' shapes and at the CPU tests' edge cases
-              (the round's two wave kernels at road's shape (2^24 slots,
+              (the round's two wave kernels on the single ring, one
+              shard, at road's shape (2^24 slots,
               batch 1,024, 4,096-lane ballots), in kron's dense mode, at
               batches of 3,000 and 8,192 with a three-tile ballot, with
               counters that wrap past 2^31 and 2^32, on a ring that
@@ -32,7 +34,19 @@ JSON line; any failure raises and exits non-zero with no result line:
               its own shared-memory top, the inserts' rider a 0-d device
               word or one per lane; obs_record against the torch-op
               record at road's and the goldens' shapes, with planes that
-              wrap, 3,000 lanes, class rows and each plane alone;
+              wrap, 3,000 lanes, class rows and each plane alone; the
+              mesh's instances: ring_enqueue / ring_dequeue with an
+              explicit active mask (live tickets 2^31 - 64 ... 2^31 + 64
+              and 2^32 - 64 ... 2^32 + 64 installed and consumed in full,
+              enq_planes / deq_planes on the card against the host),
+              the two wave kernels on the mesh's shard grids
+              (replicated, sharded and packed) at the mesh tree's and
+              road's shapes and at S =
+              1, 2, 4 and 8 with k = 0, 1, below, at and above S x batch,
+              ballot and grid-dense publishes, wrapping counters, an
+              overflowing round in each mode, one sharded ring
+              overflowing alone and live=False calls, and obs_record over
+              S = 1, 2, 4 and 8 shards (stacked span planes);
               wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
               2^22 lanes with wrapping counters, wave_compact also at 2^22
               and 2^22 - 77 lanes with width overflow, every case of both
@@ -122,6 +136,40 @@ JSON line; any failure raises and exits non-zero with no result line:
               round or more.  Each timed in turns with its obs-off twin
               ((off, on, on, off) x 3: µs a round, rounds/s) and its captured
               round's nodes counted with obs off and on.
+mesh.       — the FIFO mesh on one card, the shard axis a tensor
+              dimension (``repro_torch.runtime.meshrounds``).  The
+              JAX package's mesh goldens (mesh_fanout and mesh_fanout_2
+              with their tel digests, mesh_bfs and mesh_bfs_2) on the
+              device loop with host_syncs 1, and the legacy loop's same
+              state; the functional rounds (core.distqueue at 4 x 1,024
+              requests, the masked ring waves) from tickets 8,192 below
+              2^31 and 2^32, every granted value back once in order;
+              bfs_mesh_rounds on road_like(215 * 215) (46,225 vertices,
+              the largest square with n (n + 2) < 2^31) at 4 shards and
+              batch 1,024, replicated (2^20 slots) and sharded (four
+              rings of 2^18): dist = row + col for both,
+              ring_dequeue_wave and ring_enqueue_wave once a round (the
+              sharded run's totals are reported beside the replicated
+              ones: the label-correcting BFS re-expands by claim order);
+              the FIFO
+              task tree (65,536 seeds numpy.random.default_rng(15)
+              .integers(0, 2^27) << 4, two children a pop c = 0, 1 with h
+              = tree_hash(val, c), child val ((h >> 1) & 0x7FFFFFF0) |
+              (depth + 1), spawned iff depth < 14 and (h & 15) < 10:
+              7,211,034 pops) at 4 shards, batch 1,024 and
+              capacity_log2=22, replicated, sharded and on RingEngine at
+              batch 4,096: acc, processed and spawned equal the numpy
+              closure for all three, the replicated mesh equals
+              RingEngine bit for bit (stats, acc, planes, head/tail),
+              timed in turns (replicated, sharded, single) x 3 with the
+              captured rounds' nodes; the replicated and the sharded
+              tree again with compact=True (each shard's child row through
+              wave_compact, then the dense enqueue wave): the ballot run's
+              state, wave_compact 4 times and each wave kernel once a
+              round; then the replicated tree with Telemetry (4 shard
+              columns) and Spans(): its state equal to the obs-off run,
+              one record a round whose pops and pushes sum to processed
+              and spawned, the packed waves and obs_record once a round.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -129,7 +177,8 @@ JSON line; any failure raises and exits non-zero with no result line:
               sweep, the two must agree, frontier_expand must launch
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
-7. kernels  — per kernel: launches on each path (phases 3-6, 8 and 9;
+7. kernels  — per kernel: launches on each path (phases 3-6, mesh, 8
+              and 9;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -145,8 +194,10 @@ JSON line; any failure raises and exits non-zero with no result line:
               also against a dependent-chain bound; frontier_expand at the
               busiest level of kron 2^20 and at the busiest and the median
               level of road.  wavefaa also at 2^22 lanes, expert_tickets
-              also at a decode step's 32 pairs.  The two wave kernels at
-              road's shape (the row) and kron's (its ``kron``).  The flash
+              also at a decode step's 32 pairs.  The two wave kernels, a
+              row an instance, at road's shape (the row's own), kron's
+              (its ``kron``) and the mesh tree's (its ``mesh``; the
+              sharded instances at the mesh tree's alone).  The flash
               attention row
               also carries the same times at hd 128 (q (1, 32, 4096, 128),
               kv 8, causal) under ``hd128`` and on gemma3-4b's layer 5
@@ -160,7 +211,10 @@ JSON line; any failure raises and exits non-zero with no result line:
               kron's shapes, the rider heap_apply at the heap path's
               (beside the rider-less instance's time) and obs_record at
               one road round's record have rows of their own; their
-              launches come from phase 5b.
+              launches come from phase 5b.  The mesh's instances have
+              rows at the mesh tree's shapes (masked ring_enqueue at its
+              65,536 seeds, masked ring_dequeue at the functional rounds'
+              4 x 1,024 requests); their launches come from phase mesh.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -192,8 +246,8 @@ JSON line; any failure raises and exits non-zero with no result line:
 Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
 and report the card's idle share against the unprofiled wall time (where
 the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, 8 and 9 run before phase 7, whose line needs their
-launch counts.  Every phase
+in).  Phases 5b, mesh, 8 and 9 run before phase 7, whose line needs
+their launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -239,6 +293,27 @@ FIFO_GOLDEN = {"stats": [7, 63, 62, 32, 1], "acc": "b8d77df0675e0603",
 # 5,119 rounds fit the trace plane, the heap tree's 1,816 too
 OBS_GOLDEN = {"fifo": {"tel": "cb3aae309ae1f69f", "spans": "b5f891af2ff7334a"},
               "heap": {"tel": "ef6805304552b52a", "spans": "bbf1586fce097a87"}}
+# the mesh goldens of the JAX package's tests (tests/test_enginecore.py:
+# GOLDEN["mesh_fanout"], GOLDEN["mesh_bfs"], GOLDEN_2SHARD), stats with
+# host_syncs last
+MESH_GOLDEN = {
+    "mesh_fanout": {"shards": 1, "stats": [7, 63, 62, 32, 1, 1],
+                    "acc": "b8d77df0675e0603", "planes": "1a0afe86d6513a2a",
+                    "head_tail": [575, 575], "tel": "cb3aae309ae1f69f"},
+    "mesh_fanout_2": {"shards": 2, "stats": [6, 63, 62, 32, 1, 1],
+                      "acc": "b8d77df0675e0603",
+                      "planes": "1a0afe86d6513a2a",
+                      "head_tail": [575, 575], "tel": "01bcb5be848e8028"},
+    "mesh_bfs": {"shards": 1, "stats": [23, 144, 143, 12, 1, 1],
+                 "dist": "c8795c4f65942e14"},
+    "mesh_bfs_2": {"shards": 2, "stats": [23, 287, 286, 24, 1, 1],
+                   "dist": "c8795c4f65942e14"}}
+MESH_SHARDS = 4
+MESH_ROAD_SIDE = 215     # the largest square grid with n (n + 2) < 2^31
+MESH_TREE_SEEDS = 65536
+MESH_TREE_DEPTH = 14     # children only below this depth
+MESH_TREE_SPAWN = 10     # a child is offered with probability 10/16
+MESH_TREE_CAP_LOG2 = 22
 OBS_ROAD_CAPACITY = 8192
 OBS_HEAP_CAPACITY = 2048
 EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
@@ -293,6 +368,15 @@ def tree_hash(v, c):
     h = h ^ (h >> 15)
     h = (h * 0x2C1B3C6D) & 0xFFFFFFFF
     return h ^ (h >> 12)
+
+
+def tel_digest(tel):
+    """The goldens' digest of a Telemetry's records
+    (tests/test_enginecore.py: _tel_digest)."""
+    rows = [(r.round, r.imbalance, r.min_key, r.max_key, int(r.overflow),
+             tuple(r.pops), tuple(r.pushes), tuple(r.occupancy))
+            for r in tel.records]
+    return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
 
 
 def tree_children(keys, vals, xp_arange, valid=None):
@@ -350,6 +434,51 @@ def heap_tree_step(torch):
             keys.long(), vals.long(),
             lambda n: torch.arange(n, device=keys.device), valid)
         return acc, ck.int(), cv.int(), cm
+    return step
+
+
+def fifo_tree_step(torch):
+    """The FIFO task tree's step: pops counted by val % 4096; each pop
+    offers children c = 0, 1 with h = ``tree_hash(val, c)``, child val
+    ``((h >> 1) & 0x7FFFFFF0) | (depth + 1)`` (the depth in the low 4
+    bits), spawned iff depth < 14 and (h & 15) < 10."""
+    def step(acc, vals, valid):
+        acc = acc.index_add(0, torch.where(valid, vals % 4096, 0),
+                            valid.int())
+        v = vals.long()
+        h = tree_hash(v[:, None], torch.arange(2, device=vals.device)[None])
+        depth = (v & 15)[:, None]
+        cv = ((h >> 1) & 0x7FFFFFF0) | (depth + 1)
+        cm = (valid[:, None] & (depth < MESH_TREE_DEPTH)
+              & ((h & 15) < MESH_TREE_SPAWN))
+        return acc, cv.int(), cm
+    return step
+
+
+def fifo_closure(np, vals):
+    """Every item the FIFO tree holds, generation by generation: (pops
+    per val % 4096, processed, spawned, the largest payload)."""
+    acc = np.zeros(4096, np.int64)
+    v = vals.astype(np.int64)
+    processed, top = 0, 0
+    while len(v):
+        processed += len(v)
+        top = max(top, int(v.max()))
+        acc += np.bincount(v % 4096, minlength=4096)
+        h = tree_hash(v[:, None], np.arange(2)[None, :])
+        depth = (v & 15)[:, None]
+        cv = ((h >> 1) & 0x7FFFFFF0) | (depth + 1)
+        v = cv[(depth < MESH_TREE_DEPTH) & ((h & 15) < MESH_TREE_SPAWN)]
+    return acc, processed, processed - len(vals), top
+
+
+def golden_tree_step(torch):
+    """The goldens' fifo_fanout step (tests/test_enginecore.py:
+    _tree_step)."""
+    def step(acc, vals, valid):
+        acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
+        cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
+        return acc, cv, (valid & (vals < 32))[:, None]
     return step
 
 
@@ -417,7 +546,8 @@ class Smoke:
         self.launches = {"road": {}, "kron": {}, "heap": {},
                          "queue": {}, "prefill": {}, "serve": {},
                          "prefill_gemma3": {}, "obs_road": {},
-                         "obs_heap": {}}   # path -> kernel launches
+                         "obs_heap": {},
+                         "mesh": {}}       # path -> kernel launches
         self.keep = {}            # path -> (runner, final state) for obs
 
     # -- helpers -------------------------------------------------------------
@@ -619,61 +749,10 @@ class Smoke:
                 self.same("ring_dequeue", got, want)
                 head += b_deq
 
-    def wave_calls(self, K, nsl2, start, calls):
-        """A ring of 2^nsl2 slots whose head and tail start at ``start``,
-        driven by ``calls``: ("deq", batch, live[, packed]) for
-        ``ring_dequeue_wave`` and ("enq", values, live, mask, count[,
-        birth]) for ``ring_enqueue_wave`` (ballot mode with a mask, dense
-        mode with a count; ``packed`` and a ``birth`` round take the
-        packed instances), at capacity 2^(nsl2 - 1).  The calls are queued
-        back to back on the card with no synchronise between them, then
-        made one at a time on the plain versions' own ring; every call's
-        outputs and head and tail after it, and the planes after the last,
-        are held against each other."""
-        torch = self.torch
-        ns, cap = 1 << nsl2, 1 << (nsl2 - 1)
-        i32c = dict(dtype=torch.int32, device=self.dev)
-        cyc0 = i32(((start % 2 ** 32) >> nsl2) - 1)
-        kern = [torch.full((ns,), cyc0, **i32c), torch.ones(ns, **i32c),
-                torch.zeros(ns, **i32c), torch.full((ns,), IDX_BOT, **i32c)]
-        ring = {"kern": (kern, torch.tensor(i32(start), **i32c),
-                         torch.tensor(i32(start), **i32c)),
-                "plain": ([p.clone() for p in kern],
-                          torch.tensor(i32(start), **i32c),
-                          torch.tensor(i32(start), **i32c))}
-        kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT)
-        lives = {b: torch.tensor(b, device=self.dev) for b in (False, True)}
-        births = {c[5]: torch.tensor(c[5], **i32c) for c in calls
-                  if c[0] == "enq" and len(c) > 5 and c[5] is not None}
-        out = {}
-        for face, suffix in (("kern", ""), ("plain", "_plain")):
-            deq = getattr(K, "ring_dequeue_wave" + suffix)
-            enq = getattr(K, "ring_enqueue_wave" + suffix)
-            planes, head, tail = ring[face]
-            out[face] = []
-            for call in calls:
-                live = lives[call[2]]
-                if call[0] == "deq":
-                    packed = len(call) > 3 and call[3]
-                    got = deq(*planes, head, tail, live, batch=call[1],
-                              birth_packed=packed, **kw)
-                    name = "ring_dequeue_wave" + ("_packed" * packed)
-                else:
-                    birth = births.get(call[5]) if len(call) > 5 else None
-                    got = enq(*planes, head, tail, call[1], live,
-                              capacity=cap, mask=call[3], count=call[4],
-                              birth_round=birth, **kw)
-                    name = "ring_enqueue_wave" + (
-                        "" if birth is None else "_packed")
-                out[face].append((name, got + (head.clone(),
-                                               tail.clone())))
-        for (name, got), (_, want) in zip(out["kern"], out["plain"]):
-            self.same(name, got, want)
-        self.same(out["kern"][-1][0], ring["kern"][0], ring["plain"][0])
-
     def compare_ring_waves(self, K):
-        """The round's two wave kernels against their plain versions, each
-        case at least ten calls queued back to back: road's shape (2^24
+        """The round's two wave kernels on the single ring (one shard)
+        against their plain versions, each case at least ten calls queued
+        back to back: road's shape (2^24
         slots, batch 1,024, a 4,096-lane ballot at road's density), kron's
         dense mode (2^18 slots, a 2^17-lane compacted wave, counts up to
         and past the free space), batches above 1,024 (3,000 and 8,192:
@@ -691,8 +770,9 @@ class Smoke:
                     self.t(self.rng.random(n) < dens), None)
 
         def dense(width, count, live=True):
-            return ("enq", vals(width), live, None,
-                    torch.tensor(count, dtype=torch.int32, device=self.dev))
+            return ("enq", vals(width).reshape(1, width), live, None,
+                    torch.tensor([count], dtype=torch.int32,
+                                 device=self.dev))
 
         def rounds(batch, lanes, dens, n, mode="ballot", counts=None):
             calls = []
@@ -748,9 +828,9 @@ class Smoke:
             return self.t(self.rng.integers(0, 1 << 30, n), torch.int32)
 
         def seed(n, count):
-            return ("enq", vals(n), True, None,
-                    torch.tensor(count, dtype=torch.int32, device=self.dev),
-                    None)
+            return ("enq", vals(n).reshape(1, n), True, None,
+                    torch.tensor([count], dtype=torch.int32,
+                                 device=self.dev), None)
 
         def rounds(batch, lanes, n, births, dens=None, counts=None):
             calls = []
@@ -764,8 +844,9 @@ class Smoke:
                                          < dens[r % len(dens)]),
                                   None, birth))
                 else:
-                    calls.append(("enq", vals(lanes), live, None,
-                                  torch.tensor(counts[r % len(counts)],
+                    calls.append(("enq", vals(lanes).reshape(1, lanes),
+                                  live, None,
+                                  torch.tensor([counts[r % len(counts)]],
                                                dtype=torch.int32,
                                                device=self.dev), birth))
             return calls
@@ -966,6 +1047,341 @@ class Smoke:
                                       if p is not None for x in p])
             for got, want in zip(out["kern"], out["plain"]):
                 self.same("obs_record", got, want)
+
+    def compare_ring_masked(self, K):
+        """The standalone waves' masked instance (``ring_enqueue`` /
+        ``ring_dequeue`` with ``active``, the functional faces' kernel)
+        against the plain versions, ten or more calls per case queued back
+        to back: live tickets 2^31 - 64 ... 2^31 + 64 and 2^32 - 64 ...
+        2^32 + 64 installed and consumed in full (the sign rule would drop
+        the half past 2^31), then random waves over those boundaries
+        whose inactive lanes carry tickets of either sign, and on the mesh
+        tree's 2^23-slot ring; ten or more calls a case.  ``enq_planes`` /
+        ``deq_planes`` on the card (copies, the masked kernel) against the
+        same faces on copies of the planes on the host."""
+        np, torch = self.np, self.torch
+        for nsl2, start, b, rounds, full in (
+                (8, 2 ** 31 - 64, 129, 5, True),
+                (8, 2 ** 32 - 64, 129, 5, True),
+                (6, 2 ** 31 - 64, 24, 12, False),
+                (9, 2 ** 32 - 200, 96, 12, False),
+                (23, 1 << 23, 4096, 10, False)):
+            ns = 1 << nsl2
+            cyc0 = i32(((start % 2 ** 32) >> nsl2) - 1)
+            kern = [torch.full((ns,), cyc0, dtype=torch.int32,
+                               device=self.dev),
+                    torch.ones(ns, dtype=torch.int32, device=self.dev),
+                    torch.zeros(ns, dtype=torch.int32, device=self.dev),
+                    torch.full((ns,), IDX_BOT, dtype=torch.int32,
+                               device=self.dev)]
+            plain = [p.clone() for p in kern]
+            head = tail = start
+            kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT)
+            calls = []
+            for r in range(rounds):
+                act = (np.ones(b, bool) if full
+                       else self.rng.random(b) < 0.7)
+                t = np.array([i32(tail + i) for i in range(b)], np.int32)
+                # inactive lanes: tickets of both signs, never a live one's
+                junk = self.rng.integers(-2 ** 31, 2 ** 31 - 1, b)
+                t = np.where(act, t, junk).astype(np.int32)
+                calls.append(("enq", self.t(t), self.t(self.rng.integers(
+                    0, 1 << 30, b), torch.int32), self.t(act),
+                    self.t(np.array([i32(head)], np.int32))))
+                tail += b
+                dact = (np.ones(b, bool) if full
+                        else self.rng.random(b) < 0.8)
+                d = np.array([i32(head + i) for i in range(b)], np.int32)
+                d = np.where(dact, d, self.rng.integers(
+                    -2 ** 31, 2 ** 31 - 1, b)).astype(np.int32)
+                calls.append(("deq", self.t(d), self.t(dact)))
+                head += b
+            got = []
+            for c in calls:
+                if c[0] == "enq":
+                    got.append(K.ring_enqueue(*kern, c[1], c[2], c[4],
+                                              active=c[3], **kw)[4].clone())
+                else:
+                    got.append(torch.stack([x.int() for x in K.ring_dequeue(
+                        *kern, c[1], active=c[2], **kw)[4:]]))
+            for c, g in zip(calls, got):
+                if c[0] == "enq":
+                    want = K.ring_enqueue_plain(*plain, c[1], c[2], c[4],
+                                                active=c[3], **kw)
+                    self.same("ring_enqueue_masked", (g,), want[4:])
+                else:
+                    want = K.ring_dequeue_plain(*plain, c[1], active=c[2],
+                                                **kw)
+                    self.same("ring_dequeue_masked", (g,), (torch.stack(
+                        [x.int() for x in want[4:]]),))
+                    if full and not bool(g[1].all()):
+                        raise AssertionError(
+                            f"ring_dequeue_masked: live tickets from "
+                            f"{start} did not all come back")
+            self.same("ring_dequeue_masked", kern, plain)
+        # the functional faces: card copies against host copies
+        ns, start = 1 << 8, 2 ** 32 - 64
+        cyc0 = i32(((start % 2 ** 32) >> 8) - 1)
+        planes = [torch.full((ns,), cyc0, dtype=torch.int32), torch.ones(
+            ns, dtype=torch.int32), torch.zeros(ns, dtype=torch.int32),
+            torch.full((ns,), IDX_BOT, dtype=torch.int32)]
+        t = torch.tensor([i32(start + i) for i in range(129)],
+                         dtype=torch.int32)
+        act = torch.as_tensor(self.rng.random(129) < 0.8)
+        v = torch.arange(129, dtype=torch.int32)
+        kw = dict(nslots_log2=8, idx_bot=IDX_BOT)
+        h = torch.tensor(i32(start), dtype=torch.int32)
+        card = K.enq_planes(*(p.to(self.dev) for p in planes),
+                            t.to(self.dev), v.to(self.dev), h.to(self.dev),
+                            active=act.to(self.dev), **kw)
+        host = K.enq_planes(*planes, t, v, h, active=act, **kw)
+        self.same("ring_enqueue_masked", card,
+                  [x.to(self.dev) for x in host])
+        card = K.deq_planes(*card[:4], t.to(self.dev),
+                            active=act.to(self.dev), **kw)
+        host = K.deq_planes(*host[:4], t, active=act, **kw)
+        self.same("ring_dequeue_masked", card,
+                  [x.to(self.dev) for x in host])
+        if not torch.equal(host[5].bool(), act):
+            raise AssertionError("deq_planes: the live tickets past 2^32 "
+                                 "did not all come back")
+
+    def wave_calls(self, K, nsl2, start, calls, shards=1, sharded=False,
+                   fill=0):
+        """Rings on the card driven by ``calls``: one ring of 2^nsl2 slots
+        (replicated; the single ring at ``shards`` = 1) or ``shards`` of
+        2^nsl2 each (``sharded``), head and tail at ``start``, ``fill``
+        items (an int, or one count a ring when sharded) installed first
+        by the plain enqueue; ("deq", batch, live[, packed]) calls
+        ``ring_dequeue_wave`` and ("enq", values, live, mask, counts[,
+        birth]) calls ``ring_enqueue_wave`` (ballot mode with a mask,
+        dense mode with counts; ``packed`` and a ``birth`` round take the
+        packed instances) at a ring's capacity 2^(nsl2 - 1).  The calls
+        are queued back to back on the card with no synchronise between
+        them, then made one at a time on the plain versions' copy; every
+        call's outputs and heads and tails after it, and the planes after
+        the last, are held against each other."""
+        np, torch = self.np, self.torch
+        ns, cap = 1 << nsl2, 1 << (nsl2 - 1)
+        i32c = dict(dtype=torch.int32, device=self.dev)
+        cyc0 = i32(((start % 2 ** 32) >> nsl2) - 1)
+        lead = (shards,) if sharded else ()
+        planes = [torch.full(lead + (ns,), cyc0, **i32c),
+                  torch.ones(lead + (ns,), **i32c),
+                  torch.zeros(lead + (ns,), **i32c),
+                  torch.full(lead + (ns,), IDX_BOT, **i32c)]
+        heads = torch.full(lead, i32(start), **i32c)
+        tails = heads.clone()
+        fills = list(fill) if sharded else [fill]
+        for r, c in enumerate(fills):
+            if not c:
+                continue
+            rows = [p[r] for p in planes] if sharded else planes
+            tk = self.t(np.array([i32(start + i) for i in range(c)],
+                                 np.int32))
+            K.ring_enqueue_plain(*rows, tk, self.t(self.rng.integers(
+                0, 1 << 30, c), torch.int32), heads[r] if sharded else heads,
+                nslots_log2=nsl2, idx_bot=IDX_BOT,
+                active=torch.ones(c, dtype=torch.bool, device=self.dev))
+            if sharded:
+                tails[r] += c
+            else:
+                tails += c
+        ring = {"kern": (planes, heads, tails),
+                "plain": ([p.clone() for p in planes], heads.clone(),
+                          tails.clone())}
+        kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT,
+                  shards=None if sharded else shards)
+        lives = {b: torch.tensor(b, device=self.dev) for b in (False, True)}
+        births = {c[5]: torch.tensor(c[5], **i32c) for c in calls
+                  if c[0] == "enq" and len(c) > 5 and c[5] is not None}
+        out = {}
+        for face, suffix in (("kern", ""), ("plain", "_plain")):
+            deq = getattr(K, "ring_dequeue_wave" + suffix)
+            enq = getattr(K, "ring_enqueue_wave" + suffix)
+            pl, hd, tl = ring[face]
+            out[face] = []
+            for call in calls:
+                live = lives[call[2]]
+                if call[0] == "deq":
+                    packed = len(call) > 3 and call[3]
+                    got = deq(*pl, hd, tl, live, batch=call[1],
+                              birth_packed=packed, **kw)
+                    name = "ring_dequeue_wave" + (
+                        "_sharded" if sharded else "_packed" * packed)
+                else:
+                    birth = births.get(call[5]) if len(call) > 5 else None
+                    got = enq(*pl, hd, tl, call[1], live, capacity=cap,
+                              mask=call[3], counts=call[4],
+                              birth_round=birth, **kw)
+                    name = "ring_enqueue_wave" + (
+                        "_sharded" if sharded else
+                        "" if birth is None else "_packed")
+                out[face].append((name, got + (hd.clone(), tl.clone())))
+        for (name, got), (_, want) in zip(out["kern"], out["plain"]):
+            self.same(name, got, want)
+        self.same(out["kern"][-1][0], ring["kern"][0], ring["plain"][0])
+
+    def compare_grid_waves(self, K):
+        """The round's two wave kernels on the mesh's shard grids against
+        their plain versions, every case at least ten calls queued back to
+        back: the mesh tree's shape (S = 4,
+        batch 1,024, 8,192-lane ballots on a 2^23-slot ring, four rings of
+        2^21 sharded) and road's (16,384-lane ballots over two tiles), S =
+        1, 2, 4 and 8, claims of k = 0, 1, below, at and above S * batch,
+        grid-dense publishes, counters that wrap past 2^31 and 2^32, an
+        overflowing round in each mode, one ring of the sharded mesh
+        overflowing alone, occupancies tied and empty rings, the packed
+        instances with birth rounds 0, 1 and 2^30 - 1, and live=False
+        calls."""
+        np, torch = self.np, self.torch
+        i32c = dict(dtype=torch.int32, device=self.dev)
+
+        def vals(n):
+            return self.t(self.rng.integers(0, 1 << 30, n), torch.int32)
+
+        def ballot(lanes, dens, live=True, birth=None):
+            return ("enq", vals(lanes), live,
+                    self.t(self.rng.random(lanes) < dens), None, birth)
+
+        def dense(shards, width, counts, live=True, birth=None):
+            return ("enq", vals(shards * width).reshape(shards, width),
+                    live, None, torch.tensor(counts, **i32c), birth)
+
+        def rounds(shards, batch, n, dens, count, packed=False):
+            calls = []
+            for r in range(count):
+                live = r % 4 != 3
+                birth = (0, 1, 2 ** 30 - 1, 9)[r % 4] if packed else None
+                calls.append(("deq", batch, live, packed))
+                calls.append(ballot(shards * n, dens[r % len(dens)], live,
+                                    birth))
+            return calls
+
+        tree_d, road_d = (0.6, 0.55, 0.7), (0.24, 0.3, 0.0, 1.0)
+        # replicated: (S, nsl2, start, fill, calls)
+        for shards, nsl2, start, fill, calls in (
+                (4, 23, 1 << 23, 65536,
+                 rounds(4, BATCH, 2 * BATCH, tree_d, 10)),
+                (4, 20, 1 << 20, 1, [("deq", BATCH, True)]
+                 + rounds(4, BATCH, 4 * BATCH, road_d, 10)),
+                (4, 23, 1 << 23, 65536,
+                 rounds(4, BATCH, 2 * BATCH, tree_d, 10, packed=True)),
+                (1, 10, 1 << 10, 0, [("deq", 16, True), ("deq", 16, True)]
+                 + rounds(1, 16, 32, (0.03, 0.5), 10)),
+                (2, 10, 1 << 10, 5, [("deq", 16, True)]
+                 + rounds(2, 16, 32, (0.3, 0.5, 0.9), 10)),
+                (8, 12, 1 << 12, 128, [("deq", 16, True)]
+                 + rounds(8, 16, 64, (0.2, 0.13), 10)
+                 + [dense(8, 64, [3, 0, 64, 9, 1, 0, 0, 40])]),
+                (4, 12, 2 ** 31 - 3000, 700,
+                 rounds(4, 64, 128, (0.25, 0.3), 12)),
+                (4, 12, 2 ** 32 - 3000, 700,
+                 rounds(4, 64, 128, (0.25, 0.3), 12, packed=True)),
+                (4, 12, 2 ** 32 - 3000, 0,
+                 [dense(4, 256, [200, 0, 256, 31])] + [
+                     c for r in range(10) for c in (
+                         ("deq", 64, r % 4 != 3),
+                         dense(4, 256, [int(x) for x in self.rng.integers(
+                             0, 300, 4)], r % 4 != 3))]),
+                # a 64-slot ring that overflows, and dense overflow
+                (2, 7, 1 << 7, 60, rounds(2, 8, 32, (0.8, 0.1, 0.5), 12)
+                 + [dense(2, 40, [40, 39])])):
+            self.wave_calls(K, nsl2, start, calls, shards, False, fill)
+        # sharded: (S, nsl2 of a ring, start, fills, calls)
+        for shards, nsl2, start, fill, calls in (
+                (4, 21, 1 << 21, [16384] * 4,
+                 rounds(4, BATCH, 2 * BATCH, tree_d, 10)),
+                (4, 18, 1 << 18, [1, 0, 0, 0],
+                 rounds(4, BATCH, 4 * BATCH, road_d, 10)),
+                (1, 8, 1 << 8, [3], rounds(1, 16, 32, (0.5, 0.2), 10)),
+                (2, 8, 1 << 8, [40, 7], rounds(2, 16, 32, (0.4, 0.6), 10)),
+                (8, 8, 1 << 8, [5, 5, 0, 9, 9, 1, 0, 5],
+                 rounds(8, 4, 16, (0.3, 0.8), 10)
+                 + [dense(8, 16, [0, 16, 3, 3, 3, 0, 1, 2])]),
+                (4, 8, 2 ** 31 - 300, [10, 20, 30, 40],
+                 rounds(4, 16, 32, (0.5, 0.4), 12)),
+                (4, 8, 2 ** 32 - 300, [10, 20, 30, 40],
+                 rounds(4, 16, 32, (0.5, 0.4), 12)),
+                # ring 0 nearly full: it alone overflows a small spray
+                (4, 6, 1 << 6, [31, 0, 0, 2],
+                 [ballot(4 * 8, 0.2), ("deq", 1, True)]
+                 + rounds(4, 1, 8, (0.3, 0.9), 10)),
+                (4, 6, 1 << 6, [30, 1, 2, 3],
+                 [dense(4, 8, [3, 2, 2, 2]), dense(4, 8, [8, 8, 8, 8])]
+                 + [c for r in range(8) for c in (
+                     ("deq", 2, r % 4 != 3),
+                     dense(4, 8, [int(x) for x in self.rng.integers(
+                         0, 9, 4)], r % 4 != 3))])):
+            self.wave_calls(K, nsl2, start, calls, shards, True, fill)
+
+    def compare_obs_mesh(self, K):
+        """``obs_record`` over S shards (the mesh's record: S x B lanes,
+        (S,) pops, pushes and occupancies, a stacked span plane) against
+        ``obs_record_plain`` on the same planes, ten calls per case queued
+        back to back, every plane held against the plain one's after each
+        call: S = 1, 2, 4 and 8, the mesh tree's shape (4 x 1,024 lanes), a
+        trace plane and flow rings that wrap, class rows from ``cls``,
+        each plane alone, shards with no claims, clocks near the cap."""
+        np, torch = self.np, self.torch
+        from repro_torch.obs import (obs_record, obs_record_plain,
+                                     span_init, trace_init)
+        card = dict(dtype=torch.int32, device=self.dev)
+        for s, b, cap, nb, f, trace, spans, cls, clock0 in (
+                (4, BATCH, 2048, 16, 64, True, True, False, 0),
+                (1, 16, 256, 8, 64, True, True, False, 3),
+                (2, 16, 256, 8, 64, True, True, False, 5),
+                (8, 64, 4, 8, 3, True, True, True, 2 ** 30 - 12),
+                (4, 300, 64, 16, 5, True, False, False, 0),
+                (8, 128, 64, 16, 7, False, True, True, 40)):
+            planes = {}
+            for face in ("kern", "plain"):
+                tp = trace_init(cap, s, device=self.dev) if trace else None
+                sp = None
+                if spans:
+                    z = span_init(s, buckets=nb, flow_capacity=f, lanes=b,
+                                  device=self.dev)
+                    sp = type(z)(*(x.expand((s,) + x.shape).clone()
+                                   for x in z))
+                    sp.round.fill_(clock0)
+                planes[face] = (tp, sp)
+            waves = []
+            for r in range(10):
+                rnd = clock0 + r
+                counts = self.rng.integers(0, b + 1, s) if r % 4 else \
+                    np.zeros(s, np.int64)
+                valid = (np.arange(b)[None, :] < counts[:, None]).reshape(-1)
+                if r == 7:
+                    valid = self.rng.random(s * b) < 0.5
+                births = np.where(valid, self.rng.integers(
+                    max(rnd - 5000, 0), rnd + 1, s * b), -1)
+                shard_ix = np.repeat(np.arange(s), b)
+                waves.append(dict(
+                    keys=self.t(self.rng.integers(-2 ** 31, 2 ** 31 - 1,
+                                                  s * b), torch.int32),
+                    valid=self.t(valid),
+                    ref=self.t(self.rng.integers(0, 1 << 30, s * b),
+                               torch.int32),
+                    births=self.t(births, torch.int32),
+                    cls=self.t((self.rng.integers(-1, s + 1, s * b) if cls
+                                else shard_ix), torch.int32),
+                    k=self.t(counts, torch.int32),
+                    total=self.t(self.rng.integers(0, 4 * b, s),
+                                 torch.int32),
+                    occ=self.t(self.rng.integers(0, 1 << 20, s),
+                               torch.int32),
+                    over=torch.tensor(r == 6, device=self.dev), shards=s))
+            out = {}
+            for face, fn in (("kern", obs_record),
+                             ("plain", obs_record_plain)):
+                tp, sp = planes[face]
+                out[face] = []
+                for w in waves:
+                    fn(tp, sp, **w)
+                    out[face].append([x.clone() for p in (tp, sp)
+                                      if p is not None for x in p])
+            for got, want in zip(out["kern"], out["plain"]):
+                self.same("obs_record_mesh", got, want)
 
     def pop_batch(self, b):
         return [self.t(self.np.full(b, x, self.np.int32))
@@ -1296,15 +1712,10 @@ class Smoke:
         """The JAX package's fifo_fanout golden run, on the card, host_syncs
         included (fused); the legacy loop reads back once per wave."""
         torch = self.torch
-
-        def step(acc, vals, valid):
-            acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
-            cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
-            return acc, cv, (valid & (vals < 32))[:, None]
-
         out = {}
         for fused in (True, False):
-            r = rt.RoundRunner(step, capacity_log2=8, batch=16, fused=fused)
+            r = rt.RoundRunner(golden_tree_step(torch), capacity_log2=8,
+                               batch=16, fused=fused)
             acc, st = r.run([1], acc=torch.zeros(80, dtype=torch.int32,
                                                  device=self.dev))
             got = {"stats": [r.stats[k] for k in STATS],
@@ -1545,17 +1956,6 @@ class Smoke:
         span digests, the stats and one readback."""
         torch = self.torch
 
-        def tel_digest(tel):
-            rows = [(r.round, r.imbalance, r.min_key, r.max_key,
-                     int(r.overflow), tuple(r.pops), tuple(r.pushes),
-                     tuple(r.occupancy)) for r in tel.records]
-            return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
-
-        def fifo_step(acc, vals, valid):
-            acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
-            cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
-            return acc, cv, (valid & (vals < 32))[:, None]
-
         def heap_step(acc, keys, vals, valid):
             acc = acc.index_add(0, torch.where(valid, vals % 97, 0),
                                 valid.int())
@@ -1570,7 +1970,8 @@ class Smoke:
             kw = dict(telemetry=tel, spans=sp, batch=16)
             zeros = dict(dtype=torch.int32, device=self.dev)
             if name == "fifo":
-                r = rt.RoundRunner(fifo_step, capacity_log2=8, **kw)
+                r = rt.RoundRunner(golden_tree_step(torch), capacity_log2=8,
+                                   **kw)
                 acc, st = r.run([1], acc=torch.zeros(80, **zeros))
             else:
                 r = rt.PriorityRoundRunner(heap_step, capacity_log2=9, **kw)
@@ -1722,6 +2123,336 @@ class Smoke:
                     raise AssertionError(f"{path}: {name} launched "
                                          f"{self.launches[path].get(name)} "
                                          f"times in {rounds} rounds")
+        return info
+
+    # -- phase mesh: the FIFO mesh on one card -------------------------------
+
+    def mesh_run(self, K, fn):
+        """``fn()`` between CUDA events, with every launch count set to 0
+        just before and read just after; the counts are added to the mesh
+        path's.  Returns (fn's result, its launches, wall s, device s)."""
+        K.reset_launches()
+        out, wall, span = self.timed(fn)
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        path = self.launches["mesh"]
+        for k, v in got.items():
+            path[k] = path.get(k, 0) + v
+        return out, got, wall, span
+
+    def mesh_checks(self, label, got, rounds, names):
+        for name in names:
+            if got.get(name, 0) != rounds:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{got.get(name, 0)} times in {rounds} "
+                                     f"rounds")
+
+    def mesh_golden(self, K, rt, bfs, obs, make_mesh):
+        """The JAX package's mesh goldens on the card: the fanout tree at 1
+        and 2 shards with Telemetry(capacity=256), fused (one readback) and
+        legacy (the same state, a readback a round), and mesh BFS on
+        road_like(144) at batch 32, 1 and 2 shards."""
+        torch, np = self.torch, self.np
+        out = {}
+        for name, g in MESH_GOLDEN.items():
+            mesh = make_mesh((g["shards"],), ("data",))
+            for fused in (True, False):
+                if name.startswith("mesh_bfs"):
+                    (dist, stats), _, _, _ = self.mesh_run(
+                        K, lambda: bfs.bfs_mesh_rounds(
+                            bfs.road_like(144), 0, mesh=mesh, batch=32,
+                            fused=fused))
+                    got = {"stats": [stats[k] for k in STATS]
+                           + [stats["host_syncs"]], "dist": digest(dist)}
+                else:
+                    tel = obs.Telemetry(capacity=256) if fused else None
+                    r = rt.MeshRoundRunner(
+                        golden_tree_step(torch), mesh=mesh, capacity_log2=8,
+                        batch=16, fused=fused, telemetry=tel,
+                        combine=lambda a: a.sum(0, dtype=torch.int32))
+                    (acc, st), _, _, _ = self.mesh_run(K, lambda: r.run(
+                        [1], acc=torch.zeros(80, dtype=torch.int32,
+                                             device=self.dev)))
+                    stats = r.stats
+                    got = {"stats": [stats[k] for k in STATS]
+                           + [stats["host_syncs"]],
+                           "acc": digest(acc.cpu().numpy()),
+                           "planes": digest(*(p.cpu().numpy()
+                                              for p in st[:4])),
+                           "head_tail": [st.head, st.tail]}
+                    if fused:
+                        got["tel"] = tel_digest(tel)
+                want = {k: v for k, v in g.items() if k != "shards"}
+                if not fused:           # the legacy loop reads back a round
+                    want = dict(want, stats=want["stats"][:5]
+                                + [want["stats"][0]])
+                    want.pop("tel", None)
+                if got != want:
+                    raise AssertionError(f"{name} (fused={fused}): {got}")
+                out[name + ("" if fused else "_legacy")] = got
+        return out
+
+    def mesh_functional(self, K, core):
+        """The functional faces on the card at the mesh's shape (4 shards x
+        1,024 requests, the masked ring waves): enqueue and dequeue rounds
+        from rings whose tickets start 8,192 below 2^31 and 2^32, then
+        claim rounds to empty; every granted value comes back once, in
+        order (host FIFO oracle)."""
+        np, torch = self.np, self.torch
+        rng = np.random.default_rng(16)
+        out = {}
+
+        def rounds(start):
+            st = core.dist_queue_init(4096, start=start)
+            sent, got = [], []
+            for r in range(6):
+                vals = self.t(rng.integers(1, 1 << 30, (MESH_SHARDS, BATCH)),
+                              torch.int32)
+                em = self.t(rng.random((MESH_SHARDS, BATCH)) < 0.7)
+                wm = self.t(rng.random((MESH_SHARDS, BATCH)) < 0.6)
+                st, granted = core.dist_enqueue_round(st, vals, em)
+                st, dv, ok = core.dist_dequeue_round(st, wm)
+                sent += vals[granted].tolist()
+                got += dv[ok].tolist()
+            while int(st.occupancy) > 0:
+                st, cv, cok = core.dist_claim_round(
+                    st, int(st.occupancy), BATCH, MESH_SHARDS)
+                got += cv[cok].tolist()
+            if got != sent:
+                raise AssertionError(f"mesh functional rounds from {start}: "
+                                     f"{len(got)} values back of "
+                                     f"{len(sent)}")
+            return {"sent": len(sent), "tail": int(st.tail)}
+
+        for start in (2 ** 31 - 8192, 2 ** 32 - 8192):
+            res, got, _, _ = self.mesh_run(K, lambda: rounds(start))
+            out[str(start)] = dict(res, launches=got)
+        return out
+
+    def mesh_bfs_road(self, K, bfs):
+        """Mesh BFS on road_like(215^2) at 4 shards and batch 1,024,
+        replicated (2^20 slots) and sharded (four rings of 2^18): dist =
+        row + col, the two dists equal, one readback, the grid waves once
+        a round; each run after a first that captures its round."""
+        np, torch = self.np, self.torch
+        side = MESH_ROAD_SIDE
+        g = bfs.road_like(side * side)
+        v = np.arange(g.n)
+        want = (v // side + v % side).astype(np.int32)
+        out, dists = {}, {}
+        for sharded in (False, True):
+            label = "road_sharded" if sharded else "road"
+            runner, init_fn = bfs.bfs_mesh_rounds_runner(
+                g, shards=MESH_SHARDS, batch=BATCH, sharded=sharded)
+            runner.run([0], acc=init_fn(0), max_rounds=1_000_000)
+            (dist, _), got, wall, span = self.mesh_run(
+                K, lambda: runner.run([0], acc=init_fn(0),
+                                      max_rounds=1_000_000))
+            dist = dist.cpu().numpy()
+            if not np.array_equal(dist, want):
+                raise AssertionError(f"mesh {label}: dist != row + col")
+            st = runner.stats
+            self.loop_checks(f"mesh {label}", st, runner.sync_log)
+            sfx = "_sharded" if sharded else ""
+            self.mesh_checks(f"mesh {label}", got, st["rounds"],
+                             ("ring_dequeue_wave" + sfx,
+                              "ring_enqueue_wave" + sfx))
+            dists[sharded] = dist
+            out[label] = {
+                "n": g.n, "shards": MESH_SHARDS, "batch": BATCH,
+                "ring_slots": 2 << runner.capacity_log2,
+                **{k: st[k] for k in STATS}, "readbacks": st["host_syncs"],
+                "run_s": wall, "rounds_per_s": st["rounds"] / wall,
+                "device_us_per_round": span / st["rounds"] * 1e6,
+                "launches": got,
+                "round_graph": graph_nodes(runner._engine)}
+        if not np.array_equal(dists[False], dists[True]):
+            raise AssertionError("mesh road: sharded dist != replicated")
+        out["dist_exact"] = True
+        return out
+
+    def mesh_tree(self, K, rt, obs, make_mesh):
+        """The FIFO task tree at a real backlog on the mesh (4 shards x
+        batch 1,024, 2^23 slots replicated, four rings of 2^21 sharded)
+        and on RingEngine at batch 4,096: each against the numpy closure
+        of the seeds, the replicated mesh against RingEngine bit for bit
+        (stats, acc, planes, head/tail), timed in turns; then the
+        replicated and the sharded mesh with compact=True (each shard's
+        child row through wave_compact, the dense enqueue wave): the
+        ballot run's state; then the replicated mesh with Telemetry (4
+        shard rows) and Spans()."""
+        np, torch = self.np, self.torch
+        seeds = (np.random.default_rng(15).integers(
+            0, 2 ** 27, MESH_TREE_SEEDS) << 4).astype(np.int32)
+        want_acc, want_p, want_s, top = fifo_closure(np, seeds)
+        if top >= IDX_BOT - 1:
+            raise AssertionError("fifo tree: a payload reaches the ring's "
+                                 "empty markers")
+        mesh = make_mesh((MESH_SHARDS,), ("data",))
+        step = fifo_tree_step(torch)
+        sum32 = lambda a: a.sum(0, dtype=torch.int32)  # noqa: E731
+        runners = {
+            "replicated": rt.MeshRoundRunner(
+                step, mesh=mesh, capacity_log2=MESH_TREE_CAP_LOG2,
+                batch=BATCH, combine=sum32),
+            "sharded": rt.MeshRoundRunner(
+                step, mesh=mesh, capacity_log2=MESH_TREE_CAP_LOG2,
+                batch=BATCH, sharded=True, combine=sum32),
+            "single": rt.RoundRunner(step, capacity_log2=MESH_TREE_CAP_LOG2,
+                                     batch=MESH_SHARDS * BATCH)}
+
+        def run(r):
+            return r.run(seeds, acc=torch.zeros(4096, dtype=torch.int32,
+                                                device=self.dev),
+                         max_rounds=1_000_000)
+
+        out, final = {}, {}
+        for label, r in runners.items():
+            run(r)                               # capture
+            (acc, st), got, wall, span = self.mesh_run(K, lambda: run(r))
+            stats = r.stats
+            self.loop_checks(f"mesh tree {label}", stats, r.sync_log)
+            if not (np.array_equal(acc.cpu().numpy(), want_acc)
+                    and stats["processed"] == want_p
+                    and stats["spawned"] == want_s):
+                raise AssertionError(f"mesh tree {label}: acc or totals != "
+                                     f"the closure ({stats})")
+            if label != "single":
+                sfx = "_sharded" if label == "sharded" else ""
+                self.mesh_checks(f"mesh tree {label}", got, stats["rounds"],
+                                 ("ring_dequeue_wave" + sfx,
+                                  "ring_enqueue_wave" + sfx))
+            final[label] = (acc, st)
+            out[label] = {**{k: stats[k] for k in STATS},
+                          "readbacks": stats["host_syncs"],
+                          "first_timing": {"run_s": wall,
+                                           "device_span_s": span},
+                          "launches": got,
+                          "round_graph": graph_nodes(r._engine)}
+        (ra, rs), (sa, ss) = final["replicated"], final["single"]
+        if not ({k: out["replicated"][k] for k in STATS}
+                == {k: out["single"][k] for k in STATS}
+                and torch.equal(ra, sa)
+                and all(torch.equal(a, b) for a, b in zip(rs[:4], ss[:4]))
+                and (rs.head, rs.tail) == (ss.head, ss.tail)):
+            raise AssertionError("mesh tree: the replicated mesh != "
+                                 "RingEngine at batch 4,096")
+        out["replicated_equals_ring_engine"] = True
+        out["sharded_equals_closure"] = True
+        # timed in turns (replicated, sharded, single) x 3
+        times = {label: [] for label in runners}
+        for _ in range(3):
+            for label, r in runners.items():
+                _, wall, span = self.timed(lambda: run(r))
+                rounds = r.stats["rounds"]
+                times[label].append({
+                    "run_s": wall, "rounds_per_s": rounds / wall,
+                    "device_us_per_round": span / rounds * 1e6})
+        for label in runners:
+            out[label]["timed"] = {
+                "runs": times[label],
+                "median": {k: statistics.median(t[k] for t in times[label])
+                           for k in times[label][0]}}
+        # the compacted publish (compact=True): each shard's child row
+        # through wave_compact, then the dense enqueue wave; the state of
+        # the ballot run
+        for label, sharded in (("replicated", False), ("sharded", True)):
+            r = rt.MeshRoundRunner(
+                step, mesh=mesh, capacity_log2=MESH_TREE_CAP_LOG2,
+                batch=BATCH, sharded=sharded, combine=sum32, compact=True)
+            run(r)                               # capture
+            (acc, st), got, wall, span = self.mesh_run(K, lambda: run(r))
+            stats = r.stats
+            self.loop_checks(f"mesh tree {label} compact", stats,
+                             r.sync_log)
+            acc0, st0 = final[label]
+            if not ({k: stats[k] for k in STATS}
+                    == {k: out[label][k] for k in STATS}
+                    and torch.equal(acc, acc0)
+                    and all(torch.equal(torch.as_tensor(a),
+                                        torch.as_tensor(b))
+                            for a, b in zip(st, st0))):
+                raise AssertionError(f"mesh tree {label} compact: state != "
+                                     f"the ballot run's")
+            sfx = "_sharded" if sharded else ""
+            rounds = stats["rounds"]
+            self.mesh_checks(f"mesh tree {label} compact", got, rounds,
+                             ("ring_dequeue_wave" + sfx,
+                              "ring_enqueue_wave" + sfx))
+            if got.get("wave_compact", 0) != MESH_SHARDS * rounds:
+                raise AssertionError(
+                    f"mesh tree {label} compact: wave_compact launched "
+                    f"{got.get('wave_compact', 0)} times in {rounds} "
+                    f"rounds of {MESH_SHARDS} shards")
+            out[label]["compact"] = {
+                "state_equals_ballot_run": True, "run_s": wall,
+                "device_us_per_round": span / rounds * 1e6,
+                "launches": got, "round_graph": graph_nodes(r._engine)}
+        # observability on the replicated mesh
+        tel = obs.Telemetry(2048, engine="mesh")
+        sp = obs.Spans(engine="mesh")
+        on = rt.MeshRoundRunner(step, mesh=mesh,
+                                capacity_log2=MESH_TREE_CAP_LOG2,
+                                batch=BATCH, combine=sum32, telemetry=tel,
+                                spans=sp)
+        run(on)                                  # capture
+        tel.reset()
+        sp.reset()
+        (acc, st), got, wall, span = self.mesh_run(K, lambda: run(on))
+        stats = on.stats
+        self.loop_checks("mesh tree obs", stats, on.sync_log)
+        recs = tel.records
+        checks = {
+            "records": len(recs), "rounds": stats["rounds"],
+            "pops": sum(sum(r.pops) for r in recs),
+            "pushes": sum(sum(r.pushes) for r in recs),
+            "max_imbalance": max(r.imbalance for r in recs),
+            "hist_total": sp.total, "dropped": tel.dropped,
+            "last_occupancy": recs[-1].occupancy,
+            "p50": sp.percentile(0.5), "p99": sp.percentile(0.99),
+            "max_wait": int(sp.max_wait.max())}
+        if not (torch.equal(acc, ra)
+                and all(torch.equal(a, b) for a, b in zip(st[:4], rs[:4]))
+                and (st.head, st.tail) == (rs.head, rs.tail)
+                and {k: stats[k] for k in STATS}
+                == {k: out["replicated"][k] for k in STATS}
+                and checks["records"] == stats["rounds"]
+                and [r.round for r in recs] == list(range(stats["rounds"]))
+                and checks["pops"] == stats["processed"]
+                and checks["pushes"] == stats["spawned"]
+                and checks["hist_total"] == stats["processed"]
+                and checks["dropped"] == 0
+                and checks["last_occupancy"] == [0] * MESH_SHARDS):
+            raise AssertionError(f"mesh tree obs: {checks}")
+        self.mesh_checks("mesh tree obs", got, stats["rounds"],
+                         ("ring_dequeue_wave_packed",
+                          "ring_enqueue_wave_packed", "obs_record_mesh"))
+        out["obs"] = dict(checks, state_equals_obs_off=True, run_s=wall,
+                          device_us_per_round=span / stats["rounds"] * 1e6,
+                          launches=got, round_graph=graph_nodes(on._engine))
+        out["closure"] = {"processed": want_p, "spawned": want_s}
+        return out
+
+    def mesh_path(self, K, rt, bfs):
+        """Phase mesh: the goldens, the functional faces, road 215^2 and
+        the task tree on the mesh engines, each run's launches added to
+        the mesh path's."""
+        from repro_torch import core, obs
+        from repro_torch.distributed import make_mesh
+        t0 = time.perf_counter()
+        info = {"phase": "mesh",
+                "golden": self.mesh_golden(K, rt, bfs, obs, make_mesh),
+                "functional": self.mesh_functional(K, core)}
+        info.update(self.mesh_bfs_road(K, bfs))
+        info["tree"] = self.mesh_tree(K, rt, obs, make_mesh)
+        for name in ("ring_enqueue_masked", "ring_dequeue_masked",
+                     "ring_dequeue_wave", "ring_dequeue_wave_sharded",
+                     "ring_dequeue_wave_packed", "ring_enqueue_wave",
+                     "ring_enqueue_wave_sharded", "ring_enqueue_wave_packed",
+                     "wave_compact", "obs_record_mesh"):
+            if not self.launches["mesh"].get(name):
+                raise AssertionError(f"mesh: {name} never launched")
+        info["launches"] = self.launches["mesh"]
+        info["seconds"] = time.perf_counter() - t0
         return info
 
     # -- phase 6: queue-driven BFS -------------------------------------------
@@ -2132,6 +2863,9 @@ def main() -> int:
     smoke.compare_heap(K)
     smoke.compare_heap_rider(K)
     smoke.compare_obs_record(K)
+    smoke.compare_ring_masked(K)
+    smoke.compare_grid_waves(K)
+    smoke.compare_obs_mesh(K)
     smoke.compare_frontier(K, {"road": (road, road_dist),
                                "kron": (qkron, qkron_dist)})
     smoke.compare_moe(K)
@@ -2175,6 +2909,11 @@ def main() -> int:
     obs_info = smoke.obs_path(K, rt, bfs, road, road_dist)
     emit_phase(obs_info)
 
+    # mesh. the FIFO mesh: its goldens, the functional faces, road 215^2
+    # and the task tree at 4 shards, against RingEngine and with obs on
+    mesh_info = smoke.mesh_path(K, rt, bfs)
+    emit_phase(mesh_info)
+
     # 6. queue-driven BFS on road 2048^2 and kron 2^20
     emit_phase(smoke.queue_path("road", road, K, bfs, road_dist))
     kron_q = smoke.queue_path("kron", qkron, K, bfs, qkron_dist)
@@ -2193,7 +2932,8 @@ def main() -> int:
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
-                                 road_dist, seen_gemma, obs_info)})
+                                 road_dist, seen_gemma, obs_info,
+                                 mesh_info)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2206,7 +2946,7 @@ def main() -> int:
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
-                road_dist, seen_gemma, obs_info):
+                road_dist, seen_gemma, obs_info, mesh_info):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -2388,8 +3128,9 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                              iters=iters)
                for fn in (K.ring_dequeue_wave, K.ring_dequeue_wave_plain)]
         # per consuming lane three plane words in and one out, per lane
-        # vals and ok out; head in and out, tail, live and k
-        return out + [batch * (12 + 4 + 4 + 1 + 4 * packed) + 17, batch]
+        # vals and ok out; head in and out, tail, live, k and the one
+        # shard's pops
+        return out + [batch * (12 + 4 + 4 + 1 + 4 * packed) + 21, batch]
 
     def enq_wave_times(nsl2, waves, nbytes, ops, packed=False):
         kw = dict(capacity=1 << (nsl2 - 1), nslots_log2=nsl2,
@@ -2414,70 +3155,45 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
             0, 1 << 22, b_enq, dtype=np.int32), device=dev), {"mask": m}))
     road_child //= iters
     # the mask in; per child its value and three plane words in and four
-    # out; head, tail in and out, live, total and over
+    # out; head, tail in and out, live, total, over and the one shard's
+    # pushes
     enq_road = enq_wave_times(nsl2, road_waves,
-                              b_enq + road_child * 32 + 18, b_enq)
-    kron_count = torch.tensor(kron_child, dtype=torch.int32, device=dev)
-    kron_waves = [(torch.as_tensor(rng.integers(0, 1 << 16, kron["capacity"],
-                                                dtype=np.int32), device=dev),
-                   {"count": kron_count})
+                              b_enq + road_child * 32 + 22, b_enq)
+    kron_count = torch.tensor([kron_child], dtype=torch.int32, device=dev)
+    kron_waves = [(torch.as_tensor(rng.integers(
+        0, 1 << 16, (1, kron["capacity"]), dtype=np.int32), device=dev),
+                   {"counts": kron_count})
                   for _ in range(iters)]
     # as above with the count in place of the mask
-    enq_kron = enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 21,
+    enq_kron = enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 25,
                               kron_child)
-
-    def wave_row(name, replaces, road_t, kron_t, road_shape, kron_shape,
-                 paths=("road", "kron")):
-        """``paths``: the launch counts charged at road's and at kron's
-        shape."""
-        b_kron = bound(kron_t[2], kron_t[3], ALU_OPS_PER_S)
-        b_road = bound(road_t[2], road_t[3], ALU_OPS_PER_S)[0]
-        kron_sub = dict(kron_shape, ms=kron_t[0][0], wall_ms=kron_t[0][1],
-                        plain_ms=kron_t[1][0], bound_ms=b_kron[0],
-                        bound_by=b_kron[1])
-        row(name, csrc + "ring_slots.cu", replaces, road_t[0], road_t[1],
-            None, road_t[2], road_t[3], dict(road_shape, kron=kron_sub),
-            excess=(smoke.launches[paths[0]].get(name, 0)
-                    * (road_t[0][0] - b_road)
-                    + (smoke.launches[paths[1]].get(name, 0)
-                       if paths[1] else 0) * (kron_t[0][0] - b_kron[0])))
-
-    wave_row("ring_dequeue_wave", "src/repro/kernels/ring_slots.py:184",
-             deq_road, deq_kron,
-             {"batch": b_deq, "ring_slots": ns,
-              "with": "the round's dequeue arithmetic "
-                      "(src/repro/runtime/fusedrounds.py:166-181)"},
-             {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2})
-    wave_row("ring_enqueue_wave", "src/repro/kernels/ring_slots.py:170",
-             enq_road, enq_kron,
-             {"mode": "ballot", "lanes": b_enq, "children": road_child,
-              "ring_slots": ns,
-              "with": "B1's ballot, the overflow test and the new tail "
-                      "(src/repro/runtime/fusedrounds.py:194-222)"},
-             {"mode": "dense", "lanes": kron["capacity"],
-              "children": kron_child, "ring_slots": 1 << kron_nsl2})
     # the packed instances at the same shapes: the spanned road run is the
     # path that launches them (kron runs no spans)
-    wave_row("ring_dequeue_wave_packed",
-             "src/repro/kernels/ring_slots.py:184 with deq_planes("
-             "birth_packed=True) (:130-167)",
-             deq_wave_times(nsl2, b_deq, True),
-             deq_wave_times(kron_nsl2, kron["batch"], True),
-             {"batch": b_deq, "ring_slots": ns, "births": "out"},
-             {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2},
-             paths=("obs_road", None))
-    wave_row("ring_enqueue_wave_packed",
-             "src/repro/kernels/ring_slots.py:170 with enq_planes("
-             "birth_round=) (:60-127)",
-             enq_wave_times(nsl2, road_waves, b_enq + road_child * 32 + 18,
-                            b_enq, True),
-             enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 21,
-                            kron_child, True),
-             {"mode": "ballot", "lanes": b_enq, "children": road_child,
-              "ring_slots": ns, "birth_round": int(clock)},
-             {"mode": "dense", "lanes": kron["capacity"],
-              "children": kron_child, "ring_slots": 1 << kron_nsl2},
-             paths=("obs_road", None))
+    deq_road_p = deq_wave_times(nsl2, b_deq, True)
+    deq_kron_p = deq_wave_times(kron_nsl2, kron["batch"], True)
+    enq_road_p = enq_wave_times(nsl2, road_waves,
+                                b_enq + road_child * 32 + 22, b_enq, True)
+    enq_kron_p = enq_wave_times(kron_nsl2, kron_waves, kron_child * 32 + 25,
+                                kron_child, True)
+
+    def wave_row(name, replaces, cells):
+        """One row of the round's wave kernels from ``cells``: (key, the
+        paths whose launches run at that shape, times as
+        ``deq_wave_times`` gives them, shape) for each shape, the first
+        the row's own and the rest under their keys; the launches of each
+        cell's paths are charged at its own shape."""
+        subs, excess = {}, 0.0
+        for key, paths, t, shape in cells:
+            b = bound(t[2], t[3], ALU_OPS_PER_S)
+            excess += sum(smoke.launches[p].get(name, 0)
+                          for p in paths) * (t[0][0] - b[0])
+            subs[key] = dict(shape, ms=t[0][0], wall_ms=t[0][1],
+                             plain_ms=t[1][0], bound_ms=b[0],
+                             bound_by=b[1])
+        t, shape = cells[0][2], cells[0][3]
+        subs.pop(cells[0][0])
+        row(name, csrc + "ring_slots.cu", replaces, t[0], t[1], None, t[2],
+            t[3], dict(shape, **subs), excess=excess)
 
     # B3 wave_compact: the kron run's child wave, compacted to capacity
     n3 = kron["batch"] * kron["fanout"]
@@ -2687,6 +3403,223 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         None, nbytes_o, BATCH,
         {"lanes": BATCH, "valid": k_obs, "trace_capacity":
          OBS_ROAD_CAPACITY, "classes": 1, "buckets": 16, "flows": 64})
+
+    # the mesh's instances (phase mesh), at the task tree's shapes: 4
+    # shards x batch 1,024, a 2^23-slot ring (four of 2^21 sharded), the
+    # tree's mean claim and child density.  Each call consumes or installs
+    # for real at successive tickets.  No single PyTorch call runs a ring
+    # wave or records a round.
+    tree = mesh_info["tree"]["replicated"]
+    s_m, lanes_m = MESH_SHARDS, MESH_SHARDS * BATCH
+    nsl2_m = MESH_TREE_CAP_LOG2 + 1
+    pops_m = tree["processed"] // tree["rounds"]
+    child_lanes_m = lanes_m * 2
+    dens_m = tree["spawned"] / (tree["rounds"] * child_lanes_m)
+
+    def grid_ring(sharded, fill):
+        """[planes, heads, tails] of the tree's rings holding ``fill``
+        values (each ring, sharded) from ticket 2^nsl2 on."""
+        nsl2 = nsl2_m - (2 if sharded else 0)
+        n = 1 << nsl2
+        lead = (s_m,) if sharded else ()
+        planes = [torch.zeros(lead + (n,), **card),
+                  torch.ones(lead + (n,), **card),
+                  torch.zeros(lead + (n,), **card),
+                  torch.full(lead + (n,), IDX_BOT, **card)]
+        for r in range(s_m if sharded else 1):
+            rows = [p[r] for p in planes] if sharded else planes
+            if fill:
+                K.ring_enqueue(*rows, torch.arange(n, n + fill, **card),
+                               torch.arange(fill, **card), n,
+                               nslots_log2=nsl2, idx_bot=IDX_BOT)
+        heads = torch.full(lead, n, **card)
+        return [planes, heads, heads + fill]
+
+    def mesh_deq_times(sharded, packed=False):
+        nsl2 = nsl2_m - (2 if sharded else 0)
+        kw = dict(batch=BATCH, nslots_log2=nsl2, idx_bot=IDX_BOT,
+                  birth_packed=packed, shards=None if sharded else s_m)
+        fill = iters * (BATCH if sharded else lanes_m)
+        rings = s_m if sharded else 1
+        # per consuming lane three plane words in and one out, per lane
+        # vals and ok out; head and tail (each ring's) in, head out, live,
+        # k and the shards' pops out
+        return [smoke.time_ms(lambda: grid_ring(sharded, fill),
+                              lambda r, i: fn(*r[0], r[1], r[2], live, **kw),
+                              iters=iters)
+                for fn in (K.ring_dequeue_wave, K.ring_dequeue_wave_plain)] \
+            + [pops_m * 16 + lanes_m * (5 + 4 * packed) + 12 * rings + 4
+               + 1 + 4 * s_m, lanes_m]
+
+    m_waves = [(torch.as_tensor(rng.integers(0, 1 << 30, child_lanes_m,
+                                             dtype=np.int32), device=dev),
+                torch.as_tensor(rng.random(child_lanes_m) < dens_m,
+                                device=dev)) for _ in range(iters)]
+    child_m = int(sum(int(m.sum()) for _, m in m_waves)) // iters
+
+    def mesh_enq_times(sharded, packed=False):
+        nsl2 = nsl2_m - (2 if sharded else 0)
+        kw = dict(capacity=1 << (nsl2 - 1), nslots_log2=nsl2,
+                  idx_bot=IDX_BOT, shards=None if sharded else s_m,
+                  birth_round=clock if packed else None)
+        rings = s_m if sharded else 1
+        # the mask in; per child its value and three plane words in and
+        # four out; head, tail (each ring's) in, tail out, live, total,
+        # over and the shards' pushes
+        return [smoke.time_ms(lambda: grid_ring(sharded, 0),
+                              lambda r, i: fn(*r[0], r[1], r[2],
+                                              m_waves[i][0], live,
+                                              mask=m_waves[i][1], **kw),
+                              iters=iters)
+                for fn in (K.ring_enqueue_wave, K.ring_enqueue_wave_plain)] \
+            + [child_lanes_m + child_m * 32 + 4 * packed + 12 * rings + 6
+               + 4 * s_m, child_lanes_m]
+
+    def mesh_shape(wave, sharded, packed=False):
+        ring_slots = (1 << (nsl2_m - 2 * sharded)) * (s_m if sharded else 1)
+        if wave == "deq":
+            return {"shards": s_m, "batch": BATCH, "claims": pops_m,
+                    "ring_slots": ring_slots,
+                    "births": "out" if packed else None,
+                    "with": "src/repro/core/distqueue.py:" + (
+                        "663 (dist_sharded_claim_round)" if sharded else
+                        "428 (dist_claim_round)")}
+        return {"shards": s_m, "mode": "ballot", "lanes": child_lanes_m,
+                "children": child_m, "ring_slots": ring_slots,
+                "birth_round": int(clock) if packed else None,
+                "with": "src/repro/core/distqueue.py:" + (
+                    "689 (dist_sharded_publish_round)" if sharded else
+                    "296 (dist_publish_round)")}
+
+    # the round's two wave kernels: one row an instance, at road's shape
+    # (the row's own; the spanned road run's for the packed instances),
+    # kron's (``kron``) and the mesh tree's (``mesh``; the sharded
+    # instances have no other)
+    wave_row("ring_dequeue_wave", "src/repro/kernels/ring_slots.py:184", [
+        ("road", ("road",), deq_road,
+         {"batch": b_deq, "ring_slots": ns, "shards": 1,
+          "with": "the round's dequeue arithmetic "
+                  "(src/repro/runtime/fusedrounds.py:166-181)"}),
+        ("kron", ("kron",), deq_kron,
+         {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2}),
+        ("mesh", ("mesh",), mesh_deq_times(False),
+         mesh_shape("deq", False))])
+    wave_row("ring_enqueue_wave", "src/repro/kernels/ring_slots.py:170", [
+        ("road", ("road",), enq_road,
+         {"mode": "ballot", "lanes": b_enq, "children": road_child,
+          "ring_slots": ns, "shards": 1,
+          "with": "B1's ballot, the overflow test and the new tail "
+                  "(src/repro/runtime/fusedrounds.py:194-222)"}),
+        ("kron", ("kron",), enq_kron,
+         {"mode": "dense", "lanes": kron["capacity"],
+          "children": kron_child, "ring_slots": 1 << kron_nsl2}),
+        ("mesh", ("mesh",), mesh_enq_times(False),
+         mesh_shape("enq", False))])
+    wave_row("ring_dequeue_wave_packed",
+             "src/repro/kernels/ring_slots.py:184 with deq_planes("
+             "birth_packed=True) (:130-167)", [
+                 ("road", ("obs_road",), deq_road_p,
+                  {"batch": b_deq, "ring_slots": ns, "shards": 1,
+                   "births": "out"}),
+                 ("kron", (), deq_kron_p,
+                  {"batch": kron["batch"], "ring_slots": 1 << kron_nsl2}),
+                 ("mesh", ("mesh",), mesh_deq_times(False, True),
+                  mesh_shape("deq", False, True))])
+    wave_row("ring_enqueue_wave_packed",
+             "src/repro/kernels/ring_slots.py:170 with enq_planes("
+             "birth_round=) (:60-127)", [
+                 ("road", ("obs_road",), enq_road_p,
+                  {"mode": "ballot", "lanes": b_enq, "children": road_child,
+                   "ring_slots": ns, "shards": 1,
+                   "birth_round": int(clock)}),
+                 ("kron", (), enq_kron_p,
+                  {"mode": "dense", "lanes": kron["capacity"],
+                   "children": kron_child, "ring_slots": 1 << kron_nsl2}),
+                 ("mesh", ("mesh",), mesh_enq_times(False, True),
+                  mesh_shape("enq", False, True))])
+    wave_row("ring_dequeue_wave_sharded",
+             "src/repro/kernels/ring_slots.py:184", [
+                 ("mesh", ("mesh",), mesh_deq_times(True),
+                  mesh_shape("deq", True))])
+    wave_row("ring_enqueue_wave_sharded",
+             "src/repro/kernels/ring_slots.py:170", [
+                 ("mesh", ("mesh",), mesh_enq_times(True),
+                  mesh_shape("enq", True))])
+    # the standalone waves' masked instance: the tree's seed wave (65,536
+    # tickets, every lane live) on its 2^23-slot ring, and the functional
+    # rounds' dequeue (4 x 1,024 requests, 60 % live).  Per lane its
+    # ticket, flag and value in and ok out; per live lane three plane
+    # words in and four out (enqueue), three in and one out and its value
+    # out (dequeue).
+    seed_n = MESH_TREE_SEEDS
+    enq_m = [(torch.arange(n0, n0 + seed_n, **card),
+              torch.arange(seed_n, **card))
+             for n0 in range(1 << nsl2_m, (1 << nsl2_m) + iters * seed_n,
+                             seed_n)]
+    all_live = torch.ones(seed_n, dtype=torch.bool, device=dev)
+    head_m = torch.tensor([1 << nsl2_m], **card)
+    masked = [smoke.time_ms(
+        lambda: grid_ring(False, 0)[0],
+        lambda r, i: fn(*r, enq_m[i][0], enq_m[i][1], head_m,
+                        nslots_log2=nsl2_m, idx_bot=IDX_BOT,
+                        active=all_live), iters=iters)
+        for fn in (K.ring_enqueue, K.ring_enqueue_plain)]
+    row("ring_enqueue_masked", csrc + "ring_slots.cu",
+        "src/repro/kernels/ring_slots.py:170 (enq_planes(active=))",
+        masked[0], masked[1], None, seed_n * (10 + 28) + 4, seed_n,
+        {"lanes": seed_n, "live": seed_n, "ring_slots": 1 << nsl2_m})
+    dq_live = torch.as_tensor(rng.random(lanes_m) < 0.6, device=dev)
+    n_live = int(dq_live.sum())
+    deq_m = [torch.arange(n0, n0 + lanes_m, **card)
+             for n0 in range(1 << nsl2_m, (1 << nsl2_m) + iters * lanes_m,
+                             lanes_m)]
+    masked = [smoke.time_ms(
+        lambda: grid_ring(False, iters * lanes_m)[0],
+        lambda r, i: fn(*r, deq_m[i], nslots_log2=nsl2_m, idx_bot=IDX_BOT,
+                        active=dq_live), iters=iters)
+        for fn in (K.ring_dequeue, K.ring_dequeue_plain)]
+    row("ring_dequeue_masked", csrc + "ring_slots.cu",
+        "src/repro/kernels/ring_slots.py:184 (deq_planes(active=))",
+        masked[0], masked[1], None, lanes_m * 10 + n_live * 16, lanes_m,
+        {"lanes": lanes_m, "live": n_live, "ring_slots": 1 << nsl2_m})
+    # obs_record over the mesh's 4 shards: one tree round's record, the
+    # run's mean claims valid, a trace plane of 2,048 rows, spans of 16
+    # buckets stacked 4 shards.  Bytes as for obs_record, with the row's
+    # words and the flow exemplar's a shard.
+    valid_m = (torch.arange(BATCH, device=dev)[None, :]
+               < pops_m // s_m).expand(s_m, BATCH).reshape(-1).contiguous()
+    wave_m = dict(
+        keys=torch.as_tensor(rng.integers(0, 1 << 30, lanes_m,
+                                          dtype=np.int32), device=dev),
+        valid=valid_m,
+        births=torch.as_tensor(rng.integers(1000, 5000, lanes_m,
+                                            dtype=np.int32), device=dev),
+        cls=torch.arange(s_m, **card).repeat_interleave(BATCH),
+        k=torch.full((s_m,), pops_m // s_m, **card),
+        total=torch.full((s_m,), child_m // s_m, **card),
+        occ=torch.full((s_m,), 1 << 20, **card),
+        over=torch.zeros((), dtype=torch.bool, device=dev), shards=s_m)
+    wave_m["ref"] = wave_m["keys"]
+
+    def obs_mesh_setup():
+        z = span_init(s_m, lanes=BATCH, device=dev)
+        sp = type(z)(*(x.expand((s_m,) + x.shape).clone() for x in z))
+        sp.round.fill_(5000)
+        return (trace_init(2048, s_m, device=dev), sp)
+
+    n_valid_m = int(valid_m.sum())
+    row("obs_record_mesh", csrc + "obs_record.cu",
+        "src/repro/runtime/enginecore.py:312-319 (trace_record) and "
+        "src/repro/runtime/meshrounds.py:276-281 (span_record, span_tick "
+        "a shard); no pallas_call",
+        smoke.time_ms(obs_mesh_setup, lambda p, i: obs_record(*p, **wave_m)),
+        smoke.time_ms(obs_mesh_setup,
+                      lambda p, i: obs_record_plain(*p, **wave_m)),
+        None, lanes_m * 5 + n_valid_m * (8 + 16) + 20 + 8 + 1
+        + s_m * (12 + 12 + 16 + 8 + 8 + 16), lanes_m,
+        {"shards": s_m, "lanes": lanes_m, "valid": n_valid_m,
+         "trace_capacity": 2048, "classes": s_m, "buckets": 16,
+         "flows": 64})
 
     # B5 frontier_expand: the BFS level with the most edges of the kron
     # 2^20 graph (the row's ms), and of the road graph and its level with

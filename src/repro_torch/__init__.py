@@ -10,9 +10,11 @@ CPU only when the caller passes ``device="cpu"``.
 
 Ported so far: the G-LFQ and G-PQ round engines (``runtime``) with their
 trace and span planes (``obs``), their kernels and the BFS frontier
-kernel (``kernels``), round-engine and queue-driven BFS (``apps.bfs``),
-and serving over the dense and MoE model families (``serving``,
-``models``, ``configs``).
+kernel (``kernels``), round-engine, queue-driven and mesh BFS
+(``apps.bfs``), the FIFO mesh (``core.distqueue``, ``distributed``,
+``runtime.meshrounds``: the replicated and the sharded ring, the shard
+axis a tensor dimension on one card), and serving over the dense and
+MoE model families (``serving``, ``models``, ``configs``).
 """
 
 __version__ = "0.1.0"

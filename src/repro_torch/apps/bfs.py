@@ -13,7 +13,12 @@ delaunay-like) and produce CSR arrays identical to the reference's.
 * ``bfs_baseline`` is the Gunrock-style comparison: a dense frontier mask
   swept over every edge each level, with no queue.
 
-The host-runtime and mesh BFS variants come with their slices.
+* ``bfs_mesh_rounds`` runs it through ``MeshRoundRunner``: the mesh's
+  shards on one card, each relaxing its claimed slice of the round with
+  packed (distance, vertex) payloads and its own labels, min-combined
+  at quiescence.
+
+The host-runtime BFS variant comes with its slice.
 """
 
 from __future__ import annotations
@@ -167,6 +172,127 @@ def bfs_rounds(g: CSRGraph, source: int = 0, *, batch: int = 64,
                                         sync_every=sync_every,
                                         telemetry=telemetry, spans=spans,
                                         device=device)
+    dist, _ = runner.run([source], acc=init_fn(source),
+                         max_rounds=max_rounds)
+    return dist.cpu().numpy(), dict(runner.stats)
+
+
+def bfs_mesh_rounds_runner(g: CSRGraph, *, mesh=None, shards: int = None,
+                           axis: str = "data", batch: int = 64,
+                           fused: bool = True, sharded: bool = False,
+                           sync_every: int = 0, capacity_log2: int = None,
+                           telemetry=None, compact=None, device="cuda"):
+    """Build the mesh BFS runner on ``device`` (reference
+    ``bfs_mesh_rounds_runner``): frontier vertices flow through the mesh
+    ring (replicated, or one ring a shard with ``sharded=True``), each
+    shard steps its claimed slice of the round, and the children publish
+    back in one launch.  ``mesh`` defaults to ``make_mesh((shards,),
+    (axis,))`` with one shard.
+
+    The payload packs ``(distance, vertex)`` as ``d * n + v``, so a claim
+    is self-contained: a shard can relax a vertex it has never seen.  A
+    claim expands only if its distance improves the shard's own label;
+    the labels are min-combined at quiescence, which converges to exact
+    BFS distances.  ``sharded=True`` is the port's own option (the
+    reference's runner builds the replicated ring only): it runs the same
+    search on ``ShardedMeshRingEngine`` and gives the same distances, but
+    not the same totals, since the sharded claim drains the fullest rings
+    first, so the claims arrive in another order and this
+    label-correcting search re-expands other vertices.  Returns ``(runner, init_fn)``;
+    ``init_fn(source)`` builds the label accumulator."""
+    from ..distributed import make_mesh
+    from ..runtime import MeshRoundRunner
+
+    dev = resolve_device(device)
+    n = g.n
+    if mesh is None:
+        mesh = make_mesh((shards or 1,), (axis,))
+    nshards = int(mesh.shape[axis])
+    if n * (n + 2) >= 2 ** 31:
+        raise ValueError(f"graph too large for packed (d, v) payloads: "
+                         f"n={n} needs n*(n+2) < 2^31")
+    deg = np.diff(g.row_ptr).astype(np.int64)
+    fan = max(int(deg.max()) if n else 0, 1)
+    # the in-batch winner key is nd * (batch * fan) + order, nd <= n
+    if (n + 1) * batch * fan >= 2 ** 31:
+        raise ValueError(f"batch {batch} x max degree {fan} too wide for "
+                         f"int32 winner keys on n={n}: needs "
+                         f"(n+1)*batch*fan < 2^31")
+    nbr = np.full((n, fan), -1, np.int32)
+    rows = np.repeat(np.arange(n), deg)
+    pos = np.arange(g.m) - np.repeat(g.row_ptr[:-1].astype(np.int64), deg)
+    nbr[rows, pos] = g.col_idx
+    nbr_t = torch.from_numpy(nbr).to(dev)
+    big = np.iinfo(np.int32).max
+    bf = batch * fan
+    order = torch.arange(bf, dtype=torch.int32, device=dev)
+
+    def step(dist, vals, valid):
+        v = torch.where(valid, vals % n, 0)
+        d = torch.where(valid, vals // n, 0)
+        # expand unless the shard's label already beats the claim (labels
+        # are real path lengths >= the true distance; claims equal to the
+        # label re-expand but spawn only improving children)
+        fresh = valid & (d <= dist[v])
+        ext = torch.cat([dist, dist.new_full((1,), big)])   # n: dropped
+        ext.scatter_reduce_(0, torch.where(fresh, v, n).long(), d, "amin")
+        dist = ext[:n]
+        w = torch.where(fresh[:, None], nbr_t[v], -1)          # (B, F)
+        wc = w.clamp(0, n - 1)
+        nd = torch.broadcast_to((d + 1)[:, None], w.shape)
+        elig = (w >= 0) & (nd < dist[wc])
+        # in-batch winner per target: the least nd, then row-major order
+        key = nd.reshape(-1) * bf + order
+        ef, wf, ndf = elig.reshape(-1), w.reshape(-1), nd.reshape(-1)
+        tgt = torch.where(ef, wf, n).long()
+        claim = torch.full((n + 1,), big, dtype=torch.int32, device=dev)
+        claim.scatter_reduce_(0, tgt, torch.where(ef, key, big), "amin")
+        win = ef & (claim[tgt] == key)
+        ext = torch.cat([dist, dist.new_full((1,), big)])
+        ext.scatter_reduce_(0, torch.where(win, wf, n).long(), ndf, "amin")
+        cv = torch.where(win, ndf * n + wf.clamp(0, n - 1), 0)
+        return ext[:n], cv.reshape(w.shape), win.reshape(w.shape)
+
+    def combine(stacked):                              # (shards, n) labels
+        m = stacked.min(0).values
+        return torch.where(m == big, -1, m)
+
+    if capacity_log2 is None:
+        capacity_log2 = max(
+            int(np.ceil(np.log2(max(2 * n * nshards, 4 * batch * nshards)))),
+            4)
+    runner = MeshRoundRunner(step, mesh=mesh, axis=axis,
+                             capacity_log2=capacity_log2, batch=batch,
+                             fused=fused, sharded=sharded,
+                             sync_every=sync_every, combine=combine,
+                             telemetry=telemetry, compact=compact,
+                             device=dev)
+
+    def init_fn(source: int):
+        # every label unvisited: the source's 0 arrives with its seed
+        # claim (set here, it would make that claim non-improving)
+        del source
+        return torch.full((n,), big, dtype=torch.int32, device=dev)
+
+    return runner, init_fn
+
+
+def bfs_mesh_rounds(g: CSRGraph, source: int = 0, *, mesh=None,
+                    shards: int = None, batch: int = 64, fused: bool = True,
+                    sharded: bool = False, sync_every: int = 0,
+                    max_rounds: int = 100_000, device="cuda"
+                    ) -> Tuple[np.ndarray, Dict]:
+    """BFS on the mesh round engine over one or more shards, on
+    ``device`` ("cuda" by default): exact distances at quiescence, one
+    readback a drained run when ``fused=True``.  With ``sharded=True``
+    the processed and spawned totals depend on the sharded claim's order
+    (see ``bfs_mesh_rounds_runner``).  Returns (dist as numpy int32,
+    stats)."""
+    runner, init_fn = bfs_mesh_rounds_runner(g, mesh=mesh, shards=shards,
+                                             batch=batch, fused=fused,
+                                             sharded=sharded,
+                                             sync_every=sync_every,
+                                             device=device)
     dist, _ = runner.run([source], acc=init_fn(source),
                          max_rounds=max_rounds)
     return dist.cpu().numpy(), dict(runner.stats)

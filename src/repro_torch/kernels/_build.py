@@ -44,11 +44,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "wavefaa": {"repro_wavefaa": (_P, _P, _P, _P, _P, _I, _P)},
     "ring_slots": {
-        "repro_ring_dequeue": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-        "repro_ring_enqueue": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _P),
-        "repro_ring_dequeue_wave": (_P,) * 11 + (_I, _I, _I, _P),
-        "repro_ring_enqueue_wave": (_P,) * 13 + (_I, _I, _I, _I, _P),
+        "repro_ring_dequeue": (_P,) * 8 + (_I, _I, _I, _P),
+        "repro_ring_enqueue": (_P,) * 9 + (_I, _I, _I, _P),
+        "repro_ring_dequeue_wave": (_P,) * 12 + (_I,) * 5 + (_P,),
+        "repro_ring_enqueue_wave": (_P,) * 14 + (_I,) * 6 + (_P,),
     },
     "compact": {"repro_wave_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
     "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P),
@@ -62,19 +61,22 @@ SIGNATURES = {
                                                                _P)},
     "loop": {"repro_loop_create": (_P,) * 7, "repro_loop_launch": (_P, _P),
              "repro_loop_destroy": (_P, _P)},
-    "obs_record": {"repro_obs_record": (_P,) * 16 + (_I,) * 5 + (_P,)},
+    "obs_record": {"repro_obs_record": (_P,) * 16 + (_I,) * 6 + (_P,)},
 }
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
-                            "ring_enqueue": 0, "ring_dequeue_wave": 0,
+                            "ring_enqueue": 0, "ring_dequeue_masked": 0,
+                            "ring_enqueue_masked": 0, "ring_dequeue_wave": 0,
                             "ring_enqueue_wave": 0,
                             "ring_dequeue_wave_packed": 0,
-                            "ring_enqueue_wave_packed": 0, "wave_compact": 0,
+                            "ring_enqueue_wave_packed": 0,
+                            "ring_dequeue_wave_sharded": 0,
+                            "ring_enqueue_wave_sharded": 0, "wave_compact": 0,
                             "heap_apply": 0, "heap_apply_rider": 0,
                             "frontier_expand": 0, "expert_tickets": 0,
                             "flash_attention": 0, "obs_record": 0,
-                            "device_loop": 0}
+                            "obs_record_mesh": 0, "device_loop": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

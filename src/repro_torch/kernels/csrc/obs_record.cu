@@ -9,30 +9,35 @@
 // same work is some twenty 0-d kernels a round, each a node of the
 // captured round at about 1.5 us; here it is one node.
 //
-// One block over the claim wave's B lanes (the engine's batch):
-//   * trace plane (scalars (C, 5), pershard (C, 1, 3), count): the
-//     extrema of keys[i] over the valid lanes (KEY_SENTINEL / -KEY_SENTINEL
-//     when none), then thread 0 writes row count % C = (count, 0, min,
-//     max, over) and (k, total, occ), and bumps count.  The round index
-//     recorded is the plane's own count, as the engines record it;
-//   * span plane (hist (B, K, NB + 1), flows (F, 4), fcount, round):
-//     valid lane i takes sojourn s = max(round - births[i], 0), row =
-//     clamp(cls[i], 0, K - 1) (0 without cls) and bucket = min(32 -
-//     clz(s), NB - 1) (0 for s = 0), bumps hist[i][row][bucket] and raises
-//     hist[i][row][NB] to s.  The histogram is lane-major, so each lane
-//     owns its slice: no atomics.  Thread 0 then writes lane 0's flow
-//     exemplar (round - s, round, row, ref[0]) at fcount % F when lane 0
-//     is valid, bumps fcount, and ticks round.
+// One block over the claim wave's S x B lanes (S shards of the engine's
+// batch; S = 1 for the chip engines, S > 1 for the mesh engines, whose
+// reference records the same row and plane per shard, meshrounds.py):
+//   * trace plane (scalars (C, 5), pershard (C, S, 3), count): the
+//     extrema of keys[i] over the valid lanes of every shard
+//     (KEY_SENTINEL / -KEY_SENTINEL when none), then thread 0 writes row
+//     count % C = (count, max(pops) - min(pops), min, max, over) and
+//     thread s shard s's (pops, pushes, occ), and count is bumped.  The
+//     round index recorded is the plane's own count, as the engines
+//     record it;
+//   * span plane (hist (S, B, K, NB + 1), flows (S, F, 4), fcount (S,),
+//     round (S,)): valid lane i of shard s takes sojourn s = max(round[s]
+//     - births[i], 0), row = clamp(cls[i], 0, K - 1) (0 without cls) and
+//     bucket = min(32 - clz(s), NB - 1) (0 for s = 0), bumps
+//     hist[i][row][bucket] and raises hist[i][row][NB] to s.  The
+//     histogram is lane-major, so each lane owns its slice.  Thread s
+//     then writes its shard's lane 0 flow exemplar (round - s, round,
+//     row, ref) at fcount[s] % F when that lane is valid, bumps
+//     fcount[s], and ticks round[s].
 // Either plane may be absent (null pointers).  Nothing outlives the
 // launch, so a graph replay needs no reset.
 //
 // Latency: one round trip to memory before the barrier.  Every lane loads
 // the clock, its flag, key, birth and class together (a lane's key and
-// birth are read whether it is valid or not), thread 0 the cursors, the
-// round's words and lane 0's besides; a valid lane then updates its two
+// birth are read whether it is valid or not), thread 0 the cursor and the
+// overflow flag, thread s its shard's words and lane 0's besides; a valid lane then updates its two
 // histogram words with reductions (atomicAdd, atomicMax), which return
-// nothing.  After the barrier warp 0 reduces the extrema and thread 0
-// only stores.
+// nothing.  After the barrier warp 0 reduces the extrema (the keys' and
+// the pops') and threads 0..S-1 only store.
 //
 // Bound: valid a lane, and a valid lane's key and birth in and two
 // histogram words read and written, plus a 32-byte row and a few words:
@@ -58,12 +63,19 @@ __device__ __forceinline__ void warp_min_max(int32_t& mn, int32_t& mx) {
   }
 }
 
-// What thread 0 writes the rows from besides the extrema: the cursors,
-// the round's words and lane 0's, loaded by thread 0 at the start (all in
-// flight together) and used after the block's barrier.
+// What thread 0 writes the trace row from besides the extrema: the
+// cursor and the overflow flag, loaded at the start (in flight with the
+// lanes' loads) and used after the block's barrier.
 struct RowWords {
-  int32_t count = 0, fcount = 0, k = 0, total = 0, occ = 0, over = 0;
-  int32_t valid0 = 0, birth0 = 0, cls0 = 0, ref0 = 0;
+  int32_t count = 0, over = 0;
+};
+
+// What thread t < S writes shard t's rows from: its pops, pushes and
+// occupancy (trace) and its flow exemplar's words, lane 0 of the shard's
+// wave (span), loaded at the start like RowWords.
+struct ShardWords {
+  int32_t pops = 0, pushes = 0, occ = 0;
+  int32_t fcount = 0, valid0 = 0, birth0 = 0, cls0 = 0, ref0 = 0, rnd = 0;
 };
 
 __global__ void __launch_bounds__(kObsThreads)
@@ -82,38 +94,49 @@ __global__ void __launch_bounds__(kObsThreads)
                       int32_t* __restrict__ hist,
                       int32_t* __restrict__ flows,
                       int32_t* __restrict__ fcount,
-                      int32_t* __restrict__ round, int b, int capacity,
-                      int classes, int buckets, int flow_capacity) {
+                      int32_t* __restrict__ round, int b, int shards,
+                      int capacity, int classes, int buckets,
+                      int flow_capacity) {
   __shared__ int32_t s_mn[kObsThreads / 32], s_mx[kObsThreads / 32];
+  __shared__ int32_t s_pmn[kObsThreads / 32], s_pmx[kObsThreads / 32];
   const bool trace = scalars != nullptr;
   const bool span = hist != nullptr;
+  const int t = threadIdx.x;
   RowWords w;
-  if (threadIdx.x == 0) {
+  ShardWords sw;
+  if (t == 0 && trace) {
+    w.count = count[0];
+    w.over = over[0];
+  }
+  if (t < shards) {
     if (trace) {
-      w.count = count[0];
-      w.k = k[0];
-      w.total = total[0];
-      w.occ = occ[0];
-      w.over = over[0];
+      sw.pops = k[t];
+      sw.pushes = total[t];
+      sw.occ = occ[t];
     }
     if (span) {
-      w.fcount = fcount[0];
-      w.valid0 = valid[0];
-      w.birth0 = births[0];
-      w.cls0 = cls != nullptr ? cls[0] : 0;
-      w.ref0 = ref[0];
+      const int64_t l0 = static_cast<int64_t>(t) * b;
+      sw.fcount = fcount[t];
+      sw.valid0 = valid[l0];
+      sw.birth0 = births[l0];
+      sw.cls0 = cls != nullptr ? cls[l0] : 0;
+      sw.ref0 = ref[l0];
+      sw.rnd = round[t];
     }
   }
-  // every thread reads the clock itself (one broadcast load a warp)
-  const uint32_t rnd = span ? static_cast<uint32_t>(round[0]) : 0u;
+  const int32_t slot_count = trace ? count[0] : 0;  // one broadcast load
   int32_t mn = kKeySentinel, mx = -kKeySentinel;
-  for (int i = threadIdx.x; i < b; i += blockDim.x) {
+  const int64_t lanes = static_cast<int64_t>(shards) * b;
+  for (int64_t i = t; i < lanes; i += blockDim.x) {
     // a lane's words load with its flag, not after it: one round trip
     // before the histogram's
     const bool v = valid[i];
     const int32_t key = trace ? keys[i] : 0;
     const int32_t birth = span ? births[i] : 0;
     int32_t row = span && cls != nullptr ? cls[i] : 0;
+    // the shard's clock (one broadcast load a warp while a warp stays
+    // inside one shard)
+    const uint32_t rnd = span ? static_cast<uint32_t>(round[i / b]) : 0u;
     if (!v) continue;
     if (trace) {
       mn = key < mn ? key : mn;
@@ -125,78 +148,88 @@ __global__ void __launch_bounds__(kObsThreads)
       row = row < 0 ? 0 : (row > classes - 1 ? classes - 1 : row);
       int bucket = s > 0 ? 32 - __clz(s) : 0;
       bucket = bucket < buckets - 1 ? bucket : buckets - 1;
-      int32_t* h = hist + (static_cast<int64_t>(i) * classes + row) *
-                              (buckets + 1);
+      int32_t* h = hist + (i * classes + row) * (buckets + 1);
       // reductions, not loads: nothing comes back (each lane owns its
       // slice, so the order of the updates cannot show)
       atomicAdd(h + bucket, 1);
       atomicMax(h + buckets, s);
     }
   }
+  // the pops' extrema (the imbalance) reduce beside the keys'
+  int32_t pmn = t < shards ? sw.pops : kKeySentinel;
+  int32_t pmx = t < shards ? sw.pops : -kKeySentinel;
   if (trace) {
     warp_min_max(mn, mx);
-    if ((threadIdx.x & 31) == 0) {
-      s_mn[threadIdx.x >> 5] = mn;
-      s_mx[threadIdx.x >> 5] = mx;
+    warp_min_max(pmn, pmx);
+    if ((t & 31) == 0) {
+      s_mn[t >> 5] = mn;
+      s_mx[t >> 5] = mx;
+      s_pmn[t >> 5] = pmn;
+      s_pmx[t >> 5] = pmx;
     }
   }
   __syncthreads();
-  if (threadIdx.x >= 32) return;
-  if (trace) {  // warp 0 reduces the warps' extrema
-    const bool w = threadIdx.x < (blockDim.x + 31) / 32;
-    mn = w ? s_mn[threadIdx.x] : kKeySentinel;
-    mx = w ? s_mx[threadIdx.x] : -kKeySentinel;
+  if (trace && t < 32) {  // warp 0 reduces the warps' extrema
+    const bool wv = t < (blockDim.x + 31) / 32;
+    mn = wv ? s_mn[t] : kKeySentinel;
+    mx = wv ? s_mx[t] : -kKeySentinel;
+    pmn = wv ? s_pmn[t] : kKeySentinel;
+    pmx = wv ? s_pmx[t] : -kKeySentinel;
     warp_min_max(mn, mx);
+    warp_min_max(pmn, pmx);
   }
-  if (threadIdx.x != 0) return;
-  if (trace) {
+  const int64_t slot = trace ? static_cast<int64_t>(
+      static_cast<uint32_t>(slot_count) % static_cast<uint32_t>(capacity)) : 0;
+  if (trace && t == 0) {
     const int32_t c = w.count;
-    const int64_t slot = static_cast<int64_t>(
-        static_cast<uint32_t>(c) % static_cast<uint32_t>(capacity));
     int32_t* row = scalars + slot * 5;
     row[0] = c;
-    row[1] = 0;  // imbalance: max - min of one shard's pops
+    row[1] = pmx - pmn;  // imbalance: max - min of the shards' pops
     row[2] = mn;
     row[3] = mx;
     row[4] = w.over ? 1 : 0;
-    int32_t* per = pershard + slot * 3;
-    per[0] = w.k;
-    per[1] = w.total;
-    per[2] = w.occ;
     count[0] = c + 1;
   }
+  if (t >= shards) return;
+  if (trace) {
+    int32_t* per = pershard + (slot * shards + t) * 3;
+    per[0] = sw.pops;
+    per[1] = sw.pushes;
+    per[2] = sw.occ;
+  }
   if (span) {
-    if (w.valid0) {
-      int32_t s = static_cast<int32_t>(
-          rnd - static_cast<uint32_t>(w.birth0));
+    const uint32_t rnd = static_cast<uint32_t>(sw.rnd);
+    if (sw.valid0) {
+      int32_t s = static_cast<int32_t>(rnd - static_cast<uint32_t>(sw.birth0));
       s = s > 0 ? s : 0;
-      int32_t row = w.cls0;
+      int32_t row = sw.cls0;
       row = row < 0 ? 0 : (row > classes - 1 ? classes - 1 : row);
-      const int32_t f = w.fcount;
-      int32_t* e = flows + static_cast<int64_t>(
-                               static_cast<uint32_t>(f) %
-                               static_cast<uint32_t>(flow_capacity)) * 4;
+      const int32_t f = sw.fcount;
+      int32_t* e = flows + (static_cast<int64_t>(t) * flow_capacity +
+                            static_cast<uint32_t>(f) %
+                                static_cast<uint32_t>(flow_capacity)) * 4;
       e[0] = static_cast<int32_t>(rnd - static_cast<uint32_t>(s));
       e[1] = static_cast<int32_t>(rnd);
       e[2] = row;
-      e[3] = w.ref0;
-      fcount[0] = f + 1;
+      e[3] = sw.ref0;
+      fcount[t] = f + 1;
     }
-    round[0] = static_cast<int32_t>(rnd + 1u);
+    round[t] = static_cast<int32_t>(rnd + 1u);
   }
 }
 
 }  // namespace repro
 
-// keys, ref, births, cls: (b,) int32 (keys null without a trace plane;
-// ref and births null without a span plane; cls null for class 0);
-// valid: (b,) bool; k, total, occ: 0-d int32 and over: 0-d bool (the
-// round's claims, installs, occupancy after it and overflow flag; read
+// S shards of b lanes each (S = 1: one chip engine's round).  keys, ref,
+// births, cls: (S * b,) int32 (keys null without a trace plane; ref and
+// births null without a span plane; cls null for class 0); valid:
+// (S * b,) bool; k, total, occ: (S,) int32 (a round's pops, pushes and
+// occupancy after it, by shard; 0-d when S = 1) and over: 0-d bool (read
 // with a trace plane).  Trace plane: scalars (capacity, 5), pershard
-// (capacity, 1, 3), count 0-d int32, or three nulls.  Span plane: hist
-// (b, classes, buckets + 1), flows (flow_capacity, 4), fcount and round
-// 0-d int32, or four nulls.  b >= 1.  Returns cudaGetLastError() after
-// the one launch.
+// (capacity, S, 3), count 0-d int32, or three nulls.  Span plane: hist
+// (S, b, classes, buckets + 1), flows (S, flow_capacity, 4), fcount and
+// round (S,) int32 (one clock a shard), or four nulls.  b >= 1, 1 <= S <=
+// kObsThreads.  Returns cudaGetLastError() after the one launch.
 extern "C" int repro_obs_record(const void* keys, const void* valid,
                                 const void* ref, const void* births,
                                 const void* cls, const void* k,
@@ -204,13 +237,16 @@ extern "C" int repro_obs_record(const void* keys, const void* valid,
                                 const void* over, void* scalars,
                                 void* pershard, void* count, void* hist,
                                 void* flows, void* fcount, void* round,
-                                int b, int capacity, int classes,
+                                int b, int shards, int capacity, int classes,
                                 int buckets, int flow_capacity,
                                 void* stream) {
   using namespace repro;
-  if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || shards < 1 || shards > kObsThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t lanes = static_cast<int64_t>(shards) * b;
   const int threads =
-      b >= kObsThreads ? kObsThreads : (b + 31) / 32 * 32;
+      lanes >= kObsThreads ? kObsThreads
+                           : static_cast<int>((lanes + 31) / 32 * 32);
   obs_record_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<const bool*>(valid),
       static_cast<const int32_t*>(ref), static_cast<const int32_t*>(births),
@@ -220,6 +256,6 @@ extern "C" int repro_obs_record(const void* keys, const void* valid,
       static_cast<int32_t*>(pershard), static_cast<int32_t*>(count),
       static_cast<int32_t*>(hist), static_cast<int32_t*>(flows),
       static_cast<int32_t*>(fcount), static_cast<int32_t*>(round), b,
-      capacity, classes, buckets, flow_capacity);
+      shards, capacity, classes, buckets, flow_capacity);
   return static_cast<int>(cudaGetLastError());
 }

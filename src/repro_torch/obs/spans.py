@@ -24,6 +24,9 @@ A ``SpanPlane`` is four int32 tensors on the engine's device:
 * ``round``  () — the run's round clock (``span_tick`` bumps it once a
   round, after the round's stamps and records).
 
+The mesh engines carry the plane stacked, one a shard under a leading
+shard axis; ``Spans`` folds the shards at the host as it folds lanes.
+
 Bucket 0 holds sojourn 0, bucket b >= 1 holds [2^(b-1), 2^b - 1], and
 the top bucket absorbs the tail: ``32 - clz(s)`` clamped, no float.
 
@@ -269,8 +272,18 @@ class Spans:
             acc = acc.reshape(-1, k, nbp1)
             hist2 = acc[..., :nbp1 - 1].sum(0)
             maxw2 = acc[..., nbp1 - 1].max(0)
-            rows, dropped = self._ring_rows(host.flows, int(host.fcount))
-            self._snap = (hist2, maxw2, rows, int(host.round), dropped)
+            # a stacked plane (the mesh engines: one a shard) folds its
+            # shards as it folds its lanes, and its flow rings one after
+            # another
+            flows = host.flows.reshape(-1, *host.flows.shape[-2:])
+            fcount = host.fcount.reshape(-1)
+            rows, dropped = [], 0
+            for f, c in zip(flows, fcount):
+                r, d = self._ring_rows(f, int(c))
+                rows.extend(r)
+                dropped += d
+            self._snap = (hist2, maxw2, rows, int(host.round.reshape(-1)[0]),
+                          dropped)
             self._dropped = dropped
         if self._gauges_stale:
             self._gauges_stale = False  # before publish: re-entry guard

@@ -2,20 +2,26 @@
 PyTorch port: ``RoundRunner`` over ``fusedrounds.RingEngine`` (FIFO) and
 ``PriorityRoundRunner`` over ``fusedrounds.HeapEngine`` (priority), each
 fused by default with a legacy per-round loop under ``fused=False``, and
-both configurations of ``enginecore.EngineCore``.  The fused engines
+both configurations of ``enginecore.EngineCore``, and the FIFO mesh
+(``meshrounds``: ``MeshRoundRunner`` over ``MeshRingEngine``, the
+replicated ring, and ``ShardedMeshRingEngine``, one ring a shard) with
+the shard axis as a tensor dimension on one card.  The fused engines
 carry ``repro_torch.obs`` trace and span planes when given
-``telemetry=`` / ``spans=``.  The mesh and host
-task-pool faces of ``repro.runtime`` come with later slices."""
+``telemetry=`` / ``spans=``.  The priority mesh and the host task-pool
+faces of ``repro.runtime`` come with later slices."""
 
 from .enginecore import (ENGINE_REGISTRY, EngineCore, EngineEntry,
                          PlaneGroup, PlaneRegistry, register_engine)
 from .fusedrounds import (IDX_BOT, HeapEngine, HeapState, PriorityStepFn,
                           RingEngine, RingState, StepFn, heap_init, ring_init)
+from .meshrounds import MeshRingEngine, MeshRoundRunner, ShardedMeshRingEngine
 from .rounds import PriorityRoundRunner, RoundRunner
 
 __all__ = [
     "ENGINE_REGISTRY", "EngineCore", "EngineEntry", "HeapEngine",
-    "HeapState", "IDX_BOT", "PlaneGroup", "PlaneRegistry",
+    "HeapState", "IDX_BOT", "MeshRingEngine", "MeshRoundRunner",
+    "PlaneGroup", "PlaneRegistry",
     "PriorityRoundRunner", "PriorityStepFn", "RingEngine", "RingState",
-    "RoundRunner", "StepFn", "heap_init", "register_engine", "ring_init",
+    "RoundRunner", "ShardedMeshRingEngine", "StepFn", "heap_init",
+    "register_engine", "ring_init",
 ]

@@ -14,7 +14,9 @@ An engine is a configuration of this core:
   False``.  The core runs rounds only while the loop condition holds, so
   it always passes a true ``live``.  ``sp`` (the span plane) and
   ``births`` (the heap's stamp plane) are given when spans are on: the
-  round stamps its installs with ``sp.round``.
+  round stamps its installs with ``sp.round``.  A mesh round's wave
+  carries its shards' pops, pushes and occupancies, recorded as one
+  trace row with per-shard columns and a stacked span plane.
 * ``_occ_of(qstate)`` — the occupancy as a 0-d int32 device tensor.
 * a ``PlaneRegistry`` describing the queue planes the engine carries.
 
@@ -53,6 +55,9 @@ stamps cap the round clock at ``SPAN_ROUND_CAP``: with spans on, the
 chunk loop clamps each chunk to it and raises the reference's error past
 it.  With both collectors off the captured round is the unobserved one,
 node for node.
+
+The mesh runners' legacy loop drives ``_drive`` too, with chunks of one
+round issued from the host: one readback a round, as the reference's.
 """
 
 from __future__ import annotations
@@ -163,11 +168,20 @@ class ObsWave(NamedTuple):
     """What a round hands its record: the claim wave's keys (the popped
     keys, or the FIFO payloads: the trace row's extrema and ``class_of``'s
     input), its ``valid`` lanes, the payloads (``ref``) and, with spans
-    on, the claimed items' birth rounds."""
+    on, the claimed items' birth rounds.  A mesh round's wave is its
+    (S, batch) claim grid flattened, with ``shards`` = S, each shard's
+    ``pops``, ``pushes`` and occupancy after the round (``occs``, (S,)
+    int32) for the trace row, and the class rows (``cls``) it records
+    without a ``class_of``."""
     keys: torch.Tensor
     valid: torch.Tensor
     ref: torch.Tensor
     births: Optional[torch.Tensor]
+    shards: Optional[int] = None
+    pops: Optional[torch.Tensor] = None
+    pushes: Optional[torch.Tensor] = None
+    occs: Optional[torch.Tensor] = None
+    cls: Optional[torch.Tensor] = None
 
 
 def new_carry(q, acc, device: torch.device, obs=(None, None, None)) -> Carry:
@@ -321,52 +335,73 @@ class EngineCore:
             self._registry = PlaneRegistry()
         return self._registry
 
-    def _register_obs_planes(self, births_shape=None) -> None:
+    def _register_obs_planes(self, shards: int = 1, *, stacked: bool = False,
+                             births_shape=None) -> None:
         """Register the trace, span and births groups (empty when their
-        collector is off), as the reference does; ``births_shape`` is the
+        collector is off), as the reference does: a trace plane of
+        ``shards`` per-shard columns, and with ``stacked`` (the mesh
+        engines) a span plane under a leading shard axis, sharded, one
+        class row a shard without ``class_of``.  ``births_shape`` is the
         heap's stamp plane (the ring packs its stamps into a flag
         plane)."""
         reg = self.registry
+        self._obs_layout = (shards, stacked)
         self._births_shape = births_shape
         tel = spn = births = None
         if self.telemetry is not None:
             c = self.telemetry.capacity
-            tel = (_sds((c, 5)), _sds((c, 1, 3)), _sds(()))
+            tel = (_sds((c, 5)), _sds((c, shards, 3)), _sds(()))
         if self.spans is not None:
             sp = self.spans
-            spn = (_sds((self.batch, sp.classes, sp.buckets + 1)),
-                   _sds((sp.flow_capacity, 4)), _sds(()), _sds(()))
+            lead = (shards,) if stacked else ()
+            spn = (_sds(lead + (self.batch, self._span_rows(shards, stacked),
+                                sp.buckets + 1)),
+                   _sds(lead + (sp.flow_capacity, 4)), _sds(lead),
+                   _sds(lead))
             if births_shape is not None:
                 births = _sds(births_shape)
         reg.register("trace", tel)
-        reg.register("span", spn)
+        reg.register("span", spn, sharded=stacked)
         reg.register("births", births)
 
     def loop_carry_bytes(self, shards: Optional[int] = None) -> int:
         """Per-shard bytes of registered carried planes, observability
         planes included (the workload's acc is excluded: it is the
-        caller's state, not the engine's)."""
+        caller's state, not the engine's); sharded groups divide by the
+        shard count."""
         return self.registry.bytes_per_shard(
             shards if shards is not None else getattr(self, "shards", 1))
 
     # -- observability planes -------------------------------------------------
 
-    def _tel_init(self):
-        """A fresh one-shard trace plane on the engine's device (telemetry
-        on), else None."""
+    def _span_rows(self, shards: int = 1, stacked: bool = False) -> int:
+        """Histogram rows: the collector's classes, or one a shard on a
+        stacked plane without ``class_of`` (reference ``_span_init``)."""
+        if stacked and self.spans.class_of is None:
+            return shards
+        return self.spans.classes
+
+    def _tel_init(self, shards: int = 1):
+        """A fresh trace plane of ``shards`` per-shard columns on the
+        engine's device (telemetry on), else None."""
         if self.telemetry is None:
             return None
-        return trace_init(self.telemetry.capacity, device=self.device)
+        return trace_init(self.telemetry.capacity, shards,
+                          device=self.device)
 
-    def _span_init(self):
+    def _span_init(self, shards: int = 1, *, stacked: bool = False):
         """A fresh span plane, one accumulator slice per batch lane (spans
-        on), else None."""
+        on), else None; ``stacked`` puts one plane a shard under a
+        leading shard axis."""
         if self.spans is None:
             return None
         sp = self.spans
-        return span_init(sp.classes, buckets=sp.buckets,
-                         flow_capacity=sp.flow_capacity, lanes=self.batch,
-                         device=self.device)
+        z = span_init(self._span_rows(shards, stacked), buckets=sp.buckets,
+                      flow_capacity=sp.flow_capacity, lanes=self.batch,
+                      device=self.device)
+        if stacked:
+            z = type(z)(*(x.expand((shards,) + x.shape).clone() for x in z))
+        return z
 
     def _births_init(self, shape):
         """A zeroed birth-stamp plane (spans on), else None: seeds are
@@ -377,7 +412,9 @@ class EngineCore:
 
     def _obs_init(self):
         """Fresh (trace, span, births) planes for one run."""
-        return (self._tel_init(), self._span_init(),
+        shards, stacked = getattr(self, "_obs_layout", (1, False))
+        return (self._tel_init(shards),
+                self._span_init(shards, stacked=stacked),
                 self._births_init(self._births_shape))
 
     def _span_cls(self, keys_or_vals):
@@ -407,10 +444,15 @@ class EngineCore:
         c.rounds.add_(1)
         c.occ.copy_(occ)
         if wave is not None:
+            cls = self._span_cls(wave.keys)
+            mesh = wave.shards is not None
             obs_record(c.tp, c.sp, keys=wave.keys, valid=wave.valid,
                        ref=wave.ref, births=wave.births,
-                       cls=self._span_cls(wave.keys), k=k, total=total,
-                       occ=occ, over=over)
+                       cls=wave.cls if cls is None else cls,
+                       k=wave.pops if mesh else k,
+                       total=wave.pushes if mesh else total,
+                       occ=wave.occs if mesh else occ, over=over,
+                       shards=wave.shards)
 
     def _device_loop(self, q, acc, obs) -> Tuple[Carry, DeviceLoop]:
         """The engine's kept carry and device loop for this shape of queue
@@ -486,7 +528,8 @@ class EngineCore:
         ``sync_every=0``, as in the reference; with spans on no chunk
         runs past ``span_round_cap``.  After each readback the trace plane
         ``tp`` and the span plane ``sp`` are drained into their
-        collectors."""
+        collectors (a loop that keeps no trace plane, the mesh runners'
+        legacy loop, records none, as the reference's)."""
         chunk = self.sync_every if self.sync_every > 0 else max_rounds
         rounds = host_syncs = 0
         while True:
@@ -506,7 +549,7 @@ class EngineCore:
                 "max_occupancy": max_occ, "drained": int(occ == 0),
                 "host_syncs": host_syncs,
             }
-            if self.telemetry is not None:
+            if self.telemetry is not None and tp is not None:
                 self.telemetry.drain(tp, sync=host_syncs - 1, wall_time=now)
                 self.telemetry.heartbeat(point)
                 self.telemetry.finish(self.stats)

@@ -183,7 +183,7 @@ class RingEngine(EngineCore):
         deq = ring_dequeue_wave(cyc, saf, enq, idx, head, tail, live,
                                 batch=self.batch, birth_packed=sp is not None,
                                 **kw)
-        vals, ok, k = deq[:3]
+        vals, ok, k = deq[0][0], deq[1][0], deq[2]     # the one shard's row
         acc, cvals, cmask = self.step_fn(acc, vals, ok)
         cm = torch.broadcast_to(cmask.bool(), cvals.shape).reshape(-1)
         cv = cvals.reshape(-1).to(torch.int32)
@@ -195,13 +195,13 @@ class RingEngine(EngineCore):
             wave = dict(mask=cm)
         else:
             (cv,), n_child = _compact(self, cm, (cv,), wdth)
-            wave = dict(count=n_child)
-        total, over = ring_enqueue_wave(
+            cv, wave = cv.reshape(1, -1), dict(counts=n_child.reshape(1))
+        total, over, _ = ring_enqueue_wave(
             cyc, saf, enq, idx, head, tail, cv, live, capacity=self.capacity,
             birth_round=None if sp is None else sp.round, **wave, **kw)
         obs = None
         if self._observed:               # FIFO: payload extrema and refs
-            obs = ObsWave(vals, ok, vals, deq[3] if sp is not None else None)
+            obs = ObsWave(vals, ok, vals, deq[4][0] if sp is not None else None)
         return st, acc, k, total, over, obs
 
     def _seed(self, st: RingState, initial: np.ndarray) -> RingState:

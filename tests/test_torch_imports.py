@@ -23,11 +23,17 @@ from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
                                  heap_pop_count, ring_dequeue,
                                  ring_dequeue_wave, ring_enqueue_wave,
                                  wave_compact, wavefaa)
+from repro_torch.core import (dist_queue_init,  # noqa: E402
+                              dist_sharded_queue_init)
+from repro_torch.distributed import make_mesh  # noqa: E402
+from repro_torch.kernels import (claim_schedule, deq_planes,  # noqa
+                                 enq_planes, priority_claim_schedule)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
-from repro_torch.runtime import (HeapEngine, PriorityRoundRunner,  # noqa
-                                 RingEngine, RoundRunner, heap_init,
-                                 ring_init)
+from repro_torch.runtime import (HeapEngine, MeshRingEngine,  # noqa
+                                 MeshRoundRunner, PriorityRoundRunner,
+                                 RingEngine, RoundRunner,
+                                 ShardedMeshRingEngine, heap_init, ring_init)
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -42,6 +48,8 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.models, repro_torch.serving\n"
             "import repro_torch.launch.serve, repro_torch.configs\n"
             "import repro_torch.sched, repro_torch.data, repro_torch.obs\n"
+            "import repro_torch.core, repro_torch.distributed\n"
+            "import repro_torch.runtime.meshrounds\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -97,11 +105,24 @@ def _pstep(acc, keys, vals, valid):
     lambda: ServingEngine(get_config("h2o-danube-1.8b-smoke"), {},
                           EngineConfig()),
     lambda: serve.main(["--arch", "granite-moe-3b-a800m"]),
+    lambda: MeshRoundRunner(_step, mesh=make_mesh((2,), ("data",))),
+    lambda: MeshRoundRunner(_step, mesh=make_mesh((2,), ("data",)),
+                            fused=False),
+    lambda: MeshRingEngine(_step, mesh=make_mesh((2,), ("data",))),
+    lambda: ShardedMeshRingEngine(_step, mesh=make_mesh((2,), ("data",))),
+    lambda: dist_queue_init(16),
+    lambda: dist_sharded_queue_init(16, 2),
+    lambda: bfs.bfs_mesh_rounds(bfs.road_like(16), shards=2),
+    lambda: claim_schedule(5, 2, 4),
+    lambda: priority_claim_schedule(5, 2, 4, [0, 1], [3, 3]),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
         "bfs_queue", "bfs_baseline", "init_params", "init_decode_cache",
-        "ServingEngine", "launch.serve"])
+        "ServingEngine", "launch.serve", "MeshRoundRunner",
+        "MeshRoundRunner-legacy", "MeshRingEngine", "ShardedMeshRingEngine",
+        "dist_queue_init", "dist_sharded_queue_init", "bfs_mesh_rounds",
+        "claim_schedule", "priority_claim_schedule"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -160,6 +181,22 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         ring_enqueue_wave(*planes, head, head, lanes[0], live, capacity=16,
                           nslots_log2=5, idx_bot=2 ** 31 - 1,
                           mask=lanes[1].bool(), birth_round=head)
+    # the functional ring faces and the mesh's sharded waves
+    tickets = torch.zeros(8, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        enq_planes(*planes, tickets, tickets, 0, nslots_log2=5,
+                   idx_bot=2 ** 31 - 1, active=lanes[1].bool())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        deq_planes(*planes, tickets, nslots_log2=5, idx_bot=2 ** 31 - 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_dequeue_wave(*planes, head, head, live, batch=4, shards=2,
+                          nslots_log2=5, idx_bot=2 ** 31 - 1)
+    rows = [p.reshape(2, 16) for p in planes]
+    pair = torch.zeros(2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_enqueue_wave(*rows, pair, pair, tickets, live, capacity=16,
+                          nslots_log2=4, idx_bot=2 ** 31 - 1,
+                          mask=tickets.bool())
     from repro_torch.obs import obs_record, span_init, trace_init
     tp = trace_init(4, device="cpu")._replace(count=head)
     sp = span_init(1, lanes=8, device="cpu")._replace(round=head)

@@ -1,6 +1,8 @@
 """The ring round's wave kernels through their CPU faces
 (``ring_dequeue_wave_plain`` / ``ring_enqueue_wave_plain`` and the
-wrappers on CPU tensors), held bit-exact against the reference round's
+wrappers on CPU tensors) at one shard, the single ring's round (the
+mesh's shard grids are ``test_torch_meshrounds.py``'s), held bit-exact
+against the reference round's
 arithmetic: the JAX package's ``deq_planes`` / ``enq_planes`` and its
 plain ``wavefaa_ref``, composed as ``repro/runtime/fusedrounds.py``'s
 ``RingEngine._round`` composes them.  Inputs from a numpy seed; integer
@@ -105,13 +107,25 @@ def jax_enq(ring, values, live, mask=None, count=None, sentinel=False):
     return int(jnp.where(over, 0, n_child)), bool(over)
 
 
+def _wave_args(values, mask, count):
+    """The enqueue wave's children as one shard: ballot mode's flat values
+    with their mask, or dense mode's (1, n) row with its (1,) count."""
+    if mask is not None:
+        return _t(values), dict(mask=_t(mask))
+    return _t(values).reshape(1, -1), dict(
+        counts=torch.tensor([count], dtype=torch.int32))
+
+
 def deq_both(ring, batch, live, face=ring_dequeue_wave_plain):
     want = jax_deq(ring, batch, live)
-    vals, ok, k = face(*ring.planes, ring.th, ring.tt, torch.tensor(live),
-                       batch=batch, nslots_log2=ring.nsl2, idx_bot=BOT)
-    np.testing.assert_array_equal(vals.numpy(), want[0])
-    np.testing.assert_array_equal(ok.numpy(), want[1])
+    vals, ok, k, pops = face(*ring.planes, ring.th, ring.tt,
+                             torch.tensor(live), batch=batch,
+                             nslots_log2=ring.nsl2, idx_bot=BOT)
+    assert vals.shape == ok.shape == (1, batch)      # the one shard's row
+    np.testing.assert_array_equal(vals[0].numpy(), want[0])
+    np.testing.assert_array_equal(ok[0].numpy(), want[1])
     assert k.dtype == torch.int32 and k.dim() == 0 and int(k) == want[2]
+    assert pops.tolist() == [want[2]]
     ring.same()
     return want[2]
 
@@ -119,14 +133,13 @@ def deq_both(ring, batch, live, face=ring_dequeue_wave_plain):
 def enq_both(ring, values, live, mask=None, count=None,
              face=ring_enqueue_wave_plain):
     want = jax_enq(ring, values, live, mask, count)
-    total, over = face(*ring.planes, ring.th, ring.tt, _t(values),
-                       torch.tensor(live), capacity=CAP,
-                       nslots_log2=ring.nsl2, idx_bot=BOT,
-                       mask=None if mask is None else _t(mask),
-                       count=None if count is None
-                       else torch.tensor(count, dtype=torch.int32))
+    vals, mode = _wave_args(values, mask, count)
+    total, over, pushes = face(*ring.planes, ring.th, ring.tt, vals,
+                               torch.tensor(live), capacity=CAP,
+                               nslots_log2=ring.nsl2, idx_bot=BOT, **mode)
     assert total.dtype == torch.int32 and over.dtype == torch.bool
     assert (int(total), bool(over)) == want
+    assert pushes.tolist() == [want[0]]
     ring.same()
     return want
 
@@ -266,7 +279,7 @@ def test_enqueue_wave_takes_one_mode():
     args = (*ring.planes, ring.th, ring.tt, values, torch.tensor(True))
     kw = dict(capacity=CAP, nslots_log2=NSL2, idx_bot=BOT)
     for mode in ({}, {"mask": torch.ones(8, dtype=torch.bool),
-                      "count": torch.tensor(8, dtype=torch.int32)}):
+                      "counts": torch.tensor([8], dtype=torch.int32)}):
         with pytest.raises(ValueError, match="not both or neither"):
             ring_enqueue_wave(*args, **kw, **mode)
     for mask in (torch.ones(9, dtype=torch.bool),
@@ -437,17 +450,15 @@ def test_packed_waves_match_reference_round(mode, face):
         got = deq(*ring.planes, ring.th, ring.tt, torch.tensor(live),
                   batch=batch, nslots_log2=ring.nsl2, idx_bot=BOT,
                   birth_packed=True)
-        assert len(got) == 4
-        np.testing.assert_array_equal(got[0].numpy(), vals)
-        np.testing.assert_array_equal(got[3].numpy(), births)
+        assert len(got) == 5
+        np.testing.assert_array_equal(got[0][0].numpy(), vals)
+        np.testing.assert_array_equal(got[4][0].numpy(), births)
         clock.fill_(r)
-        total, over = enq(
-            *ring.planes, ring.th, ring.tt, _t(values), torch.tensor(live),
+        wv, wmode = _wave_args(values, kw.get("mask"), kw.get("count"))
+        total, over, _ = enq(
+            *ring.planes, ring.th, ring.tt, wv, torch.tensor(live),
             capacity=CAP, nslots_log2=ring.nsl2, idx_bot=BOT,
-            birth_round=clock,
-            mask=_t(mask) if mode == "ballot" else None,
-            count=(None if mode == "ballot"
-                   else torch.tensor(kw["count"], dtype=torch.int32)))
+            birth_round=clock, **wmode)
         assert (int(total), bool(over)) == want
         ring.same()
         overs += want[1]
