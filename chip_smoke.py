@@ -47,6 +47,16 @@ JSON line; any failure raises and exits non-zero with no result line:
               overflowing round in each mode, one sharded ring
               overflowing alone and live=False calls, and obs_record over
               S = 1, 2, 4 and 8 shards (stacked span planes);
+              heap_apply_grid (B4 over a shard grid: one launch, a block
+              a heap) and its rider instance at S = 1, 2, 4 and 8 and
+              arities 2, 4 and 8, pop waves (counts of 0 and past a
+              heap's size) and gathered insert waves (-1 lanes, one shard
+              installing nothing, duplicate and KEY_INF keys, heaps filled
+              past capacity and driven to just below and at it), heaps
+              across the shared-memory top at 2^15 slots, the priority
+              mesh's shapes at 2^20 and the strict paths' one heap (the
+              tree's 4,096-pop waves at 2^20, SSSP's 16,384-lane inserts
+              with a rider at 2^22), ten calls a case back to back;
               wavefaa at 1,024, 4,096 (road's wave), 8,192, 1.26 M and
               2^22 lanes with wrapping counters, wave_compact also at 2^22
               and 2^22 - 77 lanes with width overflow, every case of both
@@ -170,6 +180,23 @@ mesh.       — the FIFO mesh on one card, the shard axis a tensor
               columns) and Spans(): its state equal to the obs-off run,
               one record a round whose pops and pushes sum to processed
               and spawned, the packed waves and obs_record once a round.
+pmesh.      — the priority mesh on one card
+              (``PriorityMeshRoundRunner``, relaxed and strict).  The JAX
+              package's pmesh goldens (pmesh_relaxed, pmesh_strict and
+              their 2-shard rows, tel digests included) fused with one
+              readback and legacy; delta-stepping SSSP
+              (``apps.sssp``) on road_like(1024 * 1024) (1,048,576
+              vertices, the size of USA-road-d.FLA of the 9th DIMACS
+              challenge) with weights 1-8 (seed 1) at 4 shards x 1,024,
+              the split payload and delta 4, relaxed and strict: dist
+              equal to scipy's Dijkstra, one readback, the rider grid
+              twice a round; phase 5's priority task tree at 4 x 1,024,
+              relaxed on four heaps of 2^20 slots and strict on one, and
+              PriorityRoundRunner at batch 4,096: each equal to the
+              closure oracle, strict equal to PriorityRoundRunner bit for
+              bit, timed in turns with the captured rounds' nodes; the
+              relaxed tree with compact=True (the ballot run's state) and
+              with Telemetry and Spans() against the run without them.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -177,8 +204,8 @@ mesh.       — the FIFO mesh on one card, the shard axis a tensor
               sweep, the two must agree, frontier_expand must launch
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
-7. kernels  — per kernel: launches on each path (phases 3-6, mesh, 8
-              and 9;
+7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
+              pmesh, 8 and 9;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -215,6 +242,14 @@ mesh.       — the FIFO mesh on one card, the shard axis a tensor
               rows at the mesh tree's shapes (masked ring_enqueue at its
               65,536 seeds, masked ring_dequeue at the functional rounds'
               4 x 1,024 requests); their launches come from phase mesh.
+              heap_apply_grid and its rider instance have rows at the
+              priority mesh's shapes (phase pmesh): the relaxed tree's
+              pop (4 x 1,024) and insert (8,192 lanes) waves beside one
+              heap's 1,024-pop call by the grid and by heap_apply, the
+              strict tree's (4,096 pops, one heap), SSSP's and the
+              spanned tree's (rider), each against a bytes and a
+              dependent-chain bound.  wave_compact also at the meshes'
+              2,048-lane rows.
 8. serve    — the model path at full width: granite-moe-3b-a800m (32
               layers, d_model 1536, 40 experts top-8, 3,374,295,552
               parameters in bfloat16) from ``init_params`` with a
@@ -246,8 +281,8 @@ mesh.       — the FIFO mesh on one card, the shard axis a tensor
 Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
 and report the card's idle share against the unprofiled wall time (where
 the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, mesh, 8 and 9 run before phase 7, whose line needs
-their launch counts.  Every phase
+in).  Phases 5b, mesh, pmesh, 8 and 9 run before phase 7, whose line
+needs their launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -308,6 +343,31 @@ MESH_GOLDEN = {
                  "dist": "c8795c4f65942e14"},
     "mesh_bfs_2": {"shards": 2, "stats": [23, 287, 286, 24, 1, 1],
                    "dist": "c8795c4f65942e14"}}
+# the priority mesh goldens (tests/test_enginecore.py: GOLDEN["pmesh_*"],
+# GOLDEN_2SHARD["pmesh_*_2"]), stats with host_syncs last
+PMESH_GOLDEN = {
+    "pmesh_relaxed": {"shards": 1, "relaxed": True,
+                      "stats": [19, 260, 258, 128, 1, 1],
+                      "acc": "cd729cf83f33eed5",
+                      "planes": "c5830eb454bd1761", "tel": "c24a2c5171ec130e"},
+    "pmesh_strict": {"shards": 1, "relaxed": False,
+                     "stats": [19, 260, 258, 128, 1, 1],
+                     "acc": "cd729cf83f33eed5",
+                     "planes": "c5830eb454bd1761", "tel": "c24a2c5171ec130e"},
+    "pmesh_relaxed_2": {"shards": 2, "relaxed": True,
+                        "stats": [12, 260, 258, 88, 1, 1],
+                        "acc": "cd729cf83f33eed5",
+                        "planes": "c822643452639513",
+                        "tel": "bd8f8645639ba8bc"},
+    "pmesh_strict_2": {"shards": 2, "relaxed": False,
+                       "stats": [12, 260, 258, 110, 1, 1],
+                       "acc": "cd729cf83f33eed5",
+                       "planes": "c5830eb454bd1761",
+                       "tel": "2455cb0b0971fae9"}}
+SSSP_SIDE = 1024         # road 1024^2: 1,048,576 vertices (USA-road-d.FLA)
+SSSP_MAX_W = 8
+SSSP_DELTA = 4
+SSSP_STRICT_CAP_LOG2 = 22  # the strict run's one heap: 4 n slots
 MESH_SHARDS = 4
 MESH_ROAD_SIDE = 215     # the largest square grid with n (n + 2) < 2^31
 MESH_TREE_SEEDS = 65536
@@ -547,7 +607,7 @@ class Smoke:
                          "queue": {}, "prefill": {}, "serve": {},
                          "prefill_gemma3": {}, "obs_road": {},
                          "obs_heap": {},
-                         "mesh": {}}       # path -> kernel launches
+                         "mesh": {}, "pmesh": {}}  # path -> launches
         self.keep = {}            # path -> (runner, final state) for obs
 
     # -- helpers -------------------------------------------------------------
@@ -982,6 +1042,147 @@ class Smoke:
                             rid(self.heap_batch(2 * BATCH, 0.6, 0, 30), i)]
             self.heap_rider_calls(K, st, batches + batches[1:3],
                                   HEAP_CAP_LOG2, arity)
+
+    def grid_calls(self, K, state, waves, c, arity):
+        """``waves`` (dicts of ``heap_apply_grid``'s wave arguments) applied
+        as calls queued back to back on the card (no synchronise between
+        them, the sizes updated in place) and one at a time by
+        ``heap_apply_grid_plain`` on the plain version's planes; every
+        call's outputs and sizes and the planes after the last are held
+        against each other.  ``state`` is [kernel planes (keys, vals,
+        rider or None), plain planes, kernel sizes, plain sizes]."""
+        kern, plain, sk, sp = state
+        name = "heap_apply_grid" + ("" if kern[2] is None else "_rider")
+        kw = dict(cap_log2=c, arity_log2=arity)
+        got = []
+        for w in waves:
+            out = K.heap_apply_grid(*kern[:2], sk, rider=kern[2], **w, **kw)
+            got.append((sk.clone(),) + (out[3:6] + out[7:]
+                                        if "counts" in w else ()))
+        for w, g in zip(waves, got):
+            out = K.heap_apply_grid_plain(*plain[:2], sp, rider=plain[2],
+                                          **w, **kw)
+            self.same(name, g, (sp,) + (out[3:6] + out[7:]
+                                        if "counts" in w else ()))
+        self.same(name, [p for p in kern if p is not None],
+                  [p for p in plain if p is not None])
+
+    def compare_heap_grid(self, K):
+        """``heap_apply_grid`` (B4 over a shard grid: a pop wave of
+        ``counts[s]`` DELETE-MINs on heap s, or one gathered insert wave
+        whose lane i goes to heap ``dest[i]``) against
+        ``heap_apply_grid_plain``, bit for bit: S = 1, 2, 4 and 8, arities
+        2, 4 and 8, both modes, with and without a rider (the inserts'
+        rider a 0-d device word or one per lane), ten calls per case
+        queued back to back.  At 2^6 slots: heaps filled from empty past
+        capacity (inserts rejected when full), one shard installing
+        nothing, duplicate and KEY_INF keys, -1 destinations, pop counts of
+        0 and past a heap's size, heaps driven to just below and exactly
+        at capacity.  At 2^15 slots (S = 8) heaps seeded across the
+        kernel's shared-memory top.  At 2^20 slots the priority mesh
+        tree's waves (4 x 1,024 pops, 8,192 insert lanes) and SSSP's
+        (16,384 insert lanes, a rider); the strict paths' one heap (S = 1):
+        4,096-pop waves and 8,192-lane inserts at 2^20, 16,384-lane
+        inserts with a rider at SSSP's 2^22.  Arities past 8 are
+        refused."""
+        np, torch = self.np, self.torch
+        card = dict(dtype=torch.int32, device=self.dev)
+
+        def fresh(s, c, rider):
+            kern = [torch.full((s, 1 << c), KEY_INF, **card),
+                    torch.full((s, 1 << c), -1, **card),
+                    torch.zeros((s, 1 << c), **card) if rider else None]
+            return [kern, [None if p is None else p.clone() for p in kern],
+                    torch.zeros(s, **card), torch.zeros(s, **card)]
+
+        def ins(s, n, lo=-20, hi=40, skip=None, rider=False, i=0):
+            _, keys, vals = self.heap_batch(n, 1.0, lo, hi)
+            dest = self.rng.integers(-1, s, n)
+            if skip is not None:
+                dest = np.where(dest == skip, -1, dest)
+            w = dict(opkeys=keys, opvals=vals,
+                     dest=self.t(dest.astype(np.int32)))
+            if rider:
+                w["oprider"] = (self.t(self.rng.integers(0, 1 << 20, n),
+                                       torch.int32) if i % 2
+                                else torch.tensor(i, **card))
+            return w
+
+        def to(s, counts):
+            return dict(opkeys=self.t(self.rng.integers(-9, 9, len(counts))
+                                      .astype(np.int32)),
+                        opvals=self.t(np.arange(len(counts), dtype=np.int32)),
+                        dest=self.t(np.asarray(counts, np.int32)))
+
+        def pop(s, b, counts):
+            return dict(counts=self.t(np.asarray(counts, np.int32)), batch=b)
+
+        # other arities are refused by name on the card
+        st = fresh(2, 6, False)
+        try:
+            K.heap_apply_grid(*st[0][:2], st[2], counts=st[2], batch=4,
+                              cap_log2=6, arity_log2=4)
+            raise AssertionError("heap_apply_grid ran at arity_log2=4")
+        except ValueError as e:
+            if "built for arity_log2" not in str(e):
+                raise
+        for arity in (1, 2, 3):
+            for rider in (False, True):
+                for s in (1, 2, 4, 8):
+                    st = fresh(s, 6, rider)
+                    waves = [ins(s, 24 * s, skip=0 if i == 3 else None,
+                                 rider=rider, i=i) for i in range(10)]
+                    self.grid_calls(K, st, waves, 6, arity)
+                    self.grid_calls(K, st, [pop(s, 40, self.rng.integers(
+                        0, 70, s)) for _ in range(8)]
+                        + [pop(s, 8, [0] * s), pop(s, 64, [99] * s)],
+                        6, arity)
+                    # just below and at capacity: 63 nodes on every heap,
+                    # then one more, then one past
+                    st = fresh(s, 6, rider)
+                    fill = [d for d in range(s) for _ in range(63)]
+                    self.grid_calls(K, st, [to(s, fill), to(s, range(s)),
+                                            to(s, range(s))]
+                                    + [pop(s, 16, [1] * s), to(s, [0] * 3)]
+                                    + [pop(s, 64, self.rng.integers(
+                                        0, 64, s)) for _ in range(5)],
+                                    6, arity)
+                r_max = K.heap_resident_max(arity, rider=rider)
+                st = fresh(8, 15, rider)
+                seeds = [d for d in range(8)
+                         for _ in range(r_max + (d - 4) * 3)]
+                self.rng.shuffle(seeds)
+                self.grid_calls(K, st, [to(8, seeds)] + [
+                    pop(8, 512, self.rng.integers(0, 600, 8))
+                    if i % 2 else ins(8, 4096, -90, 60, rider=rider, i=i)
+                    for i in range(10)], 15, arity)
+                # the paths' shapes: 4 heaps of 2^20
+                st = fresh(4, HEAP_CAP_LOG2, rider)
+                lanes = (4 if rider else 2) * 4 * BATCH
+                self.grid_calls(K, st, [ins(4, 1 << 17, 0, 16, rider=rider)]
+                                + [pop(4, BATCH, [BATCH] * 4)
+                                   if i % 2 else
+                                   ins(4, lanes, 0, 30, rider=rider, i=i)
+                                   for i in range(10)],
+                                HEAP_CAP_LOG2, arity)
+                # the strict paths' one heap: the tree's 4,096-pop waves
+                # (four staging chunks a call, full and cut mid-chunk) and
+                # 8,192-lane inserts at 2^20 slots, and with a rider
+                # SSSP's 16,384-lane inserts at its 2^22 slots
+                wide = MESH_SHARDS * BATCH
+                shapes = [(HEAP_CAP_LOG2, 2 * wide)]
+                if rider:
+                    shapes.append((SSSP_STRICT_CAP_LOG2, 4 * wide))
+                for c, lanes in shapes:
+                    st = fresh(1, c, rider)
+                    self.grid_calls(K, st, [ins(1, 1 << 18, 0, 16,
+                                                rider=rider)]
+                                    + [pop(1, wide, [wide if i % 4 == 1 else
+                                                     self.rng.integers(
+                                                         BATCH, wide)])
+                                       if i % 2 else
+                                       ins(1, lanes, 0, 30, rider=rider, i=i)
+                                       for i in range(10)], c, arity)
 
     def compare_obs_record(self, K):
         """``obs_record`` (the round's trace row and span update in one
@@ -2127,14 +2328,15 @@ class Smoke:
 
     # -- phase mesh: the FIFO mesh on one card -------------------------------
 
-    def mesh_run(self, K, fn):
+    def mesh_run(self, K, fn, path="mesh"):
         """``fn()`` between CUDA events, with every launch count set to 0
-        just before and read just after; the counts are added to the mesh
-        path's.  Returns (fn's result, its launches, wall s, device s)."""
+        just before and read just after; the counts are added to the
+        path's (the mesh's, or ``path``).  Returns (fn's result, its
+        launches, wall s, device s)."""
         K.reset_launches()
         out, wall, span = self.timed(fn)
         got = {k: v for k, v in K.LAUNCHES.items() if v}
-        path = self.launches["mesh"]
+        path = self.launches[path]
         for k, v in got.items():
             path[k] = path.get(k, 0) + v
         return out, got, wall, span
@@ -2227,6 +2429,47 @@ class Smoke:
             res, got, _, _ = self.mesh_run(K, lambda: rounds(start))
             out[str(start)] = dict(res, launches=got)
         return out
+
+    def in_turns(self, runners, run, turns=3):
+        """Each of ``runners`` (label -> runner) run by ``run(runner)`` in
+        turns, ``turns`` times over: {label: {"runs": [wall s, rounds/s,
+        device µs a round], "median": the same}}."""
+        times = {label: [] for label in runners}
+        for _ in range(turns):
+            for label, r in runners.items():
+                _, wall, span = self.timed(lambda: run(r))
+                rounds = r.stats["rounds"]
+                times[label].append({
+                    "run_s": wall, "rounds_per_s": rounds / wall,
+                    "device_us_per_round": span / rounds * 1e6})
+        return {label: {"runs": t, "median": {
+            k: statistics.median(x[k] for x in t) for k in t[0]}}
+            for label, t in times.items()}
+
+    def mesh_obs_checks(self, label, tel, sp, stats, shards):
+        """A mesh run with Telemetry and Spans: one record a round, their
+        pops and pushes summing to processed and spawned, the histogram's
+        total the pops, nothing dropped, every shard empty at the end.
+        Returns the checks."""
+        recs = tel.records
+        checks = {
+            "records": len(recs), "rounds": stats["rounds"],
+            "pops": sum(sum(r.pops) for r in recs),
+            "pushes": sum(sum(r.pushes) for r in recs),
+            "max_imbalance": max(r.imbalance for r in recs),
+            "hist_total": sp.total, "dropped": tel.dropped,
+            "last_occupancy": recs[-1].occupancy,
+            "p50": sp.percentile(0.5), "p99": sp.percentile(0.99),
+            "max_wait": int(sp.max_wait.max())}
+        if not (checks["records"] == stats["rounds"]
+                and [r.round for r in recs] == list(range(stats["rounds"]))
+                and checks["pops"] == stats["processed"]
+                and checks["pushes"] == stats["spawned"]
+                and checks["hist_total"] == stats["processed"]
+                and checks["dropped"] == 0
+                and checks["last_occupancy"] == [0] * shards):
+            raise AssertionError(f"{label}: {checks}")
+        return checks
 
     def mesh_bfs_road(self, K, bfs):
         """Mesh BFS on road_like(215^2) at 4 shards and batch 1,024,
@@ -2339,19 +2582,8 @@ class Smoke:
         out["replicated_equals_ring_engine"] = True
         out["sharded_equals_closure"] = True
         # timed in turns (replicated, sharded, single) x 3
-        times = {label: [] for label in runners}
-        for _ in range(3):
-            for label, r in runners.items():
-                _, wall, span = self.timed(lambda: run(r))
-                rounds = r.stats["rounds"]
-                times[label].append({
-                    "run_s": wall, "rounds_per_s": rounds / wall,
-                    "device_us_per_round": span / rounds * 1e6})
-        for label in runners:
-            out[label]["timed"] = {
-                "runs": times[label],
-                "median": {k: statistics.median(t[k] for t in times[label])
-                           for k in times[label][0]}}
+        for label, timed in self.in_turns(runners, run).items():
+            out[label]["timed"] = timed
         # the compacted publish (compact=True): each shard's child row
         # through wave_compact, then the dense enqueue wave; the state of
         # the ballot run
@@ -2400,29 +2632,14 @@ class Smoke:
         (acc, st), got, wall, span = self.mesh_run(K, lambda: run(on))
         stats = on.stats
         self.loop_checks("mesh tree obs", stats, on.sync_log)
-        recs = tel.records
-        checks = {
-            "records": len(recs), "rounds": stats["rounds"],
-            "pops": sum(sum(r.pops) for r in recs),
-            "pushes": sum(sum(r.pushes) for r in recs),
-            "max_imbalance": max(r.imbalance for r in recs),
-            "hist_total": sp.total, "dropped": tel.dropped,
-            "last_occupancy": recs[-1].occupancy,
-            "p50": sp.percentile(0.5), "p99": sp.percentile(0.99),
-            "max_wait": int(sp.max_wait.max())}
+        checks = self.mesh_obs_checks("mesh tree obs", tel, sp, stats,
+                                      MESH_SHARDS)
         if not (torch.equal(acc, ra)
                 and all(torch.equal(a, b) for a, b in zip(st[:4], rs[:4]))
                 and (st.head, st.tail) == (rs.head, rs.tail)
                 and {k: stats[k] for k in STATS}
-                == {k: out["replicated"][k] for k in STATS}
-                and checks["records"] == stats["rounds"]
-                and [r.round for r in recs] == list(range(stats["rounds"]))
-                and checks["pops"] == stats["processed"]
-                and checks["pushes"] == stats["spawned"]
-                and checks["hist_total"] == stats["processed"]
-                and checks["dropped"] == 0
-                and checks["last_occupancy"] == [0] * MESH_SHARDS):
-            raise AssertionError(f"mesh tree obs: {checks}")
+                == {k: out["replicated"][k] for k in STATS}):
+            raise AssertionError("mesh tree obs: state != obs off")
         self.mesh_checks("mesh tree obs", got, stats["rounds"],
                          ("ring_dequeue_wave_packed",
                           "ring_enqueue_wave_packed", "obs_record_mesh"))
@@ -2452,6 +2669,266 @@ class Smoke:
             if not self.launches["mesh"].get(name):
                 raise AssertionError(f"mesh: {name} never launched")
         info["launches"] = self.launches["mesh"]
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase pmesh: the priority mesh on one card -------------------------
+
+    def grid_checks(self, label, got, rounds, name="heap_apply_grid"):
+        """A priority mesh run launches its grid twice a round (the pop and
+        the insert wave) and once for the seed."""
+        if got.get(name, 0) != 2 * rounds + 1:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{got.get(name, 0)} times in {rounds} "
+                                 f"rounds, not {2 * rounds + 1}")
+
+    def pmesh_golden(self, K, rt, obs, make_mesh):
+        """The JAX package's priority mesh goldens on the card: relaxed and
+        strict at 1 and 2 shards with Telemetry(capacity=512), fused (one
+        readback) and legacy (the same state, a readback a round)."""
+        torch = self.torch
+
+        def step(acc, keys, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals % 89, 0),
+                                valid.int())
+            ck = torch.stack([keys + 2, keys + 5], -1).int()
+            cv = torch.stack([(vals * 7919) % 1000,
+                              (vals * 104729) % 1000], -1).int()
+            return acc, ck, cv, (valid & (keys < 20))[:, None]
+
+        out = {}
+        for name, g in PMESH_GOLDEN.items():
+            mesh = make_mesh((g["shards"],), ("data",))
+            for fused in (True, False):
+                tel = obs.Telemetry(capacity=512) if fused else None
+                r = rt.PriorityMeshRoundRunner(
+                    step, mesh=mesh, capacity_log2=10, batch=16,
+                    relaxed=g["relaxed"], fused=fused, telemetry=tel,
+                    combine=lambda a: a.sum(0, dtype=torch.int32))
+                (acc, st), _, _, _ = self.mesh_run(K, lambda: r.run(
+                    [3, 1], [7, 11], acc=torch.zeros(
+                        89, dtype=torch.int32, device=self.dev)), "pmesh")
+                got = {"stats": [r.stats[k] for k in STATS]
+                       + [r.stats["host_syncs"]],
+                       "acc": digest(acc.cpu().numpy()),
+                       "planes": digest(st.keys.cpu().numpy(),
+                                        st.vals.cpu().numpy())}
+                want = {k: v for k, v in g.items()
+                        if k not in ("shards", "relaxed")}
+                if fused:
+                    got["tel"] = tel_digest(tel)
+                    self.loop_checks(name, r.stats, r.sync_log)
+                else:
+                    want = dict(want, stats=want["stats"][:5]
+                                + [want["stats"][0]])
+                    want.pop("tel")
+                if got != want:
+                    raise AssertionError(f"{name} (fused={fused}): {got}")
+                out[name + ("" if fused else "_legacy")] = got
+        return out
+
+    def pmesh_sssp(self, K, bfs, sssp):
+        """Delta-stepping SSSP on road_like(1024^2) (1,048,576 vertices,
+        the size of the 9th DIMACS challenge's USA-road-d.FLA), weights
+        1-8 from seed 1, at 4 shards x 1,024 with the split payload
+        (the distance on the heaps' rider plane) and delta 4, relaxed and
+        strict: dist equal to scipy's Dijkstra on the host, one readback,
+        the rider grid twice a round; each timed after a first run that
+        captures its round."""
+        np, torch = self.np, self.torch
+        from scipy.sparse import csr_matrix
+        from scipy.sparse.csgraph import dijkstra
+        t0 = time.perf_counter()
+        g = bfs.road_like(SSSP_SIDE * SSSP_SIDE)
+        w = sssp.with_weights(g, max_w=SSSP_MAX_W, seed=1)
+        want = dijkstra(csr_matrix((w.astype(np.float64), g.col_idx,
+                                    g.row_ptr), shape=(g.n, g.n)),
+                        indices=0)
+        if not np.isfinite(want).all():
+            raise AssertionError("sssp: the grid is connected")
+        want = want.astype(np.int64)
+        out = {"n": g.n, "m": g.m, "max_w": SSSP_MAX_W, "delta": SSSP_DELTA,
+               "shards": MESH_SHARDS, "batch": BATCH, "layout": "split",
+               "oracle": "scipy.sparse.csgraph.dijkstra",
+               "setup_s": time.perf_counter() - t0}
+        for relaxed in (True, False):
+            label = "relaxed" if relaxed else "strict"
+            runner, init_fn = sssp.sssp_mesh_rounds_runner(
+                g, w, shards=MESH_SHARDS, batch=BATCH, delta=SSSP_DELTA,
+                relaxed=relaxed, split_payload=True)
+
+            def run():
+                return runner.run([0], [0], acc=init_fn(0),
+                                  max_rounds=1_000_000, initial_aux=[0])
+
+            _, first_s, _ = self.timed(run)          # captures the round
+            (dist, _), got, wall, span = self.mesh_run(K, run, "pmesh")
+            if not np.array_equal(dist.cpu().numpy().astype(np.int64),
+                                  want):
+                raise AssertionError(f"sssp {label}: dist != Dijkstra")
+            if not relaxed and runner.capacity != 1 << SSSP_STRICT_CAP_LOG2:
+                raise AssertionError("sssp strict: the heap is not the one "
+                                     "phase 2 holds against its plain twin")
+            st = runner.stats
+            self.loop_checks(f"sssp {label}", st, runner.sync_log)
+            self.grid_checks(f"sssp {label}", got, st["rounds"],
+                             "heap_apply_grid_rider")
+            out[label] = {
+                **{k: st[k] for k in STATS}, "readbacks": st["host_syncs"],
+                "heap_slots": runner.capacity, "first_run_s": first_s,
+                "run_s": wall, "rounds_per_s": st["rounds"] / wall,
+                "device_span_s": span,
+                "device_us_per_round": span / st["rounds"] * 1e6,
+                "launches": got,
+                "round_graph": graph_nodes(runner._engine),
+                "dist_exact": True}
+        return out
+
+    def pmesh_tree(self, K, rt, obs, make_mesh):
+        """The priority task tree of phase 5 (65,536 seeds) at 4 shards x
+        1,024: relaxed on four heaps of 2^20 slots, strict on one heap of
+        2^20, and PriorityRoundRunner at batch 4,096: each against the
+        closure oracle, strict against PriorityRoundRunner bit for bit
+        (stats, acc, planes, size), timed in turns (relaxed, strict,
+        single) x 3 with the captured rounds' nodes; the relaxed tree with
+        compact=True (the ballot run's state, wave_compact a shard a
+        round); the relaxed tree with Telemetry (4 shard columns) and
+        Spans() against the same run without, in turns (off, on, on,
+        off)."""
+        np, torch = self.np, self.torch
+        rng = np.random.default_rng(12)
+        ik = rng.integers(0, 16, HEAP_SEEDS).astype(np.int32)
+        iv = rng.integers(0, 2 ** 31 - 1, HEAP_SEEDS).astype(np.int32)
+        want_acc, want_p, want_s = heap_closure(np, ik, iv)
+        mesh = make_mesh((MESH_SHARDS,), ("data",))
+        step = heap_tree_step(torch)
+        sum32 = lambda a: a.sum(0, dtype=torch.int32)  # noqa: E731
+        kw = dict(mesh=mesh, capacity_log2=HEAP_CAP_LOG2, batch=BATCH,
+                  combine=sum32)
+        runners = {
+            "relaxed": rt.PriorityMeshRoundRunner(step, **kw),
+            "strict": rt.PriorityMeshRoundRunner(step, relaxed=False, **kw),
+            "single": rt.PriorityRoundRunner(
+                step, capacity_log2=HEAP_CAP_LOG2,
+                batch=MESH_SHARDS * BATCH)}
+
+        def run(r):
+            return r.run(ik, iv, acc=torch.zeros(4096, dtype=torch.int32,
+                                                 device=self.dev),
+                         max_rounds=1_000_000)
+
+        out, final = {}, {}
+        for label, r in runners.items():
+            run(r)                               # capture
+            (acc, st), got, wall, span = self.mesh_run(
+                K, lambda: run(r), "pmesh")
+            stats = r.stats
+            self.loop_checks(f"pmesh tree {label}", stats, r.sync_log)
+            if not (np.array_equal(acc.cpu().numpy(), want_acc)
+                    and stats["processed"] == want_p
+                    and stats["spawned"] == want_s):
+                raise AssertionError(f"pmesh tree {label}: acc or totals != "
+                                     f"the closure ({stats})")
+            self.grid_checks(f"pmesh tree {label}", got, stats["rounds"],
+                             "heap_apply" if label == "single"
+                             else "heap_apply_grid")
+            final[label] = (acc, st)
+            out[label] = {**{k: stats[k] for k in STATS},
+                          "readbacks": stats["host_syncs"],
+                          "first_timing": {"run_s": wall,
+                                           "device_span_s": span},
+                          "launches": got,
+                          "round_graph": graph_nodes(r._engine)}
+        (sa, ss), (ga, gs) = final["strict"], final["single"]
+        if not ({k: out["strict"][k] for k in STATS}
+                == {k: out["single"][k] for k in STATS}
+                and torch.equal(sa, ga) and torch.equal(ss.keys, gs.keys)
+                and torch.equal(ss.vals, gs.vals)
+                and int(ss.size) == int(gs.size) == 0):
+            raise AssertionError("pmesh tree: strict != PriorityRoundRunner "
+                                 "at batch 4,096")
+        out["strict_equals_priority_round_runner"] = True
+        for label, timed in self.in_turns(runners, run).items():
+            out[label]["timed"] = timed
+        # the compacted publish: each shard's child row through
+        # wave_compact; the ballot run's state
+        ra, rs = final["relaxed"]
+        r = rt.PriorityMeshRoundRunner(step, compact=True, **kw)
+        run(r)                                   # capture
+        (acc, st), got, wall, span = self.mesh_run(K, lambda: run(r),
+                                                   "pmesh")
+        stats = r.stats
+        self.loop_checks("pmesh tree compact", stats, r.sync_log)
+        if not ({k: stats[k] for k in STATS}
+                == {k: out["relaxed"][k] for k in STATS}
+                and torch.equal(acc, ra)
+                and all(torch.equal(a, b) for a, b in zip(st, rs))):
+            raise AssertionError("pmesh tree compact: state != the ballot "
+                                 "run's")
+        self.grid_checks("pmesh tree compact", got, stats["rounds"])
+        if got.get("wave_compact", 0) != MESH_SHARDS * stats["rounds"]:
+            raise AssertionError(
+                f"pmesh tree compact: wave_compact launched "
+                f"{got.get('wave_compact', 0)} times in {stats['rounds']} "
+                f"rounds of {MESH_SHARDS} shards")
+        out["relaxed"]["compact"] = {
+            "state_equals_ballot_run": True, "run_s": wall,
+            "device_us_per_round": span / stats["rounds"] * 1e6,
+            "launches": got, "round_graph": graph_nodes(r._engine)}
+        # observability on the relaxed tree
+        tel = obs.Telemetry(2048, engine="pmesh")
+        sp = obs.Spans(engine="pmesh")
+        on = rt.PriorityMeshRoundRunner(step, telemetry=tel, spans=sp, **kw)
+        run(on)                                  # capture
+        tel.reset()
+        sp.reset()
+        (acc, st), got, wall, span = self.mesh_run(K, lambda: run(on),
+                                                   "pmesh")
+        stats = on.stats
+        self.loop_checks("pmesh tree obs", stats, on.sync_log)
+        checks = self.mesh_obs_checks("pmesh tree obs", tel, sp, stats,
+                                      MESH_SHARDS)
+        if not (torch.equal(acc, ra)
+                and all(torch.equal(a, b) for a, b in zip(st, rs))
+                and {k: stats[k] for k in STATS}
+                == {k: out["relaxed"][k] for k in STATS}):
+            raise AssertionError("pmesh tree obs: state != obs off")
+        # the births plane rides both waves of every round; the seeds,
+        # born at round 0 on a zeroed plane, install without it
+        want = {"heap_apply_grid_rider": 2 * stats["rounds"],
+                "heap_apply_grid": 1, "obs_record_mesh": stats["rounds"]}
+        if any(got.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"pmesh tree obs: launches {got}")
+        turns = {"off": [], "on": []}
+        for label in ("off", "on", "on", "off"):
+            r = runners["relaxed"] if label == "off" else on
+            _, wall, span = self.timed(lambda: run(r))
+            turns[label].append(span / r.stats["rounds"] * 1e6)
+        out["obs"] = dict(
+            checks, state_equals_obs_off=True, run_s=wall,
+            device_us_per_round={k: statistics.median(v)
+                                 for k, v in turns.items()},
+            turns=turns, launches=got, round_graph=graph_nodes(on._engine))
+        out["closure"] = {"processed": want_p, "spawned": want_s}
+        return out
+
+    def pmesh_path(self, K, rt, bfs):
+        """Phase pmesh: the goldens, SSSP on road 1024^2 and the priority
+        task tree on the priority mesh, each run's launches added to the
+        pmesh path's."""
+        from repro_torch import obs
+        from repro_torch.apps import sssp
+        from repro_torch.distributed import make_mesh
+        t0 = time.perf_counter()
+        info = {"phase": "pmesh",
+                "golden": self.pmesh_golden(K, rt, obs, make_mesh),
+                "sssp": self.pmesh_sssp(K, bfs, sssp),
+                "tree": self.pmesh_tree(K, rt, obs, make_mesh)}
+        for name in ("heap_apply_grid", "heap_apply_grid_rider",
+                     "wave_compact", "obs_record_mesh"):
+            if not self.launches["pmesh"].get(name):
+                raise AssertionError(f"pmesh: {name} never launched")
+        info["launches"] = self.launches["pmesh"]
         info["seconds"] = time.perf_counter() - t0
         return info
 
@@ -2862,6 +3339,7 @@ def main() -> int:
     smoke.compare_compact(K, kron_lanes)
     smoke.compare_heap(K)
     smoke.compare_heap_rider(K)
+    smoke.compare_heap_grid(K)
     smoke.compare_obs_record(K)
     smoke.compare_ring_masked(K)
     smoke.compare_grid_waves(K)
@@ -2914,6 +3392,12 @@ def main() -> int:
     mesh_info = smoke.mesh_path(K, rt, bfs)
     emit_phase(mesh_info)
 
+    # pmesh. the priority mesh: its goldens, SSSP on road 1024^2 and the
+    # priority task tree at 4 shards, against PriorityRoundRunner and
+    # with obs on
+    pmesh_info = smoke.pmesh_path(K, rt, bfs)
+    emit_phase(pmesh_info)
+
     # 6. queue-driven BFS on road 2048^2 and kron 2^20
     emit_phase(smoke.queue_path("road", road, K, bfs, road_dist))
     kron_q = smoke.queue_path("kron", qkron, K, bfs, qkron_dist)
@@ -2933,7 +3417,7 @@ def main() -> int:
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
                                  road_dist, seen_gemma, obs_info,
-                                 mesh_info)})
+                                 mesh_info, pmesh_info)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2946,7 +3430,7 @@ def main() -> int:
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
-                road_dist, seen_gemma, obs_info, mesh_info):
+                road_dist, seen_gemma, obs_info, mesh_info, pmesh_info):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -3204,18 +3688,50 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                           device=dev),)
     active3 = int(m3.sum())
     scratch3 = K.compact_scratch(n3, dev)      # as the engine keeps it
+    kern3 = smoke.time_ms(lambda: None, lambda a, i: K.wave_compact(
+        m3, p3, width=width, scratch=scratch3))
+    # mask in, the active lanes' values in, the dense planes and the count
+    # out
+    bytes3 = n3 * 1 + active3 * 4 + width * 4 + 4
+    # the meshes' compactions, each at its own shape: a shard's child row
+    # of 2,048 lanes (two children a claim of 1,024) into 2,048, at each
+    # tree's child density, one plane (the FIFO mesh) or two (the
+    # priority mesh's keys and vals)
+    cells3 = {}
+    for key, info, planes in (
+            ("mesh", mesh_info["tree"]["replicated"], 1),
+            ("pmesh", pmesh_info["tree"]["relaxed"], 2)):
+        n = 2 * BATCH
+        dens = info["spawned"] / (info["rounds"] * MESH_SHARDS * n)
+        m = torch.as_tensor(rng.random(n) < dens, device=dev)
+        pl = tuple(torch.as_tensor(rng.integers(0, 1 << 30, n,
+                                                dtype=np.int32), device=dev)
+                   for _ in range(planes))
+        sc = K.compact_scratch(n, dev)
+        act = int(m.sum())
+        k = smoke.time_ms(lambda: None, lambda a, i: K.wave_compact(
+            m, pl, width=n, scratch=sc))
+        pk = smoke.time_ms(lambda: None,
+                           lambda a, i: K.compact_planes(m, pl, width=n))
+        b = bound(n + planes * (act * 4 + n * 4) + 4, n, ALU_OPS_PER_S)
+        cells3[key] = {"lanes": n, "active": act, "width": n,
+                       "planes": planes, "ms": k[0], "wall_ms": k[1],
+                       "plain_ms": pk[0], "bound_ms": b[0], "bound_by": b[1],
+                       "launches": smoke.launches[key].get("wave_compact",
+                                                           0)}
+    b3 = bound(bytes3, n3, ALU_OPS_PER_S)[0]
     row("wave_compact", csrc + "compact.cu",
-        "src/repro/kernels/compact.py:94",
-        smoke.time_ms(lambda: None, lambda a, i: K.wave_compact(
-            m3, p3, width=width, scratch=scratch3)),
+        "src/repro/kernels/compact.py:94", kern3,
         smoke.time_ms(lambda: None,
                       lambda a, i: K.compact_planes(m3, p3, width=width)),
         smoke.time_ms(lambda: None,
                       lambda a, i: torch.cumsum(m3, 0, dtype=torch.int32)),
-        # mask in, the active lanes' values in, the dense plane and the
-        # count out
-        n3 * 1 + active3 * 4 + width * 4 + 4, n3,
-        {"lanes": n3, "active": active3, "width": width, "mask": "bool"})
+        bytes3, n3,
+        {"lanes": n3, "active": active3, "width": width, "mask": "bool",
+         **cells3},
+        excess=smoke.launches["kron"].get("wave_compact", 0)
+        * (kern3[0] - b3) + sum(c["launches"] * (c["ms"] - c["bound_ms"])
+                                for c in cells3.values()))
 
     # B4 heap_apply: the priority path's batches on its 2^20-slot heap
     # holding half the run's peak occupancy: pop calls of 1,024 and insert
@@ -3360,6 +3876,204 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "pop": sub4r["pop"], "insert": sub4r["insert"],
          "riderless_ms": (sub4["pop"]["ms"] + sub4["insert"]["ms"]) / 2,
          "chain_bound_ms": (pop_chain_r + ins_chain_ms) / 2})
+
+    # B4 over a shard grid (phase pmesh): one launch of S blocks, a heap a
+    # block, each heap's top in its block's shared memory.  Heaps are
+    # filled with keys below the tree's horizon by one insert wave, then
+    # each call is a pop wave (``counts`` a shard) or an insert wave (the
+    # run's child density over the gathered lanes, child rank r to heap r
+    # % S), on a state that flows from call to call.  Bytes as for
+    # heap_apply, per heap: a pop wave's counts word and results (9 B a
+    # lane), per pop the root, the last leaf and its scrub (24 B) and per
+    # level 28 B; an insert wave's destinations (4 B a lane), per
+    # installed child its key and val (8 B) and 12 B; the size words each
+    # way.  Chain bound: the blocks run side by side, so a wave's chain is
+    # its busiest heap's (pops x levels at their latencies, or inserts x
+    # a shared-memory round trip).
+    def grid_levels(occ_h, rider):
+        lv = max(int(np.ceil(np.log(3 * occ_h + 1) / np.log(4))), 1)
+        top = int(round(np.log(3 * K.heap_resident_max(2, rider=rider) + 1)
+                        / np.log(4)))
+        return lv, min(lv, top), max(lv - top, 0)
+
+    def grid_heaps(s, occ_h, c, rider):
+        keys = torch.full((s, 1 << c), KEY_INF, **card)
+        vals = torch.full((s, 1 << c), -1, **card)
+        rid = torch.zeros((s, 1 << c), **card) if rider else None
+        sizes = torch.zeros(s, **card)
+        n = s * occ_h
+        seed = torch.as_tensor(rng.integers(0, HEAP_HORIZON, n,
+                                            dtype=np.int32), device=dev)
+        K.heap_apply_grid(keys, vals, sizes, opkeys=seed, opvals=seed,
+                          dest=torch.arange(n, **card) % s, cap_log2=c,
+                          rider=rid, oprider=torch.zeros((), **card))
+        return [keys, vals, sizes, rid]
+
+    def grid_insert_wave(s, lanes, dens):
+        act = rng.random(lanes) < dens
+        rank = np.cumsum(act) - act
+        dest = np.where(act, rank % s, -1).astype(np.int32)
+        return (dict(opkeys=torch.as_tensor(rng.integers(
+                    0, HEAP_HORIZON + 4, lanes, dtype=np.int32), device=dev),
+                     opvals=torch.as_tensor(rng.integers(
+                         0, 1 << 30, lanes, dtype=np.int32), device=dev),
+                     dest=torch.as_tensor(dest, device=dev)), int(act.sum()))
+
+    def grid_times(s, occ_h, c, rider, waves, iters):
+        """(kernel, plain) (device ms, wall ms) a call of ``waves`` taken
+        in turn, on ``s`` heaps of ``occ_h`` nodes."""
+        base = grid_heaps(s, occ_h, c, rider)
+        clock = torch.tensor(7, **card)
+
+        def setup():
+            return [None if x is None else x.clone() for x in base]
+
+        def call(fn):
+            def launch(st, i):
+                w = waves[i % len(waves)]
+                extra = {} if "counts" in w or not rider else {
+                    "oprider": clock}
+                fn(st[0], st[1], st[2], rider=st[3], cap_log2=c, **w,
+                   **extra)
+            return launch
+        return (smoke.time_ms(setup, call(K.heap_apply_grid), iters=iters),
+                smoke.time_ms(setup, call(K.heap_apply_grid_plain),
+                              iters=2, reps=2))
+
+    def grid_cell(s, occ_h, c, rider, pops, lanes, dens, iters=40):
+        """One shape: a pop wave of ``pops`` a heap and an insert wave of
+        ``lanes`` at ``dens``, each timed on its own (the cell's ms is
+        their mean), with their bounds."""
+        lv, top, l2 = grid_levels(occ_h, rider)
+        ins_w, n_act = grid_insert_wave(s, lanes, dens)
+        pop_w = dict(counts=torch.full((s,), pops, **card), batch=pops)
+        pop_b = s * (pops * (9 + 24 + lv * 28) + 8) + (16 + lv * 8) * (
+            s * pops if rider else 0)
+        ins_b = lanes * 4 + n_act * (8 + 12 + 8 * rider) + 8 * s
+        pop_chain = pops * (top * SMEM_LATENCY_CYCLES
+                            + l2 * L2_LATENCY_CYCLES) / GPU_CYCLES_PER_S * 1e3
+        ins_chain = (-(-n_act // s) * SMEM_LATENCY_CYCLES
+                     / GPU_CYCLES_PER_S * 1e3)
+        cell = {"shards": s, "heap_slots": 1 << c, "occupancy_a_heap": occ_h,
+                "levels": lv, "levels_in_shared_memory": top,
+                "levels_in_l2": l2, "pops_a_heap": pops,
+                "insert_lanes": lanes, "insert_active": n_act,
+                "rider": rider}
+        for name, w, nb, ops, chain, it in (
+                ("pop", pop_w, pop_b, s * pops * lv * 4, pop_chain,
+                 max(2, min(iters, occ_h // max(pops, 1) - 1))),
+                ("insert", ins_w, ins_b, n_act, ins_chain, iters)):
+            kern, plain = grid_times(s, occ_h, c, rider, [w], it)
+            b, by = bound(nb, ops, ALU_OPS_PER_S)
+            cell[name] = {"ms": kern[0], "wall_ms": kern[1],
+                          "plain_ms": plain[1], "bound_ms": b,
+                          "bound_by": by, "chain_bound_ms": chain,
+                          "bytes": nb, "calls": it}
+        cell["ms"] = (cell["pop"]["ms"] + cell["insert"]["ms"]) / 2
+        cell["wall_ms"] = (cell["pop"]["wall_ms"]
+                           + cell["insert"]["wall_ms"]) / 2
+        cell["plain_ms"] = (cell["pop"]["plain_ms"]
+                            + cell["insert"]["plain_ms"]) / 2
+        cell["bound_ms"] = (cell["pop"]["bound_ms"]
+                            + cell["insert"]["bound_ms"]) / 2
+        cell["bytes"] = (pop_b + ins_b) / 2
+        cell["ops"] = (s * pops * lv * 4 + n_act) / 2
+        cell["chain_bound_ms"] = (pop_chain + ins_chain) / 2
+        return cell
+
+    def run_shape(run, s):
+        """(occupancy a heap at half the run's peak, pops a heap a round,
+        child density) of a pmesh run at ``s`` heaps."""
+        return (max(run["max_occupancy"] // (2 * s), 1),
+                max(run["processed"] // (run["rounds"] * s), 1))
+
+    def grid_row(name, replaces, cells, note):
+        """A row whose ms, bound and plain are its first cell's; the paths
+        lose launches x (ms - bound) at each cell's own shape."""
+        excess, subs = 0.0, {}
+        for key, launches, cell in cells:
+            excess += launches * (cell["ms"] - cell["bound_ms"])
+            subs[key] = dict(cell, launches=launches)
+        first = cells[0][2]
+        row(name, csrc + "heap_batch.cu", replaces,
+            (first["ms"], first["wall_ms"]), (first["plain_ms"],) * 2, None,
+            first["bytes"], first["ops"],
+            dict({k: v for k, v in first.items()},
+                 plain_ms_is="wall (host loop)",
+                 ms_is="mean of a pop wave and an insert wave",
+                 cells={k: v for k, v in subs.items()}, excess_note=note),
+            excess=excess)
+
+    pt, ps = pmesh_info["tree"], pmesh_info["sssp"]
+    s_m = MESH_SHARDS
+    tree_lanes = 2 * s_m * BATCH            # two children a pop
+    rel = pt["relaxed"]
+    occ_r, _ = run_shape(rel, s_m)
+    dens_t = rel["spawned"] / (rel["rounds"] * tree_lanes)
+    tree_cell = grid_cell(s_m, occ_r, c4, False, BATCH, tree_lanes, dens_t)
+    strict = pt["strict"]
+    occ_s, _ = run_shape(strict, 1)
+    strict_cell = grid_cell(1, occ_s, c4, False, s_m * BATCH, tree_lanes,
+                            dens_t, iters=20)
+    # one heap of the relaxed tree's occupancy popped 1,024 by the grid at
+    # S = 1 and by heap_apply (the single heap's kernel): what the relaxed
+    # pop wave costs beside one shard's call, in this call
+    one = grid_cell(1, occ_r, c4, False, BATCH, tree_lanes // s_m, dens_t)
+    base1 = grid_heaps(1, occ_r, c4, False)
+    pops1 = (torch.ones(BATCH, **card), torch.full((BATCH,), KEY_INF, **card),
+             torch.full((BATCH,), -1, **card))
+    single_pop = smoke.time_ms(
+        lambda: [base1[0][0].clone(), base1[1][0].clone(),
+                 base1[2][0].clone()],
+        heap_call(K.heap_apply, pops1), iters=40)
+    tree_cell["one_shard_pop_ms"] = one["pop"]["ms"]
+    tree_cell["one_shard_heap_apply_pop_ms"] = single_pop[0]
+    # heap_apply's launches on the pmesh path (PriorityRoundRunner at
+    # 4,096 lanes beside the strict mesh) lose what the strict cell's one
+    # heap loses, not what the heap path's 1,024-pop batches do
+    heap_row = next(r for r in rows if r["name"] == "heap_apply")
+    n_pm = smoke.launches["pmesh"].get("heap_apply", 0)
+    heap_row["excess_ms"] += n_pm * (
+        (strict_cell["ms"] - strict_cell["bound_ms"])
+        - (heap_row["ms"] - heap_row["bound_ms"]))
+    heap_row["shape"]["pmesh_launches_charged_at"] = "tree_strict"
+    tree_launch = lambda r: r["launches"].get(  # noqa: E731
+        "heap_apply_grid", 0)
+    grid_row("heap_apply_grid", "src/repro/kernels/heap_batch.py:47 "
+             "(heap_pop_count / heap_insert_masked on each shard's heap, "
+             ":299, :314)",
+             [("tree_relaxed", tree_launch(rel) + tree_launch(
+                 rel["compact"]), tree_cell),
+              ("tree_strict", tree_launch(strict), strict_cell)],
+             "the goldens' launches are not charged")
+    # the rider instance: SSSP's split payload (4 heaps of 2^20 at the
+    # run's occupancy, its mean pops a heap, 16,384 insert lanes) and the
+    # spanned tree (births on the rider)
+    srel, sstr = ps["relaxed"], ps["strict"]
+    fan = 4
+    lanes_s = s_m * BATCH * fan
+    occ_q, pops_q = run_shape(srel, s_m)
+    occ_q = max(occ_q, 2 * pops_q)
+    sssp_cell = grid_cell(s_m, occ_q, int(np.log2(srel["heap_slots"])),
+                          True, pops_q, lanes_s,
+                          srel["spawned"] / (srel["rounds"] * lanes_s))
+    occ_q1, pops_q1 = run_shape(sstr, 1)
+    occ_q1 = max(occ_q1, 2 * pops_q1)
+    sssp_strict_cell = grid_cell(1, occ_q1, int(np.log2(sstr["heap_slots"])),
+                                 True, pops_q1, lanes_s,
+                                 sstr["spawned"] / (sstr["rounds"]
+                                                    * lanes_s), iters=20)
+    obs_tree_cell = grid_cell(s_m, occ_r, c4, True, BATCH, tree_lanes,
+                              dens_t)
+    rider_launch = lambda r: r["launches"].get(  # noqa: E731
+        "heap_apply_grid_rider", 0)
+    grid_row("heap_apply_grid_rider", "src/repro/kernels/heap_batch.py:47 "
+             "with heap_planes(rider=, oprider=) (:183-296), on each "
+             "shard's heap", [
+                 ("sssp_relaxed", rider_launch(srel), sssp_cell),
+                 ("sssp_strict", rider_launch(sstr), sssp_strict_cell),
+                 ("tree_obs", rider_launch(pt["obs"]), obs_tree_cell)],
+             "every launch charged at its run's shape")
 
     # obs_record (not a TPU kernel: the reference's XLA fuses the record
     # into its round): one spanned road round's record, 1,024 lanes of
@@ -3886,7 +4600,13 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
              "kron": kron["round_graph"]["nodes"],
              "heap": heap["fused"]["round_graph"]["nodes"],
              "road_obs": obs_info["road"]["round_graph_on"]["nodes"],
-             "heap_obs": obs_info["heap"]["round_graph_on"]["nodes"]}},
+             "heap_obs": obs_info["heap"]["round_graph_on"]["nodes"],
+             "mesh_tree": mesh_info["tree"]["replicated"]["round_graph"][
+                 "nodes"],
+             **{f"pmesh_tree_{k}": pmesh_info["tree"][k]["round_graph"][
+                 "nodes"] for k in ("relaxed", "strict", "single")},
+             **{f"pmesh_sssp_{k}": pmesh_info["sssp"][k]["round_graph"][
+                 "nodes"] for k in ("relaxed", "strict")}}},
         excess=rounds_paths * (per[0] - b_l))
     return rows
 

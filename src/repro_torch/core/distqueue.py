@@ -1,5 +1,6 @@
-"""The distributed (mesh-level) bounded FIFO queue — the PyTorch twin of
-the FIFO and sharded halves of ``repro/core/distqueue.py``.
+"""The distributed (mesh-level) bounded queues — the PyTorch twin of
+``repro/core/distqueue.py``: the FIFO ring (replicated and sharded) and
+the priority planes of the priority mesh.
 
 The reference runs one shard per device: each function takes one
 shard's ``(B,)`` requests inside ``shard_map`` and one psum gathers the
@@ -31,6 +32,15 @@ engines (``runtime.meshrounds``) run a round's claim and publish as one
 kernel launch each (``ring_dequeue_wave``, ``ring_enqueue_wave`` over
 the S-shard lane grid) and hold the same contracts as these
 functions.
+
+The priority planes (``DistHeapState``) are the chip heap's key/val
+planes: one heap a shard stacked ``(S, cap)`` with ``(S,)`` sizes (the
+relaxed mesh) or one heap held once (the strict mesh).
+``dist_priority_publish_round`` is the priority round's exchange: every
+shard's ``(S, W)`` child rows and its ``(hint, size)`` meta words (and,
+with telemetry, its popped-key extrema), gathered as the stacked rows,
+with the children's ranks shard-major; the compact form passes each
+row through ``wave_compact`` (B3) first.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..distributed.collectives import (  # noqa: F401  (re-exported)
     mesh_round_gather, mesh_ticket_base)
 from ..kernels._build import resolve_device
 from ..kernels.compact import wave_compact
+from ..kernels.heap_batch import KEY_INF
 from ..kernels.ring_slots import (  # noqa: F401  (the schedules re-exported)
     claim_schedule, deq_planes, enq_planes, priority_claim_schedule)
 from ..kernels.wavefaa import _i32
@@ -301,14 +312,20 @@ def _compact_grid(counts, width: int):
 def _compact_rows(values, mask, width: int, scratch=None):
     """Each shard's row of children compacted to ``width`` lanes
     (``wave_compact``, B3 on the card, on ``scratch`` when given): ((S,
-    width) int32, (S,) int32 true popcounts)."""
+    width) int32, (S,) int32 true popcounts).  ``values`` is one (S, N)
+    plane, or a tuple of planes under the one mask (then the first item
+    is the tuple of dense planes)."""
+    planes = values if isinstance(values, tuple) else (values,)
+    planes = tuple(p.to(torch.int32) for p in planes)
     dense, counts = [], []
-    for v, m in zip(values.to(torch.int32), mask > 0):
-        (d,), c = wave_compact(m.contiguous(), (v.contiguous(),),
-                               width=width, scratch=scratch)
-        dense.append(d)
+    for i, m in enumerate(mask > 0):
+        ds, c = wave_compact(m.contiguous(),
+                             tuple(p[i].contiguous() for p in planes),
+                             width=width, scratch=scratch)
+        dense.append(ds)
         counts.append(c.reshape(1))
-    return torch.stack(dense), torch.cat(counts)
+    out = tuple(torch.stack(d) for d in zip(*dense))
+    return (out if isinstance(values, tuple) else out[0]), torch.cat(counts)
 
 
 def dist_publish_compact_round(state: DistQueueState, values, mask, *,
@@ -370,6 +387,99 @@ def dist_claim_round(state: DistQueueState, k, batch: int, shards: int, *,
     if births is not None:
         res = res + (out[3].reshape(shards, batch),)
     return res
+
+
+# ---------------------------------------------------------------------------
+# priority planes — the priority mesh's heaps and its one exchange
+# ---------------------------------------------------------------------------
+
+
+class DistHeapState(NamedTuple):
+    """The priority mesh's heap planes, the chip heap's layout: one heap
+    a shard, ``(S, cap)`` keys and vals with ``(S,)`` sizes (the relaxed
+    mesh), or one heap, ``(cap,)`` planes and a 0-d size (the strict
+    mesh).  ``KEY_INF`` marks empty slots, their vals are -1."""
+    keys: torch.Tensor
+    vals: torch.Tensor
+    size: torch.Tensor
+
+    @property
+    def occupancy(self):
+        return self.size
+
+
+def dist_heap_init(capacity: int, *, shards: int = None,
+                   device="cuda") -> DistHeapState:
+    """Empty heap planes with capacity rounded up to a power of two, on
+    ``device``: one heap, or ``shards`` heaps stacked."""
+    cap = 1 << max(int(capacity) - 1, 1).bit_length()
+    lead = () if shards is None else (shards,)
+    i32 = dict(dtype=torch.int32, device=resolve_device(device))
+    return DistHeapState(keys=torch.full(lead + (cap,), KEY_INF, **i32),
+                         vals=torch.full(lead + (cap,), -1, **i32),
+                         size=torch.zeros(lead, **i32))
+
+
+def _priority_meta(local_hint, local_size, s, pop_meta, extra=()):
+    words = [local_hint, local_size, *extra]
+    if pop_meta is not None:
+        words += list(pop_meta)
+    return torch.stack([torch.as_tensor(w).to(torch.int32).reshape(-1)
+                        .expand(s) for w in words], 1)
+
+
+def dist_priority_publish_round(ckeys, cvals, mask, local_hint, local_size,
+                                pop_meta=None, aux=None):
+    """The priority round's exchange (reference
+    ``dist_priority_publish_round``): every shard's ``(S, W)`` child rows
+    (keys, payloads and, in the split layout, ``aux``) under ``mask``,
+    with each shard's post-pop ``local_hint`` and ``local_size`` ((S,),
+    or one value every shard shares), gathered as the stacked rows.
+    ``ranks`` are the exclusive prefix over the gathered mask,
+    shard-major.  Returns ``(gkeys, gvals[, gaux], active, ranks, total,
+    hints (S,), sizes (S,))`` with the g-planes flattened, and with
+    ``pop_meta = (mins (S,), maxs (S,))`` (telemetry) ``(pop_mins,
+    pop_maxs)`` last."""
+    s = ckeys.shape[0]
+    mask_i = (mask > 0).to(torch.int32)
+    blocks = (ckeys, cvals) + (() if aux is None else (aux,))
+    g = mesh_round_gather(blocks + (mask_i, _priority_meta(
+        local_hint, local_size, s, pop_meta)))
+    gm, gmeta = g[-2].reshape(-1), g[-1]
+    ranks = torch.cumsum(gm, 0, dtype=torch.int32) - gm
+    out = tuple(b.reshape(-1) for b in g[:-2])
+    out += (gm > 0, ranks, gm.sum(dtype=torch.int32), gmeta[:, 0],
+            gmeta[:, 1])
+    if pop_meta is not None:
+        out += (gmeta[:, 2], gmeta[:, 3])
+    return out
+
+
+def dist_priority_publish_compact_round(ckeys, cvals, mask, local_hint,
+                                        local_size, *, width: int,
+                                        pop_meta=None, aux=None,
+                                        scratch=None):
+    """``dist_priority_publish_round`` under the dense-wave rule: each
+    shard's child planes (keys, payloads[, aux]) compacted to ``width``
+    lanes under the mask (``wave_compact``, B3 on the card, on
+    ``scratch`` when given), the true counts beside the meta words and
+    the ranks rebuilt from their exclusive prefix (``_compact_grid``), so
+    the children and their ranks are the sparse round's.  Returns its
+    layout (the g-planes ``(S * width,)``)."""
+    s = ckeys.shape[0]
+    planes = (ckeys, cvals) + (() if aux is None else (aux,))
+    dense, count = _compact_rows(planes, mask, width, scratch)
+    g = mesh_round_gather(dense + (_priority_meta(
+        local_hint, local_size, s, pop_meta, (count,)),))
+    gmeta = g[-1]
+    counts = gmeta[:, 2]
+    active, ranks = _compact_grid(counts, width)
+    out = tuple(b.reshape(-1) for b in g[:-1])
+    out += (active, ranks.to(torch.int32), counts.sum(dtype=torch.int32),
+            gmeta[:, 0], gmeta[:, 1])
+    if pop_meta is not None:
+        out += (gmeta[:, 3], gmeta[:, 4])
+    return out
 
 
 class DistShardedQueueState(NamedTuple):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .apps.bfs import CSRGraph
+from .core.distqueue import DistHeapState
 from .kernels._build import resolve_device
 from .runtime.fusedrounds import HeapState, RingState
 
@@ -52,6 +53,35 @@ def heap_state_to_numpy(st: HeapState) -> Tuple[np.ndarray, np.ndarray, int]:
     """(keys, vals, size) with numpy int32 planes and an int size — the
     inverse of ``heap_state_from_numpy``."""
     return st.keys.cpu().numpy(), st.vals.cpu().numpy(), int(st.size)
+
+
+def dist_heap_state_from_numpy(keys, vals, size, *,
+                               device="cuda") -> DistHeapState:
+    """A ``DistHeapState`` on ``device`` from the reference's priority mesh
+    planes: stacked ``(S, cap)`` keys and vals with ``(S,)`` sizes (the
+    relaxed mesh, one heap a shard) or one ``(cap,)`` heap and its size
+    (the strict mesh)."""
+    dev = resolve_device(device)
+    k, v = (torch.tensor(np.asarray(p, np.int32), device=dev)
+            for p in (keys, vals))
+    sz = torch.tensor(np.asarray(size, np.int32), device=dev)
+    if k.shape != v.shape or k.dim() not in (1, 2) or \
+            tuple(sz.shape) != tuple(k.shape[:-1]):
+        raise ValueError("heap planes must be two (cap,) arrays and a size, "
+                         "or two (S, cap) arrays and (S,) sizes")
+    return DistHeapState(k, v, sz)
+
+
+def dist_heap_state_to_numpy(st: DistHeapState):
+    """(keys, vals, size, hints) as numpy int32 — the inverse of
+    ``dist_heap_state_from_numpy`` plus the relaxed claim schedule's
+    hints: each shard's least key (``KEY_INF`` when empty), which is what
+    the relaxed engines carry between rounds; None for one heap."""
+    keys, vals = st.keys.cpu().numpy(), st.vals.cpu().numpy()
+    size = np.asarray(st.size.cpu().numpy() if isinstance(
+        st.size, torch.Tensor) else st.size, np.int32)
+    hints = keys.min(axis=1) if keys.ndim == 2 else None
+    return keys, vals, size, hints
 
 
 def csr_from_arrays(row_ptr, col_idx, name: str = "g") -> CSRGraph:

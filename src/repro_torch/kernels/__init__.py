@@ -12,8 +12,10 @@ S-shard lane grid: the mesh's round, and the single ring's at S = 1),
 kernel of the reference — with the span layer's instances of the ring
 waves (packed birth stamps) and of ``heap_apply`` (a rider plane), the
 standalone ring waves' masked instance (an explicit ``active``: the
-functional faces ``enq_planes`` / ``deq_planes`` on the card) and the
-sharded instances of the round's waves (S rings, one a row).
+functional faces ``enq_planes`` / ``deq_planes`` on the card), the
+sharded instances of the round's waves (S rings, one a row) and
+``heap_apply``'s shard grid (``heap_apply_grid``: S heaps, a pop or an
+insert wave in one launch, the priority mesh's waves).
 ``csrc/loop.cu`` (the round engines' device loop) is driven from
 ``runtime/enginecore.py``, ``csrc/obs_record.cu`` (a round's trace and
 span record) from ``obs/record.py``.
@@ -28,6 +30,7 @@ from .frontier import (frontier_buffer, frontier_expand,
                        frontier_expand_plain, frontier_level,
                        frontier_level_plain, frontier_scratch)
 from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP, heap_apply,
+                         heap_apply_grid, heap_apply_grid_plain,
                          heap_apply_plain, heap_insert_masked, heap_planes,
                          heap_pop_count, heap_resident_max)
 from .moe_route import (expert_tickets, expert_tickets_plain, moe_route,
@@ -47,8 +50,9 @@ __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "flash_attention", "flash_attention_plain", "frontier_buffer",
            "frontier_expand", "frontier_expand_plain", "frontier_level",
            "frontier_level_plain", "frontier_scratch", "heap_apply",
-           "heap_apply_plain", "heap_insert_masked", "heap_planes",
-           "heap_pop_count", "heap_resident_max", "moe_route",
+           "heap_apply_grid", "heap_apply_grid_plain", "heap_apply_plain",
+           "heap_insert_masked", "heap_planes", "heap_pop_count",
+           "heap_resident_max", "moe_route",
            "priority_claim_schedule", "ref", "reset_launches",
            "ring_dequeue", "ring_dequeue_plain",
            "ring_dequeue_wave", "ring_dequeue_wave_plain", "ring_enqueue",

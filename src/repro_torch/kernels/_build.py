@@ -53,6 +53,8 @@ SIGNATURES = {
     "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P),
                    "repro_heap_apply_rider": (_P,) * 13 + (_I,) * 5
                    + (_P,),
+                   "repro_heap_apply_grid": (_P,) * 12 + (_I,) * 7
+                   + (_P,),
                    "repro_heap_resident_max": (_I, _I)},
     "frontier": {"repro_frontier_level": (_P,) * 10 + (_I, _I, _I, _P)},
     "moe_route": {"repro_expert_tickets": (_P, _P, _P, _I, _I, _I, _P)},
@@ -74,6 +76,8 @@ LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
                             "ring_dequeue_wave_sharded": 0,
                             "ring_enqueue_wave_sharded": 0, "wave_compact": 0,
                             "heap_apply": 0, "heap_apply_rider": 0,
+                            "heap_apply_grid": 0,
+                            "heap_apply_grid_rider": 0,
                             "frontier_expand": 0, "expert_tickets": 0,
                             "flash_attention": 0, "obs_record": 0,
                             "obs_record_mesh": 0, "device_loop": 0}

@@ -80,6 +80,28 @@
 // (8,191), and the same levels 0-4 of an 8-ary one; below the top it
 // loads one level at a time (kLookAhead).  The rider-less instance is the
 // kernel above, unchanged.
+//
+// The shard grid (heap_batch.py: heap_apply_grid; reference
+// heap_pop_count / heap_insert_masked on each shard's heap under the
+// priority mesh's shard_map) applies one wave to S heaps stacked (S, 2^c)
+// in ONE launch of S blocks: block s is the kernel above on heap s, its
+// size word sizes[s] read at the start and written at the end (in place).
+// Its ops are not given lane by lane but made where the block stages
+// them (template M):
+//
+//   * pop-count (kPopCount): lane i of block s is DELETE-MIN when i <
+//     counts[s], else NOP; its results are row s of (S, b) outputs;
+//   * masked insert (kMaskedInsert): every block reads the one gathered
+//     wave (okeys, ovals, oprider) of b lanes and a destination per lane,
+//     and lane i is INSERT in block s when dest[i] == s, else NOP (-1 goes
+//     nowhere); no per-lane results are written.
+//
+// Staging keeps only INSERT and DELETE-MIN lanes, so a block's serial
+// thread walks its own shard's lanes and nothing else.  The blocks are
+// independent and each takes an SM of its own (its shared memory fills
+// one), so a wave over S <= 132 heaps costs about one heap's call.  The
+// single heap's instance (kOpsGiven, heap_apply) is unchanged: one block,
+// its ops read lane by lane.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -93,6 +115,10 @@ constexpr int32_t kOpInsert = 0;
 constexpr int32_t kOpDelmin = 1;
 constexpr int32_t kOpNop = -1;
 constexpr int kHeapThreads = 256;
+// where a block's ops come from (see the grid above)
+constexpr int kOpsGiven = 0;
+constexpr int kPopCount = 1;
+constexpr int kMaskedInsert = 2;
 constexpr int kChunk = 1024;  // ops staged in shared memory at a time
 constexpr int kOpsPerThread = kChunk / kHeapThreads;
 // staging: lane | op, key, val, the outputs (key, val, ok) and, for the
@@ -252,22 +278,46 @@ __device__ __forceinline__ int min_child(const int32_t* k, const int32_t* v,
 
 // R: rid is the rider plane, oprider[opr_stride * lane] an INSERT lane's
 // rider, outr[lane] a DELETE-MIN lane's popped rider (-1 elsewhere).
-template <int A, bool R>
+// M: kOpsGiven reads ops[lane]; on the grid, sel is counts (S,)
+// (kPopCount) or dest (b,) (kMaskedInsert), and block s works on heap s.
+// size_in and size_out may be one buffer: every thread reads its word
+// before the first barrier, thread 0 writes it after the last.
+template <int A, bool R, int M>
 __global__ void __launch_bounds__(kHeapThreads)
 heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
-                  const int32_t* __restrict__ size_in,
+                  const int32_t* size_in,
                   const int32_t* __restrict__ ops,
                   const int32_t* __restrict__ okeys,
                   const int32_t* __restrict__ ovals,
                   int32_t* __restrict__ outk, int32_t* __restrict__ outv,
-                  uint8_t* __restrict__ ok, int32_t* __restrict__ size_out,
+                  uint8_t* __restrict__ ok, int32_t* size_out,
                   int b, int cap_log2, int max_depth,
                   int32_t* __restrict__ rid,
                   const int32_t* __restrict__ oprider, int opr_stride,
-                  int32_t* __restrict__ outr) {
+                  int32_t* __restrict__ outr,
+                  const int32_t* __restrict__ sel) {
   constexpr int D = 1 << A;
+  constexpr bool kOut = M != kMaskedInsert;  // per-lane results written
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t cap = 1u << cap_log2;
+  const int32_t shard = M == kOpsGiven ? 0 : static_cast<int32_t>(blockIdx.x);
+  if constexpr (M != kOpsGiven) {
+    const int64_t plane = static_cast<int64_t>(shard) << cap_log2;
+    keys += plane;
+    vals += plane;
+    if constexpr (R) rid += plane;
+    size_in += shard;
+    size_out += shard;
+  }
+  if constexpr (M == kPopCount) {
+    const int64_t row = static_cast<int64_t>(shard) * b;
+    outk += row;
+    outv += row;
+    ok += row;
+    if constexpr (R) outr += row;
+  }
+  int32_t pops = 0;  // kPopCount: the lanes below it pop
+  if constexpr (M == kPopCount) pops = sel[shard];
   const uint32_t r =
       cap < kResidentMax<A, R> ? cap : kResidentMax<A, R>;
   int32_t size = *size_in;
@@ -317,9 +367,15 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
     const int q0 = threadIdx.x * kOpsPerThread;
 #pragma unroll
     for (int q = 0; q < kOpsPerThread; ++q) {
-      op4[q] = q0 + q < n ? ops[c0 + q0 + q] : kOpNop;
+      const int lane = c0 + q0 + q;
+      if constexpr (M == kOpsGiven)
+        op4[q] = q0 + q < n ? ops[lane] : kOpNop;
+      else if constexpr (M == kPopCount)
+        op4[q] = q0 + q < n && lane < pops ? kOpDelmin : kOpNop;
+      else
+        op4[q] = q0 + q < n && sel[lane] == shard ? kOpInsert : kOpNop;
       live += op4[q] == kOpInsert || op4[q] == kOpDelmin;
-      if (q0 + q < n) {
+      if (kOut && q0 + q < n) {
         s_outk[q0 + q] = kKeyInf;
         s_outv[q0 + q] = -1;
         s_ok[q0 + q] = 0;
@@ -332,11 +388,13 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
     for (int q = 0; q < kOpsPerThread; ++q) {
       if (op4[q] == kOpInsert || op4[q] == kOpDelmin) {
         s_op[at] = ((q0 + q) << 1) | op4[q];
-        s_key[at] = okeys[c0 + q0 + q];
-        s_val[at] = ovals[c0 + q0 + q];
-        if constexpr (R)
-          s_rid[at] = oprider[static_cast<int64_t>(opr_stride) *
-                              (c0 + q0 + q)];
+        if constexpr (M != kPopCount) {  // a pop's key and val are unused
+          s_key[at] = okeys[c0 + q0 + q];
+          s_val[at] = ovals[c0 + q0 + q];
+          if constexpr (R)
+            s_rid[at] = oprider[static_cast<int64_t>(opr_stride) *
+                                (c0 + q0 + q)];
+        }
         ++at;
       }
     }
@@ -460,18 +518,22 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
           size = nsize;
           applied = 1;
         }
-        s_outk[i] = rk;
-        s_outv[i] = rv;
-        if constexpr (R) s_outr[i] = rr;
-        s_ok[i] = applied;
+        if constexpr (kOut) {
+          s_outk[i] = rk;
+          s_outv[i] = rv;
+          if constexpr (R) s_outr[i] = rr;
+          s_ok[i] = applied;
+        }
       }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < n; t += kHeapThreads) {
-      outk[c0 + t] = s_outk[t];
-      outv[c0 + t] = s_outv[t];
-      ok[c0 + t] = s_ok[t];
-      if constexpr (R) outr[c0 + t] = s_outr[t];
+    if constexpr (kOut) {
+      for (int t = threadIdx.x; t < n; t += kHeapThreads) {
+        outk[c0 + t] = s_outk[t];
+        outv[c0 + t] = s_outv[t];
+        ok[c0 + t] = s_ok[t];
+        if constexpr (R) outr[c0 + t] = s_outr[t];
+      }
     }
     __syncthreads();  // the next chunk overwrites the staging buffers
   }
@@ -499,7 +561,8 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
   }
 }
 
-// The launch arguments of one call (the rider's are null / 0 without one).
+// The launch arguments of one call (the rider's are null / 0 without one;
+// sel and shards are the grid's).
 struct HeapArgs {
   int32_t *k, *v;
   const int32_t *si, *o, *ok_, *ov;
@@ -511,36 +574,46 @@ struct HeapArgs {
   const int32_t* opr;
   int opr_stride;
   int32_t* outr;
+  const int32_t* sel;
+  int shards;
 };
 
-template <int A, bool R>
+template <int A, bool R, int M>
 int launch_heap(const HeapArgs& x, cudaStream_t s) {
   static bool opted_in = false;  // one attribute call per instance
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        heap_apply_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes<A, R>);
+        heap_apply_kernel<A, R, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<A, R>);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  heap_apply_kernel<A, R><<<1, kHeapThreads, kSmemBytes<A, R>, s>>>(
-      x.k, x.v, x.si, x.o, x.ok_, x.ov, x.rk, x.rv, x.a, x.so, x.b,
-      x.cap_log2, x.max_depth, x.rid, x.opr, x.opr_stride, x.outr);
+  heap_apply_kernel<A, R, M>
+      <<<M == kOpsGiven ? 1 : x.shards, kHeapThreads, kSmemBytes<A, R>, s>>>(
+          x.k, x.v, x.si, x.o, x.ok_, x.ov, x.rk, x.rv, x.a, x.so, x.b,
+          x.cap_log2, x.max_depth, x.rid, x.opr, x.opr_stride, x.outr,
+          x.sel);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool R>
+template <bool R, int M>
 int launch_arity(const HeapArgs& x, int arity_log2, cudaStream_t s) {
   switch (arity_log2) {
     case 1:
-      return launch_heap<1, R>(x, s);
+      return launch_heap<1, R, M>(x, s);
     case 2:
-      return launch_heap<2, R>(x, s);
+      return launch_heap<2, R, M>(x, s);
     case 3:
-      return launch_heap<3, R>(x, s);
+      return launch_heap<3, R, M>(x, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int M>
+int launch_grid(const HeapArgs& x, int arity_log2, cudaStream_t s) {
+  return x.rid ? launch_arity<true, M>(x, arity_log2, s)
+               : launch_arity<false, M>(x, arity_log2, s);
 }
 
 }  // namespace repro
@@ -569,9 +642,10 @@ extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
                    static_cast<int32_t*>(outv),
                    static_cast<uint8_t*>(ok),
                    static_cast<int32_t*>(size_out),
-                   b, cap_log2, max_depth, nullptr, nullptr, 0, nullptr};
-  return launch_arity<false>(x, arity_log2,
-                             static_cast<cudaStream_t>(stream));
+                   b, cap_log2, max_depth, nullptr, nullptr, 0, nullptr,
+                   nullptr, 1};
+  return launch_arity<false, kOpsGiven>(x, arity_log2,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // The rider instance: as above, plus rider (2^cap_log2,) int32, updated in
@@ -599,9 +673,52 @@ extern "C" int repro_heap_apply_rider(
                    static_cast<int32_t*>(size_out),
                    b, cap_log2, max_depth, static_cast<int32_t*>(rider),
                    static_cast<const int32_t*>(oprider), opr_stride,
-                   static_cast<int32_t*>(outr)};
-  return launch_arity<true>(x, arity_log2,
-                            static_cast<cudaStream_t>(stream));
+                   static_cast<int32_t*>(outr), nullptr, 1};
+  return launch_arity<true, kOpsGiven>(x, arity_log2,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// The shard grid: `shards` heaps stacked in keys / vals (and rider, when
+// not null) as (shards, 2^cap_log2) int32, updated in place; sizes
+// (shards,) int32, read and written in place.  mode 1 (pop count): sel is
+// counts (shards,); block s pops min(counts[s], sizes[s]) roots, lanes
+// [0, b) of row s of outk / outv / ok (and outr) (shards, b).  mode 2
+// (masked insert): sel is dest (b,); okeys / ovals (b,), oprider one
+// int32 (opr_stride 0) or (b,) (opr_stride 1); block s installs the lanes
+// with dest == s in lane order; outk, outv, ok and outr are not used.
+// One launch of `shards` blocks, each with the shared memory of
+// repro_heap_apply (or of the rider instance).
+extern "C" int repro_heap_apply_grid(
+    void* keys, void* vals, void* rider, void* sizes, const void* sel,
+    const void* okeys, const void* ovals, const void* oprider, void* outk,
+    void* outv, void* outr, void* ok, int shards, int b, int cap_log2,
+    int arity_log2, int max_depth, int mode, int opr_stride, void* stream) {
+  using namespace repro;
+  if ((opr_stride != 0 && opr_stride != 1) || shards < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HeapArgs x{static_cast<int32_t*>(keys),
+                   static_cast<int32_t*>(vals),
+                   static_cast<const int32_t*>(sizes),
+                   nullptr,
+                   static_cast<const int32_t*>(okeys),
+                   static_cast<const int32_t*>(ovals),
+                   static_cast<int32_t*>(outk),
+                   static_cast<int32_t*>(outv),
+                   static_cast<uint8_t*>(ok),
+                   static_cast<int32_t*>(sizes),
+                   b, cap_log2, max_depth, static_cast<int32_t*>(rider),
+                   static_cast<const int32_t*>(oprider), opr_stride,
+                   static_cast<int32_t*>(outr),
+                   static_cast<const int32_t*>(sel), shards};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kPopCount:
+      return launch_grid<kPopCount>(x, arity_log2, s);
+    case kMaskedInsert:
+      return launch_grid<kMaskedInsert>(x, arity_log2, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Nodes of the shared-memory top (kResidentMax) for arity_log2 in 1..3,

@@ -29,8 +29,16 @@ Faces:
   path and the kernel's oracle on the card.
 * ``heap_planes`` — functional form (new planes, the inputs unchanged),
   and ``heap_pop_count`` / ``heap_insert_masked`` on top of it: the
-  partial waves of the priority mesh rounds.  They run ``heap_apply`` on
-  copies, so a CUDA tensor launches the kernel.
+  reference's partial waves, one heap at a time.  They run
+  ``heap_apply`` on copies, so a CUDA tensor launches the kernel.
+* ``heap_apply_grid`` — one wave on S heaps stacked ``(S, 2^c)`` with
+  ``(S,)`` sizes, IN PLACE: a pop wave of ``counts[s]`` DELETE-MINs on
+  heap s (``heap_pop_count`` on every shard), or one gathered insert
+  wave whose lane i goes to heap ``dest[i]`` (``heap_insert_masked`` on
+  every shard with the mask ``dest == s``).  The priority mesh rounds
+  run on it.  On the card it is one launch of S blocks of the kernel
+  above; ``heap_apply_grid_plain`` runs ``_apply_serial`` shard by
+  shard.
 
 ``heap_apply`` and ``heap_apply_plain`` update ``keys``/``vals`` IN
 PLACE and return them, as the ring wrappers do; the Pallas kernel copies
@@ -329,3 +337,171 @@ def heap_insert_masked(keys, vals, size, inkeys, invals, mask, *,
     return heap_planes(keys, vals, size, ops, inkeys, invals,
                        cap_log2=cap_log2, arity_log2=arity_log2,
                        rider=rider, oprider=oprider)
+
+
+# ---------------------------------------------------------------------------
+# the shard grid — S heaps, one wave, the priority mesh rounds' waves
+# ---------------------------------------------------------------------------
+
+_POP_COUNT, _MASKED_INSERT = 1, 2       # modes of csrc/heap_batch.cu's grid
+
+
+def _grid_mode(name, keys, vals, sizes, counts, batch, opkeys, opvals, dest,
+               cap_log2, arity_log2, rider):
+    """Check a grid call and return its mode and shard count."""
+    pop = counts is not None
+    if pop == (dest is not None) or pop == (opkeys is not None):
+        raise ValueError(f"{name}: give counts= and batch= (a pop wave) or "
+                         f"opkeys=, opvals= and dest= (an insert wave)")
+    if arity_log2 < 1:
+        raise ValueError(f"{name}: arity_log2={arity_log2} must be >= 1 "
+                         f"(the heap's levels divide by it)")
+    if not 0 < cap_log2 <= 30:
+        raise ValueError(f"{name}: cap_log2={cap_log2} out of range")
+    s = keys.shape[0] if keys.dim() == 2 else -1
+    for p in (keys, vals) + (() if rider is None else (rider,)):
+        if p.shape != (s, 1 << cap_log2):
+            raise ValueError(f"{name}: planes must be (S, 2^{cap_log2}), "
+                             f"got {tuple(p.shape)}")
+    if sizes.shape != (s,):
+        raise ValueError(f"{name}: sizes must be ({s},), got "
+                         f"{tuple(sizes.shape)}")
+    if pop:
+        if counts.shape != (s,) or batch is None or batch < 0:
+            raise ValueError(f"{name}: a pop wave takes counts ({s},) and "
+                             f"batch >= 0")
+    else:
+        for t in (opvals, dest):
+            if t is None or t.dim() != 1 or t.shape != opkeys.shape:
+                raise ValueError(f"{name}: opkeys/opvals/dest must be (N,)")
+    return (_POP_COUNT if pop else _MASKED_INSERT), s
+
+
+def heap_apply_grid_plain(keys, vals, sizes, *, counts=None, batch=None,
+                          opkeys=None, opvals=None, dest=None,
+                          cap_log2: int, arity_log2: int = 2, rider=None,
+                          oprider=None):
+    """Plain ``heap_apply_grid``: ``_apply_serial`` on each shard's heap in
+    shard order, on host copies (views, for CPU tensors) written back in
+    place.  The return tuples are ``heap_apply_grid``'s."""
+    mode, s = _grid_mode("heap_apply_grid", keys, vals, sizes, counts,
+                         batch, opkeys, opvals, dest, cap_log2, arity_log2,
+                         rider)
+    dev = keys.device
+    planes = (keys, vals) + (() if rider is None else (rider,))
+    host = [p if p.device.type == "cpu" else p.cpu() for p in planes]
+    arrays = [h.numpy() for h in host]
+    size_l = sizes.tolist()
+    i32 = dict(dtype=torch.int32, device=dev)
+    if mode == _POP_COUNT:
+        outs = [[], [], [], []]
+        for sh, c in enumerate(counts.tolist()):
+            ops = [OP_DELMIN if i < c else OP_NOP for i in range(batch)]
+            pad = [KEY_INF] * batch
+            size_l[sh], outk, outv, ok = _apply_serial(
+                arrays[0][sh], [a[sh] for a in arrays[1:]], size_l[sh], ops,
+                pad, [pad] * len(arrays[1:]), cap_log2, arity_log2)
+            for o, x in zip(outs, [outk, outv[0], ok]
+                            + ([outv[1]] if rider is not None else [])):
+                o.append(x)
+    else:
+        d = dest.tolist()
+        keys_l, vals_l = opkeys.tolist(), opvals.tolist()
+        opr = torch.broadcast_to(_oprider(oprider, opkeys),
+                                 opkeys.shape).tolist()
+        for sh in range(s):
+            lanes = [i for i, x in enumerate(d) if x == sh]
+            opv = [[vals_l[i] for i in lanes]]
+            if rider is not None:
+                opv.append([opr[i] for i in lanes])
+            size_l[sh] = _apply_serial(
+                arrays[0][sh], [a[sh] for a in arrays[1:]], size_l[sh],
+                [OP_INSERT] * len(lanes), [keys_l[i] for i in lanes], opv,
+                cap_log2, arity_log2)[0]
+    for p, h in zip(planes, host):
+        if p is not h:
+            p.copy_(h)
+    sizes.copy_(torch.tensor(size_l, dtype=torch.int32))
+    if mode == _MASKED_INSERT:
+        return (keys, vals, sizes) + (() if rider is None else (rider,))
+    outk, outv, ok = (torch.tensor(o, **i32).reshape(s, batch)
+                      for o in outs[:3])
+    out = (keys, vals, sizes, outk, outv, ok.bool())
+    if rider is None:
+        return out
+    return out + (rider, torch.tensor(outs[3], **i32).reshape(s, batch))
+
+
+def heap_apply_grid(keys, vals, sizes, *, counts=None, batch=None,
+                    opkeys=None, opvals=None, dest=None, cap_log2: int,
+                    arity_log2: int = 2, rider=None, oprider=None):
+    """One wave on S heaps, IN PLACE: ``keys``/``vals`` (and ``rider``)
+    are (S, 2^cap_log2) int32 planes, heap s in row s, and ``sizes`` (S,)
+    int32 their sizes, updated in place.
+
+    * Pop wave (``counts`` (S,) int32, ``batch``): heap s takes
+      ``min(counts[s], sizes[s])`` DELETE-MINs (reference
+      ``heap_pop_count`` on each shard).  Returns ``(keys, vals, sizes,
+      out_keys, out_vals, ok)``, the outputs ``(S, batch)``, with a rider
+      also ``(rider, out_rider)``.
+    * Insert wave (``opkeys``/``opvals``/``dest`` (N,) int32): heap s
+      installs, in lane order, the lanes whose ``dest`` is s (-1 goes
+      nowhere; reference ``heap_insert_masked`` with the mask ``dest ==
+      s``); with a rider the lanes install ``oprider`` (one int32, a 0-d
+      device tensor to keep the call free of copies, or (N,)).  Returns
+      ``(keys, vals, sizes)``, with a rider also ``rider``.
+
+    A CPU tensor goes to ``heap_apply_grid_plain``; a CUDA tensor launches
+    ``csrc/heap_batch.cu``'s grid (one block a heap) or raises.  Nothing
+    is read back.  Arities as ``heap_apply``: the kernel is built for
+    arity_log2 1, 2 and 3."""
+    kw = dict(counts=counts, batch=batch, opkeys=opkeys, opvals=opvals,
+              dest=dest, cap_log2=cap_log2, arity_log2=arity_log2,
+              rider=rider, oprider=oprider)
+    if keys.device.type == "cpu":
+        return heap_apply_grid_plain(keys, vals, sizes, **kw)
+    lanes = ((counts,) if counts is not None
+             else tuple(t for t in (opkeys, opvals, dest) if t is not None))
+    _build.require_cuda("heap_apply_grid", keys, vals, sizes, *lanes,
+                        *(() if rider is None else (rider,)))
+    mode, s = _grid_mode("heap_apply_grid", keys, vals, sizes, counts,
+                         batch, opkeys, opvals, dest, cap_log2, arity_log2,
+                         rider)
+    if arity_log2 not in ARITY_LOG2:
+        raise ValueError(f"heap_apply_grid: the kernel is built for "
+                         f"arity_log2 in {ARITY_LOG2}, got arity_log2="
+                         f"{arity_log2} (a {1 << arity_log2}-ary heap)")
+    dev = keys.device
+    b = batch if mode == _POP_COUNT else opkeys.shape[0]
+    out = (keys, vals, sizes)
+    opr, stride = None, 0
+    if mode == _POP_COUNT:
+        outs = [torch.empty((s, b), dtype=torch.int32, device=dev)
+                for _ in range(2 + (rider is not None))] + [None]
+        okm = torch.empty((s, b), dtype=torch.bool, device=dev)
+        out += (outs[0], outs[1], okm)
+        if rider is not None:
+            out += (rider, outs[2])
+        sel = counts
+    else:
+        outs, okm, sel = [None] * 3, None, dest
+        if rider is not None:
+            opr = _oprider(oprider, opkeys)
+            _build.require_cuda("heap_apply_grid", opr)
+            if opr.numel() not in (1, b):
+                raise ValueError("heap_apply_grid: oprider must be one int32 "
+                                 "or (N,)")
+            stride = int(opr.numel() != 1)
+            out += (rider,)
+    if b == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.check(_build.library("heap_batch").repro_heap_apply_grid(
+        keys.data_ptr(), vals.data_ptr(), ptr(rider), sizes.data_ptr(),
+        sel.data_ptr(), ptr(opkeys), ptr(opvals), ptr(opr), ptr(outs[0]),
+        ptr(outs[1]), ptr(outs[2]), ptr(okm), s, b, cap_log2, arity_log2,
+        max_depth(cap_log2, arity_log2), mode, stride,
+        _build.stream_of(keys)), "heap_apply_grid")
+    _build.LAUNCHES["heap_apply_grid" if rider is None
+                    else "heap_apply_grid_rider"] += 1
+    return out

@@ -336,14 +336,15 @@ class EngineCore:
         return self._registry
 
     def _register_obs_planes(self, shards: int = 1, *, stacked: bool = False,
-                             births_shape=None) -> None:
+                             births_shape=None,
+                             births_sharded: bool = False) -> None:
         """Register the trace, span and births groups (empty when their
         collector is off), as the reference does: a trace plane of
         ``shards`` per-shard columns, and with ``stacked`` (the mesh
         engines) a span plane under a leading shard axis, sharded, one
         class row a shard without ``class_of``.  ``births_shape`` is the
-        heap's stamp plane (the ring packs its stamps into a flag
-        plane)."""
+        heap's stamp plane (the ring packs its stamps into a flag plane),
+        sharded with ``births_sharded`` (one heap a shard)."""
         reg = self.registry
         self._obs_layout = (shards, stacked)
         self._births_shape = births_shape
@@ -362,7 +363,7 @@ class EngineCore:
                 births = _sds(births_shape)
         reg.register("trace", tel)
         reg.register("span", spn, sharded=stacked)
-        reg.register("births", births)
+        reg.register("births", births, sharded=births_sharded)
 
     def loop_carry_bytes(self, shards: Optional[int] = None) -> int:
         """Per-shard bytes of registered carried planes, observability

@@ -1,12 +1,12 @@
-"""Mesh round engines — the FIFO half of ``repro/runtime/meshrounds.py``
-as configurations of the port's engine core, on one card.
+"""Mesh round engines — ``repro/runtime/meshrounds.py`` as configurations
+of the port's engine core, on one card.
 
 The reference runs each shard on its own device under ``shard_map``: a
 round is a collective-free claim, each shard's step on its claimed
 slice, and a publish that costs one psum.  Here the shard axis is the
 leading dimension of the tensors: replicated state is held once,
 sharded state is ``(S, ...)``, the psum's gather is the stacked rows and
-a shard's ``axis_index`` is its row.  A round is
+a shard's ``axis_index`` is its row.  A FIFO round is
 
     claim (``ring_dequeue_wave``: one launch over the S x batch grid) →
     the user's step, once per shard in shard order, on that shard's row
@@ -14,8 +14,18 @@ a shard's ``axis_index`` is its row.  A round is
     when the child rows are wider than the ring] → publish
     (``ring_enqueue_wave``: one launch over the S x n child grid)
 
-with the reference's per-shard semantics, so the planes, head/tail,
-stats and the shards' accumulators are the reference's, bit for bit.
+and a priority round is
+
+    claim schedule (tensor ops on the carried sizes and hints) → pop
+    wave (``heap_apply_grid``: one launch, a block a heap) → the step, a
+    shard at a time → publish (the stacked child rows, their ranks, the
+    overflow test and each child's heap, tensor ops, with ``wave_compact``
+    on each row under the dense-wave rule) → insert wave
+    (``heap_apply_grid``: one launch)
+
+with the reference's per-shard semantics, so the planes, head/tail or
+sizes and hints, stats and the shards' accumulators are the reference's,
+bit for bit.
 
 * ``MeshRingEngine`` — the replicated ring (``core.distqueue.
   DistQueueState``): the claim splits ``min(occupancy, S * batch)``
@@ -32,6 +42,19 @@ stats and the shards' accumulators are the reference's, bit for bit.
 * ``MeshRoundRunner`` — ``fused=True`` (default) delegates to either
   engine (``sharded=``); ``fused=False`` is the legacy loop: the same
   round issued from the host with one readback after each.
+* ``MeshHeapEngine`` — the priority mesh (``core.distqueue.
+  DistHeapState``).  ``relaxed=True``: one heap a shard, ``(S, cap)``
+  planes with ``(S,)`` sizes and min-key hints in the carry; the claim
+  is ``priority_claim_schedule`` (the remainder to the lowest hints),
+  child rank r goes to heap ``r % S`` and the whole round is suppressed
+  when any heap would overflow.  ``relaxed=False``: one heap popped
+  ``S * batch`` wide in exact min-key order, shard s stepping its
+  ``claim_schedule`` slice, every child installed.  ``split=True``
+  carries a third plane (``aux``, the split-payload words) through the
+  heaps as ``heap_apply``'s rider.
+* ``PriorityMeshRoundRunner`` — ``fused=True`` delegates to
+  ``MeshHeapEngine``; ``fused=False`` is the legacy loop, which with
+  ``trace=True`` records each round's pops and pushes.
 
 The core runs the round in its device loop on the card (one CUDA graph
 launch a chunk, nothing read back between rounds) and in a Python loop
@@ -47,21 +70,25 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.distqueue import (DistQueueState, DistShardedQueueState,
-                              _compact_rows, dist_queue_init,
+from ..core.distqueue import (DistHeapState, DistQueueState,
+                              DistShardedQueueState, _compact_grid,
+                              _compact_rows, dist_heap_init, dist_queue_init,
                               dist_sharded_queue_init)
 from ..kernels._build import resolve_device
 from ..kernels.compact import (compact_scratch, compact_scratch_words,
                                compact_width)
-from ..kernels.ring_slots import (enq_planes, ring_dequeue_wave,
+from ..kernels.heap_batch import KEY_INF as HEAP_KEY_INF, heap_apply_grid
+from ..kernels.ring_slots import (claim_schedule, enq_planes,
+                                  priority_claim_schedule, ring_dequeue_wave,
                                   ring_enqueue_wave)
 from ..obs.spans import Spans
 from ..obs.trace import Telemetry
 from .enginecore import (EngineCore, ObsWave, _sds, register_engine,
                          tree_map, tree_to)
-from .fusedrounds import IDX_BOT, StepFn
+from .fusedrounds import IDX_BOT, PriorityStepFn, StepFn
 
-__all__ = ["MeshRingEngine", "MeshRoundRunner", "ShardedMeshRingEngine"]
+__all__ = ["MeshHeapEngine", "MeshRingEngine", "MeshRoundRunner",
+           "PriorityMeshRoundRunner", "ShardedMeshRingEngine"]
 
 
 def _stack(rows):
@@ -87,12 +114,12 @@ def _tickets(base: int, n: int) -> np.ndarray:
     return np.where(t >= 2 ** 31, t - 2 ** 32, t).astype(np.int32)
 
 
-class _MeshFifoBase(EngineCore):
-    """Shared FIFO-mesh scaffolding: the constructor's fields and checks,
-    the per-shard step, the child rows' compaction and the acc's
-    broadcast and combine."""
+class _MeshBase(EngineCore):
+    """Scaffolding of every mesh engine: the constructor's fields, the
+    per-shard step, the child rows' compaction on a kept scratch, the
+    acc's broadcast and combine, and the legacy loop."""
 
-    def __init__(self, step_fn: StepFn, *, mesh, axis: str = "data",
+    def __init__(self, step_fn, *, mesh, axis: str = "data",
                  capacity_log2: int = 10, batch: int = 64,
                  sync_every: int = 0,
                  combine: Callable[[Any], Any] = None,
@@ -105,12 +132,7 @@ class _MeshFifoBase(EngineCore):
         self.shards = int(mesh.shape[axis])
         self.capacity_log2 = capacity_log2
         self.capacity = 1 << capacity_log2
-        self.nslots_log2 = capacity_log2 + 1
         self.batch = batch
-        if batch * self.shards > self.capacity:
-            raise ValueError(
-                f"mesh batch {batch} x {self.shards} shards exceeds ring "
-                f"capacity {self.capacity}")
         self.sync_every = sync_every
         self.combine = combine
         self.telemetry = telemetry
@@ -122,7 +144,6 @@ class _MeshFifoBase(EngineCore):
         self._shard_of = torch.arange(
             self.shards, dtype=torch.int32,
             device=self.device).repeat_interleave(batch)
-        self._reset()
 
     def _initial_acc(self, acc):
         """``acc`` on the engine's device, one copy a shard (stacked)."""
@@ -132,18 +153,87 @@ class _MeshFifoBase(EngineCore):
     def _finish(self, acc):
         return acc if self.combine is None else self.combine(acc)
 
-    def _step(self, acc, vals, ok):
+    def _step(self, acc, *rows):
         """``step_fn`` once per shard, in shard order, on its row of the
-        stacked acc and claim.  Returns the stacked acc and the (S, n)
-        child rows (values int32, mask bool)."""
-        accs, cvs, cms = [], [], []
+        stacked acc and of each claim row in ``rows`` ((S, batch) each).
+        The step returns ``(acc, *child planes, child mask)``.  Returns
+        the stacked acc, the (S, n) child planes (int32) and the (S, n)
+        bool mask (broadcast to the first plane's shape)."""
+        accs, planes, cms = [], [], []
         for s in range(self.shards):
-            a, cv, cm = self.step_fn(tree_map(lambda x: x[s], acc), vals[s],
-                                     ok[s])
-            accs.append(a)
-            cms.append(torch.broadcast_to(cm.bool(), cv.shape).reshape(-1))
-            cvs.append(cv.reshape(-1).to(torch.int32))
-        return _stack(accs), torch.stack(cvs), torch.stack(cms)
+            out = self.step_fn(tree_map(lambda x: x[s], acc),
+                               *(r[s] for r in rows))
+            accs.append(out[0])
+            children = out[1:-1]
+            cms.append(torch.broadcast_to(out[-1].bool(),
+                                          children[0].shape).reshape(-1))
+            planes.append([c.reshape(-1).to(torch.int32) for c in children])
+        return (_stack(accs), tuple(torch.stack(p) for p in zip(*planes)),
+                torch.stack(cms))
+
+    def _scratch(self, n):
+        """The engine's look-back scratch for ``wave_compact`` on rows of
+        ``n`` lanes (the card; None on the CPU), kept across rounds."""
+        if self.device.type != "cuda":
+            return None
+        scratch = self._compact_scratch
+        if scratch is None or scratch.numel() < compact_scratch_words(n):
+            scratch = self._compact_scratch = compact_scratch(n, self.device)
+        return scratch
+
+    def _legacy(self, q, acc, occ0: int, what: str, max_rounds: int,
+                round_fn):
+        """The legacy loop: ``round_fn(q, acc, live)`` (returning ``(q,
+        acc, k, total, over)``) issued from the host, ONE readback after
+        each round (``host_syncs == rounds``; an empty run reads back
+        once, as the fused engine's does).  Returns the final ``(q,
+        acc)``; raises the engine's overflow and truncation errors."""
+        live = torch.ones((), dtype=torch.bool, device=self.device)
+        run = dict(occ=occ0, processed=0, spawned=0, max_occ=occ0)
+
+        def chunk_fn(limit):
+            nonlocal q, acc
+            if limit < 1 or run["occ"] == 0:
+                return (run["occ"], 0, False, run["processed"],
+                        run["spawned"], run["max_occ"])
+            q, acc, k, total, over = round_fn(q, acc, live)
+            occ, k, total, over = torch.stack(
+                [self._occ_of(q).to(torch.int32), k.to(torch.int32),
+                 total.to(torch.int32), over.to(torch.int32)]).tolist()
+            run.update(occ=occ, processed=run["processed"] + k,
+                       spawned=run["spawned"] + total,
+                       max_occ=max(run["max_occ"], occ))
+            return (occ, 1, bool(over), run["processed"], run["spawned"],
+                    run["max_occ"])
+
+        try:
+            self._drive(chunk_fn, max_rounds, what)
+        finally:
+            self.stats = dict(self.stats, fused=0)
+        return q, acc
+
+
+class _MeshFifoBase(_MeshBase):
+    """The FIFO mesh's constructor check and its publish wave."""
+
+    def __init__(self, step_fn: StepFn, *, mesh, axis: str = "data",
+                 capacity_log2: int = 10, batch: int = 64,
+                 sync_every: int = 0,
+                 combine: Callable[[Any], Any] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 spans: Optional[Spans] = None, compact=None,
+                 device="cuda") -> None:
+        super().__init__(step_fn, mesh=mesh, axis=axis,
+                         capacity_log2=capacity_log2, batch=batch,
+                         sync_every=sync_every, combine=combine,
+                         telemetry=telemetry, spans=spans, compact=compact,
+                         device=device)
+        self.nslots_log2 = capacity_log2 + 1
+        if batch * self.shards > self.capacity:
+            raise ValueError(
+                f"mesh batch {batch} x {self.shards} shards exceeds ring "
+                f"capacity {self.capacity}")
+        self._reset()
 
     def _wave(self, cv, cm):
         """The publish's children: the ballot over the flat rows, or (the
@@ -153,13 +243,8 @@ class _MeshFifoBase(EngineCore):
         wdth = compact_width(cv.shape[1], self.capacity, self.compact)
         if wdth is None:
             return cv.reshape(-1), dict(mask=cm.reshape(-1))
-        scratch, n = None, cv.shape[1]
-        if self.device.type == "cuda":
-            scratch = self._compact_scratch
-            if scratch is None or scratch.numel() < compact_scratch_words(n):
-                scratch = self._compact_scratch = compact_scratch(
-                    n, self.device)
-        dense, counts = _compact_rows(cv, cm, wdth, scratch)
+        dense, counts = _compact_rows(cv, cm, wdth,
+                                      self._scratch(cv.shape[1]))
         return dense, dict(counts=counts)
 
 
@@ -223,7 +308,7 @@ class MeshRingEngine(_MeshFifoBase):
                                   batch=self.batch, shards=self.shards,
                                   birth_packed=sp is not None, **kw)
         vals, ok, k, pops = claim[:4]
-        acc, cv, cm = self._step(acc, vals, ok)
+        acc, (cv,), cm = self._step(acc, vals, ok)
         values, wave = self._wave(cv, cm)
         total, over, pushes = ring_enqueue_wave(
             cyc, saf, enq, idx, head, tail, values, live,
@@ -338,7 +423,7 @@ class ShardedMeshRingEngine(_MeshFifoBase):
         vals, ok, k, pops = ring_dequeue_wave(cyc, saf, enq, idx, heads,
                                               tails, live, batch=self.batch,
                                               **kw)
-        acc, cv, cm = self._step(acc, vals, ok)
+        acc, (cv,), cm = self._step(acc, vals, ok)
         # a round spawning more than the global capacity overflows some
         # ring, where both waves install nothing
         values, wave = self._wave(cv, cm)
@@ -439,38 +524,394 @@ class MeshRoundRunner(_MeshFifoBase):
         initial = np.asarray(initial, np.int32).reshape(-1)
         q = self._seed(dist_queue_init(self.capacity, device=self.device),
                        initial)
-        acc = self._initial_acc(acc)
-        live = torch.ones((), dtype=torch.bool, device=self.device)
-        run = dict(occ=len(initial), processed=0, spawned=0,
-                   max_occ=len(initial))
-
-        def chunk_fn(limit):
-            """One round issued from the host and ONE readback after it
-            (``host_syncs == rounds``); returns the running totals."""
-            nonlocal q, acc
-            if limit < 1 or run["occ"] == 0:
-                return (run["occ"], 0, False, run["processed"],
-                        run["spawned"], run["max_occ"])
-            q, acc, k, total, over = self._round(q, acc, live)[:5]
-            occ, k, total, over = torch.stack(
-                [self._occ_of(q).to(torch.int32), k.to(torch.int32),
-                 total.to(torch.int32), over.to(torch.int32)]).tolist()
-            run.update(occ=occ, processed=run["processed"] + k,
-                       spawned=run["spawned"] + total,
-                       max_occ=max(run["max_occ"], occ))
-            return (occ, 1, bool(over), run["processed"], run["spawned"],
-                    run["max_occ"])
-
-        try:
-            self._drive(chunk_fn, max_rounds, "mesh ring")
-        finally:
-            self.stats = dict(self.stats, fused=0)
+        q, acc = self._legacy(q, self._initial_acc(acc), len(initial),
+                              "mesh ring", max_rounds,
+                              lambda q, acc, live: self._round(
+                                  q, acc, live)[:5])
         return self._finish(acc), DistQueueState(
             q.cycles, q.safes, q.enqs, q.idxs, tail=int(q.tail),
             head=int(q.head))
+
+
+class _PriorityMeshBase(_MeshBase):
+    """The priority mesh's seeding and one-round bodies.  ``relaxed=True``
+    keeps one heap a shard with hint-ordered claim rebalancing;
+    ``relaxed=False`` one heap popped in exact global min-key order."""
+
+    def __init__(self, step_fn: PriorityStepFn, *, mesh, axis: str = "data",
+                 capacity_log2: int = 10, batch: int = 64,
+                 arity_log2: int = 2, relaxed: bool = True,
+                 sync_every: int = 0,
+                 combine: Callable[[Any], Any] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 spans: Optional[Spans] = None, compact=None,
+                 split: bool = False, device="cuda") -> None:
+        if split and spans is not None:
+            raise ValueError(
+                "split payloads ride the heap's rider plane, which spans "
+                "already uses for birth stamps: spans and split are "
+                "mutually exclusive")
+        super().__init__(step_fn, mesh=mesh, axis=axis,
+                         capacity_log2=capacity_log2, batch=batch,
+                         sync_every=sync_every, combine=combine,
+                         telemetry=telemetry, spans=spans, compact=compact,
+                         device=device)
+        self.arity_log2 = arity_log2
+        self.relaxed = relaxed
+        self.split = split
+        if relaxed and batch > self.capacity:
+            raise ValueError(
+                f"batch {batch} exceeds per-shard heap capacity "
+                f"{self.capacity}")
+        if not relaxed and batch * self.shards > self.capacity:
+            raise ValueError(
+                f"mesh batch {batch} x {self.shards} shards exceeds heap "
+                f"capacity {self.capacity}")
+        self.hints = None                # the relaxed run's final hints
+        self._reset()
+
+    def _heap(self, planes, sizes, rider=None, **wave):
+        """One ``heap_apply_grid`` wave on stacked ``planes`` (keys, vals)
+        and ``sizes``, in place."""
+        return heap_apply_grid(*planes, sizes, cap_log2=self.capacity_log2,
+                               arity_log2=self.arity_log2, rider=rider,
+                               **wave)
+
+    # -- seeding --------------------------------------------------------------
+
+    def _seed(self, ik: np.ndarray, iv: np.ndarray, ia=None):
+        """Install the seed (key, val) pairs in one insert wave.  Relaxed
+        mode sprays them by seed rank (``rank % shards``) into the
+        per-shard heaps and returns ``(keys (S, cap), vals (S, cap), sizes
+        (S,), hints (S,))``, each hint its heap's least key; strict mode
+        fills the one heap and returns ``(keys, vals, size)``.  In split
+        mode ``ia`` carries per-seed aux words, installed through the
+        rider plane, which trails the tuple."""
+        k, s, dev = len(ik), self.shards, self.device
+        if not self.relaxed:
+            if k > self.capacity:
+                raise RuntimeError(
+                    f"mesh heap overflow: {k} seed values exceed capacity "
+                    f"{self.capacity} (raise capacity_log2)")
+            dest, heaps = np.zeros(k, np.int32), 1
+        else:
+            worst = -(-k // s)
+            if worst > self.capacity:
+                raise RuntimeError(
+                    f"mesh heap overflow: {worst} seed values land on one "
+                    f"shard, exceeding per-shard capacity {self.capacity} "
+                    f"(raise capacity_log2)")
+            dest, heaps = (np.arange(k) % s).astype(np.int32), s
+        st = dist_heap_init(self.capacity, shards=heaps, device=dev)
+        aux = torch.zeros_like(st.keys) if self.split else None
+        if k:
+            t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+            self._heap(st[:2], st.size, aux, opkeys=t(ik), opvals=t(iv),
+                       dest=t(dest), oprider=None if ia is None else t(ia))
+        if self.relaxed:
+            # a heap's least key is its root (empty slots hold KEY_INF)
+            q = (*st, st.keys[:, 0].clone())
+        else:
+            q = (st.keys[0], st.vals[0], st.size[0])
+            aux = None if aux is None else aux[0]
+        return q + (() if aux is None else (aux,))
+
+    def _occ_of(self, q):
+        return q[2].sum(dtype=torch.int32) if self.relaxed else q[2]
+
+    def _round(self, q, acc, live, sp=None, births=None, trace=False):
+        """One round (``EngineCore``'s contract).  ``trace=True`` (the
+        legacy recorder) appends the round's pops ``(keys, vals, ok)``
+        (S, batch) and gathered pushes ``(keys, vals, active)``."""
+        body = self._round_relaxed if self.relaxed else self._round_strict
+        out = body(q, acc, live, sp, births)
+        return out if trace else out[:6]
+
+    def _publish(self, ck, cv, ca, cm, bound):
+        """The gathered children of ``dist_priority_publish_round`` (or of
+        its compact form under the dense-wave rule for ``bound`` installs a
+        round) without its meta block: on one card the hints and sizes it
+        would carry are the engine's own.  The child planes (keys,
+        payloads[, aux]) flattened shard-major with their ranks (the
+        exclusive prefix of the mask) and total, or each row compacted by
+        ``wave_compact`` with the ranks rebuilt from the true counts.
+        Returns ``(gk, gv, gaux, active, ranks, total, width)``."""
+        planes = (ck, cv) + (() if ca is None else (ca,))
+        wdth = compact_width(ck.shape[1], bound, self.compact)
+        if wdth is None:
+            gm = (cm > 0).reshape(-1).to(torch.int32)
+            active, total = gm > 0, gm.sum(dtype=torch.int32)
+            ranks = torch.cumsum(gm, 0, dtype=torch.int32) - gm
+        else:
+            planes, counts = _compact_rows(planes, cm, wdth,
+                                           self._scratch(ck.shape[1]))
+            active, ranks = _compact_grid(counts, wdth)
+            ranks, total = ranks.to(torch.int32), counts.sum(dtype=torch.int32)
+        g = [p.reshape(-1).to(torch.int32) for p in planes] + [None]
+        return g[0], g[1], g[2], active, ranks, total, wdth
+
+    def _round_relaxed(self, q, acc, live, sp, births):
+        """claim (the hint-ordered schedule over the carried sizes and
+        hints) → pop wave on every shard's heap (one launch) → the shards'
+        steps → publish → the spray of child rank r to heap ``r % S``,
+        suppressed whole when any heap would overflow → insert wave (one
+        launch).  The sizes advance in place; the new hints are returned.
+        With spans the births plane rides the heaps as their rider (split
+        mode: the aux plane)."""
+        s, batch = self.shards, self.batch
+        keys, vals, sizes, hints = q[:4]
+        aux = q[4] if self.split else None
+        rider = aux if self.split else births
+        counts = torch.where(live, priority_claim_schedule(
+            sizes.sum(dtype=torch.int32), s, batch, hints, sizes), 0)
+        pop = self._heap((keys, vals), sizes, rider, counts=counts,
+                         batch=batch)
+        outk, outv, ok = pop[3:6]
+        bout = None if rider is None else pop[7]
+        rows = (outk, outv) + ((bout,) if self.split else ()) + (ok,)
+        acc, children, cm = self._step(acc, *rows)
+        cm = cm & live
+        gk, gv, gaux, gactive, ranks, total, wdth = self._publish(
+            children[0], children[1], children[2] if self.split else None,
+            cm, s * self.capacity)
+        hints_pop = keys[:, 0]           # each heap's root after the pops
+        shard_of = torch.where(gactive, ranks % s, s)
+        if wdth is None:
+            assigned = torch.zeros(s + 1, dtype=torch.int32,
+                                   device=keys.device).scatter_add_(
+                0, shard_of.long(), torch.ones_like(shard_of))[:s]
+        else:
+            # the ranks are the prefix 0 .. total - 1: the closed form of
+            # the scatter, exact from the true total even where a row's
+            # lanes were clamped (only when over)
+            s_ix = torch.arange(s, dtype=torch.int32, device=keys.device)
+            assigned = total // s + (s_ix < total % s).int()
+        over = (sizes + assigned > self.capacity).any()
+        ckmin = torch.full((s + 1,), HEAP_KEY_INF, dtype=torch.int32,
+                           device=keys.device).scatter_reduce_(
+            0, shard_of.long(), torch.where(gactive, gk, HEAP_KEY_INF),
+            "amin")[:s]
+        new_hints = torch.where(over, hints_pop,
+                                torch.minimum(hints_pop, ckmin))
+        dest = torch.where(gactive & ~over, shard_of, -1).int()
+        self._heap((keys, vals), sizes, rider, opkeys=gk, opvals=gv,
+                   dest=dest, oprider=gaux if self.split else (
+                       None if sp is None else sp.round[0]))
+        pushes = torch.where(over, 0, assigned)
+        obs = None
+        if self._observed:
+            obs = ObsWave(outk.reshape(-1), ok.reshape(-1), outv.reshape(-1),
+                          None if sp is None else bout.reshape(-1),
+                          shards=s, pops=counts, pushes=pushes, occs=sizes,
+                          cls=self._shard_of)
+        q = (keys, vals, sizes, new_hints) + q[4:]
+        return (q, acc, counts.sum(dtype=torch.int32),
+                torch.where(over, 0, total), over, obs,
+                (outk, outv, ok, gk, gv, gactive))
+
+    def _round_strict(self, q, acc, live, sp, births):
+        """pop ``min(size, S * batch)`` roots of the one heap (one launch)
+        → shard s steps its ``claim_schedule`` slice → publish → every
+        child installed unless the heap would overflow (one launch).  With
+        spans every shard records only its own slice of the pops."""
+        s, batch = self.shards, self.batch
+        keys, vals, size = q[:3]
+        aux = q[3] if self.split else None
+        rider = aux if self.split else births
+        rows1 = lambda t: None if t is None else t.view(1, -1)  # noqa: E731
+        planes, size1 = (rows1(keys), rows1(vals)), size.view(1)
+        k = torch.where(live, torch.clamp(size, max=s * batch), 0)
+        pop = self._heap(planes, size1, rows1(rider), counts=k.view(1),
+                         batch=s * batch)
+        active, ranks = claim_schedule(k, s, batch)
+        act = active.view(s, batch)
+        ix = ranks.view(s, batch)
+        outk = torch.where(act, pop[3][0][ix], HEAP_KEY_INF)
+        outv = torch.where(act, pop[4][0][ix], -1)
+        outb = None if rider is None else torch.where(act, pop[7][0][ix], 0)
+        rows = (outk, outv) + ((outb,) if self.split else ()) + (act,)
+        acc, children, cm = self._step(acc, *rows)
+        cm = cm & live
+        gk, gv, gaux, gactive, _, total, _ = self._publish(
+            children[0], children[1], children[2] if self.split else None,
+            cm, self.capacity)
+        over = size + total > self.capacity
+        ins = gactive & ~over
+        self._heap(planes, size1, rows1(rider), opkeys=gk, opvals=gv,
+                   dest=torch.where(ins, 0, -1).int(),
+                   oprider=gaux if self.split else (
+                       None if sp is None else sp.round[0]))
+        obs = None
+        if self._observed:
+            obs = ObsWave(outk.reshape(-1), act.reshape(-1), outv.reshape(-1),
+                          None if sp is None else outb.reshape(-1),
+                          shards=s, pops=act.sum(1, dtype=torch.int32),
+                          pushes=ins.view(s, -1).sum(1, dtype=torch.int32),
+                          occs=size.view(1).repeat(s), cls=self._shard_of)
+        return (q, acc, k, torch.where(over, 0, total), over, obs,
+                (outk, outv, act, gk, gv, gactive))
+
+    # -- run ------------------------------------------------------------------
+
+    def _start(self, initial_keys, initial_vals, initial_aux):
+        """The seeded queue state and its occupancy."""
+        ik = np.asarray(initial_keys, np.int32).reshape(-1)
+        iv = np.asarray(initial_vals, np.int32).reshape(-1)
+        if ik.shape != iv.shape:
+            raise ValueError("initial_keys and initial_vals must have one "
+                             "shape")
+        ia = None
+        if self.split:
+            ia = (np.zeros_like(ik) if initial_aux is None
+                  else np.asarray(initial_aux, np.int32).reshape(-1))
+            if ia.shape != ik.shape:
+                raise ValueError("initial_aux must have the keys' shape")
+        return self._seed(ik, iv, ia), len(ik)
+
+    def _final(self, q, acc):
+        self.hints = q[3] if self.relaxed else None
+        return self._finish(acc), DistHeapState(q[0], q[1], q[2])
+
+
+class MeshHeapEngine(_PriorityMeshBase):
+    """The priority mesh round engine: rounds of claim → pop → step →
+    push on the core's device loop, the heap planes (``(S, cap)`` relaxed,
+    one ``(cap,)`` heap strict) carried on the card; one readback a chunk
+    (``sync_every`` rounds, or the whole run).  ``run`` returns ``(acc,
+    final DistHeapState)``, acc stacked ``(S, ...)`` unless ``combine``
+    reduces it.  Runs on ``device`` ("cuda" by default; "cpu" runs the
+    kernels' plain versions)."""
+
+    def __init__(self, step_fn: PriorityStepFn, *, mesh, axis: str = "data",
+                 capacity_log2: int = 10, batch: int = 64,
+                 arity_log2: int = 2, relaxed: bool = True,
+                 sync_every: int = 0,
+                 combine: Callable[[Any], Any] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 spans: Optional[Spans] = None, compact=None,
+                 split: bool = False, device="cuda") -> None:
+        super().__init__(step_fn, mesh=mesh, axis=axis,
+                         capacity_log2=capacity_log2, batch=batch,
+                         arity_log2=arity_log2, relaxed=relaxed,
+                         sync_every=sync_every, combine=combine,
+                         telemetry=telemetry, spans=spans, compact=compact,
+                         split=split, device=device)
+        cap, s, reg = self.capacity, self.shards, self.registry
+        # the births plane (spans) and the aux plane (split) ride their
+        # heap: one a shard (sharded) relaxed, one strict
+        plane = (s, cap) if relaxed else (cap,)
+        if relaxed:
+            reg.register("heap", (_sds(plane),) * 2, sharded=True)
+            reg.register("sched", (_sds((s,)),) * 2)
+        else:
+            reg.register("heap", (_sds(plane),) * 2 + (_sds(()),))
+        self._register_obs_planes(s, stacked=True, births_shape=plane,
+                                  births_sharded=relaxed)
+        if split:
+            reg.register("births", _sds(plane), sharded=relaxed)
+
+    def run(self, initial_keys: np.ndarray, initial_vals: np.ndarray,
+            acc: Any = None, max_rounds: int = 10_000,
+            initial_aux: np.ndarray = None) -> Tuple[Any, DistHeapState]:
+        """Seed the heaps (relaxed: by seed rank, ``rank % S``; strict: one
+        heap) and run rounds to quiescence, one readback a chunk.
+        Bit-identical to the reference's engine and to the legacy loop:
+        acc, planes, sizes, hints and stats.  Raises ``RuntimeError`` on
+        heap overflow or truncation.  In split mode ``initial_aux`` seeds
+        the per-item aux words (zeros when None)."""
+        self._reset()
+        q, n = self._start(initial_keys, initial_vals, initial_aux)
+        q, acc = self._run_chunks(q, self._initial_acc(acc), n, "mesh heap",
+                                  max_rounds)
+        return self._final(q, acc)
+
+
+class PriorityMeshRoundRunner(_PriorityMeshBase):
+    """Mesh twin of ``PriorityRoundRunner``: ``fused=True`` (default)
+    delegates to ``MeshHeapEngine``; ``fused=False`` is the legacy loop,
+    the same round issued from the host with one readback after it, and
+    with ``trace=True`` it records each round's pops (keys, vals, ok: (S,
+    batch) each) and gathered pushes (keys, vals, active) in
+    ``self.trace``, the material of ``check_p_linearizable``.  Both are
+    bit-identical: acc, planes, sizes, hints and stats."""
+
+    def __init__(self, step_fn: PriorityStepFn, *, mesh, axis: str = "data",
+                 capacity_log2: int = 10, batch: int = 64,
+                 arity_log2: int = 2, relaxed: bool = True,
+                 fused: bool = True, sync_every: int = 0,
+                 combine: Callable[[Any], Any] = None,
+                 trace: bool = False,
+                 telemetry: Optional[Telemetry] = None,
+                 spans: Optional[Spans] = None, compact=None,
+                 split: bool = False, device="cuda") -> None:
+        super().__init__(step_fn, mesh=mesh, axis=axis,
+                         capacity_log2=capacity_log2, batch=batch,
+                         arity_log2=arity_log2, relaxed=relaxed,
+                         sync_every=sync_every, combine=combine,
+                         telemetry=telemetry, spans=spans, compact=compact,
+                         split=split, device=device)
+        self.fused = fused
+        if trace and fused:
+            raise ValueError("trace recording needs the per-round host "
+                             "boundary: use fused=False")
+        if spans is not None and not fused:
+            raise ValueError(
+                "span planes are in-loop state: spans needs the fused "
+                "engine (fused=True)")
+        self.trace_enabled = trace
+        self.trace = []
+        self._engine = None
+        if fused:
+            self._engine = MeshHeapEngine(
+                step_fn, mesh=mesh, axis=axis, capacity_log2=capacity_log2,
+                batch=batch, arity_log2=arity_log2, relaxed=relaxed,
+                sync_every=sync_every, combine=combine, telemetry=telemetry,
+                spans=spans, compact=compact, split=split,
+                device=self.device)
+
+    def loop_carry_bytes(self, shards: int = None) -> int:
+        if self._engine is not None:
+            return self._engine.loop_carry_bytes(shards)
+        return super().loop_carry_bytes(shards)
+
+    def run(self, initial_keys: np.ndarray, initial_vals: np.ndarray,
+            acc: Any = None, max_rounds: int = 10_000,
+            initial_aux: np.ndarray = None) -> Tuple[Any, DistHeapState]:
+        """Run to quiescence on the selected engine: ``fused=True`` as
+        ``MeshHeapEngine.run`` (one readback a chunk), ``fused=False`` one
+        readback a round, appending to ``self.trace`` with ``trace=True``.
+        Both bit-deterministic; both raise on overflow or truncation."""
+        if self._engine is not None:
+            try:
+                return self._engine.run(initial_keys, initial_vals, acc,
+                                        max_rounds, initial_aux=initial_aux)
+            finally:
+                self.stats = dict(self._engine.stats, fused=1)
+                self.sync_log = self._engine.sync_log
+                self.hints = self._engine.hints
+        self._reset()
+        self.trace = []
+        q, n = self._start(initial_keys, initial_vals, initial_aux)
+
+        def round_fn(q, acc, live):
+            out = self._round(q, acc, live, trace=True)
+            if self.trace_enabled:
+                outk, outv, ok, gk, gv, gactive = (
+                    x.cpu().numpy() for x in out[6])
+                self.trace.append({"pops": (outk, outv, ok),
+                                   "pushes": (gk, gv, gactive)})
+            return out[:5]
+
+        q, acc = self._legacy(q, self._initial_acc(acc), n, "mesh heap",
+                              max_rounds, round_fn)
+        return self._final(q, acc)
 
 
 # engine-matrix rows
 register_engine("mesh", MeshRoundRunner, priority=False, mesh=True)
 register_engine("mesh-sharded", MeshRoundRunner, priority=False, mesh=True,
                 kwargs={"sharded": True}, spans_ok=False)
+register_engine("pmesh-relaxed", PriorityMeshRoundRunner, priority=True,
+                mesh=True, kwargs={"relaxed": True})
+register_engine("pmesh-strict", PriorityMeshRoundRunner, priority=True,
+                mesh=True, kwargs={"relaxed": False})

@@ -12,8 +12,11 @@ tickets starting at the JAX package's ``WRAP_STARTS`` (below and across
 2^31 and 2^32), in rounds wider than the ring (sub-waves), with an
 all-inactive round and an all-inactive shard; the sharded rings in the
 sparse and the dense-wave publish, one ring overflowing; and the two
-claim schedules on their own.  Integer state throughout, so every
-comparison is exact."""
+claim schedules on their own; the priority mesh's exchange
+(``dist_priority_publish_round`` and its compact form, with and without
+the telemetry meta words and the split layout's aux plane, one shard's
+rows empty).  Integer state throughout, so every comparison is
+exact."""
 
 import json
 import os
@@ -40,6 +43,8 @@ SHARDS = (1, 2, 4)
 CAP, B, ROUNDS = 16, 4, 5          # replicated scenario
 OVER_CAP, OVER_B = 4, 12           # rounds wider than the 8-slot ring
 SH_CAP, SH_N, SH_B = 32, 6, 4      # sharded scenario
+PRI_W = 6                          # priority publish: child lanes a shard
+PRI_OPTS = ("plain", "meta", "aux", "meta_aux")
 
 
 def _start(start, cap):
@@ -83,6 +88,24 @@ def _sharded_inputs(s, seed):
              "mins": rng.integers(0, 100, s).astype(np.int32),
              "maxs": rng.integers(100, 200, s).astype(np.int32)}
             for r in range(6)]
+
+
+def _pri_inputs(s, seed):
+    """Seeded child rows, post-pop hints and sizes and popped-key extrema
+    for the priority publish; the last shard spawns nothing in round 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in range(4):
+        d = {"keys": rng.integers(-50, 50, (s, PRI_W)),
+             "vals": rng.integers(0, 10_000, (s, PRI_W)),
+             "aux": rng.integers(0, 1 << 20, (s, PRI_W)),
+             "mask": rng.random((s, PRI_W)) < 0.6,
+             "hint": rng.integers(-5, 60, s), "size": rng.integers(0, 40, s),
+             "mn": rng.integers(-9, 0, s), "mx": rng.integers(0, 9, s)}
+        if r == 1:
+            d["mask"][-1] = False
+        out.append({k: v.astype(np.int32) for k, v in d.items()})
+    return out
 
 
 def _np(x):
@@ -161,6 +184,28 @@ def _reference(s):
             st, v, ok = deq(st, jnp.ones(s * OVER_B, jnp.int32))
             _put(res, key + "/deq", v=v, ok=ok, planes=st[:4],
                  ht=[st.tail, st.head])
+    # the priority mesh's exchange, sparse and compact (width PRI_W - 2:
+    # rows with more children keep their true counts)
+    for opts in PRI_OPTS:
+        meta, aux = "meta" in opts, "aux" in opts
+        for width in (None, PRI_W - 2):
+            def pub_f(ck, cv, m, h, sz, mn, mx, ax, meta=meta, aux=aux,
+                      width=width):
+                kw = dict(pop_meta=(mn[0], mx[0]) if meta else None,
+                          aux=ax if aux else None)
+                if width is None:
+                    return jd.dist_priority_publish_round(
+                        ck, cv, m, h[0], sz[0], "data", **kw)
+                return jd.dist_priority_publish_compact_round(
+                    ck, cv, m, h[0], sz[0], "data", width=width, **kw)
+            nout = 7 + aux + 2 * meta
+            pub = sm(pub_f, (d,) * 8, (r_,) * nout)
+            for r, x in enumerate(_pri_inputs(s, 30 + s)):
+                out = pub(*(x[k].reshape(-1) for k in (
+                    "keys", "vals", "mask", "hint", "size", "mn", "mx",
+                    "aux")))
+                res[f"pri/{opts}/{width}/{r}"] = [
+                    np.asarray(o).astype(np.int64).tolist() for o in out]
     # the sharded rings
     lg = (2 * (SH_CAP // s)).bit_length() - 1
     sclaim = sm(lambda pl, h, t: (lambda o: (tuple(p[None] for p in o[0]),)
@@ -245,6 +290,22 @@ def _port(s):
             _put(res, key + "/deq", v=_np(v).reshape(-1),
                  ok=_np(ok).reshape(-1), planes=[_np(p) for p in st[:4]],
                  ht=[_np(st.tail), _np(st.head)])
+    for opts in PRI_OPTS:
+        meta, aux = "meta" in opts, "aux" in opts
+        for width in (None, PRI_W - 2):
+            for r, x in enumerate(_pri_inputs(s, 30 + s)):
+                x = {k: t(v) for k, v in x.items()}
+                kw = dict(pop_meta=(x["mn"], x["mx"]) if meta else None,
+                          aux=x["aux"] if aux else None)
+                args = (x["keys"], x["vals"], x["mask"], x["hint"],
+                        x["size"])
+                if width is None:
+                    out = tcore.dist_priority_publish_round(*args, **kw)
+                else:
+                    out = tcore.dist_priority_publish_compact_round(
+                        *args, width=width, **kw)
+                res[f"pri/{opts}/{width}/{r}"] = [
+                    _np(o).astype(np.int64).tolist() for o in out]
     lg = (2 * (SH_CAP // s)).bit_length() - 1
     for width in (None, SH_N):
         st = tcore.dist_sharded_queue_init(SH_CAP, s, device="cpu")
@@ -333,6 +394,31 @@ def test_sharded_rounds_bit_exact(s, width):
     overflow across rings, ``pop_meta``) and load-aware claim, sparse
     and dense-wave, equal to the reference's."""
     _same(f"sh/{width}/", s)
+
+
+@pytest.mark.parametrize("width", (None, PRI_W - 2))
+@pytest.mark.parametrize("opts", PRI_OPTS)
+@pytest.mark.parametrize("s", SHARDS)
+def test_priority_publish_bit_exact(s, opts, width):
+    """The priority round's exchange: the gathered child planes (keys,
+    payloads, the split layout's aux), active lanes, ranks, total, the
+    hints and sizes meta words and, with telemetry, the popped-key
+    extrema, equal to the reference's, sparse and compact (rows past the
+    width keep their true counts)."""
+    _same(f"pri/{opts}/{width}/", s)
+
+
+def test_dist_heap_init():
+    """One heap or S stacked, capacity rounded up to a power of two,
+    empty slots KEY_INF / -1, as the reference's ``dist_heap_init``."""
+    from repro.core.distqueue import dist_heap_init as jinit
+    want = jinit(100)
+    got = tcore.dist_heap_init(100, device="cpu")
+    for a, b in zip(got, want):
+        assert np.array_equal(_np(a), np.asarray(b))
+    st = tcore.dist_heap_init(100, shards=4, device="cpu")
+    assert st.keys.shape == (4, 128) and st.size.tolist() == [0] * 4
+    assert bool((st.keys[1] == _np(want.keys)[0]).all())
 
 
 @pytest.mark.parametrize("s", SHARDS)

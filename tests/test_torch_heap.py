@@ -368,3 +368,139 @@ def test_heap_apply_rider_matches_reference(arity_log2, oprider):
         size = out[2]
         popped += int((out[7] > 0).sum())
     assert popped > 0 and dict(LAUNCHES) == before
+
+
+# -- the shard grid: heap_apply_grid_plain against heap_planes per shard ------
+
+
+def _grid_waves(rng, s, cap_log2, n):
+    """Alternating insert and pop waves over ``s`` heaps: gathered insert
+    waves of ``n`` lanes with destinations in [-1, s) (one shard installs
+    nothing in wave 2, duplicate and KEY_INF keys), then pop counts from 0
+    to past a heap's size."""
+    cap = 1 << cap_log2
+    out = []
+    for w in range(10):
+        keys = rng.integers(-20, 40, n)
+        keys = np.where(rng.random(n) < 0.05, KEY_INF, keys)
+        dest = rng.integers(-1, s, n)
+        if w == 2:
+            dest = np.where(dest == s - 1, -1, dest)
+        out.append(("insert", keys.astype(np.int32),
+                    rng.integers(0, 1000, n).astype(np.int32),
+                    dest.astype(np.int32),
+                    rng.integers(0, 99, n).astype(np.int32)))
+        counts = rng.integers(0, cap // 2, s)
+        if w == 4:
+            counts[:] = 0
+        if w == 7:
+            counts[:] = cap + 1
+        out.append(("pop", counts.astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("with_rider", [False, True])
+@pytest.mark.parametrize("arity_log2", [1, 2, 3])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_grid_plain_matches_reference_per_shard(s, arity_log2, with_rider):
+    """``heap_apply_grid_plain`` on (S, cap) planes against the
+    reference's ``heap_insert_masked`` (mask ``dest == s``) and
+    ``heap_pop_count`` (``counts[s]``) on each shard's heap, wave after
+    wave, filling heaps past full and popping past empty: planes, sizes,
+    the popped keys, vals, riders and ok rows."""
+    rng = np.random.default_rng(20 + s + 4 * arity_log2)
+    cap_log2, n, batch = 5, 24, 12
+    cap = 1 << cap_log2
+    keys = torch.full((s, cap), KEY_INF, dtype=torch.int32)
+    vals = torch.full((s, cap), -1, dtype=torch.int32)
+    sizes = torch.zeros(s, dtype=torch.int32)
+    rider = torch.zeros((s, cap), dtype=torch.int32) if with_rider else None
+    ref = [[jnp.asarray(x) for x in _empty(cap_log2)] + [jnp.int32(0),
+           jnp.zeros(cap, jnp.int32) if with_rider else None]
+           for _ in range(s)]
+    kw = dict(cap_log2=cap_log2, arity_log2=arity_log2)
+    for wave in _grid_waves(rng, s, cap_log2, n):
+        if wave[0] == "insert":
+            _, ks, vs, dest, opr = wave
+            out = heap.heap_apply_grid_plain(
+                keys, vals, sizes, opkeys=torch.from_numpy(ks),
+                opvals=torch.from_numpy(vs), dest=torch.from_numpy(dest),
+                rider=rider, oprider=torch.from_numpy(opr), **kw)
+            assert len(out) == 3 + with_rider
+            for sh, r in enumerate(ref):
+                j = jheap.heap_insert_masked(
+                    r[0], r[1], r[2], jnp.asarray(ks), jnp.asarray(vs),
+                    jnp.asarray(dest == sh), rider=r[3],
+                    oprider=jnp.asarray(opr) if with_rider else None, **kw)
+                ref[sh] = [j[0], j[1], j[2], j[6] if with_rider else None]
+        else:
+            counts = wave[1]
+            out = heap.heap_apply_grid_plain(
+                keys, vals, sizes, counts=torch.from_numpy(counts),
+                batch=batch, rider=rider, **kw)
+            for sh, r in enumerate(ref):
+                j = jheap.heap_pop_count(r[0], r[1], r[2], int(counts[sh]),
+                                         batch=batch, rider=r[3], **kw)
+                for got, want in zip(out[3:6], j[3:6]):
+                    np.testing.assert_array_equal(_np(got[sh]),
+                                                  np.asarray(want))
+                if with_rider:
+                    np.testing.assert_array_equal(_np(out[7][sh]),
+                                                  np.asarray(j[7]))
+                ref[sh] = [j[0], j[1], j[2], j[6] if with_rider else None]
+        for sh, r in enumerate(ref):
+            np.testing.assert_array_equal(_np(keys[sh]), np.asarray(r[0]))
+            np.testing.assert_array_equal(_np(vals[sh]), np.asarray(r[1]))
+            assert int(sizes[sh]) == int(r[2])
+            if with_rider:
+                np.testing.assert_array_equal(_np(rider[sh]),
+                                              np.asarray(r[3]))
+
+
+def test_grid_at_one_shard_is_heap_apply():
+    """The grid at S = 1 is ``heap_apply`` with the wave's ops: the same
+    planes, size and results."""
+    rng = np.random.default_rng(5)
+    cap_log2 = 6
+    g = [torch.from_numpy(x).reshape(1, -1) for x in _empty(cap_log2)]
+    gs = torch.zeros(1, dtype=torch.int32)
+    h = list(map(torch.from_numpy, _empty(cap_log2)))
+    hs = torch.zeros((), dtype=torch.int32)
+    for _ in range(6):
+        ks = torch.from_numpy(rng.integers(0, 50, 40).astype(np.int32))
+        mask = torch.from_numpy(rng.random(40) < 0.7)
+        heap.heap_apply_grid(*g, gs, opkeys=ks, opvals=ks * 3,
+                             dest=torch.where(mask, 0, -1).int(),
+                             cap_log2=cap_log2)
+        out = heap.heap_insert_masked(*h, hs, ks, ks * 3, mask,
+                                      cap_log2=cap_log2)
+        h, hs = list(out[:2]), out[2]
+        c = int(rng.integers(0, 30))
+        got = heap.heap_apply_grid(*g, gs, counts=torch.tensor(
+            [c], dtype=torch.int32), batch=32, cap_log2=cap_log2)
+        want = heap.heap_pop_count(*h, hs, c, batch=32, cap_log2=cap_log2)
+        h, hs = list(want[:2]), want[2]
+        for a, b in zip(got[3:6], want[3:6]):
+            assert torch.equal(a[0], b)
+        assert torch.equal(g[0][0], h[0]) and int(gs[0]) == int(hs)
+
+
+def test_grid_refuses_bad_calls():
+    planes = [torch.zeros((2, 16), dtype=torch.int32) for _ in range(2)]
+    sizes = torch.zeros(2, dtype=torch.int32)
+    lanes = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="counts= and batch="):
+        heap.heap_apply_grid(*planes, sizes, cap_log2=4)
+    with pytest.raises(ValueError, match="counts= and batch="):
+        heap.heap_apply_grid(*planes, sizes, counts=sizes, batch=4,
+                             opkeys=lanes, opvals=lanes, dest=lanes,
+                             cap_log2=4)
+    with pytest.raises(ValueError, match=r"planes must be \(S, 2\^5\)"):
+        heap.heap_apply_grid(*planes, sizes, counts=sizes, batch=4,
+                             cap_log2=5)
+    with pytest.raises(ValueError, match="sizes must be"):
+        heap.heap_apply_grid(*planes, lanes, counts=sizes, batch=4,
+                             cap_log2=4)
+    with pytest.raises(ValueError, match="arity_log2=0"):
+        heap.heap_apply_grid(*planes, sizes, counts=sizes, batch=4,
+                             cap_log2=4, arity_log2=0)

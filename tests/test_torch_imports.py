@@ -15,24 +15,27 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.apps import bfs  # noqa: E402
+from repro_torch.apps import bfs, sssp  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
                                  frontier_expand, heap_apply,
-                                 heap_insert_masked, heap_planes,
+                                 heap_apply_grid, heap_insert_masked,
+                                 heap_planes,
                                  heap_pop_count, ring_dequeue,
                                  ring_dequeue_wave, ring_enqueue_wave,
                                  wave_compact, wavefaa)
-from repro_torch.core import (dist_queue_init,  # noqa: E402
+from repro_torch.core import (dist_heap_init, dist_queue_init,  # noqa
                               dist_sharded_queue_init)
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import (claim_schedule, deq_planes,  # noqa
                                  enq_planes, priority_claim_schedule)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
-from repro_torch.runtime import (HeapEngine, MeshRingEngine,  # noqa
-                                 MeshRoundRunner, PriorityRoundRunner,
-                                 RingEngine, RoundRunner,
+from repro_torch.runtime import (HeapEngine, MeshHeapEngine,  # noqa
+                                 MeshRingEngine, MeshRoundRunner,
+                                 PriorityMeshRoundRunner,
+                                 PriorityRoundRunner, RingEngine,
+                                 RoundRunner,
                                  ShardedMeshRingEngine, heap_init, ring_init)
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
@@ -50,6 +53,7 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.sched, repro_torch.data, repro_torch.obs\n"
             "import repro_torch.core, repro_torch.distributed\n"
             "import repro_torch.runtime.meshrounds\n"
+            "import repro_torch.apps.sssp\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -115,6 +119,15 @@ def _pstep(acc, keys, vals, valid):
     lambda: bfs.bfs_mesh_rounds(bfs.road_like(16), shards=2),
     lambda: claim_schedule(5, 2, 4),
     lambda: priority_claim_schedule(5, 2, 4, [0, 1], [3, 3]),
+    lambda: PriorityMeshRoundRunner(_pstep, mesh=make_mesh((2,), ("data",))),
+    lambda: PriorityMeshRoundRunner(_pstep, mesh=make_mesh((2,), ("data",)),
+                                    fused=False, relaxed=False),
+    lambda: MeshHeapEngine(_pstep, mesh=make_mesh((2,), ("data",))),
+    lambda: dist_heap_init(16),
+    lambda: sssp.sssp_mesh_rounds_runner(bfs.road_like(16),
+                                         np.ones(48, np.int32)),
+    lambda: sssp.sssp_mesh_rounds(bfs.road_like(16), np.ones(48, np.int32),
+                                  shards=2),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
@@ -122,7 +135,10 @@ def _pstep(acc, keys, vals, valid):
         "ServingEngine", "launch.serve", "MeshRoundRunner",
         "MeshRoundRunner-legacy", "MeshRingEngine", "ShardedMeshRingEngine",
         "dist_queue_init", "dist_sharded_queue_init", "bfs_mesh_rounds",
-        "claim_schedule", "priority_claim_schedule"])
+        "claim_schedule", "priority_claim_schedule",
+        "PriorityMeshRoundRunner", "PriorityMeshRoundRunner-legacy",
+        "MeshHeapEngine", "dist_heap_init", "sssp_mesh_rounds_runner",
+        "sssp_mesh_rounds"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -197,6 +213,15 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         ring_enqueue_wave(*rows, pair, pair, tickets, live, capacity=16,
                           nslots_log2=4, idx_bot=2 ** 31 - 1,
                           mask=tickets.bool())
+    # the heap grid (the priority mesh's waves), both modes
+    grid = [p.reshape(2, 16) for p in planes[:3]]
+    for wave in (dict(counts=pair, batch=4),
+                 dict(opkeys=tickets, opvals=tickets, dest=tickets)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            heap_apply_grid(*grid[:2], pair, cap_log2=4, **wave)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            heap_apply_grid(*grid[:2], pair, cap_log2=4, rider=grid[2],
+                            **wave)
     from repro_torch.obs import obs_record, span_init, trace_init
     tp = trace_init(4, device="cpu")._replace(count=head)
     sp = span_init(1, lanes=8, device="cpu")._replace(round=head)

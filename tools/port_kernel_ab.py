@@ -28,7 +28,11 @@ card's name and power limit:
   side, every run kept), with one record a round and a histogram total
   equal to the pops checked, and the per-call time of ``obs_record`` at
   road's wave (1,024 lanes, 819 of them valid, a trace plane of 8,192
-  rows, spans of 16 buckets), timed as above.
+  rows, spans of 16 buckets), timed as above;
+* the per-call time of the single heap's ``heap_apply`` on the priority
+  path's 2^20-slot heap holding 200,000 nodes: a 1,024-pop call and a
+  2,048-lane insert call at the tree's child density (0.62), each on a
+  state that flows from call to call, timed as above.
 
 Run two checkouts in turns in one call (A, B, B, A): a number from
 another call does not compare.  Needs a CUDA card; exits 2 without one.
@@ -188,6 +192,40 @@ def obs_cells(np, torch, cs, dev, smoke):
     return out
 
 
+def heap_calls(np, torch, K, smoke, dev):
+    """Per-call µs of ``heap_apply``: 1,024 pops and 2,048 insert lanes on
+    a 2^20-slot heap of 200,000 nodes."""
+    card = dict(dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(4)
+    cap_log2, occ = 20, 200_000
+    keys = torch.full((1 << cap_log2,), 2 ** 31 - 1, **card)
+    vals = torch.full((1 << cap_log2,), -1, **card)
+    seed = torch.as_tensor(rng.integers(0, 26, occ, dtype=np.int32),
+                           device=dev)
+    K.heap_apply(keys, vals, 0, torch.zeros(occ, **card), seed, seed,
+                 cap_log2=cap_log2)
+    act = rng.random(2048) < 0.62
+    waves = {
+        "pop": (torch.ones(1024, **card),
+                torch.full((1024,), 2 ** 31 - 1, **card),
+                torch.full((1024,), -1, **card)),
+        "insert": (torch.as_tensor(np.where(act, 0, -1).astype(np.int32),
+                                   device=dev),
+                   torch.as_tensor(rng.integers(0, 30, 2048,
+                                                dtype=np.int32), device=dev),
+                   torch.as_tensor(rng.integers(0, 1 << 30, 2048,
+                                                dtype=np.int32), device=dev))}
+    out = {}
+    for name, wave in waves.items():
+        def launch(st, i, wave=wave):
+            st[2] = K.heap_apply(st[0], st[1], st[2], *wave,
+                                 cap_log2=cap_log2)[2]
+        out[f"heap_apply_{name}_us"] = smoke.time_ms(
+            lambda: [keys.clone(), vals.clone(), torch.tensor(occ, **card)],
+            launch, iters=40)[0] * 1e3
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
@@ -208,6 +246,7 @@ def main() -> int:
            "repro_torch": K.__file__}
     out.update(engine_cells(np, torch, cs, dev))
     out.update(obs_cells(np, torch, cs, dev, smoke))
+    out.update(heap_calls(np, torch, K, smoke, dev))
     rng = np.random.default_rng(5)
     mask = torch.as_tensor(rng.random(4096) < 0.2, device=dev)
     counter = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
