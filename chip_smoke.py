@@ -197,6 +197,36 @@ pmesh.      — the priority mesh on one card
               bit, timed in turns with the captured rounds' nodes; the
               relaxed tree with compact=True (the ballot run's state) and
               with Telemetry and Spans() against the run without them.
+raytrace. — the paper's Fig. 7 scenes (``apps.raytrace``: complex, 100
+              spheres, 2 bounces; cornell, 2 spheres, 4 bounces) at
+              1920 x 1080 (2,073,600 pixel ids, ring 2^21, batch
+              65,536): ``render_rounds`` on the ring engine's device
+              loop (the trace is plain PyTorch inside the captured
+              round; the ring waves B2a/B2b once a round, the
+              standalone enqueue once for the seed), one readback,
+              against ``render_compaction`` on the same card (rays
+              equal, images within RAY_TOL); MRays/s of both, µs a round
+              (CUDA events), the captured round's nodes and the idle
+              share (the profiler over a second run).  Then both scenes
+              at 256 x 256, batch 256, fused against legacy
+              (``ring_dequeue`` / ``ring_enqueue`` a round): bit for bit.
+admission. — device serving admission (``serving.ServingMeshEngine``):
+              (a) the JAX package's serving goldens (GOLDEN["serving"],
+              GOLDEN_2SHARD["serving_2"] of tests/test_enginecore.py)
+              with Telemetry(capacity=256): stats, ticks, admitted order,
+              planes, pop history and tel digests; (b) a backlogged
+              server's tick stream (ADM_TRAFFIC: 48,168 requests over
+              1,000 ticks with Pareto bursts, 40 slots and 4,096 pages
+              of 16 tokens a tick, then drain ticks) at one shard and at
+              four, heaps of 2^16 a shard, batch 256, 4-ary: at one shard
+              every tick's admitted list equal to a heapq EDF oracle, at
+              four each request admitted once within every tick's
+              budgets (the ticks off the oracle counted), one readback a
+              tick (the copies to the host counted under the profiler
+              over 50 ticks), heap_apply_grid twice a round and once a
+              tick with arrivals; (c) phase 8's granite-moe serve again
+              with ``admission="device"``: its admission log, completed
+              requests and decode steps equal to the EDF serve's.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -205,7 +235,7 @@ pmesh.      — the priority mesh on one card
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
-              pmesh, 8 and 9;
+              pmesh, raytrace (``ray``), admission, 8 and 9;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -233,8 +263,9 @@ pmesh.      — the priority mesh on one card
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
               with a readback a round; its row also carries the nodes of
-              each engine's captured round (road, kron, heap, and road
-              and heap with obs on).  The packed waves at road's and
+              each engine's captured round (road, kron, heap, road and
+              heap with obs on, the meshes, the raytrace renders and the
+              admission streams).  The packed waves at road's and
               kron's shapes, the rider heap_apply at the heap path's
               (beside the rider-less instance's time) and obs_record at
               one road round's record have rows of their own; their
@@ -243,7 +274,8 @@ pmesh.      — the priority mesh on one card
               65,536 seeds, masked ring_dequeue at the functional rounds'
               4 x 1,024 requests); their launches come from phase mesh.
               heap_apply_grid and its rider instance have rows at the
-              priority mesh's shapes (phase pmesh): the relaxed tree's
+              priority mesh's shapes (phase pmesh; heap_apply_grid also
+              at the admission streams'): the relaxed tree's
               pop (4 x 1,024) and insert (8,192 lanes) waves beside one
               heap's 1,024-pop call by the grid and by heap_apply, the
               strict tree's (4,096 pops, one heap), SSSP's and the
@@ -281,8 +313,8 @@ pmesh.      — the priority mesh on one card
 Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
 and report the card's idle share against the unprofiled wall time (where
 the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, mesh, pmesh, 8 and 9 run before phase 7, whose line
-needs their launch counts.  Every phase
+in).  Phases 5b, mesh, pmesh, raytrace, 8, admission and 9 run before
+phase 7, whose line needs their launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -374,6 +406,32 @@ MESH_TREE_SEEDS = 65536
 MESH_TREE_DEPTH = 14     # children only below this depth
 MESH_TREE_SPAWN = 10     # a child is offered with probability 10/16
 MESH_TREE_CAP_LOG2 = 22
+# phase raytrace: the paper's Fig. 7 scenes at 1920 x 1080 on the ring
+# engine (capacity_log2 21: the 2,073,600 pixel ids fit 2^21 slots), and
+# fused against legacy at 256 x 256
+RAY_W, RAY_H, RAY_BATCH = 1920, 1080, 65536
+RAY_SMALL, RAY_SMALL_BATCH = 256, 256
+RAY_TOL = 1e-5
+# phase admission: the serving goldens of the JAX package's tests
+# (tests/test_enginecore.py: GOLDEN["serving"], GOLDEN_2SHARD["serving_2"])
+SERVING_GOLDEN = {
+    "serving": {"shards": 1, "stats": [4, 20, 12, 6, 1, 4], "ticks": 4,
+                "admitted": [1, 3, 7, 2, 6, 5, 4, 0],
+                "planes": "d70650fb443f714a", "hist": "256ab85ea28951cc",
+                "tel": "55a5a0cd9cee8fb0"},
+    "serving_2": {"shards": 2, "stats": [4, 20, 12, 6, 1, 4], "ticks": 4,
+                  "admitted": [2, 1, 7, 3, 6, 4, 5, 0],
+                  "planes": "6ddad96eb514c320", "hist": "385db6ed17cface3",
+                  "tel": "12c1f9a6ce0747a2"}}
+# and a backlogged server's tick stream: 48 requests a tick with bursts,
+# 40 slots and 4,096 pages of 16 tokens a tick, heaps of 2^16 a shard
+ADM_TRAFFIC = dict(ticks=1000, rate=48, burst_period=32, burst_max=1024,
+                   tenants=4, urgent_frac=0.25, prompt_len=(128, 2048),
+                   max_new_tokens=(32, 512), seed=5)
+ADM_CAP_LOG2, ADM_BATCH, ADM_TABLE_LOG2 = 16, 256, 16
+ADM_SLOTS, ADM_PAGES, ADM_PAGE_SIZE, ADM_SLACK = 40, 4096, 16, 64
+ADM_DRAIN_SLOTS, ADM_DRAIN_PAGES = 4096, 1 << 30
+ADM_PROFILED_TICKS = 50
 OBS_ROAD_CAPACITY = 8192
 OBS_HEAP_CAPACITY = 2048
 EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
@@ -607,7 +665,8 @@ class Smoke:
                          "queue": {}, "prefill": {}, "serve": {},
                          "prefill_gemma3": {}, "obs_road": {},
                          "obs_heap": {},
-                         "mesh": {}, "pmesh": {}}  # path -> launches
+                         "mesh": {}, "pmesh": {}, "ray": {},
+                         "admission": {}}  # path -> launches
         self.keep = {}            # path -> (runner, final state) for obs
 
     # -- helpers -------------------------------------------------------------
@@ -2932,6 +2991,337 @@ class Smoke:
         info["seconds"] = time.perf_counter() - t0
         return info
 
+    # -- phase raytrace: render_rounds on the ring engine -------------------
+
+    def ray_render(self, K, raytrace, name):
+        """One Fig. 7 scene at RAY_W x RAY_H: ``render_rounds`` fused on
+        the device loop (a first run captures the round; the second is
+        the path's, its launches counted) beside ``render_compaction`` on
+        the same card: rays equal, images within RAY_TOL, one readback;
+        then the fused run again under the profiler."""
+        np, torch = self.np, self.torch
+        scene = getattr(raytrace, f"{name}_scene")()
+        npix = RAY_W * RAY_H
+        runner, init_fn = raytrace.render_rounds_runner(
+            scene, RAY_W, RAY_H, RAY_BATCH)
+        seeds = np.arange(npix, dtype=np.int32)
+
+        def run():
+            acc, _ = runner.run(seeds, acc=init_fn(), max_rounds=1_000_000)
+            return acc[0][:npix]
+
+        _, first_s, _ = self.timed(run)             # capture
+        img, got, run_s, span_s = self.mesh_run(K, run, "ray")
+        stats = dict(runner.stats)
+        self.loop_checks(f"raytrace {name}", stats, runner.sync_log)
+        ring_launches(f"raytrace {name}", {"launches": got,
+                                           "rounds": stats["rounds"]},
+                      compacts=False)
+        (cimg, cinfo), comp_s, comp_span = self.timed(
+            lambda: raytrace.render_compaction(scene, RAY_W, RAY_H))
+        img = img.cpu().numpy().reshape(RAY_H, RAY_W, 3)
+        err = float(np.abs(img - cimg).max())
+        if stats["processed"] != cinfo["rays"] or err > RAY_TOL or \
+                not np.isfinite(img).all():
+            raise AssertionError(
+                f"raytrace {name}: rays {stats['processed']} vs compaction "
+                f"{cinfo['rays']}, max |diff| {err}")
+        t0 = time.perf_counter()
+        with self.profile() as prof:
+            run()
+            torch.cuda.synchronize()
+        times = device_times(prof)
+        busy_s = sum(times.values()) / 1e6
+        rays = stats["processed"]
+        return {
+            "scene": name, "pixels": npix, "rays": rays,
+            "rounds": stats["rounds"], "max_occupancy":
+                stats["max_occupancy"], "readbacks": stats["host_syncs"],
+            "first_run_s": first_s, "run_s": run_s,
+            "mrays_per_s": rays / run_s / 1e6,
+            "device_span_s": span_s,
+            "device_us_per_round": span_s / stats["rounds"] * 1e6,
+            "compaction": {"rays": cinfo["rays"], "run_s": comp_s,
+                           "device_span_s": comp_span,
+                           "mrays_per_s": cinfo["rays"] / comp_s / 1e6,
+                           "max_abs_diff": err},
+            "launches": got,
+            "round_graph": graph_nodes(runner._engine),
+            "device_busy_s": busy_s if busy_s >= 0.5 * span_s else None,
+            "idle_share": (1 - busy_s / run_s if busy_s >= 0.5 * span_s
+                           else None),
+            "profiler_recorded_s": busy_s,
+            "span_idle_share": 1 - span_s / run_s,
+            "profile_s": time.perf_counter() - t0,
+            "top_device_ms": top_ms(times, 6)}
+
+    def ray_path(self, K, raytrace):
+        """Phase raytrace: both scenes at RAY_W x RAY_H, then
+        ``render_rounds`` fused against legacy at RAY_SMALL^2, batch
+        RAY_SMALL_BATCH, bit for bit."""
+        np = self.np
+        t0 = time.perf_counter()
+        info = {"phase": "raytrace", "width": RAY_W, "height": RAY_H,
+                "batch": RAY_BATCH, "tolerance": RAY_TOL}
+        for name in ("complex", "cornell"):
+            info[name] = self.ray_render(K, raytrace, name)
+        small = {}
+        for name in ("complex", "cornell"):
+            scene = getattr(raytrace, f"{name}_scene")()
+            runs = {}
+            for fused in (True, False):
+                K.reset_launches()
+                (img, st), wall, span = self.timed(
+                    lambda: raytrace.render_rounds(
+                        scene, RAY_SMALL, RAY_SMALL, RAY_SMALL_BATCH,
+                        fused=fused, max_rounds=1_000_000))
+                runs[fused] = (img, st, wall, dict(
+                    (k, v) for k, v in K.LAUNCHES.items() if v))
+            (fi, fs, fw, fl), (li, ls, lw, ll) = runs[True], runs[False]
+            if not (np.array_equal(fi, li)
+                    and all(fs[k] == ls[k] for k in STATS[:4])):
+                raise AssertionError(f"raytrace {name} {RAY_SMALL}^2: fused "
+                                     f"!= legacy ({fs} vs {ls})")
+            if ll.get("ring_dequeue", 0) != ls["rounds"]:
+                raise AssertionError(f"raytrace {name} legacy: ring_dequeue "
+                                     f"launched {ll.get('ring_dequeue')} "
+                                     f"times in {ls['rounds']} rounds")
+            small[name] = {"rays": fs["rays"], "rounds": fs["rounds"],
+                           "fused_run_s": fw, "legacy_run_s": lw,
+                           "fused_readbacks": fs["host_syncs"],
+                           "legacy_readbacks": ls["host_syncs"],
+                           "fused_launches": fl, "legacy_launches": ll,
+                           "bit_identical": True}
+        info[f"fused_vs_legacy_{RAY_SMALL}"] = small
+        info["launches"] = self.launches["ray"]
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase admission: device serving admission --------------------------
+
+    def admission_golden(self, K, serving, obs, make_mesh):
+        """The JAX package's serving goldens on the card with
+        Telemetry(capacity=256): stats, ticks, admitted, planes, pop
+        history and tel digests."""
+        np = self.np
+        out = {}
+        for name, g in SERVING_GOLDEN.items():
+            tel = obs.Telemetry(capacity=256)
+            e = serving.ServingMeshEngine(
+                mesh=make_mesh((g["shards"],), ("data",)), capacity_log2=6,
+                batch=8, table_log2=6, pop_log=128, telemetry=tel)
+
+            def run():
+                e.begin()
+                adm = list(e.tick([60, 10, 30, 20, 50, 40, 35, 25],
+                                  list(range(8)), slots=4, pages=5,
+                                  need=[2] * 8))
+                ticks = 1
+                while e.occupancy() > 0 and ticks < 12:
+                    adm += e.tick([], [], slots=4, pages=4)
+                    ticks += 1
+                return adm, ticks
+
+            (adm, ticks), _, _, _ = self.mesh_run(K, run, "admission")
+            st = e.heap_state()
+            got = {"stats": [e.stats[k] for k in STATS]
+                   + [e.stats["host_syncs"]], "ticks": ticks,
+                   "admitted": adm,
+                   "planes": digest(st.keys.cpu().numpy(),
+                                    st.vals.cpu().numpy()),
+                   "hist": digest(np.asarray(e.pop_history(), np.int32)),
+                   "tel": tel_digest(tel)}
+            want = {k: v for k, v in g.items() if k != "shards"}
+            if got != want:
+                raise AssertionError(f"{name}: {got}")
+            out[name] = got
+        return out
+
+    def admission_stream(self, K, serving, make_mesh, shards):
+        """ADM_TRAFFIC through ``ServingMeshEngine`` at ``shards`` heaps of
+        2^ADM_CAP_LOG2: each arrival keyed 2 (seq + slack) + (0 urgent, 1
+        else), slack 0 urgent and ADM_SLACK else (distinct keys), pages
+        ceil((prompt + new) / ADM_PAGE_SIZE), ADM_SLOTS and ADM_PAGES a
+        tick, then drain ticks until the heaps are empty.  Each tick's
+        admitted list against a heapq EDF oracle over the same pending
+        requests (the prefix that fits, stop at the first that does not):
+        equal at one shard; at more, each request admitted once, no tick
+        over its budgets, and the ticks that differ counted (in order, or
+        in the set admitted).  CUDA events
+        around each tick; ADM_PROFILED_TICKS ticks under the profiler
+        count their copies to the host (and are left out of the times)."""
+        import heapq
+        np, torch = self.np, self.torch
+        trace = serving.generate_trace(serving.TrafficConfig(**ADM_TRAFFIC))
+        by_tick = {}
+        for rid, a in enumerate(trace):
+            by_tick.setdefault(a.tick, []).append(rid)
+        need = [-(-(a.prompt_len + a.max_new_tokens) // ADM_PAGE_SIZE)
+                for a in trace]
+        e = serving.ServingMeshEngine(
+            mesh=make_mesh((shards,), ("data",)), capacity_log2=ADM_CAP_LOG2,
+            batch=ADM_BATCH, arity_log2=2, table_log2=ADM_TABLE_LOG2)
+        e.begin()                                   # capture
+        torch.cuda.synchronize()
+        free = list(range(e.table))[::-1]
+        rid_of, pend, done = {}, [], set()
+        seq = t = differ = differ_set = peak = 0
+        walls, spans, per_tick = [], [], []
+        prof, copies = None, None
+        K.reset_launches()
+        while t < ADM_TRAFFIC["ticks"] or e.occupancy() > 0:
+            if t > ADM_TRAFFIC["ticks"] + 64:
+                raise AssertionError("admission stream: not drained")
+            keys, idxs, needs = [], [], []
+            for rid in by_tick.get(t, []):
+                seq += 1
+                urgent = trace[rid].priority == 0
+                key = 2 * (seq + (0 if urgent else ADM_SLACK)) + (
+                    0 if urgent else 1)
+                idx = free.pop()
+                rid_of[idx] = rid
+                keys.append(key)
+                idxs.append(idx)
+                needs.append(need[rid])
+                heapq.heappush(pend, (key, rid))
+            slots, pages = ((ADM_SLOTS, ADM_PAGES)
+                            if t < ADM_TRAFFIC["ticks"]
+                            else (ADM_DRAIN_SLOTS, ADM_DRAIN_PAGES))
+            if t == 100:
+                prof = self.profile()
+                prof.__enter__()
+            r0 = e.stats["rounds"]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            adm = e.tick(keys, idxs, slots=slots, pages=pages, need=needs)
+            end.record()
+            end.synchronize()
+            if prof is None or copies is not None:
+                walls.append(time.perf_counter() - t0)
+                spans.append(start.elapsed_time(end) / 1e3)
+            per_tick.append(e.stats["rounds"] - r0)
+            if t == 100 + ADM_PROFILED_TICKS - 1:
+                prof.__exit__(None, None, None)
+                copies = readbacks(prof)
+            got = [rid_of.pop(i) for i in adm]
+            free.extend(adm)
+            # the oracle: the EDF prefix of the same pending requests
+            want, left = [], pages
+            while pend:
+                key, rid = pend[0]
+                if rid in done:
+                    heapq.heappop(pend)
+                    continue
+                if len(want) >= slots or need[rid] > left:
+                    break
+                left -= need[rid]
+                want.append(heapq.heappop(pend))
+            if got != [r for _, r in want]:
+                if shards == 1:
+                    raise AssertionError(
+                        f"admission stream, 1 shard, tick {t}: {got[:8]} "
+                        f"!= oracle {[r for _, r in want][:8]}")
+                differ += 1
+                differ_set += set(got) != {r for _, r in want}
+            gs = set(got)
+            if len(got) > slots or sum(need[r] for r in got) > pages or \
+                    done & gs or len(gs) != len(got):
+                raise AssertionError(f"admission stream, {shards} shards, "
+                                     f"tick {t}: over budget or readmitted")
+            for item in want:
+                if item[1] not in gs:
+                    heapq.heappush(pend, item)
+            done |= gs
+            peak = max(peak, e.occupancy())
+            t += 1
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        path = self.launches["admission"]
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        st = e.stats
+        if len(done) != len(trace) or st["host_syncs"] != t:
+            raise AssertionError(
+                f"admission stream, {shards} shards: {len(done)} of "
+                f"{len(trace)} admitted, {st['host_syncs']} readbacks in "
+                f"{t} ticks")
+        if copies != ADM_PROFILED_TICKS:
+            raise AssertionError(f"admission stream: {copies} copies to "
+                                 f"the host in {ADM_PROFILED_TICKS} ticks")
+        if launches.get("heap_apply_grid", 0) != 2 * st["rounds"] + sum(
+                1 for x in by_tick if x < t):
+            raise AssertionError(f"admission stream: heap_apply_grid "
+                                 f"launched {launches.get('heap_apply_grid')}"
+                                 f" times in {st['rounds']} rounds")
+        timed = len(walls)
+        return {"shards": shards, "ticks": t, "requests": len(trace),
+                "peak_backlog": peak, "rounds": st["rounds"],
+                "processed": st["processed"], "spawned": st["spawned"],
+                "max_occupancy": st["max_occupancy"],
+                "readbacks": st["host_syncs"],
+                "readbacks_per_tick": st["host_syncs"] / t,
+                "profiled_ticks": ADM_PROFILED_TICKS,
+                "copies_to_host_in_profiled_ticks": copies,
+                "ticks_differing_from_oracle": differ,
+                "ticks_admitting_another_set": differ_set,
+                "timed_ticks": timed, "run_s": sum(walls),
+                "us_per_tick": sum(walls) / timed * 1e6,
+                "rounds_per_tick": st["rounds"] / t,
+                "rounds_per_tick_max": max(per_tick),
+                "device_span_s": sum(spans),
+                "device_us_per_tick": sum(spans) / timed * 1e6,
+                "device_us_per_round": (sum(spans) / sum(
+                    r for i, r in enumerate(per_tick)
+                    if not 100 <= i < 100 + ADM_PROFILED_TICKS) * 1e6),
+                "launches": launches, "round_graph": graph_nodes(e)}
+
+    def admission_path(self, K, serving, models, configs):
+        """Phase admission: (a) the serving goldens, (b) the tick stream at
+        one and four shards, (c) phase 8's granite-moe serve again with
+        ``admission="device"``: its schedule equal to the EDF serve's."""
+        from repro_torch import obs
+        from repro_torch.distributed import make_mesh
+        t0 = time.perf_counter()
+        info = {"phase": "admission",
+                "golden": self.admission_golden(K, serving, obs, make_mesh),
+                "stream": {f"shards_{s}": self.admission_stream(
+                    K, serving, make_mesh, s) for s in (1, 4)},
+                "traffic": ADM_TRAFFIC,
+                "engine": {"capacity_log2": ADM_CAP_LOG2,
+                           "batch": ADM_BATCH, "table_log2": ADM_TABLE_LOG2,
+                           "arity": 4, "slots": ADM_SLOTS,
+                           "pages": ADM_PAGES, "page_size": ADM_PAGE_SIZE}}
+        cfg, params, edf = self.keep.pop("serve")
+        self.serve_run(serving, cfg, params, self.dev,
+                       admission="device")             # warm-up
+        K.reset_launches()
+        eng, metrics, serve_s = self.serve_run(serving, cfg, params, self.dev,
+                                               admission="device")
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        path = self.launches["admission"]
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        keys = ("completed", "decode_steps", "admitted", "tokens_out")
+        if eng.admission_log != edf["admission_log"] or \
+                [metrics[k] for k in keys] != [edf["metrics"][k]
+                                               for k in keys]:
+            raise AssertionError(f"admission serve: {metrics} "
+                                 f"{eng.admission_log} != EDF {edf}")
+        info["serve"] = {"arch": cfg.name, "metrics": metrics,
+                         "admission_log": eng.admission_log,
+                         "run_s": serve_s,
+                         "admission_ticks": eng._device.stats["host_syncs"],
+                         "readbacks": eng.host_syncs
+                         + eng._device.stats["host_syncs"],
+                         "launches": launches, "equals_edf_serve": True}
+        for name in ("heap_apply_grid", "device_loop", "expert_tickets"):
+            if not self.launches["admission"].get(name):
+                raise AssertionError(f"admission: {name} never launched")
+        info["launches"] = self.launches["admission"]
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
     # -- phase 6: queue-driven BFS -------------------------------------------
 
     def queue_path(self, label, g, K, bfs, want):
@@ -2986,11 +3376,14 @@ class Smoke:
         return [rng.integers(0, SERVE_VOCAB, SERVE_PROMPT)
                 .astype(self.np.int32) for _ in range(SERVE_REQUESTS)]
 
-    def serve_run(self, serving, cfg, params, device):
-        """The request trace through a fresh ``ServingEngine``."""
+    def serve_run(self, serving, cfg, params, device, admission="edf"):
+        """The request trace through a fresh ``ServingEngine`` with
+        ``admission`` ("edf": the host pool; "device": the admission
+        engine on the card)."""
         eng = serving.ServingEngine(
             cfg, params, serving.EngineConfig(max_slots=4, page_size=32,
-                                              num_pages=32, max_seq=64),
+                                              num_pages=32, max_seq=64,
+                                              admission=admission),
             device=device)
         for rid, prompt in enumerate(self.serve_trace()):
             if not eng.submit(serving.Request(rid=rid, prompt=prompt,
@@ -3121,6 +3514,11 @@ class Smoke:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "cpu_reduced_run": {"metrics": cmetrics, "run_s": cpu_s},
             "schedule_equals_cpu": True}
+        # phase admission serves the same trace again on the card's
+        # admission engine
+        self.keep["serve"] = (cfg, params, {
+            "admission_log": list(eng.admission_log),
+            "metrics": dict(metrics)})
 
         # both again under the profiler
         for name, run in (("prefill", lambda: models.prefill(params, tokens,
@@ -3306,7 +3704,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import configs, models, serving
     from repro_torch import kernels as K
-    from repro_torch.apps import bfs
+    from repro_torch.apps import bfs, raytrace
     from repro_torch.kernels import _build
 
     # 1. build
@@ -3398,6 +3796,11 @@ def main() -> int:
     pmesh_info = smoke.pmesh_path(K, rt, bfs)
     emit_phase(pmesh_info)
 
+    # raytrace. the Fig. 7 scenes at 1920 x 1080 on the ring engine,
+    # against render_compaction, and fused against legacy at 256^2
+    ray_info = smoke.ray_path(K, raytrace)
+    emit_phase(ray_info)
+
     # 6. queue-driven BFS on road 2048^2 and kron 2^20
     emit_phase(smoke.queue_path("road", road, K, bfs, road_dist))
     kron_q = smoke.queue_path("kron", qkron, K, bfs, qkron_dist)
@@ -3408,6 +3811,11 @@ def main() -> int:
     serve_info, seen = smoke.serve_path(K, configs, models, serving)
     emit_phase(serve_info)
 
+    # admission. device serving admission: the goldens, a backlogged
+    # server's tick stream at 1 and 4 shards, granite's serve again
+    adm_info = smoke.admission_path(K, serving, models, configs)
+    emit_phase(adm_info)
+
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()
     gemma_info, seen_gemma = smoke.gemma_path(K, configs, models)
@@ -3417,7 +3825,8 @@ def main() -> int:
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
                                  road_dist, seen_gemma, obs_info,
-                                 mesh_info, pmesh_info)})
+                                 mesh_info, pmesh_info, ray_info,
+                                 adm_info)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3430,7 +3839,8 @@ def main() -> int:
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
-                road_dist, seen_gemma, obs_info, mesh_info, pmesh_info):
+                road_dist, seen_gemma, obs_info, mesh_info, pmesh_info,
+                ray_info, adm_info):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -4039,13 +4449,27 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     heap_row["shape"]["pmesh_launches_charged_at"] = "tree_strict"
     tree_launch = lambda r: r["launches"].get(  # noqa: E731
         "heap_apply_grid", 0)
+    # the admission streams (phase admission): heaps of 2^ADM_CAP_LOG2 at
+    # half the stream's peak backlog a heap, its mean pops a heap a round
+    # and one child lane a claim lane at its re-entry density; the ticks'
+    # arrival waves are charged at the same shape
+    adm_cells = []
+    for key, st in adm_info["stream"].items():
+        s_a = st["shards"]
+        lanes_a = s_a * ADM_BATCH
+        adm_cells.append((f"admission_{key}", tree_launch(st), grid_cell(
+            s_a, max(st["peak_backlog"] // (2 * s_a), 1), ADM_CAP_LOG2,
+            False, max(st["processed"] // (st["rounds"] * s_a), 1),
+            lanes_a, st["spawned"] / (st["rounds"] * lanes_a))))
     grid_row("heap_apply_grid", "src/repro/kernels/heap_batch.py:47 "
              "(heap_pop_count / heap_insert_masked on each shard's heap, "
              ":299, :314)",
              [("tree_relaxed", tree_launch(rel) + tree_launch(
                  rel["compact"]), tree_cell),
-              ("tree_strict", tree_launch(strict), strict_cell)],
-             "the goldens' launches are not charged")
+              ("tree_strict", tree_launch(strict), strict_cell)]
+             + adm_cells,
+             "the goldens' and the device-admission serve's launches are "
+             "not charged")
     # the rider instance: SSSP's split payload (4 heaps of 2^20 at the
     # run's occupancy, its mean pops a heap, 16,384 insert lanes) and the
     # spanned tree (births on the rider)
@@ -4587,7 +5011,10 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     plain_per = [x / n_loop for x in plain_l]
     b_l, _ = bound(29, 0, ALU_OPS_PER_S)
     rounds_paths = (road["rounds"] + kron["rounds"] + heap["fused"]["rounds"]
-                    + obs_info["road"]["rounds"] + obs_info["heap"]["rounds"])
+                    + obs_info["road"]["rounds"] + obs_info["heap"]["rounds"]
+                    + sum(ray_info[k]["rounds"] for k in ("complex",
+                                                          "cornell"))
+                    + sum(v["rounds"] for v in adm_info["stream"].values()))
     row("device_loop", csrc + "loop.cu",
         "src/repro/runtime/enginecore.py:330 (fused_loop's lax.while_loop)",
         per, plain_per, None, 29, 0,
@@ -4606,7 +5033,11 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
              **{f"pmesh_tree_{k}": pmesh_info["tree"][k]["round_graph"][
                  "nodes"] for k in ("relaxed", "strict", "single")},
              **{f"pmesh_sssp_{k}": pmesh_info["sssp"][k]["round_graph"][
-                 "nodes"] for k in ("relaxed", "strict")}}},
+                 "nodes"] for k in ("relaxed", "strict")},
+             **{f"ray_{k}": ray_info[k]["round_graph"]["nodes"]
+                for k in ("complex", "cornell")},
+             **{f"admission_{k}": v["round_graph"]["nodes"]
+                for k, v in adm_info["stream"].items()}}},
         excess=rounds_paths * (per[0] - b_l))
     return rows
 

@@ -61,7 +61,7 @@ SIGNATURES = {
     "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
     "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 6 + (_F, _F,
                                                                _P)},
-    "loop": {"repro_loop_create": (_P,) * 7, "repro_loop_launch": (_P, _P),
+    "loop": {"repro_loop_create": (_P,) * 8, "repro_loop_launch": (_P, _P),
              "repro_loop_destroy": (_P, _P)},
     "obs_record": {"repro_obs_record": (_P,) * 16 + (_I,) * 6 + (_P,)},
 }

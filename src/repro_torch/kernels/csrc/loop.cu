@@ -6,12 +6,17 @@
 // src/repro/runtime/enginecore.py: fused_loop (a lax.while_loop).  Its
 // condition is the reference's: a round runs while
 //
-//     occ > 0  &&  !oflow  &&  rounds < limit,
+//     occ > 0  &&  !oflow  &&  rounds < limit  [&&  !stop],
 //
 // read from four device words the round body keeps up to date (the
 // occupancy, the overflow flag, the chunk's round count) and the chunk's
-// limit, which the host writes before each launch.  WHILE tests its
-// condition before the first iteration, so the graph is
+// limit, which the host writes before each launch.  The fifth word is
+// optional (a null pointer leaves it out): a one-byte stop flag that the
+// engine's round sets, the reference's ``_extra_cond`` hook.  The serving
+// admission engine sets it at the first admission stall, which ends its
+// tick inside the graph with no host round trip.  The loop never writes
+// it: the engine clears it between chunks.  WHILE tests its condition
+// before the first iteration, so the graph is
 //
 //     loop_init  ->  WHILE { body (a child graph)  ->  loop_cond }
 //
@@ -35,22 +40,29 @@ namespace repro {
 __device__ __forceinline__ unsigned int loop_live(const int32_t* occ,
                                                   const uint8_t* oflow,
                                                   const int32_t* rounds,
-                                                  const int32_t* limit) {
-  return (*occ > 0 && *oflow == 0 && *rounds < *limit) ? 1u : 0u;
+                                                  const int32_t* limit,
+                                                  const uint8_t* stop) {
+  return (*occ > 0 && *oflow == 0 && *rounds < *limit &&
+          (stop == nullptr || *stop == 0))
+             ? 1u
+             : 0u;
 }
 
 __global__ void loop_init(cudaGraphConditionalHandle handle,
                           const int32_t* occ, uint8_t* oflow,
-                          int32_t* rounds, const int32_t* limit) {
+                          int32_t* rounds, const int32_t* limit,
+                          const uint8_t* stop) {
   *rounds = 0;
   *oflow = 0;
-  cudaGraphSetConditional(handle, (*occ > 0 && *limit > 0) ? 1u : 0u);
+  cudaGraphSetConditional(handle, loop_live(occ, oflow, rounds, limit, stop));
 }
 
 __global__ void loop_cond(cudaGraphConditionalHandle handle,
                           const int32_t* occ, const uint8_t* oflow,
-                          const int32_t* rounds, const int32_t* limit) {
-  cudaGraphSetConditional(handle, loop_live(occ, oflow, rounds, limit));
+                          const int32_t* rounds, const int32_t* limit,
+                          const uint8_t* stop) {
+  cudaGraphSetConditional(handle,
+                          loop_live(occ, oflow, rounds, limit, stop));
 }
 
 cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
@@ -70,12 +82,14 @@ cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
 
 // body: the cudaGraph_t of the captured round (kept alive by its owner
 // while the loop exists; the loop holds a copy of its nodes).  occ,
-// rounds, limit: (1,) int32 device words; oflow: (1,) bool.  Writes the
+// rounds, limit: (1,) int32 device words; oflow: (1,) bool; stop: a bool
+// device word, or null for a loop with no stop flag.  Writes the
 // executable graph to *exec_out and its graph to *graph_out.  Returns a
 // cudaError_t (0 on success).
 extern "C" int repro_loop_create(void* body, const void* occ, void* oflow,
                                  void* rounds, const void* limit,
-                                 void** graph_out, void** exec_out) {
+                                 const void* stop, void** graph_out,
+                                 void** exec_out) {
   using namespace repro;
   cudaGraph_t graph = nullptr;
   cudaGraphExec_t exec = nullptr;
@@ -89,7 +103,8 @@ extern "C" int repro_loop_create(void* body, const void* occ, void* oflow,
     e = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
     if (e != cudaSuccess) break;
     void* init_args[] = {&handle, const_cast<void**>(&occ), &oflow, &rounds,
-                         const_cast<void**>(&limit)};
+                         const_cast<void**>(&limit),
+                         const_cast<void**>(&stop)};
     e = add_kernel(&init, graph, nullptr, 0,
                    reinterpret_cast<void*>(loop_init), init_args);
     if (e != cudaSuccess) break;
@@ -105,7 +120,8 @@ extern "C" int repro_loop_create(void* body, const void* occ, void* oflow,
                                    static_cast<cudaGraph_t>(body));
     if (e != cudaSuccess) break;
     void* cond_args[] = {&handle, const_cast<void**>(&occ), &oflow, &rounds,
-                         const_cast<void**>(&limit)};
+                         const_cast<void**>(&limit),
+                         const_cast<void**>(&stop)};
     e = add_kernel(&cond, inner, &child, 1,
                    reinterpret_cast<void*>(loop_cond), cond_args);
     if (e != cudaSuccess) break;

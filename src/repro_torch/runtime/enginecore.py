@@ -21,8 +21,10 @@ An engine is a configuration of this core:
 * a ``PlaneRegistry`` describing the queue planes the engine carries.
 
 A chunk is the reference's ``lax.while_loop``: rounds run while
-``occupancy > 0 and not overflow and rounds < limit``, the condition
-tested before every round, and the chunk ends in ONE readback of
+``occupancy > 0 and not overflow and rounds < limit`` (and, for an
+engine with a stop word, ``not stop``: ``_stop_of``, the reference's
+``_extra_cond``), the condition tested before every round, and the chunk
+ends in ONE readback of
 ``(occupancy, rounds, overflow, processed, spawned, max_occupancy)``.  A
 chunk is ``sync_every`` rounds, or ``max_rounds`` when ``sync_every`` is
 0, so a drained run reads back once, as in the reference, and
@@ -56,8 +58,9 @@ chunk loop clamps each chunk to it and raises the reference's error past
 it.  With both collectors off the captured round is the unobserved one,
 node for node.
 
-The mesh runners' legacy loop drives ``_drive`` too, with chunks of one
-round issued from the host: one readback a round, as the reference's.
+The mesh runners' legacy loop (``meshrounds._MeshBase._legacy``, the
+reference's ``_legacy_loop``) issues one round at a time from the host
+and reads back after each; an empty run reads nothing back.
 """
 
 from __future__ import annotations
@@ -201,7 +204,9 @@ class DeviceLoop:
     carry (which builds the kernels, sets their attributes and allocates
     the engine's kept scratch), and ``csrc/loop.cu`` wraps the captured
     graph in a conditional WHILE node over ``carry.occ``, ``.oflow``,
-    ``.rounds`` and ``.limit``.
+    ``.rounds`` and ``.limit``, and ``stop`` (a bool device tensor, or
+    None): the optional fifth word, whose first element, once a round
+    sets it, ends the chunk (the reference's ``_extra_cond``).
 
     ``_build.LAUNCHES`` is counted by the kernel wrappers, which run once,
     at capture; ``per_round`` is what the capture counted (taken back out
@@ -209,7 +214,8 @@ class DeviceLoop:
     round.  Failing to capture or to build the node raises: nothing falls
     back to eager rounds."""
 
-    def __init__(self, body: Callable[[Carry], None], carry: Carry) -> None:
+    def __init__(self, body: Callable[[Carry], None], carry: Carry,
+                 stop: Optional[torch.Tensor] = None) -> None:
         lib = _build.library("loop")
         body(tree_map(torch.clone, carry))            # warm-up, on a copy
         torch.cuda.synchronize(carry.occ.device)
@@ -227,7 +233,9 @@ class DeviceLoop:
         _build.check(lib.repro_loop_create(
             self.graph.raw_cuda_graph(), carry.occ.data_ptr(),
             carry.oflow.data_ptr(), carry.rounds.data_ptr(),
-            carry.limit.data_ptr(), ctypes.byref(graph), ctypes.byref(exe)),
+            carry.limit.data_ptr(),
+            None if stop is None else stop.data_ptr(), ctypes.byref(graph),
+            ctypes.byref(exe)),
             "device loop: building the conditional WHILE graph")
         self._lib = lib
         self._exec = exe.value
@@ -468,8 +476,32 @@ class EngineCore:
             carry = new_carry(tree_map(torch.clone, q),
                               tree_map(torch.clone, acc), self.device,
                               tree_map(torch.clone, obs))
-            loops[key] = (carry, DeviceLoop(self._round_into, carry))
+            loops[key] = (carry, DeviceLoop(self._round_into, carry,
+                                            self._stop_of(carry)))
         return loops[key]
+
+    def _stop_of(self, carry: Carry) -> Optional[torch.Tensor]:
+        """The engine's stop word in ``carry``: a bool device tensor whose
+        first element, once a round sets it, ends the chunk (the
+        reference's ``_extra_cond``); None for an engine without one."""
+        return None
+
+    def _run_chunk(self, carry: Carry, loop: Optional[DeviceLoop],
+                   limit: int) -> None:
+        """One chunk of up to ``limit`` rounds on ``carry``: a launch of
+        the device loop on the card (nothing read back), else the Python
+        loop, which tests the same condition before every round."""
+        if loop is not None:
+            carry.limit.fill_(limit)
+            loop.launch(_build.stream_of(carry.occ))
+            return
+        carry.rounds.zero_()
+        carry.oflow.zero_()
+        stop = self._stop_of(carry)
+        while (int(carry.occ) > 0 and not bool(carry.oflow)
+               and int(carry.rounds) < limit
+               and (stop is None or not bool(stop.reshape(-1)[0]))):
+            self._round_into(carry)
 
     # -- host drivers --------------------------------------------------------
 
@@ -497,15 +529,7 @@ class EngineCore:
         carry.occ.copy_(self._occ_of(carry.q))
 
         def chunk_fn(limit):
-            if loop is not None:
-                carry.limit.fill_(limit)
-                loop.launch(_build.stream_of(carry.occ))
-            else:
-                carry.rounds.zero_()
-                carry.oflow.zero_()
-                while (int(carry.occ) > 0 and not bool(carry.oflow)
-                       and int(carry.rounds) < limit):
-                    self._round_into(carry)
+            self._run_chunk(carry, loop, limit)
             occ, r, oflow, processed, spawned, max_occ = torch.stack(
                 [carry.occ, carry.rounds, carry.oflow.to(torch.int32),
                  carry.processed, carry.spawned,
@@ -520,8 +544,8 @@ class EngineCore:
                                                             carry.acc)
         return carry.q, carry.acc
 
-    def _drive(self, chunk_fn, max_rounds: int, what: str, tp=None,
-               sp=None) -> None:
+    def _drive(self, chunk_fn, max_rounds: int, what: str, tp,
+               sp) -> None:
         """``chunk_fn(limit)`` advances the state by up to ``limit`` rounds
         and returns (occupancy, rounds_delta, overflow, processed,
         spawned, max_occ) — one host sync per call.  Chunks are
@@ -529,8 +553,7 @@ class EngineCore:
         ``sync_every=0``, as in the reference; with spans on no chunk
         runs past ``span_round_cap``.  After each readback the trace plane
         ``tp`` and the span plane ``sp`` are drained into their
-        collectors (a loop that keeps no trace plane, the mesh runners'
-        legacy loop, records none, as the reference's)."""
+        collectors."""
         chunk = self.sync_every if self.sync_every > 0 else max_rounds
         rounds = host_syncs = 0
         while True:
@@ -550,7 +573,7 @@ class EngineCore:
                 "max_occupancy": max_occ, "drained": int(occ == 0),
                 "host_syncs": host_syncs,
             }
-            if self.telemetry is not None and tp is not None:
+            if self.telemetry is not None:
                 self.telemetry.drain(tp, sync=host_syncs - 1, wall_time=now)
                 self.telemetry.heartbeat(point)
                 self.telemetry.finish(self.stats)

@@ -65,6 +65,7 @@ reference's ``RuntimeError`` at the readback after the flagged round.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -82,7 +83,7 @@ from ..kernels.ring_slots import (claim_schedule, enq_planes,
                                   priority_claim_schedule, ring_dequeue_wave,
                                   ring_enqueue_wave)
 from ..obs.spans import Spans
-from ..obs.trace import Telemetry
+from ..obs.trace import SyncPoint, Telemetry
 from .enginecore import (EngineCore, ObsWave, _sds, register_engine,
                          tree_map, tree_to)
 from .fusedrounds import IDX_BOT, PriorityStepFn, StepFn
@@ -183,33 +184,46 @@ class _MeshBase(EngineCore):
 
     def _legacy(self, q, acc, occ0: int, what: str, max_rounds: int,
                 round_fn):
-        """The legacy loop: ``round_fn(q, acc, live)`` (returning ``(q,
-        acc, k, total, over)``) issued from the host, ONE readback after
-        each round (``host_syncs == rounds``; an empty run reads back
-        once, as the fused engine's does).  Returns the final ``(q,
-        acc)``; raises the engine's overflow and truncation errors."""
+        """The legacy loop, the reference's ``_legacy_loop``:
+        ``round_fn(q, acc, live)`` (returning ``(q, acc, k, total,
+        over)``) issued from the host while the occupancy is positive and
+        fewer than ``max_rounds`` rounds ran, ONE readback after each
+        round and none where no round runs (``host_syncs == rounds``; an
+        empty run logs no sync point).  Returns the final ``(q, acc)``;
+        raises the engine's overflow and truncation errors."""
         live = torch.ones((), dtype=torch.bool, device=self.device)
-        run = dict(occ=occ0, processed=0, spawned=0, max_occ=occ0)
-
-        def chunk_fn(limit):
-            nonlocal q, acc
-            if limit < 1 or run["occ"] == 0:
-                return (run["occ"], 0, False, run["processed"],
-                        run["spawned"], run["max_occ"])
+        rounds = processed = spawned = 0
+        occ = max_occ = occ0
+        overflow = False
+        while occ > 0 and rounds < max_rounds:
             q, acc, k, total, over = round_fn(q, acc, live)
             occ, k, total, over = torch.stack(
                 [self._occ_of(q).to(torch.int32), k.to(torch.int32),
                  total.to(torch.int32), over.to(torch.int32)]).tolist()
-            run.update(occ=occ, processed=run["processed"] + k,
-                       spawned=run["spawned"] + total,
-                       max_occ=max(run["max_occ"], occ))
-            return (occ, 1, bool(over), run["processed"], run["spawned"],
-                    run["max_occ"])
-
-        try:
-            self._drive(chunk_fn, max_rounds, what)
-        finally:
-            self.stats = dict(self.stats, fused=0)
+            rounds += 1
+            processed += k
+            spawned += total
+            max_occ = max(max_occ, occ)
+            self.sync_log.append(SyncPoint(rounds=rounds, occupancy=occ,
+                                           wall_time=time.time(),
+                                           host_syncs=rounds))
+            if over:
+                overflow = True
+                break
+        self.stats = {"rounds": rounds, "processed": processed,
+                      "spawned": spawned, "max_occupancy": max_occ,
+                      "drained": int(occ == 0), "host_syncs": rounds,
+                      "fused": 0}
+        if overflow:
+            raise RuntimeError(
+                f"{what} overflow: occupancy {occ} + spawned children "
+                f"exceed capacity {self.capacity} at round {rounds} (raise "
+                f"capacity_log2 or lower the fanout)")
+        if occ > 0:
+            raise RuntimeError(
+                f"{what} round loop truncated at max_rounds={max_rounds} "
+                f"with occupancy {occ}: not quiescent "
+                f"(stats['drained']=0)")
         return q, acc
 
 
@@ -459,9 +473,9 @@ class MeshRoundRunner(_MeshFifoBase):
     to ``MeshRingEngine`` (``ShardedMeshRingEngine`` with
     ``sharded=True``); ``fused=False`` keeps the legacy loop: the
     replicated engine's round issued from the host with one readback
-    after it (``host_syncs == rounds``; an empty run reads back once, as
-    the fused engine's does).  Fused and legacy are bit-identical on the
-    replicated ring."""
+    after it (``host_syncs == rounds``; an empty run reads nothing back,
+    as the reference's legacy loop).  Fused and legacy are bit-identical
+    on the replicated ring."""
 
     def __init__(self, step_fn: StepFn, *, mesh, axis: str = "data",
                  capacity_log2: int = 10, batch: int = 64,

@@ -21,9 +21,12 @@ The decode loop is ``models.decode_step`` over a fixed slot batch, run
 eagerly on the engine's device (on the card, every MoE layer of every
 step launches the B6 ticket kernel); this module owns admission, page
 accounting, completion and metrics.  Each step reads the argmax tokens
-back to the host once (``host_syncs``).  ``admission="lanes"`` (the
-host task pool, ROADMAP Queue A11) and ``admission="device"`` (the mesh
-admission engine, Queue A9) are not ported yet and raise.
+back to the host once (``host_syncs``).  ``admission="device"`` keeps
+the pending requests on the card instead, as ``(deadline | idx)``
+entries of ``ServingMeshEngine``'s heaps (``device_shards`` heaps along a
+tensor dimension of the engine's one card): one engine tick is one
+admission tick of that engine.  ``admission="lanes"`` (the host task
+pool, ROADMAP Queue A11) is not ported yet and raises.
 
 Simplification (documented, as in the reference): all slots advance on one
 shared timeline (a single ``cur`` index) — a late-admitted slot's earlier
@@ -44,15 +47,13 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..data.pipeline import HostRing
+from ..distributed import make_mesh
 from ..kernels._build import resolve_device
 from ..models import decode_step, init_decode_cache
 from ..obs.metrics import MetricsRegistry, metric_key
 from ..sched.hostpq import HostPriorityPool
 from ..sched.policy import make_policy
-
-#: deadline keys must stay below the 2^30 round-clock cap of the device
-#: admission planes (``repro.serving.admission.DEADLINE_KEY_CAP``)
-DEADLINE_KEY_CAP = 1 << 30
+from .admission import DEADLINE_KEY_CAP, ServingMeshEngine
 
 
 @dataclasses.dataclass
@@ -79,7 +80,7 @@ class EngineConfig:
     num_pages: int = 64          # total page budget
     max_seq: int = 256
     request_ring_capacity: int = 16
-    # "edf"; the reference's "lanes" and "device" modes are not ported
+    # "edf" | "device" (mesh); the reference's "lanes" is not ported
     admission: str = "edf"
     normal_slack: int = 64       # EDF slack for non-urgent admission classes
     # multi-tenant policy lanes: one sched.policy spec per tenant
@@ -87,6 +88,11 @@ class EngineConfig:
     # single-lane inline EDF stamping
     tenants: int = 1
     tenant_policies: Optional[tuple] = None
+    # device admission (ServingMeshEngine) sizing
+    device_capacity_log2: int = 8
+    device_batch: int = 8
+    device_table_log2: int = 8
+    device_shards: int = 1
 
 
 class ServingEngine:
@@ -106,13 +112,27 @@ class ServingEngine:
             raise NotImplementedError(
                 "admission='lanes' needs the host task pool "
                 "(runtime/taskpool.py), not ported yet (ROADMAP Queue A11)")
-        if ecfg.admission == "device":
-            raise NotImplementedError(
-                "admission='device' needs ServingMeshEngine, not ported yet "
-                "(ROADMAP Queue A9)")
-        if ecfg.admission != "edf":
+        self._device = None
+        if ecfg.admission == "edf":
+            self.requests = HostPriorityPool(ecfg.request_ring_capacity)
+        elif ecfg.admission == "device":
+            # device-resident EDF: pending requests live as (deadline |
+            # idx) heap entries on the priority mesh, its shards a tensor
+            # dimension on this device; one engine tick is one admission
+            # tick of the mesh engine
+            self.requests = None
+            self._device = ServingMeshEngine(
+                mesh=make_mesh((ecfg.device_shards,), ("data",)),
+                capacity_log2=ecfg.device_capacity_log2,
+                batch=ecfg.device_batch,
+                table_log2=ecfg.device_table_log2, device=self.device)
+            self._table: List[Optional[Request]] = \
+                [None] * (1 << ecfg.device_table_log2)
+            self._free_idx = list(range(1 << ecfg.device_table_log2))
+            self._pending: List[tuple] = []    # (key, idx, need) per submit
+            self._dev_spawned = 0              # stall-tick detection baseline
+        else:
             raise ValueError(f"unknown admission mode {ecfg.admission!r}")
-        self.requests = HostPriorityPool(ecfg.request_ring_capacity)
         self._policies = None
         if ecfg.tenant_policies is not None:
             if len(ecfg.tenant_policies) != ecfg.tenants:
@@ -173,6 +193,16 @@ class ServingEngine:
                 f"deadline {req.deadline} outside [0, {DEADLINE_KEY_CAP}): "
                 f"keys past the 2^30 round-clock cap would wrap — rebase "
                 f"the deadline clock")
+        if self._device is not None:
+            with self._seq_lock:
+                if not self._free_idx:
+                    return False           # table full = pool full
+                idx = self._free_idx.pop()
+                self._table[idx] = req
+                need = self._pages_needed(
+                    len(req.prompt) + req.max_new_tokens)
+                self._pending.append((req.deadline, idx, need))
+            return True
         return self.requests.enqueue(req, key=req.deadline, timeout=timeout)
 
     # -- scheduler -------------------------------------------------------------
@@ -217,7 +247,48 @@ class ServingEngine:
             self.tokens[s, 0] = tok
             self._decode_once(active_slot=s)
 
+    def _try_admit_device(self) -> None:
+        """One admission tick on the priority mesh: install the buffered
+        arrivals as (deadline | idx·retry) heap entries, give the tick the
+        free slot/page budgets, admit the EDF prefix the device returns.
+        Page-stalled requests stay heap-resident at their original
+        deadline."""
+        free_slots = [s for s in range(self.ecfg.max_slots)
+                      if self.slots[s] is None]
+        if not free_slots:
+            return
+        if not self._pending and self._device.occupancy() == 0:
+            return
+        held = sum(len(r.pages) for r in self.slots if r is not None)
+        with self._seq_lock:
+            pending, self._pending = self._pending, []
+        admitted = self._device.tick(
+            [k for k, _, _ in pending], [i for _, i, _ in pending],
+            slots=len(free_slots), pages=self.ecfg.num_pages - held,
+            need=[n for _, _, n in pending])
+        spawned = self._device.stats["spawned"]
+        if spawned > self._dev_spawned:
+            # a republished request = this tick hit its budget wall (one
+            # stall event per stalled tick, as the host path counts one
+            # per _try_admit call)
+            self._count("page_stalls")
+        self._dev_spawned = spawned
+        for idx in admitted:
+            req = self._table[idx]
+            self._table[idx] = None
+            self._free_idx.append(idx)
+            need = self._pages_needed(len(req.prompt) + req.max_new_tokens)
+            pages = []
+            for _ in range(need):
+                p = self.free_pages.dequeue(timeout=0.0)
+                assert p is not None, "device admission fits the page budget"
+                pages.append(p)
+            self._install(req, free_slots.pop(0), pages)
+
     def _try_admit(self) -> None:
+        if self._device is not None:
+            self._try_admit_device()
+            return
         for s in range(self.ecfg.max_slots):
             if self.slots[s] is not None:
                 continue
@@ -309,10 +380,15 @@ class ServingEngine:
                 self.slots[s] = None
                 self._count("completed")
 
+    def _queue_empty(self) -> bool:
+        if self._device is not None:
+            return not self._pending and self._device.occupancy() == 0
+        return self.requests.empty()
+
     def run(self, max_ticks: int = 1000) -> Dict[str, int]:
         for _ in range(max_ticks):
             self.step()
             if (not any(self.slots) and not self.stalled
-                    and self.requests.empty()):
+                    and self._queue_empty()):
                 break
         return dict(self.metrics)

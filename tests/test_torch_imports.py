@@ -53,7 +53,9 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.sched, repro_torch.data, repro_torch.obs\n"
             "import repro_torch.core, repro_torch.distributed\n"
             "import repro_torch.runtime.meshrounds\n"
-            "import repro_torch.apps.sssp\n"
+            "import repro_torch.apps.sssp, repro_torch.apps.raytrace\n"
+            "import repro_torch.serving.admission\n"
+            "import repro_torch.serving.traffic\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

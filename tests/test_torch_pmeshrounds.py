@@ -490,6 +490,49 @@ def test_errors_match_reference(case, relaxed, fused):
         assert port.stats == ref.stats
 
 
+@pytest.mark.parametrize("fused", (True, False))
+@pytest.mark.parametrize("relaxed", (True, False))
+@pytest.mark.parametrize("case", ("empty", "max_rounds_0"))
+def test_runs_with_no_round_match_reference(case, relaxed, fused):
+    """No round runs: on empty seeds the legacy loop drains with no sync
+    point (``host_syncs`` 0, ``sync_log`` []) and the fused engine reads
+    back once; at ``max_rounds=0`` with work left both raise the
+    reference's truncation error with its stats and log.  Relaxed and
+    strict."""
+    from repro import runtime as jrt
+    from repro.jaxcompat import make_mesh as jmesh
+    seeds, rounds = {"empty": ([], 100), "max_rounds_0": ([0, 1, 2], 0)}[case]
+    runs = []
+    for port in (True, False):
+        if port:
+            r = PriorityMeshRoundRunner(
+                pri_step, mesh=make_mesh((1,), ("data",)), capacity_log2=8,
+                batch=8, relaxed=relaxed, fused=fused, device="cpu")
+            acc = torch.zeros(89, dtype=torch.int32)
+        else:
+            r = jrt.PriorityMeshRoundRunner(
+                jax_pri_step, mesh=jmesh((1,), ("data",)), capacity_log2=8,
+                batch=8, relaxed=relaxed, fused=fused)
+            acc = jnp.zeros(89, jnp.int32)
+        try:
+            r.run(np.asarray(seeds, np.int32), np.asarray(seeds, np.int32),
+                  acc=acc, max_rounds=rounds)
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        runs.append((dict(r.stats), [(p.rounds, p.occupancy, p.host_syncs)
+                                     for p in r.sync_log], err))
+    assert runs[0] == runs[1]
+    stats, log, err = runs[0]
+    if case == "empty":
+        assert err is None and stats["drained"] == 1
+        assert (stats["host_syncs"], log) == ((1, [(0, 0, 1)]) if fused
+                                              else (0, []))
+    else:
+        assert "truncated at max_rounds=0 with occupancy 3" in err
+        assert stats["rounds"] == 0 and stats["drained"] == 0
+
+
 def test_constructor_errors_match_reference():
     from repro import runtime as jrt
     from repro.jaxcompat import make_mesh as jmesh

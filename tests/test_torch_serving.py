@@ -160,8 +160,35 @@ def test_two_tenant_policies_match_reference():
 
 
 def test_unported_admission_modes_raise():
+    """``lanes`` (the host task pool) still raises and cites Queue A11;
+    ``device`` is ported and builds its admission engine."""
     _, cfg, _, tp = _model("h2o-danube-1.8b")
-    for mode, item in (("lanes", "A11"), ("device", "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServingEngine(cfg, tp, EngineConfig(admission=mode),
-                          device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        ServingEngine(cfg, tp, EngineConfig(admission="lanes"), device="cpu")
+    eng = ServingEngine(cfg, tp, EngineConfig(admission="device"),
+                        device="cpu")
+    assert eng._device.shards == 1 and eng._queue_empty()
+
+
+def test_device_admission_serves_like_the_reference_pool():
+    """``admission="device"`` on the port against the reference's host
+    pool on the same trace, pages tight enough to stall: the same
+    admission log, metrics and per-request ticks."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    rng = np.random.default_rng(6)
+    trace = [(rid, rng.integers(0, cfg.vocab, int(rng.integers(2, 6)))
+              .astype(np.int32), int(rng.integers(1, 4)),
+              int(rng.integers(0, 2)), 0) for rid in range(8)]
+    kw = dict(max_slots=2, page_size=4, num_pages=3, max_seq=32,
+              request_ring_capacity=32)
+    port, preqs, _ = _drive(True, "granite-moe-3b-a800m",
+                            dict(kw, admission="device",
+                                 device_capacity_log2=6, device_batch=4,
+                                 device_table_log2=6), trace)
+    ref, rreqs, _ = _drive(False, "granite-moe-3b-a800m", kw, trace)
+    assert port.admission_log == ref.admission_log
+    assert port.metrics == ref.metrics and port.metrics["completed"] == 8
+    assert port.metrics["page_stalls"] > 0
+    for a, b in zip(preqs, rreqs):
+        assert (a.deadline, a.admit_tick, a.finish_tick) == \
+            (b.deadline, b.admit_tick, b.finish_tick)
