@@ -184,7 +184,12 @@ pmesh.      — the priority mesh on one card
               (``PriorityMeshRoundRunner``, relaxed and strict).  The JAX
               package's pmesh goldens (pmesh_relaxed, pmesh_strict and
               their 2-shard rows, tel digests included) fused with one
-              readback and legacy; delta-stepping SSSP
+              readback and legacy; the same four runs once more on the
+              legacy loop with ``trace=True`` (tree-numbered payloads:
+              the checker needs each payload once), their stats the
+              goldens' and their ``mesh_trace_history`` priority-
+              linearizable under the port's ``check_p_linearizable`` (k
+              = 0 strict, ``mesh_relaxation_bound`` relaxed); delta-stepping SSSP
               (``apps.sssp``) on road_like(1024 * 1024) (1,048,576
               vertices, the size of USA-road-d.FLA of the 9th DIMACS
               challenge) with weights 1-8 (seed 1) at 4 shards x 1,024,
@@ -227,6 +232,26 @@ admission. — device serving admission (``serving.ServingMeshEngine``):
               tick with arrivals; (c) phase 8's granite-moe serve again
               with ``admission="device"``: its admission log, completed
               requests and decode steps equal to the EDF serve's.
+runtime.  — the host task runtime (``runtime.taskpool``,
+              ``runtime.executor``) and its consumers: (a)
+              ``mesh_task_round`` on the card, the FIFO task tree of 16,384
+              seeds (1,792,495 pops) drained one round at a time at 4
+              shards x 1,024 claims on a replicated ring of 2^20 slots
+              whose tickets start 2^20 below 2^32 (head and tail wrap),
+              against ``fifo_closure`` exactly once, the masked waves
+              B2b and B2a once each a round, its first 64 rounds bit for
+              bit against the same rounds on the plain waves; (b)
+              ``render_runtime`` (tiles 4 x 4, 32 workers, 4 shards,
+              stealing, G-LFQ, waves of 4,096 rays) on both Fig. 7 scenes
+              at 1920 x 1080, image and rays bit-identical to phase
+              raytrace's ``render_rounds``, and cornell at 256² on each
+              of the four queue algorithms, the same image; (c)
+              ``bfs_runtime`` on kron_like(4,096, avg_deg=6, seed=2), 32
+              workers, each algorithm, against ``bfs_reference``; (d)
+              phase 8's granite-moe serve with ``admission="lanes"``,
+              requests 6 and 7 urgent: all complete, the urgent ones
+              admitted first, the schedule equal to the port's CPU lanes
+              run at the reduced width.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -235,7 +260,7 @@ admission. — device serving admission (``serving.ServingMeshEngine``):
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
-              pmesh, raytrace (``ray``), admission, 8 and 9;
+              pmesh, raytrace (``ray``), admission, runtime, 8 and 9;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -313,8 +338,8 @@ admission. — device serving admission (``serving.ServingMeshEngine``):
 Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
 and report the card's idle share against the unprofiled wall time (where
 the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, mesh, pmesh, raytrace, 8, admission and 9 run before
-phase 7, whose line needs their launch counts.  Every phase
+in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime and 9 run
+before phase 7, whose line needs their launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -432,6 +457,21 @@ ADM_CAP_LOG2, ADM_BATCH, ADM_TABLE_LOG2 = 16, 256, 16
 ADM_SLOTS, ADM_PAGES, ADM_PAGE_SIZE, ADM_SLACK = 40, 4096, 16, 64
 ADM_DRAIN_SLOTS, ADM_DRAIN_PAGES = 4096, 1 << 30
 ADM_PROFILED_TICKS = 50
+# phase runtime: (a) mesh_task_round on a replicated ring of 2^20 slots
+# (logical capacity 2^19) whose tickets start 2^20 below 2^32 (the nearest
+# multiple of the ring's 2n), so head and tail wrap, draining the FIFO task
+# tree from 16,384 seeds (1,792,495 pops, at most about 372,000 queued) at
+# 4 shards x 1,024 claims, its first 64 rounds against the plain waves;
+# (b) render_runtime on the Fig. 7 scenes at 1920 x 1080 and cornell at
+# 256^2 on each algorithm; (c) bfs_runtime on kron 4,096; (d) granite's
+# serve with admission="lanes", requests 6 and 7 urgent
+RT_RING_CAP = 1 << 19
+RT_START = 2 ** 32 - 2 ** 20
+RT_SEEDS = 16384
+RT_COMPARE_ROUNDS = 64
+RT_TILES, RT_WORKERS, RT_WAVE = 4, 32, 4096
+RT_KRON_N, RT_KRON_DEG = 4096, 6
+RT_URGENT = (6, 7)
 OBS_ROAD_CAPACITY = 8192
 OBS_HEAP_CAPACITY = 2048
 EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
@@ -666,7 +706,7 @@ class Smoke:
                          "prefill_gemma3": {}, "obs_road": {},
                          "obs_heap": {},
                          "mesh": {}, "pmesh": {}, "ray": {},
-                         "admission": {}}  # path -> launches
+                         "admission": {}, "runtime": {}}  # path -> launches
         self.keep = {}            # path -> (runner, final state) for obs
 
     # -- helpers -------------------------------------------------------------
@@ -2786,6 +2826,52 @@ class Smoke:
                 out[name + ("" if fused else "_legacy")] = got
         return out
 
+    def pmesh_histories(self, K, rt, make_mesh):
+        """The pmesh goldens' runs once more on the legacy loop with
+        ``trace=True`` (the goldens' keys, seeds and sizes; tree-numbered
+        payloads, child vals 2v and 2v + 1, since the checker needs each
+        payload once and the goldens' repeat): their stats equal the
+        goldens', and ``mesh_trace_history`` of each run passes the port's
+        ``check_p_linearizable`` at k = 0 strict and at
+        ``mesh_relaxation_bound`` relaxed."""
+        from repro_torch.sched import (check_p_linearizable,
+                                       mesh_relaxation_bound,
+                                       mesh_trace_history)
+        torch = self.torch
+
+        def step(acc, keys, vals, valid):
+            acc = acc.index_add(0, torch.where(valid, vals % 89, 0),
+                                valid.int())
+            ck = torch.stack([keys + 2, keys + 5], -1).int()
+            cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
+            return acc, ck, cv, (valid & (keys < 20))[:, None]
+
+        seeds = [(3, 7), (1, 11)]
+        out = {}
+        for name, g in PMESH_GOLDEN.items():
+            r = rt.PriorityMeshRoundRunner(
+                step, mesh=make_mesh((g["shards"],), ("data",)),
+                capacity_log2=10, batch=16, relaxed=g["relaxed"],
+                fused=False, trace=True, device=self.dev,
+                combine=lambda a: a.sum(0, dtype=torch.int32))
+            self.mesh_run(K, lambda: r.run(
+                [k for k, _ in seeds], [v for _, v in seeds],
+                acc=torch.zeros(89, dtype=torch.int32, device=self.dev)),
+                "pmesh")
+            stats = [r.stats[k] for k in STATS]
+            hist = mesh_trace_history(r.trace, seeds)
+            k = (mesh_relaxation_bound(g["shards"], 16,
+                                       r.stats["max_occupancy"])
+                 if g["relaxed"] else 0)
+            res = check_p_linearizable(hist, k)
+            if stats != g["stats"][:5] or not res.ok:
+                raise AssertionError(f"{name} history: stats {stats}, "
+                                     f"k = {k}: {res.reason}")
+            out[name] = {"stats": stats, "events": len(hist), "k": k,
+                         "p_linearizable": res.ok,
+                         "k0": check_p_linearizable(hist, 0).ok}
+        return out
+
     def pmesh_sssp(self, K, bfs, sssp):
         """Delta-stepping SSSP on road_like(1024^2) (1,048,576 vertices,
         the size of the 9th DIMACS challenge's USA-road-d.FLA), weights
@@ -2981,6 +3067,7 @@ class Smoke:
         t0 = time.perf_counter()
         info = {"phase": "pmesh",
                 "golden": self.pmesh_golden(K, rt, obs, make_mesh),
+                "histories": self.pmesh_histories(K, rt, make_mesh),
                 "sssp": self.pmesh_sssp(K, bfs, sssp),
                 "tree": self.pmesh_tree(K, rt, obs, make_mesh)}
         for name in ("heap_apply_grid", "heap_apply_grid_rider",
@@ -3020,6 +3107,7 @@ class Smoke:
         (cimg, cinfo), comp_s, comp_span = self.timed(
             lambda: raytrace.render_compaction(scene, RAY_W, RAY_H))
         img = img.cpu().numpy().reshape(RAY_H, RAY_W, 3)
+        self.keep[f"ray_{name}"] = (img, stats["processed"])
         err = float(np.abs(img - cimg).max())
         if stats["processed"] != cinfo["rays"] or err > RAY_TOL or \
                 not np.isfinite(img).all():
@@ -3086,6 +3174,7 @@ class Smoke:
                 raise AssertionError(f"raytrace {name} legacy: ring_dequeue "
                                      f"launched {ll.get('ring_dequeue')} "
                                      f"times in {ls['rounds']} rounds")
+            self.keep[f"ray_{name}_{RAY_SMALL}"] = (fi, fs["rays"])
             small[name] = {"rays": fs["rays"], "rounds": fs["rounds"],
                            "fused_run_s": fw, "legacy_run_s": lw,
                            "fused_readbacks": fs["host_syncs"],
@@ -3292,7 +3381,7 @@ class Smoke:
                            "batch": ADM_BATCH, "table_log2": ADM_TABLE_LOG2,
                            "arity": 4, "slots": ADM_SLOTS,
                            "pages": ADM_PAGES, "page_size": ADM_PAGE_SIZE}}
-        cfg, params, edf = self.keep.pop("serve")
+        cfg, params, edf = self.keep["serve"]
         self.serve_run(serving, cfg, params, self.dev,
                        admission="device")             # warm-up
         K.reset_launches()
@@ -3319,6 +3408,280 @@ class Smoke:
             if not self.launches["admission"].get(name):
                 raise AssertionError(f"admission: {name} never launched")
         info["launches"] = self.launches["admission"]
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase runtime: the host task runtime and its consumers ----------
+
+    def task_round_tree(self, K, core, rt):
+        """(a) ``mesh_task_round`` on the card: the FIFO task tree drained
+        one round at a time on a replicated ring that wraps 2^32, 4 shards
+        x 1,024 claims a round (the masked waves B2b and B2a once each a
+        round), against ``fifo_closure``.  A round claims the first
+        min(occupancy after its publish, 4 x 1,024) lanes in shard order,
+        computed on the card: a claim past the tail would burn its ticket
+        (the reference's semantics), so none is made.  Its first
+        RT_COMPARE_ROUNDS
+        rounds in lockstep with the same rounds on the plain waves (the
+        ring faces patched to ``ring_enqueue_plain`` /
+        ``ring_dequeue_plain`` on the card), every state and output bit
+        for bit."""
+        np, torch = self.np, self.torch
+        from repro_torch.core import distqueue
+        vals = (np.random.default_rng(15).integers(0, 2 ** 27, RT_SEEDS)
+                << 4).astype(np.int32)
+        want_acc, want_p, want_s, _ = fifo_closure(np, vals)
+        step = fifo_tree_step(torch)
+        s = MESH_SHARDS
+        lanes = torch.arange(s * BATCH, device=self.dev)
+
+        def claims(st, sm):
+            return (lanes < st.occupancy.long() + sm.sum()).reshape(s, BATCH)
+
+        def start():
+            st = core.dist_queue_init(RT_RING_CAP, start=RT_START,
+                                     device=self.dev)
+            sv = self.t(vals).reshape(s, -1)
+            return st, sv, torch.ones_like(sv, dtype=torch.bool)
+
+        def plain_faces():
+            def enq(*a, **kw):
+                out = K.ring_enqueue_plain(*(x.clone() for x in a[:4]),
+                                           *a[4:], **kw)
+                return (*out[:4], out[4].int())
+
+            def deq(*a, **kw):
+                out = K.ring_dequeue_plain(*(x.clone() for x in a[:4]),
+                                           *a[4:], **kw)
+                return (*out[:5], out[5].int())
+            return enq, deq
+
+        # the first rounds against the plain waves, in lockstep
+        kern = start()
+        plain = start()
+        acc = torch.zeros(4096, dtype=torch.int32, device=self.dev)
+        faces = (distqueue.enq_planes, distqueue.deq_planes)
+        for r in range(RT_COMPARE_ROUNDS):
+            st, sv, sm = kern
+            claim = claims(st, sm)
+            out_k = rt.mesh_task_round(st, sv, sm, claim)
+            distqueue.enq_planes, distqueue.deq_planes = plain_faces()
+            try:
+                out_p = rt.mesh_task_round(plain[0], sv, sm, claim)
+            finally:
+                distqueue.enq_planes, distqueue.deq_planes = faces
+            for a, b in zip((*out_k[0], *out_k[1:]), (*out_p[0], *out_p[1:])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"runtime mesh_task_round: round "
+                                         f"{r} differs from the plain "
+                                         f"waves")
+            acc, cv, cm = step(acc, out_k[2].reshape(-1),
+                               out_k[3].reshape(-1))
+            kern = (out_k[0], cv.reshape(s, -1), cm.reshape(s, -1))
+            plain = (out_p[0],) + kern[1:]
+
+        # the drained run: the path's launches counted
+        def run():
+            st, sv, sm = start()
+            acc = torch.zeros(4096, dtype=torch.int32, device=self.dev)
+            lost = torch.zeros((), dtype=torch.int64, device=self.dev)
+            pops = torch.zeros((), dtype=torch.int64, device=self.dev)
+            pushes = torch.zeros((), dtype=torch.int64, device=self.dev)
+            rounds = peak = 0
+            while True:
+                st, granted, cv, ok = rt.mesh_task_round(st, sv, sm,
+                                                         claims(st, sm))
+                lost += (sm & ~granted).sum()
+                pushes += granted.sum()
+                pops += ok.sum()
+                acc, cv, cm = step(acc, cv.reshape(-1), ok.reshape(-1))
+                sv, sm = cv.reshape(s, -1), cm.reshape(s, -1)
+                rounds += 1
+                # the round's one readback: occupancy and pending spawns
+                occ, more = torch.stack([st.occupancy.long(),
+                                         sm.any().long()]).tolist()
+                peak = max(peak, occ)
+                if occ == 0 and not more:
+                    return st, acc, rounds, peak, lost, pops, pushes
+
+        (st, acc, rounds, peak, lost, pops, pushes), got, run_s, span_s = \
+            self.mesh_run(K, run, "runtime")
+        pops, pushes = int(pops), int(pushes)
+        if int(lost) or pops != want_p or pushes != want_p or \
+                not np.array_equal(acc.cpu().numpy(), want_acc):
+            raise AssertionError(f"runtime mesh_task_round: {pops} pops, "
+                                 f"{pushes} published, {int(lost)} lost; "
+                                 f"the closure {want_p} / {want_s}")
+        for name in ("ring_enqueue_masked", "ring_dequeue_masked"):
+            if got.get(name, 0) != rounds:
+                raise AssertionError(f"runtime mesh_task_round: {name} "
+                                     f"launched {got.get(name, 0)} times in "
+                                     f"{rounds} rounds")
+        head, tail = int(st.head) % 2 ** 32, int(st.tail) % 2 ** 32
+        # the same run under the profiler: the card's busy time
+        t0 = time.perf_counter()
+        with self.profile() as prof:
+            run()
+            torch.cuda.synchronize()
+        times = device_times(prof)
+        busy_s = sum(times.values()) / 1e6
+        return {"shards": s, "claims_a_round": BATCH, "seeds": RT_SEEDS,
+                "ring_slots": 2 * RT_RING_CAP, "start": RT_START,
+                "rounds": rounds, "pops": pops, "spawned": want_s,
+                "peak_occupancy": peak, "head_tail": [head, tail],
+                "wrapped": head < RT_START and tail < RT_START,
+                "exactly_once": True,
+                "plain_rounds_bit_identical": RT_COMPARE_ROUNDS,
+                "run_s": run_s, "device_span_s": span_s,
+                "device_us_per_round": span_s / rounds * 1e6,
+                "pops_per_s": pops / run_s, "readbacks": rounds,
+                "device_busy_s": busy_s, "idle_share": 1 - busy_s / run_s,
+                "profile_s": time.perf_counter() - t0,
+                "top_device_ms": top_ms(times, 6), "launches": got}
+
+    def runtime_renders(self, K, raytrace):
+        """(b) ``render_runtime`` on the card: both Fig. 7 scenes at
+        RAY_W x RAY_H (tiles 4 x 4, 32 workers, 4 shards, stealing, G-LFQ,
+        waves of RT_WAVE rays), each image and ray count bit-identical to
+        phase raytrace's ``render_rounds``; cornell at RAY_SMALL^2 on each
+        of the four queue algorithms, each image equal to
+        ``render_rounds``' at that size.  One readback a task.  Beside
+        each 1080p render, ``render_queue`` at the same tiles and wave
+        (the same batches traced with no simulator), the same image."""
+        np = self.np
+        kw = dict(tx=RT_TILES, ty=RT_TILES, wave=RT_WAVE,
+                  workers=RT_WORKERS, shards=MESH_SHARDS, steal=True,
+                  device=self.dev)
+        out = {}
+        for name in ("complex", "cornell"):
+            scene = getattr(raytrace, f"{name}_scene")()
+            want, rays = self.keep.pop(f"ray_{name}")
+            (img, info), got, run_s, span_s = self.mesh_run(
+                K, lambda: raytrace.render_runtime(scene, RAY_W, RAY_H,
+                                                   algo="glfq", **kw),
+                "runtime")
+            if info["rays"] != rays or not np.array_equal(img, want):
+                raise AssertionError(
+                    f"runtime render {name}: rays {info['rays']} vs "
+                    f"{rays}, max |diff| "
+                    f"{float(np.abs(img - want).max())}")
+            # the same tile batches with no simulator: render_queue's host
+            # tile queues at the same wave
+            (qimg, qinfo), q_s, _ = self.timed(
+                lambda: raytrace.render_queue(scene, RAY_W, RAY_H, RT_TILES,
+                                              RT_TILES, RT_WAVE,
+                                              device=self.dev))
+            if not np.array_equal(qimg, want):
+                raise AssertionError(f"runtime render {name}: render_queue "
+                                     f"differs from render_rounds")
+            out[name] = dict(info, algo="glfq", pixels=RAY_W * RAY_H,
+                             run_s=run_s, device_span_s=span_s,
+                             mrays_per_s=info["rays"] / run_s / 1e6,
+                             readbacks=info["tasks"],
+                             equals_render_rounds=True,
+                             render_queue={"waves": qinfo["waves"],
+                                           "run_s": q_s,
+                                           "mrays_per_s": qinfo["rays"]
+                                           / q_s / 1e6})
+        want, rays = self.keep.pop(f"ray_cornell_{RAY_SMALL}")
+        small = {}
+        for algo in sorted(("glfq", "gwfq", "gwfq-ymc", "sfq")):
+            (img, info), _, run_s, _ = self.mesh_run(
+                K, lambda: raytrace.render_runtime(
+                    raytrace.cornell_scene(), RAY_SMALL, RAY_SMALL,
+                    algo=algo, **dict(kw, wave=256)), "runtime")
+            if info["rays"] != rays or not np.array_equal(img, want):
+                raise AssertionError(f"runtime render cornell "
+                                     f"{RAY_SMALL}^2 {algo}: differs from "
+                                     f"render_rounds")
+            small[algo] = dict(info, run_s=run_s)
+        out[f"cornell_{RAY_SMALL}"] = small
+        return out
+
+    def runtime_bfs(self, bfs):
+        """(c) ``bfs_runtime`` on kron_like(4,096, avg_deg=6, seed=2), 32
+        workers, each queue algorithm: dist equal to ``bfs_reference``.
+        Host work: the simulated fabric touches no device."""
+        np = self.np
+        g = bfs.kron_like(RT_KRON_N, avg_deg=RT_KRON_DEG, seed=2)
+        want = bfs.bfs_reference(g, 0)
+        out = {"graph": g.name, "n": g.n, "m": g.m, "workers": RT_WORKERS}
+        for algo in sorted(("glfq", "gwfq", "gwfq-ymc", "sfq")):
+            t0 = time.perf_counter()
+            dist, info = bfs.bfs_runtime(g, 0, algo=algo,
+                                         workers=RT_WORKERS)
+            wall = time.perf_counter() - t0
+            if not np.array_equal(dist, want):
+                raise AssertionError(f"runtime bfs {algo}: dist != "
+                                     f"bfs_reference")
+            out[algo] = dict(info, run_s=wall,
+                             tasks_per_s=info["tasks"] / wall)
+        return out
+
+    def runtime_serve(self, K, serving, models):
+        """(d) phase 8's granite-moe serve again at full width with
+        ``admission="lanes"`` (the host task pool's strict lanes),
+        requests RT_URGENT urgent: all complete, and the schedule (the
+        admission log, every request's admit and finish ticks and the
+        metrics) equals the port's CPU run of the same trace at the
+        reduced width: it depends only on lengths, slots and pages."""
+        torch = self.torch
+        cfg, params, _ = self.keep.pop("serve")
+        K.reset_launches()
+        eng, metrics, serve_s = self.serve_run(
+            serving, cfg, params, self.dev, admission="lanes",
+            urgent=RT_URGENT)
+        ticks = [(r.admit_tick, r.finish_tick) for r in self.requests]
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        path = self.launches["runtime"]
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        small = cfg.reduced()
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        ceng, cmetrics, cpu_s = self.serve_run(
+            serving, small, models.init_params(small, gen, device="cpu"),
+            "cpu", admission="lanes", urgent=RT_URGENT)
+        cticks = [(r.admit_tick, r.finish_tick) for r in self.requests]
+        if metrics["completed"] != SERVE_REQUESTS or \
+                eng.admission_log != ceng.admission_log or \
+                ticks != cticks or metrics != cmetrics:
+            raise AssertionError(f"runtime serve: card {metrics} "
+                                 f"{eng.admission_log} {ticks} != CPU "
+                                 f"{cmetrics} {ceng.admission_log} {cticks}")
+        if set(eng.admission_log[:len(RT_URGENT)]) != set(RT_URGENT):
+            raise AssertionError(f"runtime serve: the urgent lane did not "
+                                 f"go first: {eng.admission_log}")
+        return {"arch": cfg.name, "urgent": list(RT_URGENT),
+                "metrics": metrics, "admission_log": eng.admission_log,
+                "ticks": ticks, "run_s": serve_s,
+                "tokens_out_per_s": metrics["tokens_out"] / serve_s,
+                "readbacks": eng.host_syncs, "pool": eng.requests.metrics,
+                "launches": launches,
+                "cpu_reduced_run": {"run_s": cpu_s}, "equals_cpu": True}
+
+    def runtime_path(self, K, raytrace, bfs, serving, models):
+        """Phase runtime: (a) mesh_task_round, (b) render_runtime, (c)
+        bfs_runtime, (d) the lanes serve."""
+        from repro_torch import core
+        from repro_torch import runtime as rt
+        t0 = time.perf_counter()
+        info = {"phase": "runtime",
+                "mesh_task_round": self.task_round_tree(K, core, rt)}
+        t1 = time.perf_counter()
+        info["render"] = self.runtime_renders(K, raytrace)
+        t2 = time.perf_counter()
+        info["bfs"] = self.runtime_bfs(bfs)
+        t3 = time.perf_counter()
+        info["serve"] = self.runtime_serve(K, serving, models)
+        info["part_s"] = {"mesh_task_round": t1 - t0, "render": t2 - t1,
+                          "bfs": t3 - t2,
+                          "serve": time.perf_counter() - t3}
+        for name in ("ring_enqueue_masked", "ring_dequeue_masked",
+                     "expert_tickets"):
+            if not self.launches["runtime"].get(name):
+                raise AssertionError(f"runtime: {name} never launched")
+        info["launches"] = self.launches["runtime"]
         info["seconds"] = time.perf_counter() - t0
         return info
 
@@ -3376,18 +3739,24 @@ class Smoke:
         return [rng.integers(0, SERVE_VOCAB, SERVE_PROMPT)
                 .astype(self.np.int32) for _ in range(SERVE_REQUESTS)]
 
-    def serve_run(self, serving, cfg, params, device, admission="edf"):
+    def serve_run(self, serving, cfg, params, device, admission="edf",
+                  urgent=()):
         """The request trace through a fresh ``ServingEngine`` with
         ``admission`` ("edf": the host pool; "device": the admission
-        engine on the card)."""
+        engine on the card; "lanes": the host task pool's strict lanes),
+        the requests in ``urgent`` of the urgent class; the requests are
+        kept in ``self.requests``."""
         eng = serving.ServingEngine(
             cfg, params, serving.EngineConfig(max_slots=4, page_size=32,
                                               num_pages=32, max_seq=64,
                                               admission=admission),
             device=device)
-        for rid, prompt in enumerate(self.serve_trace()):
-            if not eng.submit(serving.Request(rid=rid, prompt=prompt,
-                                              max_new_tokens=SERVE_NEW)):
+        self.requests = [
+            serving.Request(rid=rid, prompt=prompt, max_new_tokens=SERVE_NEW,
+                            priority=0 if rid in urgent else 1)
+            for rid, prompt in enumerate(self.serve_trace())]
+        for req in self.requests:
+            if not eng.submit(req):
                 raise AssertionError("serve: the request pool refused a "
                                      "request")
         t0 = time.perf_counter()
@@ -3815,6 +4184,11 @@ def main() -> int:
     # server's tick stream at 1 and 4 shards, granite's serve again
     adm_info = smoke.admission_path(K, serving, models, configs)
     emit_phase(adm_info)
+
+    # runtime. the host task runtime and its consumers: mesh_task_round
+    # on the card, render_runtime at 1920 x 1080, bfs_runtime, granite's
+    # serve with admission="lanes"
+    emit_phase(smoke.runtime_path(K, raytrace, bfs, serving, models))
 
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()
@@ -4871,7 +5245,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         # the prefill's calls at its shape, serve's decode calls at theirs
         excess=(smoke.launches["prefill"].get("expert_tickets", 0)
                 * (prefill6[0] - bound(8 * n6, n6, ALU_OPS_PER_S)[0])
-                + smoke.launches["serve"].get("expert_tickets", 0)
+                + (smoke.launches["serve"].get("expert_tickets", 0)
+                   + smoke.launches["runtime"].get("expert_tickets", 0))
                 * (dec6[0] - b6d)))
 
     # B7 flash_attention: the q/k/v of the serve prefill's first layer,

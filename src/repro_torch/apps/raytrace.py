@@ -16,6 +16,10 @@ queue-as-work-distribution layer.
   round at a time.
 * ``render_queue`` keeps the tile queues on the host and traces a wave
   of at most ``wave`` rays at a time.
+* ``render_runtime`` schedules the same ray batches as tasks of the host
+  task runtime (``TaskFabric`` under ``TaskRuntime``): one task traces
+  one batch of one tile on ``device`` and spawns a continuation for the
+  rays that bounced.
 * ``render_compaction`` is the stream-compaction baseline (Wald'11
   style): all rays advance in lockstep and dead rays are compacted out
   between bounces — the comparison target of Fig. 7.
@@ -32,9 +36,6 @@ it is traced in.  Against the reference the colours agree to float32
 rounding only: XLA's CPU backend contracts some products into fused
 multiply-adds, which PyTorch's separate operations do not, so a grazing
 ray can hit another sphere or checker cell after a bounce.
-
-The host task fabric's render (``render_runtime``) comes with the host
-task runtime (ROADMAP Queue A11) and raises here.
 """
 
 from __future__ import annotations
@@ -213,11 +214,80 @@ def render_queue(scene: Scene, w: int = 64, h: int = 64, tx: int = 4,
     return img.reshape(h, w, 3), {"rays": rays_traced, "waves": waves}
 
 
-def render_runtime(*args, **kwargs):
-    """Tile scheduling through the host task fabric: not ported yet."""
-    raise NotImplementedError(
-        "render_runtime needs the host task runtime (runtime/taskpool.py, "
-        "runtime/executor.py), not ported yet (ROADMAP Queue A11)")
+def render_runtime(scene: Scene, w: int = 64, h: int = 64, tx: int = 4,
+                   ty: int = 4, wave: int = 256, *, algo: str = "glfq",
+                   shards: int = 4, workers: int = 8, steal: bool = True,
+                   policy: str = "gang", seed: int = 0, device="cuda"
+                   ) -> Tuple[np.ndarray, Dict]:
+    """Tile scheduling through the host task fabric: one task = one
+    <=``wave``-ray batch of one tile.  The handler traces the batch with
+    ``trace_once`` on ``device`` (one upload of its rays, one readback of
+    the results) and spawns a continuation task for the rays that
+    bounced — wave-affinity keeps a tile's continuations on its home
+    shard, and stealing rebalances when tiles finish at different bounce
+    depths.  The fabric and its workers are the host simulation of
+    ``repro_torch.runtime``; only the tracing touches the device.
+
+    Pixels accumulate on the host in float32 as in ``render_queue``: a
+    pixel takes the same sequence of adds under any fabric interleaving,
+    so the image equals ``render_queue``'s and ``render_rounds``' bit for
+    bit."""
+    from ..runtime import ExecutorConfig, TaskFabric, TaskRuntime, TaskSpec
+
+    dev = resolve_device(device)
+    sc = scene_tensors(scene, dev)
+    o, d = primary_rays(w, h, dev)
+    img = np.zeros((h * w, 3), np.float32)
+    weight = np.ones((h * w,), np.float32)
+    bounces = np.zeros((h * w,), np.int32)
+    o_np, d_np = o.cpu().numpy(), d.cpu().numpy()
+    ids = np.arange(h * w)
+    tile_of = (ids // w // (h // ty)) * tx + (ids % w) // (w // tx)
+    stats = {"rays": 0, "waves": 0}
+
+    def handler(rec):
+        tile, idx = rec.payload
+        idx = np.asarray(idx)
+        col, no, nd, alive, refl = trace_once(
+            torch.as_tensor(o_np[idx], device=dev),
+            torch.as_tensor(d_np[idx], device=dev), *sc)
+        out = torch.cat([col, no, nd, alive[:, None].to(col.dtype),
+                         refl[:, None]], 1).cpu().numpy()
+        col, no, nd = out[:, 0:3], out[:, 3:6], out[:, 6:9]
+        alive, refl = out[:, 9] > 0, out[:, 10]
+        img[idx] += weight[idx, None] * col
+        weight[idx] *= refl
+        bounces[idx] += 1
+        cont = alive & (bounces[idx] <= scene.max_bounces)
+        o_np[idx], d_np[idx] = no, nd
+        stats["rays"] += len(idx)
+        stats["waves"] += 1
+        live = idx[cont]
+        if len(live) == 0:
+            return []
+        return [TaskSpec((tile, live), cost=max(len(live) // 32, 1))]
+
+    n_tiles = tx * ty
+    fabric = TaskFabric(algo=algo, shards=shards,
+                        capacity_per_shard=max(
+                            4 * (h * w // wave + n_tiles) // max(shards, 1),
+                            64),
+                        num_threads=workers + 1, steal=steal)
+    rt = TaskRuntime(fabric, handler,
+                     ExecutorConfig(workers=workers, policy=policy, seed=seed,
+                                    max_steps=50_000_000))
+    for t in range(n_tiles):
+        mine = ids[tile_of == t]
+        for i in range(0, len(mine), wave):
+            rt.add_task((t, mine[i:i + wave]),
+                        cost=max(len(mine[i:i + wave]) // 32, 1))
+    m = rt.run()
+    info = dict(stats)
+    info.update({"tasks": len(rt.executed),
+                 "steal_rate": m["steal_rate"],
+                 "idle_steps": m["idle_steps"],
+                 "load_imbalance": m["load_imbalance"]})
+    return img.reshape(h, w, 3), info
 
 
 def render_rounds_runner(scene: Scene, w: int = 64, h: int = 64,

@@ -23,8 +23,9 @@ Both are bit-identical (acc, planes, head/tail, stats other than
 (``repro_torch.obs``) go to the fused engine; their planes are in-round
 state, so the legacy loop refuses them with the reference's
 ``ValueError``.  ``PriorityRoundRunner`` has the same two
-modes over ``fusedrounds.HeapEngine`` and the ``heap_apply`` kernel.  The
-mesh runners come with their slice.
+modes over ``fusedrounds.HeapEngine`` and the ``heap_apply`` kernel.
+``mesh_task_round`` is one mesh-scope task round over the replicated
+ring of ``core.distqueue``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..core.distqueue import dist_dequeue_round, dist_enqueue_round
 from ..kernels._build import resolve_device
 from ..kernels.heap_batch import KEY_INF as HEAP_KEY_INF
 from ..kernels.heap_batch import heap_apply
@@ -43,7 +45,8 @@ from .fusedrounds import (IDX_BOT, HeapEngine, HeapState, PriorityStepFn,
                           RingEngine, RingState, StepFn, heap_init, ring_init)
 
 __all__ = ["HeapState", "IDX_BOT", "PriorityRoundRunner", "PriorityStepFn",
-           "RingState", "RoundRunner", "StepFn", "heap_init", "ring_init"]
+           "RingState", "RoundRunner", "StepFn", "heap_init",
+           "mesh_task_round", "ring_init"]
 
 
 def _legacy_obs(fused: bool, telemetry, spans) -> None:
@@ -313,6 +316,23 @@ class PriorityRoundRunner:
                 f"priority round loop truncated at max_rounds={max_rounds} "
                 f"with size {st.size}: not quiescent (stats['drained']=0)")
         return acc, st
+
+
+def mesh_task_round(state, spawn_vals: torch.Tensor, spawn_mask: torch.Tensor,
+                    claim_mask: torch.Tensor):
+    """One mesh-scope task round: publish every shard's spawned tasks, then
+    claim up to ``claim_mask.sum()`` tasks for the shards to execute.
+    ``spawn_vals``, ``spawn_mask`` and ``claim_mask`` are ``(S, B)``, shard
+    i's requests in row i (the reference's per-chip rows under
+    ``shard_map``, stacked; no ``axis``).  Returns (state, granted,
+    claimed_vals, claimed_ok), each output ``(S, B)``.
+
+    Composes ``dist_enqueue_round`` + ``dist_dequeue_round``: on the card
+    their waves are the ring waves' masked instances, on the device of
+    ``state``."""
+    state, granted = dist_enqueue_round(state, spawn_vals, spawn_mask)
+    state, vals, ok = dist_dequeue_round(state, claim_mask)
+    return state, granted, vals, ok
 
 
 # engine-matrix rows

@@ -10,7 +10,10 @@ Two queue roles (DESIGN.md § 3):
   urgency* — a stalled normal request keeps its original deadline while new
   arrivals take later ones, so it drifts to the front instead of re-queuing
   at fixed rank.  Tenants map (class, deadline, now) to keys through their
-  own policies (``EngineConfig.tenant_policies``).
+  own policies (``EngineConfig.tenant_policies``).  ``admission="lanes"``
+  keeps the legacy strict two-lane ``HostTaskPool`` (urgent lane drained
+  first, stalled requests parked engine-side), which starves normal
+  traffic under sustained urgent load.
 * **KV page allocator** — the KV cache is paged; free page indices live in a
   bounded ring and are claimed by *ticket reservation* exactly like the
   paper's index indirection (enqueue of a released page, dequeue of a free
@@ -25,8 +28,7 @@ back to the host once (``host_syncs``).  ``admission="device"`` keeps
 the pending requests on the card instead, as ``(deadline | idx)``
 entries of ``ServingMeshEngine``'s heaps (``device_shards`` heaps along a
 tensor dimension of the engine's one card): one engine tick is one
-admission tick of that engine.  ``admission="lanes"`` (the host task
-pool, ROADMAP Queue A11) is not ported yet and raises.
+admission tick of that engine.
 
 Simplification (documented, as in the reference): all slots advance on one
 shared timeline (a single ``cur`` index) — a late-admitted slot's earlier
@@ -51,6 +53,7 @@ from ..distributed import make_mesh
 from ..kernels._build import resolve_device
 from ..models import decode_step, init_decode_cache
 from ..obs.metrics import MetricsRegistry, metric_key
+from ..runtime.taskpool import HostTaskPool
 from ..sched.hostpq import HostPriorityPool
 from ..sched.policy import make_policy
 from .admission import DEADLINE_KEY_CAP, ServingMeshEngine
@@ -80,8 +83,8 @@ class EngineConfig:
     num_pages: int = 64          # total page budget
     max_seq: int = 256
     request_ring_capacity: int = 16
-    # "edf" | "device" (mesh); the reference's "lanes" is not ported
-    admission: str = "edf"
+    request_shards: int = 2      # HostTaskPool shards per lane (lanes mode)
+    admission: str = "edf"       # "edf" | "lanes" (legacy) | "device" (mesh)
     normal_slack: int = 64       # EDF slack for non-urgent admission classes
     # multi-tenant policy lanes: one sched.policy spec per tenant
     # ("strict" | "weighted" | "edf" | a PriorityPolicy); None keeps the
@@ -108,13 +111,12 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"the parameters are on "
                              f"{params['embed'].device}, not {self.device}")
-        if ecfg.admission == "lanes":
-            raise NotImplementedError(
-                "admission='lanes' needs the host task pool "
-                "(runtime/taskpool.py), not ported yet (ROADMAP Queue A11)")
         self._device = None
         if ecfg.admission == "edf":
             self.requests = HostPriorityPool(ecfg.request_ring_capacity)
+        elif ecfg.admission == "lanes":
+            self.requests = HostTaskPool(ecfg.request_ring_capacity,
+                                         shards=ecfg.request_shards, lanes=2)
         elif ecfg.admission == "device":
             # device-resident EDF: pending requests live as (deadline |
             # idx) heap entries on the priority mesh, its shards a tensor
@@ -173,6 +175,9 @@ class ServingEngine:
     def submit(self, req: Request, timeout: float = 1.0) -> bool:
         if req.submit_tick < 0:
             req.submit_tick = self.tick    # racy int read is fine: ±1 tick
+        if self.ecfg.admission == "lanes":
+            return self.requests.enqueue(req, timeout=timeout,
+                                         priority=req.priority)
         if not 0 <= req.tenant < self.ecfg.tenants:
             raise ValueError(f"tenant {req.tenant} out of range "
                              f"[0, {self.ecfg.tenants})")
@@ -211,8 +216,13 @@ class ServingEngine:
         return -(-tokens // self.ecfg.page_size)
 
     def _next_candidate(self) -> Optional[Request]:
-        # self.stalled only holds pool-full overflow; merge it back by
-        # deadline so it cannot jump requests with earlier deadlines
+        if self.ecfg.admission != "edf":
+            # lanes mode: engine-side stalled requests retry first (fixed
+            # rank — the inversion baseline)
+            return (self.stalled.pop(0) if self.stalled
+                    else self.requests.dequeue(timeout=0.0))
+        # EDF: self.stalled only holds pool-full overflow; merge it back
+        # by deadline so it cannot jump requests with earlier deadlines
         if self.stalled:
             self.stalled.sort(key=lambda r: r.deadline)
             pk = self.requests.peek_key()
@@ -307,14 +317,20 @@ class ServingEngine:
                 for p in pages:
                     self.free_pages.enqueue(p, timeout=0.1)
                 self._count("page_stalls")
-                # re-enter the pool at the *original* deadline: newer
-                # arrivals take later keys, so the stalled request ages
-                # toward urgency.  Non-blocking: this thread is the pool's
-                # only consumer, so waiting on a full pool would deadlock
-                # the decode loop for the whole timeout
-                if not self.requests.enqueue(req, key=req.deadline,
-                                             timeout=0.0):
-                    self.stalled.append(req)   # pool full: never drop
+                if self.ecfg.admission == "edf":
+                    # re-enter the pool at the *original* deadline: newer
+                    # arrivals take later keys, so the stalled request
+                    # ages toward urgency.  Non-blocking: this thread is
+                    # the pool's only consumer, so waiting on a full pool
+                    # would deadlock the decode loop for the whole timeout
+                    if not self.requests.enqueue(req, key=req.deadline,
+                                                 timeout=0.0):
+                        self.stalled.append(req)   # pool full: never drop
+                else:
+                    # lanes mode: park engine-side, retried ahead of the
+                    # pool next tick (fixed priority — the starvation the
+                    # EDF path removes)
+                    self.stalled.append(req)
                 return
             self._install(req, s, pages)
 

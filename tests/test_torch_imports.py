@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.apps import bfs, sssp  # noqa: E402
+from repro_torch.apps import bfs, raytrace, sssp  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
                                  frontier_expand, heap_apply,
@@ -24,19 +24,28 @@ from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
                                  heap_pop_count, ring_dequeue,
                                  ring_dequeue_wave, ring_enqueue_wave,
                                  wave_compact, wavefaa)
-from repro_torch.core import (dist_heap_init, dist_queue_init,  # noqa
-                              dist_sharded_queue_init)
+from repro_torch.core import (QUEUE_CLASSES, AtomicMemory,  # noqa
+                              Scheduler, check_linearizable, dist_heap_init,
+                              dist_queue_init, dist_sharded_queue_init,
+                              fast_violation_screen, run_balanced,
+                              run_producer_consumer)
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import (claim_schedule, deq_planes,  # noqa
                                  enq_planes, priority_claim_schedule)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
-from repro_torch.runtime import (HeapEngine, MeshHeapEngine,  # noqa
+from repro_torch.runtime import (ExecutorConfig, HeapEngine,  # noqa
+                                 HostTaskPool, MeshHeapEngine,
                                  MeshRingEngine, MeshRoundRunner,
-                                 PriorityMeshRoundRunner,
+                                 PriorityFabric, PriorityMeshRoundRunner,
                                  PriorityRoundRunner, RingEngine,
-                                 RoundRunner,
-                                 ShardedMeshRingEngine, heap_init, ring_init)
+                                 RoundRunner, ShardedMeshRingEngine,
+                                 TaskFabric, TaskRuntime, TaskSpec,
+                                 heap_init, mesh_task_round, ring_init)
+from repro_torch.sched import (GPQ, RelaxedGPQ,  # noqa: E402
+                               check_p_linearizable,
+                               check_p_linearizable_search,
+                               mesh_relaxation_bound, mesh_trace_history)
 from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -56,6 +65,11 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.apps.sssp, repro_torch.apps.raytrace\n"
             "import repro_torch.serving.admission\n"
             "import repro_torch.serving.traffic\n"
+            "import repro_torch.core.sim, repro_torch.core.linearizability\n"
+            "import repro_torch.sched.gpq, repro_torch.sched.relaxed\n"
+            "import repro_torch.sched.plinearizability\n"
+            "import repro_torch.runtime.taskpool\n"
+            "import repro_torch.runtime.executor\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -130,6 +144,7 @@ def _pstep(acc, keys, vals, valid):
                                          np.ones(48, np.int32)),
     lambda: sssp.sssp_mesh_rounds(bfs.road_like(16), np.ones(48, np.int32),
                                   shards=2),
+    lambda: raytrace.render_runtime(raytrace.cornell_scene(), 16, 16),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
@@ -140,7 +155,7 @@ def _pstep(acc, keys, vals, valid):
         "claim_schedule", "priority_claim_schedule",
         "PriorityMeshRoundRunner", "PriorityMeshRoundRunner-legacy",
         "MeshHeapEngine", "dist_heap_init", "sssp_mesh_rounds_runner",
-        "sssp_mesh_rounds"])
+        "sssp_mesh_rounds", "render_runtime"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""

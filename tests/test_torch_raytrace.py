@@ -194,11 +194,6 @@ def test_sync_every_matches_reference():
     np.testing.assert_allclose(img, jimg, rtol=0, atol=1e-4)
 
 
-def test_render_runtime_raises_and_cites_a11():
-    with pytest.raises(NotImplementedError, match="Queue A11"):
-        T.render_runtime(T.cornell_scene(), 16, 16, device="cpu")
-
-
 def test_render_rounds_needs_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

@@ -160,14 +160,62 @@ def test_two_tenant_policies_match_reference():
 
 
 def test_unported_admission_modes_raise():
-    """``lanes`` (the host task pool) still raises and cites Queue A11;
-    ``device`` is ported and builds its admission engine."""
+    """Every admission mode is ported: ``device`` builds its admission
+    engine on the engine's device, and an unknown mode raises as the
+    reference's does."""
     _, cfg, _, tp = _model("h2o-danube-1.8b")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ServingEngine(cfg, tp, EngineConfig(admission="lanes"), device="cpu")
     eng = ServingEngine(cfg, tp, EngineConfig(admission="device"),
                         device="cpu")
     assert eng._device.shards == 1 and eng._queue_empty()
+    with pytest.raises(ValueError, match="unknown admission mode"):
+        ServingEngine(cfg, tp, EngineConfig(admission="fifo"), device="cpu")
+
+
+def test_lanes_admission_serves_like_the_reference():
+    """``admission="lanes"`` (the strict two-lane ``HostTaskPool``) on
+    the port against the reference's lanes engine on one trace, pages
+    tight enough to stall and the urgent requests arriving last: the same
+    admission log, metrics and per-request ticks."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    rng = np.random.default_rng(6)
+    trace = [(rid, rng.integers(0, cfg.vocab, int(rng.integers(2, 6)))
+              .astype(np.int32), int(rng.integers(1, 4)),
+              int(rid < 6), 0) for rid in range(8)]
+    kw = dict(max_slots=2, page_size=4, num_pages=3, max_seq=32,
+              request_ring_capacity=32, admission="lanes")
+    port, preqs, _ = _drive(True, "granite-moe-3b-a800m", kw, trace)
+    ref, rreqs, _ = _drive(False, "granite-moe-3b-a800m", kw, trace)
+    assert port.admission_log == ref.admission_log
+    assert port.metrics == ref.metrics and port.metrics["completed"] == 8
+    assert port.metrics["page_stalls"] > 0
+    assert port.tick == ref.tick
+    for a, b in zip(preqs, rreqs):
+        assert (a.deadline, a.submit_tick, a.admit_tick, a.finish_tick,
+                a.done, len(a.out)) == \
+            (b.deadline, b.submit_tick, b.admit_tick, b.finish_tick,
+             b.done, len(b.out))
+    # the urgent lane drains first wherever a slot frees
+    assert set(port.admission_log[:2]) == {6, 7}, port.admission_log
+    assert port.requests.metrics == ref.requests.metrics
+
+
+def test_engine_lanes_mode_still_strict():
+    """tests/test_sched.py's scenario on the port: one slot, a normal
+    request first and six urgent ones after it; strict lanes admit the
+    normal request last, as the reference's engine does."""
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    rng = np.random.default_rng(0)
+    trace = [(500, rng.integers(0, cfg.vocab, 4).astype(np.int32), 1, 1, 0)]
+    trace += [(rid, rng.integers(0, cfg.vocab, 4).astype(np.int32), 1, 0, 0)
+              for rid in range(6)]
+    kw = dict(max_slots=1, page_size=16, num_pages=8, max_seq=64,
+              request_ring_capacity=64, admission="lanes", normal_slack=8)
+    port, _, _ = _drive(True, "h2o-danube-1.8b", kw, trace)
+    ref, _, _ = _drive(False, "h2o-danube-1.8b", kw, trace)
+    assert port.metrics["completed"] == 7
+    assert port.admission_log[-1] == 500      # strict lanes: normal starved
+    assert port.admission_log == ref.admission_log
+    assert port.metrics == ref.metrics
 
 
 def test_device_admission_serves_like_the_reference_pool():
