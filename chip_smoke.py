@@ -260,7 +260,8 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
-              pmesh, raytrace (``ray``), admission, runtime, 8 and 9;
+              pmesh, raytrace (``ray``), admission, runtime, 8, 9 and
+              train;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -284,7 +285,12 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               also carries the same times at hd 128 (q (1, 32, 4096, 128),
               kv 8, causal) under ``hd128`` and on gemma3-4b's layer 5
               (global) and layer 0 (window 1,024) inputs of phase 9 under
-              ``hd256_global`` and ``hd256_local``.  ``device_loop``
+              ``hd256_global`` and ``hd256_local``, its time with and
+              without the lse write at granite's shape (in turns) and
+              training's forward at danube's layer 0 with the lse.
+              ``flash_attention_bwd`` at danube's layer 0 of phase train
+              (its D pass, dk/dv and dq kernels also alone) beside
+              ``scaled_dot_product_attention``'s backward.  ``device_loop``
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
               with a readback a round; its row also carries the nodes of
@@ -307,9 +313,10 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               spanned tree's (rider), each against a bytes and a
               dependent-chain bound.  wave_compact also at the meshes'
               2,048-lane rows.
-8. serve    — the model path at full width: granite-moe-3b-a800m (32
-              layers, d_model 1536, 40 experts top-8, 3,374,295,552
-              parameters in bfloat16) from ``init_params`` with a
+8. serve    — the model path at full width and cut depth:
+              granite-moe-3b-a800m at 4 of its 32 layers
+              (``SERVE_LAYERS``; d_model 1536, 40 experts top-8,
+              553,916,928 parameters in bfloat16) from ``init_params`` with a
               torch.Generator seeded 0 on the card.  Two 4,096-token
               prompts (numpy.random.default_rng(13)) through ``prefill``:
               flash_attention must launch once per layer and
@@ -334,24 +341,67 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               256 must launch once per layer, the last-token logits must
               be finite, and the kernel is held against the plain version
               on layer 0's (local) and layer 5's (global) q/k/v.
+train.      — the training path (``launch.train.train_step``:
+              ``cast_params`` of the float32 master weights, ``loss_fn``
+              with remat, its backward, ``optim.adamw.step``).  (a) B7's
+              row log-sum-exp (``return_lse``) and the flash backward
+              (``csrc/flash_bwd.cu``: D pass, dk/dv and dq kernels)
+              against ``flash_attention_plain`` and
+              ``flash_attention_bwd_plain`` on ``BWD_CASES`` (hd 32, 64,
+              80 and 128, causal, a 1,024-key window, softcap 50, rep 1
+              and 4, S = 2,048 and 4,096, and 1,000), element by element
+              and in the Frobenius norm (``FLASH_BWD_TOL``, ``LSE_TOL``),
+              and against the exact float64 gradient of every (batch, kv
+              head) group of each case (``FLASH_BWD_EXACT_TOL``), and
+              three wrong results the checks must reject (a shifted lse
+              block, a zeroed value tile, one dq row off by its group's
+              rms in the last group); (b)
+              h2o-danube-1.8b at full width (24 layers, d 2,560, 32/8
+              heads of 80, window 4,096, vocab 32,000; 1,831,201,280
+              parameters from a torch.Generator seeded 2, float32 master,
+              m and v on the card): its step-0 loss and gradients through
+              the backward kernel equal to / within ``GRADS_VS_PLAIN`` of
+              the same through the plain backward; then 6 steps of 2 x
+              4,096 tokens on two recurring synth_batches (lr 3e-4,
+              three warm-up steps):
+              per step wall and event seconds, tokens/s, peak memory, and
+              the launches (B7 2 x 24: forward and remat; the backward
+              24), the last step under the profiler (idle share against
+              the median unprofiled step); the loss of step 4 below step
+              0's, every grad norm finite; the kernels are held once more
+              on its layer 0's own q/k/v; (c) mamba2-130m at full width
+              (24 layers, d 768, state 128, vocab 50,280) trains 12 steps
+              of 4 x 4,096 under ``RestartManager`` and
+              ``CheckpointManager`` (keep 2, a temporary directory, a
+              checkpoint every 5 steps, a fault at step 7): one restart,
+              final step and optimizer step 12, checkpoints 10 and 12
+              kept, the loss of step 10 below step 0's; then its float32
+              master weights prefill 2 x 4,096 tokens and take 16 decode
+              steps, whose logits (and the prefill's last) match
+              ``forward`` over the same 4,352 tokens within
+              ``DECODE_TOL``.
 
 Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
 and report the card's idle share against the unprofiled wall time (where
 the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime and 9 run
-before phase 7, whose line needs their launch counts.  Every phase
+in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime, 9 and
+train run before phase 7, whose line needs their launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import dataclasses
 import hashlib
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -477,6 +527,11 @@ OBS_HEAP_CAPACITY = 2048
 EAGER_CHUNK = 64         # rounds a readback in the eager yardstick
 GEMMA_ARCH = "gemma3-4b"
 SERVE_ARCH = "granite-moe-3b-a800m"
+# granite's depth on the serving paths (phases 8, admission and runtime):
+# 4 of its 32 layers at full width since phase train joined the run; its
+# serves are host-bound a layer at a time, so the cut keeps the script
+# under 11 minutes
+SERVE_LAYERS = 4
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
 SERVE_VOCAB = 512        # prompt ids valid at full and at reduced width
@@ -489,6 +544,70 @@ FLASH_TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol_rms": 2.0 ** -5,
                           "frob": 2.0 ** -10},
              "float32": {"rtol": 1e-5, "atol_rms": 1e-5, "frob": 1e-5}}
 
+
+# phase train: (b) h2o-danube-1.8b at full width, train_4k's 4,096-token
+# sequence at a batch of 2 (its global batch of 256 cut to what one card
+# holds), 6 steps on two recurring synth_batches.  lr 3e-4 with three
+# warm-up steps (the reference's trainer takes five): with one warm-up
+# step the loss of step 4 spikes above step 0's (11.03 against 10.89;
+# 9.84 at step 2) through the backward kernel and through the plain
+# backward alike (10.89, 10.86, 9.84, 10.55, 11.03 against 10.89, 10.86,
+# 9.84, 10.53, 11.04), and with three it is 10.52.  Its step-0
+# gradients through the backward kernel are held against the same
+# gradients through flash_attention_bwd_plain, leaf by leaf in the
+# Frobenius norm within GRADS_VS_PLAIN (2^-5; 1.55e-2 measured on embed):
+# the two differ by FLASH_BWD_TOL's bfloat16 roundings, compounded over
+# 24 layers of bfloat16 activations.  (c) mamba2-130m at full
+# width, 4 x 4,096, 12 steps under RestartManager with a checkpoint every
+# 5 steps (keep 2) and a fault at step 7, then a prefill of 2 x 4,096 and
+# 16 decode steps in float32 against its forward
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 6, 3e-4
+TRAIN_WARMUP = 3
+GRADS_VS_PLAIN = 2.0 ** -5
+SSM_ARCH = "mamba2-130m"
+SSM_BATCH, SSM_SEQ, SSM_STEPS, SSM_LR = 4, 4096, 12, 1e-3
+SSM_SAVE_EVERY, SSM_FAULT_AT, SSM_KEEP = 5, 7, 2
+SSM_DECODE_BATCH, SSM_DECODE = 2, 16
+# (a) the flash backward (csrc/flash_bwd.cu) against
+# flash_attention_bwd_plain at the model's 512-row blocks, on the kernel's
+# own out and lse: |kernel - plain| <= rtol |plain| + atol_rms rms(plain)
+# per element and ||kernel - plain|| <= frob ||plain|| for dq, dk and dv.
+# rtol: two bfloat16 ulps of the element.  frob 2^-7: the two round p,
+# dp and the partial sums to bfloat16 at other places (2^-9 a term).
+# atol_rms: the rms itself, because the plain version is not the exact
+# gradient element by element: it keeps the reference's casts, and one
+# of them rounds dp = dout . v^T to bfloat16 before it subtracts D, so
+# where dp is close to D (the first rows, whose p sits on a few keys) ds
+# keeps that rounding (2^-9 |dp|) though its exact value is near 0: 0.69
+# of the rms at dq's row 0 of the first case, whose exact gradient and
+# the kernel's are 0.  The element check that rejects one wrong row is
+# therefore the one against the exact (float64, dense) gradient, taken
+# for every (batch, kv head) group of every case: FLASH_BWD_EXACT_TOL,
+# two ulps plus half the group's rms per element, and 2^-7 in the
+# Frobenius norm; a dq row moved by its group's rms must fail it.  B7's
+# lse against the plain version's m + log(l): 1e-5 absolute plus 1e-5
+# relative, and 1e-5 in the Frobenius norm (float32; exp2 on the
+# special-function unit)
+BWD_CASES = (   # (B, H, KV, S, hd, window, softcap), all causal
+    (2, 32, 8, 4096, 80, 0, 0.0),       # danube's heads: rep 4
+    (1, 8, 8, 2048, 32, 1024, 0.0),     # rep 1, a 1,024-key window
+    (1, 16, 4, 2048, 64, 0, 50.0),      # rep 4, softcap 50
+    (1, 8, 2, 4096, 128, 1024, 50.0),   # hd 128, window and softcap
+    (1, 8, 8, 4096, 64, 0, 0.0),        # rep 1 at 4,096
+    (1, 4, 4, 2048, 80, 1024, 50.0),    # hd 80, rep 1, window, softcap
+    (1, 4, 1, 1000, 64, 100, 0.0))      # S off the 64-row tiles
+FLASH_BWD_TOL = {"rtol": 2.0 ** -6, "atol_rms": 1.0, "frob": 2.0 ** -7}
+FLASH_BWD_EXACT_TOL = {"rtol": 2.0 ** -6, "atol_rms": 2.0 ** -1,
+                       "frob": 2.0 ** -7}
+LSE_TOL = {"atol": 1e-5, "rtol": 1e-5, "frob": 1e-5}
+# the backward's three kernels, by the names the profiler gives them
+BWD_KERNELS = {"dot": "repro::bwd_dot_kernel",
+               "dkdv": "repro::bwd_dkdv_kernel",
+               "dq": "repro::bwd_dq_kernel"}
+# (c) decode after a prefill against the forward over the same tokens, in
+# float32 (tests/test_torch_ssm.py: DECODE_TOL)
+DECODE_TOL = {"atol": 1e-3, "rtol": 1e-3}
 
 START = time.perf_counter()
 
@@ -706,8 +825,10 @@ class Smoke:
                          "prefill_gemma3": {}, "obs_road": {},
                          "obs_heap": {},
                          "mesh": {}, "pmesh": {}, "ray": {},
-                         "admission": {}, "runtime": {}}  # path -> launches
+                         "admission": {}, "runtime": {}, "train": {},
+                         "train_ssm": {}}  # path -> launches
         self.keep = {}            # path -> (runner, final state) for obs
+        self.lse_used = {"element": 0.0, "frobenius": 0.0}  # B7's lse
 
     # -- helpers -------------------------------------------------------------
 
@@ -732,10 +853,11 @@ class Smoke:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
 
-    def bound_shares(self, got, want):
+    def bound_shares(self, got, want, tol=None):
         """(max |got - want|, the largest share of the element bound, the
-        share of the Frobenius bound) under ``FLASH_TOL`` of the dtype."""
-        tol = FLASH_TOL[str(want.dtype).split(".")[-1]]
+        share of the Frobenius bound) under ``tol``, by default
+        ``FLASH_TOL`` of the dtype."""
+        tol = tol or FLASH_TOL[str(want.dtype).split(".")[-1]]
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{got.shape} {got.dtype} != "
                                  f"{want.shape} {want.dtype}")
@@ -750,14 +872,18 @@ class Smoke:
                 / tol["frob"])
         return float(diff.max()), elem, frob
 
-    def close(self, name, got, want):
-        """Float comparison within ``FLASH_TOL`` of the dtype, element by
-        element and in the Frobenius norm; records the largest error and
-        each bound's largest share used."""
-        err, elem, frob = self.bound_shares(got, want)
+    def close(self, name, got, want, tol=None, part=None):
+        """Float comparison within ``tol`` (by default ``FLASH_TOL`` of the
+        dtype), element by element and in the Frobenius norm; records the
+        largest error and each bound's largest share used (by ``part``
+        where one kernel has several outputs)."""
+        err, elem, frob = self.bound_shares(got, want, tol)
         self.err[name] = max(self.err.get(name, 0.0), err)
-        used = self.bound_used.setdefault(name, {"element": 0.0,
-                                                 "frobenius": 0.0})
+        used = self.bound_used.setdefault(name, {})
+        if part is not None:
+            used = used.setdefault(part, {})
+        used.setdefault("element", 0.0)
+        used.setdefault("frobenius", 0.0)
         used["element"] = max(used["element"], elem)
         used["frobenius"] = max(used["frobenius"], frob)
         self.cases[name] = self.cases.get(name, 0) + 1
@@ -801,8 +927,8 @@ class Smoke:
         wall, dev, host = [], [], 0.0
         for r in range(reps + 1):                    # batch 0 warms up
             ms, host_s = batch(setup(), 0)
-            host = max(host, host_s)
-            if r:
+            if r:                   # the warm-up's first-call set-up aside
+                host = max(host, host_s)
                 wall.append(ms)
         cycles = int(3 * host * GPU_CYCLES_PER_S) + 1_000_000
         for _ in range(reps):
@@ -3772,7 +3898,8 @@ class Smoke:
         from repro_torch.models import layers
         # the module (the package exports a function of the same name)
         moe_route = importlib.import_module("repro_torch.kernels.moe_route")
-        cfg = configs.get_config(SERVE_ARCH)
+        cfg = dataclasses.replace(configs.get_config(SERVE_ARCH),
+                                  n_layers=SERVE_LAYERS)
         t0 = time.perf_counter()
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(0)
@@ -3993,6 +4120,445 @@ class Smoke:
                                top_device_ms=top_ms(times, 6))
         return info, seen
 
+    # -- phase train: the training path at full width ----------------------
+
+    def close_lse(self, got, want):
+        """B7's lse against the plain version's within ``LSE_TOL``,
+        element by element and in the Frobenius norm; records each bound's
+        largest share used."""
+        if got.shape != want.shape or got.dtype != self.torch.float32:
+            raise AssertionError(f"lse: {got.shape} {got.dtype}")
+        bound = LSE_TOL["atol"] + LSE_TOL["rtol"] * want.abs()
+        elem = float(((got - want).abs() / bound).max())
+        frob = float((got - want).norm() / want.norm()) / LSE_TOL["frob"]
+        used = self.lse_used
+        used["element"] = max(used["element"], elem)
+        used["frobenius"] = max(used["frobenius"], frob)
+        if not (elem <= 1 and frob <= 1):
+            raise AssertionError(f"flash_attention lse: {elem:.3g} of the "
+                                 f"element bound, {frob:.3g} of the "
+                                 f"Frobenius bound")
+
+    def bwd_case(self, K, q, k, v, seed, **kw):
+        """B7 with its lse and the backward kernel against their plain
+        versions on (q, k, v) and a seeded dout; returns (out, lse,
+        dout)."""
+        torch = self.torch
+        bq, bk = K.flash_attn.kernel_tiles(q.dtype, q.shape[-1])
+        bq = bq if q.shape[2] % bq == 0 else q.shape[2]
+        out, lse = K.flash_attention(q, k, v, return_lse=True, **kw)
+        want, want_lse = K.flash_attention_plain(q, k, v, bq=bq, bk=bk,
+                                                 return_lse=True, **kw)
+        self.close("flash_attention", out, want)
+        self.close_lse(lse, want_lse)
+        g = torch.Generator(device=self.dev)
+        g.manual_seed(seed)
+        dout = torch.randn(out.shape, generator=g, device=self.dev).to(
+            out.dtype)
+        got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        ref = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+            self.close("flash_attention_bwd", a, b, tol=FLASH_BWD_TOL,
+                       part=part)
+        self.close_exact(got, q, k, v, dout, **kw)
+        return out, lse, dout
+
+    def close_exact(self, got, q, k, v, dout, **kw):
+        """The kernel's (dq, dk, dv) against the exact gradient of every
+        (batch, kv head) group within ``FLASH_BWD_EXACT_TOL``."""
+        rep = q.shape[1] // k.shape[1]
+        for bi in range(k.shape[0]):
+            for gi in range(k.shape[1]):
+                exact = self.exact_grads(q, k, v, dout, bi, gi, **kw)
+                for part, a, e in zip(("dq", "dk", "dv"), got, exact):
+                    a = (a[bi, gi * rep:(gi + 1) * rep] if part == "dq"
+                         else a[bi, gi])
+                    self.close("flash_attention_bwd_exact", a.double(), e,
+                               tol=FLASH_BWD_EXACT_TOL, part=part)
+
+    def exact_grads(self, q, k, v, dout, bi, gi, *, causal, window,
+                    softcap_val):
+        """The exact gradient (float64, dense attention under autograd) of
+        batch ``bi``'s kv head ``gi`` and its query heads: (dq (rep, Sq,
+        hd), dk (Sk, hd), dv (Sk, hd))."""
+        torch = self.torch
+        rep = q.shape[1] // k.shape[1]
+        heads = slice(gi * rep, (gi + 1) * rep)
+        qq, kk, vv = (x.double().requires_grad_()
+                      for x in (q[bi, heads], k[bi, gi], v[bi, gi]))
+        s = torch.einsum("rqd,kd->rqk", qq, kk) / q.shape[-1] ** 0.5
+        if softcap_val:
+            s = softcap_val * torch.tanh(s / softcap_val)
+        qpos = torch.arange(q.shape[2], device=self.dev)[:, None]
+        kpos = torch.arange(k.shape[2], device=self.dev)[None, :]
+        ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+        if window:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, s, -1e30)
+        o = torch.einsum("rqk,kd->rqd", torch.softmax(s, -1), vv)
+        return torch.autograd.grad(o, (qq, kk, vv),
+                                   dout[bi, heads].double())
+
+    def compare_flash_bwd(self, K):
+        """(a) B7's lse and the flash backward against their plain versions
+        on ``BWD_CASES`` (hd 32, 64, 80 and 128; a 1,024-key window;
+        softcap 50; rep 1 and 4; S = 2,048 and 4,096, and 1,000); then
+        three wrong results the checks must reject: the lse of one 64-row
+        block shifted by 0.5, and one 64-key tile of v zeroed, each given
+        to the kernel while the plain version keeps the true one (held
+        against the plain version); and one row of dq in the last (batch,
+        kv head) group moved by that group's rms (held against the exact
+        gradient)."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        for i, (b, h, kv, s, hd, win, cap) in enumerate(BWD_CASES):
+            g = torch.Generator(device=self.dev)
+            g.manual_seed(40 + i)
+            q, k, v = ((torch.randn(shape, generator=g, device=self.dev)
+                        * 0.5).to(torch.bfloat16)
+                       for shape in ((b, h, s, hd), (b, kv, s, hd),
+                                     (b, kv, s, hd)))
+            kw = dict(causal=True, window=win, softcap_val=cap)
+            out, lse, dout = self.bwd_case(K, q, k, v, 50 + i, **kw)
+            if i == 0:
+                keep = (q, k, v, out, lse, dout, kw)
+        q, k, v, out, lse, dout, kw = keep
+        want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        bad_lse = lse.clone()
+        bad_lse[:, :, 1024:1088] += 0.5
+        v0 = v.clone()
+        v0[:, :, 1024:1088] = 0
+        rejected = {}
+        for name, got in (
+                ("lse_block", K.flash_attention_bwd(q, k, v, out, dout,
+                                                    bad_lse, **kw)),
+                ("value_tile", K.flash_attention_bwd(q, k, v0, out, dout,
+                                                     lse, **kw))):
+            shares = {}
+            for part, a, w in zip(("dq", "dk", "dv"), got, want):
+                _, elem, frob = self.bound_shares(a, w, FLASH_BWD_TOL)
+                shares[part] = {"element": elem, "frobenius": frob}
+            rejected[name] = shares
+            if all(x["element"] <= 1 and x["frobenius"] <= 1
+                   for x in shares.values()):
+                raise AssertionError(f"flash_attention_bwd: the check passed "
+                                     f"a wrong result ({name})")
+        # one dq row of the last group, moved by the exact gradient's rms
+        # in that group: the plain comparison's Frobenius term is blind to
+        # it (one row of 2 x 32 x 4,096), the exact element check is not
+        dq = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)[0].clone()
+        rep = q.shape[1] // k.shape[1]
+        bi, gi, row = k.shape[0] - 1, k.shape[1] - 1, q.shape[2] // 2 + 17
+        e_dq = self.exact_grads(q, k, v, dout, bi, gi, **kw)[0]
+        rms = float(e_dq.pow(2).mean().sqrt())
+        dq[bi, (gi + 1) * rep - 1, row] += rms
+        _, elem, frob = self.bound_shares(
+            dq[bi, gi * rep:(gi + 1) * rep].double(), e_dq,
+            FLASH_BWD_EXACT_TOL)
+        rejected["dq_row"] = {
+            "exact": {"element": elem, "frobenius": frob},
+            "plain_frobenius": self.bound_shares(dq, want[0],
+                                                 FLASH_BWD_TOL)[2]}
+        if elem <= 1 and frob <= 1:
+            raise AssertionError("flash_attention_bwd: the exact check passed "
+                                 "a wrong dq row")
+        torch.cuda.synchronize()
+        return {"cases": [dict(zip(("batch", "heads", "kv_heads", "seq",
+                                    "hd", "window", "softcap"), c))
+                          for c in BWD_CASES],
+                "tolerance": {"grads": FLASH_BWD_TOL,
+                              "grads_exact": FLASH_BWD_EXACT_TOL,
+                              "lse": LSE_TOL},
+                "bound_used": self.bound_used["flash_attention_bwd"],
+                "exact_bound_used": self.bound_used[
+                    "flash_attention_bwd_exact"],
+                "lse_bound_used": self.lse_used,
+                "wrong_results_rejected": rejected,
+                "seconds": time.perf_counter() - t0}
+
+    def grads_vs_plain(self, cfg, state, batch):
+        """The loss and every leaf's gradient at ``cast_params(master)``
+        through the backward kernel, against the same through
+        ``flash_attention_bwd_plain`` (swapped in for the autograd
+        Function's backward): equal losses, each leaf within
+        ``GRADS_VS_PLAIN`` of the plain path's in the Frobenius norm."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attn
+        from repro_torch.models import loss_fn
+        from repro_torch.optim import adamw
+        from repro_torch.tree import flatten_with_paths, tree_map
+        real = flash_attn.flash_attention_bwd
+        runs = []
+        for bwd in (real, flash_attn.flash_attention_bwd_plain):
+            flash_attn.flash_attention_bwd = bwd
+            try:
+                params = tree_map(lambda p: p.detach().requires_grad_(),
+                                  adamw.cast_params(state.master))
+                loss = loss_fn(params, batch, cfg)
+                runs.append((float(loss.detach()), torch.autograd.grad(
+                    loss, [t for _, t in flatten_with_paths(params)])))
+                del params, loss
+            finally:
+                flash_attn.flash_attention_bwd = real
+        keys = [k for k, _ in flatten_with_paths(state.master)]
+        rel = {k: float((a.float() - b.float()).norm()
+                        / b.float().norm().clamp(min=1e-30))
+               for k, a, b in zip(keys, runs[0][1], runs[1][1])}
+        if runs[0][0] != runs[1][0] or max(rel.values()) > GRADS_VS_PLAIN:
+            raise AssertionError(f"train: the gradients through the backward "
+                                 f"kernel differ from the plain backward's: "
+                                 f"losses {runs[0][0]} {runs[1][0]}, {rel}")
+        return {"loss": runs[0][0], "rel_frobenius": rel,
+                "tolerance": GRADS_VS_PLAIN}
+
+    def train_danube(self, K, configs, models):
+        """(b) h2o-danube-1.8b at full width: its step-0 gradients against
+        the plain backward's (``grads_vs_plain``), then ``TRAIN_STEPS``
+        steps of ``launch.train.train_step`` (remat on, AdamW lr 1e-4 with
+        one warm-up step) on two recurring synth_batches of 2 x 4,096
+        tokens, the last under the profiler.  Returns its line and layer
+        0's attention inputs of the first step."""
+        torch = self.torch
+        from repro_torch.data import DataConfig, synth_batch
+        from repro_torch.launch import train
+        from repro_torch.models import layers
+        from repro_torch.optim import adamw
+        cfg = configs.get_config(TRAIN_ARCH)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(2)
+        params = models.init_params(cfg, gen, device=self.dev)
+        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
+                    + sum(v.numel() for v in params["layers"].values()))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"train: {n_params} parameters, the config "
+                                 f"counts {cfg.param_count()}")
+        state = adamw.init(params)
+        del params
+        torch.cuda.synchronize()
+        info = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+                "hd": cfg.hd, "window": cfg.sliding_window,
+                "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "init_s": time.perf_counter() - t0,
+                "state_gb": torch.cuda.memory_allocated() / 1e9}
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+        dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        batches = [train.batch_to_device(synth_batch(cfg, dcfg, i), self.dev)
+                   for i in range(2)]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        t0 = time.perf_counter()
+        info["grads_vs_plain"] = self.grads_vs_plain(cfg, state, batches[0])
+        info["grads_vs_plain"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        seen = {}
+        real = layers.flash_attention_train
+
+        def spy(q, k, v, **kw):
+            if not seen:
+                seen["qkv"] = (q.detach(), k.detach(), v.detach(), kw)
+            return real(q, k, v, **kw)
+
+        L, steps, total = cfg.n_layers, [], {}
+        for i in range(TRAIN_STEPS):
+            profiled = i == TRAIN_STEPS - 1
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            layers.flash_attention_train = spy if i == 0 else real
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            try:
+                torch.cuda.synchronize()
+                with (self.profile() if profiled
+                      else contextlib.nullcontext()) as prof:
+                    t1 = time.perf_counter()
+                    ev[0].record()
+                    state, m = train.train_step(cfg, ocfg, state,
+                                                batches[i % 2])
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+            finally:
+                layers.flash_attention_train = real
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if (launches.get("flash_attention") != 2 * L
+                    or launches.get("flash_attention_bwd") != L):
+                raise AssertionError(f"train step {i}: launches {launches}, "
+                                     f"expected {2 * L} flash_attention (the "
+                                     f"forward and its remat) and {L} "
+                                     f"flash_attention_bwd")
+            row = {"step": i, "batch": i % 2, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                   "wall_s": wall, "device_s": ev[0].elapsed_time(ev[1]) / 1e3,
+                   "tokens_per_s": tokens / wall,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches}
+            if profiled:
+                times = device_times(prof)
+                info["bwd_split"] = kernel_split(prof, BWD_KERNELS)
+                busy = sum(times.values()) / 1e6
+                steady = statistics.median(r["wall_s"] for r in steps[1:])
+                row.update(profiled=True, device_busy_s=busy,
+                           idle_share=1 - busy / steady,
+                           idle_share_of="the median unprofiled step",
+                           top_device_ms=top_ms(times, 8))
+            steps.append(row)
+        self.launches["train"] = total
+        if not all(math.isfinite(r["grad_norm"]) and math.isfinite(r["loss"])
+                   for r in steps):
+            raise AssertionError(f"train: a loss or grad norm is not finite: "
+                                 f"{[(r['loss'], r['grad_norm']) for r in steps]}")
+        if not steps[4]["loss"] < steps[0]["loss"]:
+            raise AssertionError(f"train: the loss of step 4 is not below "
+                                 f"step 0's on batch 0: "
+                                 f"{[(r['loss'], r['grad_norm']) for r in steps]}")
+        steady = steps[1:-1]
+        info.update(steps=steps, loss_falls=True,
+                    step_s_median=statistics.median(r["wall_s"]
+                                                    for r in steady),
+                    tokens_per_s_median=statistics.median(
+                        r["tokens_per_s"] for r in steady),
+                    peak_mem_gb=max(r["peak_mem_gb"] for r in steps))
+        del state, batches
+        return info, seen["qkv"]
+
+    def train_mamba(self, K, configs, models):
+        """(c) mamba2-130m at full width through ``launch.train``'s step
+        under ``RestartManager`` and ``CheckpointManager`` (keep 2, in a
+        temporary directory removed at the end): 12 steps of 4 x 4,096 on
+        two recurring batches, a checkpoint every 5 steps, a fault at step
+        7.  Then the trained float32 master weights prefill 2 x 4,096
+        tokens and take 16 decode steps, held against ``forward`` over the
+        same 4,352 tokens within ``DECODE_TOL``."""
+        torch, np = self.torch, self.np
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.data import DataConfig, synth_batch
+        from repro_torch.distributed import RestartManager
+        from repro_torch.launch import train
+        from repro_torch.optim import adamw
+        cfg = configs.get_config(SSM_ARCH)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(3)
+        params = models.init_params(cfg, gen, device=self.dev)
+        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
+                    + sum(v.numel() for v in params["layers"].values()))
+        # the config's analytic count leaves out dt_bias (nh a layer)
+        if n_params != cfg.param_count() + cfg.n_layers * cfg.ssm_nheads:
+            raise AssertionError(f"mamba2: {n_params} parameters")
+        state = adamw.init(params)
+        del params
+        torch.cuda.synchronize()
+        info = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "state": cfg.ssm_state,
+                "batch": SSM_BATCH, "seq": SSM_SEQ,
+                "init_s": time.perf_counter() - t0}
+        ocfg = adamw.AdamWConfig(lr=SSM_LR, warmup_steps=5,
+                                 total_steps=SSM_STEPS)
+        dcfg = DataConfig(seq_len=SSM_SEQ, global_batch=SSM_BATCH)
+        batches = [train.batch_to_device(synth_batch(cfg, dcfg, i), self.dev)
+                   for i in range(2)]
+        runs = []
+
+        def step_fn(state, i):
+            t1 = time.perf_counter()
+            state, m = train.train_step(cfg, ocfg, state, batches[i % 2])
+            loss = float(m["loss"])
+            runs.append({"step": i, "loss": loss,
+                         "grad_norm": float(m["grad_norm"]),
+                         "wall_s": time.perf_counter() - t1})
+            return state
+
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = CheckpointManager(d, keep=SSM_KEEP)
+            rm = RestartManager(ckpt, save_every=SSM_SAVE_EVERY)
+            t1 = time.perf_counter()
+            final, state = rm.run(state, step_fn, num_steps=SSM_STEPS,
+                                  inject_fault_at=SSM_FAULT_AT)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            kept = ckpt.list_steps()
+            ckpt_gb = sum(f.stat().st_size for f in
+                          Path(d, f"step_{kept[-1]:08d}").iterdir()) / 1e9
+        self.launches["train_ssm"] = {k: v for k, v in K.LAUNCHES.items()
+                                      if v}
+        losses = {r["step"]: r["loss"] for r in runs}
+        if (rm.restarts, final, int(state.step)) != (1, SSM_STEPS,
+                                                     SSM_STEPS):
+            raise AssertionError(f"mamba2: restarts {rm.restarts}, final "
+                                 f"{final}, optimizer step "
+                                 f"{int(state.step)}")
+        if kept != [SSM_STEPS - 2, SSM_STEPS]:
+            raise AssertionError(f"mamba2: checkpoints kept {kept}")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   for r in runs) or not losses[10] < losses[0]:
+            raise AssertionError(f"mamba2: losses {losses}")
+        info["train"] = {
+            "steps_run": [r["step"] for r in runs], "runs": runs,
+            "restarts": rm.restarts, "final_step": final,
+            "optimizer_step": int(state.step), "checkpoints_kept": kept,
+            "checkpoint_gb": ckpt_gb, "run_s": run_s,
+            "tokens_per_s_median": statistics.median(
+                SSM_BATCH * SSM_SEQ / r["wall_s"] for r in runs[1:]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss_falls": [losses[0], losses[10]]}
+        del batches
+
+        # prefill and decode with the trained float32 master weights
+        params = state.master
+        toks = torch.as_tensor(np.random.default_rng(16).integers(
+            0, cfg.vocab, (SSM_DECODE_BATCH, SSM_SEQ + 256)), device=self.dev)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            full = models.forward(params, toks, cfg)
+            want = full[:, SSM_SEQ - 1:SSM_SEQ + SSM_DECODE].clone()
+            del full
+            last, caches = models.prefill(params, toks[:, :SSM_SEQ], cfg)
+            cache = [{"conv": caches["conv"][i], "ssm": caches["ssm"][i]}
+                     for i in range(cfg.n_layers)]
+            got = [last]
+            for t in range(SSM_DECODE):
+                pos = SSM_SEQ + t
+                lg, cache = models.decode_step(params, cache,
+                                               toks[:, pos:pos + 1], pos, cfg)
+                got.append(lg)
+            got = torch.cat(got, dim=1)
+        torch.cuda.synchronize()
+        bound = DECODE_TOL["atol"] + DECODE_TOL["rtol"] * want.abs()
+        share = float(((got - want).abs() / bound).max())
+        if not (bool(torch.isfinite(got).all()) and share <= 1):
+            raise AssertionError(f"mamba2 decode: {share:.3g} of DECODE_TOL "
+                                 f"against forward")
+        info["decode"] = {"prefill": [SSM_DECODE_BATCH, SSM_SEQ],
+                          "decode_steps": SSM_DECODE, "dtype": "float32",
+                          "max_abs_err": float((got - want).abs().max()),
+                          "bound_used": share, "tolerance": DECODE_TOL,
+                          "seconds": time.perf_counter() - t1}
+        del state, params, cache, caches
+        return info
+
+    def train_path(self, K, configs, models):
+        """Phase train: (a) the flash backward's checks, (b) danube, (c)
+        mamba2, and the backward kernels on danube's own layer-0 q/k/v.
+        Returns its line and (q, k, v, kw, out, lse, dout) at that layer
+        for the rows of phase 7."""
+        info = {"phase": "train", "kernels": self.compare_flash_bwd(K)}
+        info["danube"], (q, k, v, kw) = self.train_danube(K, configs, models)
+        self.torch.cuda.empty_cache()
+        kw = {key: kw[key] for key in ("causal", "window", "softcap_val")}
+        out, lse, dout = self.bwd_case(K, q, k, v, 60, **kw)
+        self.bwd_split = info["danube"]["bwd_split"]
+        info["kernels"]["danube_layer0"] = {
+            "q": list(q.shape), "kv_heads": k.shape[1], **kw,
+            "bound_used": self.bound_used["flash_attention_bwd"],
+            "lse_bound_used": self.lse_used, "split": self.bwd_split}
+        info["mamba2"] = self.train_mamba(K, configs, models)
+        self.torch.cuda.empty_cache()
+        return info, (q, k, v, kw, out, lse, dout)
+
 
 def ring_launches(label, info, compacts):
     """The ring round's launches on a path: both wave kernels (and
@@ -4038,6 +4604,23 @@ def device_times(prof) -> dict:
             out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e3
     if sum(out.values()) <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    return out
+
+
+def kernel_split(prof, names: dict) -> dict:
+    """For each ``{label: name}``, the profiler's records of the kernels
+    whose name holds ``name``: their count and mean device milliseconds."""
+    from torch.autograd import DeviceType
+    out = {label: {"records": 0, "ms": 0.0} for label in names}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        for label, name in names.items():
+            if name in e.name():
+                out[label]["records"] += 1
+                out[label]["ms"] += e.duration_ns() / 1e6
+    for x in out.values():
+        x["ms"] = x["ms"] / x["records"] if x["records"] else None
     return out
 
 
@@ -4195,12 +4778,18 @@ def main() -> int:
     gemma_info, seen_gemma = smoke.gemma_path(K, configs, models)
     emit_phase(gemma_info)
 
+    # train. the flash backward's checks, h2o-danube-1.8b and mamba2-130m
+    # trained at full width, mamba2's restart, prefill and decode
+    torch.cuda.empty_cache()
+    train_info, seen_train = smoke.train_path(K, configs, models)
+    emit_phase(train_info)
+
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
                                  road_dist, seen_gemma, obs_info,
                                  mesh_info, pmesh_info, ray_info,
-                                 adm_info)})
+                                 adm_info, seen_train)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4214,7 +4803,7 @@ def main() -> int:
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                 road_dist, seen_gemma, obs_info, mesh_info, pmesh_info,
-                ray_info, adm_info):
+                ray_info, adm_info, seen_train):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -4247,7 +4836,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
             "launches_by_path": by_path,
             "excess_ms": (sum(by_path.values()) * (kern[0] - b)
                           if excess is None else excess),
-            "exact": smoke.err[name] == 0 and name != "flash_attention",
+            "exact": smoke.err[name] == 0 and name not in (
+                "flash_attention", "flash_attention_bwd"),
             "max_abs_err": smoke.err[name],
             "ms": kern[0], "plain_ms": plain[0], "bound_ms": b,
             "bound_by": by, "library_ms": lib[0] if lib else None,
@@ -5265,7 +5855,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                     q, k, v, **kw), iters=20),
                 smoke.time_ms(lambda: None, lambda a, i:
                               K.flash_attention_plain(q, k, v, **kw),
-                              iters=5, reps=3),
+                              iters=2, reps=2),
                 smoke.time_ms(lambda: None, lambda a, i: sdpa(
                     q, k, v, is_causal=True, enable_gqa=True), iters=20),
                 # q and out (B, H, S, hd), k and v (B, KV, S, hd),
@@ -5314,7 +5904,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
             q10, k10, v10, **kw10), iters=20),
         smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_plain(
-            q10, k10, v10, **kw10), iters=5, reps=3),
+            q10, k10, v10, **kw10), iters=2, reps=2),
         smoke.time_ms(lambda: None, lambda a, i: sdpa(
             q10, k10, v10, attn_mask=band, enable_gqa=True), iters=20),
         2 * (2 * b10 * h10 * s10 * hd10 + 2 * b10 * k10.shape[1] * s10
@@ -5325,6 +5915,24 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                     "boolean mask"})
     kern7, plain7, lib7, bytes7, ops7 = flash_times(q7, k7, v7, kw7)
     b7, h7, s7, hd7 = q7.shape
+    # the lse write (training's forward) at serving's shape, in turns with
+    # the plain forward in one call: without, with, with, without
+    lse_ms = {"without": [], "with": []}
+    for key in ("without", "with", "with", "without"):
+        lse_ms[key].append(smoke.time_ms(lambda: None, lambda a, i: (
+            K.flash_attention(q7, k7, v7, return_lse=key == "with",
+                              **kw7)), iters=20)[0])
+    # training's forward at h2o-danube-1.8b's layer 0 (hd 80, with the
+    # lse), the shape of its 2 x 24 launches a step
+    qt, kt, vt, kwt, out_t, lse_t, dout_t = seen_train
+    bt, ht, st, hdt = qt.shape
+    kvt = kt.shape[1]
+    pairs_t = st * (st + 1) // 2
+    train_fwd = smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
+        qt, kt, vt, return_lse=True, **kwt), iters=20)
+    b_tf, b_tf_by = bound(2 * (2 * bt * ht * st * hdt + 2 * bt * kvt * st
+                               * hdt) + 4 * bt * ht * st,
+                          4 * bt * ht * pairs_t * hdt, BF16_TC_FLOP_PER_S)
     row("flash_attention", csrc + "flash_wgmma.cu",
         "src/repro/kernels/flash_attn.py:38", kern7, plain7, lib7,
         bytes7, ops7,
@@ -5334,16 +5942,68 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "tolerance": FLASH_TOL,
          "bound_used": smoke.bound_used["flash_attention"],
          "layout": "(B, S, H, hd) strided", "hd128": hd128,
-         "hd256_global": hd256, "hd256_local": hd256_local},
+         "hd256_global": hd256, "hd256_local": hd256_local,
+         "lse_write_ms": {k: statistics.mean(v) for k, v in lse_ms.items()},
+         "lse_write_turns_ms": lse_ms,
+         "train_hd80_with_lse": {"ms": train_fwd[0],
+                                 "wall_ms": train_fwd[1], "bound_ms": b_tf,
+                                 "bound_by": b_tf_by, "q": [bt, ht, st, hdt],
+                                 "kv_heads": kvt}},
         rate=BF16_TC_FLOP_PER_S,
         # granite's prefill at its shape; gemma3's local and global layers
-        # each at their own
+        # each at their own; training's forward and remat at danube's
         excess=(smoke.launches["prefill"].get("flash_attention", 0)
                 * (kern7[0] - bound(bytes7, ops7, BF16_TC_FLOP_PER_S)[0])
                 + sum(1 for w in smoke.gemma_windows if w)
                 * (hd256_local["ms"] - hd256_local["bound_ms"])
                 + sum(1 for w in smoke.gemma_windows if not w)
-                * (hd256["ms"] - hd256["bound_ms"])))
+                * (hd256["ms"] - hd256["bound_ms"])
+                + smoke.launches["train"].get("flash_attention", 0)
+                * (train_fwd[0] - b_tf)))
+
+    # the flash backward (csrc/flash_bwd.cu) at h2o-danube-1.8b's layer 0
+    # of phase train: its q, k, v (the model's strided views), B7's out
+    # and lse, a seeded dout.  Bound: q, k, v, out, dout and the lse read
+    # once, dq, dk and dv written once; five products of 2 hd flop per
+    # causal (query, key) pair and head, at the bf16 tensor-core rate.
+    # Library: scaled_dot_product_attention's backward on the same inputs
+    # (danube's window equals S, so the mask is the causal one), timed
+    # here only.  The split among its D pass, dk/dv and dq kernels is the
+    # profiler's device time of each over danube's profiled step (24 calls
+    # at this shape): on the H100 a profile of ten calls at layer 0
+    # recorded 3-4 of each kernel's ten, and one here recorded none.
+    def sdpa_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        return leaves, o
+
+    lib_leaves, lib_out = sdpa_bwd()
+    bwd_kw = dict(causal=kwt["causal"], window=kwt["window"],
+                  softcap_val=kwt["softcap_val"])
+    bytes_b = (2 * (3 * bt * ht * st * hdt + 2 * bt * kvt * st * hdt)
+               + 4 * bt * ht * st + 2 * (bt * ht * st * hdt
+                                         + 2 * bt * kvt * st * hdt))
+    ops_b = 5 * 2 * hdt * pairs_t * bt * ht
+    parts = smoke.bwd_split
+    row("flash_attention_bwd", csrc + "flash_bwd.cu",
+        "src/repro/models/layers.py:250 (_flash_core_bwd, XLA; no Pallas "
+        "kernel)",
+        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd(
+            qt, kt, vt, out_t, dout_t, lse_t, **bwd_kw), iters=10),
+        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd_plain(
+            qt, kt, vt, out_t, dout_t, lse_t, **bwd_kw), iters=2, reps=2),
+        smoke.time_ms(lambda: None, lambda a, i: torch.autograd.grad(
+            lib_out, lib_leaves, dout_t, retain_graph=True), iters=10),
+        bytes_b, ops_b,
+        {"q": [bt, ht, st, hdt], "kv_heads": kvt, "dtype": "bfloat16",
+         **bwd_kw, "layout": "(B, S, H, hd) strided",
+         "tolerance": FLASH_BWD_TOL,
+         "bound_used": smoke.bound_used["flash_attention_bwd"],
+         "exact_tolerance": FLASH_BWD_EXACT_TOL,
+         "exact_bound_used": smoke.bound_used["flash_attention_bwd_exact"],
+         "launches_per_call": 3, "split": parts,
+         "library": "scaled_dot_product_attention backward"},
+        rate=BF16_TC_FLOP_PER_S)
 
     # device_loop: the conditional WHILE node's own cost a round, on a
     # body of one kernel (occupancy - 1) and its round count: a chunk of

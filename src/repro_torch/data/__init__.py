@@ -1,6 +1,7 @@
-"""Host data structures of the port (so far the serving engine's
-free-page ring)."""
+"""Host data structures of the port: the bounded host ring (the serving
+engine's free pages, the training pipeline's batches), the synthetic
+batches and the queue-fed pipeline."""
 
-from .pipeline import HostRing
+from .pipeline import DataConfig, DataPipeline, HostRing, synth_batch
 
-__all__ = ["HostRing"]
+__all__ = ["DataConfig", "DataPipeline", "HostRing", "synth_batch"]

@@ -1,9 +1,9 @@
 """Carrying state between the JAX reference and the port as numpy arrays.
 
-A test builds a ring, a heap, a graph or a model's parameters on either
-side, hands it over as numpy arrays, and drives both packages from the
-same state.  Nothing here imports JAX: the reference's arrays arrive as
-``np.asarray(...)``.
+A test builds a ring, a heap, a graph, a model's parameters or an
+optimizer state on either side, hands it over as numpy arrays, and
+drives both packages from the same state.  Nothing here imports JAX: the
+reference's arrays arrive as ``np.asarray(...)``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from .apps.bfs import CSRGraph
 from .core.distqueue import DistHeapState
 from .kernels._build import resolve_device
+from .optim.adamw import OptState
 from .runtime.fusedrounds import HeapState, RingState
 
 
@@ -130,3 +131,22 @@ def params_to_numpy(tree: Any) -> Any:
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
     return go(tree)
+
+
+def opt_state_from_numpy(state: Any, *, device="cuda") -> OptState:
+    """The reference's ``OptState`` (``jax.tree.map(np.asarray, state)``:
+    master, m and v trees of float32 arrays and a 0-dim int32 step) as the
+    port's, leaf by leaf on ``device``, each leaf in its own dtype."""
+    master, m, v, step = state
+    dev = resolve_device(device)
+    trees = (params_from_numpy(t, device=dev) for t in (master, m, v))
+    return OptState(*trees,
+                    step=_leaf_to_torch(np.asarray(step, np.int32), dev))
+
+
+def opt_state_to_numpy(state: OptState) -> Tuple[Any, Any, Any, np.ndarray]:
+    """(master, m, v, step) as numpy trees and a 0-dim int32 array — the
+    inverse of ``opt_state_from_numpy``; build the reference's state with
+    ``OptState(*opt_state_to_numpy(s))`` on its side."""
+    return (params_to_numpy(state.master), params_to_numpy(state.m),
+            params_to_numpy(state.v), state.step.detach().cpu().numpy())

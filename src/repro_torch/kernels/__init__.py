@@ -9,7 +9,8 @@ round's queue side as ``ring_dequeue_wave``/``ring_enqueue_wave`` over an
 S-shard lane grid: the mesh's round, and the single ring's at S = 1),
 ``wave_compact``, ``heap_apply``, ``frontier_expand``,
 ``expert_tickets`` (MoE dispatch) and ``flash_attention`` — every Pallas
-kernel of the reference — with the span layer's instances of the ring
+kernel of the reference — and the flash backward (``flash_attention_bwd``,
+the counterpart of the reference's XLA backward), with the span layer's instances of the ring
 waves (packed birth stamps) and of ``heap_apply`` (a rider plane), the
 standalone ring waves' masked instance (an explicit ``active``: the
 functional faces ``enq_planes`` / ``deq_planes`` on the card), the
@@ -25,7 +26,9 @@ from . import ref
 from ._build import LAUNCHES, reset_launches
 from .compact import (compact_planes, compact_scratch, compact_width,
                       wave_compact)
-from .flash_attn import flash_attention, flash_attention_plain
+from .flash_attn import (flash_attention, flash_attention_bwd,
+                         flash_attention_bwd_plain, flash_attention_plain,
+                         flash_attention_train)
 from .frontier import (frontier_buffer, frontier_expand,
                        frontier_expand_plain, frontier_level,
                        frontier_level_plain, frontier_scratch)
@@ -47,7 +50,9 @@ __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
            "claim_schedule", "compact_planes", "compact_scratch",
            "compact_width", "cycle_lt",
            "deq_planes", "enq_planes", "expert_tickets", "expert_tickets_plain",
-           "flash_attention", "flash_attention_plain", "frontier_buffer",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
+           "flash_attention_train", "frontier_buffer",
            "frontier_expand", "frontier_expand_plain", "frontier_level",
            "frontier_level_plain", "frontier_scratch", "heap_apply",
            "heap_apply_grid", "heap_apply_grid_plain", "heap_apply_plain",

@@ -59,8 +59,9 @@ SIGNATURES = {
     "frontier": {"repro_frontier_level": (_P,) * 10 + (_I, _I, _I, _P)},
     "moe_route": {"repro_expert_tickets": (_P, _P, _P, _I, _I, _I, _P)},
     "flash_attn": {"repro_flash_attention": (_P,) * 6 + (_F, _F, _P)},
-    "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 6 + (_F, _F,
+    "flash_wgmma": {"repro_flash_attention_wgmma": (_P,) * 7 + (_F, _F,
                                                                _P)},
+    "flash_bwd": {"repro_flash_attention_bwd": (_P,) * 12 + (_F, _F, _P)},
     "loop": {"repro_loop_create": (_P,) * 8, "repro_loop_launch": (_P, _P),
              "repro_loop_destroy": (_P, _P)},
     "obs_record": {"repro_obs_record": (_P,) * 16 + (_I,) * 6 + (_P,)},
@@ -79,7 +80,8 @@ LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
                             "heap_apply_grid": 0,
                             "heap_apply_grid_rider": 0,
                             "frontier_expand": 0, "expert_tickets": 0,
-                            "flash_attention": 0, "obs_record": 0,
+                            "flash_attention": 0,
+                            "flash_attention_bwd": 0, "obs_record": 0,
                             "obs_record_mesh": 0, "device_loop": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -14,6 +14,9 @@
 // card's check (chip_smoke.py: FLASH_TOL): the exponentials are exp2 on
 // the special-function unit with log2(e) folded into the scale (results
 // below 2^-126 flush to 0), and the divisions are __fdividef (2 ulp).
+// Given an lse buffer, the epilogue also writes each row's log-sum-exp,
+// (m + log2 l) ln 2, the statistic the backward (csrc/flash_bwd.cu) needs:
+// one float a row from the first lane of each quad.
 //
 // CTA: one per SM.  Three consumer warpgroups of 64 query rows each at
 // hd <= 64 (192 rows a CTA), two at hd 80, 128 and 256 (128 rows), and a
@@ -74,6 +77,7 @@ namespace repro {
 
 struct FlashParams {
   void* o;
+  float* lse;       // (B, H, Sq) row log-sum-exp, natural log; may be null
   long long os[3];  // out: batch, head, position strides (elements)
   int heads, rep, sq, sk, causal, window, skip, n_qtiles;
   float scale, softcap;
@@ -667,6 +671,14 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
 
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] +
                       h * p.os[1];
+  if (p.lse != nullptr && t == 0) {
+    // the row statistic the backward recomputes P from: m and l are in
+    // log2 units (the exp2 scaling), every lane of a quad holds its row's
+    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r0 < p.sq) lb[r0] = (m[0] + log2f(l[0])) * kLn2;
+    if (r1 < p.sq) lb[r1] = (m[1] + log2f(l[1])) * kLn2;
+  }
   const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
@@ -770,7 +782,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace repro
 
-// q, k, v, o: device pointers, bfloat16, 16-byte aligned.  dims: {B, H,
+// q, k, v, o: device pointers, bfloat16, 16-byte aligned; lse: null, or
+// a float32 (B, H, Sq) contiguous buffer that receives each row's
+// log-sum-exp of its (capped, masked) logits in natural-log units, the
+// statistic the backward (csrc/flash_bwd.cu) recomputes P from.  dims: {B, H,
 // KV, Sq, Sk, hd, causal, window, bf16}; strides: {q, k, v, o} x {batch,
 // head, position} in elements, each a multiple of 8 (unit stride along
 // hd).  hd is 32, 64, 80, 128 or 256 and bf16 must be nonzero.  scale is the
@@ -779,7 +794,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // arguments or a tensor map are refused.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o,
-                                           const int* dims,
+                                           void* lse, const int* dims,
                                            const long long* strides,
                                            float scale, float softcap,
                                            void* stream) {
@@ -791,6 +806,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.heads = heads;
   p.rep = heads / kv_heads;

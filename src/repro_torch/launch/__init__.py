@@ -1,1 +1,1 @@
-"""Launchers of the port (so far the serving driver)."""
+"""Launchers of the port: the serving driver and the training driver."""

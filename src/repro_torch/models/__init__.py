@@ -1,8 +1,8 @@
-"""Model zoo of the port: one functional transformer for the ``dense``
-and ``moe`` families (the reference's public names; ``loss_fn`` and the
-mesh's ``param_specs`` come with training)."""
+"""Model zoo of the port: one functional transformer for the ``dense``,
+``moe`` and ``ssm`` families (the reference's public names; the mesh's
+``param_specs`` has no meaning on one card)."""
 from .transformer import (decode_step, forward, init_decode_cache,
-                          init_params, layer_flags, prefill)
+                          init_params, layer_flags, loss_fn, prefill)
 
-__all__ = ["forward", "prefill", "decode_step", "init_params",
+__all__ = ["forward", "loss_fn", "prefill", "decode_step", "init_params",
            "init_decode_cache", "layer_flags"]

@@ -6,9 +6,10 @@ shapes.  One attention code path covers GQA, sliding windows (a plain int
 per layer: the layers run in a Python loop), logit soft-capping and
 bidirectional masks.  Long prompts (at least ``FLASH_MIN_SEQ`` keys, no
 cache) take the flash path, which launches the B7 kernel
-(``kernels/flash_attn.py``) on the card; everything else takes the
-grouped dense path in plain PyTorch, as the reference computes it outside
-any kernel.  Cross-attention (the vlm family) and the mesh sharding
+(``kernels/flash_attn.py``) on the card, and its flash backward when a
+gradient is needed; everything else takes the grouped dense path in
+plain PyTorch (differentiated by autograd), as the reference computes it
+outside any kernel.  Cross-attention (the vlm family) and the mesh sharding
 specs are not ported.
 
 Numerics follow the reference: ``rms_norm`` and ``rope`` compute in
@@ -26,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attn import flash_attention
+from ..kernels.flash_attn import flash_attention, flash_attention_train
 
 Params = Dict[str, torch.Tensor]
 
@@ -118,13 +119,17 @@ def _flash_attention(q, k, v, cfg: ArchConfig, window: int):
     activations: the B7 kernel on the card, its plain version on the CPU
     (``kernels.flash_attention`` picks by device).  The kernel reads the
     (B, H, S, hd) views through their strides, so nothing is copied.
-    Forward only: the reference's flash backward comes with training."""
+    When a gradient is needed, ``flash_attention_train`` runs instead: B7
+    with its row log-sum-exp, and the flash backward (the reference's
+    custom_vjp ``_flash_core``), which recomputes each logits tile."""
     b, sq, h, hd = q.shape
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=cfg.causal,
-                          window=int(window),
-                          softcap_val=float(cfg.attn_softcap),
-                          bq=FLASH_BLOCK_Q, bk=FLASH_BLOCK_K)
+    attend = (flash_attention_train if torch.is_grad_enabled()
+              and (q.requires_grad or k.requires_grad or v.requires_grad)
+              else flash_attention)
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=cfg.causal, window=int(window),
+                 softcap_val=float(cfg.attn_softcap), bq=FLASH_BLOCK_Q,
+                 bk=FLASH_BLOCK_K)
     return out.transpose(1, 2).reshape(b, sq, h * hd)
 
 

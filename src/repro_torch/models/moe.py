@@ -56,7 +56,9 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig):
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     xt = x.reshape(t, d)
-    gates = xt.float() @ p["router"]                         # (T, E)
+    # float32 gates; a bfloat16 router (training's cast_params) is
+    # promoted, as jnp promotes it
+    gates = xt.float() @ p["router"].float()                 # (T, E)
     capacity = moe_capacity(t, cfg)
     # top-k, softmax combine weights and the ring-ticket reservation per
     # expert (the B6 kernel on the card); slot -1 is the RETRY path: drop

@@ -14,23 +14,39 @@ Tolerances:
   q . k to bfloat16 before it scales it; the port follows the Pallas
   kernel, which keeps the product in float32.
 
-The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it
-against ``flash_attention_plain`` there."""
+The backward: ``flash_attention_bwd_plain`` (what ``flash_attention_bwd``
+runs for a CPU tensor) against ``jax.vjp`` of the reference's
+``_flash_core`` (its custom_vjp, the XLA backward ``_flash_core_bwd``),
+with the reference's blocks set to 64 at test time so several block
+pairs run: dq, dk and dv within 1e-4 (float32; the sums run in another
+order) or 3e-2 (bfloat16: the reference rounds q . k to bfloat16, the
+port keeps the forward's float32 logits) of the largest |gradient|.  The
+autograd Function ``flash_attention_train`` equals the plain pair on the
+CPU.
+
+The CUDA kernels run only on the card; ``chip_smoke.py`` holds them
+against ``flash_attention_plain`` and ``flash_attention_bwd_plain``
+there."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jnp = pytest.importorskip("jax.numpy")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attn import flash_attention as jflash  # noqa: E402
+from repro.models import layers as JLY  # noqa: E402
 from repro.models.layers import _flash_core  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
-                                 flash_attention_plain, ref)
-from repro_torch.kernels.flash_attn import (HEAD_DIMS,  # noqa: E402
-                                            KERNEL_TILES, _kernel_view,
-                                            kernel_tiles)
+                                 flash_attention_bwd,
+                                 flash_attention_bwd_plain,
+                                 flash_attention_plain,
+                                 flash_attention_train, ref)
+from repro_torch.kernels.flash_attn import (BWD_HEAD_DIMS,  # noqa: E402
+                                            HEAD_DIMS, KERNEL_TILES,
+                                            _kernel_view, kernel_tiles)
 
 CONFIGS = [
     dict(b=1, h=4, kv=2, sq=512, sk=512, hd=64, causal=True, win=0, cap=0.0),
@@ -233,3 +249,137 @@ def test_kernel_view_copies_what_tma_refuses():
         assert out.stride() == (4 * 32 * 64, 32 * 64, 64, 1)
         assert out.data_ptr() % 16 == 0
         torch.testing.assert_close(out, t, atol=0, rtol=0)
+
+
+# -- the backward -------------------------------------------------------------
+
+BWD_CONFIGS = [
+    dict(b=1, h=4, kv=2, sq=256, sk=256, hd=32, causal=True, win=0, cap=0.0),
+    dict(b=2, h=4, kv=2, sq=256, sk=256, hd=32, causal=True, win=96,
+         cap=0.0),
+    dict(b=1, h=4, kv=4, sq=256, sk=256, hd=64, causal=True, win=0,
+         cap=30.0),
+    dict(b=1, h=4, kv=1, sq=256, sk=256, hd=32, causal=False, win=0,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=192, sk=192, hd=80, causal=True, win=100,
+         cap=50.0),
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _bwd_inputs(cfg, dtype):
+    q, k, v = _inputs(cfg, scale=0.5)
+    dout = np.random.default_rng(cfg["sq"] + 1).normal(
+        size=q.shape).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    return [torch.from_numpy(x).to(tdt) for x in (q, k, v, dout)]
+
+
+@pytest.mark.parametrize("cfg", BWD_CONFIGS, ids=range(len(BWD_CONFIGS)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_plain_matches_reference_vjp(cfg, dtype, monkeypatch):
+    monkeypatch.setattr(JLY, "FLASH_BLOCK_Q", 64)
+    monkeypatch.setattr(JLY, "FLASH_BLOCK_K", 64)
+    tq, tk, tv, tdo = _bwd_inputs(cfg, dtype)
+    b, h, s, hd = tq.shape
+    kv, rep = cfg["kv"], h // cfg["kv"]
+    jdt = getattr(jnp, dtype)
+    j = [jnp.asarray(t.float().numpy(), jdt) for t in (tq, tk, tv, tdo)]
+    grouped = lambda x: x.transpose(0, 2, 1, 3).reshape(  # noqa: E731
+        b, s, kv, rep, hd)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    static = (cfg["cap"], cfg["causal"], 1.0 / hd ** 0.5)
+    jout, vjp = jax.vjp(lambda q, k, v: _flash_core(static, q, k, v, pos, pos,
+                                                    cfg["win"]),
+                        grouped(j[0]), j[1].transpose(0, 2, 1, 3),
+                        j[2].transpose(0, 2, 1, 3))
+    jdq, jdk, jdv = vjp(grouped(j[3]))
+    want = [np.asarray(jdq.astype(jnp.float32)).reshape(b, s, h, hd)
+            .transpose(0, 2, 1, 3)] + [
+        np.asarray(g.astype(jnp.float32)).transpose(0, 2, 1, 3)
+        for g in (jdk, jdv)]
+    out, lse = flash_attention_plain(tq, tk, tv, bq=64, bk=64,
+                                     return_lse=True, **_kw(cfg))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, s)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(jout.astype(jnp.float32)).reshape(
+            b, s, h, hd).transpose(0, 2, 1, 3),
+        atol=1e-5 if dtype == "float32" else 2e-2, rtol=0)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, tdo, lse, bq=64, bk=64,
+                                    **_kw(cfg))
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=BWD_TOL[dtype] * np.abs(w).max())
+
+
+def test_lse_is_the_rows_logsumexp():
+    cfg = dict(BWD_CONFIGS[4])
+    tq, tk, tv, _ = _bwd_inputs(cfg, "float32")
+    _, lse = flash_attention_plain(tq, tk, tv, bq=64, bk=64,
+                                   return_lse=True, **_kw(cfg))
+    rep = cfg["h"] // cfg["kv"]
+    s = torch.einsum("bhqd,bhkd->bhqk", tq, tk.repeat_interleave(rep, 1))
+    s = s / cfg["hd"] ** 0.5
+    s = cfg["cap"] * torch.tanh(s / cfg["cap"])
+    pos = torch.arange(cfg["sq"])
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                           - cfg["win"])
+    want = torch.logsumexp(torch.where(ok, s, -1e30), -1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("blocks", [(64, 128), (256, 64), (192, 192)])
+def test_bwd_plain_blocks_agree(blocks):
+    """The plain backward's blocks only order its float32 sums."""
+    cfg = BWD_CONFIGS[4]
+    tq, tk, tv, tdo = _bwd_inputs(cfg, "float32")
+    out, lse = flash_attention_plain(tq, tk, tv, bq=64, bk=64,
+                                     return_lse=True, **_kw(cfg))
+    want = flash_attention_bwd_plain(tq, tk, tv, out, tdo, lse, bq=64,
+                                     bk=64, **_kw(cfg))
+    got = flash_attention_bwd(tq, tk, tv, out, tdo, lse, bq=blocks[0],
+                              bk=blocks[1], **_kw(cfg))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_function_equals_the_plain_pair(dtype):
+    """On the CPU the autograd Function runs ``flash_attention_plain`` with
+    the lse forward and ``flash_attention_bwd_plain`` backward: the same
+    output and gradients, bit for bit, through the model's strided
+    (B, S, H, hd) views."""
+    cfg = BWD_CONFIGS[1]
+    tq, tk, tv, tdo = _bwd_inputs(cfg, dtype)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (tq, tk, tv)]
+    views = [t.transpose(1, 2) for t in leaves]
+    out = flash_attention_train(*views, bq=64, bk=64, **_kw(cfg))
+    grads = torch.autograd.grad(out, leaves, tdo)
+    want_out, lse = flash_attention_plain(tq, tk, tv, bq=64, bk=64,
+                                          return_lse=True, **_kw(cfg))
+    want = flash_attention_bwd_plain(tq, tk, tv, want_out, tdo, lse, bq=64,
+                                     bk=64, **_kw(cfg))
+    assert torch.equal(out, want_out)
+    for g, w in zip(grads, want):
+        assert torch.equal(g.transpose(1, 2), w)
+
+
+def test_train_and_bwd_refuse_what_the_kernel_does_not_take():
+    """Off the CPU: a float32 input that needs a gradient (the float32
+    kernel is forward-only), hd 256 or 112 (ROADMAP A10b), and a
+    backward given tensors that are not on the card raise by name."""
+    assert BWD_HEAD_DIMS == (32, 64, 80, 128)
+    meta = dict(device="meta")
+    q = torch.zeros(1, 2, 64, 64, **meta)
+    with pytest.raises(ValueError, match="forward-only"):
+        flash_attention_train(q, q, q)
+    for hd in (112, 256):
+        qb = torch.zeros(1, 2, 64, hd, dtype=torch.bfloat16, **meta)
+        with pytest.raises(ValueError, match="A10b"):
+            flash_attention_train(qb, qb, qb)
+    qb = q.to(torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd(qb, qb, qb, qb, qb, lse)

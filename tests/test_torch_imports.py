@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.apps import bfs, raytrace, sssp  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import (expert_tickets, flash_attention,  # noqa
+                                 flash_attention_bwd,
                                  frontier_expand, heap_apply,
                                  heap_apply_grid, heap_insert_masked,
                                  heap_planes,
@@ -32,7 +33,7 @@ from repro_torch.core import (QUEUE_CLASSES, AtomicMemory,  # noqa
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import (claim_schedule, deq_planes,  # noqa
                                  enq_planes, priority_claim_schedule)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
 from repro_torch.runtime import (ExecutorConfig, HeapEngine,  # noqa
                                  HostTaskPool, MeshHeapEngine,
@@ -70,6 +71,10 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.sched.plinearizability\n"
             "import repro_torch.runtime.taskpool\n"
             "import repro_torch.runtime.executor\n"
+            "import repro_torch.optim, repro_torch.checkpoint\n"
+            "import repro_torch.launch.train, repro_torch.models.ssm\n"
+            "import repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.fault_tolerance\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -145,6 +150,9 @@ def _pstep(acc, keys, vals, valid):
     lambda: sssp.sssp_mesh_rounds(bfs.road_like(16), np.ones(48, np.int32),
                                   shards=2),
     lambda: raytrace.render_runtime(raytrace.cornell_scene(), 16, 16),
+    lambda: init_params(get_config("mamba2-130m-smoke")),
+    lambda: init_decode_cache(get_config("mamba2-130m-smoke"), 2, 8),
+    lambda: train.main(["--arch", "mamba2-130m-smoke", "--steps", "1"]),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
@@ -155,7 +163,8 @@ def _pstep(acc, keys, vals, valid):
         "claim_schedule", "priority_claim_schedule",
         "PriorityMeshRoundRunner", "PriorityMeshRoundRunner-legacy",
         "MeshHeapEngine", "dist_heap_init", "sssp_mesh_rounds_runner",
-        "sssp_mesh_rounds", "render_runtime"])
+        "sssp_mesh_rounds", "render_runtime", "init_params-ssm",
+        "init_decode_cache-ssm", "launch.train"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -189,6 +198,11 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     q = torch.zeros(1, 2, 64, 32, **meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q, return_lse=True)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd(qb, qb, qb, qb, qb, q[..., 0])
     # the functional heap faces (rider included) run heap_apply on
     # copies: a tensor off the CPU goes to the kernel or raises, and is
     # never copied to the host and back
