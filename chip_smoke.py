@@ -285,11 +285,14 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               also carries the same times at hd 128 (q (1, 32, 4096, 128),
               kv 8, causal) under ``hd128`` and on gemma3-4b's layer 5
               (global) and layer 0 (window 1,024) inputs of phase 9 under
-              ``hd256_global`` and ``hd256_local``, its time with and
+              ``hd256_global`` and ``hd256_local``, on phase zoo's first
+              calls under ``hd112`` (zamba2-7b), ``vlm_hd128`` and
+              ``hd80_unmasked`` (hubert-xlarge), its time with and
               without the lse write at granite's shape (in turns) and
               training's forward at danube's layer 0 with the lse.
               ``flash_attention_bwd`` at danube's layer 0 of phase train
-              (its D pass, dk/dv and dq kernels also alone) beside
+              (its D pass, dk/dv and dq kernels also alone) and at phase
+              zoo's training shapes (``hd112``, ``hd80_unmasked``) beside
               ``scaled_dot_product_attention``'s backward.  ``device_loop``
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
@@ -348,8 +351,9 @@ train.      — the training path (``launch.train.train_step``:
               (``csrc/flash_bwd.cu``: D pass, dk/dv and dq kernels)
               against ``flash_attention_plain`` and
               ``flash_attention_bwd_plain`` on ``BWD_CASES`` (hd 32, 64,
-              80 and 128, causal, a 1,024-key window, softcap 50, rep 1
-              and 4, S = 2,048 and 4,096, and 1,000), element by element
+              80, 112 and 128, causal, and at hd 80 and 112 without a
+              mask, a 1,024-key window, softcap 50, rep 1 and 4, S =
+              2,048 and 4,096, and 1,000), element by element
               and in the Frobenius norm (``FLASH_BWD_TOL``, ``LSE_TOL``),
               and against the exact float64 gradient of every (batch, kv
               head) group of each case (``FLASH_BWD_EXACT_TOL``), and
@@ -380,12 +384,42 @@ train.      — the training path (``launch.train.train_step``:
               steps, whose logits (and the prefill's last) match
               ``forward`` over the same 4,352 tokens within
               ``DECODE_TOL``.
+zoo.        — the hybrid, vlm and audio families at full width (the
+              ``ZOO_*`` constants).  (a) flash_attention at hd 112 in
+              bfloat16 and float32 (zamba2-7b's shape, S off the tiles, a
+              window, softcap 50, rep 4) and without a causal mask (hd 80
+              at hubert-xlarge's shape, hd 112) within ``FLASH_TOL``.  (b)
+              zamba2-7b (81 layers, d_model 3,584, state 64, one shared
+              attention block of 32 heads of 112 after every sixth layer;
+              6,750,539,856 parameters in bfloat16 from a torch.Generator
+              seeded 4) prefills 2 x 4,096 tokens: flash_attention must
+              launch 13 times, the logits be finite, the kernel is held on
+              the first call's q/k/v; ``ServingEngine`` answers phase 8's
+              8 requests at 12 of the 81 layers with the schedule of the
+              reduced CPU run; then, cast to float32, it decodes 64 tokens
+              from an empty cache, each step within ``DECODE_TOL`` of
+              ``forward`` over the same tokens.  (c) llama-3.2-vision-11b
+              the same (40 layers, 8 of them cross layers over 2 x 1,601
+              bfloat16 image tokens, GQA 32/8 at hd 128; 32 launches; the
+              serve at 10 layers, without image tokens as the engine
+              decodes; the decode with them).  (d) hubert-xlarge (48
+              layers, 16 heads of 80, no causal mask) encodes 2 x 4,096
+              frames (48 launches), then trains 6 steps as phase train's
+              danube does, its step-0 gradients within
+              ``GRADS_VS_PLAIN`` of the plain backward's, the loss of
+              step 4 below step 0's.  (e) zamba2-7b trains 4 steps at 24
+              of its 81 layers (the optimizer state of all 81 does not fit
+              on one card), with the same gradient check.  Prefill and
+              encode tokens/s, idle share and peak memory; step seconds,
+              tokens/s and peak memory; the backward held on each training
+              run's first attention inputs.
 
-Phases 3-6, 8 and 9 (not 5b) also re-run their path under the profiler
-and report the card's idle share against the unprofiled wall time (where
-the profiler drops a long graph run's records, the events' span stands
-in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime, 9 and
-train run before phase 7, whose line needs their launch counts.  Every phase
+Phases 3-6, 8, 9 and zoo's prefills (not 5b) also re-run their path under
+the profiler and report the card's idle share against the unprofiled wall
+time (where the profiler drops a long graph run's records, the events'
+span stands in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime,
+9, train and zoo run before phase 7, whose line needs their launch
+counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
@@ -589,14 +623,17 @@ SSM_DECODE_BATCH, SSM_DECODE = 2, 16
 # lse against the plain version's m + log(l): 1e-5 absolute plus 1e-5
 # relative, and 1e-5 in the Frobenius norm (float32; exp2 on the
 # special-function unit)
-BWD_CASES = (   # (B, H, KV, S, hd, window, softcap), all causal
-    (2, 32, 8, 4096, 80, 0, 0.0),       # danube's heads: rep 4
-    (1, 8, 8, 2048, 32, 1024, 0.0),     # rep 1, a 1,024-key window
-    (1, 16, 4, 2048, 64, 0, 50.0),      # rep 4, softcap 50
-    (1, 8, 2, 4096, 128, 1024, 50.0),   # hd 128, window and softcap
-    (1, 8, 8, 4096, 64, 0, 0.0),        # rep 1 at 4,096
-    (1, 4, 4, 2048, 80, 1024, 50.0),    # hd 80, rep 1, window, softcap
-    (1, 4, 1, 1000, 64, 100, 0.0))      # S off the 64-row tiles
+BWD_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
+    (2, 32, 8, 4096, 80, True, 0, 0.0),       # danube's heads: rep 4
+    (1, 8, 8, 2048, 32, True, 1024, 0.0),     # rep 1, a 1,024-key window
+    (1, 16, 4, 2048, 64, True, 0, 50.0),      # rep 4, softcap 50
+    (1, 8, 2, 4096, 128, True, 1024, 50.0),   # hd 128, window and softcap
+    (1, 8, 8, 4096, 64, True, 0, 0.0),        # rep 1 at 4,096
+    (1, 4, 4, 2048, 80, True, 1024, 50.0),    # hd 80, rep 1, window, softcap
+    (1, 4, 1, 1000, 64, True, 100, 0.0),      # S off the 64-row tiles
+    (2, 32, 32, 4096, 112, True, 0, 0.0),     # zamba2-7b's shared block
+    (2, 16, 16, 4096, 80, False, 0, 0.0),     # hubert-xlarge: no mask
+    (1, 8, 2, 2048, 112, False, 0, 50.0))     # hd 112 unmasked, rep 4
 FLASH_BWD_TOL = {"rtol": 2.0 ** -6, "atol_rms": 1.0, "frob": 2.0 ** -7}
 FLASH_BWD_EXACT_TOL = {"rtol": 2.0 ** -6, "atol_rms": 2.0 ** -1,
                        "frob": 2.0 ** -7}
@@ -608,6 +645,39 @@ BWD_KERNELS = {"dot": "repro::bwd_dot_kernel",
 # (c) decode after a prefill against the forward over the same tokens, in
 # float32 (tests/test_torch_ssm.py: DECODE_TOL)
 DECODE_TOL = {"atol": 1e-3, "rtol": 1e-3}
+# phase zoo: the hybrid, vlm and audio families at full width.  (a) B7 at
+# hd 112 (bfloat16 and float32) and without a causal mask, ZOO_FLASH_CASES
+# within FLASH_TOL (the backward's cases are BWD_CASES' last three, run in
+# phase train).  (b) zamba2-7b, all 81 layers (13 shared-block
+# invocations at hd 112), and (c) llama-3.2-vision-11b, all 40 layers (8
+# cross layers over its 1,601 image tokens), each prefills 2 x 4,096
+# tokens in bfloat16 (B7 once per self-attention), decodes ZOO_DECODE
+# tokens from an empty cache in float32 against its forward over them
+# (DECODE_TOL), and serves SERVE_REQUESTS at ZOO_SERVE_LAYERS of its
+# layers (the serves are host-bound a layer at a time: the cut keeps the
+# phase near two minutes).  (d) hubert-xlarge, all 48 layers (unmasked B7
+# at hd 80): encodes 2 x 4,096 frames, then trains ZOO_AUDIO_STEPS steps
+# of 2 x 4,096 frames (TRAIN_LR, TRAIN_WARMUP) with the step-0 gradient
+# check of phase train.  (e) zamba2-7b trains at full width and
+# ZOO_HYBRID_TRAIN_LAYERS of its 81 layers (4 shared-block invocations):
+# float32 master, m and v and bfloat16 weights and gradients, 16 bytes a
+# parameter, are about 109 GB at 81 layers and 37 GB at 24
+ZOO_HYBRID, ZOO_VLM, ZOO_AUDIO = ("zamba2-7b", "llama-3.2-vision-11b",
+                                  "hubert-xlarge")
+ZOO_BATCH, ZOO_SEQ = 2, 4096
+ZOO_DECODE = 64
+ZOO_SERVE_LAYERS = {ZOO_HYBRID: 12, ZOO_VLM: 10}
+ZOO_AUDIO_STEPS = 6
+ZOO_HYBRID_TRAIN_LAYERS, ZOO_HYBRID_TRAIN_STEPS = 24, 4
+ZOO_FLASH_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
+    (2, 32, 32, 4096, 112, True, 0, 0.0),     # zamba2-7b's shared block
+    (1, 8, 8, 1000, 112, True, 0, 0.0),       # S off the tiles
+    (1, 8, 8, 4096, 112, True, 1024, 0.0),    # a 1,024-key window
+    (1, 8, 8, 2048, 112, True, 0, 50.0),      # softcap 50
+    (1, 32, 8, 2048, 112, True, 0, 0.0),      # rep 4
+    (2, 16, 16, 4096, 80, False, 0, 0.0),     # hubert-xlarge: no mask
+    (2, 32, 32, 4096, 112, False, 0, 0.0),    # hd 112 without a mask
+    (1, 8, 2, 1000, 112, False, 0, 50.0))     # unmasked, S off the tiles
 
 START = time.perf_counter()
 
@@ -826,7 +896,7 @@ class Smoke:
                          "obs_heap": {},
                          "mesh": {}, "pmesh": {}, "ray": {},
                          "admission": {}, "runtime": {}, "train": {},
-                         "train_ssm": {}}  # path -> launches
+                         "train_ssm": {}}  # path -> launches (and zoo_*)
         self.keep = {}            # path -> (runner, final state) for obs
         self.lse_used = {"element": 0.0, "frobenius": 0.0}  # B7's lse
 
@@ -3891,6 +3961,45 @@ class Smoke:
             self.torch.cuda.synchronize()
         return eng, metrics, time.perf_counter() - t0
 
+    def serve_checked(self, K, serving, models, cfg, params, label):
+        """The request trace through ``ServingEngine`` with ``params`` on
+        the card (the launch counters from 0, kept under ``label``), then
+        at ``cfg``'s reduced width on the CPU: every request completes,
+        and the admissions, decode steps, page stalls and the admission
+        order agree (the schedule does not depend on the width).  Returns
+        the card's engine and the run's line."""
+        torch = self.torch
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        eng, metrics, serve_s = self.serve_run(serving, cfg, params, self.dev)
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        self.launches[label] = launches
+        small = cfg.reduced()
+        cpu_gen = torch.Generator()
+        cpu_gen.manual_seed(0)
+        ceng, cmetrics, cpu_s = self.serve_run(
+            serving, small, models.init_params(small, cpu_gen, device="cpu"),
+            "cpu")
+        if (metrics["completed"], metrics["tokens_out"]) != (
+                SERVE_REQUESTS, SERVE_REQUESTS * SERVE_NEW):
+            raise AssertionError(f"{label}: {metrics}")
+        keys = ("admitted", "decode_steps", "page_stalls")
+        if [metrics[k] for k in keys] != [cmetrics[k] for k in keys] or \
+                eng.admission_log != ceng.admission_log:
+            raise AssertionError(f"{label}: card {metrics} "
+                                 f"{eng.admission_log} != CPU {cmetrics} "
+                                 f"{ceng.admission_log}")
+        return eng, {
+            "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
+            "max_new": SERVE_NEW, "metrics": metrics,
+            "admission_log": eng.admission_log, "run_s": serve_s,
+            "tokens_out_per_s": metrics["tokens_out"] / serve_s,
+            "decode_steps_per_s": metrics["decode_steps"] / serve_s,
+            "readbacks": eng.host_syncs, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cpu_reduced_run": {"metrics": cmetrics, "run_s": cpu_s},
+            "schedule_equals_cpu": True}
+
     def serve_path(self, K, configs, models, serving):
         """Phase 8; returns its line and the recorded kernel inputs of the
         prefill (for the rows of phase 7)."""
@@ -3905,12 +4014,11 @@ class Smoke:
         gen.manual_seed(0)
         params = models.init_params(cfg, gen, device=self.dev)
         torch.cuda.synchronize()
-        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
-                    + sum(v.numel() for v in params["layers"].values()))
-        if n_params != cfg.param_count():
-            raise AssertionError(f"serve: {n_params} parameters, the config "
+        n = n_params(params)
+        if n != expected_params(cfg):
+            raise AssertionError(f"serve: {n} parameters, the config "
                                  f"counts {cfg.param_count()}")
-        info = {"phase": "serve", "arch": cfg.name, "params": n_params,
+        info = {"phase": "serve", "arch": cfg.name, "params": n,
                 "init_s": time.perf_counter() - t0}
         tokens = torch.as_tensor(np.random.default_rng(13).integers(
             0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=self.dev)
@@ -3974,42 +4082,14 @@ class Smoke:
         # serve at full width on the card, then the same trace at reduced
         # width on the CPU
         self.serve_run(serving, cfg, params, self.dev)   # warm-up
-        K.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        eng, metrics, serve_s = self.serve_run(serving, cfg, params,
-                                               self.dev)
-        launches = dict(K.LAUNCHES)
-        self.launches["serve"] = launches
-        small = cfg.reduced()
-        cpu_gen = torch.Generator()
-        cpu_gen.manual_seed(0)
-        cpu_params = models.init_params(small, cpu_gen, device="cpu")
-        t0 = time.perf_counter()
-        ceng, cmetrics, _ = self.serve_run(serving, small, cpu_params, "cpu")
-        cpu_s = time.perf_counter() - t0
-        want = (SERVE_REQUESTS, SERVE_REQUESTS * SERVE_NEW)
-        if (metrics["completed"], metrics["tokens_out"]) != want:
-            raise AssertionError(f"serve: {metrics}")
-        keys = ("admitted", "decode_steps", "page_stalls")
-        if [metrics[k] for k in keys] != [cmetrics[k] for k in keys] or \
-                eng.admission_log != ceng.admission_log:
-            raise AssertionError(f"serve: card {metrics} "
-                                 f"{eng.admission_log} != CPU {cmetrics} "
-                                 f"{ceng.admission_log}")
-        if launches["expert_tickets"] != L * metrics["decode_steps"]:
+        eng, info["serve"] = self.serve_checked(K, serving, models, cfg,
+                                                params, "serve")
+        metrics, launches = (info["serve"]["metrics"],
+                             info["serve"]["launches"])
+        if launches.get("expert_tickets") != L * metrics["decode_steps"]:
             raise AssertionError(f"serve: expert_tickets launched "
-                                 f"{launches['expert_tickets']} times in "
+                                 f"{launches.get('expert_tickets')} times in "
                                  f"{metrics['decode_steps']} steps")
-        info["serve"] = {
-            "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
-            "max_new": SERVE_NEW, "metrics": metrics,
-            "admission_log": eng.admission_log, "run_s": serve_s,
-            "tokens_out_per_s": metrics["tokens_out"] / serve_s,
-            "decode_steps_per_s": metrics["decode_steps"] / serve_s,
-            "readbacks": eng.host_syncs, "launches": launches,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "cpu_reduced_run": {"metrics": cmetrics, "run_s": cpu_s},
-            "schedule_equals_cpu": True}
         # phase admission serves the same trace again on the card's
         # admission engine
         self.keep["serve"] = (cfg, params, {
@@ -4048,13 +4128,12 @@ class Smoke:
         gen.manual_seed(1)
         params = models.init_params(cfg, gen, device=self.dev)
         torch.cuda.synchronize()
-        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
-                    + sum(v.numel() for v in params["layers"].values()))
-        if n_params != cfg.param_count():
-            raise AssertionError(f"gemma: {n_params} parameters, the config "
+        n = n_params(params)
+        if n != expected_params(cfg):
+            raise AssertionError(f"gemma: {n} parameters, the config "
                                  f"counts {cfg.param_count()}")
         info = {"phase": "prefill_gemma3", "arch": cfg.name,
-                "params": n_params, "hd": cfg.hd,
+                "params": n, "hd": cfg.hd,
                 "window": cfg.sliding_window,
                 "init_s": time.perf_counter() - t0}
         tokens = torch.as_tensor(self.np.random.default_rng(14).integers(
@@ -4201,8 +4280,9 @@ class Smoke:
 
     def compare_flash_bwd(self, K):
         """(a) B7's lse and the flash backward against their plain versions
-        on ``BWD_CASES`` (hd 32, 64, 80 and 128; a 1,024-key window;
-        softcap 50; rep 1 and 4; S = 2,048 and 4,096, and 1,000); then
+        on ``BWD_CASES`` (hd 32, 64, 80, 112 and 128; causal and, at hd 80
+        and 112, without a mask; a 1,024-key window; softcap 50; rep 1 and
+        4; S = 2,048 and 4,096, and 1,000); then
         three wrong results the checks must reject: the lse of one 64-row
         block shifted by 0.5, and one 64-key tile of v zeroed, each given
         to the kernel while the plain version keeps the true one (held
@@ -4211,14 +4291,14 @@ class Smoke:
         gradient)."""
         torch = self.torch
         t0 = time.perf_counter()
-        for i, (b, h, kv, s, hd, win, cap) in enumerate(BWD_CASES):
+        for i, (b, h, kv, s, hd, causal, win, cap) in enumerate(BWD_CASES):
             g = torch.Generator(device=self.dev)
             g.manual_seed(40 + i)
             q, k, v = ((torch.randn(shape, generator=g, device=self.dev)
                         * 0.5).to(torch.bfloat16)
                        for shape in ((b, h, s, hd), (b, kv, s, hd),
                                      (b, kv, s, hd)))
-            kw = dict(causal=True, window=win, softcap_val=cap)
+            kw = dict(causal=causal, window=win, softcap_val=cap)
             out, lse, dout = self.bwd_case(K, q, k, v, 50 + i, **kw)
             if i == 0:
                 keep = (q, k, v, out, lse, dout, kw)
@@ -4264,7 +4344,7 @@ class Smoke:
                                  "a wrong dq row")
         torch.cuda.synchronize()
         return {"cases": [dict(zip(("batch", "heads", "kv_heads", "seq",
-                                    "hd", "window", "softcap"), c))
+                                    "hd", "causal", "window", "softcap"), c))
                           for c in BWD_CASES],
                 "tolerance": {"grads": FLASH_BWD_TOL,
                               "grads_exact": FLASH_BWD_EXACT_TOL,
@@ -4296,7 +4376,8 @@ class Smoke:
                                   adamw.cast_params(state.master))
                 loss = loss_fn(params, batch, cfg)
                 runs.append((float(loss.detach()), torch.autograd.grad(
-                    loss, [t for _, t in flatten_with_paths(params)])))
+                    loss, [t for _, t in flatten_with_paths(params)],
+                    allow_unused=True, materialize_grads=True)))
                 del params, loss
             finally:
                 flash_attn.flash_attention_bwd = real
@@ -4311,35 +4392,40 @@ class Smoke:
         return {"loss": runs[0][0], "rel_frobenius": rel,
                 "tolerance": GRADS_VS_PLAIN}
 
-    def train_danube(self, K, configs, models):
-        """(b) h2o-danube-1.8b at full width: its step-0 gradients against
-        the plain backward's (``grads_vs_plain``), then ``TRAIN_STEPS``
-        steps of ``launch.train.train_step`` (remat on, AdamW lr 1e-4 with
-        one warm-up step) on two recurring synth_batches of 2 x 4,096
-        tokens, the last under the profiler.  Returns its line and layer
-        0's attention inputs of the first step."""
+    def train_lm(self, K, models, cfg, seed, steps, label, falls=True):
+        """``cfg`` at its width and depth, from a torch.Generator seeded
+        ``seed``: its step-0 gradients against the plain backward's
+        (``grads_vs_plain``), then ``steps`` steps of
+        ``launch.train.train_step`` (remat on, AdamW ``TRAIN_LR`` with
+        ``TRAIN_WARMUP`` warm-up steps) on two recurring synth_batches of
+        ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (frames for the audio
+        family), the last under the profiler.  A step launches B7 twice
+        per attention call of the forward (the forward and its remat) and
+        the backward once.  With ``falls`` the loss of step 4 must be
+        below step 0's (both on batch 0).  Returns its line and the first
+        attention call's inputs of the first step; the launches go under
+        ``label``."""
         torch = self.torch
         from repro_torch.data import DataConfig, synth_batch
         from repro_torch.launch import train
         from repro_torch.models import layers
         from repro_torch.optim import adamw
-        cfg = configs.get_config(TRAIN_ARCH)
         t0 = time.perf_counter()
         gen = torch.Generator(device=self.dev)
-        gen.manual_seed(2)
+        gen.manual_seed(seed)
         params = models.init_params(cfg, gen, device=self.dev)
-        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
-                    + sum(v.numel() for v in params["layers"].values()))
-        if n_params != cfg.param_count():
-            raise AssertionError(f"train: {n_params} parameters, the config "
-                                 f"counts {cfg.param_count()}")
+        n = n_params(params)
+        if n != expected_params(cfg):
+            raise AssertionError(f"{cfg.name}: {n} parameters, expected "
+                                 f"{expected_params(cfg)}")
         state = adamw.init(params)
         del params
         torch.cuda.synchronize()
-        info = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+        info = {"arch": cfg.name, "params": n, "layers": cfg.n_layers,
                 "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
                 "hd": cfg.hd, "window": cfg.sliding_window,
-                "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "causal": cfg.causal, "remat": cfg.remat,
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
                 "init_s": time.perf_counter() - t0,
                 "state_gb": torch.cuda.memory_allocated() / 1e9}
         ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
@@ -4359,9 +4445,9 @@ class Smoke:
                 seen["qkv"] = (q.detach(), k.detach(), v.detach(), kw)
             return real(q, k, v, **kw)
 
-        L, steps, total = cfg.n_layers, [], {}
-        for i in range(TRAIN_STEPS):
-            profiled = i == TRAIN_STEPS - 1
+        L, n_steps, steps, total = attention_calls(cfg), steps, [], {}
+        for i in range(n_steps):
+            profiled = i == n_steps - 1
             K.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             layers.flash_attention_train = spy if i == 0 else real
@@ -4404,17 +4490,17 @@ class Smoke:
                            idle_share_of="the median unprofiled step",
                            top_device_ms=top_ms(times, 8))
             steps.append(row)
-        self.launches["train"] = total
+        self.launches[label] = total
+        trace = [(r["loss"], r["grad_norm"]) for r in steps]
         if not all(math.isfinite(r["grad_norm"]) and math.isfinite(r["loss"])
                    for r in steps):
-            raise AssertionError(f"train: a loss or grad norm is not finite: "
-                                 f"{[(r['loss'], r['grad_norm']) for r in steps]}")
-        if not steps[4]["loss"] < steps[0]["loss"]:
-            raise AssertionError(f"train: the loss of step 4 is not below "
-                                 f"step 0's on batch 0: "
-                                 f"{[(r['loss'], r['grad_norm']) for r in steps]}")
+            raise AssertionError(f"{cfg.name}: a loss or grad norm is not "
+                                 f"finite: {trace}")
+        if falls and not steps[4]["loss"] < steps[0]["loss"]:
+            raise AssertionError(f"{cfg.name}: the loss of step 4 is not "
+                                 f"below step 0's on batch 0: {trace}")
         steady = steps[1:-1]
-        info.update(steps=steps, loss_falls=True,
+        info.update(steps=steps, loss_falls=falls,
                     step_s_median=statistics.median(r["wall_s"]
                                                     for r in steady),
                     tokens_per_s_median=statistics.median(
@@ -4442,15 +4528,13 @@ class Smoke:
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(3)
         params = models.init_params(cfg, gen, device=self.dev)
-        n_params = (sum(v.numel() for k, v in params.items() if k != "layers")
-                    + sum(v.numel() for v in params["layers"].values()))
-        # the config's analytic count leaves out dt_bias (nh a layer)
-        if n_params != cfg.param_count() + cfg.n_layers * cfg.ssm_nheads:
-            raise AssertionError(f"mamba2: {n_params} parameters")
+        n = n_params(params)
+        if n != expected_params(cfg):
+            raise AssertionError(f"mamba2: {n} parameters")
         state = adamw.init(params)
         del params
         torch.cuda.synchronize()
-        info = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+        info = {"arch": cfg.name, "params": n, "layers": cfg.n_layers,
                 "d_model": cfg.d_model, "state": cfg.ssm_state,
                 "batch": SSM_BATCH, "seq": SSM_SEQ,
                 "init_s": time.perf_counter() - t0}
@@ -4546,10 +4630,11 @@ class Smoke:
         Returns its line and (q, k, v, kw, out, lse, dout) at that layer
         for the rows of phase 7."""
         info = {"phase": "train", "kernels": self.compare_flash_bwd(K)}
-        info["danube"], (q, k, v, kw) = self.train_danube(K, configs, models)
+        info["danube"], qkv = self.train_lm(
+            K, models, configs.get_config(TRAIN_ARCH), 2, TRAIN_STEPS,
+            "train")
         self.torch.cuda.empty_cache()
-        kw = {key: kw[key] for key in ("causal", "window", "softcap_val")}
-        out, lse, dout = self.bwd_case(K, q, k, v, 60, **kw)
+        q, k, v, kw, out, lse, dout = self.bwd_inputs(K, qkv, 60)
         self.bwd_split = info["danube"]["bwd_split"]
         info["kernels"]["danube_layer0"] = {
             "q": list(q.shape), "kv_heads": k.shape[1], **kw,
@@ -4558,6 +4643,298 @@ class Smoke:
         info["mamba2"] = self.train_mamba(K, configs, models)
         self.torch.cuda.empty_cache()
         return info, (q, k, v, kw, out, lse, dout)
+
+    # -- phase zoo: the hybrid, vlm and audio families at full width ---------
+
+    def zoo_flash(self, K):
+        """(a) B7 against its plain version on ``ZOO_FLASH_CASES`` (hd 112
+        causal, with a window, softcap and rep 4, S off the tiles; hd 80
+        and 112 without a mask), each in bfloat16 (the wgmma kernel) and
+        float32 (the scalar kernel), within ``FLASH_TOL``."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        used = {}
+        for i, (b, h, kv, s, hd, causal, win, cap) in enumerate(
+                ZOO_FLASH_CASES):
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device=self.dev)
+                g.manual_seed(70 + i)
+                q, k, v = ((torch.randn(shape, generator=g, device=self.dev)
+                            * 0.5).to(dtype)
+                           for shape in ((b, h, s, hd), (b, kv, s, hd),
+                                         (b, kv, s, hd)))
+                kw = dict(causal=causal, window=win, softcap_val=cap)
+                bq, bk = K.flash_attn.kernel_tiles(dtype, hd)
+                bq = bq if s % bq == 0 else s      # rows are independent
+                want = K.flash_attention_plain(q, k, v, bq=bq, bk=bk, **kw)
+                got = K.flash_attention(q, k, v, **kw)
+                _, elem, frob = self.bound_shares(got, want)
+                key = str(dtype).split(".")[-1]
+                u = used.setdefault(key, {"element": 0.0, "frobenius": 0.0})
+                u["element"] = max(u["element"], elem)
+                u["frobenius"] = max(u["frobenius"], frob)
+                self.close("flash_attention", got, want)
+                del q, k, v, want, got
+        torch.cuda.synchronize()
+        return {"cases": [dict(zip(("batch", "heads", "kv_heads", "seq",
+                                    "hd", "causal", "window", "softcap"), c))
+                          for c in ZOO_FLASH_CASES],
+                "dtypes": ["bfloat16", "float32"], "tolerance": FLASH_TOL,
+                "bound_used": used, "seconds": time.perf_counter() - t0}
+
+    def zoo_params(self, models, cfg, seed):
+        """``cfg``'s bfloat16 parameters from a torch.Generator on the card
+        seeded ``seed``, counted against the config."""
+        gen = self.torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        params = models.init_params(cfg, gen, device=self.dev)
+        if n_params(params) != expected_params(cfg):
+            raise AssertionError(f"{cfg.name}: {n_params(params)} "
+                                 f"parameters, expected "
+                                 f"{expected_params(cfg)}")
+        return params
+
+    def zoo_prefill(self, K, label, run, calls, tokens):
+        """``run()`` (a prefill's or an encode's logits, no gradient) once
+        to warm up, once timed with the launch counters from 0 (kept under
+        ``label``), once under the profiler: B7 must launch ``calls``
+        times and the logits be finite; the kernel is held against its
+        plain version on the first call's q, k and v (the model's strided
+        views), which are returned with its options."""
+        torch = self.torch
+        from repro_torch.models import layers
+        seen, real = [], layers.flash_attention
+
+        def spy(q, k, v, **kw):
+            if not seen:
+                seen.append((q, k, v, kw))
+            return real(q, k, v, **kw)
+
+        with torch.no_grad():
+            run()
+            torch.cuda.synchronize()
+            layers.flash_attention = spy
+            try:
+                K.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                logits = run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            finally:
+                layers.flash_attention = real
+            self.launches[label] = launches
+            if launches.get("flash_attention", 0) != calls:
+                raise AssertionError(f"{label}: launches {launches}, "
+                                     f"expected {calls} flash_attention")
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{label}: logits not finite")
+            line = {"batch": logits.shape[0], "run_s": run_s,
+                    "tokens_per_s": tokens / run_s, "launches": launches,
+                    "logits_finite": True,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del logits
+            q, k, v, kw = seen[0]
+            self.flash_case(K, q, k, v, **kw)
+            t0 = time.perf_counter()
+            with self.profile() as prof:
+                run()
+                torch.cuda.synchronize()
+        times = device_times(prof)
+        busy = sum(times.values()) / 1e6
+        line.update(kernel_held_on={"q": list(q.shape), **kw},
+                    device_busy_s=busy, idle_share=1 - busy / run_s,
+                    profile_s=time.perf_counter() - t0,
+                    top_device_ms=top_ms(times, 6))
+        return line, seen[0]
+
+    def zoo_serve(self, K, serving, models, cfg, params, label):
+        """``serve_checked`` on the first ``ZOO_SERVE_LAYERS`` layers of
+        the full-width model (views into its stacked weights).  No image
+        tokens: the engine decodes as the reference's does."""
+        n = ZOO_SERVE_LAYERS[cfg.name]
+        sliced = dict(params, layers={k: v[:n] for k, v in
+                                      params["layers"].items()})
+        _, line = self.serve_checked(K, serving, models,
+                                     dataclasses.replace(cfg, n_layers=n),
+                                     sliced, label)
+        return dict(line, layers=n, of=cfg.n_layers)
+
+    def zoo_decode(self, models, cfg, params, toks, img=None):
+        """Float32 parameters: ``decode_step`` from an empty float32 cache,
+        the tokens one at a time, each step's logits against ``forward``
+        over the same tokens at that position within ``DECODE_TOL``."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = models.forward(params, toks, cfg, img=img)
+            cache = models.init_decode_cache(cfg, toks.shape[0],
+                                             toks.shape[1], torch.float32,
+                                             device=self.dev)
+            got = []
+            for t in range(toks.shape[1]):
+                lg, cache = models.decode_step(params, cache,
+                                               toks[:, t:t + 1], t, cfg,
+                                               img=img)
+                got.append(lg)
+            got = torch.cat(got, dim=1)
+        torch.cuda.synchronize()
+        bound = DECODE_TOL["atol"] + DECODE_TOL["rtol"] * want.abs()
+        share = float(((got - want).abs() / bound).max())
+        if not (bool(torch.isfinite(got).all()) and share <= 1):
+            raise AssertionError(f"{cfg.name} decode: {share:.3g} of "
+                                 f"DECODE_TOL against forward")
+        return {"steps": toks.shape[1], "batch": toks.shape[0],
+                "dtype": "float32", "image_tokens": None if img is None
+                else img.shape[1],
+                "max_abs_err": float((got - want).abs().max()),
+                "bound_used": share, "tolerance": DECODE_TOL,
+                "seconds": time.perf_counter() - t0}
+
+    def zoo_lm(self, K, models, serving, cfg, seed, label, img=None):
+        """(b)/(c): ``cfg`` at full width and depth prefills ZOO_BATCH x
+        ZOO_SEQ tokens (with ``img`` for the vlm family), serves at a cut
+        depth, then, cast to float32 leaf by leaf, decodes ZOO_DECODE
+        tokens against its forward.  Returns its line and the first B7
+        call's inputs."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        params = self.zoo_params(models, cfg, seed)
+        torch.cuda.synchronize()
+        line = {"arch": cfg.name, "params": n_params(params),
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+                "attention_calls": attention_calls(cfg),
+                "init_s": time.perf_counter() - t0}
+        tokens = torch.as_tensor(self.np.random.default_rng(seed).integers(
+            0, cfg.vocab, (ZOO_BATCH, ZOO_SEQ)), device=self.dev)
+        line["prefill"], held = self.zoo_prefill(
+            K, label, lambda: models.prefill(params, tokens, cfg,
+                                             img=img)[0],
+            attention_calls(cfg), ZOO_BATCH * ZOO_SEQ)
+        line["serve"] = self.zoo_serve(K, serving, models, cfg, params,
+                                       label + "_serve")
+        to_float32_(torch, params)
+        line["decode"] = self.zoo_decode(
+            models, cfg, params, tokens[:, :ZOO_DECODE],
+            None if img is None else img.float())
+        del params
+        torch.cuda.empty_cache()
+        return line, held
+
+    def zoo_path(self, K, configs, models, serving):
+        """Phase zoo, (a)-(e) of ``ZOO_*``'s comment.  Returns its line
+        and the kernels' inputs at the families' shapes (for the rows of
+        phase 7): B7's first call in each prefill or encode, and each
+        training run's first call with B7's out and lse and a seeded
+        dout, the backward held against its plain version there."""
+        torch = self.torch
+        info = {"phase": "zoo", "flash": self.zoo_flash(K)}
+        seen = {}
+        cfg = configs.get_config(ZOO_HYBRID)
+        info["hybrid"], seen["hybrid"] = self.zoo_lm(K, models, serving, cfg,
+                                                     4, "zoo_hybrid")
+        cfg = configs.get_config(ZOO_VLM)
+        g = torch.Generator(device=self.dev)
+        g.manual_seed(5)
+        img = torch.randn((ZOO_BATCH, cfg.n_image_tokens, cfg.d_model),
+                          generator=g, device=self.dev).to(torch.bfloat16)
+        info["vlm"], seen["vlm"] = self.zoo_lm(K, models, serving, cfg, 5,
+                                               "zoo_vlm", img=img)
+        info["vlm"]["image_tokens"] = cfg.n_image_tokens
+        del img
+
+        # (d) hubert-xlarge: the encoder, then training
+        cfg = configs.get_config(ZOO_AUDIO)
+        t0 = time.perf_counter()
+        params = self.zoo_params(models, cfg, 6)
+        frames = torch.randn((ZOO_BATCH, ZOO_SEQ, cfg.d_model), generator=g,
+                             device=self.dev)
+        line = {"arch": cfg.name, "params": n_params(params),
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+                "causal": cfg.causal, "init_s": time.perf_counter() - t0}
+        line["encode"], seen["audio"] = self.zoo_prefill(
+            K, "zoo_audio", lambda: models.forward(params, None, cfg,
+                                                   frames=frames),
+            attention_calls(cfg), ZOO_BATCH * ZOO_SEQ)
+        line["encode"]["frames_per_s"] = line["encode"].pop("tokens_per_s")
+        del params, frames
+        torch.cuda.empty_cache()
+        line["train"], qkv = self.train_lm(K, models, cfg, 6,
+                                           ZOO_AUDIO_STEPS, "zoo_audio_train")
+        seen["audio_bwd"] = self.bwd_inputs(K, qkv, 61)
+        info["audio"] = line
+        torch.cuda.empty_cache()
+
+        # (e) zamba2-7b training at a cut depth
+        cfg = dataclasses.replace(configs.get_config(ZOO_HYBRID),
+                                  n_layers=ZOO_HYBRID_TRAIN_LAYERS)
+        info["hybrid_train"], qkv = self.train_lm(
+            K, models, cfg, 7, ZOO_HYBRID_TRAIN_STEPS, "zoo_hybrid_train",
+            falls=False)
+        info["hybrid_train"]["of_layers"] = configs.get_config(
+            ZOO_HYBRID).n_layers
+        seen["hybrid_bwd"] = self.bwd_inputs(K, qkv, 62)
+        torch.cuda.empty_cache()
+        return info, seen
+
+    def bwd_inputs(self, K, qkv, seed):
+        """B7 with its lse and the backward against their plain versions
+        (and the exact gradient) on a training run's first attention
+        inputs; returns them with out, lse and dout for phase 7."""
+        q, k, v, kw = qkv
+        kw = {key: kw[key] for key in ("causal", "window", "softcap_val")}
+        out, lse, dout = self.bwd_case(K, q, k, v, seed, **kw)
+        return q, k, v, kw, out, lse, dout
+
+
+def to_float32_(torch, tree) -> None:
+    """Every tensor of a nested dict to float32 in place, a leaf at a
+    time, each bfloat16 leaf given back to the card before the next (a
+    full-width model's two copies need not fit together)."""
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            to_float32_(torch, tree[key])
+        else:
+            tree[key] = tree[key].float()
+            torch.cuda.empty_cache()
+
+
+def n_params(params) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def expected_params(cfg) -> int:
+    """``cfg.param_count()`` plus what the parameter tree holds beyond
+    the analytic count: dt_bias (nh a Mamba2 layer), and a vlm's cross
+    weights and ``cln``, which the tree stacks on every layer (as the
+    reference's does) and the count keeps on the cross layers alone."""
+    n = cfg.param_count()
+    if cfg.family in ("ssm", "hybrid"):
+        n += cfg.n_layers * cfg.ssm_nheads
+    if cfg.family == "vlm":
+        d, hd = cfg.d_model, cfg.hd
+        cross = 2 * (d * cfg.n_heads * hd + d * cfg.n_kv_heads * hd) + d
+        n += (cfg.n_layers - cfg.n_layers // cfg.cross_attn_every) * cross
+    return n
+
+
+def attention_calls(cfg) -> int:
+    """The self-attention calls of one forward, each a B7 launch at a
+    prompt of 2,048 tokens or more: one a layer, none in the ssm family,
+    none on a vlm's cross layers (never the flash path), the hybrid's
+    shared block once every ``shared_attn_every`` layers."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return L // cfg.shared_attn_every
+    if cfg.family == "vlm":
+        return L - L // cfg.cross_attn_every
+    return L
 
 
 def ring_launches(label, info, compacts):
@@ -4664,9 +5041,15 @@ def main() -> int:
     regs = {name: [ln.split("info    : ")[-1] for ln in log.splitlines()
                    if "registers" in ln]
             for name, log in info["ptxas"].items()}
+    # kernels whose ptxas report names spill stores or loads
+    spills = {name: [ln.strip() for ln in log.splitlines()
+                     if "spill" in ln and "0 bytes spill stores, 0 bytes "
+                     "spill loads" not in ln]
+              for name, log in info["ptxas"].items()}
     emit_phase({"phase": "build", "nvcc": info["nvcc"],
                 "seconds": info["seconds"], "built": info["built"],
-                "ptxas": regs})
+                "ptxas": regs,
+                "spills": {k: v for k, v in spills.items() if v}})
 
     smoke = Smoke(torch, np)
     from repro_torch import runtime as rt
@@ -4784,12 +5167,18 @@ def main() -> int:
     train_info, seen_train = smoke.train_path(K, configs, models)
     emit_phase(train_info)
 
+    # zoo. zamba2-7b, llama-3.2-vision-11b and hubert-xlarge at full width:
+    # B7 at hd 112 and unmasked, prefills, decodes, serves and training
+    torch.cuda.empty_cache()
+    zoo_info, seen_zoo = smoke.zoo_path(K, configs, models, serving)
+    emit_phase(zoo_info)
+
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
                                  road_dist, seen_gemma, obs_info,
                                  mesh_info, pmesh_info, ray_info,
-                                 adm_info, seen_train)})
+                                 adm_info, seen_train, seen_zoo)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4803,7 +5192,7 @@ def main() -> int:
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                 road_dist, seen_gemma, obs_info, mesh_info, pmesh_info,
-                ray_info, adm_info, seen_train):
+                ray_info, adm_info, seen_train, seen_zoo):
     """Time each kernel, its plain version and one PyTorch library call
     where one computes the same function (torch.cumsum for the scans,
     scaled_dot_product_attention for flash attention) at its path's
@@ -5850,16 +6239,21 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     def flash_times(q, k, v, kw):
         b, h, s, hd = q.shape
         kvh = k.shape[1]
-        pairs = s * (s + 1) // 2          # causal (query, key) pairs
+        if kw["window"]:
+            raise AssertionError("flash_times: a window's pairs are "
+                                 "counted by its caller")
+        # the (query, key) pairs the mask keeps
+        pairs = s * (s + 1) // 2 if kw["causal"] else s * s
         return (smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
                     q, k, v, **kw), iters=20),
                 smoke.time_ms(lambda: None, lambda a, i:
                               K.flash_attention_plain(q, k, v, **kw),
                               iters=2, reps=2),
                 smoke.time_ms(lambda: None, lambda a, i: sdpa(
-                    q, k, v, is_causal=True, enable_gqa=True), iters=20),
+                    q, k, v, is_causal=kw["causal"], enable_gqa=True),
+                    iters=20),
                 # q and out (B, H, S, hd), k and v (B, KV, S, hd),
-                # bfloat16; two products of 2 * hd flop per causal
+                # bfloat16; two products of 2 * hd flop per kept
                 # (query, key) pair and head
                 2 * (2 * b * h * s * hd + 2 * b * kvh * s * hd),
                 4 * b * h * pairs * hd)
@@ -5913,6 +6307,24 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "window": win, "pairs": pairs10, "layer": 0,
          "library": "scaled_dot_product_attention with the band as a "
                     "boolean mask"})
+    # phase zoo's prefills and encode at their first call's inputs (the
+    # model's strided views): zamba2-7b's shared block (hd 112, causal),
+    # llama-3.2-vision-11b's self layers (hd 128, GQA 32/8, causal, B 2)
+    # and hubert-xlarge's encoder (hd 80, no mask).  Training runs B7 with
+    # the lse at the same shapes (zamba2 at 24 layers)
+    zoo = {}
+    for key, label, paths in (
+            ("hybrid", "hd112", ("zoo_hybrid", "zoo_hybrid_train")),
+            ("vlm", "vlm_hd128", ("zoo_vlm",)),
+            ("audio", "hd80_unmasked", ("zoo_audio", "zoo_audio_train"))):
+        qz, kz, vz, kwz = seen_zoo[key]
+        zoo[label] = sub(*flash_times(qz, kz, vz, kwz),
+                         {"q": list(qz.shape), "kv_heads": kz.shape[1],
+                          "causal": kwz["causal"],
+                          "launches": {p: smoke.launches[p].get(
+                              "flash_attention", 0) for p in paths}})
+    zoo_excess = sum(n * (x["ms"] - x["bound_ms"]) for x in zoo.values()
+                     for n in x["launches"].values())
     kern7, plain7, lib7, bytes7, ops7 = flash_times(q7, k7, v7, kw7)
     b7, h7, s7, hd7 = q7.shape
     # the lse write (training's forward) at serving's shape, in turns with
@@ -5942,7 +6354,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "tolerance": FLASH_TOL,
          "bound_used": smoke.bound_used["flash_attention"],
          "layout": "(B, S, H, hd) strided", "hd128": hd128,
-         "hd256_global": hd256, "hd256_local": hd256_local,
+         "hd256_global": hd256, "hd256_local": hd256_local, **zoo,
          "lse_write_ms": {k: statistics.mean(v) for k, v in lse_ms.items()},
          "lse_write_turns_ms": lse_ms,
          "train_hd80_with_lse": {"ms": train_fwd[0],
@@ -5959,51 +6371,74 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                 + sum(1 for w in smoke.gemma_windows if not w)
                 * (hd256["ms"] - hd256["bound_ms"])
                 + smoke.launches["train"].get("flash_attention", 0)
-                * (train_fwd[0] - b_tf)))
+                * (train_fwd[0] - b_tf) + zoo_excess))
 
     # the flash backward (csrc/flash_bwd.cu) at h2o-danube-1.8b's layer 0
     # of phase train: its q, k, v (the model's strided views), B7's out
     # and lse, a seeded dout.  Bound: q, k, v, out, dout and the lse read
     # once, dq, dk and dv written once; five products of 2 hd flop per
-    # causal (query, key) pair and head, at the bf16 tensor-core rate.
-    # Library: scaled_dot_product_attention's backward on the same inputs
-    # (danube's window equals S, so the mask is the causal one), timed
-    # here only.  The split among its D pass, dk/dv and dq kernels is the
-    # profiler's device time of each over danube's profiled step (24 calls
-    # at this shape): on the H100 a profile of ten calls at layer 0
-    # recorded 3-4 of each kernel's ten, and one here recorded none.
-    def sdpa_bwd():
-        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-        o = sdpa(*leaves, is_causal=True, enable_gqa=True)
-        return leaves, o
+    # (query, key) pair the mask keeps and head, at the bf16 tensor-core
+    # rate.  Library: scaled_dot_product_attention's backward on the same
+    # inputs with the same mask (danube's window equals S, so its mask is
+    # the causal one), timed here only.  The same at phase zoo's training
+    # shapes: zamba2-7b's shared block (hd 112, causal) under ``hd112``,
+    # hubert-xlarge's encoder (hd 80, no mask) under ``hd80_unmasked``.
+    # The split among its D pass, dk/dv and dq kernels is the profiler's
+    # device time of each over danube's profiled step (24 calls at this
+    # shape): on the H100 a profile of ten calls at layer 0 recorded 3-4
+    # of each kernel's ten, and one here recorded none.
+    def bwd_times(q, k, v, kw, out, lse, dout):
+        b, h, s, hd = q.shape
+        kvh = k.shape[1]
+        if kw["window"] and kw["window"] < s:
+            raise AssertionError("bwd_times: a window's pairs are not "
+                                 "counted")
+        pairs = s * (s + 1) // 2 if kw["causal"] else s * s
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = sdpa(*leaves, is_causal=kw["causal"], enable_gqa=True)
+        return (smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd(
+                    q, k, v, out, dout, lse, **kw), iters=10),
+                smoke.time_ms(lambda: None, lambda a, i:
+                              K.flash_attention_bwd_plain(
+                                  q, k, v, out, dout, lse, **kw),
+                              iters=2, reps=2),
+                smoke.time_ms(lambda: None, lambda a, i: torch.autograd.grad(
+                    o, leaves, dout, retain_graph=True), iters=10),
+                2 * (3 * b * h * s * hd + 2 * b * kvh * s * hd)
+                + 4 * b * h * s + 2 * (b * h * s * hd + 2 * b * kvh * s * hd),
+                5 * 2 * hd * pairs * b * h)
 
-    lib_leaves, lib_out = sdpa_bwd()
     bwd_kw = dict(causal=kwt["causal"], window=kwt["window"],
                   softcap_val=kwt["softcap_val"])
-    bytes_b = (2 * (3 * bt * ht * st * hdt + 2 * bt * kvt * st * hdt)
-               + 4 * bt * ht * st + 2 * (bt * ht * st * hdt
-                                         + 2 * bt * kvt * st * hdt))
-    ops_b = 5 * 2 * hdt * pairs_t * bt * ht
-    parts = smoke.bwd_split
+    kern_b, plain_b, lib_b, bytes_b, ops_b = bwd_times(
+        qt, kt, vt, bwd_kw, out_t, lse_t, dout_t)
+    zoo_bwd = {}
+    for key, label, path in (("hybrid_bwd", "hd112", "zoo_hybrid_train"),
+                             ("audio_bwd", "hd80_unmasked",
+                              "zoo_audio_train")):
+        qz, kz, vz, kwz, oz, lz, dz = seen_zoo[key]
+        zoo_bwd[label] = sub(*bwd_times(qz, kz, vz, kwz, oz, lz, dz),
+                             {"q": list(qz.shape), "kv_heads": kz.shape[1],
+                              "causal": kwz["causal"],
+                              "launches": {path: smoke.launches[path].get(
+                                  "flash_attention_bwd", 0)}})
     row("flash_attention_bwd", csrc + "flash_bwd.cu",
         "src/repro/models/layers.py:250 (_flash_core_bwd, XLA; no Pallas "
-        "kernel)",
-        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd(
-            qt, kt, vt, out_t, dout_t, lse_t, **bwd_kw), iters=10),
-        smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd_plain(
-            qt, kt, vt, out_t, dout_t, lse_t, **bwd_kw), iters=2, reps=2),
-        smoke.time_ms(lambda: None, lambda a, i: torch.autograd.grad(
-            lib_out, lib_leaves, dout_t, retain_graph=True), iters=10),
-        bytes_b, ops_b,
+        "kernel)", kern_b, plain_b, lib_b, bytes_b, ops_b,
         {"q": [bt, ht, st, hdt], "kv_heads": kvt, "dtype": "bfloat16",
          **bwd_kw, "layout": "(B, S, H, hd) strided",
          "tolerance": FLASH_BWD_TOL,
          "bound_used": smoke.bound_used["flash_attention_bwd"],
          "exact_tolerance": FLASH_BWD_EXACT_TOL,
          "exact_bound_used": smoke.bound_used["flash_attention_bwd_exact"],
-         "launches_per_call": 3, "split": parts,
+         "launches_per_call": 3, "split": smoke.bwd_split, **zoo_bwd,
          "library": "scaled_dot_product_attention backward"},
-        rate=BF16_TC_FLOP_PER_S)
+        rate=BF16_TC_FLOP_PER_S,
+        # danube's launches at its shape, the zoo's at theirs
+        excess=(smoke.launches["train"].get("flash_attention_bwd", 0)
+                * (kern_b[0] - bound(bytes_b, ops_b, BF16_TC_FLOP_PER_S)[0])
+                + sum(n * (x["ms"] - x["bound_ms"]) for x in zoo_bwd.values()
+                      for n in x["launches"].values())))
 
     # device_loop: the conditional WHILE node's own cost a round, on a
     # body of one kernel (occupancy - 1) and its round count: a chunk of

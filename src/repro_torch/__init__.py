@@ -13,8 +13,9 @@ trace and span planes (``obs``), their kernels and the BFS frontier
 kernel (``kernels``), round-engine, queue-driven and mesh BFS
 (``apps.bfs``), the FIFO mesh (``core.distqueue``, ``distributed``,
 ``runtime.meshrounds``: the replicated and the sharded ring, the shard
-axis a tensor dimension on one card), and serving over the dense and
-MoE model families (``serving``, ``models``, ``configs``).
+axis a tensor dimension on one card), serving over the model zoo
+(``serving``, ``models``, ``configs``: all ten configurations, six
+families), and training (``launch.train``, ``optim``, ``checkpoint``).
 """
 
 __version__ = "0.1.0"

@@ -20,14 +20,13 @@
 // grid dimension of 512 x 512 tiles.  Here one CTA owns 64 query rows
 // and loops over key tiles of 32 staged in dynamic shared memory, keeping
 // m, l and acc in registers (scalar FMAs).  At hd 32 and 64 a row is one
-// thread; at hd 80, 128 and 256 a row is four neighbouring lanes, each
-// holding a quarter of q and acc (20, 32 or 64 floats), which sum their
-// partial dot products with two shuffles.  Key
-// tiles wholly above the causal diagonal or wholly before the window of
-// every row of the CTA are skipped when Sq <= Sk (then every row keeps
-// its own position, so it has a valid key): the Pallas kernel's
-// contribution from such a tile is exactly zero once corr = exp(-1e30 -
-// m) underflows.
+// thread; at hd 80, 112, 128 and 256 a row is four neighbouring lanes,
+// each holding a quarter of q and acc (20, 28, 32 or 64 floats), which sum
+// their partial dot products with two shuffles.  Key tiles wholly above
+// the causal diagonal or wholly before the window of every row of the CTA
+// are skipped when Sq <= Sk (then every row keeps its own position, so it
+// has a valid key): the Pallas kernel's contribution from such a tile is
+// exactly zero once corr = exp(-1e30 - m) underflows.
 //
 // Bound: operations, at 67 TFLOP/s of float32 outside the tensor cores.
 // It serves tests only and is not timed.
@@ -184,8 +183,8 @@ cudaError_t launch(const FlashParams& p, int batch, cudaStream_t s) {
 // q, k, v, o: device pointers.  dims: {B, H, KV, Sq, Sk, hd, causal,
 // window, bf16}; strides: {q, k, v, o} x {batch, head, position}, in
 // elements (unit stride along hd).  float32 only: bf16 must be 0 (bfloat16
-// goes to flash_wgmma.cu).  hd is 32, 64, 80, 128 or 256.  scale is the reference's
-// 1 / sqrt(hd) rounded to float32.  Returns cudaGetLastError() after the
+// goes to flash_wgmma.cu).  hd is 32, 64, 80, 112, 128 or 256.  scale is
+// the reference's 1 / sqrt(hd) rounded to float32.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
@@ -224,6 +223,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 32: return static_cast<int>(launch<32>(p, batch, s));
     case 64: return static_cast<int>(launch<64>(p, batch, s));
     case 80: return static_cast<int>(launch<80>(p, batch, s));
+    case 112: return static_cast<int>(launch<112>(p, batch, s));
     case 128: return static_cast<int>(launch<128>(p, batch, s));
     case 256: return static_cast<int>(launch<256>(p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a), bfloat16, hd 32, 64, 80
-// and 128: dq, dk and dv of csrc/flash_wgmma.cu's forward from the row
+// Flash attention backward for Hopper (sm_90a), bfloat16, hd 32, 64, 80,
+// 112 and 128: dq, dk and dv of csrc/flash_wgmma.cu's forward from the row
 // log-sum-exp it saved, recomputing each logits tile.
 //
 // Replaces no Pallas kernel: it is the counterpart of the reference's XLA
@@ -17,7 +17,8 @@
 // 2. dkdv: a CTA of 4 warps per (batch, kv head, 64-key block); warp w
 //    owns keys 16 w .. 16 w + 15.  K and V stay in shared memory; the CTA
 //    walks the kv head's `rep` query heads and, for each, the query blocks
-//    the mask lets reach its keys (BQ rows: 64, 32 at hd 128), and
+//    the mask lets reach its keys (BQ rows: 64, 32 at hd 112 and 128;
+//    all of them without a causal mask or window), and
 //    recomputes for each:
 //      s = softcap(q . k * scale), masked with -1e30;  p = exp(s - lse);
 //      dv += p^T dout;  dp = dout v^T;
@@ -32,7 +33,10 @@
 // product runs along a tile's rows); p and ds are rounded to bfloat16 as
 // the A operands of their products, as the reference casts ds before its
 // dq and dk products.  Tiles sit in shared memory in rows of hd + 8
-// elements, so the eight rows an ldmatrix reads fall in distinct banks.
+// elements (120 at hd 112: 60 words, so eight rows start 28 words apart
+// modulo 32), so the eight rows an ldmatrix reads fall in distinct banks.
+// hd 112 is seven 16-column chunks for the products along hd (S, dp) and
+// seven pairs of 8-column n-tiles for dk, dv and dq.
 // Query (key) blocks wholly masked for a key (query) block are skipped:
 // their p is exactly 0.  Under a causal mask the heaviest CTAs launch
 // first.
@@ -532,7 +536,8 @@ cudaError_t launch(const BwdParams& p, cudaStream_t s) {
 // bfloat16 outputs.  dims: {B, H, KV, Sq, Sk, hd, causal, window};
 // strides: {q, k, v, o, dout, dq, dk, dv} x {batch, head, position} in
 // elements, each a multiple of 8 (unit stride along hd).  hd is 32, 64,
-// 80 or 128 and Sq == Sk.  Three launches: the D pass, dk/dv, dq.
+// 80, 112 or 128 and Sq == Sk; causal is 0 or 1.  Three launches: the D
+// pass, dk/dv, dq.
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // when the arguments are refused.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
@@ -575,6 +580,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
     case 32: return launch<32>(p, s);
     case 64: return launch<64>(p, s);
     case 80: return launch<80>(p, s);
+    case 112: return launch<112>(p, s);
     case 128: return launch<128>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

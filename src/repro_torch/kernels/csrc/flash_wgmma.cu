@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a), bfloat16, hd 32, 64, 80,
-// 128 and 256: wgmma for both products, K/V brought in by TMA into an
+// 112, 128 and 256: wgmma for both products, K/V brought in by TMA into an
 // mbarrier-tracked ring in shared memory, warp-specialised.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attn.py:_flash_kernel
@@ -19,7 +19,7 @@
 // one float a row from the first lane of each quad.
 //
 // CTA: one per SM.  Three consumer warpgroups of 64 query rows each at
-// hd <= 64 (192 rows a CTA), two at hd 80, 128 and 256 (128 rows), and a
+// hd <= 64 (192 rows a CTA), two at hd 80, 112, 128 and 256 (128 rows), and a
 // producer warpgroup, which hands its registers to the consumers
 // (setmaxnreg) and whose first thread issues every TMA load.  Q is loaded
 // once.  K and V tiles of 128 keys sit in a ring of 3 stages
@@ -32,9 +32,9 @@
 // boxes of a tile's rows swizzled at their row width (Layout below): 64
 // columns with the 128-byte swizzle at hd 64, 128 and 256, 32 columns with the
 // 64-byte swizzle at hd 32, 16 columns with the 32-byte swizzle at hd 80
-// (160-byte rows).  The tensor maps are encoded on the host with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
-// -lcuda).
+// and 112 (160- and 224-byte rows: five and seven boxes).  The tensor maps
+// are encoded on the host with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no -lcuda).
 //
 // S = Q K^T: wgmma m64n128k16 (m64n64k16 at hd 256), Q and K both
 // K-major from shared memory
@@ -57,8 +57,12 @@
 // Measured there (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700.00
 // W): 260.87 us, against 257.91 us for PyTorch's
 // scaled_dot_product_attention; at hd 128 (q (1, 32, 4096, 128), kv 8,
-// causal) 267.98 us against 248.67 us and a 139.00 us bound.  The
-// mma.sync kernel this replaces took 1,657.31 us at the prefill shape.
+// causal) 267.98 us against 248.67 us and a 139.00 us bound; at hd 112
+// (zamba2-7b's shared block: q (2, 32, 4096, 112), kv 32, causal) 636.37 us
+// against 466.53 us and a 243.25 us bound; unmasked at hd 80
+// (hubert-xlarge: q (2, 16, 4096, 80), kv 16) 408.24 us against 416.28 us
+// and a 173.71 us bound.  The mma.sync kernel this replaces took 1,657.31
+// us at the prefill shape.
 // What this design leaves between it and the bound: every CTA reads its
 // K and V tiles from L2 on its own, and at two or three warpgroups a
 // CTA those reads set the pace of the products (sharing them through TMA
@@ -89,7 +93,7 @@ constexpr float kMasked = -1e30f;
 // producer warpgroup.  Three consumers at hd <= 64, where a K/V tile is
 // cheap to compute on and the reads of K and V from L2 set the pace (the
 // more rows share a tile, the fewer bytes a product needs); two at hd 80,
-// 128 and 256, whose accumulators leave no registers for a third.  The
+// 112, 128 and 256, whose accumulators leave no registers for a third.  The
 // producer gives its registers to the consumers (setmaxnreg).
 //
 // Key tiles are kBN = 128 keys, but 64 at hd 256: there a consumer holds
@@ -102,8 +106,10 @@ constexpr float kMasked = -1e30f;
 // A tile of rows (kBM query rows, or kBN keys) by hd columns is kBoxes
 // TMA boxes side by side, each kBoxCols columns wide and swizzled at its
 // row width: hd 64, 128 and 256 in boxes of 64 columns (128-byte rows,
-// the 128-byte swizzle), hd 32 in one box of 32 (64 bytes), hd 80 in five
-// boxes of 16 (32 bytes).  The swizzle repeats every 8 rows.
+// the 128-byte swizzle), hd 32 in one box of 32 (64 bytes), hd 80 and 112
+// in five and seven boxes of 16 (32 bytes).  The swizzle repeats every 8
+// rows.  At hd 112 a stage is 2 x 7 boxes of 4 KB: 1 KB + Q's 28 KB + 3 x
+// 56 KB = 197 KB of the 227 KB.
 template <int HD>
 struct Layout {
   static constexpr int kWGs = HD <= 64 ? 3 : 2;
@@ -330,6 +336,31 @@ __device__ __forceinline__ void wgmma_rs_m64n80(
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n112(
+    float (&d)[56], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
 }
@@ -596,6 +627,8 @@ __global__ void __launch_bounds__(Layout<HD>::kThreads, 1)
           wgmma_rs_m64n64(o, pa[kk], dv, 1);
         else if constexpr (HD == 80)
           wgmma_rs_m64n80(o, pa[kk], dv, 1);
+        else if constexpr (HD == 112)
+          wgmma_rs_m64n112(o, pa[kk], dv, 1);
         else if constexpr (HD == 128)
           wgmma_rs_m64n128(o, pa[kk], dv, 1);
         else
@@ -788,8 +821,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // statistic the backward (csrc/flash_bwd.cu) recomputes P from.  dims: {B, H,
 // KV, Sq, Sk, hd, causal, window, bf16}; strides: {q, k, v, o} x {batch,
 // head, position} in elements, each a multiple of 8 (unit stride along
-// hd).  hd is 32, 64, 80, 128 or 256 and bf16 must be nonzero.  scale is the
-// reference's 1 / sqrt(hd) rounded to float32.  Returns
+// hd).  hd is 32, 64, 80, 112, 128 or 256 and bf16 must be nonzero.
+// scale is the reference's 1 / sqrt(hd) rounded to float32.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
 // arguments or a tensor map are refused.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
@@ -822,6 +855,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, strides, p, kv_heads, batch, s);
     case 64: return launch<64>(q, k, v, strides, p, kv_heads, batch, s);
     case 80: return launch<80>(q, k, v, strides, p, kv_heads, batch, s);
+    case 112: return launch<112>(q, k, v, strides, p, kv_heads, batch, s);
     case 128: return launch<128>(q, k, v, strides, p, kv_heads, batch, s);
     case 256: return launch<256>(q, k, v, strides, p, kv_heads, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

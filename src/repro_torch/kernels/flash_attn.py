@@ -14,8 +14,9 @@ is floored at 1e-30.
   The kernel is chosen by dtype: bfloat16 runs ``csrc/flash_wgmma.cu``
   (wgmma for both products, K/V by TMA into an mbarrier ring, 128-key
   tiles, 64-key tiles at hd 256); float32 (the reference's float32 tests)
-  runs ``csrc/flash_attn.cu`` (scalar FMAs).  Both take hd 32, 64, 80, 128
-  and 256 (``HEAD_DIMS``): every head width of a ported config.  The kernels
+  runs ``csrc/flash_attn.cu`` (scalar FMAs).  Both take hd 32, 64, 80,
+  112, 128 and 256 (``HEAD_DIMS``): every head width of the configs,
+  with a causal mask or none (hubert-xlarge is an encoder).  The kernels
   read every tensor through its strides (unit stride along hd), so the
   model's (B, S, H, hd) activations pass as transposed views without a
   copy, and the output takes q's layout.
@@ -39,8 +40,8 @@ The backward, the counterpart of the reference's XLA backward
   the lse.  A CPU tensor goes to ``flash_attention_bwd_plain``; a CUDA
   tensor launches ``csrc/flash_bwd.cu`` (the D pass, a dk/dv kernel a
   64-key block, a dq kernel a 64-query block; mma.sync, no atomics) or
-  raises.  bfloat16 only, hd 32, 64, 80 and 128 (``BWD_HEAD_DIMS``), Sq
-  == Sk.
+  raises.  bfloat16 only, hd 32, 64, 80, 112 and 128 (``BWD_HEAD_DIMS``),
+  Sq == Sk, causal or not.
 * ``flash_attention_bwd_plain`` — the reference's blocked recompute in
   PyTorch with its casts: float32 p and dv, dp from a product in the
   inputs' dtype, ds cast to the inputs' dtype before the dq and dk
@@ -63,18 +64,19 @@ from . import _build
 DEFAULT_BQ = 512
 DEFAULT_BK = 512
 #: head widths the kernels are built for, by dtype
-HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 128, 256),
-             torch.float32: (32, 64, 80, 128, 256)}
+HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 112, 128, 256),
+             torch.float32: (32, 64, 80, 112, 128, 256)}
 #: (query rows, keys) per block at which the plain version matches each
 #: kernel below hd 256: both rescale their running sums at the same keys.
 #: The wgmma kernel (bfloat16) walks 128-key tiles with CTAs of 192 query
-#: rows at hd <= 64 and 128 at hd 80 and 128; rows are independent, so the
-#: query block only has to divide Sq.  The scalar kernel (float32): 64 x
+#: rows at hd <= 64 and 128 at hd 80, 112 and 128; rows are independent,
+#: so the query block only has to divide Sq.  The scalar kernel (float32): 64 x
 #: 32 at every hd.
 KERNEL_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
 #: head widths the backward kernel is built for (bfloat16 only): every
-#: head width of a ported config that one card can train
-BWD_HEAD_DIMS = (32, 64, 80, 128)
+#: head width of the configs but gemma3-4b's 256 (ROADMAP Queue B, B7's
+#: backward at hd 256)
+BWD_HEAD_DIMS = (32, 64, 80, 112, 128)
 
 
 def kernel_tiles(dtype: torch.dtype, hd: int):
@@ -300,10 +302,13 @@ def _bwd_supported(name: str, q) -> None:
         raise ValueError(f"{name}: the backward kernel takes bfloat16; the "
                          f"float32 kernel (csrc/flash_attn.cu) is "
                          f"forward-only, got {q.dtype}")
+    if q.shape[-1] == 256:
+        raise ValueError(f"{name}: the backward kernel is not built for hd "
+                         f"256 (gemma3-4b's training waits for ROADMAP "
+                         f"Queue B: B7's backward at hd 256)")
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"{name}: the backward kernel is built for hd in "
-                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]} (hd 112 and "
-                         f"256 wait for ROADMAP A10b)")
+                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -380,8 +385,8 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
                           bk: int = DEFAULT_BK):
     """``flash_attention`` with a gradient: the kernels on the card (B7
     with its lse, then ``csrc/flash_bwd.cu``), the plain pair on the CPU.
-    A CUDA input the backward kernel does not take (float32, hd 112 or
-    256) raises here, before the forward runs."""
+    A CUDA input the backward kernel does not take (float32, hd 256)
+    raises here, before the forward runs."""
     _check(q, k, v)
     if q.device.type != "cpu":
         _bwd_supported("flash_attention_train", q)

@@ -5,6 +5,8 @@ checkpoints -> restart on failure — the PyTorch twin of
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mamba2-130m-smoke --device cpu --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch hubert-xlarge-smoke --device cpu --steps 5
 
 Like the reference it trains the reduced configuration of ``--arch``
 unless ``--full`` is given, on ``synth_batch``'s batches, from random
@@ -37,8 +39,16 @@ from ..tree import tree_leaves, tree_map
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A ``synth_batch`` (numpy arrays) as tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """A ``synth_batch`` (numpy arrays) as tensors on ``device``, the audio
+    family's ``frames`` and the vlm family's ``img`` in bfloat16, as the
+    reference's ``launch/steps.py: batch_struct`` declares them (its
+    forward casts the frames itself and takes ``img`` in the
+    activations' type)."""
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    for k in ("frames", "img"):
+        if k in out:
+            out[k] = out[k].to(torch.bfloat16)
+    return out
 
 
 def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
@@ -46,12 +56,15 @@ def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
                batch: Dict[str, torch.Tensor]) -> Tuple[adamw.OptState, Dict]:
     """One step: the loss and its gradient at ``cast_params(master)``, then
     ``adamw.step``.  Returns (state, {"loss", "grad_norm", "lr"}), each a
-    0-dim tensor on the state's device (nothing is read back)."""
+    0-dim tensor on the state's device (nothing is read back).  A leaf
+    the loss does not read (the audio family's ``embed``) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     params = tree_map(lambda p: p.detach().requires_grad_(),
                       adamw.cast_params(state.master))
     loss = loss_fn(params, batch, cfg)
     leaves = tree_leaves(params)
-    grads = iter(torch.autograd.grad(loss, leaves))
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True))
     state, metrics = adamw.step(ocfg, state,
                                 tree_map(lambda p: next(grads), params))
     metrics["loss"] = loss.detach()

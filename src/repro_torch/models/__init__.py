@@ -1,6 +1,7 @@
 """Model zoo of the port: one functional transformer for the ``dense``,
-``moe`` and ``ssm`` families (the reference's public names; the mesh's
-``param_specs`` has no meaning on one card)."""
+``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio`` families (the
+reference's public names; the mesh's ``param_specs`` has no meaning on
+one card)."""
 from .transformer import (decode_step, forward, init_decode_cache,
                           init_params, layer_flags, loss_fn, prefill)
 

@@ -3,14 +3,16 @@
 
 Params are plain dicts of tensors with the reference tree's keys and
 shapes.  One attention code path covers GQA, sliding windows (a plain int
-per layer: the layers run in a Python loop), logit soft-capping and
-bidirectional masks.  Long prompts (at least ``FLASH_MIN_SEQ`` keys, no
-cache) take the flash path, which launches the B7 kernel
-(``kernels/flash_attn.py``) on the card, and its flash backward when a
-gradient is needed; everything else takes the grouped dense path in
-plain PyTorch (differentiated by autograd), as the reference computes it
-outside any kernel.  Cross-attention (the vlm family) and the mesh sharding
-specs are not ported.
+per layer: the layers run in a Python loop), logit soft-capping,
+bidirectional masks and cross-attention (the vlm family's ``c``-prefixed
+weights over ``kv_override``: no rope, no mask).  Long prompts (at least
+``FLASH_MIN_SEQ`` keys, no cache, not a cross call) take the flash path,
+which launches the B7 kernel (``kernels/flash_attn.py``) on the card, and
+its flash backward when a gradient is needed; everything else takes the
+grouped dense path in plain PyTorch (differentiated by autograd), as the
+reference computes it outside any kernel.  The mesh sharding specs
+(``attn_specs``, ``_pin``, ``_q_block_spec``) have no meaning on one
+card and are not ported.
 
 Numerics follow the reference: ``rms_norm`` and ``rope`` compute in
 float32 and cast back, the dense path rounds the q . k product to the
@@ -92,13 +94,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def attn_params(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
+def attn_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
+                cross: bool = False) -> Params:
+    """q, k, v and output projections; ``cross`` names them ``cwq`` ...
+    ``cwo`` (a vlm layer's cross-attention)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pfx = "c" if cross else ""
     return {
-        "wq": _dense(gen, (d, h * hd), lead=lead),
-        "wk": _dense(gen, (d, kv * hd), lead=lead),
-        "wv": _dense(gen, (d, kv * hd), lead=lead),
-        "wo": _dense(gen, (h * hd, d), lead=lead),
+        f"{pfx}wq": _dense(gen, (d, h * hd), lead=lead),
+        f"{pfx}wk": _dense(gen, (d, kv * hd), lead=lead),
+        f"{pfx}wv": _dense(gen, (d, kv * hd), lead=lead),
+        f"{pfx}wo": _dense(gen, (h * hd, d), lead=lead),
     }
 
 
@@ -134,21 +140,28 @@ def _flash_attention(q, k, v, cfg: ArchConfig, window: int):
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-              positions: torch.Tensor, window: int,
-              cache: Optional[Tuple] = None):
-    """x: (B, S, d).  cache: (k, v, cur_len) for decode, k/v (B, Sc, kv,
-    hd) and ``cur_len`` an int.  Returns (out, new_cache).  Without a
-    cache, new_cache is this call's roped (k, v), each (B, S, kv, hd),
-    which a prefill keeps as its cache (the reference returns None and
-    its prefill computes them again)."""
+              positions: torch.Tensor, window: int, kv_override=None,
+              cache: Optional[Tuple] = None, cross: bool = False):
+    """x: (B, S, d).  kv_override: (B, Skv, d), the source of K and V in
+    place of x (the vlm family's image tokens).  cache: (k, v, cur_len)
+    for decode, k/v (B, Sc, kv, hd) and ``cur_len`` an int.  ``cross``
+    takes the ``c``-prefixed weights, no rope and no mask (a zero bias
+    over every key), and never the flash path.  Returns (out,
+    new_cache).  Without a cache, new_cache is this call's (k, v), each
+    (B, Skv, kv, hd), roped unless ``cross``, which a prefill keeps as
+    its cache (the reference returns None and its prefill computes them
+    again)."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window = int(window)
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    pfx = "c" if cross else ""
+    src = kv_override if kv_override is not None else x
+    q = (x @ p[f"{pfx}wq"]).reshape(b, s, h, hd)
+    k = (src @ p[f"{pfx}wk"]).reshape(b, src.shape[1], kv, hd)
+    v = (src @ p[f"{pfx}wv"]).reshape(b, src.shape[1], kv, hd)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
         ck, cv, cur = cache
         cur = int(cur)
@@ -170,13 +183,17 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         new_cache = (k, v)
         sk = k.shape[1]
-        if (sk >= FLASH_MIN_SEQ and s % min(FLASH_BLOCK_Q, s) == 0
+        if (not cross and sk >= FLASH_MIN_SEQ
+                and s % min(FLASH_BLOCK_Q, s) == 0
                 and sk % min(FLASH_BLOCK_K, sk) == 0):
             out = _flash_attention(q, k, v, cfg, window)
-            return out @ p["wo"], new_cache
-        bias = _mask_bias(positions, positions, window, cfg.causal)
-    # dense path (short sequences / decode) — grouped GQA einsums (no
-    # materialized kv repeat)
+            return out @ p[f"{pfx}wo"], new_cache
+        if cross:
+            bias = torch.zeros(s, sk, device=x.device)
+        else:
+            bias = _mask_bias(positions, positions, window, cfg.causal)
+    # dense path (short sequences / decode / cross) — grouped GQA einsums
+    # (no materialized kv repeat)
     rep = h // kv
     qg = q.reshape(b, s, kv, rep, hd)
     # a float32 query against a bfloat16 cache computes in float32, as
@@ -190,7 +207,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     dt = torch.promote_types(w.dtype, v.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w.to(dt),
                        v.to(dt)).reshape(b, s, h * hd)
-    return out @ p["wo"], new_cache
+    return out @ p[f"{pfx}wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,36 +1,48 @@
 """The LM: one functional transformer — the PyTorch twin of
-``repro/models/transformer.py`` for the ``dense``, ``moe`` and ``ssm``
-families.
+``repro/models/transformer.py`` for all six families.
 
 Dense covers GQA, sliding windows, alternating local/global layers and
 soft-capping; moe adds fine-grained routed experts and shared experts;
-ssm is Mamba2 (``models/ssm.py``: chunked SSD, O(1) decode state).  The
-``hybrid``, ``vlm`` and ``audio`` families raise ``NotImplementedError``
-(ROADMAP Queue A10b).
+ssm is Mamba2 (``models/ssm.py``: chunked SSD, O(1) decode state);
+hybrid is Mamba2 layers with one shared attention block (attention and
+MLP, one parameter set, ``params["shared_attn"]``) applied after every
+``shared_attn_every``-th layer; vlm is dense layers of which every
+``cross_attn_every``-th attends to the image tokens ``img`` (B, Sv, d)
+with its ``c``-prefixed weights instead of attending to itself; audio is
+a bidirectional encoder over pre-embedded ``frames`` (B, S, d), cast to
+bfloat16, in place of tokens.
 
 Execution paths:
 
 * ``forward`` / ``loss_fn`` — logits for every position, and the
   training loss over them.  With ``cfg.remat`` and autograd recording,
-  each layer is recomputed in the backward
-  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
-  ``nothing_saveable``): only the residual stream between layers is
-  kept.  Attention that needs a gradient takes the flash kernels with
-  their backward (``kernels.flash_attention_train``).
+  each layer (a hybrid layer with its shared block) is recomputed in the
+  backward (``torch.utils.checkpoint``, the reference's
+  ``jax.checkpoint`` with ``nothing_saveable``): only the residual
+  stream between layers is kept.  Attention that needs a gradient takes
+  the flash kernels with their backward
+  (``kernels.flash_attention_train``).
 * ``prefill`` — ``forward`` over the prompt that also returns every
-  layer's roped K and V, stacked (L, B, S, kv, hd), or for the ssm family
-  every layer's final conv and SSM states, and only the last position's
-  logits.
+  layer's roped K and V, stacked (L, B, S, kv, hd) (a vlm cross layer's
+  too: its ``ln1``-normed input through ``wk``/``wv``, as the reference
+  emits though the layer never attends to itself), or for the ssm and
+  hybrid families every layer's final conv and SSM states (the shared
+  block's K/V are not emitted, as in the reference), and only the last
+  position's logits.
 * ``decode_step`` — one token through per-layer ring caches sized to each
-  layer's attention window, or the SSM layers' O(1) states
-  (``init_decode_cache``).
+  layer's attention window, the SSM layers' O(1) states and the hybrid's
+  shared-block caches (``init_decode_cache``).  A vlm cross layer reads
+  ``img`` and leaves its cache entry as it is.
 
 The reference scans over the stacked layers; here a Python loop walks
-them, so each layer's window is a plain int.  Parameters keep the
-reference tree's keys and shapes (``layers`` stacked with a leading L),
-so ``interop.params_from_numpy`` copies the reference's parameters leaf
-by leaf.  Random parameters come from a ``torch.Generator`` on the
-target device: the same seed gives other numbers than ``jax.random``.
+them, so each layer's window and role (cross, shared) is a plain int.
+Parameters keep the reference tree's keys and shapes (``layers`` stacked
+with a leading L, a vlm layer's cross weights on every layer as the
+reference stacks them), so ``interop.params_from_numpy`` copies the
+reference's parameters leaf by leaf.  Random parameters come from a
+``torch.Generator`` on the target device: the same seed gives other
+numbers than ``jax.random``.  The mesh and FSDP specs (``param_specs``,
+``_seq_shard``) have no meaning on one card and are not ported.
 """
 
 from __future__ import annotations
@@ -50,16 +62,6 @@ from .ssm import ssm_forward, ssm_params
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
-
-
-def _require_family(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port has {PORTED_FAMILIES} (ROADMAP Queue A10b: hybrid, vlm "
-            f"and audio)")
-
 
 # ---------------------------------------------------------------------------
 # parameter construction
@@ -71,7 +73,6 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     """Random parameters in the reference's tree.  ``gen`` is a
     ``torch.Generator`` on ``device``; without one, a generator seeded
     with 0 is made there."""
-    _require_family(cfg)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev)
@@ -81,40 +82,53 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     d, lead = cfg.d_model, (cfg.n_layers,)
     zeros = dict(dtype=torch.bfloat16, device=dev)
     layers: Params = {"ln1": torch.zeros(cfg.n_layers, d, **zeros)}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         layers.update(ssm_params(gen, cfg, lead=lead))
-        return {"embed": _dense(gen, (cfg.vocab, d)),
-                "lm_head": _dense(gen, (d, cfg.vocab)),
-                "final_norm": torch.zeros(d, **zeros), "layers": layers}
-    layers.update(attn_params(gen, cfg, lead=lead))
-    layers["ln2"] = torch.zeros(cfg.n_layers, d, **zeros)
-    if cfg.family == "moe":
-        layers.update(moe_params(gen, cfg, lead=lead))
     else:
-        layers.update(mlp_params(gen, d, cfg.d_ff, lead=lead))
-    return {
+        layers.update(attn_params(gen, cfg, lead=lead))
+        layers["ln2"] = torch.zeros(cfg.n_layers, d, **zeros)
+        if cfg.family == "moe":
+            layers.update(moe_params(gen, cfg, lead=lead))
+        else:
+            layers.update(mlp_params(gen, d, cfg.d_ff, lead=lead))
+        if cfg.family == "vlm":
+            layers.update(attn_params(gen, cfg, lead=lead, cross=True))
+            layers["cln"] = torch.zeros(cfg.n_layers, d, **zeros)
+    params: Params = {
         "embed": _dense(gen, (cfg.vocab, d)),
         "lm_head": _dense(gen, (d, cfg.vocab)),
         "final_norm": torch.zeros(d, **zeros),
         "layers": layers,
     }
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        shared: Params = {"ln1": torch.zeros(d, **zeros),
+                          "ln2": torch.zeros(d, **zeros)}
+        shared.update(attn_params(gen, cfg))
+        shared.update(mlp_params(gen, d, cfg.d_ff))
+        params["shared_attn"] = shared
+    return params
+
+
+def _is_cross(cfg: ArchConfig, i: int) -> bool:
+    return bool(cfg.cross_attn_every and (i + 1) % cfg.cross_attn_every == 0)
+
+
+def _use_shared(cfg: ArchConfig, i: int) -> bool:
+    return bool(cfg.shared_attn_every
+                and (i + 1) % cfg.shared_attn_every == 0)
 
 
 def layer_flags(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     """Per-layer flags, as the reference's ``layer_flags``: each layer's
     attention window, and whether it is a cross-attention or
     shared-block layer (int32, on the CPU)."""
-    L = cfg.n_layers
-    window = [cfg.window_for_layer(i) for i in range(L)]
-    is_cross = [1 if (cfg.cross_attn_every
-                      and (i + 1) % cfg.cross_attn_every == 0) else 0
-                for i in range(L)]
-    use_shared = [1 if (cfg.shared_attn_every
-                        and (i + 1) % cfg.shared_attn_every == 0) else 0
-                  for i in range(L)]
-    return {k: torch.tensor(v, dtype=torch.int32) for k, v in
-            (("window", window), ("is_cross", is_cross),
-             ("use_shared", use_shared))}
+    L = range(cfg.n_layers)
+    return {"window": torch.tensor([cfg.window_for_layer(i) for i in L],
+                                   dtype=torch.int32),
+            "is_cross": torch.tensor([int(_is_cross(cfg, i)) for i in L],
+                                     dtype=torch.int32),
+            "use_shared": torch.tensor([int(_use_shared(cfg, i)) for i in L],
+                                       dtype=torch.int32)}
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -129,15 +143,55 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
     return params["embed"][tokens] * scale
 
 
+def _inputs(params: Params, cfg: ArchConfig, tokens, frames, img):
+    """The first layer's input: the audio family's ``frames`` cast to
+    bfloat16, as the reference casts them, else the tokens' embedding.
+    A vlm ``img`` must be in that input's dtype: the reference's layer
+    scan takes the cross branch and the self branch under one
+    ``lax.cond``, which refuses two output types."""
+    if cfg.audio_frontend:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the audio family takes frames "
+                             f"(B, S, d), not tokens")
+        x = frames.to(torch.bfloat16)
+    else:
+        x = _embed(params, tokens, cfg)
+    if img is not None and img.dtype != x.dtype:
+        raise ValueError(f"{cfg.name}: img is {img.dtype}, the activations "
+                         f"{x.dtype}; pass img in the activations' dtype")
+    return x
+
+
+def _shared_block(shared: Params, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, cache=None):
+    """The hybrid's shared block: full causal attention (window 0), then
+    its MLP, each with a residual.  Returns (x, the attention's new
+    cache or K/V)."""
+    a, kv = attention(shared, rms_norm(x, shared["ln1"]), cfg,
+                      positions=positions, window=0, cache=cache)
+    g = x + a
+    return g + mlp(shared, rms_norm(g, shared["ln2"])), kv
+
+
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor, window: int):
-    """One layer.  Returns (x, aux): an attention layer's roped (K, V),
-    an SSM layer's final (conv, ssm) states."""
-    if cfg.family == "ssm":
+           positions: torch.Tensor, i: int, *, img=None, shared=None):
+    """Layer i (a hybrid layer with its shared block where it has one).
+    Returns (x, aux): a self-attention layer's roped (K, V), None after
+    a vlm cross layer, an SSM layer's final (conv, ssm) states."""
+    if cfg.family in ("ssm", "hybrid"):
         out, st = ssm_forward(p, rms_norm(x, p["ln1"]), cfg)
-        return x + out, st
-    a, kv = attention(p, rms_norm(x, p["ln1"]), cfg, positions=positions,
-                      window=window)
+        x = x + out
+        if shared is not None and _use_shared(cfg, i):
+            x = _shared_block(shared, x, cfg, positions)[0]
+        return x, st
+    window = cfg.window_for_layer(i)
+    if cfg.family == "vlm" and _is_cross(cfg, i):
+        a, _ = attention(p, rms_norm(x, p["cln"]), cfg, positions=positions,
+                         window=window, kv_override=img, cross=True)
+        kv = None
+    else:
+        a, kv = attention(p, rms_norm(x, p["ln1"]), cfg,
+                          positions=positions, window=window)
     h = x + a
     inner = rms_norm(h, p["ln2"])
     if cfg.family == "moe":
@@ -155,20 +209,25 @@ def _head(params: Params, x: torch.Tensor, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
-    """tokens (B, S) int.  Returns float32 logits (B, S, V).  With
-    ``cfg.remat`` and autograd recording, each layer keeps only its input
-    for the backward and runs again there."""
-    _require_family(cfg)
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
+def forward(params: Params, tokens: Optional[torch.Tensor],
+            cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
+    """tokens (B, S) int — or, for the audio family, ``frames`` (B, S, d)
+    pre-embedded; ``img`` (B, Sv, d) the vlm family's image tokens (None:
+    a cross layer attends to its own input, as the reference's does).
+    Returns float32 logits (B, S, V).  With ``cfg.remat`` and autograd
+    recording, each layer keeps only its input for the backward and runs
+    again there."""
+    x = _inputs(params, cfg, tokens, frames, img)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    shared = params.get("shared_attn")
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp, window = _layer(params, i), cfg.window_for_layer(i)
+        lp = _layer(params, i)
 
-        def body(h, lp=lp, window=window):
-            return _block(lp, h, cfg, positions, window)[0]
+        def body(h, lp=lp, i=i):
+            return _block(lp, h, cfg, positions, i, img=img,
+                          shared=shared)[0]
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return _head(params, x, cfg)
 
@@ -177,9 +236,11 @@ def loss_fn(params: Params, batch: Dict[str, Any],
             cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels >= 0: logsumexp of
     the logits minus the label's logit, as the reference computes it (no
-    log-softmax materialised).  ``batch`` holds ``tokens`` and ``labels``
-    (B, S) integer tensors.  Returns a float32 0-dim tensor."""
-    logits = forward(params, batch["tokens"], cfg)
+    log-softmax materialised).  ``batch`` holds ``labels`` (B, S) and
+    ``tokens`` (B, S) or the audio family's ``frames`` (B, S, d), and
+    the vlm family's ``img``.  Returns a float32 0-dim tensor."""
+    logits = forward(params, batch.get("tokens"), cfg, img=batch.get("img"),
+                     frames=batch.get("frames"))
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
@@ -188,19 +249,24 @@ def loss_fn(params: Params, batch: Dict[str, Any],
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
+def prefill(params: Params, tokens: Optional[torch.Tensor],
+            cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
     """Forward over the prompt.  Returns (last-token logits (B, 1, V),
     {"k", "v"}: each layer's roped K and V, stacked (L, B, S, kv, hd)) —
-    for the ssm family {"conv" (L, B, d_conv - 1, d_conv_in), "ssm" (L,
-    B, nh, hd, state) float32}: each layer's final states."""
-    _require_family(cfg)
-    x = _embed(params, tokens, cfg)
-    b, s = tokens.shape
+    for the ssm and hybrid families {"conv" (L, B, d_conv - 1,
+    d_conv_in), "ssm" (L, B, nh, hd, state) float32}: each layer's final
+    states.  A vlm cross layer's K and V are its ``ln1``-normed input
+    through ``wk`` and ``wv``, roped, as the reference emits them."""
+    x = _inputs(params, cfg, tokens, frames, img)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    if cfg.family == "ssm":
+    shared = params.get("shared_attn")
+    if cfg.family in ("ssm", "hybrid"):
         convs, ssms = [], []
         for i in range(cfg.n_layers):
-            x, (conv, st) = _block(_layer(params, i), x, cfg, positions, 0)
+            x, (conv, st) = _block(_layer(params, i), x, cfg, positions, i,
+                                   shared=shared)
             convs.append(conv)
             ssms.append(st)
         return _head(params, x[:, -1:, :], cfg), {
@@ -210,9 +276,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
                      device=x.device)
     vs = torch.empty_like(ks)
     for i in range(cfg.n_layers):
-        x, (k, v) = _block(_layer(params, i), x, cfg, positions,
-                           cfg.window_for_layer(i))
-        ks[i], vs[i] = k, v
+        lp = _layer(params, i)
+        if cfg.family == "vlm" and _is_cross(cfg, i):
+            inner = rms_norm(x, lp["ln1"])
+            ks[i] = rope((inner @ lp["wk"]).reshape(b, s, kv, hd), positions,
+                         cfg.rope_theta)
+            vs[i] = (inner @ lp["wv"]).reshape(b, s, kv, hd)
+            x = _block(lp, x, cfg, positions, i, img=img)[0]
+        else:
+            x, (ks[i], vs[i]) = _block(lp, x, cfg, positions, i, img=img)
     return _head(params, x[:, -1:, :], cfg), {"k": ks, "v": vs}
 
 
@@ -220,19 +292,24 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, *, device="cuda") -> List:
     """Per-layer ring caches: local layers hold min(window, max_seq)
     positions, global layers max_seq; SSM layers their O(1) conv state
-    (in ``dtype``) and SSM state (float32)."""
-    _require_family(cfg)
+    (in ``dtype``) and SSM state (float32), and on a hybrid's shared-block
+    layers also K and V of max_seq positions for the shared block."""
     dev = resolve_device(device)
+    kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
     cache: List = []
-    if cfg.family == "ssm":
-        return [{"conv": torch.zeros(batch, cfg.ssm_conv - 1,
-                                     cfg.d_inner + 2 * cfg.ssm_state,
-                                     dtype=dtype, device=dev),
-                 "ssm": torch.zeros(batch, cfg.ssm_nheads, cfg.ssm_headdim,
-                                    cfg.ssm_state, dtype=torch.float32,
-                                    device=dev)}
-                for _ in range(cfg.n_layers)]
     for i in range(cfg.n_layers):
+        if cfg.family in ("ssm", "hybrid"):
+            entry = {"conv": torch.zeros(batch, cfg.ssm_conv - 1,
+                                         cfg.d_inner + 2 * cfg.ssm_state,
+                                         dtype=dtype, device=dev),
+                     "ssm": torch.zeros(batch, cfg.ssm_nheads,
+                                        cfg.ssm_headdim, cfg.ssm_state,
+                                        dtype=torch.float32, device=dev)}
+            if cfg.family == "hybrid" and _use_shared(cfg, i):
+                entry["k"] = torch.zeros(kv_shape, dtype=dtype, device=dev)
+                entry["v"] = torch.zeros(kv_shape, dtype=dtype, device=dev)
+            cache.append(entry)
+            continue
         w = cfg.window_for_layer(i)
         sc = min(w, max_seq) if w else max_seq
         shape = (batch, sc, cfg.n_kv_heads, cfg.hd)
@@ -242,31 +319,44 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def decode_step(params: Params, cache: List, token: torch.Tensor, cur: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, *, img: Optional[torch.Tensor] = None):
     """One decode step.  token (B, 1) int; cur the current length, an int
-    (all rows share it).  Returns (logits (B, 1, V), new_cache): the
-    attention caches are updated in place and returned, the SSM states
-    replaced by new ones."""
-    _require_family(cfg)
+    (all rows share it); ``img`` the vlm family's image tokens (None: a
+    cross layer attends to the token itself, as the reference's does).
+    Returns (logits (B, 1, V), new_cache): the attention caches are
+    updated in place and returned, the SSM states replaced by new ones,
+    a vlm cross layer's entry returned as it is."""
     cur = int(cur)
-    x = _embed(params, token, cfg)
+    x = _inputs(params, cfg, token, None, img)
     positions = torch.tensor([cur], dtype=torch.int32, device=x.device)
+    shared = params.get("shared_attn")
     new_cache: List = []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         c = cache[i]
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             out, st = ssm_forward(lp, rms_norm(x, lp["ln1"]), cfg,
                                   state=(c["conv"], c["ssm"]))
             x = x + out
-            new_cache.append({"conv": st[0], "ssm": st[1]})
+            nc = {"conv": st[0], "ssm": st[1]}
+            if "k" in c:                      # the hybrid's shared block
+                x, kvc = _shared_block(shared, x, cfg, positions,
+                                       cache=(c["k"], c["v"], cur))
+                nc["k"], nc["v"] = kvc[0], kvc[1]
+            new_cache.append(nc)
             continue
-        a, kvc = attention(lp, rms_norm(x, lp["ln1"]), cfg,
-                           positions=positions,
-                           window=cfg.window_for_layer(i),
-                           cache=(c["k"], c["v"], cur))
+        w = cfg.window_for_layer(i)
+        if cfg.family == "vlm" and _is_cross(cfg, i):
+            a, _ = attention(lp, rms_norm(x, lp["cln"]), cfg,
+                             positions=positions, window=w,
+                             kv_override=img, cross=True)
+            new_cache.append(c)
+        else:
+            a, kvc = attention(lp, rms_norm(x, lp["ln1"]), cfg,
+                               positions=positions, window=w,
+                               cache=(c["k"], c["v"], cur))
+            new_cache.append({"k": kvc[0], "v": kvc[1]})
         x = x + a
-        new_cache.append({"k": kvc[0], "v": kvc[1]})
         inner = rms_norm(x, lp["ln2"])
         if cfg.family == "moe":
             x = x + moe_forward(lp, inner, cfg)

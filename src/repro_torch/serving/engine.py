@@ -33,7 +33,10 @@ admission tick of that engine.
 Simplification (documented, as in the reference): all slots advance on one
 shared timeline (a single ``cur`` index) — a late-admitted slot's earlier
 cache positions hold zero K/V, which its queries may attend to.  Prefill
-feeds the prompt token by token through the decode step.
+feeds the prompt token by token through the decode step.  The step
+passes no image tokens (``img=None``), as the reference's engine calls
+``decode_step``, so a vlm cross layer attends to the token itself; a
+hybrid's shared block keeps its K/V in its layer's cache entry.
 Scheduling/queueing semantics (what the tests assert) are exact; the
 production path would carry per-slot position vectors.
 """

@@ -17,7 +17,6 @@ from repro.sched.policy import make_policy as jmake_policy  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import HostRing  # noqa: E402
 from repro_torch.kernels.flash_attn import HEAD_DIMS  # noqa: E402
-from repro_torch.models.transformer import PORTED_FAMILIES  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.sched import HostPriorityPool, make_policy  # noqa: E402
 
@@ -49,12 +48,11 @@ def test_config_equal_field_by_field(name, reduced):
 
 
 @pytest.mark.parametrize("name", [
-    n for n in NAMES if configs.get_config(n).family in PORTED_FAMILIES
-    and not configs.get_config(n).is_attention_free])
+    n for n in NAMES if not configs.get_config(n).is_attention_free])
 def test_ported_head_widths_have_a_kernel(name):
-    """Every head width of a ported config with attention (the ssm family
-    has none) is one the flash kernels are built for, in bfloat16 (the
-    model's type) and float32: the card's prefill never refuses a ported
+    """Every head width of a config with attention (the ssm family has
+    none) is one the flash kernels are built for, in bfloat16 (the
+    model's type) and float32: the card's prefill never refuses a
     config's attention."""
     hd = configs.get_config(name).hd
     assert hd in HEAD_DIMS[torch.bfloat16] and hd in HEAD_DIMS[torch.float32]

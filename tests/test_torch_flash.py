@@ -65,6 +65,14 @@ CONFIGS = [
          cap=0.0),
     dict(b=1, h=4, kv=2, sq=256, sk=512, hd=256, causal=True, win=0,
          cap=0.0),
+    # hd 112 (zamba2-7b's shared block), causal and without a mask; hd 80
+    # without a mask (hubert-xlarge, an encoder)
+    dict(b=1, h=4, kv=4, sq=256, sk=256, hd=112, causal=True, win=0,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=256, sk=512, hd=112, causal=False, win=0,
+         cap=30.0),
+    dict(b=1, h=4, kv=4, sq=256, sk=256, hd=80, causal=False, win=0,
+         cap=0.0),
 ]
 
 
@@ -195,7 +203,7 @@ def test_kernel_tiles():
     assert KERNEL_TILES[torch.bfloat16] == (128, 128)
     assert KERNEL_TILES[torch.float32] == (64, 32)
     for dtype, hds in HEAD_DIMS.items():
-        assert hds == (32, 64, 80, 128, 256)
+        assert hds == (32, 64, 80, 112, 128, 256)
         for hd in hds:
             want = (128, 64) if (dtype, hd) == (torch.bfloat16, 256) \
                 else KERNEL_TILES[dtype]
@@ -262,6 +270,14 @@ BWD_CONFIGS = [
     dict(b=1, h=4, kv=1, sq=256, sk=256, hd=32, causal=False, win=0,
          cap=0.0),
     dict(b=1, h=4, kv=2, sq=192, sk=192, hd=80, causal=True, win=100,
+         cap=50.0),
+    # hd 112 causal (zamba2-7b's shared block); hd 80 and 112 without a
+    # causal mask (hubert-xlarge's encoder)
+    dict(b=1, h=4, kv=4, sq=192, sk=192, hd=112, causal=True, win=0,
+         cap=0.0),
+    dict(b=1, h=4, kv=4, sq=128, sk=128, hd=80, causal=False, win=0,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=128, sk=128, hd=112, causal=False, win=0,
          cap=50.0),
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -368,17 +384,21 @@ def test_train_function_equals_the_plain_pair(dtype):
 
 def test_train_and_bwd_refuse_what_the_kernel_does_not_take():
     """Off the CPU: a float32 input that needs a gradient (the float32
-    kernel is forward-only), hd 256 or 112 (ROADMAP A10b), and a
-    backward given tensors that are not on the card raise by name."""
-    assert BWD_HEAD_DIMS == (32, 64, 80, 128)
+    kernel is forward-only), hd 256 (gemma3-4b's training: ROADMAP Queue
+    B) and a width no config has, and a backward given tensors that are
+    not on the card raise by name.  Every other config's head width has
+    a backward kernel: 32, 64, 80, 112 (zamba2-7b) and 128."""
+    assert BWD_HEAD_DIMS == (32, 64, 80, 112, 128)
     meta = dict(device="meta")
     q = torch.zeros(1, 2, 64, 64, **meta)
     with pytest.raises(ValueError, match="forward-only"):
         flash_attention_train(q, q, q)
-    for hd in (112, 256):
-        qb = torch.zeros(1, 2, 64, hd, dtype=torch.bfloat16, **meta)
-        with pytest.raises(ValueError, match="A10b"):
-            flash_attention_train(qb, qb, qb)
+    qb = torch.zeros(1, 2, 64, 256, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="hd 256.*ROADMAP Queue B"):
+        flash_attention_train(qb, qb, qb)
+    qb = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="built for hd in"):
+        flash_attention_train(qb, qb, qb)
     qb = q.to(torch.bfloat16)
     lse = torch.zeros(1, 2, 64, **meta)
     with pytest.raises(ValueError, match="CUDA tensors"):

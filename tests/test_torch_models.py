@@ -38,7 +38,7 @@ from repro.configs import get_config as jget  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
@@ -315,10 +315,27 @@ def test_bf16_forward_within_near_tie_rule():
     assert pos_close >= 0.7 and mean_dev < 0.2, (pos_close, mean_dev)
 
 
-def test_unported_families_raise():
-    for name in ("zamba2-7b", "llama-3.2-vision-11b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            TT.init_params(get_config(name).reduced(), device="cpu")
+@pytest.mark.parametrize("name", list_archs())
+def test_init_params_builds_the_reference_tree(name):
+    """Every configuration of the registry, all six families: the port's
+    ``init_params`` gives the reference's tree (``jax.eval_shape`` of its
+    ``init_params``), key by key with shapes and dtypes, the hybrid's
+    nested ``shared_attn`` block included."""
+    cfg = get_config(name).reduced()
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    tp = TT.init_params(cfg, gen, device="cpu")
+    shapes = jax.eval_shape(lambda: JT.init_params(jget(name).reduced()))
+
+    def walk(t, j, path):
+        if isinstance(j, dict):
+            assert set(t) == set(j), (name, path)
+            for k in j:
+                walk(t[k], j[k], f"{path}/{k}")
+            return
+        assert tuple(t.shape) == j.shape, (name, path)
+        assert str(t.dtype).split(".")[-1] == j.dtype.name, (name, path)
+    walk(tp, shapes, "")
 
 
 def test_init_params_matches_the_reference_tree():
