@@ -291,8 +291,10 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               without the lse write at granite's shape (in turns) and
               training's forward at danube's layer 0 with the lse.
               ``flash_attention_bwd`` at danube's layer 0 of phase train
-              (its D pass, dk/dv and dq kernels also alone) and at phase
-              zoo's training shapes (``hd112``, ``hd80_unmasked``) beside
+              (the split between its dq and dk/dv kernels from the
+              profiled step), at phase zoo's training shapes (``hd112``,
+              ``hd80_unmasked``) and at gemma3-4b's global and local
+              training layers (``hd256_global``, ``hd256_local``) beside
               ``scaled_dot_product_attention``'s backward.  ``device_loop``
               (csrc/loop.cu) is the WHILE node's own cost a round on a
               one-kernel body, against the same body issued from the host
@@ -348,18 +350,20 @@ train.      — the training path (``launch.train.train_step``:
               ``cast_params`` of the float32 master weights, ``loss_fn``
               with remat, its backward, ``optim.adamw.step``).  (a) B7's
               row log-sum-exp (``return_lse``) and the flash backward
-              (``csrc/flash_bwd.cu``: D pass, dk/dv and dq kernels)
-              against ``flash_attention_plain`` and
-              ``flash_attention_bwd_plain`` on ``BWD_CASES`` (hd 32, 64,
-              80, 112 and 128, causal, and at hd 80 and 112 without a
-              mask, a 1,024-key window, softcap 50, rep 1 and 4, S =
-              2,048 and 4,096, and 1,000), element by element
-              and in the Frobenius norm (``FLASH_BWD_TOL``, ``LSE_TOL``),
-              and against the exact float64 gradient of every (batch, kv
-              head) group of each case (``FLASH_BWD_EXACT_TOL``), and
-              three wrong results the checks must reject (a shifted lse
-              block, a zeroed value tile, one dq row off by its group's
-              rms in the last group); (b)
+              (``csrc/flash_bwd.cu``: a dq kernel, which also computes
+              D, then a dk/dv kernel) against ``flash_attention_plain``
+              and ``flash_attention_bwd_plain`` on ``BWD_CASES`` (hd 32,
+              64, 80, 112, 128 and 256, causal, and at hd 80, 112 and 256
+              without a mask, a 1,024-key window, softcap 50, rep 1, 2
+              and 4, S = 2,048 and 4,096, and 1,000; gemma3-4b's global
+              and local layer shapes), element by element and in the
+              Frobenius norm (``FLASH_BWD_TOL``, ``LSE_TOL``), and
+              against the exact float64 gradient of every (batch, kv
+              head) group of each case (``FLASH_BWD_EXACT_TOL``), each
+              backward called twice with the same bits, and three wrong
+              results the checks must reject (a shifted lse block, a
+              zeroed value tile, one dq row off by its group's rms in
+              the last group); (b)
               h2o-danube-1.8b at full width (24 layers, d 2,560, 32/8
               heads of 80, window 4,096, vocab 32,000; 1,831,201,280
               parameters from a torch.Generator seeded 2, float32 master,
@@ -373,7 +377,13 @@ train.      — the training path (``launch.train.train_step``:
               24), the last step under the profiler (idle share against
               the median unprofiled step); the loss of step 4 below step
               0's, every grad norm finite; the kernels are held once more
-              on its layer 0's own q/k/v; (c) mamba2-130m at full width
+              on its layer 0's own q/k/v; (d) gemma3-4b at full width
+              (d 2,560, 8/4 heads of 256, d_ff 10,240, vocab 262,144) and
+              12 of its 34 layers (10 local with a 1,024-key window, 2
+              global; 2,474,703,360 parameters from a torch.Generator
+              seeded 8) the same way as danube, 6 steps (B7 2 x 12, the
+              backward 12 a step), the kernels held on its first local
+              and first global layer's q/k/v; (c) mamba2-130m at full width
               (24 layers, d 768, state 128, vocab 50,280) trains 12 steps
               of 4 x 4,096 under ``RestartManager`` and
               ``CheckpointManager`` (keep 2, a temporary directory, a
@@ -599,6 +609,16 @@ TRAIN_ARCH = "h2o-danube-1.8b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 6, 3e-4
 TRAIN_WARMUP = 3
 GRADS_VS_PLAIN = 2.0 ** -5
+# (d) gemma3-4b at full width (d_model 2,560, 8/4 heads of 256, d_ff
+# 10,240, vocab 262,144) and GEMMA_TRAIN_LAYERS of its 34 layers: two
+# periods of its 5:1 pattern, 10 local layers (window 1,024) and 2 global
+# ones, so both masks run in the backward.  The cut is forced by memory:
+# ArchConfig.param_count gives 4,550,996,480 parameters at 34 layers (an
+# untied 262,144 x 2,560 head), 72.8 GB at 16 bytes a parameter (float32
+# master, m and v, the bfloat16 cast and its gradient) before activations;
+# 2,474,703,360 and 39.6 GB at 12.  TRAIN_BATCH x TRAIN_SEQ tokens,
+# TRAIN_LR, TRAIN_WARMUP, GEMMA_TRAIN_STEPS steps
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 12, 6
 SSM_ARCH = "mamba2-130m"
 SSM_BATCH, SSM_SEQ, SSM_STEPS, SSM_LR = 4, 4096, 12, 1e-3
 SSM_SAVE_EVERY, SSM_FAULT_AT, SSM_KEEP = 5, 7, 2
@@ -633,15 +653,17 @@ BWD_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
     (1, 4, 1, 1000, 64, True, 100, 0.0),      # S off the 64-row tiles
     (2, 32, 32, 4096, 112, True, 0, 0.0),     # zamba2-7b's shared block
     (2, 16, 16, 4096, 80, False, 0, 0.0),     # hubert-xlarge: no mask
-    (1, 8, 2, 2048, 112, False, 0, 50.0))     # hd 112 unmasked, rep 4
+    (1, 8, 2, 2048, 112, False, 0, 50.0),     # hd 112 unmasked, rep 4
+    (2, 8, 4, 4096, 256, True, 0, 0.0),       # gemma3-4b's global layers
+    (2, 8, 4, 4096, 256, True, 1024, 0.0),    # gemma3-4b's local layers
+    (1, 4, 2, 1000, 256, False, 0, 50.0))     # hd 256 unmasked, softcap 50
 FLASH_BWD_TOL = {"rtol": 2.0 ** -6, "atol_rms": 1.0, "frob": 2.0 ** -7}
 FLASH_BWD_EXACT_TOL = {"rtol": 2.0 ** -6, "atol_rms": 2.0 ** -1,
                        "frob": 2.0 ** -7}
 LSE_TOL = {"atol": 1e-5, "rtol": 1e-5, "frob": 1e-5}
-# the backward's three kernels, by the names the profiler gives them
-BWD_KERNELS = {"dot": "repro::bwd_dot_kernel",
-               "dkdv": "repro::bwd_dkdv_kernel",
-               "dq": "repro::bwd_dq_kernel"}
+# the backward's two kernels, by the names the profiler gives them
+BWD_KERNELS = {"dq": "repro::bwd_dq_kernel",
+               "dkdv": "repro::bwd_dkdv_kernel"}
 # (c) decode after a prefill against the forward over the same tokens, in
 # float32 (tests/test_torch_ssm.py: DECODE_TOL)
 DECODE_TOL = {"atol": 1e-3, "rtol": 1e-3}
@@ -899,6 +921,8 @@ class Smoke:
                          "train_ssm": {}}  # path -> launches (and zoo_*)
         self.keep = {}            # path -> (runner, final state) for obs
         self.lse_used = {"element": 0.0, "frobenius": 0.0}  # B7's lse
+        self.bwd_same = 0         # backward calls repeated bit for bit
+        self.attn_inputs = {}     # training path -> {window: q, k, v, kw}
 
     # -- helpers -------------------------------------------------------------
 
@@ -4235,6 +4259,12 @@ class Smoke:
         dout = torch.randn(out.shape, generator=g, device=self.dev).to(
             out.dtype)
         got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd: two calls on the "
+                                 f"same inputs differ ({tuple(q.shape)}, "
+                                 f"{kw})")
+        self.bwd_same += 1
         ref = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
         for part, a, b in zip(("dq", "dk", "dv"), got, ref):
             self.close("flash_attention_bwd", a, b, tol=FLASH_BWD_TOL,
@@ -4280,9 +4310,10 @@ class Smoke:
 
     def compare_flash_bwd(self, K):
         """(a) B7's lse and the flash backward against their plain versions
-        on ``BWD_CASES`` (hd 32, 64, 80, 112 and 128; causal and, at hd 80
-        and 112, without a mask; a 1,024-key window; softcap 50; rep 1 and
-        4; S = 2,048 and 4,096, and 1,000); then
+        on ``BWD_CASES`` (hd 32, 64, 80, 112, 128 and 256; causal and, at
+        hd 80, 112 and 256, without a mask; a 1,024-key window; softcap
+        50; rep 1, 2 and 4; S = 2,048 and 4,096, and 1,000), each backward
+        called twice and the two results equal bit for bit; then
         three wrong results the checks must reject: the lse of one 64-row
         block shifted by 0.5, and one 64-key tile of v zeroed, each given
         to the kernel while the plain version keeps the true one (held
@@ -4354,6 +4385,7 @@ class Smoke:
                     "flash_attention_bwd_exact"],
                 "lse_bound_used": self.lse_used,
                 "wrong_results_rejected": rejected,
+                "calls_repeated_bit_for_bit": self.bwd_same,
                 "seconds": time.perf_counter() - t0}
 
     def grads_vs_plain(self, cfg, state, batch):
@@ -4379,6 +4411,7 @@ class Smoke:
                     loss, [t for _, t in flatten_with_paths(params)],
                     allow_unused=True, materialize_grads=True)))
                 del params, loss
+                torch.cuda.empty_cache()
             finally:
                 flash_attn.flash_attention_bwd = real
         keys = [k for k, _ in flatten_with_paths(state.master)]
@@ -4403,7 +4436,8 @@ class Smoke:
         per attention call of the forward (the forward and its remat) and
         the backward once.  With ``falls`` the loss of step 4 must be
         below step 0's (both on batch 0).  Returns its line and the first
-        attention call's inputs of the first step; the launches go under
+        attention call's inputs of the first step (each window's first
+        call's go to ``attn_inputs[label]``); the launches go under
         ``label``."""
         torch = self.torch
         from repro_torch.data import DataConfig, synth_batch
@@ -4441,8 +4475,8 @@ class Smoke:
         real = layers.flash_attention_train
 
         def spy(q, k, v, **kw):
-            if not seen:
-                seen["qkv"] = (q.detach(), k.detach(), v.detach(), kw)
+            if kw["window"] not in seen:    # each window's first call
+                seen[kw["window"]] = (q.detach(), k.detach(), v.detach(), kw)
             return real(q, k, v, **kw)
 
         L, n_steps, steps, total = attention_calls(cfg), steps, [], {}
@@ -4507,7 +4541,8 @@ class Smoke:
                         r["tokens_per_s"] for r in steady),
                     peak_mem_gb=max(r["peak_mem_gb"] for r in steps))
         del state, batches
-        return info, seen["qkv"]
+        self.attn_inputs[label] = seen
+        return info, next(iter(seen.values()))
 
     def train_mamba(self, K, configs, models):
         """(c) mamba2-130m at full width through ``launch.train``'s step
@@ -4625,24 +4660,47 @@ class Smoke:
         return info
 
     def train_path(self, K, configs, models):
-        """Phase train: (a) the flash backward's checks, (b) danube, (c)
-        mamba2, and the backward kernels on danube's own layer-0 q/k/v.
-        Returns its line and (q, k, v, kw, out, lse, dout) at that layer
-        for the rows of phase 7."""
+        """Phase train: (a) the flash backward's checks, (b) danube, (d)
+        gemma3-4b at GEMMA_TRAIN_LAYERS layers, (c) mamba2, and the
+        backward kernels on danube's own layer-0 q/k/v and on gemma3's
+        first local and first global layer's.  Returns its line and
+        {"danube": (q, k, v, kw, out, lse, dout), "gemma3_local": ...,
+        "gemma3_global": ...} for the rows of phase 7."""
         info = {"phase": "train", "kernels": self.compare_flash_bwd(K)}
         info["danube"], qkv = self.train_lm(
             K, models, configs.get_config(TRAIN_ARCH), 2, TRAIN_STEPS,
             "train")
         self.torch.cuda.empty_cache()
-        q, k, v, kw, out, lse, dout = self.bwd_inputs(K, qkv, 60)
+        seen = {"danube": self.bwd_inputs(K, qkv, 60)}
+        q, k, _, kw = seen["danube"][:4]
         self.bwd_split = info["danube"]["bwd_split"]
         info["kernels"]["danube_layer0"] = {
             "q": list(q.shape), "kv_heads": k.shape[1], **kw,
             "bound_used": self.bound_used["flash_attention_bwd"],
             "lse_bound_used": self.lse_used, "split": self.bwd_split}
+        cfg = dataclasses.replace(configs.get_config(GEMMA_ARCH),
+                                  n_layers=GEMMA_TRAIN_LAYERS)
+        info["gemma3"], _ = self.train_lm(K, models, cfg, 8,
+                                          GEMMA_TRAIN_STEPS, "train_gemma3")
+        info["gemma3"]["of_layers"] = configs.get_config(
+            GEMMA_ARCH).n_layers
+        self.gemma_train_windows = [cfg.window_for_layer(i)
+                                    for i in range(cfg.n_layers)]
+        for key, seed in (("gemma3_local", 63), ("gemma3_global", 64)):
+            window = cfg.sliding_window if key == "gemma3_local" else 0
+            seen[key] = self.bwd_inputs(
+                K, self.attn_inputs["train_gemma3"][window], seed)
+        info["kernels"]["gemma3"] = {
+            "q": list(seen["gemma3_local"][0].shape),
+            "kv_heads": seen["gemma3_local"][1].shape[1],
+            "windows": [cfg.sliding_window, 0],
+            "bound_used": self.bound_used["flash_attention_bwd"],
+            "lse_bound_used": self.lse_used}
+        self.attn_inputs.clear()
+        self.torch.cuda.empty_cache()
         info["mamba2"] = self.train_mamba(K, configs, models)
         self.torch.cuda.empty_cache()
-        return info, (q, k, v, kw, out, lse, dout)
+        return info, seen
 
     # -- phase zoo: the hybrid, vlm and audio families at full width ---------
 
@@ -6273,6 +6331,17 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                          "library": l8t[1]},
              "q": [1, 32, 4096, 128], "kv_heads": 8, "causal": True,
              "layout": "(B, H, S, hd) contiguous"}
+    def mask_pairs(s, kw):
+        """The (query, key) pairs the mask keeps, and the band as a
+        boolean mask where a window shorter than S cuts it (else None)."""
+        if kw["window"] and kw["window"] < s:
+            pos = torch.arange(s, device=dev)
+            band = pos[None, :] > pos[:, None] - kw["window"]
+            if kw["causal"]:
+                band = band & (pos[None, :] <= pos[:, None])
+            return int(band.sum()), band
+        return (s * (s + 1) // 2 if kw["causal"] else s * s), None
+
     # hd 256: gemma3-4b's prefill, layer 5 (global, causal) and layer 0
     # (local, window 1,024), on their own q/k/v (the model's strided
     # views).  The local layer's library call is SDPA with the band as a
@@ -6291,9 +6360,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     q10, k10, v10, kw10 = seen_gemma[0]
     b10, h10, s10, hd10 = q10.shape
     win = kw10["window"]
-    pos = torch.arange(s10, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
-    pairs10 = int(band.sum())
+    pairs10, band = mask_pairs(s10, kw10)
     hd256_local = sub(
         smoke.time_ms(lambda: None, lambda a, i: K.flash_attention(
             q10, k10, v10, **kw10), iters=20),
@@ -6336,7 +6403,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                               **kw7)), iters=20)[0])
     # training's forward at h2o-danube-1.8b's layer 0 (hd 80, with the
     # lse), the shape of its 2 x 24 launches a step
-    qt, kt, vt, kwt, out_t, lse_t, dout_t = seen_train
+    qt, kt, vt, kwt, out_t, lse_t, dout_t = seen_train["danube"]
     bt, ht, st, hdt = qt.shape
     kvt = kt.shape[1]
     pairs_t = st * (st + 1) // 2
@@ -6345,6 +6412,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     b_tf, b_tf_by = bound(2 * (2 * bt * ht * st * hdt + 2 * bt * kvt * st
                                * hdt) + 4 * bt * ht * st,
                           4 * bt * ht * pairs_t * hdt, BF16_TC_FLOP_PER_S)
+    gemma_train_b7 = smoke.launches["train_gemma3"].get("flash_attention", 0)
     row("flash_attention", csrc + "flash_wgmma.cu",
         "src/repro/kernels/flash_attn.py:38", kern7, plain7, lib7,
         bytes7, ops7,
@@ -6371,7 +6439,16 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                 + sum(1 for w in smoke.gemma_windows if not w)
                 * (hd256["ms"] - hd256["bound_ms"])
                 + smoke.launches["train"].get("flash_attention", 0)
-                * (train_fwd[0] - b_tf) + zoo_excess))
+                * (train_fwd[0] - b_tf) + zoo_excess
+                # gemma3's training (forward and remat, with the lse) at
+                # the prefill's local and global rows
+                + gemma_train_b7 * sum(1 for w in smoke.gemma_train_windows
+                                       if w) / len(smoke.gemma_train_windows)
+                * (hd256_local["ms"] - hd256_local["bound_ms"])
+                + gemma_train_b7 * sum(1 for w in smoke.gemma_train_windows
+                                       if not w)
+                / len(smoke.gemma_train_windows)
+                * (hd256["ms"] - hd256["bound_ms"])))
 
     # the flash backward (csrc/flash_bwd.cu) at h2o-danube-1.8b's layer 0
     # of phase train: its q, k, v (the model's strided views), B7's out
@@ -6380,22 +6457,24 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     # (query, key) pair the mask keeps and head, at the bf16 tensor-core
     # rate.  Library: scaled_dot_product_attention's backward on the same
     # inputs with the same mask (danube's window equals S, so its mask is
-    # the causal one), timed here only.  The same at phase zoo's training
-    # shapes: zamba2-7b's shared block (hd 112, causal) under ``hd112``,
-    # hubert-xlarge's encoder (hd 80, no mask) under ``hd80_unmasked``.
-    # The split among its D pass, dk/dv and dq kernels is the profiler's
-    # device time of each over danube's profiled step (24 calls at this
-    # shape): on the H100 a profile of ten calls at layer 0 recorded 3-4
-    # of each kernel's ten, and one here recorded none.
+    # the causal one; a window shorter than S goes to SDPA as a boolean
+    # band, as B7's local row does), timed here only.  The same at phase
+    # zoo's training shapes: zamba2-7b's shared block (hd 112, causal)
+    # under ``hd112``, hubert-xlarge's encoder (hd 80, no mask) under
+    # ``hd80_unmasked``; and at gemma3-4b's training layers (hd 256, GQA
+    # 8/4): a global layer under ``hd256_global``, a local one (window
+    # 1,024) under ``hd256_local``.  The split between its dq and dk/dv
+    # kernels is the profiler's device time of each over danube's
+    # profiled step (24 calls at this shape).
     def bwd_times(q, k, v, kw, out, lse, dout):
         b, h, s, hd = q.shape
         kvh = k.shape[1]
-        if kw["window"] and kw["window"] < s:
-            raise AssertionError("bwd_times: a window's pairs are not "
-                                 "counted")
-        pairs = s * (s + 1) // 2 if kw["causal"] else s * s
+        pairs, band = mask_pairs(s, kw)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        o = sdpa(*leaves, is_causal=kw["causal"], enable_gqa=True)
+        if band is None:
+            o = sdpa(*leaves, is_causal=kw["causal"], enable_gqa=True)
+        else:
+            o = sdpa(*leaves, attn_mask=band, enable_gqa=True)
         return (smoke.time_ms(lambda: None, lambda a, i: K.flash_attention_bwd(
                     q, k, v, out, dout, lse, **kw), iters=10),
                 smoke.time_ms(lambda: None, lambda a, i:
@@ -6412,16 +6491,31 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                   softcap_val=kwt["softcap_val"])
     kern_b, plain_b, lib_b, bytes_b, ops_b = bwd_times(
         qt, kt, vt, bwd_kw, out_t, lse_t, dout_t)
-    zoo_bwd = {}
+    bwd_rows = {}
     for key, label, path in (("hybrid_bwd", "hd112", "zoo_hybrid_train"),
                              ("audio_bwd", "hd80_unmasked",
                               "zoo_audio_train")):
         qz, kz, vz, kwz, oz, lz, dz = seen_zoo[key]
-        zoo_bwd[label] = sub(*bwd_times(qz, kz, vz, kwz, oz, lz, dz),
-                             {"q": list(qz.shape), "kv_heads": kz.shape[1],
-                              "causal": kwz["causal"],
-                              "launches": {path: smoke.launches[path].get(
-                                  "flash_attention_bwd", 0)}})
+        bwd_rows[label] = sub(*bwd_times(qz, kz, vz, kwz, oz, lz, dz),
+                              {"q": list(qz.shape), "kv_heads": kz.shape[1],
+                               "causal": kwz["causal"],
+                               "launches": {path: smoke.launches[path].get(
+                                   "flash_attention_bwd", 0)}})
+    # gemma3-4b's training: its launches split between its local and
+    # global layers as its layer pattern does
+    wins = smoke.gemma_train_windows
+    n_gemma = smoke.launches["train_gemma3"].get("flash_attention_bwd", 0)
+    for key, label, local in (("gemma3_global", "hd256_global", False),
+                              ("gemma3_local", "hd256_local", True)):
+        qg, kg, vg, kwg, og, lg, dg = seen_train[key]
+        share = sum(1 for w in wins if bool(w) == local) / len(wins)
+        bwd_rows[label] = sub(*bwd_times(qg, kg, vg, kwg, og, lg, dg),
+                              {"q": list(qg.shape), "kv_heads": kg.shape[1],
+                               "causal": kwg["causal"],
+                               "window": kwg["window"],
+                               "pairs": mask_pairs(qg.shape[2], kwg)[0],
+                               "launches": {"train_gemma3": round(
+                                   n_gemma * share)}})
     row("flash_attention_bwd", csrc + "flash_bwd.cu",
         "src/repro/models/layers.py:250 (_flash_core_bwd, XLA; no Pallas "
         "kernel)", kern_b, plain_b, lib_b, bytes_b, ops_b,
@@ -6431,13 +6525,15 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "bound_used": smoke.bound_used["flash_attention_bwd"],
          "exact_tolerance": FLASH_BWD_EXACT_TOL,
          "exact_bound_used": smoke.bound_used["flash_attention_bwd_exact"],
-         "launches_per_call": 3, "split": smoke.bwd_split, **zoo_bwd,
+         "calls_repeated_bit_for_bit": smoke.bwd_same,
+         "launches_per_call": 2, "split": smoke.bwd_split, **bwd_rows,
          "library": "scaled_dot_product_attention backward"},
         rate=BF16_TC_FLOP_PER_S,
-        # danube's launches at its shape, the zoo's at theirs
+        # danube's launches at its shape, the zoo's and gemma3's at theirs
         excess=(smoke.launches["train"].get("flash_attention_bwd", 0)
                 * (kern_b[0] - bound(bytes_b, ops_b, BF16_TC_FLOP_PER_S)[0])
-                + sum(n * (x["ms"] - x["bound_ms"]) for x in zoo_bwd.values()
+                + sum(n * (x["ms"] - x["bound_ms"])
+                      for x in bwd_rows.values()
                       for n in x["launches"].values())))
 
     # device_loop: the conditional WHILE node's own cost a round, on a

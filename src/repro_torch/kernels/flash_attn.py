@@ -38,10 +38,12 @@ The backward, the counterpart of the reference's XLA backward
 
 * ``flash_attention_bwd`` — dq, dk and dv from q, k, v, out, dout and
   the lse.  A CPU tensor goes to ``flash_attention_bwd_plain``; a CUDA
-  tensor launches ``csrc/flash_bwd.cu`` (the D pass, a dk/dv kernel a
-  64-key block, a dq kernel a 64-query block; mma.sync, no atomics) or
-  raises.  bfloat16 only, hd 32, 64, 80, 112 and 128 (``BWD_HEAD_DIMS``),
-  Sq == Sk, causal or not.
+  tensor launches ``csrc/flash_bwd.cu`` or raises: two launches, a dq
+  kernel a block of query rows (which also computes D = rowsum(dout *
+  out)) and a dk/dv kernel a block of keys, each with wgmma and a TMA
+  ring and no atomics, so two calls give the same bits.  bfloat16 only,
+  hd 32, 64, 80, 112, 128 and 256 (``BWD_HEAD_DIMS``), Sq == Sk, causal
+  or not.
 * ``flash_attention_bwd_plain`` — the reference's blocked recompute in
   PyTorch with its casts: float32 p and dv, dp from a product in the
   inputs' dtype, ds cast to the inputs' dtype before the dq and dk
@@ -74,9 +76,8 @@ HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 112, 128, 256),
 #: 32 at every hd.
 KERNEL_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
 #: head widths the backward kernel is built for (bfloat16 only): every
-#: head width of the configs but gemma3-4b's 256 (ROADMAP Queue B, B7's
-#: backward at hd 256)
-BWD_HEAD_DIMS = (32, 64, 80, 112, 128)
+#: head width of the configs
+BWD_HEAD_DIMS = (32, 64, 80, 112, 128, 256)
 
 
 def kernel_tiles(dtype: torch.dtype, hd: int):
@@ -302,10 +303,6 @@ def _bwd_supported(name: str, q) -> None:
         raise ValueError(f"{name}: the backward kernel takes bfloat16; the "
                          f"float32 kernel (csrc/flash_attn.cu) is "
                          f"forward-only, got {q.dtype}")
-    if q.shape[-1] == 256:
-        raise ValueError(f"{name}: the backward kernel is not built for hd "
-                         f"256 (gemma3-4b's training waits for ROADMAP "
-                         f"Queue B: B7's backward at hd 256)")
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"{name}: the backward kernel is built for hd in "
                          f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
@@ -316,8 +313,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK):
     """dq, dk, dv of ``flash_attention`` at (q, k, v) for the output
     gradient ``dout``, from its ``out`` and ``lse``.  ``bq``/``bk`` size
-    the plain version's blocks.  On the card one call is three launches:
-    the D pass, dk/dv, dq."""
+    the plain version's blocks.  On the card one call is two launches:
+    dq (and D), then dk/dv."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
@@ -385,8 +382,9 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
                           bk: int = DEFAULT_BK):
     """``flash_attention`` with a gradient: the kernels on the card (B7
     with its lse, then ``csrc/flash_bwd.cu``), the plain pair on the CPU.
-    A CUDA input the backward kernel does not take (float32, hd 256)
-    raises here, before the forward runs."""
+    A CUDA input the backward kernel does not take (float32, a head
+    width outside ``BWD_HEAD_DIMS``) raises here, before the forward
+    runs."""
     _check(q, k, v)
     if q.device.type != "cpu":
         _bwd_supported("flash_attention_train", q)

@@ -279,6 +279,14 @@ BWD_CONFIGS = [
          cap=0.0),
     dict(b=1, h=4, kv=2, sq=128, sk=128, hd=112, causal=False, win=0,
          cap=50.0),
+    # hd 256 (gemma3-4b): GQA 2:1 causal (its global layers), with a window
+    # (its local layers), and with softcap 50
+    dict(b=1, h=4, kv=2, sq=192, sk=192, hd=256, causal=True, win=0,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=192, sk=192, hd=256, causal=True, win=100,
+         cap=0.0),
+    dict(b=1, h=4, kv=2, sq=128, sk=128, hd=256, causal=True, win=0,
+         cap=50.0),
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -384,22 +392,25 @@ def test_train_function_equals_the_plain_pair(dtype):
 
 def test_train_and_bwd_refuse_what_the_kernel_does_not_take():
     """Off the CPU: a float32 input that needs a gradient (the float32
-    kernel is forward-only), hd 256 (gemma3-4b's training: ROADMAP Queue
-    B) and a width no config has, and a backward given tensors that are
-    not on the card raise by name.  Every other config's head width has
-    a backward kernel: 32, 64, 80, 112 (zamba2-7b) and 128."""
-    assert BWD_HEAD_DIMS == (32, 64, 80, 112, 128)
+    kernel is forward-only), a width no config has, and a backward given
+    tensors that are not on the card raise by name.  Every config's head
+    width has a backward kernel: 32, 64, 80, 112 (zamba2-7b), 128 and 256
+    (gemma3-4b), so hd 256 passes the width check and is refused here
+    only for its device."""
+    assert BWD_HEAD_DIMS == (32, 64, 80, 112, 128, 256)
     meta = dict(device="meta")
     q = torch.zeros(1, 2, 64, 64, **meta)
     with pytest.raises(ValueError, match="forward-only"):
         flash_attention_train(q, q, q)
-    qb = torch.zeros(1, 2, 64, 256, dtype=torch.bfloat16, **meta)
-    with pytest.raises(ValueError, match="hd 256.*ROADMAP Queue B"):
-        flash_attention_train(qb, qb, qb)
     qb = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError, match="built for hd in"):
         flash_attention_train(qb, qb, qb)
-    qb = q.to(torch.bfloat16)
     lse = torch.zeros(1, 2, 64, **meta)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention_bwd(qb, qb, qb, qb, qb, lse)
+    for hd in (64, 256):
+        qb = torch.zeros(1, 2, 64, hd, dtype=torch.bfloat16, **meta)
+        with pytest.raises(ValueError, match="CUDA tensors") as err:
+            flash_attention_train(qb, qb, qb)
+        assert "ROADMAP" not in str(err.value)
+        with pytest.raises(ValueError, match="CUDA tensors") as err:
+            flash_attention_bwd(qb, qb, qb, qb, qb, lse)
+        assert "ROADMAP" not in str(err.value)

@@ -227,6 +227,64 @@ def test_loss_and_grads_match_reference_flash_path(monkeypatch):
     _check_grads(cfg, grads, want)
 
 
+def test_loss_and_grads_match_reference_flash_path_hd256(monkeypatch):
+    """gemma3-4b's head width on the flash path: 1 x 2,048 tokens, a local
+    layer (window 700) and a global one, hd 256, each taking the port's
+    autograd Function (plain forward and backward on the CPU) against the
+    reference's custom_vjp ``_flash_core``."""
+    calls = []
+    real = TL.flash_attention_train
+
+    def spy(*a, **kw):
+        calls.append((a[0].shape[-1], kw["window"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TL, "flash_attention_train", spy)
+    cfg, loss, jl, grads, want = _loss_and_grads(
+        "gemma3-4b", 1, 2048, 3, changes={
+            "head_dim": 256, "layer_pattern": ("local", "global"),
+            "n_layers": 2, "sliding_window": 700})
+    # each layer's forward, then its remat in the backward (last first)
+    assert calls == [(256, 700), (256, 0), (256, 0), (256, 700)]
+    np.testing.assert_allclose(loss, jl, rtol=LOSS_RTOL)
+    _check_grads(cfg, grads, want)
+
+
+def test_loss_gradient_reuses_the_logits_once():
+    """``loss_fn``'s gradient is written over the logits it saved, so it
+    equals autograd's logsumexp-and-gather gradient and a second backward
+    through the same graph raises."""
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    tp = tree_map(lambda t: t.float().requires_grad_(),
+                  init_params(cfg, gen, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 2, 16)))
+    labels = toks[1].clone()
+    labels[:, -3:] = -1
+    batch = {"tokens": toks[0], "labels": labels}
+    loss = loss_fn(tp, batch, cfg)
+    leaves = [t for _, t in flatten_with_paths(tp)]
+    got = torch.autograd.grad(loss, leaves, retain_graph=True)
+    with pytest.raises(RuntimeError, match="once"):
+        torch.autograd.grad(loss, leaves)
+    from repro_torch.models import forward
+    logits = forward(tp, batch["tokens"], cfg)
+    lab = labels.long()
+    nll = (torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, lab.clamp(min=0)[..., None])[..., 0])
+    mask = (lab >= 0).float()
+    ref_loss = torch.sum(nll * mask) / torch.sum(mask)
+    torch.testing.assert_close(loss, ref_loss, rtol=0, atol=0)
+    want = torch.autograd.grad(ref_loss, leaves)
+    # the two round (softmax - one-hot) g in another order: float32 sums
+    # apart, 1e-5 of each leaf's largest gradient
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
 def test_remat_gives_the_same_gradients():
     """``cfg.remat`` recomputes each layer in the backward: the same
     numbers as keeping the activations."""

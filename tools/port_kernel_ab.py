@@ -32,10 +32,21 @@ card's name and power limit:
 * the per-call time of the single heap's ``heap_apply`` on the priority
   path's 2^20-slot heap holding 200,000 nodes: a 1,024-pop call and a
   2,048-lane insert call at the tree's child density (0.62), each on a
-  state that flows from call to call, timed as above.
+  state that flows from call to call, timed as above;
+* the per-call time of the flash backward ``flash_attention_bwd`` at the
+  training paths' shapes (``BWD_SHAPES``: h2o-danube-1.8b's layers,
+  zamba2-7b's shared block, hubert-xlarge's encoder, and gemma3-4b's
+  global and local layers where the checkout's backward takes hd 256),
+  on seeded bfloat16 q, k, v in the model's strided (B, S, H, hd) layout
+  with B7's out and lse and a seeded dout, timed as above, beside
+  ``scaled_dot_product_attention``'s backward on the same inputs (a
+  window as a boolean band), which the port never calls.
 
-Run two checkouts in turns in one call (A, B, B, A): a number from
-another call does not compare.  Needs a CUDA card; exits 2 without one.
+``--cells`` picks a comma-separated subset of ``engines``, ``obs``,
+``heap``, ``small`` (wavefaa, expert_tickets) and ``flash_bwd``; all by
+default.  Run two checkouts in turns in one call (A, B, B, A): a number
+from another call does not compare.  Needs a CUDA card; exits 2 without
+one.
 """
 
 import argparse
@@ -48,6 +59,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 RUNS = 3
+CELLS = ("engines", "obs", "heap", "small", "flash_bwd")
+# (label, B, H, KV, S, hd, causal, window)
+BWD_SHAPES = (("danube_hd80", 2, 32, 8, 4096, 80, True, 0),
+              ("zamba2_hd112", 2, 32, 32, 4096, 112, True, 0),
+              ("hubert_hd80_unmasked", 2, 16, 16, 4096, 80, False, 0),
+              ("gemma3_hd256_global", 2, 8, 4, 4096, 256, True, 0),
+              ("gemma3_hd256_local", 2, 8, 4, 4096, 256, True, 1024))
 
 
 def drained(torch, run, rounds_of):
@@ -226,11 +244,58 @@ def heap_calls(np, torch, K, smoke, dev):
     return out
 
 
+def flash_bwd_calls(torch, K, smoke, dev):
+    """Per-call µs of the flash backward and of SDPA's backward at
+    ``BWD_SHAPES``; shapes whose width the checkout's backward does not
+    take are reported as such."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    out = {}
+    for label, b, h, kv, s, hd, causal, window in BWD_SHAPES:
+        if hd not in K.flash_attn.BWD_HEAD_DIMS:
+            out[label] = "not built for this width"
+            continue
+        g = torch.Generator(device=dev)
+        g.manual_seed(hd + h)
+        q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)))
+        kw = dict(causal=causal, window=window, softcap_val=0.0)
+        o, lse = K.flash_attention(q, k, v, return_lse=True, **kw)
+        dout = torch.randn(o.shape, generator=g, device=dev).to(o.dtype)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        if window:
+            pos = torch.arange(s, device=dev)
+            band = ((pos[None, :] > pos[:, None] - window)
+                    & (pos[None, :] <= pos[:, None]))
+            ref = sdpa(*leaves, attn_mask=band, enable_gqa=True)
+        else:
+            ref = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        out[label] = {
+            "us": smoke.time_ms(lambda: None, lambda a, i:
+                                K.flash_attention_bwd(q, k, v, o, dout, lse,
+                                                      **kw),
+                                iters=10)[0] * 1e3,
+            "sdpa_us": smoke.time_ms(lambda: None, lambda a, i:
+                                     torch.autograd.grad(
+                                         ref, leaves, dout,
+                                         retain_graph=True),
+                                     iters=10)[0] * 1e3}
+        del q, k, v, o, lse, dout, leaves, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--label", default="")
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="comma-separated subset of " + ", ".join(CELLS))
     args = ap.parse_args()
+    cells = args.cells.split(",")
+    if not set(cells) <= set(CELLS):
+        ap.error(f"--cells takes {', '.join(CELLS)}")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -244,23 +309,30 @@ def main() -> int:
     dev = smoke.dev
     out = {"label": args.label, "src": args.src,
            "repro_torch": K.__file__}
-    out.update(engine_cells(np, torch, cs, dev))
-    out.update(obs_cells(np, torch, cs, dev, smoke))
-    out.update(heap_calls(np, torch, K, smoke, dev))
-    rng = np.random.default_rng(5)
-    mask = torch.as_tensor(rng.random(4096) < 0.2, device=dev)
-    counter = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
-    out["wavefaa_4096_us"] = smoke.time_ms(
-        lambda: None, lambda a, i: K.wavefaa(mask, counter))[0] * 1e3
-    for name, n in (("decode_32", 32), ("prefill_65536", 65536)):
-        ids = torch.as_tensor(rng.integers(0, 40, n, dtype=np.int32),
-                              device=dev)
-        kw = dict(num_experts=40, capacity=2080)
-        want = K.expert_tickets_plain(ids, **kw)
-        if not torch.equal(K.expert_tickets(ids, **kw), want):
-            raise AssertionError(f"expert_tickets differs at {name}")
-        out[f"expert_tickets_{name}_us"] = smoke.time_ms(
-            lambda: None, lambda a, i: K.expert_tickets(ids, **kw))[0] * 1e3
+    if "engines" in cells:
+        out.update(engine_cells(np, torch, cs, dev))
+    if "obs" in cells:
+        out.update(obs_cells(np, torch, cs, dev, smoke))
+    if "heap" in cells:
+        out.update(heap_calls(np, torch, K, smoke, dev))
+    if "small" in cells:
+        rng = np.random.default_rng(5)
+        mask = torch.as_tensor(rng.random(4096) < 0.2, device=dev)
+        counter = torch.tensor([1 << 24], dtype=torch.int32, device=dev)
+        out["wavefaa_4096_us"] = smoke.time_ms(
+            lambda: None, lambda a, i: K.wavefaa(mask, counter))[0] * 1e3
+        for name, n in (("decode_32", 32), ("prefill_65536", 65536)):
+            ids = torch.as_tensor(rng.integers(0, 40, n, dtype=np.int32),
+                                  device=dev)
+            kw = dict(num_experts=40, capacity=2080)
+            want = K.expert_tickets_plain(ids, **kw)
+            if not torch.equal(K.expert_tickets(ids, **kw), want):
+                raise AssertionError(f"expert_tickets differs at {name}")
+            out[f"expert_tickets_{name}_us"] = smoke.time_ms(
+                lambda: None,
+                lambda a, i: K.expert_tickets(ids, **kw))[0] * 1e3
+    if "flash_bwd" in cells:
+        out["flash_bwd"] = flash_bwd_calls(torch, K, smoke, dev)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
