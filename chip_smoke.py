@@ -317,7 +317,13 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               strict tree's (4,096 pops, one heap), SSSP's and the
               spanned tree's (rider), each against a bytes and a
               dependent-chain bound.  wave_compact also at the meshes'
-              2,048-lane rows.
+              2,048-lane rows.  expert_tickets also at phase registry's
+              64 experts (``registry_64_experts``: the prefills' first
+              layers and a serve decode step), flash_attention at each of
+              phase registry's shapes by window and dtype
+              (``registry``: 4,096, 32,768 and 524,288 keys, its float32
+              check's scalar kernel), each with its launches by path and
+              charged at its shape (``registry_rows``).
 8. serve    — the model path at full width and cut depth:
               granite-moe-3b-a800m at 4 of its 32 layers
               (``SERVE_LAYERS``; d_model 1536, 40 experts top-8,
@@ -423,19 +429,57 @@ zoo.        — the hybrid, vlm and audio families at full width (the
               encode tokens/s, idle share and peak memory; step seconds,
               tokens/s and peak memory; the backward held on each training
               run's first attention inputs.
+registry.   — the registry's cells no chip run had touched (the ``REG_*``
+              constants), each cut where ``launch.dryrun.plan_cut`` finds
+              that one card does not hold it (its batch first, then its
+              depth in whole periods of the layer pattern, to ``FIT`` of
+              the card's memory; the line prints each plan and the bytes
+              that forced each cut).  (a) deepseek-moe-16b (64 experts,
+              top-6, 2 shared), gemma2-27b (windows of 4,096, softcaps 50
+              and 30) and yi-34b (GQA 56/8) at full width and depth from
+              a torch.Generator on the card prefill 2 x 4,096 tokens as
+              phase zoo's do (B7 once a layer and held on the first call's
+              q/k/v; deepseek's B6 once a MoE layer and bit-exact on its
+              first layer's 49,152 pairs), decode 16 tokens in float32
+              against their forward (``DECODE_TOL``) at plan_cut's float32
+              depth, and deepseek-moe-16b serves phase 8's requests at 4
+              of its 28 layers (B6 in every decode step).  (b)
+              prefill_32k at plan_cut's batch and depth, B7 at 32,768 keys
+              against a dense float32 computation of 128 query rows (the
+              first, a middle and the last) of three (batch, head) pairs
+              on the first and the first global layer's call
+              (``DENSE_TOL``; the rows read one row later must fail),
+              deepseek's B6 on its first layer's pairs.  (c) decode_32k:
+              yi-34b and gemma2-27b decode 8 steps over caches of 32,768
+              positions at plan_cut's batch and depth (tokens out/s, peak
+              memory), then in float32 at 2 layers a decode of 16 tokens
+              from the cache of a prefill of 32,768 held against that
+              prefill (``against_prefill``: the last logits within
+              ``DECODE_TOL``, every mixer layer's outputs within
+              ``LAYER_TOL``), and the same cache shifted by one position
+              must fail.  (d) long_500k on h2o-danube-1.8b, gemma3-4b,
+              gemma2-27b, zamba2-7b and mamba2-130m at plan_cut's depth
+              from ``L500_LAYERS``: a prefill of 524,288 tokens, B7 held
+              against the dense rows at 524,288 keys, and the decode of
+              the last 8 tokens (zamba2-7b: 512, mamba2-130m in float32)
+              against it as in (c), in bfloat16 within
+              ``LOGITS_TOL_BF16``, ``LAYER_TOL`` and ``LAYER0_TOL_BF16``,
+              the shifted cache rejected.  Prefill tokens/s and peak
+              memory of each cell, the plans' and the phase's seconds.
 
 Phases 3-6, 8, 9 and zoo's prefills (not 5b) also re-run their path under
 the profiler and report the card's idle share against the unprofiled wall
 time (where the profiler drops a long graph run's records, the events'
 span stands in).  Phases 5b, mesh, pmesh, raytrace, 8, admission, runtime,
-9, train and zoo run before phase 7, whose line needs their launch
-counts.  Every phase
+9, train, zoo and registry run before phase 7, whose line needs their
+launch counts.  Every phase
 line carries ``elapsed_s``, the seconds since the script started, and
 every kernel row ``timing_s``, the seconds its timing took.  Then the
 card's name and power limit as nvidia-smi prints them, and a last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -701,6 +745,86 @@ ZOO_FLASH_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
     (2, 32, 32, 4096, 112, False, 0, 0.0),    # hd 112 without a mask
     (1, 8, 2, 1000, 112, False, 0, 50.0))     # unmasked, S off the tiles
 
+# phase registry: the registry's cells no chip run had touched (A23), at
+# full width; where one card does not hold a cell, launch/dryrun.plan_cut
+# cuts its batch, then its depth in whole periods of the layer pattern,
+# to FIT of the card's memory, and the line prints each cut.  (a)
+# REG_ARCHS at full depth prefill REG_BATCH x REG_SEQ tokens in bfloat16
+# (B7 held against its plain version on the first call's q, k and v, as
+# phase zoo does; deepseek-moe-16b's B6 on its first MoE layer's 49,152
+# (token, choice) pairs over 64 experts, bit for bit), then, at the depth
+# plan_cut finds for float32, decode REG_DECODE tokens in float32 against
+# their forward over them (DECODE_TOL); deepseek-moe-16b serves
+# SERVE_REQUESTS at REG_SERVE_LAYERS of its 28 layers (B6 in every decode
+# step).  (b) prefill_32k: its batch of 32 cut to 1 x P32_SEQ tokens;
+# B7 at 32,768 keys held against a dense float32 computation of
+# DENSE_ROWS query rows (the first, a middle and the last) of several
+# (batch, head) pairs within DENSE_TOL, on the first call and on the
+# first global layer's, and on those rows moved by one row, which must
+# fail; deepseek-moe-16b's B6 on its 196,608 pairs.  (c) decode_32k:
+# D32_ARCHS decode D32_STEPS steps with caches of D32_SEQ positions at
+# plan_cut's batch and depth (decode tokens out/s, peak memory); then
+# in float32 at D32_CHECK_LAYERS layers, a prefill over D32_SEQ tokens
+# whose first D32_SEQ - D32_TAIL positions' K and V are the cache (with
+# causal attention a position's K and V read no later token, so they are
+# what a prefill of D32_SEQ - D32_TAIL tokens gives), D32_TAIL decode
+# steps, the last step's logits against the prefill's (DECODE_TOL) and
+# each attention layer's output at that step against the prefill's last
+# row (LAYER_TOL); the same cache with its positions shifted by one must
+# fail that check.  (d) long_500k on every config that does not skip
+# it, at plan_cut's depth for a prefill of L500_SEQ tokens: the same
+# check with L500_TAIL decode steps, in bfloat16 within LOGITS_TOL_BF16
+# and LAYER_TOL (mamba2-130m in float32 within DECODE_TOL: its prefill of
+# L500_SEQ - L500_TAIL tokens ends in a padded SSD chunk; zamba2-7b
+# decodes L500_HYBRID_TAIL steps after a prefill of a multiple of B7's
+# and the SSD's blocks, its shared block's K and V taken from that
+# prefill), B7 at 524,288 keys against the dense rows.
+REG_ARCHS = ("deepseek-moe-16b", "gemma2-27b", "yi-34b")
+REG_BATCH, REG_SEQ, REG_DECODE, REG_SERVE_LAYERS = 2, 4096, 16, 4
+P32_SEQ = 32768
+D32_ARCHS = ("yi-34b", "gemma2-27b")
+D32_SEQ, D32_TAIL, D32_STEPS = 32768, 16, 8
+D32_CHECK_LAYERS = 2     # one period of gemma2's (local, global); time
+L500_ARCHS = ("h2o-danube-1.8b", "gemma3-4b", "gemma2-27b", "zamba2-7b",
+              "mamba2-130m")
+L500_SEQ, L500_TAIL, L500_HYBRID_TAIL = 524288, 8, 512
+# the depth plan_cut starts from (the config's where none is named), cut
+# for time: a global layer's B7 call is seconds at 524,288 keys, and each
+# SSD layer's chunk recurrence 2,048 steps (on meta too, where plan_cut
+# counts it); each keeps one period or more, so a global layer
+L500_LAYERS = {"gemma3-4b": 6, "gemma2-27b": 2, "zamba2-7b": 6,
+               "mamba2-130m": 6}
+DENSE_ROWS = 128
+# B7 (bfloat16) against the exact float32 attention of the same rows: one
+# ulp of the element plus 2^-5 of the rows' rms (p is rounded to bfloat16
+# before p.v), and 2^-8 in the Frobenius norm, since rounding the output
+# to bfloat16 alone moves each element by up to 2^-8 of itself
+DENSE_TOL = {"rtol": 2.0 ** -7, "atol_rms": 2.0 ** -5, "frob": 2.0 ** -8}
+# a mixer layer's (attention's or SSM's) outputs at the decode steps
+# against the prefill's rows at those positions, ||decode - prefill|| /
+# ||prefill|| over the steps: float32 rounding (the dense path against
+# B7's float32 kernel, the SSM's recurrence against its chunked form),
+# and in bfloat16 the two paths' roundings of the layer's input, the
+# residual stream of every earlier layer rounded to bfloat16 at other
+# places (2^-8 an element a layer), and the chunked SSD's bfloat16
+# products
+LAYER_TOL = {"float32": 2.0 ** -10, "bfloat16": 2.0 ** -4}
+# the first layer of an attention family in bfloat16: its input is the
+# same token's embedding on both paths, so the two differ by the
+# attention's own roundings alone (B7's p in bfloat16 against the dense
+# path's weights, 2^-8 of an element); a cache shifted by one moved it by
+# 2.2 % at 524,288 tokens through a 4,096-key window (h2o-danube-1.8b on an
+# H100 80GB HBM3), under LAYER_TOL, over this
+LAYER0_TOL_BF16 = 2.0 ** -6
+# the last logits of a bfloat16 decode against the prefill's, in the
+# Frobenius norm: the same roundings through every layer and the head
+LOGITS_TOL_BF16 = 2.0 ** -4
+# a decode step's K and V in its cache slot against the ones it computed,
+# ||slot - own|| / ||own||: one rounding to the cache's dtype (2^-8 an
+# element in bfloat16); a step that skips its write leaves zeros (a share
+# of 2^7) or another position's K and V
+WRITE_TOL = 2.0 ** -7
+
 START = time.perf_counter()
 
 
@@ -923,6 +1047,8 @@ class Smoke:
         self.lse_used = {"element": 0.0, "frobenius": 0.0}  # B7's lse
         self.bwd_same = 0         # backward calls repeated bit for bit
         self.attn_inputs = {}     # training path -> {window: q, k, v, kw}
+        self.reg_b7 = []          # phase registry's B7 calls by shape
+        self.reg_tickets = {}     # phase registry's B6 inputs
 
     # -- helpers -------------------------------------------------------------
 
@@ -4938,6 +5064,577 @@ class Smoke:
         torch.cuda.empty_cache()
         return info, seen
 
+    # -- phase registry: the registry's untouched cells (A23) ---------------
+
+    def reg_load(self, models, cfg, seed, dtype=None):
+        """``cfg``'s parameters from a generator on the card seeded
+        ``seed`` (the one model kept, freed before another is made), drawn
+        in ``dtype`` (float32 for the float32 checks: no cast copy)."""
+        torch = self.torch
+        key = (cfg.name, cfg.n_layers, seed, str(dtype))
+        if self.reg_params is not None and self.reg_params[0] == key:
+            return self.reg_params[1]
+        self.reg_params = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        params = models.init_params(cfg, gen, device=self.dev,
+                                    dtype=dtype or torch.bfloat16)
+        if n_params(params) != expected_params(cfg):
+            raise AssertionError(f"{cfg.name}: {n_params(params)} "
+                                 f"parameters, expected "
+                                 f"{expected_params(cfg)}")
+        torch.cuda.synchronize()
+        self.reg_init_s[f"{cfg.name}/{cfg.n_layers}/{dtype}"] = \
+            time.perf_counter() - t0
+        self.reg_params = (key, params)
+        return params
+
+    def reg_plan(self, dryrun, cfg, kind, batch, seq, dtype=None,
+                 layers=None):
+        """``launch.dryrun.plan_cut`` at the card's budget; raises where
+        one period of layers does not fit."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        p = dryrun.plan_cut(cfg, kind, batch, seq, budget=self.reg_budget,
+                            dtype=dtype or torch.bfloat16, layers=layers)
+        p["plan_s"] = time.perf_counter() - t0
+        self.reg_plan_s += p["plan_s"]
+        if not p["fits"]:
+            raise AssertionError(f"{cfg.name} {kind} {batch} x {seq}: one "
+                                 f"period does not fit: {p}")
+        return p
+
+    def reg_tokens(self, cfg, shape, seed):
+        return self.torch.as_tensor(self.np.random.default_rng(seed).integers(
+            0, cfg.vocab, shape), device=self.dev)
+
+    @contextlib.contextmanager
+    def spy_tickets(self, seen):
+        """B6's first call of the block: its expert ids (a copy) and
+        options into ``seen``."""
+        moe_route = importlib.import_module("repro_torch.kernels.moe_route")
+        real = moe_route.expert_tickets
+
+        def spy(ids, **kw):
+            if not seen:
+                seen.append((ids.clone(), kw))
+            return real(ids, **kw)
+        moe_route.expert_tickets = spy
+        try:
+            yield
+        finally:
+            moe_route.expert_tickets = real
+
+    def dense_rows(self, q, k, v, out, kw):
+        """B7's ``out`` against the exact float32 attention of DENSE_ROWS
+        query rows at the start, the middle and the end of the sequence,
+        for the first and the last (batch, head) pair and one between,
+        within DENSE_TOL; the same rows read one row later must fail.
+        Returns the bounds' largest shares."""
+        torch = self.torch
+        b, h, sq, hd = q.shape
+        sk, rep = k.shape[2], h // k.shape[1]
+        causal, win, cap = kw["causal"], kw["window"], kw["softcap_val"]
+        starts = (0, sq // 2 // DENSE_ROWS * DENSE_ROWS, sq - DENSE_ROWS)
+        pairs = sorted({(0, 0), (b - 1, h - 1), (b // 2, (h - 1) // 2)})
+        kpos = torch.arange(sk, device=self.dev)
+        used = {"element": 0.0, "frobenius": 0.0}
+        moved = []
+        for bi, hi in pairs:
+            kk, vv = k[bi, hi // rep].float(), v[bi, hi // rep].float()
+            for r0 in starts:
+                qpos = torch.arange(r0, r0 + DENSE_ROWS, device=self.dev)
+                s = q[bi, hi, r0:r0 + DENSE_ROWS].float() @ kk.T
+                s = s * (1.0 / hd ** 0.5)
+                if cap:
+                    s = cap * torch.tanh(s / cap)
+                ok = torch.ones_like(s, dtype=torch.bool)
+                if causal:
+                    ok &= kpos[None, :] <= qpos[:, None]
+                if win:
+                    ok &= kpos[None, :] > qpos[:, None] - win
+                want = torch.softmax(s.masked_fill(~ok, float("-inf")),
+                                     -1) @ vv
+                _, elem, frob = self.bound_shares(
+                    out[bi, hi, r0:r0 + DENSE_ROWS].float(), want, DENSE_TOL)
+                used["element"] = max(used["element"], elem)
+                used["frobenius"] = max(used["frobenius"], frob)
+                if elem > 1 or frob > 1:
+                    raise AssertionError(
+                        f"B7 at {sk} keys: rows {r0}.. of (batch {bi}, head "
+                        f"{hi}) use {elem:.3g} / {frob:.3g} of DENSE_TOL")
+                r1 = r0 + 1 if r0 + DENSE_ROWS < sq else r0 - 1
+                _, e1, f1 = self.bound_shares(
+                    out[bi, hi, r1:r1 + DENSE_ROWS].float(), want, DENSE_TOL)
+                if e1 <= 1 and f1 <= 1:
+                    raise AssertionError(f"B7 at {sk} keys: rows moved by "
+                                         f"one passed DENSE_TOL")
+                moved.append(max(e1, f1))
+        self.cases["flash_attention_dense_rows"] = self.cases.get(
+            "flash_attention_dense_rows", 0) + len(pairs) * len(starts)
+        return {"q": list(q.shape), "kv_heads": k.shape[1], "keys": sk,
+                "causal": causal, "window": win, "softcap": cap,
+                "row_starts": list(starts), "pairs": pairs,
+                "tolerance": DENSE_TOL, "bound_used": used,
+                "moved_rows_least_share": min(moved)}
+
+    def reg_prefill(self, K, models, cfg, params, tokens, label, held=(0,)):
+        """One prefill of ``tokens`` (no gradient) with the launch counters
+        from 0 (kept under ``label``): B7 once a self-attention layer,
+        held against the dense rows on the calls in ``held`` inside the
+        call (no q, k or v outlives it; the check's seconds are left out
+        of the prefill's); B6 once a MoE layer, its first call's ids kept.
+        Returns (logits, K/V or states, line, [(ids, kw)])."""
+        torch = self.torch
+        from repro_torch.models import layers
+        real = layers.flash_attention
+        calls, checks, check_s, tickets = [0], {}, [0.0], []
+
+        def spy(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            if calls[0] in held:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                checks[str(calls[0])] = self.dense_rows(q, k, v, out, kw)
+                torch.cuda.synchronize()
+                check_s[0] += time.perf_counter() - t0
+            calls[0] += 1
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        layers.flash_attention = spy
+        try:
+            with self.spy_tickets(tickets), torch.no_grad():
+                K.reset_launches()
+                t0 = time.perf_counter()
+                logits, caches = models.prefill(params, tokens, cfg)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0 - check_s[0]
+                launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        finally:
+            layers.flash_attention = real
+        self.launches[label] = launches
+        self.reg_b7_record(label, cfg, *tokens.shape,
+                           str(params["final_norm"].dtype).split(".")[-1])
+        if launches.get("flash_attention", 0) != attention_calls(cfg) or (
+                cfg.family == "moe"
+                and launches.get("expert_tickets", 0) != cfg.n_layers):
+            raise AssertionError(f"{label}: launches {launches}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label}: logits not finite")
+        if cfg.final_softcap and float(logits.abs().max()) > \
+                cfg.final_softcap:
+            raise AssertionError(f"{label}: logits past the final softcap")
+        b, s = tokens.shape
+        return logits, caches, {
+            "batch": b, "seq": s, "layers": cfg.n_layers, "run_s": run_s,
+            "tokens_per_s": b * s / run_s, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "dense_rows": checks, "dense_check_s": check_s[0]}, tickets
+
+    def reg_ring(self, t, keep, sc, shift):
+        """A layer's cache of ``sc`` slots after ``keep`` positions of ``t``
+        (B, >= keep, kv, hd): slot p % sc holds position p, for the last
+        ``sc`` positions before ``keep``; with ``shift`` each position one
+        slot later.  A global layer's cache is ``t`` itself, its slots
+        from ``keep`` on zeroed (a decode step must write the position it
+        reads), shifted in place: the shifted run comes last."""
+        torch = self.torch
+        if sc == t.shape[1]:
+            t[:, keep:] = 0
+            if shift:
+                t[:, 1:keep] = t[:, :keep - 1].clone()
+            return t
+        out = torch.zeros((t.shape[0], sc) + tuple(t.shape[2:]),
+                          dtype=t.dtype, device=t.device)
+        lo = max(keep - sc, 0)
+        pos = torch.arange(lo, keep, device=t.device)
+        out[:, (pos + int(shift)) % sc] = t[:, lo:keep]
+        return out
+
+    def reg_cache(self, cfg, kv, shared, keep, n, shift):
+        """The decode cache after ``keep`` of ``n`` tokens from a prefill's
+        ``kv`` (K/V stacked, or the SSM states of a prefill of ``keep``
+        tokens and ``shared``, the hybrid's shared-block K/V of that
+        prefill); ``shift`` moves every position one later (an SSM
+        layer's conv window too)."""
+        cache = []
+        if cfg.family in ("ssm", "hybrid"):
+            blocks = iter(shared)
+            for i in range(cfg.n_layers):
+                conv = kv["conv"][i].clone()
+                if shift:
+                    conv[:, 1:] = conv[:, :-1].clone()
+                e = {"conv": conv, "ssm": kv["ssm"][i].clone()}
+                if cfg.family == "hybrid" and cfg.shared_attn_every and \
+                        (i + 1) % cfg.shared_attn_every == 0:
+                    k, v = next(blocks)
+                    e["k"], e["v"] = (self.reg_ring(t, keep, n, shift)
+                                      for t in (k, v))
+                cache.append(e)
+            return cache
+        for i in range(cfg.n_layers):
+            w = cfg.window_for_layer(i)
+            sc = min(w, n) if w else n
+            cache.append({key: self.reg_ring(kv[key][i], keep, sc, shift)
+                          for key in ("k", "v")})
+        return cache
+
+    def against_prefill(self, K, models, cfg, params, tokens, tail, label,
+                        held=(0,)):
+        """A decode after a prefill against the prefill over all ``n``
+        tokens: the cache holds the first ``n - tail`` positions (the
+        attention families' from the prefill over all ``n``, the SSM
+        families' states from a prefill of ``n - tail`` tokens), then
+        ``tail`` decode steps.  The last step's logits against the
+        prefill's last-token logits (float32: DECODE_TOL; bfloat16:
+        LOGITS_TOL_BF16); each mixer layer's outputs (attention or SSM) at
+        the ``tail`` steps against the prefill's rows at those positions,
+        ||decode - prefill|| / ||prefill|| within LAYER_TOL (an attention
+        family's first layer in bfloat16 within LAYER0_TOL_BF16); the K
+        and V each step leaves in its slot against the ones it computed,
+        within WRITE_TOL.  The same with the cache shifted by one position
+        must fail, and so must a decode whose steps skip their cache write
+        (a planted fault, where there is a cache).  B7 held against the
+        dense rows on the calls in ``held``."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        b, n = tokens.shape
+        keep = n - tail
+        dt = "float32" if params["final_norm"].dtype == torch.float32 \
+            else "bfloat16"
+        rows, shared, mode = [], [], ["full"]
+        wrote, skip = [], [False]
+        real_attn, real_ssm = T.attention, T.ssm_forward
+
+        class NoWrite(torch.Tensor):
+            """A cache whose item assignments are dropped: the planted
+            decode's steps skip their K/V write."""
+            @classmethod
+            def __torch_function__(cls, func, types, args=(), kwargs=None):
+                if func is torch.Tensor.__setitem__:
+                    return None
+                with torch._C.DisableTorchFunctionSubclass():
+                    return func(*args, **(kwargs or {}))
+
+        def record(out):
+            if mode[0] == "full":
+                rows.append(out[:, keep:].float())
+            elif mode[0] == "decode":
+                rows.append(out[:, -1:].float())
+
+        def attn_spy(p, x, c, **kw):
+            cache = kw.get("cache")
+            if cache is not None and skip[0]:
+                kw["cache"] = (cache[0].as_subclass(NoWrite),
+                               cache[1].as_subclass(NoWrite), cache[2])
+            out, kv = real_attn(p, x, c, **kw)
+            record(out)
+            if mode[0] == "decode" and cache is not None:
+                # the step's own K and V, as attention computes them,
+                # against what its slot holds after the step
+                own = [(x @ p[w]).reshape(x.shape[0], 1, c.n_kv_heads,
+                                          c.hd) for w in ("wk", "wv")]
+                own[0] = L.rope(own[0], kw["positions"], c.rope_theta)
+                slot = int(cache[2]) % cache[0].shape[1]
+                wrote.append(max(
+                    float((t[:, slot].float() - o[:, 0].float()).norm()
+                          / o.float().norm()) / WRITE_TOL
+                    for t, o in zip(cache[:2], own)))
+            if mode[0] == "keep" and cfg.family == "hybrid":
+                shared.append(kv)
+            return out, kv
+
+        def ssm_spy(p, x, c, **kw):
+            out, st = real_ssm(p, x, c, **kw)
+            record(out)
+            return out, st
+
+        T.attention, T.ssm_forward = attn_spy, ssm_spy
+        try:
+            want, kv, line, _ = self.reg_prefill(K, models, cfg, params,
+                                                 tokens, label, held)
+            want_rows = rows[:]
+            del rows[:]
+            with torch.no_grad():
+                if cfg.family in ("ssm", "hybrid"):
+                    mode[0] = "keep"
+                    kv = models.prefill(params, tokens[:, :keep], cfg)[1]
+                    torch.cuda.synchronize()
+
+                def decode(shift, skip_write=False):
+                    cache = self.reg_cache(cfg, kv, shared, keep, n, shift)
+                    steps = []
+                    del wrote[:]
+                    mode[0], skip[0] = "decode", skip_write
+                    t0 = time.perf_counter()
+                    for t in range(tail):
+                        del rows[:]
+                        lg, cache = models.decode_step(
+                            params, cache, tokens[:, keep + t:keep + t + 1],
+                            keep + t, cfg)
+                        steps.append(rows[:])
+                    torch.cuda.synchronize()
+                    mode[0], skip[0] = "off", False
+                    return lg, [torch.cat(c, 1) for c in zip(*steps)], \
+                        time.perf_counter() - t0, wrote[:]
+                got, got_rows, decode_s, got_kv = decode(False)
+                lost = decode(False, True) if got_kv else None
+                bad, bad_rows, _, _ = decode(True)
+        finally:
+            T.attention, T.ssm_forward = real_attn, real_ssm
+
+        def write_share(kv_wrote):
+            """The largest share of WRITE_TOL among the steps' slots."""
+            if len(kv_wrote) != attention_calls(cfg) * tail:
+                raise AssertionError(f"{label}: {len(kv_wrote)} cache "
+                                     f"writes, expected "
+                                     f"{attention_calls(cfg)} x {tail}")
+            return max(kv_wrote, default=0.0)
+
+        def shares(lg, lrows):
+            if dt == "float32":
+                bound = DECODE_TOL["atol"] + DECODE_TOL["rtol"] * want.abs()
+                logit = float(((lg - want).abs() / bound).max())
+            else:
+                logit = float((lg - want).norm() / want.norm()) \
+                    / LOGITS_TOL_BF16
+            if len(lrows) != len(want_rows):
+                raise AssertionError(f"{label}: {len(lrows)} mixer calls a "
+                                     f"step, the prefill {len(want_rows)}")
+            layer = [float((g - w).norm() / w.norm()) / tol[i]
+                     for i, (g, w) in enumerate(zip(lrows, want_rows))]
+            return logit, max(layer, default=0.0), layer
+        tol = [LAYER_TOL[dt]] * len(want_rows)
+        if tol and dt == "bfloat16" and cfg.family not in ("ssm", "hybrid"):
+            tol[0] = LAYER0_TOL_BF16
+        ok, wrong = shares(got, got_rows), shares(bad, bad_rows)
+        ok_write = write_share(got_kv)
+        per_layer = {"ok": ok[2], "shifted": wrong[2]}
+        if not bool(torch.isfinite(got).all()) or max(ok[:2]) > 1 or \
+                ok_write > 1:
+            raise AssertionError(f"{label}: decode against prefill uses "
+                                 f"{ok[:2]} of (logits, layers) tolerances "
+                                 f"and {ok_write} of the cache writes'; by "
+                                 f"layer {per_layer}")
+        if max(wrong[:2]) <= 1:
+            raise AssertionError(f"{label}: a cache shifted by one passed "
+                                 f"({wrong[:2]}); by layer {per_layer}")
+        skipped = None
+        if lost is not None:
+            sk = shares(lost[0], lost[1])
+            skipped = {"logits": sk[0], "layers": sk[1],
+                       "cache_writes": write_share(lost[3])}
+            if max(skipped.values()) <= 1:
+                raise AssertionError(f"{label}: a decode that skips its "
+                                     f"cache writes passed ({skipped})")
+        line.update(tail=tail, kept=keep, dtype=dt, decode_s=decode_s,
+                    bound_used={"logits": ok[0], "layers": ok[1],
+                                "cache_writes": ok_write},
+                    shifted_cache_shares={"logits": wrong[0],
+                                          "layers": wrong[1]},
+                    skipped_write_shares=skipped,
+                    layer_shares=per_layer,
+                    tolerance={"logits": DECODE_TOL if dt == "float32"
+                               else {"frob": LOGITS_TOL_BF16},
+                               "layers": {"frob": tol}})
+        return line
+
+    def decode_rate(self, K, models, cfg, params, batch, label):
+        """D32_STEPS decode steps of ``batch`` rows with caches of D32_SEQ
+        positions (zeros; every position counts as written), after one
+        step to warm up: decode tokens out/s and the peak memory."""
+        torch = self.torch
+        with torch.no_grad():
+            cache = models.init_decode_cache(cfg, batch, D32_SEQ,
+                                             device=self.dev)
+            tok = self.reg_tokens(cfg, (batch, 1), 41)
+            cur = D32_SEQ - D32_STEPS - 1
+            models.decode_step(params, cache, tok, cur, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            for t in range(D32_STEPS):
+                lg, cache = models.decode_step(params, cache, tok,
+                                               cur + 1 + t, cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        self.launches[label] = {k: v for k, v in K.LAUNCHES.items() if v}
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{label}: logits not finite")
+        return {"batch": batch, "layers": cfg.n_layers,
+                "cache_positions": D32_SEQ, "steps": D32_STEPS,
+                "run_s": run_s, "step_ms": run_s / D32_STEPS * 1e3,
+                "tokens_out_per_s": batch * D32_STEPS / run_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def reg_b7_record(self, label, cfg, b, s, dtype):
+        """A prefill's B7 calls (``cfg``, b x s tokens in ``dtype``),
+        counted by window, for phase 7 to time at that shape."""
+        calls = attention_calls(cfg)
+        if not calls:
+            return
+        wins = ({0: calls} if cfg.family == "hybrid" else dict(
+            collections.Counter(cfg.window_for_layer(i)
+                                for i in range(cfg.n_layers))))
+        self.reg_b7.append({"path": label, "q": [b, cfg.n_heads, s, cfg.hd],
+                            "kv_heads": cfg.n_kv_heads, "dtype": dtype,
+                            "causal": cfg.causal,
+                            "softcap": cfg.attn_softcap, "windows": wins})
+
+    def first_global(self, cfg):
+        """The B7 call of a prefill on the first layer without a window
+        (the hybrid's shared block: its first call)."""
+        if cfg.family == "hybrid":
+            return 0
+        for i in range(cfg.n_layers):
+            if not cfg.window_for_layer(i):
+                return i
+        return 0
+
+    def reg_model_cells(self, K, dryrun, configs, models, serving, name,
+                        seed):
+        """(a), (b) and (c) of ``REG_*``'s comment for one config."""
+        torch = self.torch
+        cfg0 = configs.get_config(name)
+        line = {"arch": name, "params": cfg0.param_count(),
+                "layers": cfg0.n_layers, "d_model": cfg0.d_model,
+                "heads": [cfg0.n_heads, cfg0.n_kv_heads], "hd": cfg0.hd}
+        # (a) full width and depth, 2 x 4,096 in bfloat16
+        params = self.reg_load(models, cfg0, seed)
+        tokens = self.reg_tokens(cfg0, (REG_BATCH, REG_SEQ), seed)
+        tickets = []
+        with self.spy_tickets(tickets):
+            line["prefill"], self.reg_seen[name] = self.zoo_prefill(
+                K, f"reg_{name}", lambda: models.prefill(params, tokens,
+                                                         cfg0)[0],
+                attention_calls(cfg0), REG_BATCH * REG_SEQ)
+        self.reg_b7_record(f"reg_{name}", cfg0, REG_BATCH, REG_SEQ,
+                           "bfloat16")
+        if cfg0.family == "moe":
+            if line["prefill"]["launches"].get("expert_tickets") != \
+                    cfg0.n_layers:
+                raise AssertionError(f"{name}: B6 launches "
+                                     f"{line['prefill']['launches']}")
+            ids, kw = tickets[0]
+            self.tickets_case(K, ids, kw["num_experts"], kw["capacity"],
+                              calls=10)
+            self.reg_tickets["prefill_4k"] = tickets[0]
+            n = REG_SERVE_LAYERS
+            sliced = dict(params, layers={k: v[:n] for k, v in
+                                          params["layers"].items()})
+            eng, serve = self.serve_checked(
+                K, serving, models, dataclasses.replace(cfg0, n_layers=n),
+                sliced, f"reg_{name}_serve")
+            del eng                 # it holds views of the full model
+            if serve["launches"].get("expert_tickets") != \
+                    n * serve["metrics"]["decode_steps"]:
+                raise AssertionError(f"{name} serve: B6 launches "
+                                     f"{serve['launches']}")
+            line["serve"] = dict(serve, layers=n, of=cfg0.n_layers)
+            del sliced
+        # (b) prefill_32k
+        plan = self.reg_plan(dryrun, cfg0, "prefill", 32, P32_SEQ)
+        cfg = dryrun.with_layers(cfg0, plan["layers"])
+        del params
+        params = self.reg_load(models, cfg, seed)
+        held = sorted({0, self.first_global(cfg)})
+        logits, kv, p32, tickets = self.reg_prefill(
+            K, models, cfg, params, self.reg_tokens(cfg, (plan["batch"],
+                                                          P32_SEQ), seed),
+            f"reg_{name}_p32k", held)
+        del logits, kv
+        if cfg.family == "moe":
+            ids, kw = tickets[0]
+            self.tickets_case(K, ids, kw["num_experts"], kw["capacity"],
+                              calls=10)
+            self.reg_tickets["prefill_32k"] = tickets[0]
+        line["prefill_32k"] = dict(p32, plan=plan)
+        self.reg_flash[f"{name}_32k"] = p32["dense_rows"]
+        # (c) decode_32k: the rate at plan_cut's batch and depth
+        if name in D32_ARCHS:
+            plan = self.reg_plan(dryrun, cfg0, "decode", 128, D32_SEQ)
+            cfg = dryrun.with_layers(cfg0, plan["layers"])
+            del params
+            params = self.reg_load(models, cfg, seed)
+            line["decode_32k"] = dict(self.decode_rate(
+                K, models, cfg, params, plan["batch"], f"reg_{name}_d32k"),
+                plan=plan)
+        del params
+        self.reg_params = None
+        # (a) the float32 decode against the forward, at plan_cut's depth
+        plan = self.reg_plan(dryrun, cfg0, "decode", REG_BATCH, REG_DECODE,
+                             dtype=torch.float32)
+        cfg = dryrun.with_layers(cfg0, plan["layers"])
+        params = self.reg_load(models, cfg, seed, torch.float32)
+        line["decode_f32"] = dict(self.zoo_decode(
+            models, cfg, params, tokens[:, :REG_DECODE]), plan=plan,
+            layers=cfg.n_layers)
+        del params
+        # (c) decode against prefill at 32,768 positions, float32
+        if name in D32_ARCHS:
+            cfg = dryrun.with_layers(cfg0, D32_CHECK_LAYERS)
+            params = self.reg_load(models, cfg, seed, torch.float32)
+            line["decode_32k_check"] = self.against_prefill(
+                K, models, cfg, params,
+                self.reg_tokens(cfg, (1, D32_SEQ), seed + 1), D32_TAIL,
+                f"reg_{name}_d32k_check",
+                held=sorted({0, self.first_global(cfg)}))
+            del params
+        self.reg_params = None
+        torch.cuda.empty_cache()
+        return line
+
+    def reg_long(self, K, dryrun, configs, models, name, seed):
+        """(d) of ``REG_*``'s comment for one config."""
+        torch = self.torch
+        cfg0 = configs.get_config(name)
+        f32 = cfg0.family == "ssm"
+        dtype = torch.float32 if f32 else torch.bfloat16
+        tail = L500_HYBRID_TAIL if cfg0.family == "hybrid" else L500_TAIL
+        plan = self.reg_plan(dryrun, cfg0, "prefill", 1, L500_SEQ,
+                             dtype=dtype, layers=L500_LAYERS.get(name))
+        cfg = dryrun.with_layers(cfg0, plan["layers"])
+        params = self.reg_load(models, cfg, seed, dtype)
+        held = sorted({0, self.first_global(cfg)}) \
+            if attention_calls(cfg) else []
+        line = self.against_prefill(
+            K, models, cfg, params, self.reg_tokens(cfg, (1, L500_SEQ),
+                                                    seed),
+            tail, f"reg_{name}_500k", held)
+        self.reg_flash[f"{name}_500k"] = line["dense_rows"]
+        self.reg_params = None
+        del params
+        torch.cuda.empty_cache()
+        return dict(line, arch=name, plan=plan, of_layers=cfg0.n_layers)
+
+    def registry_path(self, K, configs, models, serving):
+        """Phase registry (``REG_*``'s comment).  Returns its line."""
+        torch = self.torch
+        from repro_torch.launch import dryrun
+        t0 = time.perf_counter()
+        self.reg_budget = dryrun.card_budget(self.dev)
+        self.reg_params, self.reg_init_s, self.reg_plan_s = None, {}, 0.0
+        self.reg_seen, self.reg_flash, self.reg_tickets = {}, {}, {}
+        info = {"phase": "registry", "budget_bytes": self.reg_budget,
+                "fit": dryrun.FIT}
+        for i, name in enumerate(REG_ARCHS):
+            info[name] = self.reg_model_cells(K, dryrun, configs, models,
+                                              serving, name, 30 + i)
+        info["long_500k"] = {
+            name: self.reg_long(K, dryrun, configs, models, name, 40 + i)
+            for i, name in enumerate(L500_ARCHS)}
+        torch.cuda.synchronize()
+        info["init_s"] = self.reg_init_s
+        info["plan_s"] = self.reg_plan_s
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
     def bwd_inputs(self, K, qkv, seed):
         """B7 with its lse and the backward against their plain versions
         (and the exact gradient) on a training run's first attention
@@ -5231,6 +5928,11 @@ def main() -> int:
     zoo_info, seen_zoo = smoke.zoo_path(K, configs, models, serving)
     emit_phase(zoo_info)
 
+    # registry. deepseek-moe-16b, gemma2-27b and yi-34b at full width,
+    # prefill_32k, decode_32k and long_500k at launch.dryrun's cuts
+    torch.cuda.empty_cache()
+    emit_phase(smoke.registry_path(K, configs, models, serving))
+
     # 7. kernel times at the paths' shapes
     emit({"kernels": kernel_rows(smoke, K, road_info, kron_info, heap_info,
                                  (qkron, qkron_dist), seen, road,
@@ -5246,6 +5948,171 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def registry_rows(smoke, K, bound):
+    """Phase 7's times of B6 and B7 at phase registry's shapes: ({shape:
+    entry}, lost ms) for each, every entry with the kernel's, the plain
+    version's and the library call's ms, its bound and its launches by
+    path.  ``bound(nbytes, ops, rate)`` is phase 7's."""
+    torch, np, dev = smoke.torch, smoke.np, smoke.dev
+    rng = np.random.default_rng(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # B6 at deepseek-moe-16b's 64 experts (top-6, phase registry): the
+    # expert ids of its first MoE layer at 2 x 4,096 tokens (49,152 pairs)
+    # and at 1 x 32,768 (196,608), and a serve decode step's 4 rows x 6
+    # (24 pairs, seeded); each path's launches charged at its shape
+    reg6, reg6_excess = {}, 0.0
+    moe = importlib.import_module("repro_torch.models.moe")
+    from repro_torch import configs as configs_mod
+    dcfg = configs_mod.get_config(REG_ARCHS[0])
+    cases = dict(smoke.reg_tickets)
+    cases["decode"] = (torch.as_tensor(rng.integers(0, dcfg.n_experts, 24,
+                                                    dtype=np.int32),
+                                       device=dev),
+                       {"num_experts": dcfg.n_experts,
+                        "capacity": moe.moe_capacity(4, dcfg)})
+    paths6 = {"prefill_4k": [f"reg_{REG_ARCHS[0]}"],
+              "prefill_32k": [f"reg_{REG_ARCHS[0]}_p32k"],
+              "decode": [f"reg_{REG_ARCHS[0]}_serve"]}
+    for key, (ids, kw) in cases.items():
+        n, e = ids.shape[0], kw["num_experts"]
+        oh = torch.nn.functional.one_hot(ids.long(), e).int().t() \
+            .contiguous()
+        kern = smoke.time_ms(lambda: None,
+                             lambda a, i: K.expert_tickets(ids, **kw))
+        plain = smoke.time_ms(lambda: None, lambda a, i:
+                              K.expert_tickets_plain(ids, **kw),
+                              iters=10, reps=3)
+        lib = smoke.time_ms(lambda: None, lambda a, i: torch.cumsum(
+            oh, 1, dtype=torch.int32))
+        bnd, by = bound(8 * n, n, ALU_OPS_PER_S)
+        launches = {p: smoke.launches.get(p, {}).get("expert_tickets", 0)
+                    for p in paths6[key]}
+        reg6_excess += sum(launches.values()) * (kern[0] - bnd)
+        reg6[key] = {"pairs": n, "experts": e, "capacity": kw["capacity"],
+                     "dropped": int((K.expert_tickets(ids, **kw) < 0).sum()),
+                     "ms": kern[0], "plain_ms": plain[0],
+                     "library_ms": lib[0], "bound_ms": bnd, "bound_by": by,
+                     "wall_ms": {"kernel": kern[1], "plain": plain[1],
+                                 "library": lib[1]}, "launches": launches}
+
+    # phase registry's B7 calls (REG_*) at each path's shapes, grouped by
+    # window: seeded q, k and v of the path's shape (the kernel's time
+    # does not depend on the values).  The kernel 20 calls a batch up to
+    # 4,096 keys, 3 at 32,768, one call at 524,288 (and in float32, the
+    # scalar kernel of the float32 check), SDPA likewise; the plain
+    # version once, up to
+    # 4,096 keys and at 32,768 for yi-34b's rep of 7 (its tile loop is
+    # seconds a call there; at 524,288 it is 1,048,576 tiles and not run:
+    # the dense rows stand in); SDPA (with enable_gqa, or with k and v
+    # repeated to the query heads where no backend takes float32 GQA; a
+    # window shorter than the keys as a boolean band) on every shape: in
+    # bfloat16 up to 32,768 keys with the softcap left out (gemma2-27b's
+    # rows there time a function without one), once in float32 and at
+    # 524,288 keys, where a softcap (SDPA takes none) or a band (s^2
+    # bytes) leaves it null with a note.  Bound: q, k, v and out once;
+    # two products of 2 hd flop per (query, key) pair the mask keeps, at
+    # the bf16 tensor-core rate (float32: the ALU rate).
+    def once(fn):
+        """(device ms, wall ms) of one call, CUDA events around it."""
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3
+
+    def b7_pairs(s, causal, w):
+        if not causal:
+            return s * s
+        if not w or w >= s:
+            return s * (s + 1) // 2
+        return w * (w + 1) // 2 + (s - w) * w
+
+    g7 = torch.Generator(device=dev)
+    g7.manual_seed(19)
+
+    def reg7_time(b, h, s, hd, kvh, dtype, w, cap, causal):
+        dt = torch.float32 if dtype == "float32" else torch.bfloat16
+        q = (torch.randn((b, h, s, hd), generator=g7, device=dev)
+             * 0.5).to(dt)
+        k, v = ((torch.randn((b, kvh, s, hd), generator=g7, device=dev)
+                 * 0.5).to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=w, softcap_val=cap)
+        pairs = b7_pairs(s, causal, w)
+        rate = ALU_OPS_PER_S if dtype == "float32" else BF16_TC_FLOP_PER_S
+        bnd, by = bound(q.element_size() * 2 * (b * h * s * hd
+                                                + b * kvh * s * hd),
+                        4 * b * h * pairs * hd, rate)
+        call = lambda: K.flash_attention(q, k, v, **kw)  # noqa: E731
+        if s > 32768 or dtype == "float32":
+            kern = once(call)
+        else:
+            kern = smoke.time_ms(lambda: None, lambda a, i: call(),
+                                 iters=20 if s <= 4096 else 3,
+                                 reps=5 if s <= 4096 else 2)
+        plain = (once(lambda: K.flash_attention_plain(q, k, v, **kw))
+                 if dtype == "bfloat16" and (s <= 4096 or (
+                     s <= 32768 and h == 7 * kvh)) else (None, None))
+        lib, lib_note = (None, None), None
+        big = s > 32768 or dtype == "float32"
+        if big and cap:
+            lib_note = "SDPA takes no softcap"
+        elif s > 32768 and w and w < s:
+            lib_note = f"the band as a boolean mask is {s}^2 bytes"
+        else:
+            mask = None
+            if w and w < s:
+                pos = torch.arange(s, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - w)
+            notes = []
+            for gqa in (True, False):
+                kk, vv = ((k, v) if gqa else (
+                    t.repeat_interleave(h // kvh, dim=1) for t in (k, v)))
+                call_lib = lambda: sdpa(  # noqa: E731
+                    q, kk, vv, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=gqa)
+                try:
+                    lib = (once(call_lib) if big else smoke.time_ms(
+                        lambda: None, lambda a, i: call_lib(),
+                        iters=20 if s <= 4096 else 3,
+                        reps=5 if s <= 4096 else 2))
+                    break
+                except RuntimeError as e:  # out of memory or no backend
+                    notes.append(f"enable_gqa={gqa}: {type(e).__name__}: "
+                                 f"{str(e)[:160]}")
+                del kk, vv
+                torch.cuda.empty_cache()
+            lib_note = "; ".join(notes) or None
+            del mask
+        del q, k, v
+        torch.cuda.empty_cache()
+        return {"q": [b, h, s, hd], "kv_heads": kvh, "dtype": dtype,
+                "causal": causal, "window": w, "softcap": cap,
+                "pairs": pairs, "ms": kern[0], "plain_ms": plain[0],
+                "library_ms": lib[0], "library_note": lib_note,
+                "bound_ms": bnd, "bound_by": by,
+                "wall_ms": {"kernel": kern[1], "plain": plain[1],
+                            "library": lib[1]}, "launches": {}}
+
+    reg7, reg7_excess = {}, 0.0
+    for rec in smoke.reg_b7:
+        for w, calls in rec["windows"].items():
+            b, h, s, hd = rec["q"]
+            key = (f"{s}_{h}x{rec['kv_heads']}_hd{hd}_w{w}"
+                   f"_cap{rec['softcap']:g}_{rec['dtype']}")
+            if key not in reg7:
+                reg7[key] = reg7_time(b, h, s, hd, rec["kv_heads"],
+                                      rec["dtype"], w, rec["softcap"],
+                                      rec["causal"])
+            x = reg7[key]
+            x["launches"][rec["path"]] = calls
+            reg7_excess += calls * (x["ms"] - x["bound_ms"])
+    return reg6, reg6_excess, reg7, reg7_excess
 
 
 def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
@@ -6235,6 +7102,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                      excess_ms_by_path=by_path5),
         excess=sum(by_path5.values()))
 
+    reg6, reg6_excess, reg7, reg7_excess = registry_rows(smoke, K, bound)
+
     # B6 expert_tickets: the expert ids of the serve prefill's first MoE
     # layer (2 x 4,096 tokens x top-8 = 65,536 pairs, 40 experts).  The
     # library call is an int32 torch.cumsum of the one-hot, the scan B1/B3
@@ -6278,13 +7147,14 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "decode_32_pairs": {"ms": dec6[0], "wall_ms": dec6[1],
                              "plain_ms": dec6_plain[0],
                              "library_ms": dec6_lib[0], "bound_ms": b6d,
-                             "bound_by": b6d_by}},
+                             "bound_by": b6d_by},
+         "registry_64_experts": reg6},
         # the prefill's calls at its shape, serve's decode calls at theirs
         excess=(smoke.launches["prefill"].get("expert_tickets", 0)
                 * (prefill6[0] - bound(8 * n6, n6, ALU_OPS_PER_S)[0])
                 + (smoke.launches["serve"].get("expert_tickets", 0)
                    + smoke.launches["runtime"].get("expert_tickets", 0))
-                * (dec6[0] - b6d)))
+                * (dec6[0] - b6d) + reg6_excess))
 
     # B7 flash_attention: the q/k/v of the serve prefill's first layer,
     # the model's (B, S, H, hd) bfloat16 activations as (B, H, S, hd)
@@ -6423,6 +7293,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "bound_used": smoke.bound_used["flash_attention"],
          "layout": "(B, S, H, hd) strided", "hd128": hd128,
          "hd256_global": hd256, "hd256_local": hd256_local, **zoo,
+         "registry": reg7,
          "lse_write_ms": {k: statistics.mean(v) for k, v in lse_ms.items()},
          "lse_write_turns_ms": lse_ms,
          "train_hd80_with_lse": {"ms": train_fwd[0],
@@ -6448,7 +7319,7 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
                 + gemma_train_b7 * sum(1 for w in smoke.gemma_train_windows
                                        if not w)
                 / len(smoke.gemma_train_windows)
-                * (hd256["ms"] - hd256["bound_ms"])))
+                * (hd256["ms"] - hd256["bound_ms"]) + reg7_excess))
 
     # the flash backward (csrc/flash_bwd.cu) at h2o-danube-1.8b's layer 0
     # of phase train: its q, k, v (the model's strided views), B7's out

@@ -17,10 +17,20 @@ went through the kernels.  A kernel inside a CUDA graph launches once per
 replay: the round engines' device loop (``runtime/enginecore.py:
 DeviceLoop``) counts its graph launches under ``device_loop`` and adds
 its captured round's launches once per round it ran.
+
+Where a wrapper runs is its tensors' device: a CPU tensor goes to its
+plain version and a CUDA tensor launches its kernel or raises.  The
+model's kernels (B6 ``expert_tickets``, B7 ``flash_attention`` and the
+flash backward) also take their plain version on a ``meta`` tensor
+(``PLAIN_DEVICES``), so that ``launch/op_analysis.py`` can walk a step
+at full size without allocating; there ``plain_span`` marks the plain
+version's span and its inputs: the kernel reads those and writes the
+outputs, and keeps the plain version's temporaries on chip.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +39,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -84,6 +94,13 @@ LAUNCHES: Dict[str, int] = {"wavefaa": 0, "ring_dequeue": 0,
                             "flash_attention_bwd": 0, "obs_record": 0,
                             "obs_record_mesh": 0, "device_loop": 0}
 
+#: devices whose tensors the model's kernels' wrappers give to their
+#: plain versions (``meta``: shapes only, nothing computed)
+PLAIN_DEVICES = ("cpu", "meta")
+#: the wrappers whose plain version is running on ``meta`` tensors, as
+#: (name, input tensors), innermost last
+PLAIN_SPANS: List[Tuple[str, Tuple[torch.Tensor, ...]]] = []
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -93,17 +110,33 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+@contextlib.contextmanager
+def plain_span(name: str, *inputs: torch.Tensor):
+    """Around a wrapper's plain version: on ``meta`` tensors ``(name,
+    inputs)`` stands on ``PLAIN_SPANS`` while it runs; elsewhere
+    nothing."""
+    if inputs[0].device.type != "meta":
+        yield
+        return
+    PLAIN_SPANS.append((name, inputs))
+    try:
+        yield
+    finally:
+        PLAIN_SPANS.pop()
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` (every entry point's
     default) needs a card and raises without one: nothing falls back to
     the CPU on its own.  Pass ``device="cpu"`` to run the plain
-    versions."""
+    versions, ``device="meta"`` to build shapes only (nothing is
+    allocated or computed)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' was asked for but torch.cuda.is_available() is "
             "False: pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

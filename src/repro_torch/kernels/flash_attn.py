@@ -11,6 +11,10 @@ is floored at 1e-30.
 
 * ``flash_attention`` — the wrapper.  A CPU tensor goes to
   ``flash_attention_plain``; a CUDA tensor launches a kernel or raises.
+  A ``meta`` tensor goes to the plain version too, in one block of all
+  Sq rows and Sk keys: nothing is computed there, and the one block's
+  products are every (q, k) tile's, which the plain loop would walk
+  one by one (``launch/op_analysis.py`` counts them).
   The kernel is chosen by dtype: bfloat16 runs ``csrc/flash_wgmma.cu``
   (wgmma for both products, K/V by TMA into an mbarrier ring, 128-key
   tiles, 64-key tiles at hd 256); float32 (the reference's float32 tests)
@@ -180,6 +184,14 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def _plain_blocks(q, k, bq: int, bk: int):
+    """The plain version's blocks: the caller's, or on ``meta`` one block
+    of every row and key."""
+    if q.device.type == "meta":
+        return q.shape[2], k.shape[2]
+    return bq, bk
+
+
 def _on_card(name: str, *tensors) -> None:
     for t in tensors:
         if t.device.type != "cuda":
@@ -198,10 +210,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (B, H, Sq, hd) in q's dtype (and, on the card, q's memory layout);
     with ``return_lse`` also the rows' log-sum-exp, float32 (B, H, Sq)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap_val=softcap_val, bq=bq, bk=bk,
-                                     return_lse=return_lse)
+    if q.device.type in _build.PLAIN_DEVICES:
+        bq, bk = _plain_blocks(q, k, bq, bk)
+        with _build.plain_span("flash_attention", q, k, v):
+            return flash_attention_plain(
+                q, k, v, causal=causal, window=window,
+                softcap_val=softcap_val, bq=bq, bk=bk,
+                return_lse=return_lse)
     _on_card("flash_attention", q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_attention: the kernel takes bfloat16 or "
@@ -316,10 +331,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     the plain version's blocks.  On the card one call is two launches:
     dq (and D), then dk/dv."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(
-            q, k, v, out, dout, lse, causal=causal, window=window,
-            softcap_val=softcap_val, bq=bq, bk=bk)
+    if q.device.type in _build.PLAIN_DEVICES:
+        bq, bk = _plain_blocks(q, k, bq, bk)
+        with _build.plain_span("flash_attention_bwd", q, k, v, out,
+                               dout, lse):
+            return flash_attention_bwd_plain(
+                q, k, v, out, dout, lse, causal=causal, window=window,
+                softcap_val=softcap_val, bq=bq, bk=bk)
     _on_card("flash_attention_bwd", q, k, v, out, dout, lse)
     _bwd_supported("flash_attention_bwd", q)
     b, h, sq, hd = q.shape
@@ -386,7 +404,7 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
     width outside ``BWD_HEAD_DIMS``) raises here, before the forward
     runs."""
     _check(q, k, v)
-    if q.device.type != "cpu":
+    if q.device.type not in _build.PLAIN_DEVICES:
         _bwd_supported("flash_attention_train", q)
     return _FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                    float(softcap_val), int(bq), int(bk))

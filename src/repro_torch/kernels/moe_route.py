@@ -9,8 +9,8 @@ dropped), and so does an inactive pair (expert id -1), which takes no
 slot.  A dropped pair still counts toward its expert, as in the Pallas
 kernel's per-tile ``base`` update.
 
-* ``expert_tickets`` — the wrapper.  A CPU tensor goes to
-  ``expert_tickets_plain``; a CUDA tensor launches the kernel of
+* ``expert_tickets`` — the wrapper.  A CPU (or ``meta``) tensor goes
+  to ``expert_tickets_plain``; a CUDA tensor launches the kernel of
   ``csrc/moe_route.cu`` (one launch: one block for up to 1,024 pairs, a
   decoupled look-back over tiles for more, on a scratch the wrapper keeps
   per card and every call leaves zero) or raises.  Unlike the Pallas
@@ -97,9 +97,10 @@ def expert_tickets(expert_ids: torch.Tensor, *, num_experts: int,
     (N,) int32 slots: the pair's rank among the earlier pairs of its
     expert, or -1 when inactive or at or past ``capacity``."""
     _check(expert_ids, num_experts, capacity)
-    if expert_ids.device.type == "cpu":
-        return expert_tickets_plain(expert_ids, num_experts=num_experts,
-                                    capacity=capacity)
+    if expert_ids.device.type in _build.PLAIN_DEVICES:
+        with _build.plain_span("expert_tickets", expert_ids):
+            return expert_tickets_plain(expert_ids, num_experts=num_experts,
+                                        capacity=capacity)
     _build.require_cuda("expert_tickets", expert_ids)
     if num_experts > MAX_EXPERTS:
         raise ValueError(f"expert_tickets: the kernel's shared-memory tables "

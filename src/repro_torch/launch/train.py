@@ -65,9 +65,11 @@ def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
     leaves = tree_leaves(params)
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                      materialize_grads=True))
-    state, metrics = adamw.step(ocfg, state,
-                                tree_map(lambda p: next(grads), params))
-    metrics["loss"] = loss.detach()
+    grads = tree_map(lambda p: next(grads), params)
+    loss = loss.detach()
+    del params, leaves          # the bfloat16 copy, before the update
+    state, metrics = adamw.step(ocfg, state, grads)
+    metrics["loss"] = loss
     return state, metrics
 
 

@@ -36,6 +36,9 @@ Params = Dict[str, torch.Tensor]
 FLASH_BLOCK_Q = 512
 FLASH_BLOCK_K = 512
 FLASH_MIN_SEQ = 2048  # use the blocked path above this many keys
+#: elements of the largest temporary of a row-wise op (``by_rows``): 1 GiB
+#: in float32
+ROW_SLAB = 2 ** 28
 
 
 # ---------------------------------------------------------------------------
@@ -43,22 +46,64 @@ FLASH_MIN_SEQ = 2048  # use the blocked path above this many keys
 # ---------------------------------------------------------------------------
 
 
+class NoDraws:
+    """What ``init_params(device="meta")`` passes for a generator: the
+    device alone.  The parameters are then shapes only."""
+    device = torch.device("meta")
+
+
 def _dense(gen: torch.Generator, shape, scale_axis: int = 0,
            dtype=torch.bfloat16, lead=()) -> torch.Tensor:
     """Normal weights scaled by 1/sqrt(shape[scale_axis]); ``lead`` adds
-    leading dimensions (the stacked layers) that do not enter the
-    scale."""
+    leading dimensions (the stacked layers) that do not enter the scale.
+    A stacked leaf is drawn one layer at a time: each float32 draw is
+    one layer's, scaled in place and written into the ``dtype`` leaf.
+    (Drawing the whole leaf in float32 and scaling a copy of it took two
+    35 GB temporaries for yi-34b's FFN leaves, (60, 7,168, 20,480), and
+    two 31 GB ones for gemma2-27b's.)  On ``meta`` nothing is drawn."""
+    out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
+                      device=gen.device)
+    if out.device.type == "meta":
+        return out
     scale = 1.0 / (shape[scale_axis] ** 0.5)
-    w = torch.randn(tuple(lead) + tuple(shape), generator=gen,
-                    device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    for layer in out.view((-1,) + tuple(shape)):
+        w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        layer.copy_(w.mul_(scale))
+    return out
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+def by_rows(fn, x: torch.Tensor, width: int, *more) -> torch.Tensor:
+    """``fn(x, *more)`` for a function of each row (the last axis) alone,
+    whose largest temporary is ``width`` wide: in slabs of rows that keep
+    that temporary within ``ROW_SLAB`` elements, each written into the
+    output, when x has more rows than one slab (a 524,288-token prompt:
+    gemma2-27b's FFN intermediates are 39 GB each in one piece).
+    ``more`` are tensors with x's rows, sliced with it.  Each row's
+    numbers are the ones the whole call gives."""
+    rows = x.shape[:-1].numel()
+    step = max(1, ROW_SLAB // max(int(width), 1))
+    if rows <= step:
+        return fn(x, *more)
+    flat = [t.reshape(rows, t.shape[-1]) for t in (x,) + more]
+    first = fn(*(t[:step] for t in flat))
+    out = first.new_empty((rows, first.shape[-1]))
+    out[:step] = first
+    del first
+    for i in range(step, rows, step):
+        out[i:i + step] = fn(*(t[i:i + step] for t in flat))
+    return out.reshape(x.shape[:-1] + out.shape[-1:])
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    return by_rows(lambda r: _rms_norm(r, w, eps), x, x.shape[-1])
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -73,7 +118,22 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (..., seq, heads, hd); positions: (..., seq)."""
+    """x: (..., seq, heads, hd); positions: (..., seq).  With one row of
+    positions, in slabs of positions that keep each float32 temporary
+    within ``ROW_SLAB`` elements (each position's numbers are the ones the
+    whole call gives)."""
+    s = x.shape[-3]
+    step = max(1, ROW_SLAB * s // max(x.numel(), 1))
+    if positions.dim() != 1 or s <= step:
+        return _rope(x, positions, theta)
+    out = torch.empty_like(x)
+    for i in range(0, s, step):
+        out[..., i:i + step, :, :] = _rope(x[..., i:i + step, :, :],
+                                           positions[i:i + step], theta)
+    return out
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     hd = x.shape[-1]
     half = hd // 2
     # log(theta) in float32, as jnp.log computes it
@@ -95,16 +155,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def attn_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
-                cross: bool = False) -> Params:
+                cross: bool = False, dtype=torch.bfloat16) -> Params:
     """q, k, v and output projections; ``cross`` names them ``cwq`` ...
     ``cwo`` (a vlm layer's cross-attention)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pfx = "c" if cross else ""
     return {
-        f"{pfx}wq": _dense(gen, (d, h * hd), lead=lead),
-        f"{pfx}wk": _dense(gen, (d, kv * hd), lead=lead),
-        f"{pfx}wv": _dense(gen, (d, kv * hd), lead=lead),
-        f"{pfx}wo": _dense(gen, (h * hd, d), lead=lead),
+        f"{pfx}wq": _dense(gen, (d, h * hd), dtype=dtype, lead=lead),
+        f"{pfx}wk": _dense(gen, (d, kv * hd), dtype=dtype, lead=lead),
+        f"{pfx}wv": _dense(gen, (d, kv * hd), dtype=dtype, lead=lead),
+        f"{pfx}wo": _dense(gen, (h * hd, d), dtype=dtype, lead=lead),
     }
 
 
@@ -215,14 +275,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(gen: torch.Generator, d: int, ff: int, lead=()) -> Params:
+def mlp_params(gen: torch.Generator, d: int, ff: int, lead=(),
+               dtype=torch.bfloat16) -> Params:
     return {
-        "w_gate": _dense(gen, (d, ff), lead=lead),
-        "w_up": _dense(gen, (d, ff), lead=lead),
-        "w_down": _dense(gen, (ff, d), scale_axis=0, lead=lead),
+        "w_gate": _dense(gen, (d, ff), dtype=dtype, lead=lead),
+        "w_up": _dense(gen, (d, ff), dtype=dtype, lead=lead),
+        "w_down": _dense(gen, (ff, d), scale_axis=0, dtype=dtype,
+                         lead=lead),
     }
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ p["w_gate"])
             * (x @ p["w_up"])) @ p["w_down"]
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return by_rows(lambda r: _swiglu(p, r), x, p["w_gate"].shape[-1])

@@ -26,19 +26,20 @@ from .layers import _dense
 Params = Dict[str, torch.Tensor]
 
 
-def moe_params(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
+def moe_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
+               dtype=torch.bfloat16) -> Params:
     d, fe, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
         "router": _dense(gen, (d, e), dtype=torch.float32, lead=lead),
-        "e_gate": _dense(gen, (e, d, fe), lead=lead),
-        "e_up": _dense(gen, (e, d, fe), lead=lead),
-        "e_down": _dense(gen, (e, fe, d), lead=lead),
+        "e_gate": _dense(gen, (e, d, fe), dtype=dtype, lead=lead),
+        "e_up": _dense(gen, (e, d, fe), dtype=dtype, lead=lead),
+        "e_down": _dense(gen, (e, fe, d), dtype=dtype, lead=lead),
     }
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * fe
-        p["s_gate"] = _dense(gen, (d, fs), lead=lead)
-        p["s_up"] = _dense(gen, (d, fs), lead=lead)
-        p["s_down"] = _dense(gen, (fs, d), lead=lead)
+        p["s_gate"] = _dense(gen, (d, fs), dtype=dtype, lead=lead)
+        p["s_up"] = _dense(gen, (d, fs), dtype=dtype, lead=lead)
+        p["s_down"] = _dense(gen, (fs, d), dtype=dtype, lead=lead)
     return p
 
 

@@ -25,26 +25,34 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from .layers import _dense, rms_norm
+from . import layers
+from .layers import _dense, _rms_norm, by_rows
 
 CHUNK = 256
+#: elements of ``ssd_chunked``'s largest float32 temporaries, (b, chunks,
+#: CHUNK, CHUNK, nh), above which it walks the chunks in groups (2 GiB;
+#: mamba2-130m's were 13 GB each at 524,288 tokens, zamba2-7b's 60 GB)
+SSD_SLAB = 2 ** 29
 
 
-def ssm_params(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Dict:
+def ssm_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
+               dtype=torch.bfloat16) -> Dict:
     d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
     conv_in = di + 2 * st  # x, B, C share the conv (n_groups = 1)
     dev = gen.device
     return {
-        "in_proj": _dense(gen, (d, 2 * di + 2 * st + nh), lead=lead),
-        "conv_w": _dense(gen, (cfg.ssm_conv, conv_in), lead=lead),
+        "in_proj": _dense(gen, (d, 2 * di + 2 * st + nh), dtype=dtype,
+                          lead=lead),
+        "conv_w": _dense(gen, (cfg.ssm_conv, conv_in), dtype=dtype,
+                         lead=lead),
         "A_log": torch.zeros(tuple(lead) + (nh,), dtype=torch.float32,
                              device=dev),
         "D": torch.ones(tuple(lead) + (nh,), dtype=torch.float32, device=dev),
         "dt_bias": torch.zeros(tuple(lead) + (nh,), dtype=torch.float32,
                                device=dev),
-        "ssm_norm": torch.zeros(tuple(lead) + (di,), dtype=torch.bfloat16,
+        "ssm_norm": torch.zeros(tuple(lead) + (di,), dtype=dtype,
                                 device=dev),
-        "out_proj": _dense(gen, (di, d), lead=lead),
+        "out_proj": _dense(gen, (di, d), dtype=dtype, lead=lead),
     }
 
 
@@ -59,15 +67,26 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  state: Optional[torch.Tensor] = None):
     """Depthwise causal conv.  xbc (B, S, C), w (K, C).
-    Returns (silu(out), new_state (B, K-1, C))."""
+    Returns (silu(out), new_state (B, K-1, C)).  A sequence of more than
+    ``layers.ROW_SLAB`` elements runs in slabs of positions, each with the
+    K - 1 positions before it (a 524,288-token prompt: zamba2-7b's
+    padded copy and its partial sums were 7.6 GB each)."""
     k = w.shape[0]
     if state is None:
         pad = torch.zeros(xbc.shape[0], k - 1, xbc.shape[2], dtype=xbc.dtype,
                           device=xbc.device)
     else:
         pad = state.to(xbc.dtype)
-    xp = torch.cat([pad, xbc], dim=1)
     s = xbc.shape[1]
+    step = max(k, layers.ROW_SLAB // max(xbc.shape[0] * xbc.shape[2], 1))
+    if s > step:
+        out = torch.empty_like(xbc)
+        for i in range(0, s, step):
+            head = pad if i == 0 else xbc[:, i - (k - 1):i]
+            out[:, i:i + step] = _causal_conv(xbc[:, i:i + step], w,
+                                              head)[0]
+        return out, torch.cat([pad, xbc[:, -(k - 1):]], dim=1)[:, -(k - 1):]
+    xp = torch.cat([pad, xbc], dim=1)
     out = xp[:, 0:s, :] * w[0][None, None, :]
     for i in range(1, k):
         out = out + xp[:, i:i + s, :] * w[i][None, None, :]
@@ -81,9 +100,10 @@ def ssd_chunked(x, dt, A, B, C, init_state):
     Returns (y (b, s, nh, hd), final_state (b, nh, hd, st) float32).
 
     The reference's scan body, with every term that does not depend on
-    the carried state computed for all chunks at once: the intra-chunk
-    quadratic form (O(b nc ck^2 nh) transient memory), each chunk's
-    contribution to the state and its decay.  Only the state recurrence
+    the carried state computed for a group of chunks at once: the
+    intra-chunk quadratic form (O(b g ck^2 nh) transient memory for g
+    chunks, ``SSD_SLAB``), each chunk's contribution to the state and
+    its decay.  Only the state recurrence
     h_c = h_{c-1} exp(sum dA_c) + contrib_c runs chunk by chunk, in
     float32; each chunk's y_inter then reads the state it started
     from."""
@@ -101,31 +121,48 @@ def ssd_chunked(x, dt, A, B, C, init_state):
     Bc, Cc = B.reshape(b, nc, ck, st), C.reshape(b, nc, ck, st)
     dA = dtc * negA                                          # (b,c,ck,nh) <= 0
     seg = torch.cumsum(dA, dim=2)
-    # intra-chunk:  y[t] = sum_{u<=t} C_t.B_u exp(seg_t-seg_u) dt_u x_u
     mask = torch.tril(torch.ones(ck, ck, dtype=torch.bool, device=x.device))
-    gate = seg[:, :, :, None, :] - seg[:, :, None, :, :]     # (b,c,t,u,nh)
-    gate = torch.where(mask[:, :, None], gate, float("-inf"))
-    cb = torch.einsum("bcts,bcus->bctu", Cc, Bc)
-    w = cb[..., None] * torch.exp(gate)
-    # the reference's three-operand einsum: w and dt x in x's dtype
-    y_intra = torch.einsum("bctuh,bcuhd->bcthd", w.to(xdt),
-                           dtc.to(xdt)[..., None] * xc)
-    # each chunk's share of the state it hands on:
-    # sum_u exp(seg_last - seg_u) dt_u B_u x_u
-    decay_last = torch.exp(seg[:, :, -1:, :] - seg)
-    contrib = torch.einsum("bcuh,bcuhd,bcus->bchds", decay_last * dtc.to(f32),
-                           xc.to(f32), Bc.to(f32))
-    decay = torch.exp(torch.sum(dA, dim=2))                  # (b,c,nh)
+    # chunks a group: each group's (b, c, t, u, nh) float32 terms within
+    # SSD_SLAB elements (one group at every training and 32k shape)
+    per = max(1, SSD_SLAB // (b * ck * ck * nh))
     h = init_state.to(f32)
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = h * decay[:, c, :, None, None] + contrib[:, c]
-    # inter-chunk:  y[t] += exp(seg_t) . C_t . h_in
-    y_inter = torch.einsum("bcts,bchds,bcth->bcthd", Cc.to(f32),
-                           torch.stack(h_in, dim=1),
-                           torch.exp(seg)).to(xdt)
-    return (y_intra + y_inter).reshape(b, s, nh, hd), h
+    y = (torch.empty(b, nc, ck, nh, hd, dtype=xdt, device=x.device)
+         if per < nc else None)
+    for c0 in range(0, nc, per):
+        g = slice(c0, min(c0 + per, nc))
+        xg, dtg, Bg, Cg, segg = xc[:, g], dtc[:, g], Bc[:, g], Cc[:, g], \
+            seg[:, g]
+        # intra-chunk:  y[t] = sum_{u<=t} C_t.B_u exp(seg_t-seg_u) dt_u x_u
+        gate = segg[:, :, :, None, :] - segg[:, :, None, :, :]  # (b,c,t,u,nh)
+        gate = torch.where(mask[:, :, None], gate, float("-inf"))
+        cb = torch.einsum("bcts,bcus->bctu", Cg, Bg)
+        w = cb[..., None] * torch.exp(gate)
+        del gate, cb
+        # the reference's three-operand einsum: w and dt x in x's dtype
+        y_intra = torch.einsum("bctuh,bcuhd->bcthd", w.to(xdt),
+                               dtg.to(xdt)[..., None] * xg)
+        del w
+        # each chunk's share of the state it hands on:
+        # sum_u exp(seg_last - seg_u) dt_u B_u x_u
+        decay_last = torch.exp(segg[:, :, -1:, :] - segg)
+        contrib = torch.einsum("bcuh,bcuhd,bcus->bchds",
+                               decay_last * dtg.to(f32), xg.to(f32),
+                               Bg.to(f32))
+        decay = torch.exp(torch.sum(dA[:, g], dim=2))        # (b,c,nh)
+        h_in = []
+        for dc, cc in zip(decay[..., None, None].unbind(1),
+                          contrib.unbind(1)):
+            h_in.append(h)
+            h = h * dc + cc
+        # inter-chunk:  y[t] += exp(seg_t) . C_t . h_in
+        y_inter = torch.einsum("bcts,bchds,bcth->bcthd", Cg.to(f32),
+                               torch.stack(h_in, dim=1),
+                               torch.exp(segg)).to(xdt)
+        if y is None:
+            y = y_intra + y_inter
+        else:
+            y[:, g] = y_intra + y_inter
+    return y.reshape(b, s, nh, hd), h
 
 
 def ssm_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -156,10 +193,24 @@ def ssm_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         y = torch.einsum("bs,bhds->bhd", C[:, 0].to(f32),
                          h).to(x.dtype).reshape(b, 1, nh, hd)
         final = h
+    elif s > CHUNK and s % CHUNK:
+        # a ragged prompt: the last chunk padded with positions of dt = 0,
+        # which neither decay the state nor add to it (the reference takes
+        # whole chunks only)
+        pad = CHUNK - s % CHUNK
+        y, final = ssd_chunked(*(torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, dt)),
+            p["A_log"], *(torch.nn.functional.pad(t, (0, 0, 0, pad))
+                          for t in (B, C)), init)
+        y = y[:, :s]
     else:
         y, final = ssd_chunked(xs, dt, p["A_log"], B, C, init)
-    y = y + xs * p["D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(b, s, di)
-    y = rms_norm(y * torch.nn.functional.silu(z), p["ssm_norm"])
+    # the skip, the gate and the norm, a slab of positions at a time
+    d_skip = p["D"].to(x.dtype).repeat_interleave(hd)        # (di,)
+
+    def tail(y, xs, z):
+        return _rms_norm((y + xs * d_skip) * torch.nn.functional.silu(z),
+                         p["ssm_norm"], 1e-6)
+    y = by_rows(tail, y.reshape(b, s, di), 2 * di, xs.reshape(b, s, di), z)
     out = y @ p["out_proj"]
     return out, (new_conv, final)

@@ -55,8 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels._build import resolve_device
-from .layers import (_dense, attention, attn_params, mlp, mlp_params,
-                     rms_norm, rope, softcap)
+from .layers import (NoDraws, _dense, attention, attn_params, mlp,
+                     mlp_params, rms_norm, rope, softcap)
 from .moe import moe_forward, moe_params
 from .ssm import ssm_forward, ssm_params
 
@@ -69,42 +69,48 @@ Params = Dict[str, Any]
 
 
 def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
-                device="cuda") -> Params:
+                device="cuda", dtype=torch.bfloat16) -> Params:
     """Random parameters in the reference's tree.  ``gen`` is a
     ``torch.Generator`` on ``device``; without one, a generator seeded
-    with 0 is made there."""
+    with 0 is made there.  On ``device="meta"`` the tree holds shapes
+    only (no generator, nothing drawn).  ``dtype`` is the type of every
+    leaf the reference keeps in bfloat16 (float32: the weights drawn and
+    kept in float32, for checks in float32 without a cast copy)."""
     dev = resolve_device(device)
-    if gen is None:
+    if dev.type == "meta":
+        gen = NoDraws()
+    elif gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"the generator is on {gen.device}, not {dev}")
     d, lead = cfg.d_model, (cfg.n_layers,)
-    zeros = dict(dtype=torch.bfloat16, device=dev)
+    zeros = dict(dtype=dtype, device=dev)
+    kw = dict(lead=lead, dtype=dtype)
     layers: Params = {"ln1": torch.zeros(cfg.n_layers, d, **zeros)}
     if cfg.family in ("ssm", "hybrid"):
-        layers.update(ssm_params(gen, cfg, lead=lead))
+        layers.update(ssm_params(gen, cfg, **kw))
     else:
-        layers.update(attn_params(gen, cfg, lead=lead))
+        layers.update(attn_params(gen, cfg, **kw))
         layers["ln2"] = torch.zeros(cfg.n_layers, d, **zeros)
         if cfg.family == "moe":
-            layers.update(moe_params(gen, cfg, lead=lead))
+            layers.update(moe_params(gen, cfg, **kw))
         else:
-            layers.update(mlp_params(gen, d, cfg.d_ff, lead=lead))
+            layers.update(mlp_params(gen, d, cfg.d_ff, **kw))
         if cfg.family == "vlm":
-            layers.update(attn_params(gen, cfg, lead=lead, cross=True))
+            layers.update(attn_params(gen, cfg, cross=True, **kw))
             layers["cln"] = torch.zeros(cfg.n_layers, d, **zeros)
     params: Params = {
-        "embed": _dense(gen, (cfg.vocab, d)),
-        "lm_head": _dense(gen, (d, cfg.vocab)),
+        "embed": _dense(gen, (cfg.vocab, d), dtype=dtype),
+        "lm_head": _dense(gen, (d, cfg.vocab), dtype=dtype),
         "final_norm": torch.zeros(d, **zeros),
         "layers": layers,
     }
     if cfg.family == "hybrid" and cfg.shared_attn_every:
         shared: Params = {"ln1": torch.zeros(d, **zeros),
                           "ln2": torch.zeros(d, **zeros)}
-        shared.update(attn_params(gen, cfg))
-        shared.update(mlp_params(gen, d, cfg.d_ff))
+        shared.update(attn_params(gen, cfg, dtype=dtype))
+        shared.update(mlp_params(gen, d, cfg.d_ff, dtype=dtype))
         params["shared_attn"] = shared
     return params
 

@@ -29,6 +29,12 @@ import torch
 from ..tree import tree_leaves, tree_map
 
 
+#: elements of a leaf one update takes at a time, so that its float32
+#: temporaries are a slab's (256 MB each), not the leaf's (4.7 GB each for
+#: gemma2-27b's embedding)
+SLAB = 1 << 26
+
+
 @dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -100,7 +106,13 @@ def step(cfg: AdamWConfig, state: OptState,
         vh = v / bc2
         p.sub_(lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p))
 
-    tree_map(upd, state.master, state.m, state.v, grads)
+    def by_slabs(p, m, v, g):
+        # each op is elementwise: a slab's numbers are the whole leaf's
+        flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
+        for i in range(0, flat[0].numel(), SLAB):
+            upd(*(t[i:i + SLAB] for t in flat))
+
+    tree_map(by_slabs, state.master, state.m, state.v, grads)
     return (OptState(state.master, state.m, state.v, t),
             {"grad_norm": gnorm, "lr": lr})
 

@@ -390,27 +390,56 @@ def test_train_function_equals_the_plain_pair(dtype):
         assert torch.equal(g.transpose(1, 2), w)
 
 
-def test_train_and_bwd_refuse_what_the_kernel_does_not_take():
-    """Off the CPU: a float32 input that needs a gradient (the float32
-    kernel is forward-only), a width no config has, and a backward given
-    tensors that are not on the card raise by name.  Every config's head
-    width has a backward kernel: 32, 64, 80, 112 (zamba2-7b), 128 and 256
-    (gemma3-4b), so hd 256 passes the width check and is refused here
-    only for its device."""
+class _CudaLike(torch.Tensor):
+    """A tensor that says it lies on the card and holds no data: what a
+    wrapper decides from the device alone can be checked without one."""
+
+    @staticmethod
+    def __new__(cls, *shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device="cuda:0")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor on the card")
+
+
+def test_train_and_bwd_refuse_what_the_kernel_does_not_take(monkeypatch):
+    """On the card: a float32 input that needs a gradient (the float32
+    kernel is forward-only) and a width no config has raise by name.
+    Every config's head width has a backward kernel: 32, 64, 80, 112
+    (zamba2-7b), 128 and 256 (gemma3-4b), so hd 64 and 256 pass the
+    checks and go on to the kernels, never to the plain versions.  On
+    ``meta`` (shapes only) the plain pair runs: hd 256 gives its shapes
+    there."""
     assert BWD_HEAD_DIMS == (32, 64, 80, 112, 128, 256)
-    meta = dict(device="meta")
-    q = torch.zeros(1, 2, 64, 64, **meta)
     with pytest.raises(ValueError, match="forward-only"):
-        flash_attention_train(q, q, q)
-    qb = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, **meta)
+        flash_attention_train(*(_CudaLike(1, 2, 64, 64),) * 3)
+    qb = _CudaLike(1, 2, 64, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="built for hd in"):
         flash_attention_train(qb, qb, qb)
-    lse = torch.zeros(1, 2, 64, **meta)
+    from repro_torch.kernels import flash_attn
+    plain = []
+    for name in ("flash_attention_plain", "flash_attention_bwd_plain"):
+        monkeypatch.setattr(flash_attn, name,
+                            lambda *a, name=name, **k: plain.append(name))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     for hd in (64, 256):
-        qb = torch.zeros(1, 2, 64, hd, dtype=torch.bfloat16, **meta)
-        with pytest.raises(ValueError, match="CUDA tensors") as err:
-            flash_attention_train(qb, qb, qb)
-        assert "ROADMAP" not in str(err.value)
-        with pytest.raises(ValueError, match="CUDA tensors") as err:
-            flash_attention_bwd(qb, qb, qb, qb, qb, lse)
-        assert "ROADMAP" not in str(err.value)
+        qb = _CudaLike(1, 2, 64, hd, dtype=torch.bfloat16)
+        for call in (lambda: flash_attention_train(qb, qb, qb),
+                     lambda: flash_attention_bwd(qb, qb, qb, qb, qb,
+                                                 _CudaLike(1, 2, 64))):
+            with pytest.raises(Exception) as err:
+                call()
+            assert "ROADMAP" not in str(err.value)
+            assert "built for hd" not in str(err.value)
+    assert plain == []
+    monkeypatch.undo()
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.zeros(1, 4, 64, 256, **meta)
+    k = torch.zeros(1, 2, 64, 256, **meta)
+    out = flash_attention_train(q, k, k.requires_grad_())
+    assert out.device.type == "meta" and out.shape == q.shape
+    dq, dk, dv = flash_attention_bwd(q, k, k, q, q,
+                                     torch.zeros(1, 4, 64, device="meta"))
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

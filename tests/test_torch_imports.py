@@ -33,7 +33,7 @@ from repro_torch.core import (QUEUE_CLASSES, AtomicMemory,  # noqa
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import (claim_schedule, deq_planes,  # noqa
                                  enq_planes, priority_claim_schedule)
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.models import init_decode_cache, init_params  # noqa: E402
 from repro_torch.runtime import (ExecutorConfig, HeapEngine,  # noqa
                                  HostTaskPool, MeshHeapEngine,
@@ -75,6 +75,9 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.launch.train, repro_torch.models.ssm\n"
             "import repro_torch.distributed.compression\n"
             "import repro_torch.distributed.fault_tolerance\n"
+            "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.op_analysis\n"
+            "import repro_torch.launch.roofline\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -153,6 +156,8 @@ def _pstep(acc, keys, vals, valid):
     lambda: init_params(get_config("mamba2-130m-smoke")),
     lambda: init_decode_cache(get_config("mamba2-130m-smoke"), 2, 8),
     lambda: train.main(["--arch", "mamba2-130m-smoke", "--steps", "1"]),
+    lambda: dryrun.main(["--arch", "mamba2-130m-smoke", "--shape",
+                         "long_500k", "--out", os.devnull]),
 ], ids=["RoundRunner", "RoundRunner-legacy", "RingEngine", "ring_init",
         "bfs_rounds_runner", "bfs_rounds", "PriorityRoundRunner",
         "PriorityRoundRunner-legacy", "HeapEngine", "heap_init",
@@ -164,7 +169,7 @@ def _pstep(acc, keys, vals, valid):
         "PriorityMeshRoundRunner", "PriorityMeshRoundRunner-legacy",
         "MeshHeapEngine", "dist_heap_init", "sssp_mesh_rounds_runner",
         "sssp_mesh_rounds", "render_runtime", "init_params-ssm",
-        "init_decode_cache-ssm", "launch.train"])
+        "init_decode_cache-ssm", "launch.train", "launch.dryrun"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default device raises; nothing runs on the CPU
     unless the caller passes device="cpu"."""
@@ -193,16 +198,18 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         frontier_expand(torch.zeros(33, dtype=torch.int32, **meta),
                         *lanes[:2], planes[0], max_out=32)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        expert_tickets(lanes[0], num_experts=8, capacity=4)
+    # the model's kernels (B6, B7, the flash backward) take their plain
+    # version on meta, shapes only (launch/op_analysis.py); a tensor on
+    # the card never reaches it
+    assert expert_tickets(lanes[0], num_experts=8,
+                          capacity=4).device.type == "meta"
     q = torch.zeros(1, 2, 64, 32, **meta)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention(q, q, q, return_lse=True)
+    assert flash_attention(q, q, q).shape == q.shape
+    assert flash_attention(q, q, q, return_lse=True)[1].shape == q.shape[:3]
     qb = q.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention_bwd(qb, qb, qb, qb, qb, q[..., 0])
+    assert flash_attention_bwd(qb, qb, qb, qb, qb, q[..., 0])[0].shape == \
+        q.shape
+    _model_kernels_never_fall_back()
     # the functional heap faces (rider included) run heap_apply on
     # copies: a tensor off the CPU goes to the kernel or raises, and is
     # never copied to the host and back
@@ -271,6 +278,53 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                             ("ref", None, "ref is required")]:
         with pytest.raises(ValueError, match=match):
             obs_record(tp, sp, **{**wave, key: bad})
+
+
+class _CudaLike(torch.Tensor):
+    """A tensor that says it lies on the card and holds no data."""
+
+    @staticmethod
+    def __new__(cls, *shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device="cuda:0")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor on the card")
+
+
+def _model_kernels_never_fall_back():
+    """B6's, B7's and the backward's wrappers given tensors on the card
+    go on to their kernels (which fail here, with no card) and never to
+    their plain versions."""
+    import importlib
+    flash_attn = importlib.import_module("repro_torch.kernels.flash_attn")
+    moe_route = importlib.import_module("repro_torch.kernels.moe_route")
+    plain = []
+    saved = {(m, n): getattr(m, n) for m, n in [
+        (flash_attn, "flash_attention_plain"),
+        (flash_attn, "flash_attention_bwd_plain"),
+        (moe_route, "expert_tickets_plain")]}
+    for m, n in saved:
+        setattr(m, n, lambda *a, n=n, **k: plain.append(n))
+    cur = torch.cuda.current_device
+    torch.cuda.current_device = lambda: 0
+    try:
+        q = _CudaLike(1, 2, 64, 32, dtype=torch.bfloat16)
+        for call in (
+                lambda: expert_tickets(_CudaLike(8, dtype=torch.int32),
+                                       num_experts=8, capacity=4),
+                lambda: flash_attention(q, q, q),
+                lambda: flash_attention(q, q, q, return_lse=True),
+                lambda: flash_attention_bwd(q, q, q, q, q,
+                                            _CudaLike(1, 2, 64))):
+            with pytest.raises(Exception):
+                call()
+    finally:
+        torch.cuda.current_device = cur
+        for (m, n), f in saved.items():
+            setattr(m, n, f)
+    assert plain == []
 
 
 def test_cpu_entry_point_runs():
