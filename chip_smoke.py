@@ -144,7 +144,7 @@ JSON line; any failure raises and exits non-zero with no result line:
               spawned, the histogram's total = the pops; the packed
               waves, the rider heap_apply and obs_record launched once a
               round or more.  Each timed in turns with its obs-off twin
-              ((off, on, on, off) x 3: µs a round, rounds/s) and its captured
+              ((off, on, on, off) x 2: µs a round, rounds/s) and its captured
               round's nodes counted with obs off and on.
 mesh.       — the FIFO mesh on one card, the shard axis a tensor
               dimension (``repro_torch.runtime.meshrounds``).  The
@@ -171,7 +171,7 @@ mesh.       — the FIFO mesh on one card, the shard axis a tensor
               batch 4,096: acc, processed and spawned equal the numpy
               closure for all three, the replicated mesh equals
               RingEngine bit for bit (stats, acc, planes, head/tail),
-              timed in turns (replicated, sharded, single) x 3 with the
+              timed in turns (replicated, sharded, single) x 2 with the
               captured rounds' nodes; the replicated and the sharded
               tree again with compact=True (each shard's child row through
               wave_compact, then the dense enqueue wave): the ballot run's
@@ -252,6 +252,22 @@ runtime.  — the host task runtime (``runtime.taskpool``,
               requests 6 and 7 urgent: all complete, the urgent ones
               admitted first, the schedule equal to the port's CPU lanes
               run at the reduced width.
+multicard. — the queue meshes across processes, one shard a rank
+              (``make_mesh(..., group=)``), spawned from this script
+              after the build: gloo ranks sharing card 0, 2 of them on
+              the 2-shard goldens and 4 on the FIFO tree (replicated at
+              65,536 seeds; sharded and sharded with compaction at
+              MC_TREE_SEEDS), mesh BFS on road 215^2, SSSP on road
+              MC_SSSP_SIDE^2 relaxed with the split payload,
+              ``mesh_task_round``'s tree from MC_RT_SEEDS seeds and the
+              admission stream's first MC_ADM_TICKS ticks; every rank's
+              results equal, and equal bit for bit to the same runs of
+              the one-card engine in this process; one collective a
+              round; the round's kernels once a round on every rank
+              (the host-issued gloo rounds' claim wave once more a
+              chunk).  With two cards or more the same cells at full
+              size over NCCL, a card a rank; with one, a line says NCCL
+              did not run.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -444,7 +460,8 @@ registry.   — the registry's cells no chip run had touched (the ``REG_*``
               against their forward (``DECODE_TOL``) at plan_cut's float32
               depth, and deepseek-moe-16b serves phase 8's requests at 4
               of its 28 layers (B6 in every decode step).  (b)
-              prefill_32k at plan_cut's batch and depth, B7 at 32,768 keys
+              prefill_32k at 1 x 32,768 tokens and 4 layers (``P32_LAYERS``,
+              cut for time), B7 at 32,768 keys
               against a dense float32 computation of 128 query rows (the
               first, a middle and the last) of three (batch, head) pairs
               on the first and the first global layer's call
@@ -595,6 +612,22 @@ ADM_CAP_LOG2, ADM_BATCH, ADM_TABLE_LOG2 = 16, 256, 16
 ADM_SLOTS, ADM_PAGES, ADM_PAGE_SIZE, ADM_SLACK = 40, 4096, 16, 64
 ADM_DRAIN_SLOTS, ADM_DRAIN_PAGES = 4096, 1 << 30
 ADM_PROFILED_TICKS = 50
+# phase multicard: the gloo ranks share one card, whose time slices
+# between the processes make a round 10-44 ms on an H100, so their
+# cells past the replicated FIFO tree and mesh BFS run at a smaller
+# backlog at the same widths (4 shards x 1,024 claims): the sharded trees
+# from MC_TREE_SEEDS seeds, SSSP on road MC_SSSP_SIDE^2, mesh_task_round
+# from MC_RT_SEEDS seeds, the admission stream's first MC_ADM_TICKS
+# ticks and its drain; the NCCL cells (a card a rank) run at the same cut
+MC_TREE_SEEDS = 8192
+MC_SSSP_SIDE = 128
+MC_RT_SEEDS = 4096
+MC_ADM_TICKS = 200
+# a spawn's ranks must finish in this many seconds, or they are killed and
+# the phase fails naming each rank's last stage (four NCCL ranks with the
+# round's all-reduce captured in a CUDA graph made no progress on four
+# H100s; the rounds are now issued from the host)
+MC_SPAWN_TIMEOUT = 300
 # phase runtime: (a) mesh_task_round on a replicated ring of 2^20 slots
 # (logical capacity 2^19) whose tickets start 2^20 below 2^32 (the nearest
 # multiple of the ring's 2n), so head and tail wrap, draining the FIFO task
@@ -756,7 +789,8 @@ ZOO_FLASH_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
 # plan_cut finds for float32, decode REG_DECODE tokens in float32 against
 # their forward over them (DECODE_TOL); deepseek-moe-16b serves
 # SERVE_REQUESTS at REG_SERVE_LAYERS of its 28 layers (B6 in every decode
-# step).  (b) prefill_32k: its batch of 32 cut to 1 x P32_SEQ tokens;
+# step).  (b) prefill_32k at 1 x P32_SEQ tokens and P32_LAYERS layers,
+# cut for time from its batch of 32 and full depth;
 # B7 at 32,768 keys held against a dense float32 computation of
 # DENSE_ROWS query rows (the first, a middle and the last) of several
 # (batch, head) pairs within DENSE_TOL, on the first call and on the
@@ -782,6 +816,12 @@ ZOO_FLASH_CASES = (   # (B, H, KV, S, hd, causal, window, softcap)
 REG_ARCHS = ("deepseek-moe-16b", "gemma2-27b", "yi-34b")
 REG_BATCH, REG_SEQ, REG_DECODE, REG_SERVE_LAYERS = 2, 4096, 16, 4
 P32_SEQ = 32768
+# the depth prefill_32k runs at, cut for time (plan_cut's walk and the
+# prefill both grow with depth), from a batch of 1: whole periods holding
+# a global layer and, for deepseek-moe-16b, MoE layers past its dense one
+# (plan_cut fills a shallower cut with a larger batch: batch 32 at this
+# depth ran out of memory on an H100)
+P32_LAYERS = 4
 D32_ARCHS = ("yi-34b", "gemma2-27b")
 D32_SEQ, D32_TAIL, D32_STEPS = 32768, 16, 8
 D32_CHECK_LAYERS = 2     # one period of gemma2's (local, global); time
@@ -792,8 +832,8 @@ L500_SEQ, L500_TAIL, L500_HYBRID_TAIL = 524288, 8, 512
 # for time: a global layer's B7 call is seconds at 524,288 keys, and each
 # SSD layer's chunk recurrence 2,048 steps (on meta too, where plan_cut
 # counts it); each keeps one period or more, so a global layer
-L500_LAYERS = {"gemma3-4b": 6, "gemma2-27b": 2, "zamba2-7b": 6,
-               "mamba2-130m": 6}
+L500_LAYERS = {"h2o-danube-1.8b": 6, "gemma3-4b": 6, "gemma2-27b": 2,
+               "zamba2-7b": 6, "mamba2-130m": 2}
 DENSE_ROWS = 128
 # B7 (bfloat16) against the exact float32 attention of the same rows: one
 # ulp of the element plus 2^-5 of the rows' rms (p is rounded to bfloat16
@@ -972,6 +1012,18 @@ def golden_tree_step(torch):
         acc = acc.index_add(0, torch.where(valid, vals, 0), valid.int())
         cv = torch.stack([vals * 2, vals * 2 + 1], -1).int()
         return acc, cv, (valid & (vals < 32))[:, None]
+    return step
+
+
+def golden_pri_step(torch):
+    """The priority mesh goldens' step (tests/test_enginecore.py:
+    _pri_mesh_step)."""
+    def step(acc, keys, vals, valid):
+        acc = acc.index_add(0, torch.where(valid, vals % 89, 0), valid.int())
+        ck = torch.stack([keys + 2, keys + 5], -1).int()
+        cv = torch.stack([(vals * 7919) % 1000, (vals * 104729) % 1000],
+                         -1).int()
+        return acc, ck, cv, (valid & (keys < 20))[:, None]
     return step
 
 
@@ -1793,7 +1845,7 @@ class Smoke:
                                  "did not all come back")
 
     def wave_calls(self, K, nsl2, start, calls, shards=1, sharded=False,
-                   fill=0):
+                   fill=0, own=None):
         """Rings on the card driven by ``calls``: one ring of 2^nsl2 slots
         (replicated; the single ring at ``shards`` = 1) or ``shards`` of
         2^nsl2 each (``sharded``), head and tail at ``start``, ``fill``
@@ -1806,23 +1858,30 @@ class Smoke:
         are queued back to back on the card with no synchronise between
         them, then made one at a time on the plain versions' copy; every
         call's outputs and heads and tails after it, and the planes after
-        the last, are held against each other."""
+        the last, are held against each other.  ``own=r`` (sharded):
+        the planes hold ring r alone (the mesh across processes, one ring
+        a rank), beside all ``shards`` heads and tails."""
         np, torch = self.np, self.torch
         ns, cap = 1 << nsl2, 1 << (nsl2 - 1)
         i32c = dict(dtype=torch.int32, device=self.dev)
         cyc0 = i32(((start % 2 ** 32) >> nsl2) - 1)
         lead = (shards,) if sharded else ()
-        planes = [torch.full(lead + (ns,), cyc0, **i32c),
-                  torch.ones(lead + (ns,), **i32c),
-                  torch.zeros(lead + (ns,), **i32c),
-                  torch.full(lead + (ns,), IDX_BOT, **i32c)]
+        rows_held = (1,) if own is not None else lead
+        planes = [torch.full(rows_held + (ns,), cyc0, **i32c),
+                  torch.ones(rows_held + (ns,), **i32c),
+                  torch.zeros(rows_held + (ns,), **i32c),
+                  torch.full(rows_held + (ns,), IDX_BOT, **i32c)]
         heads = torch.full(lead, i32(start), **i32c)
         tails = heads.clone()
         fills = list(fill) if sharded else [fill]
         for r, c in enumerate(fills):
             if not c:
                 continue
-            rows = [p[r] for p in planes] if sharded else planes
+            if own is not None and r != own:
+                tails[r] += c             # another rank's ring
+                continue
+            rows = ([p[0 if own is not None else r] for p in planes]
+                    if sharded else planes)
             tk = self.t(np.array([i32(start + i) for i in range(c)],
                                  np.int32))
             K.ring_enqueue_plain(*rows, tk, self.t(self.rng.integers(
@@ -1838,6 +1897,8 @@ class Smoke:
                           tails.clone())}
         kw = dict(nslots_log2=nsl2, idx_bot=IDX_BOT,
                   shards=None if sharded else shards)
+        if own is not None:
+            kw["ring"] = own
         lives = {b: torch.tensor(b, device=self.dev) for b in (False, True)}
         births = {c[5]: torch.tensor(c[5], **i32c) for c in calls
                   if c[0] == "enq" and len(c) > 5 and c[5] is not None}
@@ -1960,6 +2021,27 @@ class Smoke:
                      dense(4, 8, [int(x) for x in self.rng.integers(
                          0, 9, 4)], r % 4 != 3))])):
             self.wave_calls(K, nsl2, start, calls, shards, True, fill)
+        # ring=r: one ring a rank (the sharded mesh across processes), the
+        # schedule, ranks and overflow test the whole grid's; every ring
+        # of the mesh tree's shape, and the small mesh's with one ring
+        # overflowing alone, wrapping counters and dense publishes
+        for ring in range(4):
+            for nsl2, start, fill, calls in (
+                    (21, 1 << 21, [16384] * 4,
+                     rounds(4, BATCH, 2 * BATCH, tree_d, 10)),
+                    (8, 2 ** 32 - 300, [10, 20, 30, 40],
+                     rounds(4, 16, 32, (0.5, 0.4), 12)),
+                    (6, 1 << 6, [31, 0, 0, 2],
+                     [ballot(4 * 8, 0.2), ("deq", 1, True)]
+                     + rounds(4, 1, 8, (0.3, 0.9), 10)),
+                    (6, 1 << 6, [30, 1, 2, 3],
+                     [dense(4, 8, [3, 2, 2, 2]), dense(4, 8, [8, 8, 8, 8])]
+                     + [c for r in range(8) for c in (
+                         ("deq", 2, r % 4 != 3),
+                         dense(4, 8, [int(x) for x in self.rng.integers(
+                             0, 9, 4)], r % 4 != 3))])):
+                self.wave_calls(K, nsl2, start, calls, 4, True, fill,
+                                own=ring)
 
     def compare_obs_mesh(self, K):
         """``obs_record`` over S shards (the mesh's record: S x B lanes,
@@ -2638,7 +2720,7 @@ class Smoke:
     def obs_pair(self, K, label, off, on, run):
         """``run(runner)`` for the kept obs-off runner and the obs-on one
         (its first run builds its device loop), then timed in turns off,
-        on, on, off three times over (six runs a side, so that one slow
+        on, on, off twice over (four runs a side, so that one slow
         run shows as an outlier beside the median) with CUDA events and
         the host clock; the obs-on runs' launches counted under
         ``obs_<label>``.  Returns (the last obs-on run's result,
@@ -2647,7 +2729,7 @@ class Smoke:
         run(on)                               # capture
         times = {"off": [], "on": []}
         result = None
-        for flag in ("off", "on", "on", "off") * 3:
+        for flag in ("off", "on", "on", "off") * 2:
             runner = on if flag == "on" else off
             if flag == "on":
                 runner.telemetry.reset()
@@ -2875,7 +2957,7 @@ class Smoke:
             out[str(start)] = dict(res, launches=got)
         return out
 
-    def in_turns(self, runners, run, turns=3):
+    def in_turns(self, runners, run, turns=2):
         """Each of ``runners`` (label -> runner) run by ``run(runner)`` in
         turns, ``turns`` times over: {label: {"runs": [wall s, rounds/s,
         device µs a round], "median": the same}}."""
@@ -3026,7 +3108,7 @@ class Smoke:
                                  "RingEngine at batch 4,096")
         out["replicated_equals_ring_engine"] = True
         out["sharded_equals_closure"] = True
-        # timed in turns (replicated, sharded, single) x 3
+        # timed in turns (replicated, sharded, single) x 2
         for label, timed in self.in_turns(runners, run).items():
             out[label]["timed"] = timed
         # the compacted publish (compact=True): each shard's child row
@@ -3754,6 +3836,133 @@ class Smoke:
             if not self.launches["admission"].get(name):
                 raise AssertionError(f"admission: {name} never launched")
         info["launches"] = self.launches["admission"]
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase multicard: the queue meshes across processes ---------------
+
+    def mc_checks(self, label, cell, name, ring):
+        """A rank's cell (or the one-card run's, ``ring`` None): the
+        round's kernels launched once a round, and one collective a
+        round."""
+        got, rounds = cell["launches"], cell["rounds"]
+        sfx = "_sharded" if "sharded" in name else ""
+        want = {}
+        if name.startswith("fifo_tree") or name == "bfs_road":
+            want = {"ring_dequeue_wave" + sfx: rounds,
+                    "ring_enqueue_wave" + sfx: rounds}
+            if name.endswith("compact"):
+                want["wave_compact"] = (MESH_SHARDS * rounds if ring is None
+                                        else rounds)
+        elif name == "sssp_road":
+            want = {"heap_apply_grid_rider": 2 * rounds + 1}
+        elif name == "task_round":
+            want = {"ring_enqueue_masked": rounds,
+                    "ring_dequeue_masked": rounds}
+        for k, v in want.items():
+            if got.get(k, 0) != v:
+                raise AssertionError(f"multicard {label} {name}: {k} "
+                                     f"launched {got.get(k, 0)} times in "
+                                     f"{rounds} rounds, not {v}")
+        if ring is not None:
+            per = {"task_round": 4 * rounds + 1}.get(name, rounds)
+            if cell["exchanges"] != per:
+                raise AssertionError(f"multicard {label} {name}: "
+                                     f"{cell['exchanges']} collectives in "
+                                     f"{rounds} rounds, not {per}")
+
+    def multicard_path(self, K):
+        """Phase multicard: the queue meshes across processes, one shard a
+        rank (``make_mesh(..., group=)``), each cell held bit for bit
+        against the same run of the one-card stacked engine in this
+        process: gloo at 2 ranks (the GOLDEN_2SHARD rows) and 4 ranks
+        sharing card 0 (the FIFO tree replicated, sharded and sharded
+        with compaction, mesh BFS on road 215^2 (the largest its packed
+        payload takes), SSSP on road MC_SSSP_SIDE^2 relaxed with the
+        split payload, mesh_task_round's tree, the admission stream, the
+        last four at the MC_* cut), and, where the machine has two cards
+        or more, the same cells at the same cut over NCCL on min(4,
+        cards) cards, one a rank (with the goldens at two).  Every
+        rank's results are equal; every round makes one collective; every
+        kernel of the path launches on every rank.  The kernels are built
+        here first (ranks building into one directory at once would
+        race)."""
+        from repro_torch.distributed import make_mesh
+        torch, np = self.torch, self.np
+        t0 = time.perf_counter()
+        cards = torch.cuda.device_count()
+        cells = ["fifo_tree", "fifo_tree_sharded",
+                 "fifo_tree_sharded_compact", "bfs_road", "sssp_road",
+                 "task_round", "admission"]
+        # (backend, ranks, cells, at the MC_* cut)
+        plan = [("gloo", 2, ["goldens"], False),
+                ("gloo", MESH_SHARDS, cells, True)]
+        nccl = min(4, cards)
+        if nccl >= 2:
+            plan.append(("nccl", nccl,
+                         (["goldens"] if nccl == 2 else []) + cells, True))
+        else:
+            print(json.dumps({"phase": "multicard", "nccl": "not run",
+                              "why": f"torch.cuda.device_count() is "
+                                     f"{cards}: NCCL runs one card a rank "
+                                     f"and needs two"}), flush=True)
+        one = {}
+        for _, world, names, cut in plan:
+            todo = [n for n in names if (world, n, cut) not in one]
+            if not todo:
+                continue
+            got = mc_cells(torch, np, make_mesh((world,), ("data",)), todo,
+                           self.dev, cut)
+            for n, cell in got.items():
+                self.mc_checks(f"one card S={world}", cell, n, None)
+                one[(world, n, cut)] = cell
+        for n, g in one.items():
+            if n[1] == "goldens":
+                want = {k: {kk: vv for kk, vv in v.items()
+                            if kk not in ("shards", "relaxed")}
+                        for k, v in {**MESH_GOLDEN, **PMESH_GOLDEN,
+                                     **SERVING_GOLDEN}.items()
+                        if k.endswith("_2")}
+                if json.loads(json.dumps(g["result"])) != want:
+                    raise AssertionError(f"multicard goldens on one card: "
+                                         f"{g['result']}")
+        info = {"phase": "multicard", "cards": cards,
+                "one_card": {f"{w}/{n}{'/cut' * cut}": {
+                    k: v for k, v in c.items() if k != "result"}
+                    for (w, n, cut), c in one.items()},
+                "cut": {"tree_seeds_sharded": MC_TREE_SEEDS,
+                        "sssp_side": MC_SSSP_SIDE, "rt_seeds": MC_RT_SEEDS,
+                        "admission_ticks": MC_ADM_TICKS}}
+        K.reset_launches()
+        path = self.launches.setdefault("multicard", {})
+        for backend, world, names, cut in plan:
+            t1 = time.perf_counter()
+            ranks = mc_spawn(world, backend, names, cut)
+            spawn_s = time.perf_counter() - t1
+            for n in names:
+                want = json.loads(json.dumps(one[(world, n, cut)]["result"]))
+                for r, res in ranks.items():
+                    if res[n]["result"] != want:
+                        raise AssertionError(
+                            f"multicard {backend} x {world} {n}: rank {r} "
+                            f"{res[n]['result']} != one card {want}")
+                    self.mc_checks(f"{backend} x {world} rank {r}", res[n],
+                                   n, backend)
+                    for k, v in res[n]["launches"].items():
+                        path[k] = path.get(k, 0) + v
+            info[f"{backend}_{world}"] = {
+                "ranks": world, "spawn_and_run_s": spawn_s, "cut": cut,
+                "cells": {n: {k: v for k, v in ranks[0][n].items()
+                              if k != "result"} for n in names},
+                "equal_to_one_card": True}
+        for name in ("ring_dequeue_wave", "ring_enqueue_wave",
+                     "ring_dequeue_wave_sharded", "ring_enqueue_wave_sharded",
+                     "wave_compact", "heap_apply_grid",
+                     "heap_apply_grid_rider", "ring_enqueue_masked",
+                     "ring_dequeue_masked", "obs_record_mesh"):
+            if not path.get(name):
+                raise AssertionError(f"multicard: {name} never launched")
+        info["launches"] = path
         info["seconds"] = time.perf_counter() - t0
         return info
 
@@ -5539,7 +5748,8 @@ class Smoke:
             line["serve"] = dict(serve, layers=n, of=cfg0.n_layers)
             del sliced
         # (b) prefill_32k
-        plan = self.reg_plan(dryrun, cfg0, "prefill", 32, P32_SEQ)
+        plan = self.reg_plan(dryrun, cfg0, "prefill", 1, P32_SEQ,
+                             layers=P32_LAYERS)
         cfg = dryrun.with_layers(cfg0, plan["layers"])
         del params
         params = self.reg_load(models, cfg, seed)
@@ -5770,6 +5980,318 @@ def top_ms(times: dict, k: int) -> dict:
     return {name[:60]: us / 1e3 for name, us in top}
 
 
+# -- phase multicard: the queue meshes across processes ----------------------
+
+
+def mc_admission_stream(torch, np, serving, mesh, dev, ticks):
+    """ADM_TRAFFIC's first ``ticks`` ticks through ``ServingMeshEngine``
+    on ``mesh`` (phase admission's stream, without its oracle and
+    profiler): every tick's admitted list, then the drain.  Returns
+    (result, rounds)."""
+    traffic = dict(ADM_TRAFFIC, ticks=ticks)
+    trace = serving.generate_trace(serving.TrafficConfig(**traffic))
+    by_tick = {}
+    for rid, a in enumerate(trace):
+        by_tick.setdefault(a.tick, []).append(rid)
+    need = [-(-(a.prompt_len + a.max_new_tokens) // ADM_PAGE_SIZE)
+            for a in trace]
+    e = serving.ServingMeshEngine(mesh=mesh, capacity_log2=ADM_CAP_LOG2,
+                                  batch=ADM_BATCH, arity_log2=2,
+                                  table_log2=ADM_TABLE_LOG2, device=dev)
+    e.begin()
+    free = list(range(e.table))[::-1]
+    rid_of, seq, t, admitted = {}, 0, 0, []
+    while t < ticks or e.occupancy() > 0:
+        if t > ticks + 64:
+            raise AssertionError("multicard admission: not drained")
+        keys, idxs, needs = [], [], []
+        for rid in by_tick.get(t, []):
+            seq += 1
+            urgent = trace[rid].priority == 0
+            keys.append(2 * (seq + (0 if urgent else ADM_SLACK))
+                        + (0 if urgent else 1))
+            idx = free.pop()
+            rid_of[idx] = rid
+            idxs.append(idx)
+            needs.append(need[rid])
+        slots, pages = ((ADM_SLOTS, ADM_PAGES) if t < ticks
+                        else (ADM_DRAIN_SLOTS, ADM_DRAIN_PAGES))
+        adm = e.tick(keys, idxs, slots=slots, pages=pages, need=needs)
+        admitted.append([rid_of.pop(i) for i in adm])
+        free.extend(adm)
+        t += 1
+    if sum(len(a) for a in admitted) != len(trace):
+        raise AssertionError("multicard admission: a request lost")
+    return ({"ticks": t, "admitted": digest(np.asarray(
+        [r for a in admitted for r in a] + [len(a) for a in admitted],
+        np.int64)), "stats": [e.stats[k] for k in STATS]
+        + [e.stats["host_syncs"]]}, e.stats["rounds"])
+
+
+def mc_task_round(torch, np, mesh, dev, seeds):
+    """Phase runtime's ``mesh_task_round`` tree (``seeds`` seeds on a ring
+    of 2 x RT_RING_CAP slots whose tickets wrap 2^32, MESH_SHARDS x BATCH
+    claims) on ``mesh``: one shard's rows a rank on a group-bound mesh,
+    every shard's stacked on one card.  A round claims the first
+    min(occupancy after its publish, S x BATCH) lanes in shard order; on
+    a group-bound mesh the round's spawn total for that comes from one
+    ``mesh_ticket_base``.  Returns (result, rounds)."""
+    from repro_torch import core, runtime as rt
+    from repro_torch.distributed import gather_rows, mesh_ticket_base
+    vals = (np.random.default_rng(15).integers(0, 2 ** 27, seeds)
+            << 4).astype(np.int32)
+    step = fifo_tree_step(torch)
+    s, me = mesh.shape["data"], mesh.rank
+    lanes = torch.arange(s * BATCH, device=dev).reshape(s, BATCH)
+    st = core.dist_queue_init(RT_RING_CAP, start=RT_START, device=dev)
+    sv = torch.as_tensor(vals, device=dev).reshape(s, -1)
+    sm = torch.ones_like(sv, dtype=torch.bool)
+    if me is not None:
+        sv, sm, lanes = sv[me], sm[me], lanes[me]
+    acc = torch.zeros(4096, dtype=torch.int32, device=dev)
+    rounds = pops = 0
+    while True:
+        spawned = (sm.sum() if me is None
+                   else mesh_ticket_base(sm.sum(), mesh)[1])
+        claim = lanes < st.occupancy.long() + spawned
+        st, granted, cv, ok = rt.mesh_task_round(st, sv, sm, claim,
+                                                 mesh=mesh)
+        acc, cv, cm = step(acc, cv.reshape(-1), ok.reshape(-1))
+        if me is None:
+            sv, sm = cv.reshape(s, -1), cm.reshape(s, -1)
+        else:
+            sv, sm = cv.reshape(-1), cm.reshape(-1)
+        rounds += 1
+        # the round's one readback: occupancy, pops and pending spawns
+        occ, got, more = torch.stack([
+            st.occupancy.long(), ok.sum().long(),
+            (sm.any() if me is None
+             else mesh_ticket_base(sm.sum(), mesh)[1] > 0).long()]).tolist()
+        pops += got
+        if occ == 0 and not more:
+            break
+    if me is not None:
+        acc = gather_rows(acc, mesh).sum(0, dtype=torch.int32)
+        pops = int(mesh_ticket_base(torch.tensor(pops, device=dev),
+                                    mesh)[1])
+    return ({"rounds": rounds, "pops": pops,
+             "acc": digest(acc.cpu().numpy()),
+             "state": digest(*(p.cpu().numpy() for p in st[:4])),
+             "head_tail": [int(st.head), int(st.tail)]}, rounds)
+
+
+def mc_cells(torch, np, mesh, names, dev, cut=False, mark=None):
+    """The multicard cells ``names`` on ``mesh`` (MESH_SHARDS, or 2 for
+    ``goldens``, shards: one card's stacked mesh, or a group-bound one),
+    with ``cut`` the MC_* sizes: {name: {"result": what is held bit for
+    bit, "rounds", "s" (wall), "launches", "exchanges"}}.  The one-card
+    engine is timed after a first run that captures its round; ranks
+    issue their rounds from the host, capture nothing and run once.
+    ``mark(stage)``, when given, is told each cell's start and end."""
+    from repro_torch import obs, runtime as rt, serving
+    from repro_torch.apps import bfs, sssp
+    from repro_torch.distributed import COLLECTIVES
+    from repro_torch.kernels import _build
+    sum32 = lambda a: a.sum(0, dtype=torch.int32)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, dtype=torch.int32,  # noqa: E731
+                                  device=dev)
+
+    def stats_of(st):
+        return [st[k] for k in STATS] + [st["host_syncs"]]
+
+    def state_of(st):
+        return digest(*(torch.as_tensor(p).cpu().numpy() for p in st))
+
+    def goldens():
+        out = {}
+        tel = obs.Telemetry(capacity=256)
+        r = rt.MeshRoundRunner(golden_tree_step(torch), mesh=mesh,
+                               capacity_log2=8, batch=16, telemetry=tel,
+                               combine=sum32, device=dev)
+        acc, st = r.run([1], acc=zeros(80))
+        out["mesh_fanout_2"] = {
+            "stats": stats_of(r.stats), "acc": digest(acc.cpu().numpy()),
+            "planes": state_of(st[:4]), "head_tail": [st.head, st.tail],
+            "tel": tel_digest(tel)}
+        d, stats = bfs.bfs_mesh_rounds(bfs.road_like(144), 0, mesh=mesh,
+                                       batch=32, device=dev)
+        out["mesh_bfs_2"] = {"stats": stats_of(stats), "dist": digest(d)}
+        step = golden_pri_step(torch)
+        for relaxed in (True, False):
+            tel = obs.Telemetry(capacity=512)
+            r = rt.PriorityMeshRoundRunner(step, mesh=mesh, capacity_log2=10,
+                                           batch=16, relaxed=relaxed,
+                                           telemetry=tel, combine=sum32,
+                                           device=dev)
+            acc, st = r.run([3, 1], [7, 11], acc=zeros(89))
+            out["pmesh_relaxed_2" if relaxed else "pmesh_strict_2"] = {
+                "stats": stats_of(r.stats), "acc": digest(acc.cpu().numpy()),
+                "planes": state_of(st[:2]), "tel": tel_digest(tel)}
+        tel = obs.Telemetry(capacity=256)
+        e = serving.ServingMeshEngine(mesh=mesh, capacity_log2=6, batch=8,
+                                      table_log2=6, pop_log=128,
+                                      telemetry=tel, device=dev)
+        e.begin()
+        adm = list(e.tick([60, 10, 30, 20, 50, 40, 35, 25],
+                          [0, 1, 2, 3, 4, 5, 6, 7], slots=4, pages=5,
+                          need=[2] * 8))
+        ticks = 1
+        while e.occupancy() > 0 and ticks < 12:
+            adm += e.tick([], [], slots=4, pages=4)
+            ticks += 1
+        hs = e.heap_state()
+        out["serving_2"] = {
+            "stats": stats_of(e.stats), "ticks": ticks, "admitted": adm,
+            "planes": state_of(hs[:2]),
+            "hist": digest(np.asarray(e.pop_history(), np.int32)),
+            "tel": tel_digest(tel)}
+        return out, sum(v["stats"][0] for v in out.values())
+
+    def fifo_tree(sharded, compact=None):
+        seeds = (np.random.default_rng(15).integers(
+            0, 2 ** 27, MC_TREE_SEEDS if cut and sharded else
+            MESH_TREE_SEEDS) << 4).astype(np.int32)
+        r = rt.MeshRoundRunner(fifo_tree_step(torch), mesh=mesh,
+                               capacity_log2=MESH_TREE_CAP_LOG2, batch=BATCH,
+                               sharded=sharded, compact=compact,
+                               combine=sum32, device=dev)
+
+        def run():
+            return r.run(seeds, acc=zeros(4096), max_rounds=1_000_000)
+        return run, r
+
+    def engine_result(r, out):
+        acc, st = out
+        return {"stats": stats_of(r.stats), "acc": digest(acc.cpu().numpy()),
+                "state": state_of(st)}
+
+    def bfs_road():
+        # mesh BFS packs (d, v) in a payload: n (n + 2) < 2^31 caps the
+        # graph at road 215^2 (phase mesh's)
+        g = bfs.road_like(MESH_ROAD_SIDE * MESH_ROAD_SIDE)
+        runner, init_fn = bfs.bfs_mesh_rounds_runner(g, mesh=mesh,
+                                                     batch=BATCH, device=dev)
+
+        def run():
+            return runner.run([0], acc=init_fn(0), max_rounds=1_000_000)
+        return run, runner
+
+    def sssp_road():
+        side = MC_SSSP_SIDE if cut else SSSP_SIDE
+        g = bfs.road_like(side * side)
+        w = sssp.with_weights(g, max_w=SSSP_MAX_W, seed=1)
+        runner, init_fn = sssp.sssp_mesh_rounds_runner(
+            g, w, mesh=mesh, batch=BATCH, delta=SSSP_DELTA, relaxed=True,
+            split_payload=True, device=dev)
+
+        def run():
+            return runner.run([0], [0], acc=init_fn(0), max_rounds=1_000_000,
+                              initial_aux=[0])
+        return run, runner
+
+    engines = {"fifo_tree": lambda: fifo_tree(False),
+               "fifo_tree_sharded": lambda: fifo_tree(True),
+               "fifo_tree_sharded_compact": lambda: fifo_tree(True, True),
+               "bfs_road": bfs_road, "sssp_road": sssp_road}
+    out = {}
+    for name in names:
+        if mark is not None:
+            mark(f"{name} started")
+        if name in engines:
+            run, r = engines[name]()
+            if mesh.group is None:
+                run()                 # captures the round (one card)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        ex = COLLECTIVES["exchange"]
+        t0 = time.perf_counter()
+        if name in engines:
+            res = engine_result(r, run())
+            rounds = r.stats["rounds"]
+        elif name == "goldens":
+            res, rounds = goldens()
+        elif name == "task_round":
+            res, rounds = mc_task_round(torch, np, mesh, dev,
+                                        MC_RT_SEEDS if cut else RT_SEEDS)
+        else:
+            res, rounds = mc_admission_stream(
+                torch, np, serving, mesh, dev,
+                MC_ADM_TICKS if cut else ADM_TRAFFIC["ticks"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"result": res, "rounds": rounds, "s": wall,
+                     "us_per_round": wall / max(rounds, 1) * 1e6,
+                     "exchanges": COLLECTIVES["exchange"] - ex,
+                     "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                  if v}}
+        if name in engines and getattr(r, "_engine", r).__dict__.get(
+                "_loops"):
+            out[name]["round_graph"] = graph_nodes(getattr(r, "_engine", r))
+        if mark is not None:
+            mark(f"{name} done")
+    return out
+
+
+def mc_rank(rank, world, backend, store, outdir, names, cut):
+    """One rank of the multicard phase: a ``backend`` process group of
+    ``world`` ranks over the ``file://`` store, card 0 (gloo) or card
+    ``rank`` (NCCL), the cells on the group-bound mesh; writes its
+    results to ``outdir/rank<rank>.json`` and its last stage to
+    ``outdir/rank<rank>.stage``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import make_mesh
+
+    def mark(stage):
+        (Path(outdir) / f"rank{rank}.stage").write_text(stage)
+    mark("started")
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
+    mark("process group initialized")
+    try:
+        mesh = make_mesh((world,), ("data",), group=dist.group.WORLD)
+        out = mc_cells(torch, np, mesh, names, torch.device("cuda"), cut,
+                       mark)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(outdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mc_spawn(world, backend, names, cut):
+    """``mc_rank`` on ``world`` spawned ranks (``torch.multiprocessing``,
+    joined before it returns, or killed after MC_SPAWN_TIMEOUT seconds,
+    when it raises with each rank's last stage): {rank: results}."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            mc_rank, args=(world, backend, str(Path(tmp) / "store"), tmp,
+                           names, cut), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.perf_counter() + MC_SPAWN_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                for p in ctx.processes:
+                    p.join()
+                stages = {r: (Path(tmp) / f"rank{r}.stage").read_text()
+                          if (Path(tmp) / f"rank{r}.stage").exists()
+                          else "not started" for r in range(world)}
+                raise TimeoutError(
+                    f"multicard {backend} x {world}: the ranks did not "
+                    f"finish in {MC_SPAWN_TIMEOUT} s; last stages {stages}")
+        out = {}
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                out[r] = json.load(f)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5910,6 +6432,11 @@ def main() -> int:
     # on the card, render_runtime at 1920 x 1080, bfs_runtime, granite's
     # serve with admission="lanes"
     emit_phase(smoke.runtime_path(K, raytrace, bfs, serving, models))
+
+    # multicard. the queue meshes across processes, one shard a rank:
+    # gloo ranks sharing the card, NCCL ranks a card each where there are
+    # two or more, each cell against the one-card stacked engine
+    emit_phase(smoke.multicard_path(K))
 
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()

@@ -11,9 +11,10 @@ CPU only when the caller passes ``device="cpu"``.
 Ported so far: the G-LFQ and G-PQ round engines (``runtime``) with their
 trace and span planes (``obs``), their kernels and the BFS frontier
 kernel (``kernels``), round-engine, queue-driven and mesh BFS
-(``apps.bfs``), the FIFO mesh (``core.distqueue``, ``distributed``,
-``runtime.meshrounds``: the replicated and the sharded ring, the shard
-axis a tensor dimension on one card), serving over the model zoo
+(``apps.bfs``), the FIFO and the priority mesh (``core.distqueue``,
+``distributed``, ``runtime.meshrounds``: the replicated and the sharded
+ring, the relaxed and the strict heaps, the shard axis a tensor dimension
+on one card or one shard a process of a ``torch.distributed`` group), serving over the model zoo
 (``serving``, ``models``, ``configs``: all ten configurations, six
 families), and training (``launch.train``, ``optim``, ``checkpoint``).
 """

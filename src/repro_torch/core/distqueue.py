@@ -8,7 +8,12 @@ round.  On one card the shard axis is a tensor dimension: every function
 here takes the stacked ``(S, B)`` requests of all shards (row i = shard
 i) and returns every shard's slice, ``(S, B)`` granted, values and ok.
 The gathered grid is the rows flattened shard-major, so the tickets and
-the ring states are the reference's, bit for bit.
+the ring states are the reference's, bit for bit.  Given ``mesh=`` a
+group-bound mesh (``distributed.make_mesh(..., group=)``), they take
+this rank's ``(B,)`` requests and return this rank's slice, as the
+reference's do inside ``shard_map``: the gather is one ``all_reduce``,
+replicated state is held whole and identical on every rank, and the
+sharded functions take this rank's ring only.
 
 The replicated ring (``DistQueueState``) is held once: four (2n,) int32
 field planes and 0-d head/tail tickets.  The sharded rings
@@ -213,13 +218,25 @@ def _apply_dequeue(planes, tickets, active, ranks, *, nslots_log2: int,
     return (planes, *(_unsort(y, order, tickets) for y in ys))
 
 
-def _gathered_round(values, mask):
-    """The round's exchange: the (S, B) requests flattened shard-major to
-    (S * B,) gathered (values, active, ranks, total); ranks are the
-    exclusive prefix over the gathered mask (the per-shard FAA bases'
-    ticket order)."""
+def _rank(mesh):
+    """This rank's shard on a group-bound mesh, else None (one card)."""
+    return None if mesh is None else mesh.rank
+
+
+def _local(x, s: int, b: int, me):
+    """The gathered (S * B,) ``x`` as the caller's rows: (S, B), or this
+    rank's (B,) row on a group-bound mesh."""
+    x = x.reshape(s, b)
+    return x if me is None else x[me]
+
+
+def _gathered_round(values, mask, mesh=None):
+    """The round's exchange: the (S, B) requests (this rank's (B,) on a
+    group-bound mesh) flattened shard-major to (S * B,) gathered
+    (values, active, ranks, total); ranks are the exclusive prefix over
+    the gathered mask (the per-shard FAA bases' ticket order)."""
     mask_i = (mask > 0).to(torch.int32)
-    gv, gm = mesh_round_gather((values.to(torch.int32), mask_i))
+    gv, gm = mesh_round_gather((values.to(torch.int32), mask_i), mesh)
     gv, gm = gv.reshape(-1), gm.reshape(-1).long()
     ranks = torch.cumsum(gm, 0) - gm
     return gv, gm > 0, ranks, _i32(gm.sum())
@@ -230,11 +247,13 @@ def _wrap_add(a, b):
 
 
 def dist_enqueue_round(state: DistQueueState, values, mask, *,
-                       engine: str = "planes"):
+                       engine: str = "planes", mesh=None):
     """One enqueue round: ``values``/``mask`` (S, B), shard i's requests
-    in row i.  Returns (new_state, granted (S, B) bool)."""
-    s, b = values.shape
-    gv, active, ranks, total = _gathered_round(values, mask)
+    in row i (this rank's (B,) on a group-bound ``mesh``).  Returns
+    (new_state, granted (S, B) bool, or this rank's (B,))."""
+    me = _rank(mesh)
+    s, b = values.shape if me is None else (mesh.size, values.shape[0])
+    gv, active, ranks, total = _gathered_round(values, mask, mesh)
     tickets = _wrap_add(state.tail, ranks)
     planes, ok = _apply_enqueue(_planes(state), state.head, tickets, gv,
                                 active, ranks,
@@ -242,39 +261,44 @@ def dist_enqueue_round(state: DistQueueState, values, mask, *,
                                 engine=engine)
     new = DistQueueState(*planes, tail=_wrap_add(state.tail, total),
                          head=state.head)
-    return new, (ok.reshape(s, b) > 0) & (mask > 0)
+    return new, (_local(ok, s, b, me) > 0) & (mask > 0)
 
 
 def dist_dequeue_round(state: DistQueueState, want, *,
-                       engine: str = "planes"):
-    """One dequeue round: ``want`` (S, B) request masks.  Every request
-    takes a ticket; those past the occupancy burn it on an empty slot
-    (⊥-advance) and return ok=False.  Returns (new_state, values (S, B),
-    ok (S, B))."""
-    s, b = want.shape
-    _, active, ranks, total = _gathered_round(want, want)
+                       engine: str = "planes", mesh=None):
+    """One dequeue round: ``want`` (S, B) request masks (this rank's (B,)
+    on a group-bound ``mesh``).  Every request takes a ticket; those past
+    the occupancy burn it on an empty slot (⊥-advance) and return
+    ok=False.  Returns (new_state, values, ok), (S, B) or this rank's
+    (B,)."""
+    me = _rank(mesh)
+    s, b = want.shape if me is None else (mesh.size, want.shape[0])
+    _, active, ranks, total = _gathered_round(want, want, mesh)
     tickets = _wrap_add(state.head, ranks)
     planes, vals, ok = _apply_dequeue(_planes(state), tickets, active, ranks,
                                       nslots_log2=_nslots_log2(state),
                                       engine=engine)
     new = DistQueueState(*planes, tail=state.tail,
                          head=_wrap_add(state.head, total))
-    return new, vals.reshape(s, b), (ok.reshape(s, b) > 0) & (want > 0)
+    return (new, _local(vals, s, b, me),
+            (_local(ok, s, b, me) > 0) & (want > 0))
 
 
 def dist_publish_round(state: DistQueueState, values, mask, *,
                        capacity: int, engine: str = "planes",
                        with_counts: bool = False, births=None,
-                       birth_round=None):
+                       birth_round=None, mesh=None):
     """Enqueue round with overflow suppression over the whole round: when
     the round's total would push the occupancy past ``capacity`` NOTHING
     installs, tail stays, and ``over`` is True.  Returns (new_state,
-    granted (S, B), total, over), then with ``with_counts`` each shard's
-    published count (S,) (0 on overflow), then with ``births`` (a
-    separate stamp plane, CPU only) the new births plane."""
-    s, b = values.shape
+    granted (S, B) (this rank's (B,) on a group-bound ``mesh``), total,
+    over), then with ``with_counts`` each shard's published count (S,)
+    (0 on overflow), then with ``births`` (a separate stamp plane, CPU
+    only) the new births plane."""
+    me = _rank(mesh)
+    s, b = values.shape if me is None else (mesh.size, values.shape[0])
     lg = _nslots_log2(state)
-    gv, active, ranks, total = _gathered_round(values, mask)
+    gv, active, ranks, total = _gathered_round(values, mask, mesh)
     over = _i32(state.occupancy.long() + total.long()) > capacity
     active = active & ~over
     tickets = _wrap_add(state.tail, ranks)
@@ -287,7 +311,7 @@ def dist_publish_round(state: DistQueueState, values, mask, *,
     total = torch.where(over, 0, total)
     new = DistQueueState(*planes, tail=_wrap_add(state.tail, total),
                          head=state.head)
-    res = (new, (ok.reshape(s, b) > 0) & (mask > 0), total, over)
+    res = (new, (_local(ok, s, b, me) > 0) & (mask > 0), total, over)
     if with_counts:
         res = res + (active.reshape(s, b).sum(1, dtype=torch.int32),)
     if births is not None:
@@ -331,15 +355,18 @@ def _compact_rows(values, mask, width: int, scratch=None):
 def dist_publish_compact_round(state: DistQueueState, values, mask, *,
                                capacity: int, width: int,
                                with_counts: bool = False, births=None,
-                               birth_round=None):
+                               birth_round=None, mesh=None):
     """``dist_publish_round`` under the dense-wave rule: each shard's row
     is compacted to ``width`` lanes before the exchange and the ranks are
     rebuilt from the true counts (``_compact_grid``), so the installs and
     the planes are the sparse round's.  Returns (new_state, None, total,
     over)[, counts (S,)][, births]."""
     lg = _nslots_log2(state)
-    dv, count = _compact_rows(values, mask, width)
-    gv, gmeta = mesh_round_gather((dv, count.reshape(-1, 1)))
+    me = _rank(mesh)
+    rows = (values, mask) if me is None else (values[None], mask[None])
+    dv, count = _compact_rows(*rows, width)
+    gv, gmeta = mesh_round_gather(
+        (dv, count.reshape(-1, 1)) if me is None else (dv[0], count), mesh)
     counts = gmeta[:, 0]
     total = _i32(counts.long().sum())
     active, ranks = _compact_grid(counts, width)
@@ -363,13 +390,15 @@ def dist_publish_compact_round(state: DistQueueState, values, mask, *,
 
 def dist_claim_round(state: DistQueueState, k, batch: int, shards: int, *,
                      engine: str = "planes", with_grid: bool = False,
-                     births=None):
+                     births=None, mesh=None):
     """Claim ``k`` items (<= the occupancy) spread over ``shards`` shards
     by ``claim_schedule``, with no exchange: the tickets follow from the
     replicated head.  Returns (new_state, values (S, batch), ok (S,
     batch)), then with ``with_grid`` the flat grid ``(values (S *
     batch,), ok (S * batch,))``, then with ``births`` (CPU only) the
-    consumed births (S, batch)."""
+    consumed births (S, batch).  On a group-bound ``mesh`` (of ``shards``
+    ranks) the values, ok and births are this rank's (batch,) row."""
+    me = _rank(mesh)
     active, ranks = claim_schedule(k, shards, batch,
                                    device=state.cycles.device)
     tickets = _wrap_add(state.head, ranks)
@@ -381,11 +410,12 @@ def dist_claim_round(state: DistQueueState, k, batch: int, shards: int, *,
                     max=shards * batch)
     new = DistQueueState(*planes, tail=state.tail,
                          head=_wrap_add(state.head, k))
-    res = (new, vals.reshape(shards, batch), ok.reshape(shards, batch) > 0)
+    res = (new, _local(vals, shards, batch, me),
+           _local(ok, shards, batch, me) > 0)
     if with_grid:
         res = res + ((vals, ok > 0),)
     if births is not None:
-        res = res + (out[3].reshape(shards, batch),)
+        res = res + (_local(out[3], shards, batch, me),)
     return res
 
 
@@ -421,15 +451,20 @@ def dist_heap_init(capacity: int, *, shards: int = None,
 
 
 def _priority_meta(local_hint, local_size, s, pop_meta, extra=()):
+    """The meta block: (S, W) words on one card, or this rank's (W,) row
+    (``s`` None)."""
     words = [local_hint, local_size, *extra]
     if pop_meta is not None:
         words += list(pop_meta)
+    if s is None:
+        return torch.stack([torch.as_tensor(w).to(torch.int32).reshape(())
+                            for w in words])
     return torch.stack([torch.as_tensor(w).to(torch.int32).reshape(-1)
                         .expand(s) for w in words], 1)
 
 
 def dist_priority_publish_round(ckeys, cvals, mask, local_hint, local_size,
-                                pop_meta=None, aux=None):
+                                pop_meta=None, aux=None, mesh=None):
     """The priority round's exchange (reference
     ``dist_priority_publish_round``): every shard's ``(S, W)`` child rows
     (keys, payloads and, in the split layout, ``aux``) under ``mask``,
@@ -439,12 +474,13 @@ def dist_priority_publish_round(ckeys, cvals, mask, local_hint, local_size,
     shard-major.  Returns ``(gkeys, gvals[, gaux], active, ranks, total,
     hints (S,), sizes (S,))`` with the g-planes flattened, and with
     ``pop_meta = (mins (S,), maxs (S,))`` (telemetry) ``(pop_mins,
-    pop_maxs)`` last."""
-    s = ckeys.shape[0]
+    pop_maxs)`` last.  On a group-bound ``mesh`` the rows, hint, size and
+    extrema are this rank's ((W,) rows, scalars)."""
+    s = ckeys.shape[0] if _rank(mesh) is None else None
     mask_i = (mask > 0).to(torch.int32)
     blocks = (ckeys, cvals) + (() if aux is None else (aux,))
     g = mesh_round_gather(blocks + (mask_i, _priority_meta(
-        local_hint, local_size, s, pop_meta)))
+        local_hint, local_size, s, pop_meta)), mesh)
     gm, gmeta = g[-2].reshape(-1), g[-1]
     ranks = torch.cumsum(gm, 0, dtype=torch.int32) - gm
     out = tuple(b.reshape(-1) for b in g[:-2])
@@ -458,19 +494,25 @@ def dist_priority_publish_round(ckeys, cvals, mask, local_hint, local_size,
 def dist_priority_publish_compact_round(ckeys, cvals, mask, local_hint,
                                         local_size, *, width: int,
                                         pop_meta=None, aux=None,
-                                        scratch=None):
+                                        scratch=None, mesh=None):
     """``dist_priority_publish_round`` under the dense-wave rule: each
     shard's child planes (keys, payloads[, aux]) compacted to ``width``
     lanes under the mask (``wave_compact``, B3 on the card, on
     ``scratch`` when given), the true counts beside the meta words and
     the ranks rebuilt from their exclusive prefix (``_compact_grid``), so
     the children and their ranks are the sparse round's.  Returns its
-    layout (the g-planes ``(S * width,)``)."""
-    s = ckeys.shape[0]
+    layout (the g-planes ``(S * width,)``); on a group-bound ``mesh`` it
+    takes this rank's rows and words."""
+    one = _rank(mesh) is not None
+    s = None if one else ckeys.shape[0]
     planes = (ckeys, cvals) + (() if aux is None else (aux,))
+    if one:
+        planes, mask = tuple(p[None] for p in planes), mask[None]
     dense, count = _compact_rows(planes, mask, width, scratch)
+    if one:
+        dense, count = tuple(d[0] for d in dense), count[0]
     g = mesh_round_gather(dense + (_priority_meta(
-        local_hint, local_size, s, pop_meta, (count,)),))
+        local_hint, local_size, s, pop_meta, (count,)),), mesh)
     gmeta = g[-1]
     counts = gmeta[:, 2]
     active, ranks = _compact_grid(counts, width)
@@ -498,10 +540,13 @@ class DistShardedQueueState(NamedTuple):
 
 
 def dist_sharded_queue_init(capacity: int, shards: int, *,
-                            device="cuda") -> DistShardedQueueState:
+                            device="cuda", rank: int = None
+                            ) -> DistShardedQueueState:
     """The global capacity rounded up to a power of two and split evenly
     over ``shards`` rings (a power of two no larger than it), each
-    starting at head = tail = 2n_l."""
+    starting at head = tail = 2n_l.  With ``rank`` (a group-bound mesh)
+    the planes are that shard's ring only, (1, 2n_l); heads and tails
+    stay (S,)."""
     if shards < 1 or shards & (shards - 1):
         raise ValueError(f"shards {shards} must be a power of two")
     cap = 1 << max(int(capacity) - 1, 1).bit_length()
@@ -509,37 +554,44 @@ def dist_sharded_queue_init(capacity: int, shards: int, *,
         raise ValueError(f"capacity {cap} smaller than {shards} shards")
     n2 = 2 * (cap // shards)
     i32 = dict(dtype=torch.int32, device=resolve_device(device))
+    rows = shards if rank is None else 1
     return DistShardedQueueState(
-        cycles=torch.zeros((shards, n2), **i32),
-        safes=torch.ones((shards, n2), **i32),
-        enqs=torch.zeros((shards, n2), **i32),
-        idxs=torch.full((shards, n2), IDX_BOT, **i32),
+        cycles=torch.zeros((rows, n2), **i32),
+        safes=torch.ones((rows, n2), **i32),
+        enqs=torch.zeros((rows, n2), **i32),
+        idxs=torch.full((rows, n2), IDX_BOT, **i32),
         tails=torch.full((shards,), n2, **i32),
         heads=torch.full((shards,), n2, **i32))
 
 
 def dist_sharded_claim_round(planes, heads, tails, batch: int, *,
-                             nslots_log2: int):
+                             nslots_log2: int, mesh=None):
     """Claim up to ``S * batch`` items from the per-shard rings: the
     counts are ``priority_claim_schedule`` over the occupancies, fullest
     first, and shard i dequeues ``heads[i] + [0, counts[i])`` from its
     own ring.  Returns (planes, heads, vals (S, batch), ok (S, batch),
-    counts (S,))."""
+    counts (S,)).  On a group-bound ``mesh`` the planes are this rank's
+    ring ((2n_l,) each) and vals and ok its (batch,) row, with no
+    exchange."""
     n = heads.shape[0]
     occs = _i32(tails.long() - heads.long())
     k = torch.clamp(_i32(occs.long().sum()), max=n * batch)
     counts = priority_claim_schedule(k, n, batch, -occs, occs)
     lane = torch.arange(batch, dtype=torch.int64, device=heads.device)
     rows, vals, oks = [], [], []
-    for me in range(n):
+    mine = range(n) if _rank(mesh) is None else (mesh.rank,)
+    for me in mine:
         active = lane < counts[me]
         tickets = torch.where(active, _wrap_add(heads[me], lane), 0)
-        pl, v, ok = _apply_dequeue(tuple(p[me] for p in planes), tickets,
-                                   active, lane, nslots_log2=nslots_log2,
-                                   engine="planes")
+        pl, v, ok = _apply_dequeue(
+            planes if _rank(mesh) is not None
+            else tuple(p[me] for p in planes), tickets,
+            active, lane, nslots_log2=nslots_log2, engine="planes")
         rows.append(pl)
         vals.append(v)
         oks.append(ok > 0)
+    if _rank(mesh) is not None:
+        return (rows[0], _wrap_add(heads, counts), vals[0], oks[0], counts)
     planes = tuple(torch.stack(r) for r in zip(*rows))
     return (planes, _wrap_add(heads, counts), torch.stack(vals),
             torch.stack(oks), counts)
@@ -547,7 +599,7 @@ def dist_sharded_claim_round(planes, heads, tails, batch: int, *,
 
 def dist_sharded_publish_round(planes, heads, tails, values, mask, *,
                                nslots_log2: int, local_capacity: int,
-                               width: int = None, pop_meta=None):
+                               width: int = None, pop_meta=None, mesh=None):
     """The sharded rings' publish: the (S, N) child rows (or their dense
     ``width``-lane compactions with true counts) ranked shard-major, the
     child of rank r sprayed to ring ``r % S`` at ``tails[r % S] + r //
@@ -555,14 +607,31 @@ def dist_sharded_publish_round(planes, heads, tails, values, mask, *,
     anywhere and ``over`` holds.  ``pop_meta`` = (mins (S,), maxs (S,)),
     each shard's claim extrema, rides the exchange and is returned
     last.  Returns (planes, tails, total, over, assigned (S,)[, mins,
-    maxs])."""
+    maxs]).  On a group-bound ``mesh`` the planes are this rank's ring
+    ((2n_l,) each), ``values``/``mask`` its (N,) row and ``pop_meta`` its
+    two words, all in the one exchange."""
     n = heads.shape[0]
+    me = _rank(mesh)
+    meta = ()
+    if me is not None and pop_meta is not None:
+        meta = (torch.stack([torch.as_tensor(w).to(torch.int32).reshape(())
+                             for w in pop_meta]),)
     if width is None:
-        gv, active, ranks, total = _gathered_round(values, mask)
+        if me is None:
+            gv, active, ranks, total = _gathered_round(values, mask)
+        else:
+            g = mesh_round_gather((values, (mask > 0).to(torch.int32))
+                                  + meta, mesh)
+            gv, gm = g[0].reshape(-1), g[1].reshape(-1).long()
+            ranks = torch.cumsum(gm, 0) - gm
+            active, total = gm > 0, _i32(gm.sum())
     else:
-        dv, count = _compact_rows(values, mask, width)
-        gv, gmeta = mesh_round_gather((dv, count.reshape(-1, 1)))
-        gv = gv.reshape(-1)
+        rows = (values, mask) if me is None else (values[None], mask[None])
+        dv, count = _compact_rows(*rows, width)
+        g = mesh_round_gather(
+            (dv, count.reshape(-1, 1)) if me is None
+            else (dv[0], count) + meta, mesh)
+        gv, gmeta = g[0].reshape(-1), g[1]
         total = _i32(gmeta[:, 0].long().sum())
         active, ranks = _compact_grid(gmeta[:, 0], width)
     s_ix = torch.arange(n, dtype=torch.int64, device=heads.device)
@@ -571,19 +640,24 @@ def dist_sharded_publish_round(planes, heads, tails, values, mask, *,
     over = (_i32(tails.long() - heads.long()).long() + assigned
             > local_capacity).any()
     rows = []
-    for me in range(n):
-        mine = active & (ranks % n == me) & ~over
+    for r in (range(n) if me is None else (me,)):
+        mine = active & (ranks % n == r) & ~over
         lrank = torch.where(mine, ranks // n, 0)
-        tickets = torch.where(mine, _wrap_add(tails[me], lrank), 0)
-        pl, _ = _apply_enqueue(tuple(p[me] for p in planes), heads[me],
+        tickets = torch.where(mine, _wrap_add(tails[r], lrank), 0)
+        pl, _ = _apply_enqueue(planes if me is not None
+                               else tuple(p[r] for p in planes), heads[r],
                                tickets, gv, mine, lrank,
                                nslots_log2=nslots_log2, engine="planes",
                                max_rank=local_capacity)
         rows.append(pl)
-    planes = tuple(torch.stack(r) for r in zip(*rows))
+    planes = (rows[0] if me is not None
+              else tuple(torch.stack(r) for r in zip(*rows)))
     assigned = torch.where(over, 0, assigned).to(torch.int32)
     res = (planes, _wrap_add(tails, assigned), torch.where(over, 0, total),
            over, assigned)
+    if pop_meta is not None and me is not None:
+        gmeta = g[-1].reshape(n, -1)
+        return res + (gmeta[:, -2], gmeta[:, -1])
     if pop_meta is not None:
         res = res + (torch.as_tensor(pop_meta[0]).to(torch.int32),
                      torch.as_tensor(pop_meta[1]).to(torch.int32))

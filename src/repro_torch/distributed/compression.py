@@ -2,11 +2,10 @@
 ``repro/distributed/compression.py``.
 
 f32 -> int8 codes with one float32 scale per block of ``BLOCK`` values,
-the quantization error carried forward (EF-SGD).  The reference
-compresses the payload of the cross-pod gradient all-reduce; the port's
-multi-card reduction waits for ROADMAP A7c, so these are the pure
-functions over trees of tensors, with the reference's arithmetic: codes
-and scales bit for bit.
+the quantization error carried forward (EF-SGD).  They compress the
+payload of the gradient all-reduce (``collectives.allreduce_compressed``)
+and are the pure functions over trees of tensors, with the reference's
+arithmetic: codes and scales bit for bit.
 """
 
 from __future__ import annotations

@@ -56,8 +56,8 @@ SIGNATURES = {
     "ring_slots": {
         "repro_ring_dequeue": (_P,) * 8 + (_I, _I, _I, _P),
         "repro_ring_enqueue": (_P,) * 9 + (_I, _I, _I, _P),
-        "repro_ring_dequeue_wave": (_P,) * 12 + (_I,) * 5 + (_P,),
-        "repro_ring_enqueue_wave": (_P,) * 14 + (_I,) * 6 + (_P,),
+        "repro_ring_dequeue_wave": (_P,) * 12 + (_I,) * 6 + (_P,),
+        "repro_ring_enqueue_wave": (_P,) * 14 + (_I,) * 7 + (_P,),
     },
     "compact": {"repro_wave_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
     "heap_batch": {"repro_heap_apply": (_P,) * 10 + (_I, _I, _I, _I, _P),

@@ -243,7 +243,11 @@ __device__ __forceinline__ uint32_t ballot_bits(const uint8_t* __restrict__ m,
 //   * replicated (kSharded = false): one ring of 1 << s slots, head and
 //     tail 0-d; the single ring is this layout at S = 1;
 //   * sharded (kSharded = true): S rings of 1 << s slots each, row r at
-//     planes + (r << s), heads and tails (S,).
+//     planes + (r << s), heads and tails (S,); or, with ring >= 0 (the
+//     mesh across processes, one ring a rank), ring `ring` alone at
+//     planes, beside all S heads and tails: the schedule, the ranks and
+//     the overflow test stay the whole grid's, only that ring's lanes
+//     consume or install, and every head or tail advances.
 // The schedule lives in dynamic shared memory, three (dequeue) or four
 // (enqueue) ints a shard, which bounds S at kMaxShards.  Birth stamps ride the replicated ring only.
 
@@ -260,7 +264,8 @@ constexpr int kMaxShards = 1024;
 // place among the shards by occupancy (fullest first, ties by index: the
 // stable argsort of -occ), consuming heads[i] + j from its own ring, and
 // heads[i] += its count.  pops[i] gets shard i's count, k_out the sum.
-// kPacked: births[lane] gets the consumed stamp (-1 on a miss).
+// ring >= 0 (sharded): only shard `ring` consumes, into row 0 of vals and
+// ok.  kPacked: births[lane] gets the consumed stamp (-1 on a miss).
 template <bool kSharded, bool kPacked>
 __global__ void __launch_bounds__(kWaveThreads)
     ring_dequeue_wave_kernel(int32_t* __restrict__ cyc,
@@ -275,7 +280,7 @@ __global__ void __launch_bounds__(kWaveThreads)
                              int32_t* __restrict__ pops,
                              int32_t* __restrict__ k_out,
                              int32_t* __restrict__ births, int shards,
-                             int batch, int s, int32_t idx_bot) {
+                             int batch, int s, int32_t idx_bot, int ring) {
   extern __shared__ int32_t grid_smem[];
   int32_t* s_cnt = grid_smem;                     // lanes a shard claims
   uint32_t* s_base =                              // its first ticket
@@ -342,10 +347,12 @@ __global__ void __launch_bounds__(kWaveThreads)
       k_out[0] = s_k;
     }
   }
-  for (int lane = threadIdx.x; lane < grid; lane += blockDim.x) {
-    const int i = shards == 1 ? 0 : lane / batch;
-    const int j = lane - i * batch;
-    const int64_t off = kSharded ? (static_cast<int64_t>(i) << s) : 0;
+  const int rows = ring < 0 ? shards : 1;  // rows of vals and ok
+  for (int lane = threadIdx.x; lane < rows * batch; lane += blockDim.x) {
+    const int r = rows == 1 ? 0 : lane / batch;
+    const int i = ring < 0 ? r : ring;  // the row's shard
+    const int j = lane - r * batch;
+    const int64_t off = kSharded ? (static_cast<int64_t>(r) << s) : 0;
     int32_t v = -1, birth = -1;
     bool hit = false;
     if (j < s_cnt[i])
@@ -359,22 +366,26 @@ __global__ void __launch_bounds__(kWaveThreads)
 }
 
 // Where the child of global rank r installs: its ring's row offset, its
-// ticket and that ring's head.  Replicated: the one ring, tail + r.
-// Sharded: ring r % S at tails[r % S] + r / S (distqueue.py:
-// dist_sharded_publish_round's round-robin spray).
+// ticket and that ring's head, and whether this launch holds that ring.
+// Replicated: the one ring, tail + r.  Sharded: ring r % S at tails[r %
+// S] + r / S (distqueue.py: dist_sharded_publish_round's round-robin
+// spray); with local >= 0 only ring `local` is held, at offset 0.
 struct GridSlot {
   int64_t off;
   uint32_t ticket, head;
+  bool mine;
 };
 
 template <bool kSharded>
 __device__ __forceinline__ GridSlot grid_slot(uint32_t r, int shards, int s,
+                                              int local,
                                               const uint32_t* s_tail,
                                               const uint32_t* s_head) {
-  if (!kSharded) return {0, s_tail[0] + r, s_head[0]};
+  if (!kSharded) return {0, s_tail[0] + r, s_head[0], true};
   const uint32_t ring = r % static_cast<uint32_t>(shards);
-  return {static_cast<int64_t>(ring) << s,
-          s_tail[ring] + r / static_cast<uint32_t>(shards), s_head[ring]};
+  return {local < 0 ? static_cast<int64_t>(ring) << s : 0,
+          s_tail[ring] + r / static_cast<uint32_t>(shards), s_head[ring],
+          local < 0 || ring == static_cast<uint32_t>(local)};
 }
 
 // A round's enqueue side, one launch (fusedrounds.py: RingEngine._round
@@ -392,9 +403,10 @@ __device__ __forceinline__ GridSlot grid_slot(uint32_t r, int shards, int s,
 // Sharded: assigned[i] = total / S + (i < total % S), over = any(int32(
 // tails[i] - heads[i]) + assigned[i] > capacity) (capacity is one
 // ring's); unless over, child r installs on ring r % S at tails[r % S] +
-// r / S and tails += assigned; pushes = assigned.  Over: nothing
-// installs, tails stay, total_out and pushes are 0.  kPacked: the enq
-// flag installed is (*birth_round << 1) | 1.
+// r / S and tails += assigned; pushes = assigned; with ring >= 0 only
+// the children of ring `ring` install.  Over: nothing installs, tails
+// stay, total_out and pushes are 0.  kPacked: the enq flag installed is
+// (*birth_round << 1) | 1.
 template <bool kBallot, bool kSharded, bool kPacked>
 __global__ void __launch_bounds__(kWaveThreads)
     ring_enqueue_wave_kernel(int32_t* __restrict__ cyc,
@@ -411,7 +423,8 @@ __global__ void __launch_bounds__(kWaveThreads)
                              int32_t* __restrict__ total_out,
                              bool* __restrict__ over_out,
                              int32_t* __restrict__ pushes, int n, int shards,
-                             int capacity, int s, int32_t idx_bot) {
+                             int capacity, int s, int32_t idx_bot,
+                             int ring) {
   extern __shared__ int32_t grid_smem[];
   int32_t* s_cnt = grid_smem;                     // children by shard
   uint32_t* s_head = reinterpret_cast<uint32_t*>(grid_smem + shards);
@@ -515,15 +528,18 @@ __global__ void __launch_bounds__(kWaveThreads)
 #pragma unroll
         for (int j = 0; j < kWaveLanesPerThread; ++j) {
           if ((b >> j) & 1u) {
-            g[j] = grid_slot<kSharded>(rank++, shards, s, s_tail, s_head);
-            v[j] = values[i0 + j];
-            e[j] = enq_gather(cyc + g[j].off, saf + g[j].off, idx + g[j].off,
-                              g[j].ticket, s);
+            g[j] = grid_slot<kSharded>(rank++, shards, s, ring, s_tail,
+                                       s_head);
+            if (g[j].mine) {
+              v[j] = values[i0 + j];
+              e[j] = enq_gather(cyc + g[j].off, saf + g[j].off,
+                                idx + g[j].off, g[j].ticket, s);
+            }
           }
         }
 #pragma unroll
         for (int j = 0; j < kWaveLanesPerThread; ++j)
-          if ((b >> j) & 1u)
+          if (((b >> j) & 1u) && g[j].mine)
             enq_install(cyc + g[j].off, saf + g[j].off, enq + g[j].off,
                         idx + g[j].off, e[j], g[j].ticket, v[j], g[j].head, s,
                         idx_bot, flag);
@@ -537,10 +553,11 @@ __global__ void __launch_bounds__(kWaveThreads)
         const int32_t* __restrict__ row = values + static_cast<int64_t>(i) * n;
         for (int j = threadIdx.x; j < c; j += blockDim.x) {
           const GridSlot g = grid_slot<kSharded>(
-              s_base0[i] + static_cast<uint32_t>(j), shards, s, s_tail,
+              s_base0[i] + static_cast<uint32_t>(j), shards, s, ring, s_tail,
               s_head);
-          try_enqueue(cyc + g.off, saf + g.off, enq + g.off, idx + g.off,
-                      g.ticket, row[j], g.head, s, idx_bot, flag);
+          if (g.mine)
+            try_enqueue(cyc + g.off, saf + g.off, enq + g.off, idx + g.off,
+                        g.ticket, row[j], g.head, s, idx_bot, flag);
         }
       }
     }
@@ -611,24 +628,25 @@ extern "C" int repro_ring_enqueue(void* cyc, void* saf, void* enq, void* idx,
 
 // The dequeue wave over an S x batch grid (one launch).  Replicated
 // (sharded == 0): planes four (1 << s,) int32, heads and tails 0-d int32.
-// Sharded: planes four (S, 1 << s) int32, heads and tails (S,) int32.
-// heads is updated in place.  live: 0-d bool; vals: (S * batch,) int32;
-// ok: (S * batch,) bool; pops: (S,) int32; k: 0-d int32; births: (S *
-// batch,) int32 for the packed instance (replicated only) or null.  1 <=
-// S <= kMaxShards, S * batch < 2^31.  Returns cudaGetLastError() after
-// the launch.
+// Sharded: planes four (S, 1 << s) int32, heads and tails (S,) int32;
+// with ring >= 0 (sharded only; -1 otherwise) planes four (1 << s,), ring
+// `ring` of the S, and vals and ok (batch,).  heads is updated in place.
+// live: 0-d bool; vals: (S * batch,) int32; ok: (S * batch,) bool; pops:
+// (S,) int32; k: 0-d int32; births: (S * batch,) int32 for the packed
+// instance (replicated only) or null.  1 <= S <= kMaxShards, S * batch <
+// 2^31.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_ring_dequeue_wave(void* cyc, void* saf, const void* enq,
                                        void* idx, void* heads,
                                        const void* tails, const void* live,
                                        void* vals, void* ok, void* pops,
                                        void* k, void* births, int shards,
                                        int batch, int sharded, int s,
-                                       int idx_bot, void* stream) {
+                                       int idx_bot, int ring, void* stream) {
   using namespace repro;
   const bool packed = births != nullptr;
   if (shards < 1 || shards > kMaxShards || batch < 0 ||
       static_cast<int64_t>(shards) * batch >= (int64_t{1} << 31) ||
-      (sharded && packed))
+      (sharded && packed) || ring >= shards || (ring >= 0 && !sharded))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = sharded ? ring_dequeue_wave_kernel<true, false>
                  : packed ? ring_dequeue_wave_kernel<false, true>
@@ -644,7 +662,7 @@ extern "C" int repro_ring_dequeue_wave(void* cyc, void* saf, const void* enq,
       static_cast<const bool*>(live), static_cast<int32_t*>(vals),
       static_cast<bool*>(ok), static_cast<int32_t*>(pops),
       static_cast<int32_t*>(k), static_cast<int32_t*>(births), shards, batch,
-      s, idx_bot);
+      s, idx_bot, ring < 0 ? -1 : ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -654,8 +672,10 @@ extern "C" int repro_ring_dequeue_wave(void* cyc, void* saf, const void* enq,
 // values and mask (S * n,) int32 and bool, counts null.  Dense mode:
 // values (S, n) int32, counts (S,) int32, mask null.  birth_round: a 0-d
 // int32 for the packed instance (replicated only), or null.  capacity:
-// the ring's (one ring's when sharded).  1 <= S <= kMaxShards, S * n <
-// 2^31.  Returns cudaGetLastError() after the launch.
+// the ring's (one ring's when sharded).  ring: -1, or (sharded only) the
+// one ring of the S the planes hold, as for the dequeue wave.  1 <= S <=
+// kMaxShards, S * n < 2^31.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int repro_ring_enqueue_wave(void* cyc, void* saf, void* enq,
                                        void* idx, const void* heads,
                                        void* tails, const void* live,
@@ -664,13 +684,15 @@ extern "C" int repro_ring_enqueue_wave(void* cyc, void* saf, void* enq,
                                        const void* birth_round, void* total,
                                        void* over, void* pushes, int n,
                                        int shards, int sharded, int capacity,
-                                       int s, int idx_bot, void* stream) {
+                                       int s, int idx_bot, int ring,
+                                       void* stream) {
   using namespace repro;
   const int64_t lanes = static_cast<int64_t>(shards) * n;
   const bool packed = birth_round != nullptr;
   if (n < 0 || shards < 1 || shards > kMaxShards ||
       lanes >= (int64_t{1} << 31) ||
-      (mask == nullptr) == (counts == nullptr) || (sharded && packed))
+      (mask == nullptr) == (counts == nullptr) || (sharded && packed) ||
+      ring >= shards || (ring >= 0 && !sharded))
     return static_cast<int>(cudaErrorInvalidValue);
   // a ballot wave of one tile runs only the threads its lanes need
   const bool ballot = mask != nullptr;
@@ -696,6 +718,6 @@ extern "C" int repro_ring_enqueue_wave(void* cyc, void* saf, void* enq,
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(birth_round), static_cast<int32_t*>(total),
       static_cast<bool*>(over), static_cast<int32_t*>(pushes), n, shards,
-      capacity, s, idx_bot);
+      capacity, s, idx_bot, ring < 0 ? -1 : ring);
   return static_cast<int>(cudaGetLastError());
 }

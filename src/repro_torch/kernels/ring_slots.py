@@ -330,7 +330,11 @@ def _check_active(name, active, tickets) -> int:
 # children.  The ring is either replicated (planes (2n,), 0-d head and
 # tail) or sharded (planes (S, 2n_l), one ring a row, (S,) heads and
 # tails); the layout follows from the planes' shape.  The single ring's
-# round (``RingEngine``) is the replicated grid at S = 1.
+# round (``RingEngine``) is the replicated grid at S = 1.  ``ring=r``
+# (the sharded mesh across processes, one ring a rank) gives the sharded
+# waves ring r alone, as planes (1, 2n_l) beside all S heads and tails:
+# the schedule, ranks and overflow test are the whole mesh's, the
+# consumes and installs ring r's, and heads and tails advance for all.
 
 
 def claim_schedule(k, n: int, batch: int, *, device=None):
@@ -383,12 +387,24 @@ def priority_claim_schedule(k, n: int, batch: int, hints, sizes, *,
 MAX_SHARDS = 1024
 
 
-def _layout(name, planes, nslots_log2, heads, tails, shards):
+def _layout(name, planes, nslots_log2, heads, tails, shards, ring=None):
     """(sharded, S) of a wave's ring: sharded planes are (S, 2^s) with
     (S,) heads and tails, a replicated ring's (2^s,) with 0-d ones and S
-    given (1, the single ring, when it is not)."""
+    given (1, the single ring, when it is not).  With ``ring`` the planes
+    are that one ring of S, (1, 2^s), and S is the heads' length."""
     sharded = planes[0].dim() == 2
-    if sharded:
+    if ring is not None:
+        s = heads.shape[0] if heads.dim() == 1 else 0
+        if not sharded or not 0 <= ring < s:
+            raise ValueError(f"{name}: ring={ring} takes (1, 2^s) planes "
+                             f"and (S,) heads and tails with 0 <= ring < "
+                             f"S")
+        if shards is not None and shards != s:
+            raise ValueError(f"{name}: shards={shards} but the heads hold "
+                             f"{s} rings")
+        shards = s
+        want, ticket_shape = (1, 1 << nslots_log2), (s,)
+    elif sharded:
         s = planes[0].shape[0]
         if shards is not None and shards != s:
             raise ValueError(f"{name}: shards={shards} but the planes hold "
@@ -415,12 +431,13 @@ def _layout(name, planes, nslots_log2, heads, tails, shards):
 
 def ring_dequeue_wave_plain(cycles, safes, enqs, idxs, heads, tails, live,
                             *, batch: int, nslots_log2: int, idx_bot: int,
-                            shards: int = None, birth_packed: bool = False):
+                            shards: int = None, birth_packed: bool = False,
+                            ring: int = None):
     """Plain PyTorch ``ring_dequeue_wave`` on ``ring_dequeue_plain``, in
     place (see the kernel face)."""
     sharded, shards = _layout("ring_dequeue_wave",
                               (cycles, safes, enqs, idxs), nslots_log2,
-                              heads, tails, shards)
+                              heads, tails, shards, ring)
     dev = heads.device
     lane = torch.arange(batch, dtype=torch.int64, device=dev)[None, :]
     planes = (cycles, safes, enqs, idxs)
@@ -443,21 +460,23 @@ def ring_dequeue_wave_plain(cycles, safes, enqs, idxs, heads, tails, live,
         active = lane < pops[:, None].long()
         tickets = _i32(heads.long()[:, None] + lane)
         res = [[] for _ in range(3 if birth_packed else 2)]
-        for r in range(shards):
-            out = ring_dequeue_plain(*(p[r] for p in planes), tickets[r],
+        for r in range(shards) if ring is None else (ring,):
+            row = r if ring is None else 0
+            out = ring_dequeue_plain(*(p[row] for p in planes), tickets[r],
                                      active=active[r], **kw)
             for acc, x in zip(res, out[4:]):
                 acc.append(x)
         res = [torch.cat(x) for x in res]
         heads.copy_(_i32(heads.long() + pops))
         k = pops.sum(dtype=torch.int32)
-    res = [x.reshape(shards, batch) for x in res]
+    res = [x.reshape(-1, batch) for x in res]
     return (res[0], res[1], k.to(torch.int32).reshape(()), pops, *res[2:])
 
 
 def ring_dequeue_wave(cycles, safes, enqs, idxs, heads, tails, live, *,
                       batch: int, nslots_log2: int, idx_bot: int,
-                      shards: int = None, birth_packed: bool = False):
+                      shards: int = None, birth_packed: bool = False,
+                      ring: int = None):
     """A round's dequeue side over an S x ``batch`` lane grid in one
     launch (``RingEngine``'s round at S = 1; reference
     ``dist_claim_round`` / ``dist_sharded_claim_round``).
@@ -474,16 +493,18 @@ def ring_dequeue_wave(cycles, safes, enqs, idxs, heads, tails, live, *,
     k 0-d int32, pops (S,) int32), and with ``birth_packed`` (replicated
     only: the packed instance, which takes the enq flag's low bit as the
     flag) the consumed stamps ``enq >> 1`` (S, batch) last, -1 on a
-    miss."""
+    miss.  ``ring=r`` (sharded only): the planes are ring r's (1, 2n_l),
+    the schedule, k and pops the whole mesh's, vals and ok ring r's (1,
+    batch), and every head advances."""
     if heads.device.type == "cpu":
         return ring_dequeue_wave_plain(cycles, safes, enqs, idxs, heads,
                                        tails, live, batch=batch,
                                        nslots_log2=nslots_log2,
                                        idx_bot=idx_bot, shards=shards,
-                                       birth_packed=birth_packed)
+                                       birth_packed=birth_packed, ring=ring)
     planes = (cycles, safes, enqs, idxs)
     sharded, shards = _layout("ring_dequeue_wave", planes, nslots_log2,
-                              heads, tails, shards)
+                              heads, tails, shards, ring)
     _check_round("ring_dequeue_wave", planes, heads, tails, live)
     if batch < 0 or shards * batch >= 1 << 31:
         raise ValueError(f"ring_dequeue_wave: batch={batch} out of range")
@@ -491,8 +512,9 @@ def ring_dequeue_wave(cycles, safes, enqs, idxs, heads, tails, live, *,
         raise ValueError("ring_dequeue_wave: the sharded rings keep no "
                          "birth stamps (spans need the replicated ring)")
     dev = heads.device
-    vals = torch.empty((shards, batch), dtype=torch.int32, device=dev)
-    ok = torch.empty((shards, batch), dtype=torch.bool, device=dev)
+    rows = shards if ring is None else 1
+    vals = torch.empty((rows, batch), dtype=torch.int32, device=dev)
+    ok = torch.empty((rows, batch), dtype=torch.bool, device=dev)
     pops = torch.empty(shards, dtype=torch.int32, device=dev)
     k = torch.empty((), dtype=torch.int32, device=dev)
     births = (torch.empty((shards, batch), dtype=torch.int32, device=dev)
@@ -505,8 +527,8 @@ def ring_dequeue_wave(cycles, safes, enqs, idxs, heads, tails, live, *,
         *(p.data_ptr() for p in planes), heads.data_ptr(), tails.data_ptr(),
         live.data_ptr(), vals.data_ptr(), ok.data_ptr(), pops.data_ptr(),
         k.data_ptr(), births.data_ptr() if birth_packed else 0, shards,
-        batch, int(sharded), nslots_log2, idx_bot, _build.stream_of(heads)),
-        name)
+        batch, int(sharded), nslots_log2, idx_bot,
+        -1 if ring is None else ring, _build.stream_of(heads)), name)
     _build.LAUNCHES[name] += 1
     out = (vals, ok, k, pops)
     return out if births is None else out + (births,)
@@ -533,12 +555,12 @@ def _enqueue_ranks(values, live, shards, mask, counts):
 def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, heads, tails, values,
                             live, *, capacity: int, nslots_log2: int,
                             idx_bot: int, shards: int = None, mask=None,
-                            counts=None, birth_round=None):
+                            counts=None, birth_round=None, ring: int = None):
     """Plain PyTorch ``ring_enqueue_wave`` on ``ring_enqueue_plain``, in
     place (see the kernel face)."""
     sharded, shards = _layout("ring_enqueue_wave",
                               (cycles, safes, enqs, idxs), nslots_log2,
-                              heads, tails, shards)
+                              heads, tails, shards, ring)
     _wave_mode("ring_enqueue_wave", values, shards, mask, counts)
     planes = (cycles, safes, enqs, idxs)
     active, ranks, total, per = _enqueue_ranks(values, live, shards, mask,
@@ -557,11 +579,12 @@ def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, heads, tails, values,
         assigned = total // shards + (s_ix < total % shards).long()
         over = (_i32(tails.long() - heads.long()).long() + assigned
                 > capacity).any()
-        ring = ranks % shards
-        tickets = _i32(tails.long()[ring] + ranks // shards)
-        for r in range(shards):
-            ring_enqueue_plain(*(p[r] for p in planes), tickets, vals,
-                               heads[r], active=active & (ring == r) & ~over,
+        dest = ranks % shards
+        tickets = _i32(tails.long()[dest] + ranks // shards)
+        for r in range(shards) if ring is None else (ring,):
+            row = r if ring is None else 0
+            ring_enqueue_plain(*(p[row] for p in planes), tickets, vals,
+                               heads[r], active=active & (dest == r) & ~over,
                                **kw)
         tails.copy_(torch.where(over, tails,
                                 _i32(tails.long() + assigned)))
@@ -573,7 +596,7 @@ def ring_enqueue_wave_plain(cycles, safes, enqs, idxs, heads, tails, values,
 def ring_enqueue_wave(cycles, safes, enqs, idxs, heads, tails, values, live,
                       *, capacity: int, nslots_log2: int, idx_bot: int,
                       shards: int = None, mask=None, counts=None,
-                      birth_round=None):
+                      birth_round=None, ring: int = None):
     """A round's enqueue side over an S-shard child grid in one launch
     (``RingEngine``'s round at S = 1; reference ``dist_publish_round``,
     ``dist_publish_compact_round``, ``dist_sharded_publish_round``).
@@ -596,17 +619,20 @@ def ring_enqueue_wave(cycles, safes, enqs, idxs, heads, tails, values, live,
     int32 on the ring's card, read there; replicated only) takes the
     packed instance, whose flag written is ``(birth_round << 1) | 1``.
     The planes and tails are updated in place.  Returns (total 0-d int32,
-    0 when over; over 0-d bool; pushes (S,) int32, 0 when over)."""
+    0 when over; over 0-d bool; pushes (S,) int32, 0 when over).
+    ``ring=r`` (sharded only): the planes are ring r's (1, 2n_l), the
+    children every shard's, and only those of rank r mod S install; the
+    totals, the overflow test and the tails are the whole mesh's."""
     if heads.device.type == "cpu":
         return ring_enqueue_wave_plain(cycles, safes, enqs, idxs, heads,
                                        tails, values, live, capacity=capacity,
                                        nslots_log2=nslots_log2,
                                        idx_bot=idx_bot, shards=shards,
                                        mask=mask, counts=counts,
-                                       birth_round=birth_round)
+                                       birth_round=birth_round, ring=ring)
     planes = (cycles, safes, enqs, idxs)
     sharded, shards = _layout("ring_enqueue_wave", planes, nslots_log2,
-                              heads, tails, shards)
+                              heads, tails, shards, ring)
     n = _wave_mode("ring_enqueue_wave", values, shards, mask, counts)
     _check_round("ring_enqueue_wave", planes, heads, tails, live, values,
                  *(() if counts is None else (counts,)))
@@ -643,7 +669,7 @@ def ring_enqueue_wave(cycles, safes, enqs, idxs, heads, tails, values, live,
         0 if counts is None else counts.data_ptr(), birth_ptr,
         total.data_ptr(), over.data_ptr(), pushes.data_ptr(), n, shards,
         int(sharded), capacity, nslots_log2, idx_bot,
-        _build.stream_of(heads)), name)
+        -1 if ring is None else ring, _build.stream_of(heads)), name)
     _build.LAUNCHES[name] += 1
     return total, over, pushes
 

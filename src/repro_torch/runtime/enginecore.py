@@ -61,6 +61,14 @@ node for node.
 The mesh runners' legacy loop (``meshrounds._MeshBase._legacy``, the
 reference's ``_legacy_loop``) issues one round at a time from the host
 and reads back after each; an empty run reads nothing back.
+
+A mesh across processes (one shard a rank) makes one collective a round
+and runs its chunks in the Python loop on either backend: each round is
+issued from the host after one readback of the loop's condition, which
+reads replicated words only (occupancy, overflow, the round count and
+the stop word), so every rank runs the same rounds and makes the same
+collectives.  ``host_syncs`` and ``sync_log`` count chunks, as on one
+card.
 """
 
 from __future__ import annotations
@@ -338,6 +346,13 @@ class EngineCore:
         return self.telemetry is not None or self.spans is not None
 
     @property
+    def _host_rounds(self) -> bool:
+        """Whether the chunk's rounds are issued from the host on the card
+        too: a mesh across processes, whose collective is not captured."""
+        mesh = getattr(self, "mesh", None)
+        return mesh is not None and mesh.group is not None
+
+    @property
     def registry(self) -> PlaneRegistry:
         if getattr(self, "_registry", None) is None:
             self._registry = PlaneRegistry()
@@ -490,7 +505,8 @@ class EngineCore:
                    limit: int) -> None:
         """One chunk of up to ``limit`` rounds on ``carry``: a launch of
         the device loop on the card (nothing read back), else the Python
-        loop, which tests the same condition before every round."""
+        loop, which reads the same condition back before every round in
+        one stacked readback."""
         if loop is not None:
             carry.limit.fill_(limit)
             loop.launch(_build.stream_of(carry.occ))
@@ -498,9 +514,13 @@ class EngineCore:
         carry.rounds.zero_()
         carry.oflow.zero_()
         stop = self._stop_of(carry)
-        while (int(carry.occ) > 0 and not bool(carry.oflow)
-               and int(carry.rounds) < limit
-               and (stop is None or not bool(stop.reshape(-1)[0]))):
+        words = [carry.occ, carry.oflow, carry.rounds] + (
+            [] if stop is None else [stop.reshape(-1)[0]])
+        while True:
+            occ, oflow, rounds, *halt = torch.stack(
+                [w.long() for w in words]).tolist()
+            if occ <= 0 or oflow or rounds >= limit or any(halt):
+                return
             self._round_into(carry)
 
     # -- host drivers --------------------------------------------------------
@@ -514,7 +534,7 @@ class EngineCore:
         planes start fresh (zeroed outside the captured round).  Returns
         the final ``(q, acc)``."""
         obs = self._obs_init()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self._host_rounds:
             carry, loop = self._device_loop(q, acc, obs)
             tree_copy_(carry.q, q)
             tree_copy_(carry.acc, acc)

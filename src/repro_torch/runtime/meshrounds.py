@@ -1,10 +1,10 @@
 """Mesh round engines — ``repro/runtime/meshrounds.py`` as configurations
-of the port's engine core, on one card.
+of the port's engine core, on one card or one shard a process.
 
 The reference runs each shard on its own device under ``shard_map``: a
 round is a collective-free claim, each shard's step on its claimed
-slice, and a publish that costs one psum.  Here the shard axis is the
-leading dimension of the tensors: replicated state is held once,
+slice, and a publish that costs one psum.  On one card the shard axis is
+the leading dimension of the tensors: replicated state is held once,
 sharded state is ``(S, ...)``, the psum's gather is the stacked rows and
 a shard's ``axis_index`` is its row.  A FIFO round is
 
@@ -61,6 +61,26 @@ launch a chunk, nothing read back between rounds) and in a Python loop
 on the CPU.  Accumulators are per shard, returned stacked ``(S, ...)``
 unless ``combine`` reduces them.  Overflow and truncation raise the
 reference's ``RuntimeError`` at the readback after the flagged round.
+
+Across processes (``mesh=make_mesh((S,), ("data",), group=...)``, one
+shard a rank) every engine runs the reference's per-shard program: the
+rank steps its own claim row once a round, and the round's one psum is
+one ``all_reduce`` of the rank's row (``distributed.mesh_round_gather``:
+the child rows, their mask or compacted counts, and the meta words).
+Replicated state (the replicated ring, the strict heap, heads and tails,
+sizes and hints, the trace plane) is held whole on every rank and
+advanced by the same kernels over the gathered grid; sharded state (the
+sharded rings, the relaxed heaps) is this rank's ring or heap alone,
+which the ring waves address by ``ring=`` and a heap wave takes as a
+grid of one heap.  The relaxed heaps' post-pop hints and sizes and,
+with telemetry, every shard's popped-key extrema ride the exchange as
+the reference's meta block.  Every rank
+calls ``run`` with the same arguments and gets the same result: the
+accumulators and the sharded planes are gathered once at the end
+(``distributed.gather_rows``).  The rounds are issued from the host
+over either backend, each after one readback of the loop's replicated
+condition (``EngineCore._run_chunk``).  Spans need the replicated ring
+there, and the legacy trace recorder needs one card.
 """
 
 from __future__ import annotations
@@ -75,6 +95,7 @@ from ..core.distqueue import (DistHeapState, DistQueueState,
                               DistShardedQueueState, _compact_grid,
                               _compact_rows, dist_heap_init, dist_queue_init,
                               dist_sharded_queue_init)
+from ..distributed.collectives import gather_rows, mesh_round_gather
 from ..kernels._build import resolve_device
 from ..kernels.compact import (compact_scratch, compact_scratch_words,
                                compact_width)
@@ -83,7 +104,7 @@ from ..kernels.ring_slots import (claim_schedule, enq_planes,
                                   priority_claim_schedule, ring_dequeue_wave,
                                   ring_enqueue_wave)
 from ..obs.spans import Spans
-from ..obs.trace import SyncPoint, Telemetry
+from ..obs.trace import SyncPoint, Telemetry, masked_min_max
 from .enginecore import (EngineCore, ObsWave, _sds, register_engine,
                          tree_map, tree_to)
 from .fusedrounds import IDX_BOT, PriorityStepFn, StepFn
@@ -131,6 +152,12 @@ class _MeshBase(EngineCore):
         self.mesh = mesh
         self.axis = axis
         self.shards = int(mesh.shape[axis])
+        # this process's shard on a group-bound mesh (one shard a rank)
+        self.rank = mesh.rank
+        if self.rank is not None and mesh.size != self.shards:
+            raise ValueError(
+                f"a group-bound mesh runs one shard a rank: axis {axis!r} "
+                f"has {self.shards} shards but the group {mesh.size} ranks")
         self.capacity_log2 = capacity_log2
         self.capacity = 1 << capacity_log2
         self.batch = batch
@@ -147,19 +174,55 @@ class _MeshBase(EngineCore):
             device=self.device).repeat_interleave(batch)
 
     def _initial_acc(self, acc):
-        """``acc`` on the engine's device, one copy a shard (stacked)."""
+        """``acc`` on the engine's device, one copy a shard (stacked), or
+        this rank's one copy on a group-bound mesh."""
+        if self.rank is not None:
+            return tree_map(torch.clone, tree_to(acc, self.device))
         return tree_map(lambda x: x.expand((self.shards,) + x.shape).clone(),
                         tree_to(acc, self.device))
 
     def _finish(self, acc):
+        """The run's accumulators, stacked (every rank's gathered once on
+        a group-bound mesh), then ``combine``d."""
+        if self.rank is not None:
+            acc = gather_rows(acc, self.mesh)
         return acc if self.combine is None else self.combine(acc)
+
+    def _exchange(self, blocks):
+        """The round's one collective on a group-bound mesh: this rank's
+        (W_i,) blocks to (S, W_i) gathered blocks."""
+        return mesh_round_gather(blocks, self.mesh)
+
+    def _pop_meta(self, keys, valid):
+        """With telemetry, this rank's claim extrema as a (2,) meta block
+        for the exchange (the reference's ``pop_meta``), else ()."""
+        if self.telemetry is None:
+            return ()
+        return (torch.stack(masked_min_max(keys, valid)),)
+
+    def _extrema_wave(self, ext, pops, pushes, occs):
+        """The trace record's wave from the gathered claim extrema ``ext``
+        (S, 2): each shard's (min, max) as two lanes, valid where it
+        claimed, so the record's extrema are the whole grid's."""
+        keys = ext.reshape(-1).contiguous()
+        valid = (ext[:, 0] <= ext[:, 1]).repeat_interleave(2)
+        return ObsWave(keys, valid, keys, None, shards=self.shards,
+                       pops=pops, pushes=pushes, occs=occs)
 
     def _step(self, acc, *rows):
         """``step_fn`` once per shard, in shard order, on its row of the
         stacked acc and of each claim row in ``rows`` ((S, batch) each).
         The step returns ``(acc, *child planes, child mask)``.  Returns
         the stacked acc, the (S, n) child planes (int32) and the (S, n)
-        bool mask (broadcast to the first plane's shape)."""
+        bool mask (broadcast to the first plane's shape).  On a
+        group-bound mesh the step runs once, on this rank's acc and (batch,)
+        rows, and the planes and mask are its (n,) row."""
+        if self.rank is not None:
+            out = self.step_fn(acc, *rows)
+            children = out[1:-1]
+            cm = torch.broadcast_to(out[-1].bool(), children[0].shape)
+            return (out[0], tuple(c.reshape(-1).to(torch.int32)
+                                  for c in children), cm.reshape(-1))
         accs, planes, cms = [], [], []
         for s in range(self.shards):
             out = self.step_fn(tree_map(lambda x: x[s], acc),
@@ -261,6 +324,25 @@ class _MeshFifoBase(_MeshBase):
                                       self._scratch(cv.shape[1]))
         return dense, dict(counts=counts)
 
+    def _wave_group(self, cv, cm, meta=()):
+        """``_wave`` on a group-bound mesh: this rank's (n,) child row (or
+        its ``wave_compact`` compaction and true count) and the ``meta``
+        blocks, gathered in the round's one collective.  Returns the
+        wave's (values, mode) and the gathered meta (S, W) or None."""
+        n = cv.shape[0]
+        wdth = compact_width(n, self.capacity, self.compact)
+        if wdth is None:
+            g = self._exchange((cv, cm.to(torch.int32)) + meta)
+            wave = dict(mask=g[1].reshape(-1) > 0)
+            values = g[0].reshape(-1)
+        else:
+            dense, count = _compact_rows(cv[None], cm[None], wdth,
+                                         self._scratch(n))
+            g = self._exchange((dense[0], count) + meta)
+            wave = dict(counts=g[1].reshape(-1).contiguous())
+            values = g[0].contiguous()
+        return values, wave, (g[2] if meta else None)
+
 
 class MeshRingEngine(_MeshFifoBase):
     """The replicated-ring FIFO mesh round engine: ``run`` mirrors
@@ -322,8 +404,13 @@ class MeshRingEngine(_MeshFifoBase):
                                   batch=self.batch, shards=self.shards,
                                   birth_packed=sp is not None, **kw)
         vals, ok, k, pops = claim[:4]
-        acc, (cv,), cm = self._step(acc, vals, ok)
-        values, wave = self._wave(cv, cm)
+        if self.rank is None:
+            acc, (cv,), cm = self._step(acc, vals, ok)
+            values, wave = self._wave(cv, cm)
+        else:                   # the grid is replicated: step this row
+            acc, (cv,), cm = self._step(acc, vals[self.rank],
+                                        ok[self.rank])
+            values, wave, _ = self._wave_group(cv, cm)
         total, over, pushes = ring_enqueue_wave(
             cyc, saf, enq, idx, head, tail, values, live,
             capacity=self.capacity, shards=self.shards,
@@ -395,7 +482,8 @@ class ShardedMeshRingEngine(_MeshFifoBase):
     def _seed(self, st: DistShardedQueueState, initial: np.ndarray
               ) -> DistShardedQueueState:
         """Round-robin by seed rank into the rings (seed r to ring r %
-        S)."""
+        S); on a group-bound mesh this rank installs its own ring's seeds
+        and every rank advances every tail."""
         k = len(initial)
         if k > self.capacity:
             raise RuntimeError(
@@ -411,16 +499,19 @@ class ShardedMeshRingEngine(_MeshFifoBase):
             c = len(vals)
             if c == 0:
                 continue
+            tails[s] += c
+            if self.rank is not None and s != self.rank:
+                continue
+            row = s if self.rank is None else 0
             cyc, saf, enq, idx, ok = enq_planes(
-                *(r[s] for r in rows),
-                torch.as_tensor(_tickets(int(tails[s]), c), device=dev),
+                *(r[row] for r in rows),
+                torch.as_tensor(_tickets(int(tails[s]) - c, c), device=dev),
                 torch.as_tensor(vals, device=dev), st.heads[s],
                 nslots_log2=self.lslots_log2, idx_bot=IDX_BOT,
                 active=torch.ones(c, dtype=torch.bool, device=dev))
             assert bool(ok.all()), "exact tickets cannot miss"
             for r, new in zip(rows, (cyc, saf, enq, idx)):
-                r[s] = new
-            tails[s] += c
+                r[row] = new
         return DistShardedQueueState(*(torch.stack(r) for r in rows),
                                      tails=tails, heads=st.heads)
 
@@ -433,19 +524,27 @@ class ShardedMeshRingEngine(_MeshFifoBase):
         dequeues) → the shards' steps → publish (one launch: the ranks,
         the spray and the overflow test of every ring)."""
         cyc, saf, enq, idx, tails, heads = q
-        kw = dict(nslots_log2=self.lslots_log2, idx_bot=IDX_BOT)
+        kw = dict(nslots_log2=self.lslots_log2, idx_bot=IDX_BOT,
+                  ring=self.rank)
         vals, ok, k, pops = ring_dequeue_wave(cyc, saf, enq, idx, heads,
                                               tails, live, batch=self.batch,
                                               **kw)
-        acc, (cv,), cm = self._step(acc, vals, ok)
-        # a round spawning more than the global capacity overflows some
-        # ring, where both waves install nothing
-        values, wave = self._wave(cv, cm)
+        if self.rank is None:
+            acc, (cv,), cm = self._step(acc, vals, ok)
+            # a round spawning more than the global capacity overflows
+            # some ring, where both waves install nothing
+            values, wave = self._wave(cv, cm)
+        else:                   # this rank's ring: its (1, batch) row
+            acc, (cv,), cm = self._step(acc, vals[0], ok[0])
+            values, wave, ext = self._wave_group(
+                cv, cm, self._pop_meta(vals[0], ok[0]))
         total, over, assigned = ring_enqueue_wave(
             cyc, saf, enq, idx, heads, tails, values, live,
             capacity=self.local_capacity, **wave, **kw)
         obs = None
-        if self._observed:
+        if self._observed and self.rank is not None:
+            obs = self._extrema_wave(ext, pops, assigned, tails - heads)
+        elif self._observed:
             flat = vals.reshape(-1)
             obs = ObsWave(flat, ok.reshape(-1), flat, None,
                           shards=self.shards, pops=pops, pushes=assigned,
@@ -461,10 +560,14 @@ class ShardedMeshRingEngine(_MeshFifoBase):
         self._reset()
         initial = np.asarray(initial, np.int32).reshape(-1)
         st = self._seed(dist_sharded_queue_init(self.capacity, self.shards,
-                                                device=self.device),
+                                                device=self.device,
+                                                rank=self.rank),
                         initial)
         q, acc = self._run_chunks(st, self._initial_acc(acc), len(initial),
                                   "sharded mesh ring", max_rounds)
+        if self.rank is not None:     # every rank's ring, gathered once
+            q = q._replace(**{f: p.reshape(self.shards, -1) for f, p in zip(
+                q._fields[:4], gather_rows(tuple(q[:4]), self.mesh))})
         return self._finish(acc), q
 
 
@@ -570,6 +673,11 @@ class _PriorityMeshBase(_MeshBase):
                          sync_every=sync_every, combine=combine,
                          telemetry=telemetry, spans=spans, compact=compact,
                          device=device)
+        if spans is not None and self.rank is not None:
+            raise ValueError(
+                "span planes of a priority mesh across processes are not "
+                "gathered: spans on a group-bound mesh need the replicated "
+                "FIFO ring")
         self.arity_log2 = arity_log2
         self.relaxed = relaxed
         self.split = split
@@ -586,7 +694,18 @@ class _PriorityMeshBase(_MeshBase):
 
     def _heap(self, planes, sizes, rider=None, **wave):
         """One ``heap_apply_grid`` wave on stacked ``planes`` (keys, vals)
-        and ``sizes``, in place."""
+        and ``sizes``, in place.  A relaxed mesh on a group-bound mesh
+        holds this rank's heap beside all S sizes: the wave is a grid of
+        one heap on the views of this rank's size word and count, its
+        ``dest`` remapped to 0 for this rank's lanes and -1 elsewhere."""
+        me = self.rank
+        if self.relaxed and me is not None:
+            sizes = sizes[me:me + 1]
+            if wave.get("counts") is not None:
+                wave["counts"] = wave["counts"][me:me + 1]
+            else:
+                d = wave["dest"]
+                wave["dest"] = torch.where(d == me, 0, -1).to(d.dtype)
         return heap_apply_grid(*planes, sizes, cap_log2=self.capacity_log2,
                                arity_log2=self.arity_log2, rider=rider,
                                **wave)
@@ -616,13 +735,25 @@ class _PriorityMeshBase(_MeshBase):
                     f"shard, exceeding per-shard capacity {self.capacity} "
                     f"(raise capacity_log2)")
             dest, heaps = (np.arange(k) % s).astype(np.int32), s
-        st = dist_heap_init(self.capacity, shards=heaps, device=dev)
+        group = self.relaxed and self.rank is not None
+        st = dist_heap_init(self.capacity, shards=1 if group else heaps,
+                            device=dev)
+        if group:                # this rank's heap beside all S sizes
+            st = st._replace(size=torch.zeros(s, dtype=torch.int32,
+                                              device=dev))
         aux = torch.zeros_like(st.keys) if self.split else None
         if k:
             t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
             self._heap(st[:2], st.size, aux, opkeys=t(ik), opvals=t(iv),
                        dest=t(dest), oprider=None if ia is None else t(ia))
-        if self.relaxed:
+        if group:
+            # every heap's size and least key, from the seeds every rank
+            # holds
+            hints = np.full(s, HEAP_KEY_INF, np.int64)
+            np.minimum.at(hints, dest, ik)
+            st.size.copy_(torch.as_tensor(np.bincount(dest, minlength=s)))
+            q = (*st, torch.as_tensor(hints.astype(np.int32), device=dev))
+        elif self.relaxed:
             # a heap's least key is its root (empty slots hold KEY_INF)
             q = (*st, st.keys[:, 0].clone())
         else:
@@ -664,6 +795,104 @@ class _PriorityMeshBase(_MeshBase):
         g = [p.reshape(-1).to(torch.int32) for p in planes] + [None]
         return g[0], g[1], g[2], active, ranks, total, wdth
 
+    def _spray_children(self, gk, gactive, ranks, total, wdth, sizes,
+                        hints):
+        """The relaxed publish's spray of child rank r to heap ``r % S``
+        over the gathered children, given every heap's post-pop
+        ``sizes`` and least key ``hints``: (each heap's children, the
+        round's overflow flag (any heap past capacity), the new hints,
+        each lane's heap, -1 where it installs nowhere)."""
+        s = self.shards
+        shard_of = torch.where(gactive, ranks % s, s)
+        if wdth is None:
+            assigned = torch.zeros(s + 1, dtype=torch.int32,
+                                   device=gk.device).scatter_add_(
+                0, shard_of.long(), torch.ones_like(shard_of))[:s]
+        else:
+            # the ranks are the prefix 0 .. total - 1: the closed form of
+            # the scatter, exact from the true total even where a row's
+            # lanes were clamped (only when over)
+            s_ix = torch.arange(s, dtype=torch.int32, device=gk.device)
+            assigned = total // s + (s_ix < total % s).int()
+        over = (sizes + assigned > self.capacity).any()
+        ckmin = torch.full((s + 1,), HEAP_KEY_INF, dtype=torch.int32,
+                           device=gk.device).scatter_reduce_(
+            0, shard_of.long(), torch.where(gactive, gk, HEAP_KEY_INF),
+            "amin")[:s]
+        new_hints = torch.where(over, hints, torch.minimum(hints, ckmin))
+        dest = torch.where(gactive & ~over, shard_of, -1).int()
+        return assigned, over, new_hints, dest
+
+    def _publish_group(self, children, cm, bound, meta):
+        """``_publish`` on a group-bound mesh, with the reference's meta
+        block: this rank's (n,) child planes under ``cm`` (or their
+        ``wave_compact`` compaction, the true count inserted as the meta
+        block's third word) and its ``meta`` words, gathered in the
+        round's one collective.  Returns ``(gk, gv, gaux, active, ranks,
+        total, width, gmeta (S, W))``."""
+        planes = children[:3 if self.split else 2]
+        n = planes[0].shape[0]
+        meta = list(meta)
+        wdth = compact_width(n, bound, self.compact)
+        if wdth is None:
+            mask = (cm > 0).to(torch.int32)
+            g = self._exchange(planes + (mask,) + (
+                (torch.stack(meta),) if meta else ()))
+            gm = g[len(planes)].reshape(-1)
+            active, total = gm > 0, gm.sum(dtype=torch.int32)
+            ranks = torch.cumsum(gm, 0, dtype=torch.int32) - gm
+            gp = g[:len(planes)]
+        else:
+            dense, count = _compact_rows(tuple(p[None] for p in planes),
+                                         cm[None], wdth, self._scratch(n))
+            meta.insert(min(2, len(meta)), count[0])
+            g = self._exchange(tuple(d[0] for d in dense)
+                               + (torch.stack(meta),))
+            counts = g[-1][:, min(2, len(meta) - 1)]
+            active, ranks = _compact_grid(counts, wdth)
+            ranks, total = ranks.to(torch.int32), counts.sum(dtype=torch.int32)
+            gp = g[:-1]
+        gp = [p.reshape(-1) for p in gp] + [None]
+        return gp[0], gp[1], gp[2], active, ranks, total, wdth, g[-1]
+
+    def _round_relaxed_group(self, q, acc, live):
+        """``_round_relaxed`` on a group-bound mesh: the claim schedule
+        over the replicated sizes and hints → the pop wave on this rank's
+        heap → its step → the exchange of its children with its post-pop
+        (hint, size) and, with telemetry, its claim extrema → the spray
+        and overflow test over the gathered grid → the insert wave of
+        this rank's children; the sizes and hints advance on every rank
+        alike."""
+        s, batch, me = self.shards, self.batch, self.rank
+        keys, vals, sizes, hints = q[:4]
+        aux = q[4] if self.split else None
+        counts = torch.where(live, priority_claim_schedule(
+            sizes.sum(dtype=torch.int32), s, batch, hints, sizes), 0)
+        pop = self._heap((keys, vals), sizes, aux, counts=counts,
+                         batch=batch)
+        outk, outv, ok = (x[0] for x in pop[3:6])
+        rows = (outk, outv) + ((pop[7][0],) if self.split else ()) + (ok,)
+        acc, children, cm = self._step(acc, *rows)
+        cm = cm & live
+        meta = [keys[0, 0], sizes[me]] + list(
+            self._pop_meta(outk, ok)[0] if self.telemetry is not None
+            else ())
+        gk, gv, gaux, gactive, ranks, total, wdth, gmeta = (
+            self._publish_group(children, cm, s * self.capacity, meta))
+        sizes_pop = gmeta[:, 1]
+        assigned, over, new_hints, dest = self._spray_children(
+            gk, gactive, ranks, total, wdth, sizes_pop, gmeta[:, 0])
+        self._heap((keys, vals), sizes, aux, opkeys=gk, opvals=gv,
+                   dest=dest, oprider=gaux if self.split else None)
+        pushes = torch.where(over, 0, assigned)
+        sizes.copy_(sizes_pop + pushes)
+        obs = None
+        if self._observed:
+            obs = self._extrema_wave(gmeta[:, -2:], counts, pushes, sizes)
+        q = (keys, vals, sizes, new_hints) + q[4:]
+        return (q, acc, counts.sum(dtype=torch.int32),
+                torch.where(over, 0, total), over, obs, None)
+
     def _round_relaxed(self, q, acc, live, sp, births):
         """claim (the hint-ordered schedule over the carried sizes and
         hints) → pop wave on every shard's heap (one launch) → the shards'
@@ -676,6 +905,8 @@ class _PriorityMeshBase(_MeshBase):
         keys, vals, sizes, hints = q[:4]
         aux = q[4] if self.split else None
         rider = aux if self.split else births
+        if self.rank is not None:
+            return self._round_relaxed_group(q, acc, live)
         counts = torch.where(live, priority_claim_schedule(
             sizes.sum(dtype=torch.int32), s, batch, hints, sizes), 0)
         pop = self._heap((keys, vals), sizes, rider, counts=counts,
@@ -688,26 +919,9 @@ class _PriorityMeshBase(_MeshBase):
         gk, gv, gaux, gactive, ranks, total, wdth = self._publish(
             children[0], children[1], children[2] if self.split else None,
             cm, s * self.capacity)
-        hints_pop = keys[:, 0]           # each heap's root after the pops
-        shard_of = torch.where(gactive, ranks % s, s)
-        if wdth is None:
-            assigned = torch.zeros(s + 1, dtype=torch.int32,
-                                   device=keys.device).scatter_add_(
-                0, shard_of.long(), torch.ones_like(shard_of))[:s]
-        else:
-            # the ranks are the prefix 0 .. total - 1: the closed form of
-            # the scatter, exact from the true total even where a row's
-            # lanes were clamped (only when over)
-            s_ix = torch.arange(s, dtype=torch.int32, device=keys.device)
-            assigned = total // s + (s_ix < total % s).int()
-        over = (sizes + assigned > self.capacity).any()
-        ckmin = torch.full((s + 1,), HEAP_KEY_INF, dtype=torch.int32,
-                           device=keys.device).scatter_reduce_(
-            0, shard_of.long(), torch.where(gactive, gk, HEAP_KEY_INF),
-            "amin")[:s]
-        new_hints = torch.where(over, hints_pop,
-                                torch.minimum(hints_pop, ckmin))
-        dest = torch.where(gactive & ~over, shard_of, -1).int()
+        # each heap's root after the pops
+        assigned, over, new_hints, dest = self._spray_children(
+            gk, gactive, ranks, total, wdth, sizes, keys[:, 0])
         self._heap((keys, vals), sizes, rider, opkeys=gk, opvals=gv,
                    dest=dest, oprider=gaux if self.split else (
                        None if sp is None else sp.round[0]))
@@ -744,11 +958,17 @@ class _PriorityMeshBase(_MeshBase):
         outv = torch.where(act, pop[4][0][ix], -1)
         outb = None if rider is None else torch.where(act, pop[7][0][ix], 0)
         rows = (outk, outv) + ((outb,) if self.split else ()) + (act,)
-        acc, children, cm = self._step(acc, *rows)
-        cm = cm & live
-        gk, gv, gaux, gactive, _, total, _ = self._publish(
-            children[0], children[1], children[2] if self.split else None,
-            cm, self.capacity)
+        if self.rank is None:
+            acc, children, cm = self._step(acc, *rows)
+            cm = cm & live
+            gk, gv, gaux, gactive, _, total, _ = self._publish(
+                children[0], children[1],
+                children[2] if self.split else None, cm, self.capacity)
+        else:                   # the pop is replicated: step this row
+            acc, children, cm = self._step(acc,
+                                           *(r[self.rank] for r in rows))
+            gk, gv, gaux, gactive, _, total, _, _ = self._publish_group(
+                children, cm & live, self.capacity, [])
         over = size + total > self.capacity
         ins = gactive & ~over
         self._heap(planes, size1, rows1(rider), opkeys=gk, opvals=gv,
@@ -784,7 +1004,11 @@ class _PriorityMeshBase(_MeshBase):
 
     def _final(self, q, acc):
         self.hints = q[3] if self.relaxed else None
-        return self._finish(acc), DistHeapState(q[0], q[1], q[2])
+        keys, vals = q[0], q[1]
+        if self.relaxed and self.rank is not None:  # every rank's heap
+            keys, vals = (p.reshape(self.shards, -1) for p in gather_rows(
+                (keys, vals), self.mesh))
+        return self._finish(acc), DistHeapState(keys, vals, q[2])
 
 
 class MeshHeapEngine(_PriorityMeshBase):
@@ -868,6 +1092,9 @@ class PriorityMeshRoundRunner(_PriorityMeshBase):
         if trace and fused:
             raise ValueError("trace recording needs the per-round host "
                              "boundary: use fused=False")
+        if trace and self.rank is not None:
+            raise ValueError("trace recording keeps every shard's pops: it "
+                             "needs the mesh on one card (no group)")
         if spans is not None and not fused:
             raise ValueError(
                 "span planes are in-loop state: spans needs the fused "

@@ -319,19 +319,23 @@ class PriorityRoundRunner:
 
 
 def mesh_task_round(state, spawn_vals: torch.Tensor, spawn_mask: torch.Tensor,
-                    claim_mask: torch.Tensor):
+                    claim_mask: torch.Tensor, *, mesh=None):
     """One mesh-scope task round: publish every shard's spawned tasks, then
     claim up to ``claim_mask.sum()`` tasks for the shards to execute.
     ``spawn_vals``, ``spawn_mask`` and ``claim_mask`` are ``(S, B)``, shard
     i's requests in row i (the reference's per-chip rows under
     ``shard_map``, stacked; no ``axis``).  Returns (state, granted,
-    claimed_vals, claimed_ok), each output ``(S, B)``.
+    claimed_vals, claimed_ok), each output ``(S, B)``.  With ``mesh``
+    bound to a process group they are this rank's ``(B,)`` rows, as the
+    reference's inside ``shard_map``, and the round makes the reference's
+    two collectives; the replicated ``state`` stays equal on every rank.
 
     Composes ``dist_enqueue_round`` + ``dist_dequeue_round``: on the card
     their waves are the ring waves' masked instances, on the device of
     ``state``."""
-    state, granted = dist_enqueue_round(state, spawn_vals, spawn_mask)
-    state, vals, ok = dist_dequeue_round(state, claim_mask)
+    state, granted = dist_enqueue_round(state, spawn_vals, spawn_mask,
+                                        mesh=mesh)
+    state, vals, ok = dist_dequeue_round(state, claim_mask, mesh=mesh)
     return state, granted, vals, ok
 
 

@@ -1,9 +1,10 @@
 """Device-resident serving admission: EDF admission as priority mesh
 megarounds — the PyTorch twin of ``repro/serving/admission.py``, on one
-card.
+card or one shard a process.
 
 ``ServingMeshEngine`` is a tick-driven configuration of the relaxed
-``MeshHeapEngine`` (the shard axis a leading tensor dimension): pending
+``MeshHeapEngine`` (on one card the shard axis a leading tensor
+dimension): pending
 generation requests live on the card as ``(deadline-key | payload)``
 entries of the per-shard heaps, and one serving tick is one chunk of the
 engine's device loop (claim → pop-min → admission step → publish) that
@@ -32,6 +33,13 @@ and the observability planes stay in the engine's kept carry between
 ticks: the trace, span and births planes persist across ticks as the
 reference's ``_ext`` does, and telemetry drains at each tick's readback.
 
+Across processes (``mesh`` bound to a process group, one shard a rank)
+every rank calls ``tick`` with the same arguments: each installs the
+arrivals sprayed to its own heap and runs its shard's rounds, whose one
+collective a round is the relaxed mesh's exchange; the tick then gathers
+every shard's admitted log in one more collective before its one
+readback, and every rank returns the same admitted list.
+
 Payload packing: ``val = retry · table + idx`` where ``idx`` names the
 host-side request-table row and ``retry`` counts re-entries, so every
 heap residence of a request is a unique ident (what ``pop_history()``
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from ..core.distqueue import DistHeapState
+from ..distributed.collectives import gather_rows
 from ..kernels.heap_batch import KEY_INF as HEAP_KEY_INF
 from ..kernels.ring_slots import SPAN_ROUND_CAP
 from ..obs.trace import SyncPoint
@@ -208,7 +217,7 @@ class ServingMeshEngine(MeshHeapEngine):
         q = self._seed(np.zeros(0, np.int32), np.zeros(0, np.int32))
         acc = self._initial_acc(self._acc_zero())
         obs = self._obs_init()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self._host_rounds:
             carry, self._loop = self._device_loop(q, acc, obs)
             tree_copy_(carry.q, q)
             tree_copy_(carry.acc, acc)
@@ -232,17 +241,25 @@ class ServingMeshEngine(MeshHeapEngine):
         sizes change only inside ``tick``, which reads them back)."""
         return 0 if self._carry is None else int(self._sizes.sum())
 
+    def _planes(self):
+        """The heap planes (S, cap): every rank's gathered on a
+        group-bound mesh (a collective: every rank calls it)."""
+        keys, vals = self._carry.q[:2]
+        if self.rank is not None:
+            keys, vals = (p.reshape(self.shards, -1)
+                          for p in gather_rows((keys, vals), self.mesh))
+        return keys, vals
+
     def heap_state(self) -> DistHeapState:
         """The resident heap planes ``(keys (S, cap), vals, sizes)`` on the
         engine's device."""
-        return DistHeapState(*self._carry.q[:3])
+        return DistHeapState(*self._planes(), self._carry.q[2])
 
     def resident(self) -> List[Tuple[int, int, int]]:
         """Heap-resident ``(key, idx, retry)`` triples (host readback)."""
         if self._carry is None:
             return []
-        keys = self._carry.q[0].cpu().numpy()
-        vals = self._carry.q[1].cpu().numpy()
+        keys, vals = (p.cpu().numpy() for p in self._planes())
         out = []
         for s in range(self.shards):
             live = keys[s] != HEAP_KEY_INF
@@ -278,9 +295,13 @@ class ServingMeshEngine(MeshHeapEngine):
         self._heap((keys, vals), sizes, rider, opkeys=t(ik), opvals=t(iv),
                    dest=t(shard_of), oprider=None if rider is None else t(
                        np.int32(min(self._rounds, self.span_round_cap - 1))))
-        hints.copy_(keys[:, 0])      # empty slots hold KEY_INF
-        c.occ.copy_(sizes.sum(dtype=torch.int32))
         self._sizes += counts
+        if self.rank is None:
+            hints.copy_(keys[:, 0])      # empty slots hold KEY_INF
+        else:       # every root: the least of its key and its arrivals'
+            hints.scatter_reduce_(0, t(shard_of).long(), t(ik), "amin")
+            sizes.copy_(t(self._sizes.astype(np.int32)))
+        c.occ.copy_(sizes.sum(dtype=torch.int32))
 
     @staticmethod
     def _split(total: int, shards: int) -> np.ndarray:
@@ -313,12 +334,14 @@ class ServingMeshEngine(MeshHeapEngine):
         if len(need):
             nd = np.asarray(need, np.int32).reshape(-1)
             assert nd.shape == iv.shape
-            acc["need"][:, torch.as_tensor(iv, device=dev)] = torch.as_tensor(
-                nd, device=dev)
+            acc["need"][..., torch.as_tensor(iv, device=dev)] = (
+                torch.as_tensor(nd, device=dev))
         budget = torch.as_tensor(np.stack(
             [self._split(int(slots), self.shards),
              self._split(int(pages), self.shards)]).astype(np.int32),
             device=dev)
+        if self.rank is not None:        # this rank's shares
+            budget = budget[:, self.rank]
         acc["slots"].copy_(budget[0])
         acc["pages"].copy_(budget[1])
         acc["stalled"].zero_()
@@ -339,11 +362,15 @@ class ServingMeshEngine(MeshHeapEngine):
         # a shard admits at most its share of the slots
         width = min(self.table, -(-max(int(slots), 0) // self.shards))
         s = self.shards
+        adm_n, adm_idx = acc["adm_n"], acc["adm_idx"][..., :width]
+        if self.rank is not None:        # every shard's log, gathered
+            adm_n, adm_idx = gather_rows((adm_n, adm_idx.contiguous()),
+                                         self.mesh)
         words = torch.cat([
             torch.stack([c.occ, c.rounds, c.oflow.to(torch.int32),
                          c.processed, c.spawned, c.max_occ]),
-            c.q[2], acc["adm_n"],
-            acc["adm_idx"][:, :width].reshape(-1)]).tolist()  # THE host sync
+            c.q[2], adm_n.reshape(-1),
+            adm_idx.reshape(-1)]).tolist()               # THE host sync
         occ, r, oflow, processed, spawned, max_occ = words[:6]
         if self._loop is not None:
             self._loop.count(r)
@@ -388,6 +415,9 @@ class ServingMeshEngine(MeshHeapEngine):
         if not self.pop_log:
             raise ValueError("construct with pop_log=N to record pops")
         acc = self._carry.acc
+        if self.rank is not None:        # every shard's log, gathered
+            acc = gather_rows({k: acc[k] for k in ("plk", "plv", "plr",
+                                                   "pln")}, self.mesh)
         pln = acc["pln"].cpu().numpy()
         if int(pln.max(initial=0)) > self.pop_log:
             raise RuntimeError(

@@ -78,6 +78,7 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
             "import repro_torch.launch.op_analysis\n"
             "import repro_torch.launch.roofline\n"
+            "import repro_torch.launch.mesh\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -87,6 +88,27 @@ def test_import_loads_neither_jax_nor_reference():
                          text=True, cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_distributed_import_starts_no_process_group():
+    """A fresh ``import repro_torch.distributed`` (and the launch layer's
+    meshes) leaves ``torch.distributed`` uninitialized; the meshes are
+    named sizes until a caller binds one to its own group."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.distributed\n"
+            "from repro_torch.launch import mesh\n"
+            "m, p = mesh.make_production_mesh(), "
+            "mesh.make_production_mesh(multi_pod=True)\n"
+            "local = mesh.make_local_mesh()\n"
+            "print(dist.is_initialized(), m.shape, p.shape, mesh.dp_axes(p),"
+            " mesh.dp_size(m), mesh.dp_size(p), local.shape, local.rank)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == (
+        "False {'data': 16, 'model': 16} {'pod': 2, 'data': 16, 'model': "
+        "16} ('pod', 'data') 16 32 {'data': 1, 'model': 1} None")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

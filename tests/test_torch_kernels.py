@@ -17,6 +17,7 @@ from repro.kernels import compact as jcompact  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ring_slots as jring  # noqa: E402
 from repro.kernels.wavefaa import wavefaa as jwavefaa  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import (compact_planes, compact_scratch,  # noqa: E402
                                  compact_width, deq_planes, enq_planes, ref, ring_dequeue,
                                  ring_enqueue, wave_compact, wavefaa,
@@ -314,3 +315,23 @@ def test_wavefaa_scratch_and_cpu_face():
     want = jwavefaa(jnp.asarray(mask.numpy()), jnp.asarray(ctr.numpy()))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _c_params(source: str, fn: str) -> int:
+    """The parameter count of ``extern "C" int fn(...)`` in ``source``."""
+    import re
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", source,
+                  re.S)
+    assert m, fn
+    return len([p for p in m.group(1).split(",") if p.strip()])
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in
+                                    _build.SIGNATURES.items()
+                                    for fn in fns])
+def test_ctypes_signature_matches_source(lib, fn):
+    """Each entry point's ctypes argument list has as many arguments as
+    its ``extern "C"`` declaration in ``csrc/<lib>.cu``: a count that
+    disagrees fails only on the card, where ctypes refuses the call."""
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    assert _c_params(source, fn) == len(_build.SIGNATURES[lib][fn])
