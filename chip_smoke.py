@@ -268,6 +268,39 @@ multicard. — the queue meshes across processes, one shard a rank
               chunk).  With two cards or more the same cells at full
               size over NCCL, a card a rank; with one, a line says NCCL
               did not run.
+dp_train. — the sharded train step (``launch.steps.make_train_step(
+              pspecs=, mesh=)``: parameters, master, m and v sharded
+              over "data" by the reference's specs, each layer gathered
+              where it is used and again in the remat backward, the
+              gradients reduce-scattered, AdamW on the blocks) on
+              DP_WORLD gloo ranks sharing card 0, spawned after the
+              build, each case at full width against the one-card step
+              on its global batch in this process (``groups`` = the
+              ranks): (a) deepseek-moe-16b with FSDP at DP_MOE_LAYERS of
+              its 28 layers, one 4,096-token sequence a rank (B6 on
+              24,576 pairs a rank with the group's capacity, B7 with
+              lse and the flash backward at hd 128); (b) the same at 128
+              tokens a rank and DP_FALLBACK_LAYERS layer, the MoE's
+              one-group fallback (the ticket base across ranks); (c)
+              h2o-danube-1.8b at DP_DENSE_LAYERS layers without FSDP
+              (gradients all-reduced).  Every rank's
+              loss and grad norm identical; the first step within
+              DP_TOL of the one-card step's, the later ones within the
+              training check's bounds; the gathered master's change
+              within DP_TOL of the one-card master's; B6, B7 and the
+              backward launched on every rank as the path plans; the
+              collectives a step those of ``train_collectives``; B6 on
+              the first expert ids of the one-card step (a group's
+              24,576 pairs) and of rank 0 ((a) its own group; (b) the
+              fallback's no-drop call before the base) against its
+              plain version.  It prints step s, tokens/s (untimed
+              steps), the collectives' seconds (one more step with each
+              collective timed), peak memory a rank and the spawn's
+              seconds.  With two cards or more the same cases
+              over NCCL, a card a rank, and with four zamba2-7b at all
+              81 layers over four ranks (ZeRO-3: one card cannot hold
+              its state), its loss falling; with one card a line says
+              NCCL did not run.
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -276,8 +309,8 @@ multicard. — the queue meshes across processes, one shard a rank
               once per level and bfs_queue read back one int per level
               (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
-              pmesh, raytrace (``ray``), admission, runtime, 8, 9 and
-              train;
+              pmesh, raytrace (``ray``), admission, runtime, multicard,
+              dp_train, 8, 9 and train;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -628,6 +661,34 @@ MC_ADM_TICKS = 200
 # round's all-reduce captured in a CUDA graph made no progress on four
 # H100s; the rounds are now issued from the host)
 MC_SPAWN_TIMEOUT = 300
+# phase dp_train: DP_WORLD gloo ranks sharing card 0, each case's global
+# batch DP_WORLD sequences (one a rank), TRAIN_LR with TRAIN_WARMUP
+# warm-up steps.  (label, arch, layers, tokens a rank, steps, seed).  The
+# MoE cases' steps are cut for time: gloo stages each gather through the
+# host, about 5 s of deepseek's 7-8 s a step on an H100 at 2 layers (its
+# first step 20 s), whatever the tokens, so (a) takes 2 steps and (b) 1
+# at 1 layer.  A case of 2 steps or more takes one step more with every
+# collective timed (the card synchronised around each): its seconds split
+# the step, and step s and tokens/s come from the untimed steps
+DP_WORLD = 2
+DP_MOE_LAYERS, DP_FALLBACK_LAYERS, DP_DENSE_LAYERS = 2, 1, 4
+DP_CASES = (("moe", "deepseek-moe-16b", DP_MOE_LAYERS, 4096, 2, 21),
+            ("moe_fallback", "deepseek-moe-16b", DP_FALLBACK_LAYERS, 128, 1,
+             22),
+            ("dense_dp", "h2o-danube-1.8b", DP_DENSE_LAYERS, 4096, 2, 23))
+# four cards: zamba2-7b at every layer, ZeRO-3 over four NCCL ranks
+DP_ZAMBA = ("zamba2_81", "zamba2-7b", 81, 4096, 3, 24)
+# against the one-card step on the global batch (``groups`` = the ranks):
+# the first step's loss and grad norm (the gradients differ by each
+# rank's bfloat16 rounding before the sum), the later steps' within the
+# training check's LOSS / GRAD bounds, and the gathered master's change
+# from its initial value, ||ranks - one card|| / ||one card - initial||
+# leaf by leaf (Adam's first update is each element's gradient sign
+# times lr, so elements with gradients near zero step either way):
+# tests/test_torch_dp_train.py's ONE_CARD_RTOL
+DP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "later_loss": 1e-2,
+          "later_grad_norm": 1e-1, "master": 0.25}
+DP_SPAWN_TIMEOUT = 300
 # phase runtime: (a) mesh_task_round on a replicated ring of 2^20 slots
 # (logical capacity 2^19) whose tickets start 2^20 below 2^32 (the nearest
 # multiple of the ring's 2n), so head and tail wrap, draining the FIFO task
@@ -3966,6 +4027,264 @@ class Smoke:
         info["seconds"] = time.perf_counter() - t0
         return info
 
+    # -- phase dp_train: the sharded train step across ranks -------------
+
+    def dp_one_card(self, K, case, world):
+        """A dp_train case's steps on one card in this process: the global
+        batch, ``groups`` = ``world``, from the ranks' seed; its first
+        flash attention call's inputs, a rank's row of them, go to
+        ``attn_inputs["dp_train"]``, and its first B6 call's (a group's
+        pairs at the group's capacity) is held against the plain version
+        after the steps.  Returns (rows, the final master on the
+        host)."""
+        torch = self.torch
+        from repro_torch.data import synth_batch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.launch import train
+        from repro_torch.models import layers
+        from repro_torch.models import init_params
+        from repro_torch.models.moe import dp_groups, moe_capacity
+        from repro_torch.optim import adamw
+        from repro_torch.tree import flatten_with_paths
+        label, _, _, tokens, n_steps, seed = case
+        cfg, _, _, dcfg, ocfg = dp_setup(torch, case, world, make_mesh(
+            (world, 1), ("data", "model")))
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        state = adamw.init(init_params(cfg, gen, device=self.dev))
+        want = dp_launch_plan(cfg, tokens, dp_groups(tokens * world, world))
+        rows, real, tickets = [], layers.flash_attention_train, []
+
+        def spy(q, k, v, **kw):
+            self.attn_inputs.setdefault("dp_train", (
+                q[:1].detach(), k[:1].detach(), v[:1].detach(), kw))
+            return real(q, k, v, **kw)
+        for i in range(n_steps):
+            batch = train.batch_to_device(synth_batch(cfg, dcfg, i % 2),
+                                          self.dev)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            layers.flash_attention_train = spy
+            try:
+                with self.spy_tickets(tickets):
+                    t1 = time.perf_counter()
+                    state, m = train.train_step(cfg, ocfg, state, batch,
+                                                groups=world)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+            finally:
+                layers.flash_attention_train = real
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            if any(launches.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"dp_train one card {label} step {i}: "
+                                     f"launches {launches}, want {want}")
+            rows.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]), "wall_s": wall,
+                         "tokens_per_s": world * tokens / wall,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9})
+        master = {k: v.cpu() for k, v in flatten_with_paths(state.master)}
+        del state, batch
+        if tickets:              # B6 on the step's first group's pairs
+            ids, kw = tickets[0]
+            if kw["capacity"] != moe_capacity(ids.numel() // cfg.top_k, cfg):
+                raise AssertionError(f"dp_train one card {label}: B6 ran "
+                                     f"with {kw}, not its group's capacity")
+            self.tickets_case(K, ids, kw["num_experts"], kw["capacity"])
+            rows[0]["tickets_checked"] = {"pairs": ids.numel(), **kw}
+        return rows, master
+
+    def dp_master_errors(self, case, world, specs, one, outdir):
+        """Leaf by leaf, ||ranks' master - one card's|| / ||one card's -
+        initial||, the ranks' blocks (``outdir/<case>_rank<r>.pt``) put
+        together along each leaf's sharded dimension on the card."""
+        torch = self.torch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.distributed.sharding import data_dim
+        from repro_torch.models import init_params
+        from repro_torch.tree import flatten_with_paths
+        label, seed = case[0], case[5]
+        mesh = make_mesh((world, 1), ("data", "model"))
+        cfg = dp_setup(torch, case, world, mesh)[0]
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        init = dict(flatten_with_paths(init_params(cfg, gen,
+                                                   device=self.dev)))
+        blocks = [torch.load(Path(outdir) / f"{label}_rank{r}.pt",
+                             mmap=True) for r in range(world)]
+        errs = {}
+        for k, spec in flatten_with_paths(specs.master):
+            d = data_dim(spec, mesh)
+            parts = [b[k].to(self.dev) for b in blocks]
+            got = parts[0] if d is None else torch.cat(parts, d)
+            if d is None and any(not torch.equal(p, got) for p in parts):
+                raise AssertionError(f"dp_train {label}: the replicated "
+                                     f"leaf {k} differs across ranks")
+            want = one[k].to(self.dev)
+            errs[k] = float((got - want).norm() / (
+                want - init[k].float()).norm().clamp(min=1e-30))
+            del parts, got, want
+        del init, blocks
+        return errs
+
+    def dp_run(self, K, backend, world, cases, one):
+        """``cases`` on ``world`` ranks over ``backend``, each held against
+        the one-card rows and master ``one[label]`` (None: no one-card run;
+        then the loss must fall over the steps), and an MoE case's first
+        B6 call on rank 0 (its own group, or the fallback's no-drop call
+        before the base) against the plain version.  Returns its line."""
+        torch = self.torch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.models.moe import dp_groups, moe_capacity
+        info = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            ranks = dp_spawn(world, backend, cases, tmp, bool(one))
+            info["spawn_and_run_s"] = time.perf_counter() - t1
+            path = self.launches.setdefault("dp_train", {})
+            for case in cases:
+                label, _, _, tokens, _, _ = case
+                tag = f"dp_train {backend} x {world} {label}"
+                cfg, specs = dp_setup(torch, case, world, make_mesh(
+                    (world, 1), ("data", "model")))[:2]
+                want = dp_launch_plan(cfg, tokens, 1)
+                first = ranks[0][label]["rows"]
+                split = ranks[0][label]["timed_step"]
+
+                def steps_of(res):   # the untimed steps, then the timed one
+                    return res[label]["rows"] + [
+                        x for x in (res[label]["timed_step"],) if x]
+                for r, res in ranks.items():
+                    for i, (row, base) in enumerate(zip(
+                            steps_of(res), steps_of(ranks[0]))):
+                        if (row["loss"], row["grad_norm"]) != (
+                                base["loss"], base["grad_norm"]):
+                            raise AssertionError(f"{tag}: rank {r} step {i} "
+                                                 f"{row} != rank 0's")
+                        if row["collectives"] != res[label]["plan"]:
+                            raise AssertionError(
+                                f"{tag}: rank {r} step {i} collectives "
+                                f"{row['collectives']}, planned "
+                                f"{res[label]['plan']}")
+                        got = row["launches"]
+                        if any(got.get(k) != v for k, v in want.items()):
+                            raise AssertionError(f"{tag}: rank {r} step {i} "
+                                                 f"launches {got}, want "
+                                                 f"{want}")
+                        for k, v in got.items():
+                            path[k] = path.get(k, 0) + v
+                cell = {"rows_rank0": first, "plan": ranks[0][label]["plan"],
+                        "init_s": ranks[0][label]["init_s"],
+                        "save_s": ranks[0][label]["save_s"],
+                        "state_gb_a_rank": ranks[0][label]["state_gb"],
+                        "peak_mem_gb_a_rank": max(
+                            row["peak_mem_gb"] for res in ranks.values()
+                            for row in res[label]["rows"]),
+                        "step_s_median": statistics.median(
+                            row["wall_s"] for row in first[1:] or first),
+                        "tokens_per_s_median": statistics.median(
+                            row["tokens_per_s"] for row in first[1:] or first),
+                        "collectives_timed_step": split and {
+                            "wall_s": split["wall_s"],
+                            "collective_s": split["collective_s"]},
+                        "ranks_equal": True}
+                if cfg.family == "moe":
+                    ids, kw = torch.load(Path(tmp) / f"{label}_tickets.pt")
+                    t = ids.numel() // cfg.top_k
+                    cap = (moe_capacity(t, cfg) if dp_groups(
+                        t * world, world) == world else t * cfg.top_k)
+                    if kw["capacity"] != cap:
+                        raise AssertionError(f"{tag}: rank 0's B6 ran with "
+                                             f"{kw}, not capacity {cap}")
+                    self.tickets_case(K, ids.to(self.dev), kw["num_experts"],
+                                      kw["capacity"])
+                    cell["tickets_checked"] = {"pairs": ids.numel(), **kw}
+                if one.get(label) is None:
+                    if not first[2]["loss"] < first[0]["loss"]:
+                        raise AssertionError(f"{tag}: the loss of step 2 is "
+                                             f"not below step 0's: {first}")
+                    cell["loss_falls"] = [first[0]["loss"], first[2]["loss"]]
+                else:
+                    rows1, master1 = one[label]
+                    for i, (a, b) in enumerate(zip(first, rows1)):
+                        for k in ("loss", "grad_norm"):
+                            tol = DP_TOL[k if i == 0 else f"later_{k}"]
+                            if abs(a[k] - b[k]) > tol * abs(b[k]):
+                                raise AssertionError(
+                                    f"{tag}: step {i} {k} {a[k]} against the "
+                                    f"one-card step's {b[k]} (rtol {tol})")
+                        if a["lr"] != b["lr"]:
+                            raise AssertionError(f"{tag}: step {i} lr")
+                    t2 = time.perf_counter()
+                    errs = self.dp_master_errors(case, world, specs, master1,
+                                                 tmp)
+                    worst = max(errs, key=errs.get)
+                    if errs[worst] > DP_TOL["master"]:
+                        raise AssertionError(f"{tag}: the master's {worst} "
+                                             f"moved {errs[worst]} off the "
+                                             f"one-card master's change")
+                    cell.update(one_card_rows=rows1,
+                                master_change_err_max=[worst, errs[worst]],
+                                compare_s=time.perf_counter() - t2)
+                info[label] = cell
+        return info
+
+    def dp_train_path(self, K):
+        """Phase dp_train: each DP_CASES case on one card (its numbers
+        kept, its master on the host, the card emptied), then DP_WORLD gloo
+        ranks sharing card 0 on all of them against it; with two cards or
+        more the same over NCCL, and with four zamba2-7b at 81 layers
+        over four NCCL ranks."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        cards = torch.cuda.device_count()
+        one = {}
+        for case in DP_CASES:
+            t1 = time.perf_counter()
+            one[case[0]] = self.dp_one_card(K, case, DP_WORLD)
+            torch.cuda.empty_cache()
+            print(json.dumps({"phase": "dp_train", "one_card": case[0],
+                              "seconds": time.perf_counter() - t1}),
+                  flush=True)
+        info = {"phase": "dp_train", "cards": cards, "world": DP_WORLD,
+                "cases": {c[0]: {"arch": c[1], "layers": c[2],
+                                 "tokens_a_rank": c[3], "steps": c[4]}
+                          for c in DP_CASES},
+                "tolerance": DP_TOL}
+        K.reset_launches()
+        info["gloo"] = self.dp_run(K, "gloo", DP_WORLD, DP_CASES, one)
+        # B7 with lse and the backward against their plain versions on
+        # deepseek's layer-0 inputs of a rank (hd 128) for phase 7's row
+        qkv = self.attn_inputs.pop("dp_train")
+        self.dp_bwd = self.bwd_inputs(K, qkv, 66)
+        info["backward_hd128"] = {
+            "q": list(qkv[0].shape), "kv_heads": qkv[1].shape[1],
+            "bound_used": self.bound_used["flash_attention_bwd"],
+            "lse_bound_used": self.lse_used}
+        if cards >= 2:
+            info["nccl"] = self.dp_run(K, "nccl", DP_WORLD, DP_CASES, one)
+        if cards >= 4:
+            info["nccl_zamba2_81"] = self.dp_run(K, "nccl", 4, (DP_ZAMBA,),
+                                                 {})
+        else:
+            print(json.dumps({"phase": "dp_train", "nccl": "not run"
+                              if cards < 2 else "2 ranks",
+                              "zamba2_81": "not run",
+                              "why": f"torch.cuda.device_count() is {cards}: "
+                                     f"NCCL runs a card a rank, zamba2-7b "
+                                     f"at 81 layers on four"}), flush=True)
+        del one
+        path = self.launches["dp_train"]
+        for name in ("expert_tickets", "flash_attention",
+                     "flash_attention_bwd"):
+            if not path.get(name):
+                raise AssertionError(f"dp_train: {name} never launched")
+        info["launches"] = path
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
     # -- phase runtime: the host task runtime and its consumers ----------
 
     def task_round_tree(self, K, core, rt):
@@ -6292,6 +6611,252 @@ def mc_spawn(world, backend, names, cut):
     return out
 
 
+# -- phase dp_train: the sharded train step across ranks ---------------------
+
+
+def dp_setup(torch, case, world, mesh):
+    """A dp_train case's config (full width, its depth), sanitized state
+    and batch specs, data config and optimizer config."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    _, arch, layers, tokens, _, _ = case
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    specs = steps.sanitize_pspecs(steps.state_pspecs(cfg),
+                                  steps.state_struct(cfg), mesh)
+    bspecs = steps.sanitize_pspecs(
+        steps.batch_pspecs(cfg, "train_4k", mesh, batch=world),
+        steps.batch_struct(cfg, "train_4k", batch=world, seq=tokens), mesh)
+    return (cfg, specs, bspecs, DataConfig(seq_len=tokens, global_batch=world),
+            adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+
+
+def dp_launch_plan(cfg, seq, groups):
+    """Kernel launches of one step: B7 twice an attention call (the
+    forward and its remat) on sequences of 2,048 tokens or more and its
+    backward once, B6 twice an MoE layer a dispatch group."""
+    want = {}
+    if seq >= 2048:
+        n = attention_calls(cfg)
+        want.update(flash_attention=2 * n, flash_attention_bwd=n)
+    if cfg.family == "moe":
+        want["expert_tickets"] = 2 * cfg.n_layers * groups
+    return want
+
+
+def dp_rank(rank, world, backend, store, outdir, cases, save):
+    """One rank of phase dp_train: a ``backend`` group of ``world`` ranks,
+    card 0 (gloo) or card ``rank`` (NCCL), every case's steps on this
+    rank's blocks of the state and rows of the batch, then one more step
+    with each collective timed (``dp_time_collectives``) where a case
+    takes two steps or more; writes each case's rows to
+    ``outdir/rank<rank>.json``, with ``save`` its master blocks (after
+    the untimed steps) to ``outdir/<case>_rank<rank>.pt``, rank 0 the
+    first B6 call's expert ids and options of an MoE case to
+    ``outdir/<case>_tickets.pt``, and its last stage to
+    ``outdir/rank<rank>.stage``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import synth_batch
+    from repro_torch.distributed import COLLECTIVES, make_mesh
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.tree import flatten_with_paths
+
+    def mark(stage):
+        (Path(outdir) / f"rank{rank}.stage").write_text(stage)
+    mark("started")
+    spent = collections.Counter()
+    timing = dp_time_collectives(torch, spent)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
+    mark("process group initialized")
+    out = {}
+    try:
+        mesh = make_mesh((world, 1), ("data", "model"),
+                         group=dist.group.WORLD)
+        for case in cases:
+            label, _, _, tokens, n_steps, seed = case
+            cfg, specs, bspecs, dcfg, ocfg = dp_setup(torch, case, world,
+                                                      mesh)
+            mark(f"{label}: init")
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            state = steps.init_state(cfg, specs.master, mesh, gen, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            step = steps.make_train_step(cfg, ocfg, specs.master, mesh=mesh,
+                                         batch_specs=bspecs)
+            plan = steps.train_collectives(cfg, specs.master, mesh,
+                                           world * tokens)
+
+            def run(i, timed):
+                batch = batch_to_device(synth_batch(cfg, dcfg, i % 2), dev)
+                batch = {k: shard(v, bspecs[k], mesh).contiguous()
+                         for k, v in batch.items()}
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(COLLECTIVES)
+                spent.clear()
+                timing["on"] = timed
+                t1 = time.perf_counter()
+                new, m = step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                timing["on"] = False
+                return new, {
+                    "loss": float(m["loss"]), "grad_norm": float(
+                        m["grad_norm"]), "lr": float(m["lr"]), "wall_s": wall,
+                    "tokens_per_s": world * tokens / wall,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                 if v},
+                    "collectives": {k: COLLECTIVES[k] - before[k]
+                                    for k in plan}}
+            rows = []
+            for i in range(n_steps):
+                mark(f"{label}: step {i}")
+                seen = []
+                spy = rank == 0 and i == 0 and cfg.family == "moe"
+                undo = dp_spy_tickets(seen) if spy else (lambda: None)
+                try:
+                    state, row = run(i, False)
+                finally:
+                    undo()
+                rows.append(row)
+                if seen:
+                    torch.save(seen[0], Path(outdir) / f"{label}_tickets.pt")
+            mark(f"{label}: save")
+            t1 = time.perf_counter()
+            if save:
+                torch.save({k: v.cpu() for k, v in
+                            flatten_with_paths(state.master)},
+                           Path(outdir) / f"{label}_rank{rank}.pt")
+            save_s = time.perf_counter() - t1
+            split = None
+            if n_steps >= 2:
+                mark(f"{label}: timed step")
+                state, split = run(n_steps, True)
+                split["collective_s"] = dict(spent)
+            out[label] = {"rows": rows, "timed_step": split, "plan": plan,
+                          "init_s": init_s, "save_s": save_s,
+                          "state_gb": sum(
+                              v.numel() * v.element_size()
+                              for part in state[:3]
+                              for _, v in flatten_with_paths(part)) / 1e9}
+            del state, step
+            torch.cuda.empty_cache()
+        mark("barrier")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(outdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mark("done")
+
+
+def dp_spy_tickets(seen):
+    """B6's first call of a rank's step into ``seen`` (its ids on the host
+    and its options), whether through ``kernels.moe_route`` (a group of
+    the rank's own tokens) or ``models.moe``'s own name (the one-group
+    fallback); returns the undo."""
+    mods = [importlib.import_module(f"repro_torch.{m}")
+            for m in ("kernels.moe_route", "models.moe")]
+    real = [m.expert_tickets for m in mods]
+
+    def wrap(fn):
+        def spy(ids, **kw):
+            if not seen:
+                seen.append((ids.cpu(), kw))
+            return fn(ids, **kw)
+        return spy
+    for m, fn in zip(mods, real):
+        m.expert_tickets = wrap(fn)
+
+    def undo():
+        for m, r in zip(mods, real):
+            m.expert_tickets = r
+    return undo
+
+
+def dp_time_collectives(torch, spent):
+    """Wrap the sharded step's collectives (the gathers, the
+    reduce-scatters, the all-reduces, the MoE's exchange) so that, while
+    the returned switch's ``"on"`` is true, each call's wall seconds, the
+    card synchronised before and after, add to ``spent[kind]``; while it
+    is false they run as they are."""
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    switch = {"on": False}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            if not switch["on"]:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t
+            return out
+        return call
+    sharding._all_gather_bytes = timed("all_gather",
+                                       sharding._all_gather_bytes)
+    sharding._all_to_all_bytes = timed("reduce_scatter",
+                                       sharding._all_to_all_bytes)
+    collectives._sum = timed("reduce", collectives._sum)
+    train.all_reduce_ = timed("reduce", train.all_reduce_)
+    adamw.all_reduce_ = timed("reduce", adamw.all_reduce_)
+    moe.mesh_round_gather = timed("exchange", moe.mesh_round_gather)
+    return switch
+
+
+def dp_spawn(world, backend, cases, outdir, save):
+    """``dp_rank`` on ``world`` spawned ranks, joined, or killed after
+    DP_SPAWN_TIMEOUT seconds; a rank that fails or runs out of time
+    raises with every rank's last stage.  Returns {rank: results}."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        dp_rank, args=(world, backend, str(Path(outdir) / "store"), outdir,
+                       cases, save), nprocs=world, join=False,
+        start_method="spawn")
+
+    def stages():
+        return {r: (Path(outdir) / f"rank{r}.stage").read_text()
+                if (Path(outdir) / f"rank{r}.stage").exists()
+                else "not started" for r in range(world)}
+
+    deadline = time.perf_counter() + DP_SPAWN_TIMEOUT
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"ran past {DP_SPAWN_TIMEOUT} s")
+    except Exception as e:
+        seen = stages()
+        for p in ctx.processes:
+            p.kill()
+        for p in ctx.processes:
+            p.join()
+        raise RuntimeError(f"dp_train {backend} x {world}: {e}; last stages "
+                           f"{seen}") from e
+    out = {}
+    for r in range(world):
+        with open(Path(outdir) / f"rank{r}.json") as f:
+            out[r] = json.load(f)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6437,6 +7002,11 @@ def main() -> int:
     # gloo ranks sharing the card, NCCL ranks a card each where there are
     # two or more, each cell against the one-card stacked engine
     emit_phase(smoke.multicard_path(K))
+
+    # dp_train. the sharded train step (ZeRO-3 over "data") on gloo ranks
+    # sharing the card, each case against the one-card step
+    torch.cuda.empty_cache()
+    emit_phase(smoke.dp_train_path(K))
 
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()
@@ -7890,9 +8460,11 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     kern_b, plain_b, lib_b, bytes_b, ops_b = bwd_times(
         qt, kt, vt, bwd_kw, out_t, lse_t, dout_t)
     bwd_rows = {}
+    seen_zoo = dict(seen_zoo, dp_bwd=smoke.dp_bwd)
     for key, label, path in (("hybrid_bwd", "hd112", "zoo_hybrid_train"),
                              ("audio_bwd", "hd80_unmasked",
-                              "zoo_audio_train")):
+                              "zoo_audio_train"),
+                             ("dp_bwd", "hd128_dp_train", "dp_train")):
         qz, kz, vz, kwz, oz, lz, dz = seen_zoo[key]
         bwd_rows[label] = sub(*bwd_times(qz, kz, vz, kwz, oz, lz, dz),
                               {"q": list(qz.shape), "kv_heads": kz.shape[1],

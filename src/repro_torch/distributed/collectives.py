@@ -22,8 +22,9 @@ either backend (``runtime.enginecore``).
 
 ``COLLECTIVES`` counts the group form's calls: ``exchange`` one a
 round's gather, ``gather`` one an end-of-run gather of per-rank state
-(``gather_rows``), ``reduce`` one a gradient all-reduce.  Importing this
-module starts no process group.
+(``gather_rows``), ``reduce`` one a gradient all-reduce, and
+``all_gather`` / ``reduce_scatter`` those of the sharded train step
+(``sharding``).  Importing this module starts no process group.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from ..tree import tree_leaves, tree_map
 from . import compression
 
 #: collective calls of the group form, by kind (see the module doc)
-COLLECTIVES: Dict[str, int] = {"exchange": 0, "gather": 0, "reduce": 0}
+COLLECTIVES: Dict[str, int] = {"exchange": 0, "gather": 0, "reduce": 0,
+                               "all_gather": 0, "reduce_scatter": 0}
 
 
 @dataclass(frozen=True)
@@ -92,6 +94,24 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
     return mesh
 
 
+def host_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the host for a gloo collective: ``x`` itself on the CPU,
+    else a copy in pinned memory (the caching host allocator keeps the
+    blocks, and a pinned copy moves at the link's rate)."""
+    if x.device.type == "cpu":
+        return x
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return h
+
+
+def host_empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    """A host buffer for a gloo collective's result bound for ``like``'s
+    device: pinned when that is a card."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=like.device.type != "cpu")
+
+
 def _reduce(row: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's ``row`` (W,) in an (S, W) buffer, zero but for row
     ``mesh.rank``, summed over the group in one ``all_reduce``; returned
@@ -103,8 +123,9 @@ def _reduce(row: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         buf[mesh.rank] = row
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
         return buf
-    host = torch.zeros(shape, dtype=row.dtype)
-    host[mesh.rank] = row.cpu()
+    host = host_empty(shape, row.dtype, row)
+    host.zero_()
+    host[mesh.rank] = row
     dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
     return host.to(row.device)
 
@@ -178,11 +199,16 @@ def gather_rows(tree, mesh: Mesh):
 def _sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The psum of ``x`` over the mesh: on one card ``x`` is stacked (S,
     ...) and every row gets the rows' sum; on a group-bound mesh one
-    ``all_reduce`` of a copy."""
+    ``all_reduce`` of a copy (a host copy over gloo)."""
     if mesh.group is None:
         return x.sum(0, keepdim=True).expand_as(x).clone()
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    if dist.get_backend(mesh.group) == "gloo":
+        out = x.clone() if x.device.type == "cpu" else host_copy(x)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        out = out.to(x.device)
+    else:
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
     COLLECTIVES["reduce"] += 1
     return out
 

@@ -15,9 +15,11 @@ import torch
 
 from .apps.bfs import CSRGraph
 from .core.distqueue import DistHeapState
+from .distributed.sharding import shard
 from .kernels._build import resolve_device
 from .optim.adamw import OptState
 from .runtime.fusedrounds import HeapState, RingState
+from .tree import tree_leaves, tree_map
 
 
 def ring_state_from_numpy(cycles, safes, enqs, idxs, head, tail, *,
@@ -93,11 +95,13 @@ def csr_from_arrays(row_ptr, col_idx, name: str = "g") -> CSRGraph:
 
 def _leaf_to_torch(a, dev: torch.device) -> torch.Tensor:
     a = np.asarray(a)
+    # (np.ascontiguousarray makes a 0-dim array 1-dim: reshape it back)
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16, which torch.from_numpy refuses: same bits
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
+        return t.view(torch.bfloat16).reshape(a.shape).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).reshape(
+        a.shape).to(dev)
 
 
 def params_from_numpy(tree: Any, *, device="cuda") -> Any:
@@ -150,3 +154,18 @@ def opt_state_to_numpy(state: OptState) -> Tuple[Any, Any, Any, np.ndarray]:
     ``OptState(*opt_state_to_numpy(s))`` on its side."""
     return (params_to_numpy(state.master), params_to_numpy(state.m),
             params_to_numpy(state.v), state.step.detach().cpu().numpy())
+
+
+def opt_state_block_from_numpy(state: Any, specs: OptState, mesh, *,
+                               rank=None, device="cuda") -> OptState:
+    """Rank ``rank``'s blocks (this process's rank of the group-bound
+    ``mesh`` by default) of the reference's ``OptState`` (as
+    ``opt_state_from_numpy`` takes it) under the sanitized state specs
+    ``specs`` (``launch.steps.state_pspecs``): each leaf cut on the host
+    and copied to ``device``."""
+    dev = resolve_device(device)
+    whole = opt_state_from_numpy(state, device="cpu")
+    leaves = [shard(x, sp, mesh, rank).clone().to(dev)
+              for x, sp in zip(tree_leaves(whole), tree_leaves(specs))]
+    it = iter(leaves)
+    return tree_map(lambda x: next(it), whole)

@@ -4,10 +4,11 @@
 ``make_production_mesh`` names the reference's production layouts (16 x
 16 chips over ``("data", "model")``, 2 x 16 x 16 over ``("pod", "data",
 "model")``) as sizes with no devices behind them: the port's ``dryrun``
-plans one card, and these meshes only say what a plan would shard over.
-``make_local_mesh`` is a mesh over the ranks of a started
-``torch.distributed`` process group (one shard a rank), or over one
-shard when no group is started.  Functions, not module constants:
+plans one card, and these meshes say what the PartitionSpecs
+(``launch/steps.py``) shard over.  ``make_local_mesh`` is a mesh over
+the ranks of a started ``torch.distributed`` process group (one shard a
+rank; the sharded train step's mesh), or over one shard when no group
+is started.  Functions, not module constants:
 importing this module starts no process group.
 """
 

@@ -1,6 +1,6 @@
-"""Step builders: train_step / prefill_step / serve_step and their inputs
-for any (architecture x input shape) cell — the PyTorch twin of
-``repro/launch/steps.py`` on one card.
+"""Step builders: train_step / prefill_step / serve_step, their inputs
+and their PartitionSpecs for any (architecture x input shape x mesh)
+cell — the PyTorch twin of ``repro/launch/steps.py``.
 
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
 a cell's step as a function of its inputs, over ``launch/train.py:
@@ -11,10 +11,18 @@ give those inputs as tensors on the ``meta`` device, the reference's
 allocated.  ``batch_struct``'s ``batch`` and ``seq`` override the
 shape's (``launch/dryrun.py`` sizes a cell's cut with them).
 
-The reference's partition specs (``sanitize_pspecs``, ``batch_pspecs``,
-``state_pspecs``, ``cache_pspecs``, ``token_pspecs``) lay a cell over a
-256- or 512-chip mesh and have no meaning on one card; they are not
-ported.
+``batch_pspecs``, ``state_pspecs``, ``cache_pspecs`` and
+``token_pspecs`` are the reference's PartitionSpecs (``distributed.
+sharding.P``) of those inputs over a mesh (``launch/mesh.py``: the
+production 16 x 16 and 2 x 16 x 16 meshes are sizes alone), and
+``sanitize_pspecs`` replicates a dimension the mesh does not divide, as
+the reference does.  ``make_train_step(pspecs=, mesh=)`` trains over the
+ranks of a group-bound mesh's data axis with them: DP over "data", and
+FSDP (ZeRO-3: the master, m and v sharded, each layer's weights gathered
+where they are used) for the configs with ``fsdp``.  The "model" axis
+(tensor, expert and sequence parallelism) is not ported: a mesh whose
+"model" is above 1 is refused.  ``init_state`` draws a rank's blocks of
+the initial state a layer at a time.
 """
 
 from __future__ import annotations
@@ -24,11 +32,43 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import SHAPES, ArchConfig
-from ..models import decode_step, init_decode_cache, init_params, prefill
+from ..distributed.collectives import Mesh
+from ..distributed.sharding import (DataParallel, P, data_dim, is_spec,
+                                    leaf_dims)
+from ..models import (decode_step, init_decode_cache, init_params,
+                      init_params_block, param_specs, prefill)
+from ..models.moe import dp_groups
 from ..optim import adamw
+from ..tree import tree_leaves, tree_map
+from .mesh import dp_axes, dp_size
 from .train import train_step
 
 META = torch.device("meta")
+
+
+def sanitize_pspecs(spec_tree, struct_tree, mesh: Mesh):
+    """Drop shardings whose mesh-axis product does not divide the
+    dimension (e.g. a 50,280-entry vocab cannot be 16-way sharded;
+    granite's 40 experts cannot split over 16): those dimensions are
+    replicated.  ``struct_tree`` holds tensors (``meta`` ones will do)
+    of the spec tree's structure."""
+    def fix(spec, st):
+        if not is_spec(spec):
+            return spec
+        dims = st.shape
+        new = []
+        for i, ax in enumerate(spec):
+            if ax is None or i >= len(dims):
+                new.append(None)
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            size = 1
+            for a in axes:
+                size *= mesh.shape[a]
+            new.append(ax if dims[i] % size == 0 else None)
+        return P(*new)
+
+    return tree_map(fix, spec_tree, struct_tree)
 
 
 def batch_struct(cfg: ArchConfig, shape_name: str, *,
@@ -53,14 +93,50 @@ def batch_struct(cfg: ArchConfig, shape_name: str, *,
     return out
 
 
+def batch_pspecs(cfg: ArchConfig, shape_name: str, mesh: Mesh, *,
+                 batch: Optional[int] = None) -> Dict[str, P]:
+    """The batch split over the data-parallel axes when they divide the
+    global batch (``batch`` overrides the shape's), else replicated."""
+    dp = dp_axes(mesh)
+    b = SHAPES[shape_name]["global_batch"] if batch is None else batch
+    bs = dp if b % max(dp_size(mesh), 1) == 0 else ()
+    out: Dict[str, P] = {}
+    if cfg.audio_frontend:
+        out["frames"] = P(bs, None, None)
+    else:
+        out["tokens"] = P(bs, None)
+    out["labels"] = P(bs, None)
+    if cfg.family == "vlm":
+        out["img"] = P(bs, None, None)
+    return out
+
+
 def make_train_step(cfg: ArchConfig,
-                    opt_cfg: Optional[adamw.AdamWConfig] = None):
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    pspecs=None, *, mesh: Optional[Mesh] = None,
+                    batch_specs: Optional[Dict[str, P]] = None,
+                    groups: int = 1):
     """``step(state, batch) -> (state, metrics)``: the loss, its gradient
-    and AdamW (``launch/train.py: train_step``)."""
+    and AdamW (``launch/train.py: train_step``).  On one card (no
+    ``mesh``) ``pspecs`` changes nothing, as on one device in the
+    reference, and ``groups`` is the MoE's dispatch groups.  With a
+    group-bound ``mesh``, ``pspecs`` (the sanitized specs of the master
+    tree, ``state_pspecs(cfg).master``) lay the state over its ranks: the
+    step takes this rank's blocks of the state (``init_state``) and its
+    rows of the batch under ``batch_specs`` (``batch_pspecs``, sanitized;
+    split over the ranks when None).  A "model" axis above 1 raises."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    dp = None
+    if mesh is not None:
+        if pspecs is None:
+            raise ValueError("make_train_step: a mesh needs the state's "
+                             "pspecs")
+        sharded = (batch_specs is None
+                   or data_dim(batch_specs["labels"], mesh) == 0)
+        dp = DataParallel(mesh, pspecs, sharded)    # checks the mesh
 
     def step(state: adamw.OptState, batch: Dict[str, torch.Tensor]):
-        return train_step(cfg, opt_cfg, state, batch)
+        return train_step(cfg, opt_cfg, state, batch, groups=groups, dp=dp)
 
     return step
 
@@ -70,9 +146,69 @@ def params_struct(cfg: ArchConfig):
     return init_params(cfg, device=META)
 
 
+def _buckets(nbytes, bucket_bytes: int = 1 << 25) -> int:
+    """``bucketed_psum``'s all-reduces for leaves of ``nbytes`` (one
+    dtype)."""
+    n, size, pending = 0, 0, False
+    for b in sorted(nbytes):
+        size, pending = size + b, True
+        if size >= bucket_bytes:
+            n, size, pending = n + 1, 0, False
+    return n + pending
+
+
+def train_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int,
+                      batch_sharded: bool = True) -> Dict[str, int]:
+    """The collectives one sharded step issues (``distributed.COLLECTIVES``
+    kinds) for the sanitized master ``pspecs`` and ``tokens`` tokens of
+    global batch: the gathers of the outer leaves (once) and of each
+    layer's (again in the remat backward), a reduce-scatter a gather, the
+    loss's all-reduce, the replicated gradients' buckets (float32) and
+    the norm's all-reduce when a leaf is sharded, and the MoE's exchange
+    of counts in a layer (and its recomputation) when its dispatch falls
+    back to one group over the ranks."""
+    struct = params_struct(cfg)
+    rest = {k: v for k, v in struct.items() if k != "layers"}
+    outer = int(any(d is not None for d in leaf_dims(rest, pspecs, mesh)))
+    layer = int(any(d is not None for d in leaf_dims(
+        struct["layers"], pspecs["layers"], mesh)))
+    passes = 2 if cfg.remat else 1
+    plan = {"all_gather": outer + cfg.n_layers * passes * layer,
+            "reduce_scatter": 0, "reduce": int(outer or layer),
+            "exchange": 0}
+    if batch_sharded:
+        whole = [x for x, d in zip(tree_leaves(struct),
+                                   leaf_dims(struct, pspecs, mesh))
+                 if d is None]
+        plan["reduce_scatter"] = outer + cfg.n_layers * layer
+        plan["reduce"] += 1 + _buckets([4 * x.numel() for x in whole])
+        s = dp_size(mesh)
+        if cfg.family == "moe" and dp_groups(tokens, s) != s:
+            plan["exchange"] = cfg.n_layers * passes
+    return plan
+
+
 def state_struct(cfg: ArchConfig) -> adamw.OptState:
     """The optimizer state on ``meta``: float32 master, m and v."""
     return adamw.init(params_struct(cfg))
+
+
+def state_pspecs(cfg: ArchConfig) -> adamw.OptState:
+    """The state's specs: master, m and v each the parameters'
+    (``param_specs``), the step replicated."""
+    specs = param_specs(cfg)
+    return adamw.OptState(master=specs, m=tree_map(lambda s: s, specs),
+                          v=tree_map(lambda s: s, specs), step=P())
+
+
+def init_state(cfg: ArchConfig, pspecs, mesh: Mesh,
+               gen: Optional[torch.Generator] = None, *,
+               device="cuda") -> adamw.OptState:
+    """This rank's blocks of ``adamw.init(init_params(cfg, gen))`` under
+    the sanitized master ``pspecs``: the same numbers, but no leaf is
+    held whole beyond one layer (``models.init_params_block``)."""
+    return adamw.init(init_params_block(cfg, pspecs, mesh, gen,
+                                        device=device))
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -97,3 +233,49 @@ def cache_struct(cfg: ArchConfig, shape_name: str):
     sh = SHAPES[shape_name]
     return init_decode_cache(cfg, sh["global_batch"], sh["seq_len"],
                              device=META)
+
+
+def cache_pspecs(cfg: ArchConfig, shape_name: str, mesh: Mesh):
+    """Batch-sharded when possible; else sequence-sharded over all axes."""
+    sh = SHAPES[shape_name]
+    b = sh["global_batch"]
+    dp = dp_axes(mesh)
+    batch_ok = b % max(dp_size(mesh), 1) == 0
+    model = mesh.shape.get("model", 1)
+    all_axes = tuple(mesh.axis_names)
+
+    def kv_spec() -> P:
+        # (B, S, kv, hd): never S while the batch covers the DP axes (the
+        # decode's ring write is at a position a step); kv-heads on
+        # "model", else head_dim, else replicated
+        if batch_ok:
+            if cfg.n_kv_heads and cfg.n_kv_heads % model == 0:
+                return P(dp, None, "model", None)
+            if cfg.hd % model == 0:
+                return P(dp, None, None, "model")
+            return P(dp, None, None, None)
+        # batch 1 (long context): sequence-sharded over the whole mesh
+        return P(None, all_axes, None, None)
+
+    def entry_specs(entry):
+        sp = {}
+        for k in entry:
+            if k in ("k", "v"):
+                sp[k] = kv_spec()
+            elif k == "ssm":  # (B, nh, hd, st)
+                nh = cfg.ssm_nheads
+                head = "model" if nh % model == 0 else None
+                sp[k] = P(dp if batch_ok else None, head, None, None)
+            else:  # conv state (B, K-1, C)
+                sp[k] = P(dp, None, None) if batch_ok else P(None, None, None)
+        return sp
+
+    return [entry_specs(e) for e in cache_struct(cfg, shape_name)]
+
+
+def token_pspecs(cfg: ArchConfig, shape_name: str, mesh: Mesh) -> P:
+    """The decode step's (B, 1) tokens: split over the data-parallel axes
+    when they divide the batch."""
+    b = SHAPES[shape_name]["global_batch"]
+    bs = dp_axes(mesh) if b % max(dp_size(mesh), 1) == 0 else ()
+    return P(bs, None)

@@ -17,13 +17,16 @@ backward for attention at 2,048 keys or more) and ``adamw.step``.
 ``--ckpt-dir`` runs the loop under ``RestartManager`` (checkpoints every
 ``--save-every`` steps, ``--inject-fault-at`` raises once at that step).
 It prints the reference's lines, with tokens/s on the card.
+``train_step(dp=)`` is the step of one rank of the sharded train step
+over a mesh's data axis (``launch.steps.make_train_step(pspecs=,
+mesh=)``).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -31,9 +34,11 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs import get_config
 from ..configs.base import ArchConfig
 from ..data.pipeline import DataConfig, synth_batch
+from ..distributed.collectives import bucketed_psum
 from ..distributed.fault_tolerance import RestartManager, StragglerDetector
+from ..distributed.sharding import DataParallel, all_reduce_, leaf_dims
 from ..kernels._build import resolve_device
-from ..models import init_params, loss_fn
+from ..models import init_params, loss_fn, loss_terms
 from ..optim import adamw
 from ..tree import tree_leaves, tree_map
 
@@ -52,23 +57,56 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
-               state: adamw.OptState,
-               batch: Dict[str, torch.Tensor]) -> Tuple[adamw.OptState, Dict]:
+               state: adamw.OptState, batch: Dict[str, torch.Tensor], *,
+               groups: int = 1,
+               dp: Optional[DataParallel] = None
+               ) -> Tuple[adamw.OptState, Dict]:
     """One step: the loss and its gradient at ``cast_params(master)``, then
     ``adamw.step``.  Returns (state, {"loss", "grad_norm", "lr"}), each a
     0-dim tensor on the state's device (nothing is read back).  A leaf
     the loss does not read (the audio family's ``embed``) gets a zero
-    gradient, as ``jax.grad`` gives it."""
+    gradient, as ``jax.grad`` gives it.  ``groups``: the MoE's dispatch
+    groups on one card.
+
+    With ``dp`` the state holds this rank's blocks under ``dp.specs`` and
+    ``batch`` this rank's rows (every row when ``dp.batch_sharded`` is
+    False).  The loss is the global mean: the ranks' sums of the masked
+    cross-entropy and their label counts are added (one all-reduce)
+    before the backward, which takes each rank's sum over the global
+    count.  The sharded leaves' gradients are reduce-scattered by the
+    gathers' backward; the replicated leaves' are summed in float32 over
+    the ranks (``bucketed_psum``); AdamW updates the blocks
+    (``adamw.step(mesh=)``).  With the batch whole on every rank, each
+    rank's gradient is already the whole one and nothing is summed."""
     params = tree_map(lambda p: p.detach().requires_grad_(),
                       adamw.cast_params(state.master))
-    loss = loss_fn(params, batch, cfg)
     leaves = tree_leaves(params)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+    if dp is None:
+        loss = loss_fn(params, batch, cfg, groups=groups)
+        scale, total = None, loss
+    else:
+        total, count = loss_terms(params, batch, cfg, dp=dp)
+        sums = torch.stack([total.detach(), count])
+        if dp.batch_sharded:
+            all_reduce_(sums, dp.mesh)
+        denom = torch.clamp(sums[1], min=1.0)
+        loss, scale = sums[0] / denom, 1.0 / denom
+    grads = list(torch.autograd.grad(total, leaves, grad_outputs=scale,
+                                     allow_unused=True,
                                      materialize_grads=True))
-    grads = tree_map(lambda p: next(grads), params)
+    if dp is not None and dp.batch_sharded:
+        whole = [i for i, d in enumerate(leaf_dims(params, dp.specs,
+                                                   dp.mesh)) if d is None]
+        for i, g in zip(whole, bucketed_psum([grads[i].float()
+                                              for i in whole], dp.mesh)):
+            grads[i] = g
+    it = iter(grads)
+    grads = tree_map(lambda p: next(it), params)
     loss = loss.detach()
     del params, leaves          # the bfloat16 copy, before the update
-    state, metrics = adamw.step(ocfg, state, grads)
+    state, metrics = adamw.step(ocfg, state, grads,
+                                mesh=None if dp is None else dp.mesh,
+                                specs=None if dp is None else dp.specs)
     metrics["loss"] = loss
     return state, metrics
 

@@ -10,9 +10,11 @@ weights over ``kv_override``: no rope, no mask).  Long prompts (at least
 which launches the B7 kernel (``kernels/flash_attn.py``) on the card, and
 its flash backward when a gradient is needed; everything else takes the
 grouped dense path in plain PyTorch (differentiated by autograd), as the
-reference computes it outside any kernel.  The mesh sharding specs
-(``attn_specs``, ``_pin``, ``_q_block_spec``) have no meaning on one
-card and are not ported.
+reference computes it outside any kernel.  ``attn_specs`` and
+``mlp_specs`` give the reference's PartitionSpecs (``distributed.
+sharding.P``), which the sharded train step lays over the data axis; the
+"model" axis's pins (``_pin``, ``_q_block_spec``, ``_kv_stack_spec``)
+change no number on a mesh whose "model" is 1 and are not ported.
 
 Numerics follow the reference: ``rms_norm`` and ``rope`` compute in
 float32 and cast back, the dense path rounds the q . k product to the
@@ -29,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import P
 from ..kernels.flash_attn import flash_attention, flash_attention_train
 
 Params = Dict[str, torch.Tensor]
@@ -60,15 +63,25 @@ def _dense(gen: torch.Generator, shape, scale_axis: int = 0,
     one layer's, scaled in place and written into the ``dtype`` leaf.
     (Drawing the whole leaf in float32 and scaling a copy of it took two
     35 GB temporaries for yi-34b's FFN leaves, (60, 7,168, 20,480), and
-    two 31 GB ones for gemma2-27b's.)  On ``meta`` nothing is drawn."""
-    out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
-                      device=gen.device)
+    two 31 GB ones for gemma2-27b's.)  On ``meta`` nothing is drawn.
+    ``gen`` may carry a rank's blocks (``block``, see
+    ``transformer.init_params_block``): the leaf is then allocated as the
+    rank's block and each layer's draw narrowed to it along dimension k."""
+    lead, shape = tuple(lead), tuple(shape)
+    if hasattr(gen, "block"):
+        out, k, rank = gen.block(lead, shape, dtype)
+        gen = gen.gen
+    else:
+        out = torch.empty(lead + shape, dtype=dtype, device=gen.device)
+        k = rank = None
     if out.device.type == "meta":
         return out
     scale = 1.0 / (shape[scale_axis] ** 0.5)
-    for layer in out.view((-1,) + tuple(shape)):
-        w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+    for layer in out.view((-1,) + out.shape[len(lead):]):
+        w = torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32)
+        if k is not None:
+            w = w.narrow(k, rank * layer.shape[k], layer.shape[k])
         layer.copy_(w.mul_(scale))
     return out
 
@@ -165,6 +178,17 @@ def attn_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
         f"{pfx}wk": _dense(gen, (d, kv * hd), dtype=dtype, lead=lead),
         f"{pfx}wv": _dense(gen, (d, kv * hd), dtype=dtype, lead=lead),
         f"{pfx}wo": _dense(gen, (h * hd, d), dtype=dtype, lead=lead),
+    }
+
+
+def attn_specs(cfg: ArchConfig, cross: bool = False, fsdp_axis=None):
+    f = fsdp_axis
+    pfx = "c" if cross else ""
+    return {
+        f"{pfx}wq": P(f, "model"),
+        f"{pfx}wk": P(f, "model"),
+        f"{pfx}wv": P(f, "model"),
+        f"{pfx}wo": P("model", f),
     }
 
 
@@ -283,6 +307,12 @@ def mlp_params(gen: torch.Generator, d: int, ff: int, lead=(),
         "w_down": _dense(gen, (ff, d), scale_axis=0, dtype=dtype,
                          lead=lead),
     }
+
+
+def mlp_specs(fsdp_axis=None):
+    f = fsdp_axis
+    return {"w_gate": P(f, "model"), "w_up": P(f, "model"),
+            "w_down": P("model", f)}
 
 
 def _swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:

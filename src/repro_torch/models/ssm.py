@@ -11,8 +11,9 @@ float32, the products of bfloat16 activations in bfloat16, and
 ``-exp(A_log)`` in the parameter's own type (bfloat16 in training, where
 ``cast_params`` casts every float32 leaf).  No Pallas
 kernel is involved (the reference computes SSD in XLA), so this is plain
-PyTorch on both devices.  The reference's sharding pins (``_ssd_axis``,
-``ssm_specs``) have no meaning on one card and are left out.
+PyTorch on both devices.  ``ssm_specs`` gives the reference's
+PartitionSpecs; its "model" pin (``_ssd_axis``) changes no number on a
+mesh whose "model" is 1 and is left out.
 
 Decode keeps O(1) state per layer: (conv_state (B, d_conv - 1,
 d_conv_in), ssm_state (B, nh, hd, state) in float32).
@@ -25,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import P
 from . import layers
 from .layers import _dense, _rms_norm, by_rows
 
@@ -53,6 +55,17 @@ def ssm_params(gen: torch.Generator, cfg: ArchConfig, lead=(),
         "ssm_norm": torch.zeros(tuple(lead) + (di,), dtype=dtype,
                                 device=dev),
         "out_proj": _dense(gen, (di, d), dtype=dtype, lead=lead),
+    }
+
+
+def ssm_specs(cfg: ArchConfig, fsdp_axis=None):
+    f = fsdp_axis
+    return {
+        "in_proj": P(f, "model"),
+        "conv_w": P(None, "model"),
+        "A_log": P(None), "D": P(None), "dt_bias": P(None),
+        "ssm_norm": P("model"),
+        "out_proj": P("model", f),
     }
 
 

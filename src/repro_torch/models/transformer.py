@@ -41,8 +41,21 @@ with a leading L, a vlm layer's cross weights on every layer as the
 reference stacks them), so ``interop.params_from_numpy`` copies the
 reference's parameters leaf by leaf.  Random parameters come from a
 ``torch.Generator`` on the target device: the same seed gives other
-numbers than ``jax.random``.  The mesh and FSDP specs (``param_specs``,
-``_seq_shard``) have no meaning on one card and are not ported.
+numbers than ``jax.random``.
+
+``param_specs`` gives the reference's PartitionSpecs of the tree (the
+"model" axis for tensor parallelism, FSDP over "data" for the configs
+with ``fsdp``).  ``forward`` and ``loss_fn`` take ``dp=`` (a
+``distributed.sharding.DataParallel``): the parameter tree then holds
+this rank's blocks, ``embed``, ``lm_head``, ``final_norm`` and the
+hybrid's ``shared_attn`` are gathered whole once before the layers, and
+each layer's sharded leaves inside the layer's checkpointed body, so
+that the backward's recomputation gathers them again (the reference's
+ZeRO-3 all-gather per layer inside its scan); each gather's backward
+reduce-scatters the gradients.  The sequence-parallel pin
+(``_seq_shard``) changes no number on a mesh whose "model" is 1 and is
+not ported.  ``init_params_block`` draws a rank's blocks of the
+parameters ``init_params`` draws, a layer at a time.
 """
 
 from __future__ import annotations
@@ -54,11 +67,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import (DataParallel, P, data_dim, dp_size,
+                                    gather_tree, shard)
 from ..kernels._build import resolve_device
-from .layers import (NoDraws, _dense, attention, attn_params, mlp,
-                     mlp_params, rms_norm, rope, softcap)
-from .moe import moe_forward, moe_params
-from .ssm import ssm_forward, ssm_params
+from ..tree import flatten_with_paths, tree_map
+from .layers import (NoDraws, _dense, attention, attn_params, attn_specs,
+                     mlp, mlp_params, mlp_specs, rms_norm, rope, softcap)
+from .moe import moe_forward, moe_params, moe_specs
+from .ssm import ssm_forward, ssm_params, ssm_specs
 
 Params = Dict[str, Any]
 
@@ -77,7 +93,7 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     leaf the reference keeps in bfloat16 (float32: the weights drawn and
     kept in float32, for checks in float32 without a cast copy)."""
     dev = resolve_device(device)
-    if dev.type == "meta":
+    if dev.type == "meta" and not hasattr(gen, "block"):
         gen = NoDraws()
     elif gen is None:
         gen = torch.Generator(device=dev)
@@ -113,6 +129,103 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
         shared.update(mlp_params(gen, d, cfg.d_ff, dtype=dtype))
         params["shared_attn"] = shared
     return params
+
+
+def _layer_specs(cfg: ArchConfig, f) -> Params:
+    sp: Params = {"ln1": P(None)}
+    if cfg.family in ("ssm", "hybrid"):
+        sp.update(ssm_specs(cfg, f))
+        return sp
+    sp.update(attn_specs(cfg))
+    sp["ln2"] = P(None)
+    if cfg.family == "moe":
+        sp.update(moe_specs(cfg, f))
+    else:
+        sp.update(mlp_specs(f))
+    if cfg.family == "vlm":
+        sp.update(attn_specs(cfg, cross=True, fsdp_axis=f))
+        sp["cln"] = P(None)
+    # FSDP-shard the attention/mlp matrices' non-model axis
+    if f is not None:
+        for k in ("wq", "wk", "wv", "cwq", "cwk", "cwv", "w_gate", "w_up"):
+            if k in sp:
+                sp[k] = P(f, "model")
+        for k in ("wo", "cwo", "w_down"):
+            if k in sp:
+                sp[k] = P("model", f)
+    return sp
+
+
+def param_specs(cfg: ArchConfig, *, fsdp: Optional[bool] = None) -> Params:
+    """The parameter tree's PartitionSpecs: TP over "model", FSDP over
+    "data" when ``fsdp`` (``cfg.fsdp`` by default); the stacked layers
+    add a leading unsharded axis."""
+    f = "data" if (cfg.fsdp if fsdp is None else fsdp) else None
+    lsp = _layer_specs(cfg, f)
+    specs: Params = {
+        "embed": P("model", f),        # vocab-parallel embedding
+        "lm_head": P(f, "model"),
+        "final_norm": P(None),
+        "layers": {k: P(None, *s) for k, s in lsp.items()},
+    }
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        ssp = {"ln1": P(None), "ln2": P(None)}
+        ssp.update(attn_specs(cfg, fsdp_axis=f))
+        ssp.update(mlp_specs(f))
+        specs["shared_attn"] = ssp
+    return specs
+
+
+class _BlockDraws:
+    """``_dense``'s draws for a rank (``block``): each leaf allocated as
+    this rank's block (``dims``: each draw's sharded dimension of the
+    whole leaf, or None), each layer drawn whole from ``gen`` and
+    narrowed to it.  With no ``gen`` the leaves are whole on ``meta``
+    and nothing is drawn.  ``leaves``: the leaves in the order drawn."""
+
+    def __init__(self, gen: Optional[torch.Generator] = None, dims=(),
+                 n: int = 1, rank: int = 0):
+        self.gen, self.n, self.rank = gen, n, rank
+        self.device = torch.device("meta") if gen is None else gen.device
+        self.dims = iter(dims)
+        self.leaves: List[torch.Tensor] = []
+
+    def block(self, lead, shape, dtype):
+        d = None if self.gen is None else next(self.dims)
+        kept, k = list(shape), None
+        if d is not None:
+            k = d - len(lead)
+            if k < 0:
+                raise ValueError("a spec shards the stacked layers' axis")
+            kept[k] //= self.n
+        out = torch.empty(lead + tuple(kept), dtype=dtype,
+                          device=self.device)
+        self.leaves.append(out)
+        return out, k, self.rank
+
+
+def init_params_block(cfg: ArchConfig, specs: Params, mesh,
+                      gen: Optional[torch.Generator] = None, *,
+                      device="cuda", dtype=torch.bfloat16) -> Params:
+    """This rank's blocks (``mesh.rank``) of ``init_params(cfg, gen,
+    device=device, dtype=dtype)`` under the sanitized ``specs``: the same
+    numbers, drawn in the same order, but a leaf is never held whole
+    beyond one layer's float32 draw (the constant leaves, norms and the
+    SSM's A_log, D and dt_bias, are made whole and cut)."""
+    order = _BlockDraws()
+    meta = init_params(cfg, order, device="meta", dtype=dtype)
+    path_of = {id(t): k for k, t in flatten_with_paths(meta)}
+    spec_of = dict(flatten_with_paths(specs))
+    dims = [data_dim(spec_of[path_of[id(t)]], mesh) for t in order.leaves]
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    draws = _BlockDraws(gen, dims, dp_size(mesh), mesh.rank)
+    params = init_params(cfg, draws, device=dev, dtype=dtype)
+    drawn = {id(x) for x in draws.leaves}
+    return tree_map(lambda x, s: x if id(x) in drawn
+                    else shard(x, s, mesh).clone(), params, specs)
 
 
 def _is_cross(cfg: ArchConfig, i: int) -> bool:
@@ -180,10 +293,12 @@ def _shared_block(shared: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor, i: int, *, img=None, shared=None):
+           positions: torch.Tensor, i: int, *, img=None, shared=None,
+           route=None):
     """Layer i (a hybrid layer with its shared block where it has one).
     Returns (x, aux): a self-attention layer's roped (K, V), None after
-    a vlm cross layer, an SSM layer's final (conv, ssm) states."""
+    a vlm cross layer, an SSM layer's final (conv, ssm) states.
+    ``route``: ``moe_forward``'s ``groups`` and ``mesh``."""
     if cfg.family in ("ssm", "hybrid"):
         out, st = ssm_forward(p, rms_norm(x, p["ln1"]), cfg)
         x = x + out
@@ -201,7 +316,7 @@ def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     h = x + a
     inner = rms_norm(h, p["ln2"])
     if cfg.family == "moe":
-        return h + moe_forward(p, inner, cfg), kv
+        return h + moe_forward(p, inner, cfg, **(route or {})), kv
     return h + mlp(p, inner), kv
 
 
@@ -215,25 +330,49 @@ def _head(params: Params, x: torch.Tensor, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _route(groups: int, dp: Optional[DataParallel]) -> Dict[str, Any]:
+    """``moe_forward``'s dispatch groups: ``groups`` shards on one card;
+    on a rank, its share of a batch split over the ranks, or, when every
+    rank holds the whole batch, the ranks' count of groups in it."""
+    if dp is None:
+        return {"groups": groups}
+    if dp.batch_sharded:
+        return {"mesh": dp.mesh}
+    return {"groups": dp.size}
+
+
 def forward(params: Params, tokens: Optional[torch.Tensor],
             cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None):
+            frames: Optional[torch.Tensor] = None, groups: int = 1,
+            dp: Optional[DataParallel] = None):
     """tokens (B, S) int — or, for the audio family, ``frames`` (B, S, d)
     pre-embedded; ``img`` (B, Sv, d) the vlm family's image tokens (None:
     a cross layer attends to its own input, as the reference's does).
     Returns float32 logits (B, S, V).  With ``cfg.remat`` and autograd
     recording, each layer keeps only its input for the backward and runs
-    again there."""
+    again there.  ``groups``: the MoE's dispatch groups on one card (the
+    reference's data-parallel degree).  ``dp``: ``params`` holds this
+    rank's blocks under ``dp.specs`` (see the module doc)."""
+    blocks = params
+    if dp is not None:
+        outer = {k: v for k, v in params.items() if k != "layers"}
+        params = dict(gather_tree(outer, {k: dp.specs[k] for k in outer},
+                                  dp.mesh, dp.batch_sharded),
+                      layers=params["layers"])
     x = _inputs(params, cfg, tokens, frames, img)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     shared = params.get("shared_attn")
+    route = _route(groups, dp)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp = _layer(blocks, i)
 
         def body(h, lp=lp, i=i):
+            if dp is not None:         # ZeRO-3: gathered in the body
+                lp = gather_tree(lp, dp.specs["layers"], dp.mesh,
+                                 dp.batch_sharded, lead=1)
             return _block(lp, h, cfg, positions, i, img=img,
-                          shared=shared)[0]
+                          shared=shared, route=route)[0]
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return _head(params, x, cfg)
 
@@ -267,20 +406,31 @@ class _TokenNLL(torch.autograd.Function):
         return grad.mul_(g[..., None]), None
 
 
-def loss_fn(params: Params, batch: Dict[str, Any],
-            cfg: ArchConfig) -> torch.Tensor:
+def loss_terms(params: Params, batch: Dict[str, Any], cfg: ArchConfig, *,
+               groups: int = 1, dp: Optional[DataParallel] = None):
+    """The sum of the next-token cross-entropy over the labels >= 0 and
+    their count (float32 0-dim tensors): ``loss_fn`` is their quotient.
+    A rank of the sharded step sums its terms with the other ranks'
+    before the backward, so its loss is the global mean."""
+    logits = forward(params, batch.get("tokens"), cfg, img=batch.get("img"),
+                     frames=batch.get("frames"), groups=groups, dp=dp)
+    labels = batch["labels"].long()
+    nll = _TokenNLL.apply(logits, labels.clamp(min=0))
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: ArchConfig, *,
+            groups: int = 1) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels >= 0: logsumexp of
     the logits minus the label's logit, as the reference computes it (no
     log-softmax materialised; ``_TokenNLL``, whose gradient reuses the
     logits' memory).  ``batch`` holds ``labels`` (B, S) and ``tokens``
     (B, S) or the audio family's ``frames`` (B, S, d), and the vlm
-    family's ``img``.  Returns a float32 0-dim tensor."""
-    logits = forward(params, batch.get("tokens"), cfg, img=batch.get("img"),
-                     frames=batch.get("frames"))
-    labels = batch["labels"].long()
-    nll = _TokenNLL.apply(logits, labels.clamp(min=0))
-    mask = (labels >= 0).float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    family's ``img``.  ``groups``: the MoE's dispatch groups.  Returns a
+    float32 0-dim tensor."""
+    total, count = loss_terms(params, batch, cfg, groups=groups)
+    return total / torch.clamp(count, min=1.0)
 
 
 def prefill(params: Params, tokens: Optional[torch.Tensor],

@@ -13,9 +13,14 @@ back.
 One liberty: ``step`` updates ``m``, ``v`` and ``master`` in place and
 returns them in the new state (the reference returns new trees), so the
 card holds one copy of the optimizer state (on h2o-danube-1.8b 21.6 GB of
-float32) and a leaf's temporaries at a time.  The ZeRO sharding of the
-reference's state (it follows the parameters' PartitionSpecs) has no
-meaning on one card.
+float32) and a leaf's temporaries at a time.
+
+ZeRO: the reference's state follows the parameters' PartitionSpecs, so
+with FSDP each rank holds a block of every sharded leaf's master, m and
+v.  ``step(..., mesh=, specs=)`` updates a rank's blocks (each element's
+update is its own) with the global gradient norm: every rank's sum of
+squares of its sharded blocks, plus the replicated leaves' (whole and
+equal on every rank) counted once, on rank 0, added in ONE all-reduce.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..distributed.sharding import all_reduce_, leaf_dims
 from ..tree import tree_leaves, tree_map
 
 
@@ -85,12 +91,36 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def sharded_norm(grads: Any, specs: Any, mesh) -> torch.Tensor:
+    """The global norm of a gradient of which this rank holds the blocks
+    of the leaves ``specs`` shards over ``mesh`` and the other leaves
+    whole: each sharded block's sum of squares on every rank, each
+    replicated leaf's on rank 0 only, summed in one all-reduce (none when
+    no leaf is sharded)."""
+    blocks, whole = None, None
+    for g, d in zip(tree_leaves(grads), leaf_dims(grads, specs, mesh)):
+        sq = torch.sum(torch.square(g.float()))
+        if d is None:
+            whole = sq if whole is None else whole + sq
+        else:
+            blocks = sq if blocks is None else blocks + sq
+    if blocks is None:
+        return torch.sqrt(whole)
+    if whole is not None and mesh.rank == 0:
+        blocks = blocks + whole
+    return torch.sqrt(all_reduce_(blocks.reshape(1), mesh)[0])
+
+
 @torch.no_grad()
-def step(cfg: AdamWConfig, state: OptState,
-         grads: Any) -> Tuple[OptState, Dict]:
+def step(cfg: AdamWConfig, state: OptState, grads: Any, *, mesh=None,
+         specs: Any = None) -> Tuple[OptState, Dict]:
     """One AdamW step on ``grads`` (any float type, the tree of
-    ``state.master``).  Returns (state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    ``state.master``).  With ``mesh`` (a group-bound mesh) and ``specs``
+    (the sanitized specs of the master tree) the state and the gradients
+    are this rank's blocks (``sharded_norm``).  Returns (state,
+    {"grad_norm", "lr"})."""
+    gnorm = (global_norm(grads) if mesh is None
+             else sharded_norm(grads, specs, mesh))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     t = state.step + 1
     lr = schedule(cfg, t)

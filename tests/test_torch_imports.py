@@ -79,6 +79,8 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.launch.op_analysis\n"
             "import repro_torch.launch.roofline\n"
             "import repro_torch.launch.mesh\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.models.moe, repro_torch.models.transformer\n"
             "mods = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -109,6 +111,25 @@ def test_distributed_import_starts_no_process_group():
     assert out.stdout.strip().splitlines()[-1] == (
         "False {'data': 16, 'model': 16} {'pod': 2, 'data': 16, 'model': "
         "16} ('pod', 'data') 16 32 {'data': 1, 'model': 1} None")
+
+
+def test_sharding_import_starts_no_process_group():
+    """A fresh import of ``distributed.sharding`` and of the sharded train
+    step's builders leaves ``torch.distributed`` uninitialized, and the
+    specs they give need no group."""
+    code = ("import torch.distributed as dist\n"
+            "from repro_torch.distributed import sharding\n"
+            "from repro_torch.launch import steps\n"
+            "from repro_torch.configs import get_config\n"
+            "sp = steps.state_pspecs(get_config('deepseek-moe-16b'))\n"
+            "print(dist.is_initialized(), sp.master['embed'], "
+            "sp.master['layers']['e_down'])\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == (
+        "False P('model', 'data') P(None, 'model', 'data', None)")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,0 +1,155 @@
+"""The port's PartitionSpecs held equal to the reference's.
+
+For every registry config and its ``-smoke``: ``param_specs`` with FSDP
+on and off, ``state_pspecs``, and for every input shape ``batch_pspecs``,
+``cache_pspecs`` and ``token_pspecs`` — before and after
+``sanitize_pspecs`` — over the production meshes (16 x 16 and 2 x 16 x
+16) and the (S, 1) data meshes of S = 2 and 4 ranks.  Each reference
+``PartitionSpec`` is compared as a tuple; the reference's meshes are
+device-less ``jax.sharding.AbstractMesh``es, the port's ``make_mesh``
+sizes with no process group, so no device is forced.  Each leaf's block
+under the sanitized specs (``distributed.sharding.shard``) has the shape
+of the reference's ``NamedSharding.shard_shape``."""
+
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from jax.sharding import AbstractMesh, NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as JP  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import param_specs as jparam_specs  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.distributed import make_mesh  # noqa: E402
+from repro_torch.distributed.sharding import P, data_dim, shard  # noqa
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import param_specs  # noqa: E402
+from repro_torch.tree import flatten_with_paths  # noqa: E402
+
+NAMES = sorted(jconfigs.ARCHS)
+CONFIGS = NAMES + [n + "-smoke" for n in NAMES]
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+          "2x1": ((2, 1), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model"))}
+
+
+def _cfgs(name):
+    return configs.get_config(name), jconfigs.get_config(name)
+
+
+def _meshes(key):
+    shape, names = MESHES[key]
+    return make_mesh(shape, names), AbstractMesh(shape, names)
+
+
+def _flat(tree):
+    """{path: tuple(spec)} of a port tree (``P`` leaves)."""
+    out = {}
+    for k, v in flatten_with_paths(tree):
+        assert isinstance(v, P), (k, v)
+        out[k] = tuple(v)
+    return out
+
+
+def _jflat(tree):
+    """{path: tuple(spec)} of a reference tree, keyed as the port's."""
+    leaves = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, JP))[0]
+    out = {}
+    for path, v in leaves:
+        assert isinstance(v, JP), (path, v)
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", getattr(
+            p, "name", p)))) for p in path)
+        out[key] = tuple(v)
+    return out
+
+
+def _same(got, want):
+    """Equal spec trees (the reference's NamedTuple fields are keyed by
+    name, the port's with a leading '.')."""
+    g = {k.replace(".", ""): v for k, v in _flat(got).items()}
+    assert g == _jflat(want)
+
+
+@functools.lru_cache(maxsize=None)
+def _structs(name):
+    cfg, jcfg = _cfgs(name)
+    return steps.state_struct(cfg), jsteps.state_struct(jcfg)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_param_and_state_specs(name):
+    cfg, jcfg = _cfgs(name)
+    for fsdp in (None, True, False):
+        _same(param_specs(cfg, fsdp=fsdp), jparam_specs(jcfg, fsdp=fsdp))
+    _same(steps.state_pspecs(cfg), jsteps.state_pspecs(jcfg))
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_sanitized_state_specs_and_shards(name, mesh):
+    cfg, jcfg = _cfgs(name)
+    m, jm = _meshes(mesh)
+    st, jst = _structs(name)
+    got = steps.sanitize_pspecs(steps.state_pspecs(cfg), st, m)
+    want = jsteps.sanitize_pspecs(jsteps.state_pspecs(jcfg), jst, jm)
+    _same(got, want)
+    if not mesh.endswith("x1"):
+        return          # the port shards over the data axis alone
+    # a rank's block of every leaf: the reference's shard shape
+    jleaves = dict(zip(_jflat(want), jax.tree.leaves(jst)))
+    for (k, spec), (_, x) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(st)):
+        jk = k.replace(".", "")
+        want_shape = NamedSharding(jm, JP(*tuple(spec))).shard_shape(
+            jleaves[jk].shape)
+        for r in range(m.shape["data"]):
+            assert tuple(shard(x, spec, m, r).shape) == want_shape, (k, r)
+        d = data_dim(spec, m)
+        assert (d is None) == (tuple(want_shape) == tuple(x.shape)), k
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_input_specs_every_shape(name, mesh):
+    """batch, cache and token specs of every shape, raw and sanitized."""
+    cfg, jcfg = _cfgs(name)
+    m, jm = _meshes(mesh)
+    for shape in configs.SHAPES:
+        got, want = (steps.batch_pspecs(cfg, shape, m),
+                     jsteps.batch_pspecs(jcfg, shape, jm))
+        _same(got, want)
+        _same(steps.sanitize_pspecs(got, steps.batch_struct(cfg, shape), m),
+              jsteps.sanitize_pspecs(want, jsteps.batch_struct(jcfg, shape),
+                                     jm))
+        assert tuple(steps.token_pspecs(cfg, shape, m)) == tuple(
+            jsteps.token_pspecs(jcfg, shape, jm))
+        got, want = (steps.cache_pspecs(cfg, shape, m),
+                     jsteps.cache_pspecs(jcfg, shape, jm))
+        _same(got, want)
+        _same(steps.sanitize_pspecs(got, steps.cache_struct(cfg, shape), m),
+              jsteps.sanitize_pspecs(want, jsteps.cache_struct(jcfg, shape),
+                                     jm))
+
+
+def test_spec_normalises_as_the_reference():
+    for parts in [(("data",), None), ((), None), (("pod", "data"), "model"),
+                  (None,), ()]:
+        assert tuple(P(*parts)) == tuple(JP(*parts))
+        assert P(*parts) == P(*parts) and P(*parts) == tuple(JP(*parts))
+    assert P("data") != P(None)
+
+
+def test_model_axis_is_refused_by_name():
+    m = make_mesh((2, 2), ("data", "model"))
+    with pytest.raises(ValueError, match='"model" are not ported'):
+        data_dim(P("data", "model"), m)
+    with pytest.raises(ValueError, match='"model" are not ported'):
+        steps.make_train_step(configs.get_config("h2o-danube-1.8b-smoke"),
+                              pspecs={}, mesh=m)
