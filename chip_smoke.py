@@ -301,6 +301,26 @@ dp_train. — the sharded train step (``launch.steps.make_train_step(
               81 layers over four ranks (ZeRO-3: one card cannot hold
               its state), its loss falling; with one card a line says
               NCCL did not run.
+tp_serve. — the serve steps over "model" (``make_prefill_step(pspecs=,
+              mesh=)``, ``make_serve_step(pspecs=, mesh=)``: Megatron
+              column- and row-parallel attention and MLP, experts and
+              vocabulary over "model", the prefill's residual stream
+              split along the sequence) on TP_WORLD gloo ranks sharing
+              card 0, a (1, 2) mesh, each TP_CASES case at full width
+              against the one-card steps on the same weights: yi-34b,
+              gemma2-27b (local and global layers) and deepseek-moe-16b
+              prefill 2 x 4,096 tokens in bfloat16 into their ring
+              caches (B7 on each rank's heads, B6 on every rank),
+              decode TP_DECODE steps teacher-forced in bfloat16 (greedy
+              tokens equal where clear) and TP_DECODE in float32 (within
+              DECODE_TOL); every rank's collectives those of
+              ``serve_collectives``, B6's slots equal on both ranks and
+              to the one-card route, B7 and B6 on the ranks' own inputs
+              against their plain versions.  With four cards the
+              full-depth cases over NCCL (``tp_full``): yi-34b's
+              decode_32k at batch 16, gemma2-27b's 524,288-token
+              prefill, deepseek-moe-16b's float32 serve against one
+              card's (``tp_moe_check``).
 6. bfs_queue — ``bfs_queue`` (the frontier kernel) and ``bfs_baseline``
               (a plain dense sweep) on the road graph of phase 3 and on
               kron_like(2^20, avg_deg=16, seed=1); road dist must be
@@ -310,7 +330,7 @@ dp_train. — the sharded train step (``launch.steps.make_train_step(
               (plus the edge total and dist once each).
 7. kernels  — per kernel: launches on each path (phases 3-6, mesh,
               pmesh, raytrace (``ray``), admission, runtime, multicard,
-              dp_train, 8, 9 and train;
+              dp_train, tp_serve, 8, 9 and train;
               a kernel inside the device loop's graph counts once per
               round it ran),
               exactness or max error, its device time per call at its
@@ -556,6 +576,11 @@ KRON_N = 65536
 IDX_BOT = 2 ** 31 - 1
 KEY_INF = 2 ** 31 - 1
 HEAP_CAP_LOG2 = 20       # the priority path's heap: 2^20 slots
+# phase 2 holds B4 at these arity_log2: 1-3 on the instances with a
+# shared-memory top, 4, 5 and 8 (16-, 32- and 256-ary) on the
+# runtime-arity instance, seeded with WIDE_HEAP_SEED nodes at 2^15 slots
+HEAP_ARITIES = (1, 2, 3, 4, 5, 8)
+WIDE_HEAP_SEED = 4096
 HEAP_SEEDS = 65536
 HEAP_HORIZON = 26        # children only below this key
 HEAP_SPAWN = 10          # a child is offered with probability 10/16
@@ -664,14 +689,14 @@ MC_SPAWN_TIMEOUT = 300
 # phase dp_train: DP_WORLD gloo ranks sharing card 0, each case's global
 # batch DP_WORLD sequences (one a rank), TRAIN_LR with TRAIN_WARMUP
 # warm-up steps.  (label, arch, layers, tokens a rank, steps, seed).  The
-# MoE cases' steps are cut for time: gloo stages each gather through the
-# host, about 5 s of deepseek's 7-8 s a step on an H100 at 2 layers (its
-# first step 20 s), whatever the tokens, so (a) takes 2 steps and (b) 1
-# at 1 layer.  A case of 2 steps or more takes one step more with every
+# MoE cases are cut for time: gloo stages each gather through the host,
+# about 5 s of deepseek's 7-8 s a step on an H100 at 2 layers (its first
+# step 20 s), whatever the tokens, so (a) takes 2 steps and (b) 1, both
+# at 1 layer (since PR 29, when phase tp_serve was added; (a) had 2).  A case of 2 steps or more takes one step more with every
 # collective timed (the card synchronised around each): its seconds split
 # the step, and step s and tokens/s come from the untimed steps
 DP_WORLD = 2
-DP_MOE_LAYERS, DP_FALLBACK_LAYERS, DP_DENSE_LAYERS = 2, 1, 4
+DP_MOE_LAYERS, DP_FALLBACK_LAYERS, DP_DENSE_LAYERS = 1, 1, 4
 DP_CASES = (("moe", "deepseek-moe-16b", DP_MOE_LAYERS, 4096, 2, 21),
             ("moe_fallback", "deepseek-moe-16b", DP_FALLBACK_LAYERS, 128, 1,
              22),
@@ -689,6 +714,58 @@ DP_ZAMBA = ("zamba2_81", "zamba2-7b", 81, 4096, 3, 24)
 DP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "later_loss": 1e-2,
           "later_grad_norm": 1e-1, "master": 0.25}
 DP_SPAWN_TIMEOUT = 300
+# phase tp_serve: the serve steps over ("data", "model") (Megatron TP,
+# experts and vocabulary over "model", the prefill's residual stream split
+# along the sequence), TP_WORLD gloo ranks sharing card 0 on a (1,
+# TP_WORLD) mesh, each case at full width and cut depth (label, arch,
+# layers, seed): yi-34b 4 of 60, gemma2-27b 4 of 46 (two local, two
+# global), deepseek-moe-16b 2 of 28.  Each prefills TP_BATCH x TP_SEQ
+# tokens in bfloat16 (B7 on each rank's heads; B6 on every rank of the
+# moe case), decodes TP_DECODE steps in bfloat16 from the prefill's cache
+# teacher-forced with the one-card step's greedy tokens, and TP_DECODE
+# steps in float32 from an empty cache over the prompt's first tokens.
+# Held against the one-card steps on the same weights: the float32
+# logits within DECODE_TOL; the bfloat16 prefill logits within
+# TP_BF16_FROB of the one-card's in the Frobenius norm; the bfloat16
+# greedy tokens equal wherever the one-card's top two logits are
+# TP_TOKEN_MARGIN apart or more (a bfloat16 logit near 30 moves by
+# 0.125 a rounding); B6's slots on both ranks equal to each other and to
+# the one-card route on the same gates; every rank's collectives those
+# of serve_collectives.  A prefill and a decode step are then run again
+# with every collective timed (the card synchronised around each)
+TP_WORLD = 2
+TP_BATCH, TP_SEQ, TP_DECODE = 2, 4096, 16
+TP_CASES = (("yi", "yi-34b", 4, 31), ("gemma", "gemma2-27b", 4, 32),
+            ("moe", "deepseek-moe-16b", 2, 33))
+TP_BF16_FROB = 2e-2
+TP_TOKEN_MARGIN = 0.25
+TP_SPAWN_TIMEOUT = 300
+# four cards (NCCL, a card a rank, a (1, 4) mesh), at full depth:
+# yi-34b prefills TP_BATCH x TP_SEQ and decodes TP_FULL_STEPS steps at
+# batch TP_YI_DECODE_BATCH from cur = TP_YI_CACHE - TP_FULL_STEPS over
+# ring caches of TP_YI_CACHE positions filled with random values (the
+# cells' decode_32k); gemma2-27b prefills TP_LONG tokens (long_500k,
+# batch 1) into its ring caches and decodes TP_FULL_STEPS greedy steps;
+# deepseek-moe-16b serves TP_MOE_REQUESTS requests of TP_MOE_PROMPT +
+# TP_MOE_NEW tokens in float32 against the one-card greedy serve
+TP_FULL_STEPS = 8
+TP_YI_DECODE_BATCH, TP_YI_CACHE = 16, 32768
+TP_LONG = 524288
+TP_MOE_REQUESTS, TP_MOE_PROMPT, TP_MOE_NEW = 8, 16, 16
+# the moe serve is teacher-forced with the one card's greedy tokens (a
+# near tie that the sums over "model" break the other way would send a
+# free-running serve down another path for good; see tp_moe_check): its
+# float32 logits within TP_F32_LOGITS of the one card's, its argmax equal
+# wherever the one card's top two logits are TP_F32_MARGIN apart
+TP_F32_LOGITS = 1e-3
+TP_F32_MARGIN = 1e-2
+# a routing difference is a tie the sums over "model" broke the other way
+# only where the one card's k-th and (k+1)-th gates are closer than this
+# (float32 gates near 1: a few hundred ulps); at most TP_MOE_TIED requests
+# may be touched by ties and are then left out of the logits check
+TP_GATE_TIE = 1e-4
+TP_MOE_TIED = 2
+TP_FULL_TIMEOUT = 900
 # phase runtime: (a) mesh_task_round on a replicated ring of 2^20 slots
 # (logical capacity 2^19) whose tickets start 2^20 below 2^32 (the nearest
 # multiple of the ring's 2n), so head and tail wrap, draining the FIFO task
@@ -1162,6 +1239,7 @@ class Smoke:
         self.attn_inputs = {}     # training path -> {window: q, k, v, kw}
         self.reg_b7 = []          # phase registry's B7 calls by shape
         self.reg_tickets = {}     # phase registry's B6 inputs
+        self.tp_keep = None       # where tp_full writes its moe check's inputs
 
     # -- helpers -------------------------------------------------------------
 
@@ -1226,11 +1304,11 @@ class Smoke:
                 f"{elem:.3g} of the element bound and {frob:.3g} of the "
                 f"Frobenius bound (max |diff| {err})")
 
-    def time_ms(self, setup, launch, iters=50, reps=5):
+    def time_ms(self, setup, launch, iters=50, reps=3):
         """Per-call milliseconds of ``iters`` calls of ``launch(args, i)``,
         each batch after an untimed ``setup()``: the median over ``reps``
         batches of (device, wall) time, both from CUDA events around the
-        batch.  Wall: the calls issued back to back, so it includes the
+        batch (3 since PR 29, 5 before: the script's time limit).  Wall: the calls issued back to back, so it includes the
         host's launch cost whenever the host is slower than the card.
         Device: the same batch queued behind a ``torch.cuda._sleep`` that
         outlasts three times the host's time to issue it, so the card runs
@@ -1548,7 +1626,9 @@ class Smoke:
 
     def compare_heap_rider(self, K):
         """The rider instance of ``heap_apply`` against its plain version
-        at arities 2, 4 and 8, ten calls per case queued back to back, the
+        at arities 2, 4, 8, 16, 32 and 256 (the last three with one pop
+        and one insert batch at 2^20 slots and the 2^15 cases from a heap
+        of WIDE_HEAP_SEED nodes), ten calls per case queued back to back, the
         inserts' rider a 0-d device tensor (or one per lane): at 2^6 slots
         batches that fill the heap past full and drain it past empty; at
         2^15 slots heaps seeded just below, at and just above the rider
@@ -1566,7 +1646,9 @@ class Smoke:
                    else clocks[i % len(clocks)])
             return (ops, keys, vals, opr)
 
-        for arity in (1, 2, 3):
+        for arity in HEAP_ARITIES:
+            wide = arity not in K.TOP_ARITY_LOG2
+
             def fresh(c):
                 kern = [torch.full((1 << c,), KEY_INF, **card),
                         torch.full((1 << c,), -1, **card),
@@ -1580,7 +1662,8 @@ class Smoke:
             for i in range(0, len(batches), 10):
                 self.heap_rider_calls(K, st, batches[i:i + 10], 6, arity)
             r_max = K.heap_resident_max(arity, rider=True)
-            for seed in (r_max - 3, r_max, r_max + 5):
+            for seed in ((r_max - 3, r_max, r_max + 5) if not wide
+                         else (WIDE_HEAP_SEED,)):
                 st = fresh(15)
                 self.heap_rider_calls(
                     K, st, [rid(self.heap_batch(seed, 1.0, 0, 60), 3)],
@@ -1595,7 +1678,7 @@ class Smoke:
                        for i in range(8)], 15, arity)
             st = fresh(HEAP_CAP_LOG2)
             batches = [rid(self.heap_batch(1 << 17, 1.0, 0, 16), 0)]
-            for i in range(3):
+            for i in range(1 if wide else 3):
                 batches += [rid(self.pop_batch(BATCH), i),
                             rid(self.heap_batch(2 * BATCH, 0.6, 0, 30), i)]
             self.heap_rider_calls(K, st, batches + batches[1:3],
@@ -1641,8 +1724,8 @@ class Smoke:
         tree's waves (4 x 1,024 pops, 8,192 insert lanes) and SSSP's
         (16,384 insert lanes, a rider); the strict paths' one heap (S = 1):
         4,096-pop waves and 8,192-lane inserts at 2^20, 16,384-lane
-        inserts with a rider at SSSP's 2^22.  Arities past 8 are
-        refused."""
+        inserts with a rider at SSSP's 2^22.  At arities 16, 32 and 256
+        (the runtime-arity instance) the 2^6 and 2^15 cases."""
         np, torch = self.np, self.torch
         card = dict(dtype=torch.int32, device=self.dev)
 
@@ -1675,16 +1758,8 @@ class Smoke:
         def pop(s, b, counts):
             return dict(counts=self.t(np.asarray(counts, np.int32)), batch=b)
 
-        # other arities are refused by name on the card
-        st = fresh(2, 6, False)
-        try:
-            K.heap_apply_grid(*st[0][:2], st[2], counts=st[2], batch=4,
-                              cap_log2=6, arity_log2=4)
-            raise AssertionError("heap_apply_grid ran at arity_log2=4")
-        except ValueError as e:
-            if "built for arity_log2" not in str(e):
-                raise
-        for arity in (1, 2, 3):
+        for arity in HEAP_ARITIES:
+            wide = arity not in K.TOP_ARITY_LOG2
             for rider in (False, True):
                 for s in (1, 2, 4, 8):
                     st = fresh(s, 6, rider)
@@ -1705,7 +1780,8 @@ class Smoke:
                                     + [pop(s, 64, self.rng.integers(
                                         0, 64, s)) for _ in range(5)],
                                     6, arity)
-                r_max = K.heap_resident_max(arity, rider=rider)
+                r_max = (K.heap_resident_max(arity, rider=rider)
+                         or WIDE_HEAP_SEED)
                 st = fresh(8, 15, rider)
                 seeds = [d for d in range(8)
                          for _ in range(r_max + (d - 4) * 3)]
@@ -1714,6 +1790,8 @@ class Smoke:
                     pop(8, 512, self.rng.integers(0, 600, 8))
                     if i % 2 else ins(8, 4096, -90, 60, rider=rider, i=i)
                     for i in range(10)], 15, arity)
+                if wide:   # the plain version scans 2^a children a level
+                    continue
                 # the paths' shapes: 4 heaps of 2^20
                 st = fresh(4, HEAP_CAP_LOG2, rider)
                 lanes = (4 if rider else 2) * 4 * BATCH
@@ -2187,10 +2265,16 @@ class Smoke:
         whose holes start past the window and rise into the top; mixed
         batches with NOP lanes; a batch that fills the heap and one that
         empties it.  At 2^20 slots: a 131,072-insert seed and the priority
-        path's batches (1,024 pops, then 2,048 insert lanes)."""
+        path's batches (1,024 pops, then 2,048 insert lanes).  At arities
+        16, 32 and 256 (``HEAP_ARITIES`` past 3: the runtime-arity
+        instance, no shared-memory top) the 2^4 and 2^6 cases, the 2^15
+        cases from a heap of WIDE_HEAP_SEED nodes, and at 2^20 the seed,
+        one pop batch and one insert batch."""
         np, torch = self.np, self.torch
         card = dict(dtype=torch.int32, device=self.dev)
-        for arity in (1, 2, 3):
+        for arity in HEAP_ARITIES:
+            wide = arity not in K.TOP_ARITY_LOG2
+
             def fresh(c):
                 kern = [torch.full((1 << c,), KEY_INF, **card),
                         torch.full((1 << c,), -1, **card)]
@@ -2204,7 +2288,8 @@ class Smoke:
                 for i in range(0, len(batches), 10):
                     self.heap_calls(K, st, batches[i:i + 10], c, arity)
             r_max = K.heap_resident_max(arity)
-            for seed in (r_max - 3, r_max, r_max + 5):
+            for seed in ((r_max - 3, r_max, r_max + 5) if not wide
+                         else (WIDE_HEAP_SEED,)):
                 st = fresh(15)
                 self.heap_calls(K, st, [self.heap_batch(seed, 1.0, 0, 60)],
                                 15, arity)
@@ -2217,6 +2302,14 @@ class Smoke:
                                 + [self.pop_batch(3000)]
                                 + [self.heap_batch(2048, 0.6, -40, 60)
                                    for _ in range(8)], 15, arity)
+            if wide:       # the plain version scans 2^a children a level
+                st = fresh(HEAP_CAP_LOG2)
+                self.heap_calls(K, st, [self.heap_batch(1 << 17, 1.0, 0, 16),
+                                        self.pop_batch(BATCH),
+                                        self.heap_batch(2 * BATCH, 0.6, 0,
+                                                        30)],
+                                HEAP_CAP_LOG2, arity)
+                continue
             st = fresh(15)
             self.heap_calls(K, st, [self.heap_batch(35000, 0.99, -5, 200),
                                     self.heap_batch(64, 0.5),
@@ -4281,6 +4374,271 @@ class Smoke:
                      "flash_attention_bwd"):
             if not path.get(name):
                 raise AssertionError(f"dp_train: {name} never launched")
+        info["launches"] = path
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase tp_serve: the serve steps over "model" across ranks --------
+
+    def tp_one_card(self, case, outdir):
+        """A TP_CASES case's one-card steps on the same weights: the
+        bfloat16 prefill, TP_DECODE greedy decode steps from its cache,
+        and TP_DECODE float32 steps from an empty cache over the prompt's
+        first tokens.  Writes the ranks' inputs (the prompt, the greedy
+        tokens) to ``outdir/<label>_inputs.pt``; returns the logits on the
+        host."""
+        torch = self.torch
+        from repro_torch import models
+        from repro_torch.distributed import make_mesh
+        from repro_torch.models.transformer import fill_rings
+        label, _, _, seed = case
+        cfg, _ = tp_setup(case, make_mesh((1, TP_WORLD), ("data", "model")))
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        params = models.init_params(cfg, gen, device=self.dev)
+        tg = torch.Generator().manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ),
+                               generator=tg, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kv = models.prefill(params, tokens.to(self.dev), cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = models.init_decode_cache(cfg, TP_BATCH, TP_SEQ + TP_DECODE,
+                                         device=self.dev)
+        for i in range(cfg.n_layers):
+            fill_rings(cache, i, kv["k"][i], kv["v"][i])
+        del kv
+        teach, dec, walls = [logits.argmax(-1).int()], [], []
+        for j in range(TP_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lj, cache = models.decode_step(params, cache, teach[-1],
+                                           TP_SEQ + j, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            teach.append(lj.argmax(-1).int())
+            dec.append(lj.float().cpu())
+        out = {"prefill": logits.float().cpu(), "decode": torch.cat(dec, 1),
+               "teacher": torch.cat(teach, 1).cpu(), "prefill_s": prefill_s,
+               "decode_ms_median": statistics.median(walls) * 1e3}
+        del params, cache, logits
+        torch.cuda.empty_cache()
+        gen.manual_seed(seed)
+        params = models.init_params(cfg, gen, device=self.dev,
+                                    dtype=torch.float32)
+        cache = models.init_decode_cache(cfg, TP_BATCH, TP_DECODE,
+                                         torch.float32, device=self.dev)
+        f32 = []
+        for j in range(TP_DECODE):
+            lj, cache = models.decode_step(
+                params, cache, tokens[:, j:j + 1].to(self.dev), j, cfg)
+            f32.append(lj.cpu())
+        out["f32"] = torch.cat(f32, 1)
+        torch.save({"tokens": tokens, "teacher": out["teacher"]},
+                   Path(outdir) / f"{label}_inputs.pt")
+        del params, cache
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_check(self, K, ranks, one, outdir):
+        """Each TP_CASES case's ranks held against the one-card steps
+        (see TP_CASES), B7 on rank 0's first call's inputs and B6 on
+        each rank's first call's against their plain versions, and the
+        launches of the ranks' main path (a prefill: B7 once an attention
+        layer, B6 once an MoE layer; a decode step: B6 once an MoE
+        layer).  Returns the phase's rows."""
+        torch = self.torch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.models import moe
+        path = self.launches.setdefault("tp_serve", {})
+        info = {}
+        for case in TP_CASES:
+            label = case[0]
+            cfg, _ = tp_setup(case, make_mesh((1, TP_WORLD),
+                                              ("data", "model")))
+            o = one[label]
+            got = [torch.load(Path(outdir) / f"{label}_rank{r}.pt")
+                   for r in range(TP_WORLD)]
+            tag = f"tp_serve gloo x {TP_WORLD} {label}"
+            for r, g in enumerate(got[1:], 1):
+                for k in ("prefill", "argmax", "f32"):
+                    if not torch.equal(g[k], got[0][k]):
+                        raise AssertionError(f"{tag}: rank {r}'s {k} differs "
+                                             f"from rank 0's")
+            g = got[0]
+            frob = float((g["prefill"] - o["prefill"]).norm()
+                         / o["prefill"].norm())
+            if not frob <= TP_BF16_FROB:
+                raise AssertionError(f"{tag}: bfloat16 prefill logits "
+                                     f"{frob} off the one card's")
+            f32_err = float((g["f32"] - o["f32"]).abs().max())
+            if not torch.allclose(g["f32"], o["f32"], **DECODE_TOL):
+                raise AssertionError(f"{tag}: float32 decode logits "
+                                     f"{f32_err} off the one card's")
+            ref = torch.cat([o["prefill"], o["decode"]], 1)   # (B, 17, V)
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) >= TP_TOKEN_MARGIN
+            if not torch.equal(g["argmax"][clear].long(),
+                               o["teacher"][clear].long()):
+                raise AssertionError(f"{tag}: a greedy token differs where "
+                                     f"the one card's top two are "
+                                     f"{TP_TOKEN_MARGIN} apart")
+            row = {"bf16_prefill_frobenius": frob,
+                   "bf16_prefill_max_abs": float(
+                       (g["prefill"] - o["prefill"]).abs().max()),
+                   "f32_decode_max_abs": f32_err,
+                   "greedy_tokens_checked": int(clear.sum()),
+                   "greedy_tokens": int(clear.numel()),
+                   "one_card": {k: o[k] for k in ("prefill_s",
+                                                  "decode_ms_median")},
+                   "ranks": {r: ranks[r][label] for r in ranks}}
+            q, k, v, kw = g["attn"]
+            self.flash_case(K, q.to(self.dev), k.to(self.dev),
+                            v.to(self.dev), **kw)
+            row["b7_checked"] = {"q": list(q.shape), "kv_heads": k.shape[1],
+                                 **kw}
+            if cfg.family == "moe":
+                slots = [x["route"][1] for x in got]
+                if any(not torch.equal(x, slots[0]) for x in slots):
+                    raise AssertionError(f"{tag}: B6's slots differ between "
+                                         f"ranks")
+                for r, x in enumerate(got):
+                    want = moe.route(x["route"][0].to(self.dev), cfg)[0]
+                    if not torch.equal(want.cpu(), x["route"][1]):
+                        raise AssertionError(f"{tag}: rank {r}'s slots differ "
+                                             f"from the one-card route on "
+                                             f"its gates")
+                    ids, kw6 = x["tickets"]
+                    self.tickets_case(K, ids.to(self.dev), kw6["num_experts"],
+                                      kw6["capacity"])
+                row["b6_checked"] = {"pairs": int(ids.numel()), **kw6,
+                                     "slots_equal_on_ranks": True,
+                                     "equal_to_one_card_route": True}
+            want = {"flash_attention": cfg.n_layers}
+            if cfg.family == "moe":
+                want["expert_tickets"] = cfg.n_layers * (1 + TP_DECODE)
+            for r in ranks:
+                launches = ranks[r][label]["launches"]
+                if any(launches.get(n) != c for n, c in want.items()):
+                    raise AssertionError(f"{tag}: rank {r} launches "
+                                         f"{launches}, want {want}")
+                for n, c in launches.items():
+                    path[n] = path.get(n, 0) + c
+            info[label] = row
+        return info
+
+    def tp_full(self, K, outdir):
+        """The four-card cases over NCCL (a card a rank, a (1, 4) mesh):
+        the one-card float32 serve of deepseek-moe-16b at 28 layers first,
+        then ``tp_rank``'s "full" cases; every rank's tokens equal, the
+        outputs finite, each step's collectives those of
+        serve_collectives, and the moe serve, teacher-forced with the one
+        card's tokens, within TP_F32_LOGITS of its float32 logits and its
+        argmax equal wherever the one card's top two are TP_F32_MARGIN
+        apart.  Each case's line is printed as it is checked."""
+        torch = self.torch
+        from repro_torch import models
+        from repro_torch.distributed import make_mesh
+        case = ("moe_28", "deepseek-moe-16b", 28, 44)
+        cfg, _ = tp_setup(case, make_mesh((1, 4), ("data", "model")))
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(case[3])
+        params = models.init_params(cfg, gen, device=self.dev,
+                                    dtype=torch.float32)
+        routes = []
+        with torch.no_grad():
+            toks, logits, pre_s, walls = tp_moe_serve(
+                torch, cfg, params, self.dev, routes=routes)
+        del params
+        torch.cuda.empty_cache()
+        d = Path(outdir) / "full"
+        d.mkdir()
+        torch.save(toks, d / "moe_teacher.pt")
+        t0 = time.perf_counter()
+        ranks = tp_spawn(4, "nccl", "full", str(d), TP_FULL_TIMEOUT)
+        info = {"spawn_and_run_s": time.perf_counter() - t0,
+                "moe_28_one_card": {"prefill_s": pre_s,
+                                    "decode_ms_median":
+                                    statistics.median(walls) * 1e3}}
+        for name in ("yi_60", "gemma_46", "moe_28"):
+            rows = [ranks[r][name] for r in range(4)]
+            info[name] = rows[0]
+            info[name]["peak_gb_max_rank"] = max(
+                row.get("decode_peak_gb", row.get("peak_mem_gb", 0))
+                for row in rows)
+            print(json.dumps({"phase": "tp_serve", "nccl": name,
+                              **info[name]}), flush=True)
+            for r, row in enumerate(rows):
+                if row["tokens"] != rows[0]["tokens"]:
+                    raise AssertionError(f"tp_serve nccl {name}: rank {r}'s "
+                                         f"tokens differ from rank 0's")
+                if not row.get("finite", True):
+                    raise AssertionError(f"tp_serve nccl {name}: rank {r} "
+                                         f"gave non-finite logits")
+                for got, plan in (("prefill_collectives", "prefill_plan"),
+                                  ("decode_collectives", "decode_plan")):
+                    if got in row and row[got] != {
+                            k: v for k, v in row[plan].items() if v}:
+                        raise AssertionError(f"tp_serve nccl {name}: rank {r} "
+                                             f"{got} {row[got]} != "
+                                             f"{row[plan]}")
+        got = torch.load(d / "moe_logits.pt")
+        if self.tp_keep is not None:   # the check's inputs, for a reader
+            top2 = logits.topk(2, dim=-1).values
+            torch.save({"routes": routes, "ranks_routes": got["routes"],
+                        "tokens": toks, "ranks_tokens": torch.tensor(
+                            info["moe_28"]["tokens"]),
+                        "max_abs": (got["logits"] - logits).abs().amax(-1),
+                        "margin": top2[..., 0] - top2[..., 1]},
+                       Path(self.tp_keep) / "tp_moe_check.pt")
+        info["moe_28"].update(tp_moe_check(torch, toks, logits, routes,
+                                           info["moe_28"]["tokens"], got))
+        print(json.dumps({"phase": "tp_serve", "nccl": "moe_28 check",
+                          **{k: v for k, v in info["moe_28"].items()
+                             if k.startswith("check_")}}), flush=True)
+        return info
+
+    def tp_serve_path(self, K):
+        """Phase tp_serve: each TP_CASES case on one card, then TP_WORLD
+        gloo ranks sharing card 0 on all of them against it; with four
+        cards the full-depth cases over NCCL (``tp_full``)."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        cards = torch.cuda.device_count()
+        info = {"phase": "tp_serve", "cards": cards, "world": TP_WORLD,
+                "cases": {c[0]: {"arch": c[1], "layers": c[2]}
+                          for c in TP_CASES},
+                "batch": TP_BATCH, "seq": TP_SEQ, "decode": TP_DECODE,
+                "tolerance": {"f32_decode": DECODE_TOL,
+                              "bf16_prefill_frobenius": TP_BF16_FROB,
+                              "token_margin": TP_TOKEN_MARGIN}}
+        with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+            one = {}
+            for case in TP_CASES:
+                t1 = time.perf_counter()
+                one[case[0]] = self.tp_one_card(case, tmp)
+                print(json.dumps({"phase": "tp_serve", "one_card": case[0],
+                                  "seconds": time.perf_counter() - t1}),
+                      flush=True)
+            t1 = time.perf_counter()
+            ranks = tp_spawn(TP_WORLD, "gloo", "phase", tmp,
+                             TP_SPAWN_TIMEOUT)
+            info["spawn_and_run_s"] = time.perf_counter() - t1
+            info["gloo"] = self.tp_check(K, ranks, one, tmp)
+            del one
+            if cards >= 4:
+                info["nccl"] = self.tp_full(K, tmp)
+            else:
+                print(json.dumps({"phase": "tp_serve", "nccl": "not run",
+                                  "why": f"torch.cuda.device_count() is "
+                                         f"{cards}: the full-depth cases run "
+                                         f"a card a rank on four"}),
+                      flush=True)
+        path = self.launches["tp_serve"]
+        for name in ("expert_tickets", "flash_attention"):
+            if not path.get(name):
+                raise AssertionError(f"tp_serve: {name} never launched")
         info["launches"] = path
         info["seconds"] = time.perf_counter() - t0
         return info
@@ -6789,8 +7147,9 @@ def dp_spy_tickets(seen):
 
 
 def dp_time_collectives(torch, spent):
-    """Wrap the sharded step's collectives (the gathers, the
-    reduce-scatters, the all-reduces, the MoE's exchange) so that, while
+    """Wrap the sharded steps' collectives (the gathers, the
+    reduce-scatters, the all-reduces, the MoE's exchange; over "model"
+    too, each under the ``kind`` its caller counts it as) so that, while
     the returned switch's ``"on"`` is true, each call's wall seconds, the
     card synchronised before and after, add to ``spent[kind]``; while it
     is false they run as they are."""
@@ -6808,7 +7167,7 @@ def dp_time_collectives(torch, spent):
             t = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            spent[kind] += time.perf_counter() - t
+            spent[kw.get("kind", kind)] += time.perf_counter() - t
             return out
         return call
     sharding._all_gather_bytes = timed("all_gather",
@@ -6816,6 +7175,7 @@ def dp_time_collectives(torch, spent):
     sharding._all_to_all_bytes = timed("reduce_scatter",
                                        sharding._all_to_all_bytes)
     collectives._sum = timed("reduce", collectives._sum)
+    sharding.all_reduce_ = timed("reduce", sharding.all_reduce_)
     train.all_reduce_ = timed("reduce", train.all_reduce_)
     adamw.all_reduce_ = timed("reduce", adamw.all_reduce_)
     moe.mesh_round_gather = timed("exchange", moe.mesh_round_gather)
@@ -6850,6 +7210,620 @@ def dp_spawn(world, backend, cases, outdir, save):
             p.join()
         raise RuntimeError(f"dp_train {backend} x {world}: {e}; last stages "
                            f"{seen}") from e
+    out = {}
+    for r in range(world):
+        with open(Path(outdir) / f"rank{r}.json") as f:
+            out[r] = json.load(f)
+    return out
+
+
+# -- phase tp_serve: the serve steps over "model" across ranks --------------
+
+
+def tp_setup(case, mesh):
+    """A tp_serve case's config (full width, its depth, the prefill's
+    sequence parallelism on) and its sanitized parameter specs."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    _, arch, layers, _ = case
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                              seq_parallel=True)
+    return cfg, steps.sanitize_pspecs(steps.param_specs(cfg),
+                                      steps.params_struct(cfg), mesh)
+
+
+def tp_gb(tree) -> float:
+    """GB of a tree's tensors."""
+    from repro_torch.tree import tree_leaves
+    return sum(v.numel() * v.element_size() for v in tree_leaves(tree)) / 1e9
+
+
+def tp_cache(torch, cfg, batch, max_seq, mesh, dtype, dev):
+    """This rank's decode ring caches under ``cache_pspecs``' decode cell
+    (sanitized), zeros."""
+    from repro_torch import models
+    from repro_torch.launch import steps
+    struct = models.init_decode_cache(cfg, batch, max_seq, dtype,
+                                      device="meta")
+    specs = steps.sanitize_pspecs(steps.cache_pspecs(cfg, "decode_32k",
+                                                     mesh), struct, mesh)
+    return models.init_decode_cache(cfg, batch, max_seq, dtype, device=dev,
+                                    specs=specs, mesh=mesh)
+
+
+@contextlib.contextmanager
+def tp_spies(seen):
+    """Record the first B7 call's inputs (``seen["attn"]``), the first
+    B6 call's ids and options (``seen["tickets"]``) and the first
+    ``models.moe.route`` call's gates and slots (``seen["route"]``)."""
+    from repro_torch.models import layers, moe
+    real_attn, real_route = layers.flash_attention, moe.route
+
+    def attn(q, k, v, **kw):
+        seen.setdefault("attn", (q.detach().clone(), k.detach().clone(),
+                                 v.detach().clone(), kw))
+        return real_attn(q, k, v, **kw)
+
+    def route(gates, *a, **kw):
+        out = real_route(gates, *a, **kw)
+        seen.setdefault("route", (gates.cpu(), out[0].cpu()))
+        return out
+    tickets = []
+    undo = dp_spy_tickets(tickets)
+    layers.flash_attention, moe.route = attn, route
+    try:
+        yield
+    finally:
+        layers.flash_attention, moe.route = real_attn, real_route
+        undo()
+        if tickets:
+            seen["tickets"] = tickets[0]
+
+
+def tp_steps(torch, cfg, specs, mesh):
+    from repro_torch.launch import steps
+    return (steps.make_prefill_step(cfg, specs, mesh=mesh),
+            steps.make_serve_step(cfg, specs, mesh=mesh))
+
+
+def tp_delta(before):
+    from repro_torch.distributed import COLLECTIVES
+    return {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES
+            if COLLECTIVES[k] - before[k]}
+
+
+#: a tp_serve rank's collective timing: ``dp_time_collectives``' switch
+#: and the seconds it adds up, set once a rank by ``tp_rank``
+TP_TIMING: dict = {}
+
+
+def tp_timed(torch, fn):
+    """``fn()`` with every collective timed (``TP_TIMING``): (its wall
+    seconds, seconds by kind)."""
+    spent, switch = TP_TIMING["spent"], TP_TIMING["switch"]
+    spent.clear()
+    torch.cuda.synchronize()
+    switch["on"] = True
+    t = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        switch["on"] = False
+    return time.perf_counter() - t, dict(spent)
+
+
+def tp_phase_case(torch, case, mesh, dev, outdir, rank):
+    """One rank of a phase case (see TP_CASES): the bfloat16 prefill
+    into the ring caches and TP_DECODE teacher-forced decode steps (the
+    main path: launches and collectives counted), a prefill and a decode
+    step again with the collectives timed, then TP_DECODE float32 steps
+    from an empty cache.  Writes the numbers the parent holds to
+    ``outdir/<label>_rank<rank>.pt``; returns the rank's row."""
+    from repro_torch import models
+    from repro_torch.distributed import COLLECTIVES
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    label, _, _, seed = case
+    cfg, specs = tp_setup(case, mesh)
+    inp = torch.load(Path(outdir) / f"{label}_inputs.pt")
+    tokens, teach = inp["tokens"].to(dev), inp["teacher"].to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = models.init_params_block(cfg, specs, mesh, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pre, serve = tp_steps(torch, cfg, specs, mesh)
+    b, s = tokens.shape
+    plan_p = steps.serve_collectives(cfg, specs, mesh, b * s, seq=s)
+    plan_d = steps.serve_collectives(cfg, specs, mesh, b, decode=True)
+    cache = tp_cache(torch, cfg, b, s + TP_DECODE, mesh, torch.bfloat16, dev)
+    seen = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(COLLECTIVES)
+    with tp_spies(seen):
+        t0 = time.perf_counter()
+        logits, cache = pre(params, {"tokens": tokens}, into=cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        coll = [tp_delta(before)]
+        argmax, walls = [logits.argmax(-1)], []
+        for j in range(TP_DECODE):
+            before = dict(COLLECTIVES)
+            t0 = time.perf_counter()
+            lj, cache = serve(params, cache, teach[:, j:j + 1], s + j)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            coll.append(tp_delta(before))
+            argmax.append(lj.argmax(-1))
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = [{k: v for k, v in p.items() if v} for p in
+            [plan_p] + [plan_d] * TP_DECODE]
+    for i, (got, plan) in enumerate(zip(coll, want)):
+        if got != plan:
+            raise AssertionError(f"tp_serve {label} rank {rank}: step {i} "
+                                 f"collectives {got}, planned {plan}")
+    pre_s, pre_split = tp_timed(torch, lambda: pre(
+        params, {"tokens": tokens}, into=cache))
+    dec_s, dec_split = tp_timed(torch, lambda: serve(
+        params, cache, teach[:, :1], s + TP_DECODE - 1))
+    save = {"prefill": logits.float().cpu(),
+            "argmax": torch.cat(argmax, 1).cpu(),
+            "route": seen.get("route"), "tickets": seen.get("tickets"),
+            "attn": seen.get("attn") if rank == 0 else None}
+    del params, cache, logits, seen
+    torch.cuda.empty_cache()
+    gen.manual_seed(seed)
+    params = models.init_params_block(cfg, specs, mesh, gen, device=dev,
+                                      dtype=torch.float32)
+    cache = tp_cache(torch, cfg, b, TP_DECODE, mesh, torch.float32, dev)
+    f32 = []
+    for j in range(TP_DECODE):
+        lj, cache = serve(params, cache, tokens[:, j:j + 1], j)
+        f32.append(lj.cpu())
+    save["f32"] = torch.cat(f32, 1)
+    torch.save(save, Path(outdir) / f"{label}_rank{rank}.pt")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": b * s / prefill_s,
+            "decode_ms_median": statistics.median(walls) * 1e3,
+            "decode_tokens_per_s": b / statistics.median(walls),
+            "peak_mem_gb": peak, "launches": launches, "plan_prefill":
+            plan_p, "plan_decode": plan_d,
+            "collectives_timed": {"prefill_s": pre_s,
+                                  "prefill_collective_s": pre_split,
+                                  "decode_step_s": dec_s,
+                                  "decode_collective_s": dec_split}}
+
+
+def tp_profile(torch, fn, on: bool = True):
+    """One call of ``fn``, under the profiler where ``on`` (every rank
+    calls it: ``fn`` runs collectives): its wall ms, the card's busy ms
+    and the kernels with the most device time; None where not ``on``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    if not on:
+        fn()
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    times = device_times(prof)
+    busy = sum(times.values()) / 1e3
+    return {"wall_ms": wall * 1e3, "busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3), "top_device_ms":
+            top_ms(times, 8)}
+
+
+def tp_full_yi(torch, mesh, dev, rank):
+    """yi-34b at all 60 layers: TP_BATCH x TP_SEQ prefilled, then
+    TP_FULL_STEPS decode steps at batch TP_YI_DECODE_BATCH over ring
+    caches of TP_YI_CACHE positions filled with random values."""
+    from repro_torch import models
+    from repro_torch.distributed import COLLECTIVES
+    from repro_torch.launch import steps
+    case = ("yi_60", "yi-34b", 60, 41)
+    cfg, specs = tp_setup(case, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(case[3])
+    t0 = time.perf_counter()
+    params = models.init_params_block(cfg, specs, mesh, gen, device=dev)
+    torch.cuda.synchronize()
+    row = {"init_s": time.perf_counter() - t0, "weights_gb": tp_gb(params)}
+    pre, serve = tp_steps(torch, cfg, specs, mesh)
+    tg = torch.Generator().manual_seed(case[3])
+    tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ), generator=tg,
+                           dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre(params, {"tokens": tokens})        # the sub-groups' first use
+    torch.cuda.synchronize()
+    row["first_prefill_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    logits, _ = pre(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    row.update(prefill_s=time.perf_counter() - t0,
+               prefill_collectives=tp_delta(before),
+               prefill_plan=steps.serve_collectives(
+                   cfg, specs, mesh, TP_BATCH * TP_SEQ, seq=TP_SEQ),
+               prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    row["prefill_tokens_per_s"] = TP_BATCH * TP_SEQ / row["prefill_s"]
+    row["prefill_timed"] = tp_timed(torch, lambda: pre(
+        params, {"tokens": tokens}))
+    ok = bool(torch.isfinite(logits).all())
+    del logits
+    torch.cuda.empty_cache()
+    b = TP_YI_DECODE_BATCH
+    cache = tp_cache(torch, cfg, b, TP_YI_CACHE, mesh, torch.bfloat16, dev)
+    for c in cache:
+        for t in c.values():
+            t.normal_(generator=gen)
+    row["cache_gb"] = tp_gb(cache)
+    tok = tokens[:1, :1].expand(b, 1).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    walls, coll, out = [], [], []
+    for j in range(TP_FULL_STEPS):
+        before = dict(COLLECTIVES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lj, cache = serve(params, cache, tok, TP_YI_CACHE - TP_FULL_STEPS + j)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        coll.append(tp_delta(before))
+        tok = lj.argmax(-1).int()
+        out.append(tok.cpu())
+        ok = ok and bool(torch.isfinite(lj).all())
+    row.update(decode_ms_median=statistics.median(walls) * 1e3,
+               decode_tokens_per_s=b / statistics.median(walls),
+               decode_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               decode_collectives=coll[-1],
+               decode_plan=steps.serve_collectives(cfg, specs, mesh, b,
+                                                   decode=True),
+               decode_timed=tp_timed(torch, lambda: serve(
+                   params, cache, tok, TP_YI_CACHE - 1)),
+               decode_profile=tp_profile(torch, lambda: serve(
+                   params, cache, tok, TP_YI_CACHE - 1), rank == 0),
+               finite=ok, tokens=torch.cat(out, 1).tolist())
+    return row
+
+
+def tp_full_gemma(torch, mesh, dev, rank):
+    """gemma2-27b at all 46 layers: TP_LONG tokens (long_500k, batch 1)
+    prefilled with the residual stream split along the sequence into the
+    ring caches (global layers TP_LONG + TP_FULL_STEPS positions, local
+    ones their window), then TP_FULL_STEPS greedy decode steps."""
+    from repro_torch import models
+    from repro_torch.distributed import COLLECTIVES
+    from repro_torch.launch import steps
+    case = ("gemma_46", "gemma2-27b", 46, 42)
+    cfg, specs = tp_setup(case, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(case[3])
+    t0 = time.perf_counter()
+    params = models.init_params_block(cfg, specs, mesh, gen, device=dev)
+    torch.cuda.synchronize()
+    row = {"init_s": time.perf_counter() - t0, "weights_gb": tp_gb(params)}
+    pre, serve = tp_steps(torch, cfg, specs, mesh)
+    tg = torch.Generator().manual_seed(case[3])
+    tokens = torch.randint(0, cfg.vocab, (1, TP_LONG), generator=tg,
+                           dtype=torch.int32).to(dev)
+    cache = tp_cache(torch, cfg, 1, TP_LONG + TP_FULL_STEPS, mesh,
+                     torch.bfloat16, dev)
+    row["cache_gb"] = tp_gb(cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre(params, {"tokens": tokens[:, :8192]})   # the sub-groups' first use
+    torch.cuda.synchronize()
+    row["warmup_prefill_8192_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": tokens}, into=cache)
+    torch.cuda.synchronize()
+    row.update(prefill_s=time.perf_counter() - t0,
+               prefill_collectives=tp_delta(before),
+               prefill_plan=steps.serve_collectives(cfg, specs, mesh,
+                                                    TP_LONG, seq=TP_LONG),
+               prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    row["prefill_tokens_per_s"] = TP_LONG / row["prefill_s"]
+    ok = bool(torch.isfinite(logits).all())
+    tok = logits.argmax(-1).int()
+    walls, coll, out = [], [], [tok.cpu()]
+    torch.cuda.reset_peak_memory_stats()
+    for j in range(TP_FULL_STEPS):
+        before = dict(COLLECTIVES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lj, cache = serve(params, cache, tok, TP_LONG + j)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        coll.append(tp_delta(before))
+        tok = lj.argmax(-1).int()
+        out.append(tok.cpu())
+        ok = ok and bool(torch.isfinite(lj).all())
+    row.update(decode_ms_median=statistics.median(walls) * 1e3,
+               decode_tokens_per_s=1 / statistics.median(walls),
+               decode_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               decode_collectives=coll[-1],
+               decode_plan=steps.serve_collectives(cfg, specs, mesh, 1,
+                                                   decode=True),
+               decode_timed=tp_timed(torch, lambda: serve(
+                   params, cache, tok, TP_LONG + TP_FULL_STEPS - 1)),
+               decode_profile=tp_profile(torch, lambda: serve(
+                   params, cache, tok, TP_LONG + TP_FULL_STEPS - 1),
+                   rank == 0),
+               finite=ok, tokens=torch.cat(out, 1).tolist())
+    return row
+
+
+def tp_moe_serve(torch, cfg, params, dev, serve_fns=None, into=None,
+                 teacher=None, routes=None):
+    """TP_MOE_REQUESTS requests of TP_MOE_PROMPT tokens prefilled as one
+    batch and served TP_MOE_NEW greedy steps, each step's input the last
+    step's argmax, or with ``teacher`` ((R, 1 + TP_MOE_NEW) tokens) the
+    teacher's token: (the argmax tokens (R, 1 + TP_MOE_NEW), the float32
+    logits (R, 1 + TP_MOE_NEW, V) on the host, wall seconds of the
+    prefill and of each decode step).  ``routes``: each
+    ``models.moe.route`` call's expert ids (T, k), keep mask (T, k) and
+    gap between the k-th and (k+1)-th gate (T,) are appended, on the
+    host."""
+    from repro_torch import models
+    from repro_torch.models import moe
+    real = moe.route
+
+    def spy(gates, cfg_, *a, **kw):
+        out = real(gates, cfg_, *a, **kw)
+        if routes is not None:
+            top = gates.topk(cfg_.top_k + 1, dim=-1).values
+            routes.append((out[1].cpu(), (out[0] >= 0).cpu(),
+                           (top[:, -2] - top[:, -1]).cpu()))
+        return out
+    moe.route = spy
+    try:
+        return _tp_moe_serve(torch, cfg, params, dev, serve_fns, into,
+                             teacher)
+    finally:
+        moe.route = real
+
+
+def _tp_moe_serve(torch, cfg, params, dev, serve_fns, into, teacher):
+    from repro_torch import models
+    tg = torch.Generator().manual_seed(43)
+    prompts = torch.randint(0, cfg.vocab, (TP_MOE_REQUESTS, TP_MOE_PROMPT),
+                            generator=tg, dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if serve_fns is None:
+        logits, kv = models.prefill(params, prompts, cfg)
+        cache = models.init_decode_cache(cfg, TP_MOE_REQUESTS,
+                                         TP_MOE_PROMPT + TP_MOE_NEW,
+                                         torch.float32, device=dev)
+        for i in range(cfg.n_layers):
+            models.transformer.fill_rings(cache, i, kv["k"][i], kv["v"][i])
+
+        def serve(c, t, cur):
+            return models.decode_step(params, c, t, cur, cfg)
+    else:
+        pre, step = serve_fns
+        logits, cache = pre(params, {"tokens": prompts}, into=into)
+
+        def serve(c, t, cur):
+            return step(params, c, t, cur)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, lg, walls = [logits.argmax(-1).int()], [logits.cpu()], []
+    for j in range(TP_MOE_NEW):
+        tok = out[-1] if teacher is None else teacher[:, j:j + 1].to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lj, cache = serve(cache, tok, TP_MOE_PROMPT + j)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out.append(lj.argmax(-1).int())
+        lg.append(lj.cpu())
+    return torch.cat(out, 1).cpu(), torch.cat(lg, 1), prefill_s, walls
+
+
+def tp_full_moe(torch, mesh, dev, rank, outdir):
+    """deepseek-moe-16b at all 28 layers in float32: tp_moe_serve on the
+    rank's blocks, teacher-forced with the one-card serve's tokens
+    (``outdir/moe_teacher.pt``); rank 0 writes its logits to
+    ``outdir/moe_logits.pt``."""
+    from repro_torch import models
+    from repro_torch.distributed import COLLECTIVES
+    from repro_torch.launch import steps
+    case = ("moe_28", "deepseek-moe-16b", 28, 44)
+    cfg, specs = tp_setup(case, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(case[3])
+    params = models.init_params_block(cfg, specs, mesh, gen, device=dev,
+                                      dtype=torch.float32)
+    fns = tp_steps(torch, cfg, specs, mesh)
+    cache = tp_cache(torch, cfg, TP_MOE_REQUESTS, TP_MOE_PROMPT + TP_MOE_NEW,
+                     mesh, torch.float32, dev)
+    teacher = torch.load(Path(outdir) / "moe_teacher.pt")
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(COLLECTIVES)
+    routes = []
+    toks, logits, prefill_s, walls = tp_moe_serve(
+        torch, cfg, params, dev, fns, into=cache, teacher=teacher,
+        routes=routes)
+    if rank == 0:
+        torch.save({"logits": logits, "routes": routes},
+                   Path(outdir) / "moe_logits.pt")
+    return {"tokens": toks.tolist(), "prefill_s": prefill_s,
+            "prefill_tokens_per_s": TP_MOE_REQUESTS * TP_MOE_PROMPT
+            / prefill_s,
+            "decode_ms_median": statistics.median(walls) * 1e3,
+            "decode_tokens_per_s": TP_MOE_REQUESTS / statistics.median(walls),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives": tp_delta(before),
+            "plan": {"prefill": steps.serve_collectives(
+                cfg, specs, mesh, TP_MOE_REQUESTS * TP_MOE_PROMPT,
+                seq=TP_MOE_PROMPT), "decode": steps.serve_collectives(
+                    cfg, specs, mesh, TP_MOE_REQUESTS, decode=True)}}
+
+
+def tp_moe_check(torch, toks, logits, routes, got_tokens, got):
+    """deepseek-moe-16b's serve on four ranks (teacher-forced) against one
+    card's: every routing call's expert choices (each token's set of k
+    experts; their order moves no slot) and keep masks equal, but
+    where the one card's gap between its k-th and (k+1)-th gate is below
+    TP_GATE_TIE (a tie the sums over "model" may break the other way), or
+    in a request an earlier tie touched, or (keep masks) in a call with
+    such a flip; a request so touched is left out, and every other
+    request's
+    float32 logits within TP_F32_LOGITS of one card's and its argmax
+    equal wherever the one card's top two logits are TP_F32_MARGIN apart.
+    At most TP_MOE_TIED requests may be left out.  Returns the check's
+    numbers (``check_*``); raises on a failure."""
+    r, n = TP_MOE_REQUESTS, TP_MOE_PROMPT
+    mine = got["routes"]
+    if len(mine) != len(routes):
+        raise AssertionError(f"tp_serve nccl moe_28: {len(mine)} routing "
+                             f"calls on the ranks, {len(routes)} on one "
+                             f"card")
+    def by_expert(e, k):   # a token's choices as a set: its k in any order
+        order = e.argsort(-1)
+        return e.gather(-1, order), k.gather(-1, order)
+    tied, flips, largest_gap = set(), 0, None
+    for i, ((e1, k1, gap), (e2, k2, _)) in enumerate(zip(routes, mine)):
+        (e1, k1), (e2, k2) = by_expert(e1, k1), by_expert(e2, k2)
+        flipped = (e1 != e2).any(-1)                          # (T,)
+        moved = flipped | (k1 != k2).any(-1)
+        if not bool(moved.any()):
+            continue
+        per_row = n if e1.shape[0] == r * n else 1            # prefill
+        req = torch.arange(e1.shape[0]) // per_row
+        known = torch.tensor([int(q) in tied for q in req])
+        fresh = flipped & ~known      # a flip no earlier tie explains
+        if bool(fresh.any()):
+            g = float(gap[fresh].max())
+            largest_gap = g if largest_gap is None else max(largest_gap, g)
+            if g >= TP_GATE_TIE:
+                raise AssertionError(
+                    f"tp_serve nccl moe_28: routing call {i} chose other "
+                    f"experts where the one card's gates are {g} apart")
+        if not bool(flipped.any()):
+            raise AssertionError(f"tp_serve nccl moe_28: routing call {i} "
+                                 f"kept other pairs with the same experts")
+        flips += int(fresh.sum())
+        # a flip moves later tickets of its dispatch group, and a tied
+        # request's later steps may route anywhere: every request whose
+        # choice or keep mask moved is left out from here on
+        tied |= {int(q) for q in req[moved]}
+    if len(tied) > TP_MOE_TIED:
+        raise AssertionError(f"tp_serve nccl moe_28: {len(tied)} requests "
+                             f"touched by routing ties")
+    keep = torch.tensor([i not in tied for i in range(r)])
+    diff = float((got["logits"] - logits)[keep].abs().max())
+    top2 = logits.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) >= TP_F32_MARGIN) & keep[:, None]
+    same = torch.tensor(got_tokens) == toks
+    if not diff <= TP_F32_LOGITS:
+        raise AssertionError(f"tp_serve nccl moe_28: logits {diff} off the "
+                             f"one-card serve's in the untied requests")
+    if not bool(same[clear].all()):
+        raise AssertionError("tp_serve nccl moe_28: a token differs from the "
+                             "one-card serve's where its top two are "
+                             f"{TP_F32_MARGIN} apart")
+    return {"check_routing_calls": len(routes), "check_flipped_pairs": flips,
+            "check_largest_gap_of_a_flip": largest_gap,
+            "check_tied_requests": sorted(tied),
+            "check_logits_max_abs_untied": diff,
+            "check_logits_max_abs_all": float(
+                (got["logits"] - logits).abs().max()),
+            "check_tokens_checked": int(clear.sum()),
+            "check_tokens_equal": int(same.sum()),
+            "check_tokens": int(same.numel())}
+
+
+def tp_rank(rank, world, backend, store, outdir, mode):
+    """One rank of phase tp_serve: a ``backend`` group of ``world`` ranks
+    on a (1, world) mesh, card 0 (gloo) or card ``rank`` (NCCL); ``mode``
+    "phase" runs TP_CASES (``tp_phase_case``), "full" the four-card
+    cases at full depth.  Writes its rows to ``outdir/rank<rank>.json``
+    and its last stage to ``outdir/rank<rank>.stage``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import make_mesh
+
+    def mark(stage):
+        (Path(outdir) / f"rank{rank}.stage").write_text(stage)
+    mark("started")
+    spent = collections.Counter()
+    TP_TIMING.update(spent=spent, switch=dp_time_collectives(torch, spent))
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"),
+                         group=dist.group.WORLD)
+        with torch.no_grad():
+            if mode == "phase":
+                for case in TP_CASES:
+                    mark(case[0])
+                    out[case[0]] = tp_phase_case(torch, case, mesh, dev,
+                                                 outdir, rank)
+            else:
+                for name, fn in (("yi_60", tp_full_yi),
+                                 ("gemma_46", tp_full_gemma),
+                                 ("moe_28", lambda *a: tp_full_moe(
+                                     *a, outdir))):
+                    mark(name)
+                    out[name] = fn(torch, mesh, dev, rank)
+                    torch.cuda.empty_cache()
+        mark("barrier")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(outdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mark("done")
+
+
+def tp_spawn(world, backend, mode, outdir, timeout):
+    """``tp_rank`` on ``world`` spawned ranks, joined, or killed after
+    ``timeout`` seconds; a rank that fails or runs out of time raises
+    with every rank's last stage.  Returns {rank: rows}."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        tp_rank, args=(world, backend, str(Path(outdir) / "store"), outdir,
+                       mode), nprocs=world, join=False, start_method="spawn")
+
+    def stages():
+        return {r: (Path(outdir) / f"rank{r}.stage").read_text()
+                if (Path(outdir) / f"rank{r}.stage").exists()
+                else "not started" for r in range(world)}
+
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"ran past {timeout} s")
+    except Exception as e:
+        seen = stages()
+        for p in ctx.processes:
+            p.kill()
+        for p in ctx.processes:
+            p.join()
+        raise RuntimeError(f"tp_serve {backend} x {world} {mode}: {e}; last "
+                           f"stages {seen}") from e
     out = {}
     for r in range(world):
         with open(Path(outdir) / f"rank{r}.json") as f:
@@ -7007,6 +7981,12 @@ def main() -> int:
     # sharing the card, each case against the one-card step
     torch.cuda.empty_cache()
     emit_phase(smoke.dp_train_path(K))
+
+    # tp_serve. the serve steps over "model" (tensor, expert and vocabulary
+    # parallelism, the prefill's sequence split) on gloo ranks sharing the
+    # card, each case against the one-card steps on the same weights
+    torch.cuda.empty_cache()
+    emit_phase(smoke.tp_serve_path(K))
 
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()
@@ -7589,6 +8569,43 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
         sub4[name] = {"ms": kern[0], "wall_ms": kern[1],
                       "plain_ms": plain[1], "bound_ms": b, "bound_by": by,
                       "chain_bound_ms": chain}
+    # B4 past arity 8 (the runtime-arity instance, no shared-memory top):
+    # the same pop and insert calls on a 2^20-slot heap of the same
+    # occupancy at each wide arity; a pop level reads all d child keys
+    wide4 = {}
+    for a in HEAP_ARITIES:
+        if a in K.TOP_ARITY_LOG2:
+            continue
+        d4 = 1 << a
+        wk = torch.full((1 << c4,), KEY_INF, **card)
+        wv = torch.full((1 << c4,), -1, **card)
+        K.heap_apply(wk, wv, 0, torch.zeros(occ, **card), seed, seed,
+                     cap_log2=c4, arity_log2=a)
+        lv = max(int(np.ceil(np.log((d4 - 1) * occ + 1) / np.log(d4))), 1)
+
+        def wide_setup(wk=wk, wv=wv):
+            return [wk.clone(), wv.clone(), torch.tensor(occ, **card)]
+
+        def wide_call(fn, batch, a=a):
+            def launch(st, i):
+                st[2] = fn(st[0], st[1], st[2], *batch, cap_log2=c4,
+                           arity_log2=a)[2]
+            return launch
+        wide = {}
+        for name, batch, nbytes, ops in (
+                ("pop", pops, BATCH * (4 + 9 + 24 + lv * (4 * d4 + 12)) + 8,
+                 BATCH * lv * d4),
+                ("insert", inserts, ins_bytes, n_act4)):
+            kern = smoke.time_ms(wide_setup, wide_call(K.heap_apply, batch),
+                                 iters=10, reps=3)
+            plain = smoke.time_ms(wide_setup,
+                                  wide_call(K.heap_apply_plain, batch),
+                                  iters=1, reps=1)
+            b, by = bound(nbytes, ops, ALU_OPS_PER_S)
+            wide[name] = {"ms": kern[0], "wall_ms": kern[1],
+                          "plain_ms": plain[1], "bound_ms": b,
+                          "bound_by": by}
+        wide4[f"arity_log2_{a}"] = dict(wide, levels=lv)
     row("heap_apply", csrc + "heap_batch.cu",
         "src/repro/kernels/heap_batch.py:47",
         ((sub4["pop"]["ms"] + sub4["insert"]["ms"]) / 2,
@@ -7602,7 +8619,8 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
          "insert_active": n_act4, "plain_ms_is": "wall (host loop)",
          "ms_is": "mean of a pop call and an insert call",
          "pop": sub4["pop"], "insert": sub4["insert"],
-         "chain_bound_ms": (pop_chain_ms + ins_chain_ms) / 2})
+         "chain_bound_ms": (pop_chain_ms + ins_chain_ms) / 2,
+         "wide_arities": wide4})
 
     # B4's rider instance (spans on): the same batches with a rider plane
     # of zeros and the inserts' rider one device word, as the spanned

@@ -22,9 +22,10 @@ either backend (``runtime.enginecore``).
 
 ``COLLECTIVES`` counts the group form's calls: ``exchange`` one a
 round's gather, ``gather`` one an end-of-run gather of per-rank state
-(``gather_rows``), ``reduce`` one a gradient all-reduce, and
-``all_gather`` / ``reduce_scatter`` those of the sharded train step
-(``sharding``).  Importing this module starts no process group.
+(``gather_rows``), ``reduce`` one a gradient all-reduce,
+``all_gather`` / ``reduce_scatter`` those of the sharded train step and
+the serve steps' FSDP gathers, and ``tp_reduce`` / ``tp_gather`` /
+``tp_scatter`` those of the serve steps over "model" (``sharding``).  Importing this module starts no process group.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from . import compression
 
 #: collective calls of the group form, by kind (see the module doc)
 COLLECTIVES: Dict[str, int] = {"exchange": 0, "gather": 0, "reduce": 0,
-                               "all_gather": 0, "reduce_scatter": 0}
+                               "all_gather": 0, "reduce_scatter": 0,
+                               "tp_reduce": 0, "tp_gather": 0,
+                               "tp_scatter": 0}
 
 
 @dataclass(frozen=True)

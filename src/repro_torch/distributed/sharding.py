@@ -1,22 +1,28 @@
-"""The data axis across ranks: what GSPMD does for the reference's
-sharded train step, written out for the port.
+"""The data and model axes across ranks: what GSPMD does for the
+reference's sharded train, prefill and serve steps, written out for the
+port.
 
 The reference lays parameters, optimizer state and batches over a
 ``jax`` mesh by PartitionSpecs (``repro/models/*: *_specs``,
 ``repro/launch/steps.py``) and leaves the collectives to GSPMD.  The port
-runs one rank a shard of the data-parallel axes (``make_mesh(...,
-group=)``, ``"pod"`` and ``"data"``) and issues them itself:
+runs one rank a shard of a group-bound mesh (``make_mesh(...,
+group=)``: the data-parallel axes ``"pod"`` and ``"data"``, and
+``"model"``, the last axis, for the serve steps) and issues them
+itself:
 
 * ``P`` — the port's PartitionSpec: one entry a dimension (None, an axis
   name or a tuple of names), normalised as ``jax.sharding.PartitionSpec``
   normalises (a one-name tuple becomes the name, an empty one None).  It
   is not a tuple, so ``repro_torch.tree`` takes it as a leaf.
 * ``data_dim`` — the dimension a (sanitized) spec shards over the
-  data-parallel axes, or None for a leaf every rank holds whole.  A
-  ``"model"`` axis above 1 (tensor, expert and sequence parallelism) is
-  refused by name.
-* ``shard`` — rank r's block of a leaf; ``unshard_tree`` — a tree of
-  blocks whole again on every rank, in one collective (``gather_rows``).
+  data-parallel axes, or None for a leaf every rank holds whole; a
+  ``"model"`` axis above 1 is refused by name unless the caller takes it
+  (``model_ok``, the serve steps).  ``model_dim`` — the dimension it
+  shards over ``"model"``.  A leaf may be sharded on two dimensions:
+  ``P("data", "model")`` under FSDP.
+* ``shard`` — rank r's block of a leaf (over both axes);
+  ``unshard_tree`` — a tree of blocks whole again on every rank, in one
+  collective (``gather_rows``).
 * ``gather`` — every rank's blocks of some leaves into whole leaves, as an
   autograd Function: one all-gather in the forward, and in the backward
   one reduce-scatter: each rank sends rank j the j-th block of its
@@ -26,6 +32,12 @@ group=)``, ``"pod"`` and ``"data"``) and issues them itself:
   block with no collective.
 * ``all_reduce_`` — the sum over the ranks in place (replicated leaves'
   gradients, the loss and the norm).
+* ``TensorParallel`` — a rank's place in the serve steps over a
+  ("data", "model") mesh: the sanitized specs, one sub-group a data index
+  for the model axis and one a model index for the data axis, and the
+  model axis's collectives (``all_reduce``, ``all_gather``,
+  ``reduce_scatter``, each over that axis's sub-group only).  Sums over
+  "model" run in float32 and are rounded once to the activations' type.
 
 The gradients are reduced in float32: the ranks' terms travel in the
 leaf's own type (bfloat16 in training), a rank adds the S terms of its
@@ -35,23 +47,29 @@ all-reduced (``launch.train``).  The gathers and the all-to-alls move
 bytes, so nothing is rounded on the way.  Over NCCL the buffers stay on
 the card; over gloo each goes through the host, as
 ``collectives._reduce`` does.  ``COLLECTIVES`` counts ``all_gather``,
-``reduce_scatter`` and ``reduce`` (an all-reduce).  Importing this
-module starts no process group.
+``reduce_scatter`` and ``reduce`` (an all-reduce) over the data axes,
+and ``tp_reduce``, ``tp_gather`` and ``tp_scatter`` over "model".
+Importing this module starts no process group (``TensorParallel`` makes
+its sub-groups, once a mesh).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..tree import tree_leaves, tree_map
 from .collectives import (COLLECTIVES, Mesh, gather_rows, host_copy,
-                          host_empty)
+                          host_empty, make_mesh)
 
 #: the mesh axes the batch and the FSDP shards are laid over
 DP_AXES = ("pod", "data")
+#: the tensor-parallel axis (heads, FFN columns, experts, vocabulary)
+MODEL = "model"
+#: the families the serve steps run over "model"
+TP_FAMILIES = ("dense", "moe")
 
 
 def _norm(entry):
@@ -106,28 +124,53 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def data_dim(spec: P, mesh: Mesh) -> Optional[int]:
+def data_dim(spec: P, mesh: Mesh, *, model_ok: bool = False
+             ) -> Optional[int]:
     """The dimension ``spec`` shards over the mesh's data-parallel axes
     (None when it names none of size above 1).  Raises on a ``"model"``
-    axis above 1, which the port does not shard over."""
+    axis above 1 unless ``model_ok`` (the serve steps, which take it;
+    the train step does not), and on a dimension sharded over both."""
     sizes = mesh.shape
     dim = None
     for i, entry in enumerate(spec):
-        for a in _axes(entry):
+        axes = _axes(entry)
+        for a in axes:
             if a not in sizes:
                 raise ValueError(f"spec {spec!r} names axis {a!r}, which the "
                                  f"mesh {sizes} does not have")
             if sizes[a] <= 1:
                 continue
             if a not in DP_AXES:
+                if a == MODEL and model_ok:
+                    if any(b in DP_AXES and sizes[b] > 1 for b in axes):
+                        raise ValueError(
+                            f"spec {spec!r} shards dimension {i} over the "
+                            f"data and model axes at once (cache_pspecs' "
+                            f"sequence-sharded branch is not ported)")
+                    continue
                 raise ValueError(
                     f"spec {spec!r} shards over {a!r} of size {sizes[a]}: "
-                    f"the port shards over the data axis only (tensor, "
-                    f"expert and sequence parallelism over \"model\" are "
-                    f"not ported)")
+                    f"the train step shards over the data axis only "
+                    f"(tensor, expert and sequence parallelism over "
+                    f"\"model\" are not ported for training)")
             if dim is not None and dim != i:
                 raise ValueError(f"spec {spec!r} shards two dimensions over "
                                  f"the data axis")
+            dim = i
+    return dim
+
+
+def model_dim(spec: P, mesh: Mesh) -> Optional[int]:
+    """The dimension ``spec`` shards over ``"model"`` (None when it does
+    not, or the mesh's "model" is 1)."""
+    if mesh.shape.get(MODEL, 1) <= 1:
+        return None
+    dim = None
+    for i, entry in enumerate(spec):
+        if MODEL in _axes(entry):
+            if dim is not None:
+                raise ValueError(f"spec {spec!r} shards two dimensions over "
+                                 f"\"model\"")
             dim = i
     return dim
 
@@ -147,15 +190,37 @@ def dp_size(mesh: Mesh) -> int:
     return n
 
 
-def check_mesh(mesh: Mesh) -> None:
-    """A mesh the port trains over: its ranks are the data-parallel
-    shards, and no other axis has more than one."""
+def model_size(mesh: Mesh) -> int:
+    """Shards of the "model" axis."""
+    return mesh.shape.get(MODEL, 1)
+
+
+def check_mesh(mesh: Mesh, cfg=None, *, serve: bool = False) -> None:
+    """A mesh the port runs over.  Training: its ranks are the
+    data-parallel shards, and no other axis has more than one.  Serving
+    (``serve``): "model" may have more, as the mesh's last axis, for
+    ``cfg``'s family if it is dense or moe."""
     for a, s in mesh.shape.items():
-        if a not in DP_AXES and s > 1:
+        if a in DP_AXES or s <= 1:
+            continue
+        if a != MODEL:
+            raise ValueError(f"mesh {mesh.shape}: axis {a!r} has {s} "
+                             f"shards; the port shards over the data and "
+                             f"model axes only")
+        if not serve:
             raise ValueError(
-                f"mesh {mesh.shape}: axis {a!r} has {s} shards; the port "
-                f"shards over the data axis only (tensor, expert and "
-                f"sequence parallelism over \"model\" are not ported)")
+                f"mesh {mesh.shape}: axis {a!r} has {s} shards; the train "
+                f"step shards over the data axis only (tensor, expert and "
+                f"sequence parallelism over \"model\" are not ported for "
+                f"training)")
+        if mesh.axis_names[-1] != MODEL:
+            raise ValueError(f"mesh {mesh.axis_names}: \"model\" must be "
+                             f"the last axis")
+        if cfg is not None and cfg.family not in TP_FAMILIES:
+            raise ValueError(
+                f"{cfg.name}: the {cfg.family} family over \"model\" is "
+                f"not ported (the serve steps run {', '.join(TP_FAMILIES)} "
+                f"over it)")
 
 
 def _rank(mesh: Mesh) -> int:
@@ -166,30 +231,78 @@ def _rank(mesh: Mesh) -> int:
     return r
 
 
+def coords(mesh: Mesh, rank: int) -> Tuple[int, int]:
+    """(data-parallel index, model index) of ``rank``: the ranks lie
+    row-major over the mesh's axes, as the reference's devices do."""
+    idx, r = {}, rank
+    for a, s in reversed(tuple(zip(mesh.axis_names, mesh.sizes))):
+        idx[a], r = r % s, r // s
+    d = 0
+    for a in DP_AXES:
+        if a in idx:
+            d = d * mesh.shape[a] + idx[a]
+    return d, idx.get(MODEL, 0)
+
+
+def block_cuts(spec: P, mesh: Mesh, rank: int):
+    """[(dimension, shards, this rank's index)] of ``spec``'s sharded
+    dimensions: the data-parallel one and the model one."""
+    d, m = coords(mesh, rank)
+    cuts = []
+    dd = data_dim(spec, mesh, model_ok=True)
+    if dd is not None:
+        cuts.append((dd, dp_size(mesh), d))
+    md = model_dim(spec, mesh)
+    if md is not None:
+        cuts.append((md, model_size(mesh), m))
+    return cuts
+
+
 def shard(x: torch.Tensor, spec: P, mesh: Mesh, rank: Optional[int] = None):
     """Rank ``rank``'s block of ``x`` under ``spec`` (this process's rank
-    by default): a view, or ``x`` itself for a replicated leaf."""
-    dim = data_dim(spec, mesh)
-    if dim is None:
-        return x
-    n = dp_size(mesh)
-    if x.shape[dim] % n:
-        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split "
-                         f"into {n} shards: sanitize the spec first")
-    r = _rank(mesh) if rank is None else rank
-    blk = x.shape[dim] // n
-    return x.narrow(dim, r * blk, blk)
+    by default), over the data and the model axes: a view, or ``x``
+    itself for a replicated leaf."""
+    r = _rank(mesh) if rank is None and (
+        data_dim(spec, mesh, model_ok=True) is not None
+        or model_dim(spec, mesh) is not None) else rank
+    for dim, n, i in block_cuts(spec, mesh, r or 0):
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"split into {n} shards: sanitize the spec "
+                             f"first")
+        blk = x.shape[dim] // n
+        x = x.narrow(dim, i * blk, blk)
+    return x
+
+
+def _assemble(rows: torch.Tensor, dd, md, mesh: Mesh) -> torch.Tensor:
+    """Every rank's block of one leaf, stacked (S, ...) in rank order,
+    as the whole leaf: blocks along ``md`` over "model", along ``dd``
+    over the data axes."""
+    n, m = dp_size(mesh), model_size(mesh)
+    if mesh.axis_names[-1] != MODEL and m > 1:
+        raise ValueError("unshard_tree: \"model\" must be the last axis")
+    t = rows.reshape((n, m) + tuple(rows.shape[1:]))
+    t = t[:, 0] if md is None else t.movedim(1, 1 + md).flatten(1 + md,
+                                                                2 + md)
+    return t[0] if dd is None else t.movedim(0, dd).flatten(dd, dd + 1)
 
 
 def unshard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     """Every rank's blocks of ``tree`` back into whole leaves, on every
     rank: one collective (``gather_rows``) for the sharded leaves; a
     replicated leaf is this rank's own."""
-    leaves, dims = tree_leaves(tree), leaf_dims(tree, specs, mesh)
-    sharded = [x for x, d in zip(leaves, dims) if d is not None]
+    leaves = tree_leaves(tree)
+    dims = tree_leaves(tree_map(
+        lambda x, s: (data_dim(s, mesh, model_ok=True), model_dim(s, mesh)),
+        tree, specs))
+    dims = [dims[i:i + 2] for i in range(0, len(dims), 2)]
+    sharded = [x for x, (dd, md) in zip(leaves, dims)
+               if dd is not None or md is not None]
     rows = iter(gather_rows(sharded, mesh)) if sharded else iter(())
-    whole = [x if d is None else next(rows).movedim(0, d).flatten(d, d + 1)
-             for x, d in zip(leaves, dims)]
+    whole = [x if dd is None and md is None
+             else _assemble(next(rows), dd, md, mesh)
+             for x, (dd, md) in zip(leaves, dims)]
     it = iter(whole)
     return tree_map(lambda x: next(it), tree)
 
@@ -203,20 +316,22 @@ def _gloo(mesh: Mesh) -> bool:
     return dist.get_backend(mesh.group) == "gloo"
 
 
-def all_reduce_(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def all_reduce_(x: torch.Tensor, mesh: Mesh, *,
+                kind: str = "reduce") -> torch.Tensor:
     """``x`` summed over the ranks, in place (through the host over
-    gloo); returns ``x``."""
+    gloo), counted as ``kind``; returns ``x``."""
     if _gloo(mesh) and x.device.type != "cpu":
         host = host_copy(x)
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
         x.copy_(host)
     else:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
-    COLLECTIVES["reduce"] += 1
+    COLLECTIVES[kind] += 1
     return x
 
 
-def _all_gather_bytes(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _all_gather_bytes(flat: torch.Tensor, mesh: Mesh, *,
+                      kind: str = "all_gather") -> torch.Tensor:
     """This rank's (n,) uint8 buffer -> every rank's, (S, n)."""
     n, s = flat.numel(), mesh.size
     if _gloo(mesh):
@@ -226,11 +341,12 @@ def _all_gather_bytes(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     else:
         out = torch.empty((s, n), dtype=flat.dtype, device=flat.device)
         dist.all_gather_into_tensor(out, flat, group=mesh.group)
-    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES[kind] += 1
     return out
 
 
-def _all_to_all_bytes(rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _all_to_all_bytes(rows: torch.Tensor, mesh: Mesh, *,
+                      kind: str = "reduce_scatter") -> torch.Tensor:
     """(S, n) uint8 rows on this rank, row j for rank j -> (S, n): row r
     what rank r sent this rank."""
     if _gloo(mesh):
@@ -240,14 +356,15 @@ def _all_to_all_bytes(rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     else:
         out = torch.empty_like(rows)
         dist.all_to_all_single(out, rows, group=mesh.group)
-    COLLECTIVES["reduce_scatter"] += 1
+    COLLECTIVES[kind] += 1
     return out
 
 
-def _whole(blocks: Sequence[torch.Tensor], dims, mesh: Mesh):
+def _whole(blocks: Sequence[torch.Tensor], dims, mesh: Mesh, *,
+           kind: str = "all_gather"):
     flat = torch.cat([b.contiguous().reshape(-1).view(torch.uint8)
                       for b in blocks])
-    rows = _all_gather_bytes(flat, mesh)
+    rows = _all_gather_bytes(flat, mesh, kind=kind)
     out, off = [], 0
     for b, d in zip(blocks, dims):
         nb = b.numel() * b.element_size()
@@ -258,14 +375,20 @@ def _whole(blocks: Sequence[torch.Tensor], dims, mesh: Mesh):
     return out
 
 
-def _blocks(grads, blocks, dims, mesh: Mesh, summed: bool):
+def _blocks(grads, blocks, dims, mesh: Mesh, summed: bool, *,
+            kind: str = "reduce_scatter"):
+    """Each rank's block (``blocks``: its shape and type) of the whole
+    ``grads`` summed over the ranks: the blocks travel in their own type
+    (one all-to-all, counted as ``kind``) and are summed in float32 on
+    the receiving rank, rounded once; with ``summed=False`` this rank's
+    block with no collective."""
     s = mesh.size
     rows = torch.cat([g.to(b.dtype).unflatten(d, (s, g.shape[d] // s))
                       .movedim(d, 0).contiguous().reshape(s, -1)
                       .view(torch.uint8)
                       for g, b, d in zip(grads, blocks, dims)], dim=1)
     if summed:
-        rows = _all_to_all_bytes(rows, mesh)
+        rows = _all_to_all_bytes(rows, mesh, kind=kind)
     else:
         rows = rows[_rank(mesh)][None]
     out, off = [], 0
@@ -338,3 +461,150 @@ class DataParallel:
     @property
     def size(self) -> int:
         return dp_size(self.mesh)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: the serve steps' tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: sub-groups made for a mesh: (group, sizes) -> (model groups, data groups)
+_SUBGROUPS: Dict[Any, Tuple[list, list]] = {}
+
+
+def _subgroups(mesh: Mesh):
+    """One process group a data index over its model ranks and one a
+    model index over its data ranks, each made once a mesh by every rank
+    in the same order (a sub-group of one rank is None)."""
+    key = (mesh.group, mesh.sizes)
+    if key not in _SUBGROUPS:
+        n, m = dp_size(mesh), model_size(mesh)
+        world = [dist.get_global_rank(mesh.group, r) if mesh.group is not
+                 dist.group.WORLD else r for r in range(mesh.size)]
+        by = {}
+        for r in range(mesh.size):
+            by.setdefault(coords(mesh, r), world[r])
+        model = [dist.new_group([by[(d, j)] for j in range(m)])
+                 if m > 1 else None for d in range(n)]
+        data = [dist.new_group([by[(d, j)] for d in range(n)])
+                if n > 1 else None for j in range(m)]
+        _SUBGROUPS[key] = (model, data)
+    return _SUBGROUPS[key]
+
+
+class TensorParallel:
+    """A rank's place in the serve steps over a group-bound ("data",
+    "model") mesh: ``specs`` the sanitized parameter specs (this rank
+    holds their blocks), ``kv_spec`` the sanitized spec of its decode
+    cache's K and V (B, S, kv, hd), ``model_mesh`` and ``data_mesh`` the
+    meshes over this rank's sub-groups (None where the axis has one
+    shard; ``data_mesh`` keeps the mesh's axis names, "model" of size
+    1), ``m`` / ``d`` its model and data-parallel indices, ``sp`` whether
+    the residual stream is split along the sequence over "model" between
+    layers (``with_sp``: a prefill with ``cfg.seq_parallel``), and
+    ``batch_sharded`` whether the batch rows are split over the data
+    axes."""
+
+    def __init__(self, mesh: Mesh, cfg, specs: Any, kv_spec: P, *,
+                 batch_sharded: bool = True):
+        check_mesh(mesh, cfg, serve=True)
+        if cfg.family not in TP_FAMILIES and mesh.size > 1:
+            raise ValueError(
+                f"{cfg.name}: the {cfg.family} family's serve steps across "
+                f"ranks are not ported (the serve steps run "
+                f"{', '.join(TP_FAMILIES)} over \"data\" and \"model\")")
+        rank = _rank(mesh)
+        self.mesh, self.specs, self.kv_spec = mesh, specs, kv_spec
+        self.model, self.data = model_size(mesh), dp_size(mesh)
+        self.d, self.m = coords(mesh, rank)
+        model, data = _subgroups(mesh)
+        self.model_mesh = (None if self.model == 1 else
+                           make_mesh((self.model,), (MODEL,),
+                                     group=model[self.d]))
+        self.data_mesh = (None if self.data == 1 else make_mesh(
+            tuple(1 if a == MODEL else s for a, s in zip(mesh.axis_names,
+                                                         mesh.sizes)),
+            mesh.axis_names, group=data[self.m]))
+        self.sp = False
+        self.batch_sharded = batch_sharded
+
+    def route(self) -> Dict[str, Any]:
+        """``moe_forward``'s dispatch groups on this rank: the data
+        sub-group's when the batch is split over it, its count of groups
+        when every rank holds the batch, none on one data shard."""
+        if self.data_mesh is None:
+            return {}
+        return ({"mesh": self.data_mesh} if self.batch_sharded
+                else {"groups": self.data})
+
+    def with_sp(self, sp: bool) -> "TensorParallel":
+        """The same place with sequence parallelism on or off."""
+        out = object.__new__(TensorParallel)
+        out.__dict__.update(self.__dict__)
+        out.sp = bool(sp) and self.model > 1
+        return out
+
+    def split(self, spec: P) -> bool:
+        """Whether a leaf under ``spec`` is cut over "model"."""
+        return model_dim(spec, self.mesh) is not None
+
+    def gather_data(self, tree: Any, specs: Any, lead: int = 0) -> Any:
+        """``tree`` (this rank's blocks) with every leaf cut over the data
+        axes whole along it (FSDP): ``gather_tree`` over the data
+        sub-group."""
+        if self.data_mesh is None:
+            return tree
+        return gather_tree(tree, specs, self.data_mesh, lead=lead)
+
+    # -- the model axis's collectives ----------------------------------------
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over "model", in float32, rounded once to
+        ``x``'s type."""
+        y = all_reduce_(x.to(torch.float32, copy=True), self.model_mesh,
+                        kind="tp_reduce")
+        return y.to(x.dtype)
+
+    def all_gather(self, xs: Sequence[torch.Tensor], dims: Sequence[int]):
+        """This rank's blocks of some tensors, each cut along its entry of
+        ``dims`` over "model", as the whole tensors: ONE all-gather of
+        their bytes."""
+        return _whole(list(xs), list(dims), self.model_mesh,
+                      kind="tp_gather")
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``x`` over "model", this rank's block of it along
+        ``dim``: ONE all-to-all of the ranks' blocks in ``x``'s own type
+        (half a float32 reduce-scatter's bytes for bfloat16), summed in
+        float32 on this rank and rounded once (``_blocks``)."""
+        shape = list(x.shape)
+        shape[dim] //= self.model
+        blk = torch.empty(shape, dtype=x.dtype, device="meta")
+        return _blocks([x], [blk], [dim], self.model_mesh, True,
+                       kind="tp_scatter")[0]
+
+    # -- the residual stream -------------------------------------------------
+
+    def seq_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole (B, S, d) along the sequence."""
+        return x.chunk(self.model, 1)[self.m]
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's (B, S/M, d) block whole along the sequence (under
+        ``sp``; else ``x`` itself)."""
+        return self.all_gather([x], [1])[0] if self.sp else x
+
+    def finish(self, partial: Optional[torch.Tensor] = None,
+               whole: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A layer's output from a sum of per-rank terms over "model"
+        (``partial``, a row-parallel product) and a term every rank holds
+        whole (``whole``): the sum all-reduced, or under ``sp``
+        reduce-scattered along the sequence (whole terms cut to the
+        rank's block); each (B, S, d)."""
+        out = None
+        if partial is not None:
+            out = (self.reduce_scatter(partial, 1) if self.sp
+                   else self.all_reduce(partial))
+        if whole is not None:
+            whole = self.seq_block(whole) if self.sp else whole
+            out = whole if out is None else out + whole
+        return out

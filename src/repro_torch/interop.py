@@ -169,3 +169,28 @@ def opt_state_block_from_numpy(state: Any, specs: OptState, mesh, *,
               for x, sp in zip(tree_leaves(whole), tree_leaves(specs))]
     it = iter(leaves)
     return tree_map(lambda x: next(it), whole)
+
+
+def params_block_from_numpy(tree: Any, specs: Any, mesh, *, rank=None,
+                            device="cuda") -> Any:
+    """Rank ``rank``'s blocks (this process's rank of the group-bound
+    ``mesh`` by default) of the reference's whole parameter tree (as
+    ``params_from_numpy`` takes it) under the sanitized parameter specs
+    (``models.param_specs`` through ``launch.steps.sanitize_pspecs``),
+    over the data axes and "model": each leaf cut on the host and copied
+    to ``device``."""
+    dev = resolve_device(device)
+    whole = params_from_numpy(tree, device="cpu")
+    return tree_map(lambda x, sp: shard(x, sp, mesh, rank).clone().to(dev),
+                    whole, specs)
+
+
+def cache_block_from_numpy(cache: Any, specs: Any, mesh, *, rank=None,
+                           device="cuda") -> Any:
+    """Rank ``rank``'s blocks of the reference's decode cache (a list of
+    per-layer {"k", "v"} numpy arrays, ``init_decode_cache``'s layout)
+    under the sanitized ``launch.steps.cache_pspecs``."""
+    dev = resolve_device(device)
+    return [{k: shard(_leaf_to_torch(v, torch.device("cpu")), sp[k], mesh,
+                      rank).clone().to(dev) for k, v in e.items()}
+            for e, sp in zip(cache, specs)]

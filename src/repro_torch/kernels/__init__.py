@@ -32,7 +32,8 @@ from .flash_attn import (flash_attention, flash_attention_bwd,
 from .frontier import (frontier_buffer, frontier_expand,
                        frontier_expand_plain, frontier_level,
                        frontier_level_plain, frontier_scratch)
-from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP, heap_apply,
+from .heap_batch import (KEY_INF, OP_DELMIN, OP_INSERT, OP_NOP,
+                         TOP_ARITY_LOG2, heap_apply,
                          heap_apply_grid, heap_apply_grid_plain,
                          heap_apply_plain, heap_insert_masked, heap_planes,
                          heap_pop_count, heap_resident_max)
@@ -47,6 +48,7 @@ from .ring_slots import (claim_schedule, cycle_lt, deq_planes, enq_planes,
 from .wavefaa import LANES, wavefaa, wavefaa_plain, wavefaa_scratch
 
 __all__ = ["KEY_INF", "LANES", "LAUNCHES", "OP_DELMIN", "OP_INSERT", "OP_NOP",
+           "TOP_ARITY_LOG2",
            "claim_schedule", "compact_planes", "compact_scratch",
            "compact_width", "cycle_lt",
            "deq_planes", "enq_planes", "expert_tickets", "expert_tickets_plain",

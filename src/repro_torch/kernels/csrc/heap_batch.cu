@@ -102,6 +102,15 @@
 // one), so a wave over S <= 132 heaps costs about one heap's call.  The
 // single heap's instance (kOpsGiven, heap_apply) is unchanged: one block,
 // its ops read lane by lane.
+//
+// Arities above 8 (arity_log2 >= 4, as the Pallas kernel takes any): one
+// instance a rider and op mode, A = 0, whose arity is a launch argument.
+// It keeps no shared-memory top and no window: its serial thread runs the
+// Pallas body on the planes in device memory, a child scan of up to 2^a
+// loads a level (a 256-ary heap of 2^20 slots is three levels deep).  The
+// staging and the outputs are the instances' above.  Shifts are clamped
+// at 31: past that a node's parent is the root and the root's children
+// are every other node, as they are at 31.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -131,11 +140,15 @@ constexpr int kWindow = 4096;
 
 // Nodes in the whole levels that fit in shared memory: sum of d^l
 // (levels 0-13 binary, 0-7 4-ary, 0-4 8-ary; with a rider 0-12 binary,
-// 0-6 4-ary, 0-4 8-ary).
+// 0-6 4-ary, 0-4 8-ary; none for the runtime arity, A = 0).
 template <int A, bool R>
-constexpr int kResidentMax = A == 1   ? (R ? 8191 : 16383)
+constexpr int kResidentMax = A == 0   ? 0
+                             : A == 1 ? (R ? 8191 : 16383)
                              : A == 2 ? (R ? 5461 : 21845)
                                       : 4681;
+// the tail window's nodes (none for the runtime arity)
+template <int A>
+constexpr int kWin = A == 0 ? 0 : kWindow;
 // Below the top a pop loads its grandchildren while it decides between
 // the children: D^2 keys and vals in registers, 32 at 4-ary; at 8-ary
 // (128) they would not fit, so each level loads its own children there.
@@ -143,7 +156,7 @@ constexpr int kResidentMax = A == 1   ? (R ? 8191 : 16383)
 // 4-ary level keeps 48 loads in flight, and on the card that made its
 // pops slower than loading one level at a time.
 template <int A, bool R>
-constexpr bool kLookAhead = A <= 2 && !R;
+constexpr bool kLookAhead = A >= 1 && A <= 2 && !R;
 
 // Shared memory: the top (node j at slot j + D - 1, so that every sibling
 // group starts on a 16- or 32-byte boundary, and D - 1 + D slots of
@@ -153,7 +166,7 @@ template <int A, bool R>
 constexpr int kTopSlots = (kResidentMax<A, R> + 2 * (1 << A) + 3) & ~3;
 template <int A, bool R>
 constexpr int kSmemBytes =
-    (kTopSlots<A, R> + kWindow) * (R ? 12 : 8) + kStageBytes<R>;
+    (kTopSlots<A, R> + kWin<A>) * (R ? 12 : 8) + kStageBytes<R>;
 
 template <int A, bool R>
 struct Heap {
@@ -276,6 +289,74 @@ __device__ __forceinline__ int min_child(const int32_t* k, const int32_t* v,
   return kk[0] < kKeyInf ? ii[0] : -1;
 }
 
+// One op of the runtime-arity instance (A = 0) on the planes in device
+// memory, the Pallas body step for step: returns whether it applied and
+// sets *rk / *rv / *rr to a DELETE-MIN's popped node.
+template <bool R>
+__device__ __forceinline__ uint8_t apply_any(
+    int32_t op, int32_t key, int32_t val, int32_t orid, int32_t* keys,
+    int32_t* vals, int32_t* rid, int32_t* size, uint32_t cap, int a,
+    int max_depth, int32_t* rk, int32_t* rv, int32_t* rr) {
+  const int s = a < 31 ? a : 31;
+  if (op == kOpInsert && static_cast<uint32_t>(*size) < cap) {
+    uint32_t j = static_cast<uint32_t>(*size);
+    for (int t = 0; t < max_depth && j > 0; ++t) {
+      const uint32_t p = (j - 1) >> s;
+      const int32_t pk = keys[p];
+      if (!(pk > key)) break;
+      keys[j] = pk;
+      vals[j] = vals[p];
+      if constexpr (R) rid[j] = rid[p];
+      j = p;
+    }
+    keys[j] = key;
+    vals[j] = val;
+    if constexpr (R) rid[j] = orid;
+    ++*size;
+    return 1;
+  }
+  if (op != kOpDelmin || *size <= 0) return 0;
+  const uint32_t nsize = static_cast<uint32_t>(*size) - 1;
+  *rk = keys[0];
+  *rv = vals[0];
+  if constexpr (R) *rr = rid[0];
+  const int32_t lk = keys[nsize], lv = vals[nsize];
+  int32_t lr = 0;
+  if constexpr (R) lr = rid[nsize];
+  if (nsize > 0) {
+    uint32_t j = 0;
+    for (int t = 0; t < max_depth; ++t) {
+      const uint64_t base = (static_cast<uint64_t>(j) << s) + 1;
+      const uint64_t end0 = base + (uint64_t{1} << s);
+      const uint64_t end = end0 < nsize ? end0 : nsize;
+      int32_t bk = kKeyInf;
+      int64_t bj = -1;
+#pragma unroll 8
+      for (uint64_t c = base; c < end; ++c) {
+        const int32_t ck = keys[c];
+        if (ck < bk) {
+          bk = ck;
+          bj = static_cast<int64_t>(c);
+        }
+      }
+      if (bj < 0 || !(bk < lk)) break;
+      keys[j] = bk;
+      vals[j] = vals[bj];
+      if constexpr (R) rid[j] = rid[bj];
+      j = static_cast<uint32_t>(bj);
+    }
+    keys[j] = lk;
+    vals[j] = lv;
+    if constexpr (R) rid[j] = lr;
+  }
+  // scrub the vacated tail slot so stale keys can't resurface
+  keys[nsize] = kKeyInf;
+  vals[nsize] = -1;
+  if constexpr (R) rid[nsize] = -1;
+  *size = static_cast<int32_t>(nsize);
+  return 1;
+}
+
 // R: rid is the rider plane, oprider[opr_stride * lane] an INSERT lane's
 // rider, outr[lane] a DELETE-MIN lane's popped rider (-1 elsewhere).
 // M: kOpsGiven reads ops[lane]; on the grid, sel is counts (S,)
@@ -295,7 +376,7 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
                   int32_t* __restrict__ rid,
                   const int32_t* __restrict__ oprider, int opr_stride,
                   int32_t* __restrict__ outr,
-                  const int32_t* __restrict__ sel) {
+                  const int32_t* __restrict__ sel, int arity_log2) {
   constexpr int D = 1 << A;
   constexpr bool kOut = M != kMaskedInsert;  // per-lane results written
   extern __shared__ __align__(16) unsigned char smem[];
@@ -326,13 +407,14 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
   int64_t lo = static_cast<int64_t>(size) - kWindow / 2 - 1;
   lo = lo > 0 ? lo / D * D + 1 : 1;
   const uint32_t w0 = lo > r ? static_cast<uint32_t>(lo) : r;
-  const uint32_t wn = w0 >= cap ? 0u : (cap - w0 < kWindow ? cap - w0
-                                                            : kWindow);
+  const uint32_t wn = A == 0 || w0 >= cap
+                          ? 0u
+                          : (cap - w0 < kWindow ? cap - w0 : kWindow);
   int2* top = reinterpret_cast<int2*>(smem);
   int2* win = top + kTopSlots<A, R>;
-  int32_t* rtop = reinterpret_cast<int32_t*>(win + kWindow);
+  int32_t* rtop = reinterpret_cast<int32_t*>(win + kWin<A>);
   int32_t* rwin = rtop + (R ? kTopSlots<A, R> : 0);
-  int32_t* s_op = rwin + (R ? kWindow : 0);
+  int32_t* s_op = rwin + (R ? kWin<A> : 0);
   int32_t* s_key = s_op + kChunk;
   int32_t* s_val = s_key + kChunk;
   int32_t* s_outk = s_val + kChunk;
@@ -405,7 +487,13 @@ heap_apply_kernel(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
         const int32_t op = s_op[a] & 1;
         int32_t rk = kKeyInf, rv = -1, rr = -1;
         uint8_t applied = 0;
-        if (op == kOpInsert && static_cast<uint32_t>(size) < cap) {
+        if constexpr (A == 0) {
+          int32_t orid = 0;
+          if constexpr (R) orid = s_rid[a];
+          applied = apply_any<R>(op, s_key[a], s_val[a], orid, keys, vals,
+                                 rid, &size, cap, arity_log2, max_depth, &rk,
+                                 &rv, &rr);
+        } else if (op == kOpInsert && static_cast<uint32_t>(size) < cap) {
           // hole starts at `size`; parents move down while larger.  Each
           // step loads the grandparent before it tests the parent, so a
           // global level costs one round trip and no store waits on a
@@ -579,7 +667,7 @@ struct HeapArgs {
 };
 
 template <int A, bool R, int M>
-int launch_heap(const HeapArgs& x, cudaStream_t s) {
+int launch_heap(const HeapArgs& x, int arity_log2, cudaStream_t s) {
   static bool opted_in = false;  // one attribute call per instance
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -592,7 +680,7 @@ int launch_heap(const HeapArgs& x, cudaStream_t s) {
       <<<M == kOpsGiven ? 1 : x.shards, kHeapThreads, kSmemBytes<A, R>, s>>>(
           x.k, x.v, x.si, x.o, x.ok_, x.ov, x.rk, x.rv, x.a, x.so, x.b,
           x.cap_log2, x.max_depth, x.rid, x.opr, x.opr_stride, x.outr,
-          x.sel);
+          x.sel, arity_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -600,13 +688,14 @@ template <bool R, int M>
 int launch_arity(const HeapArgs& x, int arity_log2, cudaStream_t s) {
   switch (arity_log2) {
     case 1:
-      return launch_heap<1, R, M>(x, s);
+      return launch_heap<1, R, M>(x, 1, s);
     case 2:
-      return launch_heap<2, R, M>(x, s);
+      return launch_heap<2, R, M>(x, 2, s);
     case 3:
-      return launch_heap<3, R, M>(x, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_heap<3, R, M>(x, 3, s);
+    default:  // any arity above 8: the runtime-arity instance
+      if (arity_log2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_heap<0, R, M>(x, arity_log2, s);
   }
 }
 
@@ -620,11 +709,12 @@ int launch_grid(const HeapArgs& x, int arity_log2, cudaStream_t s) {
 
 // keys/vals: (2^cap_log2,) int32, updated in place; size_in: (1,) int32;
 // ops/okeys/ovals: (b,) int32; outk/outv: (b,) int32; ok: (b,) bool;
-// size_out: (1,) int32.  b > 0, 0 < cap_log2 <= 30, arity_log2 in 1..3,
+// size_out: (1,) int32.  b > 0, 0 < cap_log2 <= 30, arity_log2 >= 1
+// (1..3 with a shared-memory top, above that the runtime-arity instance),
 // max_depth = ceil(cap_log2 / arity_log2) + 1.  One launch of one block
 // with up to 217,768 B of dynamic shared memory.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without a
-// launch, for an arity it was not built for).
+// launch, for arity_log2 < 1).
 extern "C" int repro_heap_apply(void* keys, void* vals, const void* size_in,
                                 const void* ops, const void* okeys,
                                 const void* ovals, void* outk, void* outv,
@@ -722,10 +812,12 @@ extern "C" int repro_heap_apply_grid(
 }
 
 // Nodes of the shared-memory top (kResidentMax) for arity_log2 in 1..3,
-// with the rider plane (rider != 0) or without; -1 for an arity that is
-// not built.  A host query: no launch.
+// with the rider plane (rider != 0) or without; 0 above 3 (the
+// runtime-arity instance keeps none), -1 below 1.  A host query: no
+// launch.
 extern "C" int repro_heap_resident_max(int arity_log2, int rider) {
   using namespace repro;
+  if (arity_log2 > 3) return 0;
   switch (arity_log2) {
     case 1:
       return rider ? kResidentMax<1, true> : kResidentMax<1, false>;

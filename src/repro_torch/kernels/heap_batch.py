@@ -46,8 +46,11 @@ both planes per batch.  The card's kernel is one launch of one block
 that applies the batch serially with the heap's top levels (up to 21,845
 nodes 4-ary, 16,383 binary, 4,681 8-ary) and a window around its last
 leaf held in up to 227 KB of shared memory, and writes them back at the
-end.  The plain faces take any ``arity_log2 >= 1``; the kernel is built
-for arity_log2 1, 2 and 3 and refuses the others by name.
+end.  The plain faces and the kernel take any ``arity_log2 >= 1``: at 1,
+2 and 3 through instances with the shared-memory top above, past 3
+(16-ary and wider, as the reference takes them) through one instance
+whose arity is a launch argument and whose serial thread works on the
+planes in device memory.
 """
 
 from __future__ import annotations
@@ -63,9 +66,10 @@ KEY_INF = 2 ** 31 - 1    # empty-slot / inactive-lane key sentinel
 
 OP_INSERT, OP_DELMIN, OP_NOP = 0, 1, -1
 
-#: arities the kernel is built for and checked at (d = 2^arity_log2); the
-#: plain faces take any ``arity_log2 >= 1``
-ARITY_LOG2 = (1, 2, 3)
+#: arities with an instance of their own and a shared-memory top (d =
+#: 2^arity_log2); any other ``arity_log2 >= 1`` runs on the runtime-arity
+#: instance
+TOP_ARITY_LOG2 = (1, 2, 3)
 
 
 def max_depth(cap_log2: int, arity_log2: int) -> int:
@@ -77,11 +81,12 @@ def max_depth(cap_log2: int, arity_log2: int) -> int:
 def heap_resident_max(arity_log2: int, rider: bool = False) -> int:
     """Nodes of the kernel's shared-memory top (whole levels) at
     ``arity_log2``, for the rider instance or the rider-less one, as
-    ``csrc/heap_batch.cu`` defines them.  Builds the kernel on first use:
+    ``csrc/heap_batch.cu`` defines them: 0 past ``TOP_ARITY_LOG2`` (the
+    runtime-arity instance keeps none).  Builds the kernel on first use:
     a card's machine only."""
-    if arity_log2 not in ARITY_LOG2:
-        raise ValueError(f"heap_resident_max: the kernel is built for "
-                         f"arity_log2 in {ARITY_LOG2}, got {arity_log2}")
+    if arity_log2 < 1:
+        raise ValueError(f"heap_resident_max: arity_log2={arity_log2} must "
+                         f"be >= 1")
     return _build.library("heap_batch").repro_heap_resident_max(
         arity_log2, int(rider))
 
@@ -244,10 +249,6 @@ def heap_apply(keys, vals, size, ops, opkeys, opvals, *, cap_log2: int,
                         opvals)
     _check_planes("heap_apply", keys, vplanes, ops, opkeys, opvals,
                   cap_log2, arity_log2)
-    if arity_log2 not in ARITY_LOG2:
-        raise ValueError(f"heap_apply: the kernel is built for arity_log2 "
-                         f"in {ARITY_LOG2}, got arity_log2={arity_log2} "
-                         f"(a {1 << arity_log2}-ary heap)")
     b = ops.shape[0]
     dev = keys.device
     outk = torch.empty(b, dtype=torch.int32, device=dev)
@@ -453,8 +454,7 @@ def heap_apply_grid(keys, vals, sizes, *, counts=None, batch=None,
 
     A CPU tensor goes to ``heap_apply_grid_plain``; a CUDA tensor launches
     ``csrc/heap_batch.cu``'s grid (one block a heap) or raises.  Nothing
-    is read back.  Arities as ``heap_apply``: the kernel is built for
-    arity_log2 1, 2 and 3."""
+    is read back.  Arities as ``heap_apply``: any ``arity_log2 >= 1``."""
     kw = dict(counts=counts, batch=batch, opkeys=opkeys, opvals=opvals,
               dest=dest, cap_log2=cap_log2, arity_log2=arity_log2,
               rider=rider, oprider=oprider)
@@ -467,10 +467,6 @@ def heap_apply_grid(keys, vals, sizes, *, counts=None, batch=None,
     mode, s = _grid_mode("heap_apply_grid", keys, vals, sizes, counts,
                          batch, opkeys, opvals, dest, cap_log2, arity_log2,
                          rider)
-    if arity_log2 not in ARITY_LOG2:
-        raise ValueError(f"heap_apply_grid: the kernel is built for "
-                         f"arity_log2 in {ARITY_LOG2}, got arity_log2="
-                         f"{arity_log2} (a {1 << arity_log2}-ary heap)")
     dev = keys.device
     b = batch if mode == _POP_COUNT else opkeys.shape[0]
     out = (keys, vals, sizes)

@@ -19,10 +19,18 @@ production 16 x 16 and 2 x 16 x 16 meshes are sizes alone), and
 the reference does.  ``make_train_step(pspecs=, mesh=)`` trains over the
 ranks of a group-bound mesh's data axis with them: DP over "data", and
 FSDP (ZeRO-3: the master, m and v sharded, each layer's weights gathered
-where they are used) for the configs with ``fsdp``.  The "model" axis
-(tensor, expert and sequence parallelism) is not ported: a mesh whose
-"model" is above 1 is refused.  ``init_state`` draws a rank's blocks of
-the initial state a layer at a time.
+where they are used) for the configs with ``fsdp``; a "model" axis above
+1 is refused for training.  ``make_prefill_step(pspecs=, mesh=)`` and
+``make_serve_step(pspecs=, mesh=)`` run the dense and moe families over
+a ("data", "model") mesh as the reference's dry run lowers them: the
+batch over "data", Megatron tensor parallelism over "model" (heads, FFN
+columns, experts, vocabulary), FSDP gathers over "data", and for a
+prefill with ``cfg.seq_parallel`` the residual stream split along the
+sequence (``distributed.sharding.TensorParallel``);
+``serve_collectives`` counts what one such step issues.  The other
+families over ranks and ``cache_pspecs``' sequence-sharded branch (a
+batch the data axes do not divide) are refused by name.  ``init_state``
+draws a rank's blocks of the initial state a layer at a time.
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ import torch
 
 from ..configs.base import SHAPES, ArchConfig
 from ..distributed.collectives import Mesh
-from ..distributed.sharding import (DataParallel, P, data_dim, is_spec,
-                                    leaf_dims)
+from ..distributed.sharding import (DataParallel, P, TensorParallel,
+                                    data_dim, is_spec, leaf_dims,
+                                    model_dim, model_size)
 from ..models import (decode_step, init_decode_cache, init_params,
                       init_params_block, param_specs, prefill)
+from ..models.layers import kv_layout
 from ..models.moe import dp_groups
 from ..optim import adamw
 from ..tree import tree_leaves, tree_map
@@ -211,20 +221,115 @@ def init_state(cfg: ArchConfig, pspecs, mesh: Mesh,
                                         device=device))
 
 
-def make_prefill_step(cfg: ArchConfig):
-    """``step(params, batch) -> (last-token logits, K/V or states)``."""
-    def step(params, batch):
+def _tensor_parallel(cfg: ArchConfig, pspecs, mesh: Optional[Mesh],
+                     batch_specs, name: str):
+    if mesh is None:
+        return None
+    if pspecs is None:
+        raise ValueError(f"{name}: a mesh needs the parameters' pspecs "
+                         f"(param_specs, sanitized)")
+    sharded = (batch_specs is None
+               or data_dim(batch_specs, mesh, model_ok=True) == 0)
+    return TensorParallel(mesh, cfg, pspecs, kv_pspec(cfg, mesh),
+                          batch_sharded=sharded)
+
+
+def make_prefill_step(cfg: ArchConfig, pspecs=None, *,
+                      mesh: Optional[Mesh] = None, batch_specs=None):
+    """``step(params, batch) -> (last-token logits, K/V or states)``.
+    With a group-bound ("data", "model") ``mesh`` and the sanitized
+    parameter ``pspecs`` the step takes this rank's parameter blocks
+    (``models.init_params_block``) and its rows of the batch
+    (``batch_specs``: the sanitized ``batch_pspecs["tokens"]``; split
+    over the data axes when None) and returns the whole last-token
+    logits and its cache blocks of K and V (dense and moe; see
+    ``models.prefill``), or with ``into`` (its decode ring caches) those
+    caches filled.  Without a mesh ``pspecs`` changes nothing."""
+    tp = _tensor_parallel(cfg, pspecs, mesh, batch_specs,
+                          "make_prefill_step")
+
+    def step(params, batch, into=None):
+        if tp is not None:
+            return prefill(params, batch["tokens"], cfg, tp=tp, into=into)
         return prefill(params, batch.get("tokens"), cfg,
                        img=batch.get("img"), frames=batch.get("frames"))
+    step.tp = tp
     return step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, pspecs=None, *,
+                    mesh: Optional[Mesh] = None):
     """``step(params, cache, token, cur, img=None) -> (logits, cache)``:
-    one decode step (``cur`` a Python int)."""
+    one decode step (``cur`` a Python int).  With a group-bound
+    ("data", "model") ``mesh`` and the sanitized parameter ``pspecs`` the
+    step takes this rank's parameter blocks, its cache blocks
+    (``models.init_decode_cache(specs=, mesh=)`` or a prefill's) and its
+    rows of the tokens, and returns the whole logits (dense and moe)."""
+    tp = _tensor_parallel(cfg, pspecs, mesh, None, "make_serve_step")
+
     def step(params, cache, token, cur, img=None):
-        return decode_step(params, cache, token, cur, cfg, img=img)
+        return decode_step(params, cache, token, cur, cfg, img=img, tp=tp)
+    step.tp = tp
     return step
+
+
+def serve_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int, *,
+                      decode: bool = False, seq: Optional[int] = None,
+                      batch_sharded: bool = True) -> Dict[str, int]:
+    """The collectives one prefill (or with ``decode`` one decode step)
+    over ``mesh`` issues, by ``distributed.COLLECTIVES`` kind, for the
+    sanitized parameter ``pspecs`` and ``tokens`` tokens of global batch
+    (``seq`` of them a row; a decode's rows hold one): the FSDP gathers
+    over "data" (the outer leaves once, each layer's once), the
+    embedding's and every row-parallel layer's sum over "model" (an
+    all-reduce, or under sequence parallelism a reduce-scatter along the
+    sequence), the general attention path's all-gather of its cut
+    projections, the hd-sharded decode's logits all-reduce and output
+    all-gather, the sequence's all-gathers before attention and the MLP,
+    the last position's all-reduce, the logits' all-gather, and the
+    MoE's exchange of counts when its dispatch falls back to one group
+    over the data ranks."""
+    from ..models.moe import dp_groups
+    m, n = model_size(mesh), 1
+    for a in dp_axes(mesh):
+        n *= mesh.shape[a]
+    cut = lambda sp: model_dim(sp, mesh) is not None  # noqa: E731
+    data = lambda sp: data_dim(sp, mesh, model_ok=True) is not None  # noqa
+    lsp = pspecs["layers"]
+    plan = {"all_gather": 0, "exchange": 0, "tp_reduce": 0, "tp_gather": 0,
+            "tp_scatter": 0}
+    plan["all_gather"] = (int(any(data(v) for k, v in pspecs.items()
+                                  if k != "layers"))
+                          + cfg.n_layers * int(any(data(v)
+                                                   for v in lsp.values())))
+    layout = kv_layout(kv_pspec(cfg, mesh), mesh)
+    sp = (m > 1 and not decode and cfg.seq_parallel and seq is not None
+          and seq % m == 0)
+    total = "tp_scatter" if sp else "tp_reduce"
+    if m > 1:
+        if cut(pspecs["embed"]):
+            plan[total] += 1
+        per = 2 * int(sp)                          # the sequence gathers
+        if layout != "heads" and any(cut(lsp[k])
+                                     for k in ("wq", "wk", "wv")):
+            per += 1                               # the cut projections
+        if decode and layout == "hd":
+            plan["tp_reduce"] += cfg.n_layers      # the logits over hd
+            per += 1                               # the output slices
+        plan["tp_gather"] += cfg.n_layers * per
+        sums = int(cut(lsp["wo"]))
+        if cfg.family == "moe":
+            sums += int(cut(lsp["e_gate"]) or (cfg.n_shared_experts
+                                               and cut(lsp["s_down"])))
+        else:
+            sums += int(cut(lsp["w_down"]))
+        plan[total] += cfg.n_layers * sums
+        plan["tp_reduce"] += int(sp)               # the last position
+        plan["tp_gather"] += int(cut(pspecs["lm_head"]))
+    if cfg.family == "moe" and n > 1 and batch_sharded and \
+            dp_groups(tokens, n) != n:
+        plan["exchange"] = cfg.n_layers
+    return plan
 
 
 def cache_struct(cfg: ArchConfig, shape_name: str):
@@ -235,6 +340,23 @@ def cache_struct(cfg: ArchConfig, shape_name: str):
                              device=META)
 
 
+def kv_pspec(cfg: ArchConfig, mesh: Mesh, batch_ok: bool = True) -> P:
+    """``cache_pspecs``' spec of a layer's K and V (B, S, kv, hd): while
+    the batch covers the DP axes (``batch_ok``) never S (the decode's
+    ring write is at a position a step), kv heads on "model", else
+    head_dim, else replicated; for batch 1 (long context)
+    sequence-sharded over the whole mesh.  Its "model" entry needs no
+    sanitizing: it names "model" only where M divides the dimension."""
+    dp, model = dp_axes(mesh), mesh.shape.get("model", 1)
+    if batch_ok:
+        if cfg.n_kv_heads and cfg.n_kv_heads % model == 0:
+            return P(dp, None, "model", None)
+        if cfg.hd % model == 0:
+            return P(dp, None, None, "model")
+        return P(dp, None, None, None)
+    return P(None, tuple(mesh.axis_names), None, None)
+
+
 def cache_pspecs(cfg: ArchConfig, shape_name: str, mesh: Mesh):
     """Batch-sharded when possible; else sequence-sharded over all axes."""
     sh = SHAPES[shape_name]
@@ -242,26 +364,12 @@ def cache_pspecs(cfg: ArchConfig, shape_name: str, mesh: Mesh):
     dp = dp_axes(mesh)
     batch_ok = b % max(dp_size(mesh), 1) == 0
     model = mesh.shape.get("model", 1)
-    all_axes = tuple(mesh.axis_names)
-
-    def kv_spec() -> P:
-        # (B, S, kv, hd): never S while the batch covers the DP axes (the
-        # decode's ring write is at a position a step); kv-heads on
-        # "model", else head_dim, else replicated
-        if batch_ok:
-            if cfg.n_kv_heads and cfg.n_kv_heads % model == 0:
-                return P(dp, None, "model", None)
-            if cfg.hd % model == 0:
-                return P(dp, None, None, "model")
-            return P(dp, None, None, None)
-        # batch 1 (long context): sequence-sharded over the whole mesh
-        return P(None, all_axes, None, None)
 
     def entry_specs(entry):
         sp = {}
         for k in entry:
             if k in ("k", "v"):
-                sp[k] = kv_spec()
+                sp[k] = kv_pspec(cfg, mesh, batch_ok)
             elif k == "ssm":  # (B, nh, hd, st)
                 nh = cfg.ssm_nheads
                 head = "model" if nh % model == 0 else None

@@ -35,7 +35,7 @@ from ..configs.base import ArchConfig
 from ..distributed.collectives import mesh_round_gather
 from ..distributed.sharding import P, dp_size
 from ..kernels.moe_route import expert_tickets, moe_route, top_k_stable
-from .layers import _dense
+from .layers import _dense, layer_cut
 
 Params = Dict[str, torch.Tensor]
 
@@ -125,11 +125,20 @@ def route(gates: torch.Tensor, cfg: ArchConfig, groups: int = 1,
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-                groups: int = 1, mesh=None):
+                groups: int = 1, mesh=None, tp=None):
     """x: (B, S, d) -> (B, S, d).  Top-k dispatch with per-expert capacity
     ``moe_capacity`` of a dispatch group's tokens (``groups`` data-parallel
     shards on one card, or this rank's share of a group-bound ``mesh``;
-    see the module doc); over-capacity pairs are dropped."""
+    see the module doc); over-capacity pairs are dropped.
+
+    ``tp`` (a ``distributed.sharding.TensorParallel``): ``x`` is whole on
+    every rank of the model axis, so every rank routes all of its data
+    shard's tokens (B6) to the same slots.  Where the specs cut the
+    experts over "model" (M divides E), ``p`` holds this rank's E / M
+    experts, which run only the pairs routed to them; the shared experts
+    are column- and row-parallel like the MLP.  The ranks' partial sums
+    are combined by ONE collective (``tp.finish``); experts the specs
+    leave whole run on every rank and their sum crosses no rank."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -143,6 +152,14 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     flat_e = top_e.reshape(t * k)
     slot = dispatch.reshape(t * k)
     keep = dispatch >= 0                                     # (T, k)
+    tp = tp if tp is not None and tp.model > 1 else None
+    e_split = tp is not None and layer_cut(tp, "e_gate")
+    if e_split:                 # this rank's experts [e0, e0 + E / M)
+        e = p["e_gate"].shape[0]
+        mine = (flat_e >= tp.m * e) & (flat_e < (tp.m + 1) * e)
+        keep = keep & mine.reshape(t, k)
+        flat_e = torch.where(mine, flat_e - tp.m * e, 0)
+        slot = torch.where(mine, slot, -1)
     grp = torch.arange(g, device=x.device).repeat_interleave(t * k // g)
 
     # dispatch into (E, g, C + 1, d) buffers, dropped pairs into bin C;
@@ -160,7 +177,16 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     gathered = gathered * keep.reshape(t * k, 1).to(x.dtype)
     yt = torch.sum(gathered.reshape(t, k, d)
                    * combine[..., None].to(x.dtype), dim=1)  # (T, d)
+    ys = None
     if cfg.n_shared_experts:
-        yt = yt + (torch.nn.functional.silu(xt @ p["s_gate"])
-                   * (xt @ p["s_up"])) @ p["s_down"]
-    return yt.reshape(b, s, d)
+        ys = (torch.nn.functional.silu(xt @ p["s_gate"])
+              * (xt @ p["s_up"])) @ p["s_down"]
+    if tp is None:
+        return (yt if ys is None else yt + ys).reshape(b, s, d)
+    parts = {True: None, False: None}       # cut over "model" or whole
+    for y, cut in ((yt, e_split), (ys, layer_cut(tp, "s_down"))):
+        if y is not None:
+            y = y.reshape(b, s, d)
+            parts[bool(cut)] = y if parts[bool(cut)] is None else \
+                parts[bool(cut)] + y
+    return tp.finish(partial=parts[True], whole=parts[False])

@@ -67,12 +67,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import (DataParallel, P, data_dim, dp_size,
-                                    gather_tree, shard)
+from ..distributed.sharding import (DataParallel, P, TensorParallel,
+                                    block_cuts, gather_tree, shard)
 from ..kernels._build import resolve_device
 from ..tree import flatten_with_paths, tree_map
 from .layers import (NoDraws, _dense, attention, attn_params, attn_specs,
-                     mlp, mlp_params, mlp_specs, rms_norm, rope, softcap)
+                     kv_layout, mlp, mlp_params, mlp_specs, rms_norm, rope,
+                     softcap)
 from .moe import moe_forward, moe_params, moe_specs
 from .ssm import ssm_forward, ssm_params, ssm_specs
 
@@ -178,50 +179,52 @@ def param_specs(cfg: ArchConfig, *, fsdp: Optional[bool] = None) -> Params:
 
 class _BlockDraws:
     """``_dense``'s draws for a rank (``block``): each leaf allocated as
-    this rank's block (``dims``: each draw's sharded dimension of the
-    whole leaf, or None), each layer drawn whole from ``gen`` and
-    narrowed to it.  With no ``gen`` the leaves are whole on ``meta``
-    and nothing is drawn.  ``leaves``: the leaves in the order drawn."""
+    this rank's block (``cuts``: each draw's [(sharded dimension of the
+    whole leaf, shards, this rank's index)], over the data axes and
+    "model"), each layer drawn whole from ``gen`` and narrowed to it.
+    With no ``gen`` the leaves are whole on ``meta`` and nothing is
+    drawn.  ``leaves``: the leaves in the order drawn."""
 
-    def __init__(self, gen: Optional[torch.Generator] = None, dims=(),
-                 n: int = 1, rank: int = 0):
-        self.gen, self.n, self.rank = gen, n, rank
+    def __init__(self, gen: Optional[torch.Generator] = None, cuts=()):
+        self.gen = gen
         self.device = torch.device("meta") if gen is None else gen.device
-        self.dims = iter(dims)
+        self.cuts = iter(cuts)
         self.leaves: List[torch.Tensor] = []
 
     def block(self, lead, shape, dtype):
-        d = None if self.gen is None else next(self.dims)
-        kept, k = list(shape), None
-        if d is not None:
+        kept, out_cuts = list(shape), []
+        for d, n, i in ([] if self.gen is None else next(self.cuts)):
             k = d - len(lead)
             if k < 0:
                 raise ValueError("a spec shards the stacked layers' axis")
-            kept[k] //= self.n
+            kept[k] //= n
+            out_cuts.append((k, i))
         out = torch.empty(lead + tuple(kept), dtype=dtype,
                           device=self.device)
         self.leaves.append(out)
-        return out, k, self.rank
+        return out, out_cuts
 
 
 def init_params_block(cfg: ArchConfig, specs: Params, mesh,
                       gen: Optional[torch.Generator] = None, *,
                       device="cuda", dtype=torch.bfloat16) -> Params:
     """This rank's blocks (``mesh.rank``) of ``init_params(cfg, gen,
-    device=device, dtype=dtype)`` under the sanitized ``specs``: the same
-    numbers, drawn in the same order, but a leaf is never held whole
-    beyond one layer's float32 draw (the constant leaves, norms and the
-    SSM's A_log, D and dt_bias, are made whole and cut)."""
+    device=device, dtype=dtype)`` under the sanitized ``specs``, over the
+    data axes and "model": the same numbers, drawn in the same order,
+    but a leaf is never held whole beyond one layer's float32 draw (the
+    constant leaves, norms and the SSM's A_log, D and dt_bias, are made
+    whole and cut)."""
     order = _BlockDraws()
     meta = init_params(cfg, order, device="meta", dtype=dtype)
     path_of = {id(t): k for k, t in flatten_with_paths(meta)}
     spec_of = dict(flatten_with_paths(specs))
-    dims = [data_dim(spec_of[path_of[id(t)]], mesh) for t in order.leaves]
+    cuts = [block_cuts(spec_of[path_of[id(t)]], mesh, mesh.rank)
+            for t in order.leaves]
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-    draws = _BlockDraws(gen, dims, dp_size(mesh), mesh.rank)
+    draws = _BlockDraws(gen, cuts)
     params = init_params(cfg, draws, device=dev, dtype=dtype)
     drawn = {id(x) for x in draws.leaves}
     return tree_map(lambda x, s: x if id(x) in drawn
@@ -255,11 +258,26 @@ def _layer(params: Params, i: int) -> Params:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig):
+def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+           tp: Optional[TensorParallel] = None):
     """Token embedding times sqrt(d) rounded to bfloat16 first, as the
-    reference does (sqrt(1536) = 39.19 becomes 39.25)."""
+    reference does (sqrt(1536) = 39.19 becomes 39.25).  Under ``tp`` with
+    the vocabulary cut over "model" (``P("model", f)``) each rank looks
+    up the tokens in its rows and zeroes the others, and the ranks' terms
+    are summed (``tp.finish``: one nonzero term a token, so the sum is
+    exact); a whole ``embed`` is looked up on every rank."""
     scale = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.bfloat16)
-    return params["embed"][tokens] * scale
+    emb = params["embed"]
+    if tp is None or tp.model == 1:
+        return emb[tokens] * scale
+    if not tp.split(tp.specs["embed"]):
+        return tp.finish(whole=emb[tokens] * scale)
+    rows = emb.shape[0]
+    local = tokens.long() - tp.m * rows
+    mine = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)] * scale
+    return tp.finish(partial=torch.where(mine[..., None], x, 0.0).to(
+        x.dtype))
 
 
 def _inputs(params: Params, cfg: ArchConfig, tokens, frames, img):
@@ -320,9 +338,36 @@ def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     return h + mlp(p, inner), kv
 
 
-def _head(params: Params, x: torch.Tensor, cfg: ArchConfig):
+def _tp_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor, i: int, route, tp: TensorParallel,
+              cache=None):
+    """A dense or moe layer on a rank of the serve steps' mesh: under
+    ``tp.sp`` ``x`` is the rank's (B, S/M, d) block of the residual
+    stream, its normed inputs all-gathered along the sequence before
+    attention and before the MLP; the layer's outputs come back summed
+    over "model" (and under ``tp.sp`` cut to the rank's block).  Returns
+    (x, this layer's K/V block or new cache)."""
+    window = cfg.window_for_layer(i)
+    a, kv = attention(p, tp.seq_gather(rms_norm(x, p["ln1"])), cfg,
+                      positions=positions, window=window, cache=cache, tp=tp)
+    h = x + a
+    inner = tp.seq_gather(rms_norm(h, p["ln2"]))
+    if cfg.family == "moe":
+        return h + moe_forward(p, inner, cfg, tp=tp, **route), kv
+    return h + mlp(p, inner, tp=tp), kv
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ArchConfig,
+          tp: Optional[TensorParallel] = None):
+    """Final norm, vocabulary projection and soft-cap, in float32.  Under
+    ``tp`` with ``lm_head`` cut over "model" (``P(f, "model")``) each
+    rank computes its vocabulary columns and the logits are
+    all-gathered."""
     x = rms_norm(x, params["final_norm"])
-    return softcap((x @ params["lm_head"]).float(), cfg.final_softcap)
+    logits = softcap((x @ params["lm_head"]).float(), cfg.final_softcap)
+    if tp is not None and tp.model > 1 and tp.split(tp.specs["lm_head"]):
+        logits = tp.all_gather([logits], [logits.dim() - 1])[0]
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -435,13 +480,31 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: ArchConfig, *,
 
 def prefill(params: Params, tokens: Optional[torch.Tensor],
             cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None):
+            frames: Optional[torch.Tensor] = None,
+            tp: Optional[TensorParallel] = None, into: Optional[List] = None):
     """Forward over the prompt.  Returns (last-token logits (B, 1, V),
     {"k", "v"}: each layer's roped K and V, stacked (L, B, S, kv, hd)) —
     for the ssm and hybrid families {"conv" (L, B, d_conv - 1,
     d_conv_in), "ssm" (L, B, nh, hd, state) float32}: each layer's final
     states.  A vlm cross layer's K and V are its ``ln1``-normed input
-    through ``wk`` and ``wv``, roped, as the reference emits them."""
+    through ``wk`` and ``wv``, roped, as the reference emits them.
+
+    ``tp`` (a ``distributed.sharding.TensorParallel``; dense and moe):
+    ``params`` holds this rank's blocks and ``tokens`` its rows; the
+    leaves cut over the data axes (FSDP) are gathered, the outer ones
+    once and each layer's where it runs; with ``cfg.seq_parallel`` (and
+    S a multiple of M) the residual stream between layers is the rank's
+    (B, S/M, d) block (``_seq_shard``).  K and V come back as the rank's
+    cache blocks (``layers.kv_layout``); the logits whole.  ``into``
+    (under ``tp``): the rank's decode ring caches (``init_decode_cache(
+    specs=, mesh=)``), into which each layer's K and V are written (the
+    last min(Sc, S) positions, position p at slot p % Sc) in place of
+    the stacked (L, B, S, ...) ones, which are not made; they are
+    returned as the second value."""
+    if tp is not None:
+        return _prefill_tp(params, tokens, cfg, tp, into)
+    if into is not None:
+        raise ValueError("prefill: into= is the serve step's (tp=)")
     x = _inputs(params, cfg, tokens, frames, img)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -472,12 +535,83 @@ def prefill(params: Params, tokens: Optional[torch.Tensor],
     return _head(params, x[:, -1:, :], cfg), {"k": ks, "v": vs}
 
 
+def _outer(params: Params, tp: TensorParallel) -> Params:
+    """The leaves outside the layers, whole along the data axes."""
+    outer = {k: v for k, v in params.items() if k != "layers"}
+    return tp.gather_data(outer, {k: tp.specs[k] for k in outer})
+
+
+def fill_rings(cache: List, i: int, k: torch.Tensor, v: torch.Tensor):
+    """Write a prompt's K and V (B, S, ...) into layer i's decode ring
+    cache: the last min(Sc, S) positions, position p at slot p % Sc (as
+    the decode's ring writes put them)."""
+    s, sc = k.shape[1], cache[i]["k"].shape[1]
+    n = min(sc, s)
+    slots = torch.arange(s - n, s, device=k.device) % sc
+    cache[i]["k"][:, slots] = k[:, s - n:].to(cache[i]["k"].dtype)
+    cache[i]["v"][:, slots] = v[:, s - n:].to(cache[i]["v"].dtype)
+
+
+def _prefill_tp(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                tp: TensorParallel, into: Optional[List] = None):
+    b, s = tokens.shape
+    tp = tp.with_sp(cfg.seq_parallel and s % tp.model == 0)
+    outer = _outer(params, tp)
+    x = _embed(outer, tokens, cfg, tp)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    layout = kv_layout(tp.kv_spec, tp.mesh)
+    if layout == "heads":
+        kv //= tp.model
+    elif layout == "hd":
+        hd //= tp.model
+    if into is None:
+        ks = torch.empty(cfg.n_layers, b, s, kv, hd, dtype=x.dtype,
+                         device=x.device)
+        vs = torch.empty_like(ks)
+    route = tp.route()
+    for i in range(cfg.n_layers):
+        lp = tp.gather_data(_layer(params, i), tp.specs["layers"], lead=1)
+        x, (k, v) = _tp_block(lp, x, cfg, positions, i, route, tp)
+        if into is None:
+            ks[i], vs[i] = k, v
+        else:
+            fill_rings(into, i, k, v)
+        del k, v
+    if tp.sp:             # the last position lies in the last rank's block
+        last = x[:, -1:] if tp.m == tp.model - 1 else torch.zeros_like(
+            x[:, -1:])
+        last = tp.all_reduce(last)
+    else:
+        last = x[:, -1:]
+    return _head(outer, last, cfg, tp), (into if into is not None
+                                         else {"k": ks, "v": vs})
+
+
 def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, *, device="cuda") -> List:
+                      dtype=torch.bfloat16, *, device="cuda", specs=None,
+                      mesh=None) -> List:
     """Per-layer ring caches: local layers hold min(window, max_seq)
     positions, global layers max_seq; SSM layers their O(1) conv state
     (in ``dtype``) and SSM state (float32), and on a hybrid's shared-block
-    layers also K and V of max_seq positions for the shared block."""
+    layers also K and V of max_seq positions for the shared block.  With
+    ``specs`` (``launch.steps.cache_pspecs``, sanitized) and a
+    group-bound ``mesh`` only this rank's blocks are allocated;
+    ``cache_pspecs``' sequence-sharded branch (a batch the data axes do
+    not divide) is refused by name."""
+    if specs is not None:
+        for sp in specs:
+            if any(d == 1 for n in ("k", "v") if n in sp
+                   for d, _, _ in block_cuts(sp[n], mesh, 0)):
+                raise ValueError(
+                    f"cache spec {sp!r}: cache_pspecs' sequence-sharded "
+                    f"branch (a batch the data axes do not divide) is not "
+                    f"ported")
+        whole = init_decode_cache(cfg, batch, max_seq, dtype, device="meta")
+        dev = resolve_device(device)
+        return [{k: torch.zeros(shard(v, sp[k], mesh).shape, dtype=v.dtype,
+                                device=dev) for k, v in e.items()}
+                for e, sp in zip(whole, specs)]
     dev = resolve_device(device)
     kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
     cache: List = []
@@ -503,14 +637,31 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def decode_step(params: Params, cache: List, token: torch.Tensor, cur: int,
-                cfg: ArchConfig, *, img: Optional[torch.Tensor] = None):
+                cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
+                tp: Optional[TensorParallel] = None):
     """One decode step.  token (B, 1) int; cur the current length, an int
     (all rows share it); ``img`` the vlm family's image tokens (None: a
     cross layer attends to the token itself, as the reference's does).
     Returns (logits (B, 1, V), new_cache): the attention caches are
     updated in place and returned, the SSM states replaced by new ones,
-    a vlm cross layer's entry returned as it is."""
+    a vlm cross layer's entry returned as it is.  ``tp``: ``params``,
+    ``cache`` and ``token`` are this rank's blocks (dense and moe; see
+    ``prefill``), the logits whole."""
     cur = int(cur)
+    if tp is not None:
+        tp = tp.with_sp(False)
+        outer = _outer(params, tp)
+        x = _embed(outer, token, cfg, tp)
+        positions = torch.tensor([cur], dtype=torch.int32, device=x.device)
+        route, new_cache = tp.route(), []
+        for i in range(cfg.n_layers):
+            lp = tp.gather_data(_layer(params, i), tp.specs["layers"],
+                                lead=1)
+            c = cache[i]
+            x, kvc = _tp_block(lp, x, cfg, positions, i, route, tp,
+                               cache=(c["k"], c["v"], cur))
+            new_cache.append({"k": kvc[0], "v": kvc[1]})
+        return _head(outer, x, cfg, tp), new_cache
     x = _inputs(params, cfg, token, None, img)
     positions = torch.tensor([cur], dtype=torch.int32, device=x.device)
     shared = params.get("shared_attn")

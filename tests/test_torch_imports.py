@@ -51,7 +51,8 @@ from repro_torch.serving import EngineConfig, ServingEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "tp_serve_probe.py",
+    REPO / "tools" / "dp_train_probe.py"]
 
 
 def test_import_loads_neither_jax_nor_reference():
@@ -130,6 +131,40 @@ def test_sharding_import_starts_no_process_group():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == (
         "False P('model', 'data') P(None, 'model', 'data', None)")
+
+
+def test_serve_step_builders_start_no_process_group():
+    """A fresh import of the serve steps over "model" (``TensorParallel``,
+    ``make_prefill_step`` / ``make_serve_step``, ``serve_collectives``,
+    ``interop.params_block_from_numpy``) leaves ``torch.distributed``
+    uninitialized and loads neither JAX nor the reference; a step's plan
+    on the production mesh needs no group: yi-34b's decode on 16 x 16,
+    whose 8 kv heads take ``cache_pspecs``' hd branch (per layer the cut
+    projections' and the output slices' all-gathers, the logits', wo's
+    and w_down's all-reduces; the FSDP gathers over "data")."""
+    code = ("import json, sys\n"
+            "import torch.distributed as dist\n"
+            "from repro_torch.distributed.sharding import TensorParallel\n"
+            "from repro_torch.interop import params_block_from_numpy\n"
+            "from repro_torch.launch import steps\n"
+            "from repro_torch.launch.mesh import make_production_mesh\n"
+            "from repro_torch.configs import get_config\n"
+            "cfg = get_config('yi-34b')\n"
+            "mesh = make_production_mesh()\n"
+            "sp = steps.sanitize_pspecs(steps.param_specs(cfg), "
+            "steps.params_struct(cfg), mesh)\n"
+            "plan = steps.serve_collectives(cfg, sp, mesh, 128, "
+            "decode=True)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]\n"
+            "print(dist.is_initialized(), json.dumps(plan), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == (
+        'False {"all_gather": 61, "exchange": 0, "tp_reduce": 181, '
+        '"tp_gather": 121, "tp_scatter": 0} []')
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

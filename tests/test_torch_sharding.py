@@ -26,7 +26,10 @@ from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import param_specs as jparam_specs  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import make_mesh  # noqa: E402
-from repro_torch.distributed.sharding import P, data_dim, shard  # noqa
+from repro_torch.distributed.sharding import (P, _assemble,  # noqa: E402
+                                              block_cuts, check_mesh,
+                                              coords, data_dim, model_dim,
+                                              shard)
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import param_specs  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
@@ -153,3 +156,73 @@ def test_model_axis_is_refused_by_name():
     with pytest.raises(ValueError, match='"model" are not ported'):
         steps.make_train_step(configs.get_config("h2o-danube-1.8b-smoke"),
                               pspecs={}, mesh=m)
+
+
+TP_MESHES = {"1x4": ((1, 4), ("data", "model")),
+             "2x2": ((2, 2), ("data", "model"))}
+
+
+@pytest.mark.parametrize("mesh", sorted(TP_MESHES))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_two_dimensional_blocks(name, mesh):
+    """Every parameter leaf's block under the sanitized specs on every
+    rank of a ("data", "model") mesh (cut over both axes where FSDP is
+    on) has the reference's ``NamedSharding.shard_shape``, and the ranks'
+    blocks in rank order put together (``unshard_tree``'s assembly) are
+    the whole leaf."""
+    cfg, jcfg = _cfgs(name)
+    shape, names = TP_MESHES[mesh]
+    m, jm = make_mesh(shape, names), AbstractMesh(shape, names)
+    st = steps.params_struct(cfg)
+    got = steps.sanitize_pspecs(param_specs(cfg), st, m)
+    want = jsteps.sanitize_pspecs(jparam_specs(jcfg),
+                                  jsteps.params_struct(jcfg), jm)
+    _same(got, want)
+    n = shape[0] * shape[1]
+    for (k, spec), (_, x) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(st)):
+        want_shape = NamedSharding(jm, JP(*tuple(spec))).shard_shape(
+            tuple(x.shape))
+        for r in range(n):
+            assert tuple(shard(x, spec, m, r).shape) == want_shape, (k, r)
+    small = torch.arange(4 * 8 * 8).reshape(4, 8, 8).float()
+    for spec in (P("data", "model", None), P("model", None, "data"),
+                 P(None, None, "model"), P("data", None, None), P()):
+        rows = torch.stack([shard(small, spec, m, r) for r in range(n)])
+        dd = data_dim(spec, m, model_ok=True)
+        assert torch.equal(_assemble(rows, dd, model_dim(spec, m), m),
+                           small), spec
+
+
+def test_model_dim_coords_and_cuts():
+    m = make_mesh((2, 4), ("data", "model"))
+    assert model_dim(P("data", "model"), m) == 1
+    assert model_dim(P("model", None), m) == 0
+    assert model_dim(P("data", None), m) is None
+    assert model_dim(P(None, "model"), make_mesh((2, 1), ("data", "model"))
+                     ) is None
+    assert data_dim(P("data", "model"), m, model_ok=True) == 0
+    assert [coords(m, r) for r in range(8)] == [
+        (d, j) for d in range(2) for j in range(4)]
+    assert block_cuts(P("model", "data"), m, 6) == [(1, 2, 1), (0, 4, 2)]
+    with pytest.raises(ValueError, match="sequence-sharded branch"):
+        data_dim(P(None, ("data", "model")), m, model_ok=True)
+    with pytest.raises(ValueError, match='"model" are not ported for'):
+        data_dim(P(None, "model"), m)
+
+
+def test_serve_mesh_refusals_by_name():
+    m = make_mesh((1, 2), ("data", "model"))
+    check_mesh(m, configs.get_config("yi-34b-smoke"), serve=True)
+    check_mesh(m, configs.get_config("deepseek-moe-16b-smoke"), serve=True)
+    for arch, family in (("mamba2-130m-smoke", "ssm"),
+                         ("zamba2-7b-smoke", "hybrid"),
+                         ("llama-3.2-vision-11b-smoke", "vlm"),
+                         ("hubert-xlarge-smoke", "audio")):
+        with pytest.raises(ValueError, match=f"the {family} family over "
+                                             f'"model" is not ported'):
+            check_mesh(m, configs.get_config(arch), serve=True)
+    with pytest.raises(ValueError, match="for training"):
+        check_mesh(m)
+    with pytest.raises(ValueError, match="must be the last axis"):
+        check_mesh(make_mesh((2, 1), ("model", "data")), serve=True)
