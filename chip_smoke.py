@@ -766,6 +766,43 @@ TP_F32_MARGIN = 1e-2
 TP_GATE_TIE = 1e-4
 TP_MOE_TIED = 2
 TP_FULL_TIMEOUT = 900
+# phase tp_train: the train step over ("data", "model") (Megatron TP with
+# its backward, experts and the vocabulary over "model", the residual
+# stream split along the sequence), TT_WORLD gloo ranks sharing card 0 on
+# a (1, TT_WORLD) mesh, each case at full width and cut depth in
+# bfloat16 (label, arch, layers, batch rows, sequence, steps, seed):
+# yi-34b 2 of 60, gemma2-27b 2 of 46 (one local, one global),
+# deepseek-moe-16b 2 of 28.  Each case's one-card step first (the same
+# seeded weights and batches), then the ranks' steps, held against it:
+# the first step's loss and grad norm within TT_TOL (the ranks' bfloat16
+# partial products are summed in float32 and rounded once, where one card
+# rounds the whole product once), the later steps' within the training
+# check's LOSS / GRAD bounds, and the master's change after the steps
+# leaf by leaf within TT_TOL's family bound (Adam's first update is each
+# element's gradient sign times lr; in the MoE a token near a tie may
+# take another expert: tests/test_torch_moe_drift.py); every rank's loss
+# and grad norm identical, the replicated leaves equal on both ranks, each
+# step's collectives those of train_collectives.  Measured (an H100, 700
+# W): the first step's loss 3.0e-6 / 5.9e-6 / 2.8e-5 and grad norm 2.6e-5
+# / 1.3e-4 / 2.2e-4 off one card's (yi / gemma2 / deepseek), the master's
+# change 0.099 / 0.110 / 0.258 (embed)
+TT_WORLD = 2
+TT_CASES = (("yi", "yi-34b", 2, 2, 4096, 2, 41),
+            ("gemma", "gemma2-27b", 2, 1, 4096, 2, 42),
+            ("moe", "deepseek-moe-16b", 2, 2, 4096, 2, 43))
+TT_TOL = {"loss": 2e-4, "grad_norm": 2e-3, "later_loss": 1e-2,
+          "later_grad_norm": 1e-1, "master": {"dense": 0.25, "moe": 0.5}}
+TT_SPAWN_TIMEOUT = 400
+# four cards (NCCL, a card a rank; tools/tp_train_probe.py): yi-34b and
+# gemma2-27b on (1, 4) and (2, 2) at the deepest cut whose state (16 bytes
+# a parameter over the four cards) and TT_ACT_RESERVE of activations stay
+# under TT_CARD_SHARE of a card beside what this process keeps on card 0,
+# TT_FULL_STEPS steps (batches 0, 1, 0: the loss of the last below the
+# first's)
+TT_CARD_SHARE = 0.88
+TT_ACT_RESERVE = 10e9
+TT_FULL_STEPS = 3
+TT_FULL_TIMEOUT = 900
 # phase runtime: (a) mesh_task_round on a replicated ring of 2^20 slots
 # (logical capacity 2^19) whose tickets start 2^20 below 2^32 (the nearest
 # multiple of the ring's 2n), so head and tail wrap, draining the FIFO task
@@ -1240,6 +1277,7 @@ class Smoke:
         self.reg_b7 = []          # phase registry's B7 calls by shape
         self.reg_tickets = {}     # phase registry's B6 inputs
         self.tp_keep = None       # where tp_full writes its moe check's inputs
+        self.tp_bwd = None        # phase tp_train's B7 and backward inputs
 
     # -- helpers -------------------------------------------------------------
 
@@ -1304,11 +1342,11 @@ class Smoke:
                 f"{elem:.3g} of the element bound and {frob:.3g} of the "
                 f"Frobenius bound (max |diff| {err})")
 
-    def time_ms(self, setup, launch, iters=50, reps=3):
+    def time_ms(self, setup, launch, iters=50, reps=2):
         """Per-call milliseconds of ``iters`` calls of ``launch(args, i)``,
         each batch after an untimed ``setup()``: the median over ``reps``
         batches of (device, wall) time, both from CUDA events around the
-        batch (3 since PR 29, 5 before: the script's time limit).  Wall: the calls issued back to back, so it includes the
+        batch (2 by default: the script's time limit).  Wall: the calls issued back to back, so it includes the
         host's launch cost whenever the host is slower than the card.
         Device: the same batch queued behind a ``torch.cuda._sleep`` that
         outlasts three times the host's time to issue it, so the card runs
@@ -4234,7 +4272,10 @@ class Smoke:
         info = {}
         with tempfile.TemporaryDirectory() as tmp:
             t1 = time.perf_counter()
-            ranks = dp_spawn(world, backend, cases, tmp, bool(one))
+            ranks = spawn_ranks(dp_rank, world, backend, tmp,
+                                DP_SPAWN_TIMEOUT,
+                                f"dp_train {backend} x {world}", cases,
+                                bool(one))
             info["spawn_and_run_s"] = time.perf_counter() - t1
             path = self.launches.setdefault("dp_train", {})
             for case in cases:
@@ -4556,7 +4597,8 @@ class Smoke:
         d.mkdir()
         torch.save(toks, d / "moe_teacher.pt")
         t0 = time.perf_counter()
-        ranks = tp_spawn(4, "nccl", "full", str(d), TP_FULL_TIMEOUT)
+        ranks = spawn_ranks(tp_rank, 4, "nccl", str(d), TP_FULL_TIMEOUT,
+                            "tp_serve nccl x 4 full", "full")
         info = {"spawn_and_run_s": time.perf_counter() - t0,
                 "moe_28_one_card": {"prefill_s": pre_s,
                                     "decode_ms_median":
@@ -4622,8 +4664,9 @@ class Smoke:
                                   "seconds": time.perf_counter() - t1}),
                       flush=True)
             t1 = time.perf_counter()
-            ranks = tp_spawn(TP_WORLD, "gloo", "phase", tmp,
-                             TP_SPAWN_TIMEOUT)
+            ranks = spawn_ranks(tp_rank, TP_WORLD, "gloo", tmp,
+                                TP_SPAWN_TIMEOUT,
+                                f"tp_serve gloo x {TP_WORLD} phase", "phase")
             info["spawn_and_run_s"] = time.perf_counter() - t1
             info["gloo"] = self.tp_check(K, ranks, one, tmp)
             del one
@@ -4641,6 +4684,286 @@ class Smoke:
                 raise AssertionError(f"tp_serve: {name} never launched")
         info["launches"] = path
         info["seconds"] = time.perf_counter() - t0
+        return info
+
+    # -- phase tp_train: the train step over "model" across ranks -------
+
+    def tt_one_card(self, K, case):
+        """A TT_CASES case's steps on one card in this process, from the
+        ranks' seed and batches.  Returns (rows, the final master on the
+        host)."""
+        torch = self.torch
+        from repro_torch.data import synth_batch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.launch import train
+        from repro_torch.models import init_params
+        from repro_torch.optim import adamw
+        from repro_torch.tree import flatten_with_paths
+        label, _, _, rows_n, seq, n_steps, seed = case
+        cfg, _, _, dcfg, ocfg = tt_setup(case, make_mesh(
+            (1, TT_WORLD), ("data", "model")))
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        state = adamw.init(init_params(cfg, gen, device=self.dev))
+        want = dp_launch_plan(cfg, seq, 1)
+        rows = []
+        for i in range(n_steps):
+            batch = train.batch_to_device(synth_batch(cfg, dcfg, i % 2),
+                                          self.dev)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            state, m = train.train_step(cfg, ocfg, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            if any(launches.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"tp_train one card {label} step {i}: "
+                                     f"launches {launches}, want {want}")
+            rows.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]), "wall_s": wall,
+                         "tokens_per_s": rows_n * seq / wall,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9})
+        master = {k: v.cpu() for k, v in flatten_with_paths(state.master)}
+        del state, batch
+        return rows, master
+
+    def tt_master_errors(self, case, specs, one, outdir):
+        """Leaf by leaf, ||ranks' master - one card's|| / ||one card's -
+        initial||, the ranks' blocks (``outdir/<case>_rank<r>.pt``) put
+        together along each leaf's cut dimension on the card; a leaf the
+        specs leave whole must be equal on every rank."""
+        torch = self.torch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.distributed.sharding import (_assemble, data_dim,
+                                                      model_dim)
+        from repro_torch.models import init_params
+        from repro_torch.tree import flatten_with_paths
+        label, seed = case[0], case[6]
+        mesh = make_mesh((1, TT_WORLD), ("data", "model"))
+        cfg = tt_setup(case, mesh)[0]
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        init = dict(flatten_with_paths(init_params(cfg, gen,
+                                                   device=self.dev)))
+        blocks = [torch.load(Path(outdir) / f"{label}_rank{r}.pt",
+                             mmap=True) for r in range(TT_WORLD)]
+        errs, same = {}, []
+        for k, spec in flatten_with_paths(specs.master):
+            dd, md = data_dim(spec, mesh), model_dim(spec, mesh)
+            parts = torch.stack([b[k].to(self.dev) for b in blocks])
+            if dd is None and md is None:
+                if any(not torch.equal(p, parts[0]) for p in parts):
+                    raise AssertionError(f"tp_train {label}: the replicated "
+                                         f"leaf {k} differs across ranks")
+                same.append(k)
+            got = _assemble(parts, dd, md, mesh)
+            want = one[k].to(self.dev)
+            errs[k] = float((got - want).norm() / (
+                want - init[k].float()).norm().clamp(min=1e-30))
+            del parts, got, want
+        del init, blocks
+        return errs, same
+
+    def tp_train_path(self, K):
+        """Phase tp_train: each TT_CASES case's one-card steps (its rows
+        kept, its master on the host, the card emptied), then TT_WORLD gloo
+        ranks sharing card 0 on all of them against it; B7 with its lse,
+        the flash backward and B6 held against their plain versions on
+        rank 0's own inputs; with four cards the NCCL cells
+        (``tt_full``)."""
+        torch = self.torch
+        from repro_torch.distributed import make_mesh
+        from repro_torch.models.moe import moe_capacity
+        t0 = time.perf_counter()
+        cards = torch.cuda.device_count()
+        info = {"phase": "tp_train", "cards": cards, "world": TT_WORLD,
+                "mesh": [1, TT_WORLD], "dtype": "bfloat16",
+                "cases": {c[0]: {"arch": c[1], "layers": c[2],
+                                 "batch": c[3], "seq": c[4], "steps": c[5]}
+                          for c in TT_CASES},
+                "tolerance": TT_TOL,
+                "parent_allocated_gb": torch.cuda.memory_allocated() / 1e9}
+        one = {}
+        for case in TT_CASES:
+            t1 = time.perf_counter()
+            one[case[0]] = self.tt_one_card(K, case)
+            torch.cuda.empty_cache()
+            print(json.dumps({"phase": "tp_train", "one_card": case[0],
+                              "rows": one[case[0]][0],
+                              "seconds": time.perf_counter() - t1}),
+                  flush=True)
+        path = self.launches.setdefault("tp_train", {})
+        mesh = make_mesh((1, TT_WORLD), ("data", "model"))
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            K.reset_launches()
+            ranks = spawn_ranks(tt_rank, TT_WORLD, "gloo", tmp,
+                                TT_SPAWN_TIMEOUT,
+                                f"tp_train gloo x {TT_WORLD}", TT_CASES,
+                                (1, TT_WORLD), True)
+            info["spawn_and_run_s"] = time.perf_counter() - t1
+            for case in TT_CASES:
+                label, _, _, rows_n, seq, _, _ = case
+                tag = f"tp_train gloo x {TT_WORLD} {label}"
+                cfg, specs = tt_setup(case, mesh)[:2]
+                want = dp_launch_plan(cfg, seq, 1)
+                first = ranks[0][label]["rows"]
+                for r, res in ranks.items():
+                    for i, (row, base) in enumerate(zip(res[label]["rows"],
+                                                        first)):
+                        if (row["loss"], row["grad_norm"]) != (
+                                base["loss"], base["grad_norm"]):
+                            raise AssertionError(f"{tag}: rank {r} step {i} "
+                                                 f"{row} != rank 0's")
+                        if row["collectives"] != res[label]["plan"]:
+                            raise AssertionError(
+                                f"{tag}: rank {r} step {i} collectives "
+                                f"{row['collectives']}, planned "
+                                f"{res[label]['plan']}")
+                        got = row["launches"]
+                        if any(got.get(k) != v for k, v in want.items()):
+                            raise AssertionError(f"{tag}: rank {r} step {i} "
+                                                 f"launches {got}, want "
+                                                 f"{want}")
+                        for k, v in got.items():
+                            path[k] = path.get(k, 0) + v
+                rows1, master1 = one[label]
+                for i, (a, b) in enumerate(zip(first, rows1)):
+                    for k in ("loss", "grad_norm"):
+                        tol = TT_TOL[k if i == 0 else f"later_{k}"]
+                        if abs(a[k] - b[k]) > tol * abs(b[k]):
+                            raise AssertionError(
+                                f"{tag}: step {i} {k} {a[k]} against the "
+                                f"one-card step's {b[k]} (rtol {tol})")
+                    if a["lr"] != b["lr"]:
+                        raise AssertionError(f"{tag}: step {i} lr")
+                t2 = time.perf_counter()
+                errs, same = self.tt_master_errors(case, specs, master1, tmp)
+                worst = max(errs, key=errs.get)
+                if errs[worst] > TT_TOL["master"][cfg.family]:
+                    raise AssertionError(f"{tag}: the master's {worst} moved "
+                                         f"{errs[worst]} off the one-card "
+                                         f"master's change")
+                cell = {"rows_rank0": first, "one_card_rows": rows1,
+                        "plan": ranks[0][label]["plan"],
+                        "init_s": ranks[0][label]["init_s"],
+                        "state_gb_a_rank": ranks[0][label]["state_gb"],
+                        "peak_mem_gb_a_rank": max(
+                            row["peak_mem_gb"] for res in ranks.values()
+                            for row in res[label]["rows"]),
+                        "step_s": [row["wall_s"] for row in first],
+                        "tokens_per_s": [row["tokens_per_s"]
+                                         for row in first],
+                        "first_step_rel_err": {
+                            k: abs(first[0][k] - rows1[0][k])
+                            / abs(rows1[0][k]) for k in ("loss",
+                                                         "grad_norm")},
+                        "master_change_err_max": [worst, errs[worst]],
+                        "replicated_leaves_equal": len(same),
+                        "ranks_equal": True,
+                        "compare_s": time.perf_counter() - t2}
+                inputs = torch.load(Path(tmp) / f"{label}_inputs.pt")
+                q, k, v, kw = inputs["attn"]
+                qkv = (q.to(self.dev), k.to(self.dev), v.to(self.dev), kw)
+                bwd = self.bwd_inputs(K, qkv, 77)
+                if label == "yi":
+                    self.tp_bwd = bwd
+                cell["b7_and_bwd_checked"] = {"q": list(q.shape),
+                                              "kv_heads": k.shape[1],
+                                              "window": kw["window"],
+                                              "softcap": kw["softcap_val"]}
+                if cfg.family == "moe":
+                    ids, kw6 = inputs["tickets"]
+                    if kw6["capacity"] != moe_capacity(ids.numel()
+                                                       // cfg.top_k, cfg):
+                        raise AssertionError(f"{tag}: rank 0's B6 ran with "
+                                             f"{kw6}")
+                    self.tickets_case(K, ids.to(self.dev),
+                                      kw6["num_experts"], kw6["capacity"])
+                    cell["b6_checked"] = {"pairs": ids.numel(), **kw6}
+                info[label] = cell
+                print(json.dumps({"phase": "tp_train", "case": label,
+                                  **cell}), flush=True)
+        del one
+        torch.cuda.empty_cache()
+        if cards >= 4:
+            info["nccl"] = self.tt_full(K)
+        else:
+            print(json.dumps({"phase": "tp_train", "nccl": "not run",
+                              "why": f"torch.cuda.device_count() is {cards}: "
+                                     f"the NCCL cells run a card a rank on "
+                                     f"four"}), flush=True)
+        for name in ("expert_tickets", "flash_attention",
+                     "flash_attention_bwd"):
+            if not path.get(name):
+                raise AssertionError(f"tp_train: {name} never launched")
+        info["launches"] = path
+        info["seconds"] = time.perf_counter() - t0
+        return info
+
+    def tt_full(self, K):
+        """The four-card cells over NCCL (a card a rank): yi-34b and
+        gemma2-27b on (1, 4) and (2, 2) at ``tt_full_layers``' cut,
+        TT_FULL_STEPS steps each (batches 0, 1, 0); every rank's loss and
+        norm equal, each step's collectives those of train_collectives,
+        the loss finite and the last step's below the first's (the same
+        batch after two updates).  Each cell's line is printed as it is
+        checked."""
+        torch = self.torch
+        from repro_torch import configs
+        info = {}
+        for shape in ((1, 4), (2, 2)):
+            cases = []
+            for label, arch, _, rows_n, seq, _, seed in TT_CASES[:2]:
+                layers = tt_full_layers(configs.get_config(arch), 4)
+                cases.append((f"{label}_{layers}", arch, layers,
+                              max(rows_n, shape[0]), seq, TT_FULL_STEPS,
+                              seed))
+            print(json.dumps({"phase": "tp_train", "nccl": shape,
+                              "cases": cases, "parent_reserved_gb":
+                              torch.cuda.memory_reserved(0) / 1e9}),
+                  flush=True)
+            with tempfile.TemporaryDirectory() as tmp:
+                t1 = time.perf_counter()
+                ranks = spawn_ranks(tt_rank, 4, "nccl", tmp, TT_FULL_TIMEOUT,
+                                    f"tp_train nccl x 4 {shape}",
+                                    tuple(cases), shape, False)
+                spawn_s = time.perf_counter() - t1
+            key = f"{shape[0]}x{shape[1]}"
+            for case in cases:
+                label = case[0]
+                rows = ranks[0][label]["rows"]
+                for r, res in ranks.items():
+                    for i, (row, base) in enumerate(zip(res[label]["rows"],
+                                                        rows)):
+                        if (row["loss"], row["grad_norm"]) != (
+                                base["loss"], base["grad_norm"]):
+                            raise AssertionError(f"tp_train nccl {key} "
+                                                 f"{label}: rank {r} step "
+                                                 f"{i} != rank 0's")
+                        if row["collectives"] != res[label]["plan"]:
+                            raise AssertionError(
+                                f"tp_train nccl {key} {label}: rank {r} step "
+                                f"{i} collectives {row['collectives']}, "
+                                f"planned {res[label]['plan']}")
+                if not all(math.isfinite(row["loss"]) for row in rows) or \
+                        not rows[-1]["loss"] < rows[0]["loss"]:
+                    raise AssertionError(f"tp_train nccl {key} {label}: "
+                                         f"losses {[r['loss'] for r in rows]}")
+                cell = {"layers": case[2], "batch": case[3], "seq": case[4],
+                        "rows_rank0": rows, "plan": ranks[0][label]["plan"],
+                        "state_gb_a_rank": ranks[0][label]["state_gb"],
+                        "peak_mem_gb_max_rank": max(
+                            row["peak_mem_gb"] for res in ranks.values()
+                            for row in res[label]["rows"]),
+                        "spawn_and_run_s": spawn_s}
+                info[f"{key}/{label}"] = cell
+                print(json.dumps({"phase": "tp_train", "nccl": key,
+                                  "case": label, **cell}), flush=True)
         return info
 
     # -- phase runtime: the host task runtime and its consumers ----------
@@ -6969,6 +7292,42 @@ def mc_spawn(world, backend, names, cut):
     return out
 
 
+def spawn_ranks(target, world, backend, outdir, timeout, tag, *args):
+    """``target(rank, world, backend, store, outdir, *args)`` on ``world``
+    spawned ranks (``torch.multiprocessing``), joined, or killed after
+    ``timeout`` seconds; a rank that fails or runs out of time raises,
+    named by ``tag``, with every rank's last stage
+    (``outdir/rank<r>.stage``).  Returns {rank: its
+    ``outdir/rank<r>.json``}."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        target, args=(world, backend, str(Path(outdir) / "store"), outdir)
+        + args, nprocs=world, join=False, start_method="spawn")
+
+    def stages():
+        return {r: (Path(outdir) / f"rank{r}.stage").read_text()
+                if (Path(outdir) / f"rank{r}.stage").exists()
+                else "not started" for r in range(world)}
+
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"ran past {timeout} s")
+    except Exception as e:
+        seen = stages()
+        for p in ctx.processes:
+            p.kill()
+        for p in ctx.processes:
+            p.join()
+        raise RuntimeError(f"{tag}: {e}; last stages {seen}") from e
+    out = {}
+    for r in range(world):
+        with open(Path(outdir) / f"rank{r}.json") as f:
+            out[r] = json.load(f)
+    return out
+
+
 # -- phase dp_train: the sharded train step across ranks ---------------------
 
 
@@ -7180,41 +7539,6 @@ def dp_time_collectives(torch, spent):
     adamw.all_reduce_ = timed("reduce", adamw.all_reduce_)
     moe.mesh_round_gather = timed("exchange", moe.mesh_round_gather)
     return switch
-
-
-def dp_spawn(world, backend, cases, outdir, save):
-    """``dp_rank`` on ``world`` spawned ranks, joined, or killed after
-    DP_SPAWN_TIMEOUT seconds; a rank that fails or runs out of time
-    raises with every rank's last stage.  Returns {rank: results}."""
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(
-        dp_rank, args=(world, backend, str(Path(outdir) / "store"), outdir,
-                       cases, save), nprocs=world, join=False,
-        start_method="spawn")
-
-    def stages():
-        return {r: (Path(outdir) / f"rank{r}.stage").read_text()
-                if (Path(outdir) / f"rank{r}.stage").exists()
-                else "not started" for r in range(world)}
-
-    deadline = time.perf_counter() + DP_SPAWN_TIMEOUT
-    try:
-        while not ctx.join(timeout=2):
-            if time.perf_counter() > deadline:
-                raise TimeoutError(f"ran past {DP_SPAWN_TIMEOUT} s")
-    except Exception as e:
-        seen = stages()
-        for p in ctx.processes:
-            p.kill()
-        for p in ctx.processes:
-            p.join()
-        raise RuntimeError(f"dp_train {backend} x {world}: {e}; last stages "
-                           f"{seen}") from e
-    out = {}
-    for r in range(world):
-        with open(Path(outdir) / f"rank{r}.json") as f:
-            out[r] = json.load(f)
-    return out
 
 
 # -- phase tp_serve: the serve steps over "model" across ranks --------------
@@ -7797,38 +8121,155 @@ def tp_rank(rank, world, backend, store, outdir, mode):
     mark("done")
 
 
-def tp_spawn(world, backend, mode, outdir, timeout):
-    """``tp_rank`` on ``world`` spawned ranks, joined, or killed after
-    ``timeout`` seconds; a rank that fails or runs out of time raises
-    with every rank's last stage.  Returns {rank: rows}."""
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(
-        tp_rank, args=(world, backend, str(Path(outdir) / "store"), outdir,
-                       mode), nprocs=world, join=False, start_method="spawn")
+# -- phase tp_train: the train step over "model" across ranks ---------------
 
-    def stages():
-        return {r: (Path(outdir) / f"rank{r}.stage").read_text()
-                if (Path(outdir) / f"rank{r}.stage").exists()
-                else "not started" for r in range(world)}
 
-    deadline = time.perf_counter() + timeout
-    try:
-        while not ctx.join(timeout=2):
-            if time.perf_counter() > deadline:
-                raise TimeoutError(f"ran past {timeout} s")
-    except Exception as e:
-        seen = stages()
-        for p in ctx.processes:
-            p.kill()
-        for p in ctx.processes:
-            p.join()
-        raise RuntimeError(f"tp_serve {backend} x {world} {mode}: {e}; last "
-                           f"stages {seen}") from e
+def tt_setup(case, mesh):
+    """A tp_train case's config (full width, its depth, sequence
+    parallelism on), sanitized state and batch specs, data config and
+    optimizer config."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    _, arch, layers, rows, seq, _, _ = case
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                              seq_parallel=True)
+    specs = steps.sanitize_pspecs(steps.state_pspecs(cfg),
+                                  steps.state_struct(cfg), mesh)
+    bspecs = steps.sanitize_pspecs(
+        steps.batch_pspecs(cfg, "train_4k", mesh, batch=rows),
+        steps.batch_struct(cfg, "train_4k", batch=rows, seq=seq), mesh)
+    return (cfg, specs, bspecs, DataConfig(seq_len=seq, global_batch=rows),
+            adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+
+
+def tt_full_layers(cfg, cards: int) -> int:
+    """The deepest cut of ``cfg`` whose state, 16 bytes a parameter over
+    ``cards`` cards, and TT_ACT_RESERVE of activations stay under
+    TT_CARD_SHARE of a card."""
+    import torch
+    one = dataclasses.replace(cfg, n_layers=1).param_count()
+    two = dataclasses.replace(cfg, n_layers=2).param_count()
+    layer, outer = two - one, 2 * one - two
+    room = (TT_CARD_SHARE * torch.cuda.get_device_properties(0).total_memory
+            - TT_ACT_RESERVE - torch.cuda.memory_reserved(0)
+            - 16 * outer / cards)
+    return max(1, min(cfg.n_layers, int(room // (16 * layer / cards))))
+
+
+def tt_rank(rank, world, backend, store, outdir, cases, shape, save):
+    """One rank of phase tp_train: a ``backend`` group of ``world`` ranks
+    on a ``shape`` ("data", "model") mesh, card 0 (gloo) or card ``rank``
+    (NCCL), every case's steps on this rank's blocks of the state and its
+    rows of the batch (launches, collectives, peak memory a step); rank 0
+    keeps its first step's first B7 call's inputs (``flash_attention_train``,
+    the training call) and first B6 call's ids.  Writes its rows to
+    ``outdir/rank<rank>.json``, with ``save`` its master blocks to
+    ``outdir/<case>_rank<rank>.pt``, rank 0's kernel inputs to
+    ``outdir/<case>_inputs.pt``, and its last stage to
+    ``outdir/rank<rank>.stage``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import synth_batch
+    from repro_torch.distributed import COLLECTIVES, make_mesh
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import layers
+    from repro_torch.tree import flatten_with_paths
+
+    def mark(stage):
+        (Path(outdir) / f"rank{rank}.stage").write_text(stage)
+    mark("started")
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
     out = {}
-    for r in range(world):
-        with open(Path(outdir) / f"rank{r}.json") as f:
-            out[r] = json.load(f)
-    return out
+    try:
+        mesh = make_mesh(shape, ("data", "model"), group=dist.group.WORLD)
+        for case in cases:
+            label, _, _, rows, seq, n_steps, seed = case
+            cfg, specs, bspecs, dcfg, ocfg = tt_setup(case, mesh)
+            mark(f"{label}: init")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            t0 = time.perf_counter()
+            state = steps.init_state(cfg, specs.master, mesh, gen, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            step = steps.make_train_step(cfg, ocfg, specs.master, mesh=mesh,
+                                         batch_specs=bspecs)
+            plan = steps.train_collectives(
+                cfg, specs.master, mesh, rows * seq,
+                batch_sharded=bspecs["labels"][0] is not None, seq=seq)
+            plan = {k: v for k, v in plan.items() if v}
+            res, seen, tickets = [], {}, []
+            real = layers.flash_attention_train
+
+            def spy(q, k, v, **kw):
+                seen.setdefault("attn", (q.detach().clone(),
+                                         k.detach().clone(),
+                                         v.detach().clone(), kw))
+                return real(q, k, v, **kw)
+            for i in range(n_steps):
+                mark(f"{label}: step {i}")
+                batch = batch_to_device(synth_batch(cfg, dcfg, i % 2), dev)
+                batch = {k: shard(v, bspecs[k], mesh).contiguous()
+                         for k, v in batch.items()}
+                first = rank == 0 and i == 0
+                undo = dp_spy_tickets(tickets) if first else (lambda: None)
+                if first:
+                    layers.flash_attention_train = spy
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(COLLECTIVES)
+                try:
+                    t1 = time.perf_counter()
+                    state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+                finally:
+                    layers.flash_attention_train = real
+                    undo()
+                res.append({
+                    "loss": float(m["loss"]), "grad_norm": float(
+                        m["grad_norm"]), "lr": float(m["lr"]),
+                    "wall_s": wall, "tokens_per_s": rows * seq / wall,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                 if v},
+                    "collectives": {k: COLLECTIVES[k] - before[k]
+                                    for k in COLLECTIVES
+                                    if COLLECTIVES[k] != before[k]}})
+            if seen or tickets:
+                torch.save({"attn": seen.get("attn"),
+                            "tickets": tickets[0] if tickets else None},
+                           Path(outdir) / f"{label}_inputs.pt")
+            mark(f"{label}: save")
+            if save:
+                torch.save({k: v.cpu() for k, v in
+                            flatten_with_paths(state.master)},
+                           Path(outdir) / f"{label}_rank{rank}.pt")
+            out[label] = {"rows": res, "plan": plan, "init_s": init_s,
+                          "layers": cfg.n_layers, "state_gb": sum(
+                              v.numel() * v.element_size()
+                              for part in state[:3]
+                              for _, v in flatten_with_paths(part)) / 1e9}
+            del state, step, seen
+            torch.cuda.empty_cache()
+        mark("barrier")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(outdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mark("done")
 
 
 def main() -> int:
@@ -7987,6 +8428,13 @@ def main() -> int:
     # card, each case against the one-card steps on the same weights
     torch.cuda.empty_cache()
     emit_phase(smoke.tp_serve_path(K))
+
+    # tp_train. the train step over "model" (tensor, expert and vocabulary
+    # parallelism with their backward, the residual stream split along the
+    # sequence) on gloo ranks sharing the card, each case against the
+    # one-card step on the same weights
+    torch.cuda.empty_cache()
+    emit_phase(smoke.tp_train_path(K))
 
     # 9. gemma3-4b prefill at full width (granite's weights are freed)
     torch.cuda.empty_cache()
@@ -9478,11 +9926,12 @@ def kernel_rows(smoke, K, road, kron, heap, qkron, seen, road_g,
     kern_b, plain_b, lib_b, bytes_b, ops_b = bwd_times(
         qt, kt, vt, bwd_kw, out_t, lse_t, dout_t)
     bwd_rows = {}
-    seen_zoo = dict(seen_zoo, dp_bwd=smoke.dp_bwd)
+    seen_zoo = dict(seen_zoo, dp_bwd=smoke.dp_bwd, tp_bwd=smoke.tp_bwd)
     for key, label, path in (("hybrid_bwd", "hd112", "zoo_hybrid_train"),
                              ("audio_bwd", "hd80_unmasked",
                               "zoo_audio_train"),
-                             ("dp_bwd", "hd128_dp_train", "dp_train")):
+                             ("dp_bwd", "hd128_dp_train", "dp_train"),
+                             ("tp_bwd", "hd128_tp_train", "tp_train")):
         qz, kz, vz, kwz, oz, lz, dz = seen_zoo[key]
         bwd_rows[label] = sub(*bwd_times(qz, kz, vz, kwz, oz, lz, dz),
                               {"q": list(qz.shape), "kv_heads": kz.shape[1],

@@ -7,19 +7,19 @@ The reference lays parameters, optimizer state and batches over a
 ``repro/launch/steps.py``) and leaves the collectives to GSPMD.  The port
 runs one rank a shard of a group-bound mesh (``make_mesh(...,
 group=)``: the data-parallel axes ``"pod"`` and ``"data"``, and
-``"model"``, the last axis, for the serve steps) and issues them
-itself:
+``"model"``, the last axis) and issues them itself:
 
 * ``P`` — the port's PartitionSpec: one entry a dimension (None, an axis
   name or a tuple of names), normalised as ``jax.sharding.PartitionSpec``
   normalises (a one-name tuple becomes the name, an empty one None).  It
   is not a tuple, so ``repro_torch.tree`` takes it as a leaf.
 * ``data_dim`` — the dimension a (sanitized) spec shards over the
-  data-parallel axes, or None for a leaf every rank holds whole; a
-  ``"model"`` axis above 1 is refused by name unless the caller takes it
-  (``model_ok``, the serve steps).  ``model_dim`` — the dimension it
-  shards over ``"model"``.  A leaf may be sharded on two dimensions:
-  ``P("data", "model")`` under FSDP.
+  data-parallel axes, or None for a leaf every rank holds whole;
+  ``model_dim`` — the dimension it shards over ``"model"``.  A leaf may
+  be sharded on two dimensions: ``P("data", "model")`` under FSDP; one
+  dimension over both axes (``cache_pspecs``' sequence-sharded branch) is
+  refused by name.  ``check_mesh`` refuses the ssm, hybrid, vlm and audio
+  families over "model" by name.
 * ``shard`` — rank r's block of a leaf (over both axes);
   ``unshard_tree`` — a tree of blocks whole again on every rank, in one
   collective (``gather_rows``).
@@ -32,12 +32,18 @@ itself:
   block with no collective.
 * ``all_reduce_`` — the sum over the ranks in place (replicated leaves'
   gradients, the loss and the norm).
-* ``TensorParallel`` — a rank's place in the serve steps over a
-  ("data", "model") mesh: the sanitized specs, one sub-group a data index
-  for the model axis and one a model index for the data axis, and the
-  model axis's collectives (``all_reduce``, ``all_gather``,
-  ``reduce_scatter``, each over that axis's sub-group only).  Sums over
-  "model" run in float32 and are rounded once to the activations' type.
+* ``DataParallel`` — a rank's place in the train step over the data axes
+  alone.
+* ``TensorParallel`` — a rank's place in the train, prefill and serve
+  steps over a ("data", "model") mesh: the sanitized specs, one sub-group
+  a data index for the model axis and one a model index for the data
+  axis, and the model axis's collectives (``all_reduce``,
+  ``all_gather``, ``reduce_scatter``, ``seq_gather``, ``finish``, each
+  over that axis's sub-group only), autograd Functions whose backward is
+  the forward's conjugate (Megatron's f and g: an all-reduce's is the
+  identity, an all-gather's a reduce-scatter, and the reverse).  Sums
+  over "model" run in float32 and are rounded once to the tensors'
+  type.
 
 The gradients are reduced in float32: the ranks' terms travel in the
 leaf's own type (bfloat16 in training), a rank adds the S terms of its
@@ -124,12 +130,12 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def data_dim(spec: P, mesh: Mesh, *, model_ok: bool = False
-             ) -> Optional[int]:
+def data_dim(spec: P, mesh: Mesh) -> Optional[int]:
     """The dimension ``spec`` shards over the mesh's data-parallel axes
-    (None when it names none of size above 1).  Raises on a ``"model"``
-    axis above 1 unless ``model_ok`` (the serve steps, which take it;
-    the train step does not), and on a dimension sharded over both."""
+    (None when it names none of size above 1).  A ``"model"`` entry is
+    the model axis's (``model_dim``); a dimension sharded over the data
+    and model axes at once (``cache_pspecs``' sequence-sharded branch) or
+    two dimensions over the data axes are refused by name."""
     sizes = mesh.shape
     dim = None
     for i, entry in enumerate(spec):
@@ -141,18 +147,16 @@ def data_dim(spec: P, mesh: Mesh, *, model_ok: bool = False
             if sizes[a] <= 1:
                 continue
             if a not in DP_AXES:
-                if a == MODEL and model_ok:
-                    if any(b in DP_AXES and sizes[b] > 1 for b in axes):
-                        raise ValueError(
-                            f"spec {spec!r} shards dimension {i} over the "
-                            f"data and model axes at once (cache_pspecs' "
-                            f"sequence-sharded branch is not ported)")
-                    continue
-                raise ValueError(
-                    f"spec {spec!r} shards over {a!r} of size {sizes[a]}: "
-                    f"the train step shards over the data axis only "
-                    f"(tensor, expert and sequence parallelism over "
-                    f"\"model\" are not ported for training)")
+                if a != MODEL:
+                    raise ValueError(f"spec {spec!r} shards over {a!r}: the "
+                                     f"port shards over the data and model "
+                                     f"axes only")
+                if any(b in DP_AXES and sizes[b] > 1 for b in axes):
+                    raise ValueError(
+                        f"spec {spec!r} shards dimension {i} over the "
+                        f"data and model axes at once (cache_pspecs' "
+                        f"sequence-sharded branch is not ported)")
+                continue
             if dim is not None and dim != i:
                 raise ValueError(f"spec {spec!r} shards two dimensions over "
                                  f"the data axis")
@@ -195,11 +199,11 @@ def model_size(mesh: Mesh) -> int:
     return mesh.shape.get(MODEL, 1)
 
 
-def check_mesh(mesh: Mesh, cfg=None, *, serve: bool = False) -> None:
-    """A mesh the port runs over.  Training: its ranks are the
-    data-parallel shards, and no other axis has more than one.  Serving
-    (``serve``): "model" may have more, as the mesh's last axis, for
-    ``cfg``'s family if it is dense or moe."""
+def check_mesh(mesh: Mesh, cfg=None) -> None:
+    """A mesh the port runs over: its data-parallel axes and "model", the
+    last axis, which may have more than one shard for ``cfg``'s family if
+    it is dense or moe (the ssm, hybrid, vlm and audio families over
+    "model" are refused by name)."""
     for a, s in mesh.shape.items():
         if a in DP_AXES or s <= 1:
             continue
@@ -207,20 +211,14 @@ def check_mesh(mesh: Mesh, cfg=None, *, serve: bool = False) -> None:
             raise ValueError(f"mesh {mesh.shape}: axis {a!r} has {s} "
                              f"shards; the port shards over the data and "
                              f"model axes only")
-        if not serve:
-            raise ValueError(
-                f"mesh {mesh.shape}: axis {a!r} has {s} shards; the train "
-                f"step shards over the data axis only (tensor, expert and "
-                f"sequence parallelism over \"model\" are not ported for "
-                f"training)")
         if mesh.axis_names[-1] != MODEL:
             raise ValueError(f"mesh {mesh.axis_names}: \"model\" must be "
                              f"the last axis")
         if cfg is not None and cfg.family not in TP_FAMILIES:
             raise ValueError(
                 f"{cfg.name}: the {cfg.family} family over \"model\" is "
-                f"not ported (the serve steps run {', '.join(TP_FAMILIES)} "
-                f"over it)")
+                f"not ported (the train and serve steps run "
+                f"{', '.join(TP_FAMILIES)} over it)")
 
 
 def _rank(mesh: Mesh) -> int:
@@ -249,7 +247,7 @@ def block_cuts(spec: P, mesh: Mesh, rank: int):
     dimensions: the data-parallel one and the model one."""
     d, m = coords(mesh, rank)
     cuts = []
-    dd = data_dim(spec, mesh, model_ok=True)
+    dd = data_dim(spec, mesh)
     if dd is not None:
         cuts.append((dd, dp_size(mesh), d))
     md = model_dim(spec, mesh)
@@ -263,7 +261,7 @@ def shard(x: torch.Tensor, spec: P, mesh: Mesh, rank: Optional[int] = None):
     by default), over the data and the model axes: a view, or ``x``
     itself for a replicated leaf."""
     r = _rank(mesh) if rank is None and (
-        data_dim(spec, mesh, model_ok=True) is not None
+        data_dim(spec, mesh) is not None
         or model_dim(spec, mesh) is not None) else rank
     for dim, n, i in block_cuts(spec, mesh, r or 0):
         if x.shape[dim] % n:
@@ -294,7 +292,7 @@ def unshard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     replicated leaf is this rank's own."""
     leaves = tree_leaves(tree)
     dims = tree_leaves(tree_map(
-        lambda x, s: (data_dim(s, mesh, model_ok=True), model_dim(s, mesh)),
+        lambda x, s: (data_dim(s, mesh), model_dim(s, mesh)),
         tree, specs))
     dims = [dims[i:i + 2] for i in range(0, len(dims), 2)]
     sharded = [x for x, (dd, md) in zip(leaves, dims)
@@ -316,16 +314,16 @@ def _gloo(mesh: Mesh) -> bool:
     return dist.get_backend(mesh.group) == "gloo"
 
 
-def all_reduce_(x: torch.Tensor, mesh: Mesh, *,
-                kind: str = "reduce") -> torch.Tensor:
-    """``x`` summed over the ranks, in place (through the host over
-    gloo), counted as ``kind``; returns ``x``."""
+def all_reduce_(x: torch.Tensor, mesh: Mesh, *, kind: str = "reduce",
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` summed (or reduced by ``op``) over the ranks, in place
+    (through the host over gloo), counted as ``kind``; returns ``x``."""
     if _gloo(mesh) and x.device.type != "cpu":
         host = host_copy(x)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
+        dist.all_reduce(host, op=op, group=mesh.group)
         x.copy_(host)
     else:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
+        dist.all_reduce(x, op=op, group=mesh.group)
     COLLECTIVES[kind] += 1
     return x
 
@@ -448,13 +446,19 @@ def gather_tree(tree: Any, specs: Any, mesh: Mesh, summed: bool = True,
 
 
 class DataParallel:
-    """A rank's place in the sharded train step: the group-bound ``mesh``,
-    the sanitized PartitionSpecs ``specs`` of the parameter tree (whose
-    leaves this rank holds blocks of), and whether the batch is split
-    over the ranks (``batch_sharded``) or every rank holds it whole."""
+    """A rank's place in the sharded train step over the data axes alone:
+    the group-bound ``mesh``, the sanitized PartitionSpecs ``specs`` of
+    the parameter tree (whose leaves this rank holds blocks of), and
+    whether the batch is split over the ranks (``batch_sharded``) or
+    every rank holds it whole.  A "model" axis above 1 is
+    ``TensorParallel``'s."""
 
     def __init__(self, mesh: Mesh, specs: Any, batch_sharded: bool = True):
         check_mesh(mesh)
+        if model_size(mesh) > 1:
+            raise ValueError(f"mesh {mesh.shape}: DataParallel runs over the "
+                             f"data axes; \"model\" above 1 takes "
+                             f"TensorParallel")
         _rank(mesh)
         self.mesh, self.specs, self.batch_sharded = mesh, specs, batch_sharded
 
@@ -464,7 +468,7 @@ class DataParallel:
 
 
 # ---------------------------------------------------------------------------
-# the model axis: the serve steps' tensor parallelism
+# the model axis: Megatron's tensor and sequence parallelism
 # ---------------------------------------------------------------------------
 
 #: sub-groups made for a mesh: (group, sizes) -> (model groups, data groups)
@@ -491,27 +495,124 @@ def _subgroups(mesh: Mesh):
     return _SUBGROUPS[key]
 
 
+def _sum32(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over "model" in float32, rounded once to its
+    type."""
+    return all_reduce_(x.to(torch.float32, copy=True), mesh,
+                       kind="tp_reduce").to(x.dtype)
+
+
+def _scatter(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over "model", this rank's block of it along
+    ``dim``: ONE all-to-all of the ranks' blocks in ``x``'s own type,
+    summed in float32 on this rank and rounded once (``_blocks``)."""
+    shape = list(x.shape)
+    shape[dim] //= mesh.size
+    blk = torch.empty(shape, dtype=x.dtype, device="meta")
+    return _blocks([x], [blk], [dim], mesh, True, kind="tp_scatter")[0]
+
+
+class _ModelReduce(torch.autograd.Function):
+    """Row-parallel output: the sum over "model" (an all-reduce); its
+    gradient, whole on every rank, is each term's (identity)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _sum32(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Column-parallel input: the same tensor on every rank of "model"
+    (identity); its gradient the sum of the ranks' (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(g, ctx.mesh), None
+
+
+class _ModelGather(torch.autograd.Function):
+    """Blocks cut over "model" -> whole tensors (one all-gather); their
+    gradients -> each rank's block of the sum (one reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, dims, mesh, *blocks):
+        ctx.dims, ctx.mesh = dims, mesh
+        ctx.blocks = [torch.empty(b.shape, dtype=b.dtype, device="meta")
+                      for b in blocks]
+        return tuple(_whole(blocks, dims, mesh, kind="tp_gather"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_blocks(
+            grads, ctx.blocks, ctx.dims, ctx.mesh, True, kind="tp_scatter"))
+
+
+class _ModelScatter(torch.autograd.Function):
+    """Sequence-parallel row output: the sum over "model", this rank's
+    block along ``dim`` (a reduce-scatter); its gradient every rank's
+    block (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _scatter(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole([g], [ctx.dim], ctx.mesh, kind="tp_gather")[0], \
+            None, None
+
+
+class _ModelShare(torch.autograd.Function):
+    """A term every rank of "model" computes whole, added to the ranks'
+    sum: the same tensor (identity), whose gradient rank 0 takes and the
+    others take as zero, so that the sum over the ranks counts it once."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
 class TensorParallel:
-    """A rank's place in the serve steps over a group-bound ("data",
-    "model") mesh: ``specs`` the sanitized parameter specs (this rank
-    holds their blocks), ``kv_spec`` the sanitized spec of its decode
-    cache's K and V (B, S, kv, hd), ``model_mesh`` and ``data_mesh`` the
+    """A rank's place in the train, prefill and serve steps over a
+    group-bound ("data", "model") mesh: ``specs`` the sanitized parameter
+    specs (this rank holds their blocks), ``kv_spec`` the sanitized spec
+    of a layer's K and V (B, S, kv, hd) (its cache's, and the attention
+    path's: ``layers.kv_layout``), ``model_mesh`` and ``data_mesh`` the
     meshes over this rank's sub-groups (None where the axis has one
     shard; ``data_mesh`` keeps the mesh's axis names, "model" of size
     1), ``m`` / ``d`` its model and data-parallel indices, ``sp`` whether
     the residual stream is split along the sequence over "model" between
-    layers (``with_sp``: a prefill with ``cfg.seq_parallel``), and
+    layers (``with_sp``: ``cfg.seq_parallel`` and M dividing S), and
     ``batch_sharded`` whether the batch rows are split over the data
-    axes."""
+    axes.
+
+    The model axis's collectives are autograd Functions, Megatron's
+    conjugate pairs: a layer's input (``seq_gather``) is the identity
+    forward and an all-reduce backward, or under ``sp`` an all-gather
+    along the sequence and a reduce-scatter; its output (``finish``) an
+    all-reduce and the identity, or under ``sp`` a reduce-scatter and an
+    all-gather; the cut projections' ``all_gather`` reduce-scatters
+    their gradients.  Every sum over "model" runs in float32 and is
+    rounded once to the tensors' type."""
 
     def __init__(self, mesh: Mesh, cfg, specs: Any, kv_spec: P, *,
                  batch_sharded: bool = True):
-        check_mesh(mesh, cfg, serve=True)
-        if cfg.family not in TP_FAMILIES and mesh.size > 1:
-            raise ValueError(
-                f"{cfg.name}: the {cfg.family} family's serve steps across "
-                f"ranks are not ported (the serve steps run "
-                f"{', '.join(TP_FAMILIES)} over \"data\" and \"model\")")
+        check_mesh(mesh, cfg)
         rank = _rank(mesh)
         self.mesh, self.specs, self.kv_spec = mesh, specs, kv_spec
         self.model, self.data = model_size(mesh), dp_size(mesh)
@@ -550,48 +651,50 @@ class TensorParallel:
     def gather_data(self, tree: Any, specs: Any, lead: int = 0) -> Any:
         """``tree`` (this rank's blocks) with every leaf cut over the data
         axes whole along it (FSDP): ``gather_tree`` over the data
-        sub-group."""
+        sub-group, whose backward reduce-scatters the gradients over it
+        (or, with the batch whole on every data rank, takes the rank's
+        block)."""
         if self.data_mesh is None:
             return tree
-        return gather_tree(tree, specs, self.data_mesh, lead=lead)
+        return gather_tree(tree, specs, self.data_mesh, self.batch_sharded,
+                           lead=lead)
 
     # -- the model axis's collectives ----------------------------------------
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over "model", in float32, rounded once to
-        ``x``'s type."""
-        y = all_reduce_(x.to(torch.float32, copy=True), self.model_mesh,
-                        kind="tp_reduce")
-        return y.to(x.dtype)
+        ``x``'s type; its gradient passes through (identity)."""
+        return _ModelReduce.apply(x, self.model_mesh)
 
     def all_gather(self, xs: Sequence[torch.Tensor], dims: Sequence[int]):
         """This rank's blocks of some tensors, each cut along its entry of
         ``dims`` over "model", as the whole tensors: ONE all-gather of
-        their bytes."""
-        return _whole(list(xs), list(dims), self.model_mesh,
-                      kind="tp_gather")
+        their bytes; the backward ONE reduce-scatter of their gradients
+        (an all-to-all of the blocks, summed in float32)."""
+        return list(_ModelGather.apply(tuple(dims), self.model_mesh, *xs))
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The sum of ``x`` over "model", this rank's block of it along
         ``dim``: ONE all-to-all of the ranks' blocks in ``x``'s own type
         (half a float32 reduce-scatter's bytes for bfloat16), summed in
-        float32 on this rank and rounded once (``_blocks``)."""
-        shape = list(x.shape)
-        shape[dim] //= self.model
-        blk = torch.empty(shape, dtype=x.dtype, device="meta")
-        return _blocks([x], [blk], [dim], self.model_mesh, True,
-                       kind="tp_scatter")[0]
+        float32 on this rank and rounded once; the backward one
+        all-gather."""
+        return _ModelScatter.apply(x, dim, self.model_mesh)
 
     # -- the residual stream -------------------------------------------------
 
     def seq_block(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a whole (B, S, d) along the sequence."""
+        """This rank's block of a whole (B, S, ...) along the sequence."""
         return x.chunk(self.model, 1)[self.m]
 
     def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The rank's (B, S/M, d) block whole along the sequence (under
-        ``sp``; else ``x`` itself)."""
-        return self.all_gather([x], [1])[0] if self.sp else x
+        """A column-parallel layer's input: under ``sp`` the rank's (B,
+        S/M, d) block whole along the sequence (an all-gather; backward a
+        reduce-scatter), else ``x`` itself (backward: the ranks'
+        gradients all-reduced)."""
+        if self.sp:
+            return self.all_gather([x], [1])[0]
+        return x if self.model == 1 else _ModelCopy.apply(x, self.model_mesh)
 
     def finish(self, partial: Optional[torch.Tensor] = None,
                whole: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -599,12 +702,15 @@ class TensorParallel:
         (``partial``, a row-parallel product) and a term every rank holds
         whole (``whole``): the sum all-reduced, or under ``sp``
         reduce-scattered along the sequence (whole terms cut to the
-        rank's block); each (B, S, d)."""
+        rank's block); each (B, S, d).  A whole term's gradient is taken
+        once over the ranks (on rank 0, or under ``sp`` on each rank's
+        block)."""
         out = None
         if partial is not None:
             out = (self.reduce_scatter(partial, 1) if self.sp
                    else self.all_reduce(partial))
         if whole is not None:
-            whole = self.seq_block(whole) if self.sp else whole
+            whole = (self.seq_block(whole) if self.sp
+                     else _ModelShare.apply(whole, self.m == 0))
             out = whole if out is None else out + whole
         return out

@@ -161,8 +161,9 @@ def opt_state_block_from_numpy(state: Any, specs: OptState, mesh, *,
     """Rank ``rank``'s blocks (this process's rank of the group-bound
     ``mesh`` by default) of the reference's ``OptState`` (as
     ``opt_state_from_numpy`` takes it) under the sanitized state specs
-    ``specs`` (``launch.steps.state_pspecs``): each leaf cut on the host
-    and copied to ``device``."""
+    ``specs`` (``launch.steps.state_pspecs``), over the data axes and
+    "model" (a block cut on two dimensions under FSDP): each leaf cut on
+    the host and copied to ``device``."""
     dev = resolve_device(device)
     whole = opt_state_from_numpy(state, device="cpu")
     leaves = [shard(x, sp, mesh, rank).clone().to(dev)

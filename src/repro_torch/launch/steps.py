@@ -17,20 +17,24 @@ sharding.P``) of those inputs over a mesh (``launch/mesh.py``: the
 production 16 x 16 and 2 x 16 x 16 meshes are sizes alone), and
 ``sanitize_pspecs`` replicates a dimension the mesh does not divide, as
 the reference does.  ``make_train_step(pspecs=, mesh=)`` trains over the
-ranks of a group-bound mesh's data axis with them: DP over "data", and
-FSDP (ZeRO-3: the master, m and v sharded, each layer's weights gathered
-where they are used) for the configs with ``fsdp``; a "model" axis above
-1 is refused for training.  ``make_prefill_step(pspecs=, mesh=)`` and
-``make_serve_step(pspecs=, mesh=)`` run the dense and moe families over
-a ("data", "model") mesh as the reference's dry run lowers them: the
-batch over "data", Megatron tensor parallelism over "model" (heads, FFN
-columns, experts, vocabulary), FSDP gathers over "data", and for a
-prefill with ``cfg.seq_parallel`` the residual stream split along the
-sequence (``distributed.sharding.TensorParallel``);
-``serve_collectives`` counts what one such step issues.  The other
-families over ranks and ``cache_pspecs``' sequence-sharded branch (a
+ranks of a group-bound mesh with them: DP over "data", and FSDP (ZeRO-3:
+the master, m and v sharded, each layer's weights gathered where they
+are used) for the configs with ``fsdp``; over a "model" axis above 1
+(dense and moe) Megatron tensor parallelism with its backward (heads,
+FFN columns, experts and the vocabulary over "model", the loss over the
+rank's vocabulary columns) and, with ``cfg.seq_parallel``, the residual
+stream split along the sequence.  ``make_prefill_step(pspecs=, mesh=)``
+and ``make_serve_step(pspecs=, mesh=)`` run the dense and moe families
+over a ("data", "model") mesh as the reference's dry run lowers them:
+the batch over "data", the same tensor parallelism over "model", FSDP
+gathers over "data", and for a prefill with ``cfg.seq_parallel`` the
+residual stream split along the sequence
+(``distributed.sharding.TensorParallel``); ``train_collectives`` and
+``serve_collectives`` count what one such step issues.  The other
+families over "model" and ``cache_pspecs``' sequence-sharded branch (a
 batch the data axes do not divide) are refused by name.  ``init_state``
-draws a rank's blocks of the initial state a layer at a time.
+draws a rank's blocks of the initial state a layer at a time, over both
+axes.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ..configs.base import SHAPES, ArchConfig
 from ..distributed.collectives import Mesh
 from ..distributed.sharding import (DataParallel, P, TensorParallel,
                                     data_dim, is_spec, leaf_dims,
-                                    model_dim, model_size)
+                                    model_dim, model_size, shard)
 from ..models import (decode_step, init_decode_cache, init_params,
                       init_params_block, param_specs, prefill)
 from ..models.layers import kv_layout
@@ -51,7 +55,7 @@ from ..models.moe import dp_groups
 from ..optim import adamw
 from ..tree import tree_leaves, tree_map
 from .mesh import dp_axes, dp_size
-from .train import train_step
+from .train import grad_sums, train_step
 
 META = torch.device("meta")
 
@@ -134,10 +138,18 @@ def make_train_step(cfg: ArchConfig,
     tree, ``state_pspecs(cfg).master``) lay the state over its ranks: the
     step takes this rank's blocks of the state (``init_state``) and its
     rows of the batch under ``batch_specs`` (``batch_pspecs``, sanitized;
-    split over the ranks when None).  A "model" axis above 1 raises."""
+    split over the ranks when None).  A "model" axis above 1 (dense and
+    moe) trains with Megatron's tensor parallelism over it, experts and
+    the vocabulary cut over it, and with ``cfg.seq_parallel`` the
+    residual stream split along the sequence between layers
+    (``distributed.sharding.TensorParallel``, ``step.tp``); the other
+    families over "model" are refused by name."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    dp = None
-    if mesh is not None:
+    dp = tp = None
+    if mesh is not None and model_size(mesh) > 1:
+        tp = _tensor_parallel(cfg, pspecs, mesh, None if batch_specs is None
+                              else batch_specs["labels"], "make_train_step")
+    elif mesh is not None:
         if pspecs is None:
             raise ValueError("make_train_step: a mesh needs the state's "
                              "pspecs")
@@ -146,8 +158,9 @@ def make_train_step(cfg: ArchConfig,
         dp = DataParallel(mesh, pspecs, sharded)    # checks the mesh
 
     def step(state: adamw.OptState, batch: Dict[str, torch.Tensor]):
-        return train_step(cfg, opt_cfg, state, batch, groups=groups, dp=dp)
-
+        return train_step(cfg, opt_cfg, state, batch, groups=groups, dp=dp,
+                          tp=tp)
+    step.tp = tp
     return step
 
 
@@ -168,7 +181,8 @@ def _buckets(nbytes, bucket_bytes: int = 1 << 25) -> int:
 
 
 def train_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int,
-                      batch_sharded: bool = True) -> Dict[str, int]:
+                      batch_sharded: bool = True, *,
+                      seq: Optional[int] = None) -> Dict[str, int]:
     """The collectives one sharded step issues (``distributed.COLLECTIVES``
     kinds) for the sanitized master ``pspecs`` and ``tokens`` tokens of
     global batch: the gathers of the outer leaves (once) and of each
@@ -176,7 +190,12 @@ def train_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int,
     loss's all-reduce, the replicated gradients' buckets (float32) and
     the norm's all-reduce when a leaf is sharded, and the MoE's exchange
     of counts in a layer (and its recomputation) when its dispatch falls
-    back to one group over the ranks."""
+    back to one group over the ranks.  Over "model" (``seq`` the
+    sequence length, which decides the sequence parallelism) see
+    ``_tp_train_collectives``."""
+    if model_size(mesh) > 1:
+        return _tp_train_collectives(cfg, pspecs, mesh, tokens,
+                                     batch_sharded, seq)
     struct = params_struct(cfg)
     rest = {k: v for k, v in struct.items() if k != "layers"}
     outer = int(any(d is not None for d in leaf_dims(rest, pspecs, mesh)))
@@ -195,6 +214,73 @@ def train_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int,
         s = dp_size(mesh)
         if cfg.family == "moe" and dp_groups(tokens, s) != s:
             plan["exchange"] = cfg.n_layers * passes
+    return plan
+
+
+def _tp_train_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int,
+                          batch_sharded: bool, seq: Optional[int]):
+    """``train_collectives`` over a ("data", "model") mesh: as over
+    "data" for the FSDP gathers, their reduce-scatters, the loss and the
+    norm; per layer forward the sequence's two all-gathers (under
+    sequence parallelism), the general attention path's all-gather of
+    its cut projections and a sum over "model" after attention and after
+    the MLP or MoE (an all-reduce, or a reduce-scatter along the
+    sequence), the remat pass the same but its last sum (the recompute
+    stops at the layer's last saved tensor), and the backward the
+    conjugates: the inputs' all-reduces (or reduce-scatters), the cut
+    projections' reduce-scatter, and under sequence parallelism the
+    sums' all-gathers.  Outside the layers: the cut embedding's sum and
+    its conjugate, the head's input and its conjugate and the
+    vocabulary-parallel loss's two all-reduces (or, with the vocabulary
+    whole under sequence parallelism, the loss terms' all-reduce), and
+    the gradients summed over the mesh, its data or its model sub-group
+    (``launch.train.grad_sums``; "reduce", in buckets)."""
+    m, n = model_size(mesh), dp_size(mesh)
+    L, passes = cfg.n_layers, 2 if cfg.remat else 1
+    sp = int(bool(cfg.seq_parallel and seq is not None and seq % m == 0))
+    cut = lambda sp_: model_dim(sp_, mesh) is not None  # noqa: E731
+    data = lambda sp_: data_dim(sp_, mesh) is not None  # noqa: E731
+    lsp = pspecs["layers"]
+    split_data = batch_sharded and n > 1
+    outer = int(any(data(v) for k, v in pspecs.items() if k != "layers"))
+    layer = int(any(data(v) for v in lsp.values()))
+    plan = {"all_gather": outer + L * passes * layer,
+            "reduce_scatter": (outer + L * layer) if split_data else 0,
+            "reduce": int(split_data), "exchange": 0, "tp_reduce": 0,
+            "tp_gather": 0, "tp_scatter": 0}
+    total = "tp_scatter" if sp else "tp_reduce"
+    general = int(kv_layout(kv_pspec(cfg, mesh), mesh) != "heads" and any(
+        cut(lsp[k]) for k in ("wq", "wk", "wv")))
+    attn = int(cut(lsp["wo"]))
+    if cfg.family == "moe":
+        ffn = int(cut(lsp["e_gate"]) or bool(cfg.n_shared_experts
+                                             and cut(lsp["s_down"])))
+    else:
+        ffn = int(cut(lsp["w_down"]))
+    # a layer's forward and remat pass (which stops before its last sum),
+    # then its backward's conjugates
+    plan["tp_gather"] += L * passes * (2 * sp + general)
+    plan[total] += L * (attn + ffn + (passes - 1) * attn)
+    plan["tp_scatter" if sp else "tp_reduce"] += L * 2
+    plan["tp_scatter"] += L * general
+    plan["tp_gather"] += L * sp * (attn + ffn)
+    if cut(pspecs["embed"]):
+        plan[total] += 1
+        plan["tp_gather"] += int(sp)
+    if cut(pspecs["lm_head"]):
+        plan["tp_gather"] += int(sp)
+        plan["tp_scatter" if sp else "tp_reduce"] += 1
+        plan["tp_reduce"] += 2
+    elif sp:
+        plan["tp_reduce"] += 1
+    struct = params_struct(cfg)
+    blocks = [shard(x, s, mesh, 0) for x, s in zip(
+        tree_leaves(struct), tree_leaves(pspecs))]
+    for idx in grad_sums(pspecs, mesh, sp, split_data).values():
+        plan["reduce"] += _buckets([4 * blocks[i].numel() for i in idx])
+    plan["reduce"] += int(any(data(s) or cut(s) for s in tree_leaves(pspecs)))
+    if cfg.family == "moe" and split_data and dp_groups(tokens, n) != n:
+        plan["exchange"] = L * passes
     return plan
 
 
@@ -229,7 +315,7 @@ def _tensor_parallel(cfg: ArchConfig, pspecs, mesh: Optional[Mesh],
         raise ValueError(f"{name}: a mesh needs the parameters' pspecs "
                          f"(param_specs, sanitized)")
     sharded = (batch_specs is None
-               or data_dim(batch_specs, mesh, model_ok=True) == 0)
+               or data_dim(batch_specs, mesh) == 0)
     return TensorParallel(mesh, cfg, pspecs, kv_pspec(cfg, mesh),
                           batch_sharded=sharded)
 
@@ -294,7 +380,7 @@ def serve_collectives(cfg: ArchConfig, pspecs, mesh: Mesh, tokens: int, *,
     for a in dp_axes(mesh):
         n *= mesh.shape[a]
     cut = lambda sp: model_dim(sp, mesh) is not None  # noqa: E731
-    data = lambda sp: data_dim(sp, mesh, model_ok=True) is not None  # noqa
+    data = lambda sp: data_dim(sp, mesh) is not None  # noqa: E731
     lsp = pspecs["layers"]
     plan = {"all_gather": 0, "exchange": 0, "tp_reduce": 0, "tp_gather": 0,
             "tp_scatter": 0}

@@ -18,8 +18,8 @@ backward for attention at 2,048 keys or more) and ``adamw.step``.
 ``--save-every`` steps, ``--inject-fault-at`` raises once at that step).
 It prints the reference's lines, with tokens/s on the card.
 ``train_step(dp=)`` is the step of one rank of the sharded train step
-over a mesh's data axis (``launch.steps.make_train_step(pspecs=,
-mesh=)``).
+over a mesh's data axis, ``train_step(tp=)`` over a ("data", "model")
+mesh (``launch.steps.make_train_step(pspecs=, mesh=)``).
 """
 
 from __future__ import annotations
@@ -36,9 +36,11 @@ from ..configs.base import ArchConfig
 from ..data.pipeline import DataConfig, synth_batch
 from ..distributed.collectives import bucketed_psum
 from ..distributed.fault_tolerance import RestartManager, StragglerDetector
-from ..distributed.sharding import DataParallel, all_reduce_, leaf_dims
+from ..distributed.sharding import (DataParallel, TensorParallel,
+                                    all_reduce_, leaf_dims)
 from ..kernels._build import resolve_device
 from ..models import init_params, loss_fn, loss_terms
+from ..models.transformer import model_partial
 from ..optim import adamw
 from ..tree import tree_leaves, tree_map
 
@@ -59,7 +61,8 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
                state: adamw.OptState, batch: Dict[str, torch.Tensor], *,
                groups: int = 1,
-               dp: Optional[DataParallel] = None
+               dp: Optional[DataParallel] = None,
+               tp: Optional[TensorParallel] = None
                ) -> Tuple[adamw.OptState, Dict]:
     """One step: the loss and its gradient at ``cast_params(master)``, then
     ``adamw.step``.  Returns (state, {"loss", "grad_norm", "lr"}), each a
@@ -77,7 +80,21 @@ def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
     gathers' backward; the replicated leaves' are summed in float32 over
     the ranks (``bucketed_psum``); AdamW updates the blocks
     (``adamw.step(mesh=)``).  With the batch whole on every rank, each
-    rank's gradient is already the whole one and nothing is summed."""
+    rank's gradient is already the whole one and nothing is summed.
+
+    With ``tp`` (a ("data", "model") mesh: dense and moe) the state holds
+    this rank's blocks under ``tp.specs`` and ``batch`` its data index's
+    rows.  The loss terms are equal on the ranks of "model"
+    (``loss_terms(tp=)``) and are summed over "data" before the
+    backward.  The gradients of the leaves cut over "data" are
+    reduce-scattered by the gathers' backward; those of the leaves a
+    rank holds whole over "data" are summed over it, and a leaf whole
+    over "model" whose gradient is a term of a sum over "model"
+    (``models.transformer.model_partial``) is summed over "model" too,
+    each in float32 (``bucketed_psum`` over the mesh, its data or its
+    model sub-group)."""
+    if tp is not None:
+        return _train_step_tp(cfg, ocfg, state, batch, tp)
     params = tree_map(lambda p: p.detach().requires_grad_(),
                       adamw.cast_params(state.master))
     leaves = tree_leaves(params)
@@ -109,6 +126,57 @@ def train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
                                 specs=None if dp is None else dp.specs)
     metrics["loss"] = loss
     return state, metrics
+
+
+def _train_step_tp(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
+                   state: adamw.OptState, batch: Dict[str, torch.Tensor],
+                   tp: TensorParallel) -> Tuple[adamw.OptState, Dict]:
+    params = tree_map(lambda p: p.detach().requires_grad_(),
+                      adamw.cast_params(state.master))
+    leaves = tree_leaves(params)
+    total, count = loss_terms(params, batch, cfg, tp=tp)
+    sums = torch.stack([total.detach(), count])
+    data = tp.batch_sharded and tp.data_mesh is not None
+    if data:
+        all_reduce_(sums, tp.data_mesh)
+    denom = torch.clamp(sums[1], min=1.0)
+    loss = sums[0] / denom
+    grads = list(torch.autograd.grad(total, leaves, grad_outputs=1.0 / denom,
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    sp = cfg.seq_parallel and batch["tokens"].shape[1] % tp.model == 0
+    for mesh, idx in grad_sums(tp.specs, tp.mesh, sp, data).items():
+        for i, g in zip(idx, bucketed_psum([grads[i].float() for i in idx],
+                                           getattr(tp, mesh))):
+            grads[i] = g
+    it = iter(grads)
+    grads = tree_map(lambda p: next(it), params)
+    del params, leaves
+    state, metrics = adamw.step(ocfg, state, grads, mesh=tp.mesh,
+                                specs=tp.specs)
+    metrics["loss"] = loss.detach()
+    return state, metrics
+
+
+def grad_sums(specs: Any, mesh, sp: bool, data: bool) -> Dict[str, list]:
+    """The leaves (indices in ``tree_leaves`` order of the sanitized
+    parameter ``specs``) whose gradients a rank of a ("data", "model")
+    ``mesh`` sums, by the ``TensorParallel`` mesh they are summed over:
+    ``"mesh"`` (whole over "data" with the batch split over it, and a
+    term of a sum over "model"), ``"data_mesh"`` (whole over "data", the
+    gradient whole over "model") and ``"model_mesh"`` (a term of a sum
+    over "model", its sum over "data" done or not needed).  ``sp``: the
+    step's sequence parallelism; ``data``: the batch split over more
+    than one data shard."""
+    part = model_partial(specs, mesh, sp)
+    out = {"mesh": [], "data_mesh": [], "model_mesh": []}
+    for i, d in enumerate(leaf_dims(specs, specs, mesh)):
+        whole = d is None and data
+        if part[i]:
+            out["mesh" if whole else "model_mesh"].append(i)
+        elif whole:
+            out["data_mesh"].append(i)
+    return {k: v for k, v in out.items() if v}
 
 
 def main(argv=None) -> Dict[str, Any]:

@@ -12,14 +12,15 @@ its flash backward when a gradient is needed; everything else takes the
 grouped dense path in plain PyTorch (differentiated by autograd), as the
 reference computes it outside any kernel.  ``attn_specs`` and
 ``mlp_specs`` give the reference's PartitionSpecs (``distributed.
-sharding.P``), which the sharded train step lays over the data axis and
-the serve steps over the data and model axes: ``attention(tp=)`` and
-``mlp(tp=)`` are Megatron's column- and row-parallel layers on a rank's
-blocks (``_tp_attention``), their collectives issued by
-``sharding.TensorParallel``.  The reference's pins (``_pin``,
-``_q_block_spec``, ``_kv_stack_spec``) are layouts GSPMD reads; the
-port's fast path is the layout they ask for (kv heads over "model" when
-M divides them).
+sharding.P``), which the train and serve steps lay over the data and
+model axes: ``attention(tp=)`` and ``mlp(tp=)`` are Megatron's column-
+and row-parallel layers on a rank's blocks (``_tp_attention``), their
+collectives issued by ``sharding.TensorParallel`` as autograd Functions
+(the training backward's conjugates: the input's gradient all-reduced or
+reduce-scattered, the cut projections' gradients reduce-scattered).  The
+reference's pins (``_pin``, ``_q_block_spec``, ``_kv_stack_spec``) are
+layouts GSPMD reads; the port's fast path is the layout they ask for (kv
+heads over "model" when M divides them).
 
 Numerics follow the reference: ``rms_norm`` and ``rope`` compute in
 float32 and cast back, the dense path rounds the q . k product to the

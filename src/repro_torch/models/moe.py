@@ -138,7 +138,10 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     experts, which run only the pairs routed to them; the shared experts
     are column- and row-parallel like the MLP.  The ranks' partial sums
     are combined by ONE collective (``tp.finish``); experts the specs
-    leave whole run on every rank and their sum crosses no rank."""
+    leave whole run on every rank and their sum crosses no rank (in
+    training one rank takes their gradient, so the input's all-reduce
+    counts it once).  The router, whole on every rank, gets a part of its
+    gradient on each (``transformer.model_partial``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s

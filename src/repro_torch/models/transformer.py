@@ -45,17 +45,24 @@ numbers than ``jax.random``.
 
 ``param_specs`` gives the reference's PartitionSpecs of the tree (the
 "model" axis for tensor parallelism, FSDP over "data" for the configs
-with ``fsdp``).  ``forward`` and ``loss_fn`` take ``dp=`` (a
+with ``fsdp``).  ``forward`` and ``loss_terms`` take ``dp=`` (a
 ``distributed.sharding.DataParallel``): the parameter tree then holds
 this rank's blocks, ``embed``, ``lm_head``, ``final_norm`` and the
 hybrid's ``shared_attn`` are gathered whole once before the layers, and
 each layer's sharded leaves inside the layer's checkpointed body, so
 that the backward's recomputation gathers them again (the reference's
 ZeRO-3 all-gather per layer inside its scan); each gather's backward
-reduce-scatters the gradients.  The sequence-parallel pin
-(``_seq_shard``) changes no number on a mesh whose "model" is 1 and is
-not ported.  ``init_params_block`` draws a rank's blocks of the
-parameters ``init_params`` draws, a layer at a time.
+reduce-scatters the gradients.  They take ``tp=`` (a
+``TensorParallel``; dense and moe) for the train step over ("data",
+"model"): the same gathers over "data", Megatron's column- and
+row-parallel layers over "model", experts and the vocabulary cut over
+it, and with ``cfg.seq_parallel`` the residual stream between layers
+the rank's (B, S/M, d) block (the reference's ``_seq_shard``); the loss
+over a cut vocabulary is computed on the rank's columns
+(``_VocabNLL``).  ``model_partial`` names the leaves whole over "model"
+whose gradient is a part of a sum over it.  ``init_params_block`` draws
+a rank's blocks of the parameters ``init_params`` draws, a layer at a
+time.
 """
 
 from __future__ import annotations
@@ -64,11 +71,13 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..distributed.sharding import (DataParallel, P, TensorParallel,
-                                    block_cuts, gather_tree, shard)
+                                    all_reduce_, block_cuts, gather_tree,
+                                    model_dim, shard)
 from ..kernels._build import resolve_device
 from ..tree import flatten_with_paths, tree_map
 from .layers import (NoDraws, _dense, attention, attn_params, attn_specs,
@@ -265,13 +274,15 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     the vocabulary cut over "model" (``P("model", f)``) each rank looks
     up the tokens in its rows and zeroes the others, and the ranks' terms
     are summed (``tp.finish``: one nonzero term a token, so the sum is
-    exact); a whole ``embed`` is looked up on every rank."""
+    exact; the backward touches the rank's rows only); a whole ``embed``
+    is looked up on every rank (under ``tp.sp`` its positions only)."""
     scale = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.bfloat16)
     emb = params["embed"]
     if tp is None or tp.model == 1:
         return emb[tokens] * scale
     if not tp.split(tp.specs["embed"]):
-        return tp.finish(whole=emb[tokens] * scale)
+        x = emb[tokens] * scale
+        return tp.seq_block(x) if tp.sp else x
     rows = emb.shape[0]
     local = tokens.long() - tp.m * rows
     mine = (local >= 0) & (local < rows)
@@ -389,7 +400,8 @@ def _route(groups: int, dp: Optional[DataParallel]) -> Dict[str, Any]:
 def forward(params: Params, tokens: Optional[torch.Tensor],
             cfg: ArchConfig, *, img: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, groups: int = 1,
-            dp: Optional[DataParallel] = None):
+            dp: Optional[DataParallel] = None,
+            tp: Optional[TensorParallel] = None):
     """tokens (B, S) int — or, for the audio family, ``frames`` (B, S, d)
     pre-embedded; ``img`` (B, Sv, d) the vlm family's image tokens (None:
     a cross layer attends to its own input, as the reference's does).
@@ -397,7 +409,15 @@ def forward(params: Params, tokens: Optional[torch.Tensor],
     recording, each layer keeps only its input for the backward and runs
     again there.  ``groups``: the MoE's dispatch groups on one card (the
     reference's data-parallel degree).  ``dp``: ``params`` holds this
-    rank's blocks under ``dp.specs`` (see the module doc)."""
+    rank's blocks under ``dp.specs`` (see the module doc).  ``tp`` (dense
+    and moe): ``params`` holds this rank's blocks under ``tp.specs`` and
+    ``tokens`` its rows; returns this rank's logits: its vocabulary
+    columns (B, S, V/M) of every position where ``lm_head`` is cut over
+    "model", else every column of its positions ((B, S/M, V) under
+    sequence parallelism)."""
+    if tp is not None:
+        x, outer, tp = _forward_tp(params, tokens, cfg, tp)
+        return _tp_logits(outer, x, cfg, tp)
     blocks = params
     if dp is not None:
         outer = {k: v for k, v in params.items() if k != "layers"}
@@ -451,12 +471,136 @@ class _TokenNLL(torch.autograd.Function):
         return grad.mul_(g[..., None]), None
 
 
+class _VocabNLL(torch.autograd.Function):
+    """``_TokenNLL`` over a vocabulary cut over "model": ``logits`` is
+    this rank's (B, S, V/M) float32 block, columns [lo, lo + V/M).  The
+    row maximum is all-reduced (max), then each row's sum of exp and its
+    label's logit (from the rank that holds the label; zero elsewhere)
+    in one all-reduce, so every rank of "model" returns the same
+    cross-entropy and no rank holds (B, S, V).  The backward writes
+    softmax - one-hot over the rank's columns into the saved block in
+    place, once."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, mesh):
+        mx = logits.amax(-1)
+        all_reduce_(mx, mesh, kind="tp_reduce", op=dist.ReduceOp.MAX)
+        local = labels - lo
+        mine = (local >= 0) & (local < logits.shape[-1])
+        local = local.clamp(0, logits.shape[-1] - 1)
+        ll = torch.gather(logits, -1, local[..., None])[..., 0]
+        sums = torch.stack([torch.exp(logits - mx[..., None]).sum(-1),
+                            torch.where(mine, ll, 0.0)])
+        all_reduce_(sums, mesh, kind="tp_reduce")
+        lse = mx + torch.log(sums[0])
+        ctx.save_for_backward(logits, lse, local, mine)
+        ctx.used = False
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.used:
+            raise RuntimeError("loss_fn: its gradient overwrites the logits "
+                               "and can be taken once")
+        ctx.used = True
+        logits, lse, local, mine = ctx.saved_tensors
+        grad = logits.sub_(lse[..., None]).exp_()
+        grad.scatter_add_(-1, local[..., None], -mine[..., None].to(
+            grad.dtype))
+        return grad.mul_(g[..., None]), None, None, None
+
+
+def _forward_tp(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                tp: TensorParallel):
+    """The layers of the train forward on a rank of ``tp``: the outer
+    leaves gathered over "data" once, each layer's inside its
+    checkpointed body (so the remat backward gathers again), the
+    residual stream between layers the rank's (B, S/M, d) block under
+    ``cfg.seq_parallel`` where M divides S (``_seq_shard``).  Returns
+    (the last layer's output, the outer leaves, ``tp`` with its ``sp``
+    set)."""
+    s = tokens.shape[1]
+    tp = tp.with_sp(cfg.seq_parallel and s % tp.model == 0)
+    outer = _outer(params, tp)
+    x = _embed(outer, tokens, cfg, tp)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    route = tp.route()
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+
+        def body(h, lp=lp, i=i):
+            lp = tp.gather_data(lp, tp.specs["layers"], lead=1)
+            return _tp_block(lp, h, cfg, positions, i, route, tp)[0]
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    return x, outer, tp
+
+
+def _tp_logits(outer: Params, x: torch.Tensor, cfg: ArchConfig,
+               tp: TensorParallel) -> torch.Tensor:
+    """The final norm, the vocabulary projection and the soft-cap on a
+    rank: its columns of every position where ``lm_head`` is cut (the
+    normed stream gathered along the sequence under ``tp.sp``), else
+    every column of the rank's positions."""
+    x = rms_norm(x, outer["final_norm"])
+    if tp.split(tp.specs["lm_head"]):
+        x = tp.seq_gather(x)
+    return softcap((x @ outer["lm_head"]).float(), cfg.final_softcap)
+
+
+def model_partial(specs: Params, mesh, sp: bool) -> List[bool]:
+    """For each leaf of the parameter tree (``tree_leaves`` order of
+    ``specs``, sanitized), whether a rank's gradient of it is one term of
+    a sum over "model": a leaf the specs leave whole over "model" that
+    the rank uses after a layer's column-parallel input (every layer
+    leaf but the norms ``ln1`` and ``ln2``), or, under sequence
+    parallelism (``sp``), any such leaf (each rank's positions give a
+    term).  The norms and the outer leaves are otherwise used on the
+    same whole inputs by every rank, whose gradients are then the whole
+    one."""
+    if mesh.shape.get("model", 1) <= 1:
+        return [False for _ in flatten_with_paths(specs)]
+    return [model_dim(spec, mesh) is None and (
+        sp or (path.startswith("layers/")
+               and path.rsplit("/", 1)[-1] not in ("ln1", "ln2")))
+        for path, spec in flatten_with_paths(specs)]
+
+
+def _loss_terms_tp(params: Params, batch: Dict[str, Any], cfg: ArchConfig,
+                   tp: TensorParallel):
+    x, outer, tp = _forward_tp(params, batch["tokens"], cfg, tp)
+    logits = _tp_logits(outer, x, cfg, tp)
+    labels = batch["labels"].long()
+    if tp.split(tp.specs["lm_head"]):       # the vocabulary-parallel loss
+        nll = _VocabNLL.apply(logits, labels.clamp(min=0),
+                              tp.m * logits.shape[-1], tp.model_mesh)
+        mask = (labels >= 0).float()
+        return torch.sum(nll * mask), torch.sum(mask)
+    if tp.sp:                                # the rank's positions
+        labels = tp.seq_block(labels)
+    nll = _TokenNLL.apply(logits, labels.clamp(min=0))
+    mask = (labels >= 0).float()
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    if tp.sp:        # the ranks' terms summed; each term's gradient whole
+        sums = tp.all_reduce(torch.stack([total, count]))
+        total, count = sums[0], sums[1]
+    return total, count
+
+
 def loss_terms(params: Params, batch: Dict[str, Any], cfg: ArchConfig, *,
-               groups: int = 1, dp: Optional[DataParallel] = None):
+               groups: int = 1, dp: Optional[DataParallel] = None,
+               tp: Optional[TensorParallel] = None):
     """The sum of the next-token cross-entropy over the labels >= 0 and
     their count (float32 0-dim tensors): ``loss_fn`` is their quotient.
     A rank of the sharded step sums its terms with the other ranks'
-    before the backward, so its loss is the global mean."""
+    before the backward, so its loss is the global mean.  Under ``tp``
+    (``batch`` the rank's rows) both are its data index's, equal on
+    every rank of "model": the vocabulary-parallel cross-entropy
+    (``_VocabNLL``) where ``lm_head`` is cut, else each rank's positions'
+    terms summed over "model" under sequence parallelism, or the whole
+    rows' on every rank."""
+    if tp is not None:
+        return _loss_terms_tp(params, batch, cfg, tp)
     logits = forward(params, batch.get("tokens"), cfg, img=batch.get("img"),
                      frames=batch.get("frames"), groups=groups, dp=dp)
     labels = batch["labels"].long()

@@ -17,10 +17,12 @@ float32) and a leaf's temporaries at a time.
 
 ZeRO: the reference's state follows the parameters' PartitionSpecs, so
 with FSDP each rank holds a block of every sharded leaf's master, m and
-v.  ``step(..., mesh=, specs=)`` updates a rank's blocks (each element's
-update is its own) with the global gradient norm: every rank's sum of
-squares of its sharded blocks, plus the replicated leaves' (whole and
-equal on every rank) counted once, on rank 0, added in ONE all-reduce.
+v, and over "model" a block of every leaf cut over it.
+``step(..., mesh=, specs=)`` updates a rank's blocks (each element's
+update is its own) with the global gradient norm: each block's sum of
+squares counted once over the mesh (on the ranks whose index is 0 on the
+axes that do not cut it), the replicated leaves' (whole and equal on
+every rank) on rank 0, added in ONE all-reduce (``sharded_norm``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..distributed.sharding import all_reduce_, leaf_dims
+from ..distributed.sharding import (all_reduce_, coords, leaf_dims,
+                                    model_dim)
 from ..tree import tree_leaves, tree_map
 
 
@@ -93,19 +96,28 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 def sharded_norm(grads: Any, specs: Any, mesh) -> torch.Tensor:
     """The global norm of a gradient of which this rank holds the blocks
-    of the leaves ``specs`` shards over ``mesh`` and the other leaves
-    whole: each sharded block's sum of squares on every rank, each
-    replicated leaf's on rank 0 only, summed in one all-reduce (none when
-    no leaf is sharded)."""
-    blocks, whole = None, None
-    for g, d in zip(tree_leaves(grads), leaf_dims(grads, specs, mesh)):
+    of the leaves ``specs`` cuts over ``mesh``'s data axes or "model" and
+    the other leaves whole: each leaf's sum of squares counted once over
+    the mesh (a block on the ranks whose index is 0 on every axis that
+    does not cut it; a replicated leaf on rank 0 only), summed in one
+    all-reduce (none when no leaf is cut)."""
+    d, m = coords(mesh, mesh.rank)
+    blocks, whole, cut = None, None, False
+    for g, dd, md in zip(tree_leaves(grads), leaf_dims(grads, specs, mesh),
+                         tree_leaves(tree_map(lambda x, s: model_dim(s, mesh),
+                                              grads, specs))):
         sq = torch.sum(torch.square(g.float()))
-        if d is None:
+        if dd is None and md is None:
             whole = sq if whole is None else whole + sq
-        else:
+            continue
+        cut = True
+        if (dd is not None or d == 0) and (md is not None or m == 0):
             blocks = sq if blocks is None else blocks + sq
-    if blocks is None:
+    if not cut:
         return torch.sqrt(whole)
+    if blocks is None:
+        blocks = torch.zeros((), dtype=torch.float32,
+                             device=tree_leaves(grads)[0].device)
     if whole is not None and mesh.rank == 0:
         blocks = blocks + whole
     return torch.sqrt(all_reduce_(blocks.reshape(1), mesh)[0])

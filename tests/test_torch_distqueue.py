@@ -47,6 +47,17 @@ PRI_W = 6                          # priority publish: child lanes a shard
 PRI_OPTS = ("plain", "meta", "aux", "meta_aux")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One torch thread for this file's tests: the tier-1 run puts six
+    test workers on the machine's cores, where a pool as wide as the cores
+    in each only contends with the others; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _start(start, cap):
     n2 = 2 * cap
     return None if start is None else (start // n2) * n2

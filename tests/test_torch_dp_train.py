@@ -28,8 +28,9 @@ same batches.  Cases (the reduced configs with FSDP on unless named):
   rank's gradient is the whole one and nothing is summed.
 
 Held, at 2 and 4 ranks: loss within ``LOSS_RTOL``, grad norm within
-``GRAD_RTOL`` (both ``tests/test_torch_train.py``'s; the reference's XLA
-keeps other bfloat16 roundings), lr within ``ADAM_RTOL``, the gathered
+``GRAD_RTOL`` (both ``tests/test_torch_train_grads.py``'s; the
+reference's XLA keeps other bfloat16 roundings), lr within
+``ADAM_RTOL``, the gathered
 master within ``MASTER_RTOL`` (a family's) of the reference's in the
 Frobenius norm of each leaf's change from the initial master; against the port's own one-card
 step on the global batch within ``ONE_CARD_RTOL``; every rank's loss and
@@ -38,7 +39,9 @@ grad norm identical; every rank's collectives a step equal to
 ``interop.opt_state_block_from_numpy`` of the whole state.  MoE slots
 are integers: each rank's equal to the reference's grouping
 (``_dp_groups`` under the mesh) and ticket rule, grouped and in the
-fallback, and the one-card ``route(groups=S)`` equal to them too."""
+fallback, and the one-card ``route(groups=S)`` equal to them too.  A
+launched process still running after SPAWN_TIMEOUT seconds is killed and
+the test fails naming each process's last stage."""
 
 import atexit
 import dataclasses
@@ -48,6 +51,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -175,6 +179,7 @@ def _reference(world, outdir):
     out = {}
     with jax.set_mesh(mesh):
         for case in CASES:
+            _stage(outdir, f"reference {case}")
             cfg, jcfg = _cfg(configs, case), _cfg(jconfigs, case)
             st = jadamw.init(jax.tree.map(
                 jnp.asarray, params_to_numpy(_initial_params(cfg))))
@@ -242,6 +247,8 @@ def _rank_main(rank, world, store, outdir):
     mesh = make_mesh((world, 1), ("data", "model"), group=dist.group.WORLD)
     res = {}
     for case in CASES:
+        if rank == 0:
+            _stage(outdir, f"ranks {case}")
         cfg = _cfg(configs, case)
         b, s = CASES[case][2:4]
         specs = steps.sanitize_pspecs(steps.state_pspecs(cfg),
@@ -294,8 +301,9 @@ def _rank_main(rank, world, store, outdir):
     for t in SLOT_TOKENS:
         gates = torch.from_numpy(_gates(world, t, t)[rank * t:(rank + 1) * t])
         res[f"slots/{t}"] = moe.route(gates, cfg, mesh=mesh)[0].tolist()
-    try:
-        steps.make_train_step(cfg, pspecs=P(),
+    try:               # the ssm family over "model" is not ported
+        steps.make_train_step(configs.get_config("mamba2-130m").reduced(),
+                              pspecs=P(),
                               mesh=make_mesh((1, world), ("data", "model"),
                                              group=dist.group.WORLD))
         res["model_error"] = None
@@ -318,6 +326,11 @@ def _spawn_ranks(world, outdir):
     print(json.dumps(out))
 
 
+def _stage(outdir, text):
+    with open(os.path.join(outdir, "stage"), "w") as f:
+        f.write(text)
+
+
 def _launch(args, env):
     return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
                             + args, stdout=subprocess.PIPE,
@@ -325,8 +338,39 @@ def _launch(args, env):
                             env=env)
 
 
+def _wait(procs, timeout):
+    """Each process's last stdout line as JSON; a process still running
+    at ``timeout`` seconds is killed (with the others) and the call
+    fails naming every process's last stage (``outdir/stage``)."""
+    deadline = time.monotonic() + timeout
+    outs = {}
+    try:
+        for key, (p, d) in procs.items():
+            stdout, stderr = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
+            assert p.returncode == 0, (key, stderr[-3000:])
+            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+    except subprocess.TimeoutExpired:
+        for p, _ in procs.values():
+            p.kill()
+        stages = {}
+        for key, (p, d) in procs.items():
+            p.communicate()
+            path = os.path.join(d, "stage")
+            stages[key] = (open(path).read() if os.path.exists(path)
+                           else "not started")
+        pytest.fail(f"ran past {timeout} s; last stages {stages}")
+    return outs
+
+
+# the launched processes' OpenMP and torch pools one thread each (the
+# ranks also call ``torch.set_num_threads(1)``)
+THREADS = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+SPAWN_TIMEOUT = 300
+
+
 def _env(n=None):
-    env = dict(os.environ)
+    env = {**os.environ, **THREADS}
     if n is not None:
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                             + f" --xla_force_host_platform_device_count={n}"
@@ -351,17 +395,13 @@ def _results(world):
         procs = {}
         for w in WORLDS:
             d = os.path.join(tmp, str(w))
-            os.makedirs(os.path.join(d, "ref"))
-            os.makedirs(os.path.join(d, "port"))
-            procs[("ref", w)] = _launch(
-                ["--worker", str(w), os.path.join(d, "ref")], _env(w))
-            procs[("port", w)] = _launch(
-                ["--ranks", str(w), os.path.join(d, "port")], _env())
-        outs = {}
-        for key, p in procs.items():
-            stdout, stderr = p.communicate(timeout=900)
-            assert p.returncode == 0, stderr[-3000:]
-            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+            for side, flag, env in (("ref", "--worker", _env(w)),
+                                    ("port", "--ranks", _env())):
+                os.makedirs(os.path.join(d, side))
+                procs[(side, w)] = (_launch([flag, str(w),
+                                             os.path.join(d, side)], env),
+                                    os.path.join(d, side))
+        outs = _wait(procs, SPAWN_TIMEOUT)
         for w in WORLDS:
             _CACHE[w] = (outs[("ref", w)],
                          {int(r): v for r, v in outs[("port", w)].items()},
@@ -479,10 +519,13 @@ def test_moe_slots_are_the_reference_groups(world, tokens):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_model_axis_refused_on_ranks(world):
+    """Training over "model" runs the dense and moe families
+    (``tests/test_torch_tp_train.py``); the ssm family over it is refused
+    by name on the ranks."""
     _, port, _ = _results(world)
     for res in port.values():
-        assert res["model_error"] and '"model" are not ported' in \
-            res["model_error"]
+        assert res["model_error"] and 'the ssm family over "model" is not ' \
+            'ported' in res["model_error"]
 
 
 if __name__ == "__main__":

@@ -27,6 +27,17 @@ from repro_torch.kernels import heap_batch as heap  # noqa: E402
 KEY_INF = heap.KEY_INF
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One torch thread for this file's tests: the tier-1 run puts six
+    test workers on the machine's cores, where a pool as wide as the cores
+    in each only contends with the others; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

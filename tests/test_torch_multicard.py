@@ -31,15 +31,21 @@ at once, on first use.  Covered, at 2 and 4 ranks:
   (the all-reduce may add the shards' terms in another order than XLA's
   psum, and XLA fuses the residual's multiply-subtract).
 
+A launched process still running after SPAWN_TIMEOUT seconds is killed
+and the test fails naming each process's last stage.
+
 Integer state throughout the queue cases, so those comparisons are
 exact."""
 
+import atexit
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -581,21 +587,29 @@ def _golden_cases(mesh, world):
 # -- the processes ------------------------------------------------------------
 
 
-def _rank_main(rank, world, store, outdir):
+def _rank_main(rank, world, store, outdir, stagedir):
     """One rank: every case on the world group, the goldens on a group of
     one rank (and, at two ranks, on the world), the group-size error;
-    writes {name: result} to ``outdir/rank<r>.json``."""
+    writes {name: result} to ``outdir/rank<r>.json`` and rank 0 its stage
+    to ``stagedir``."""
     import torch.distributed as dist
 
     from repro_torch.distributed import make_mesh
+
+    def stage(text):
+        if rank == 0:
+            _stage(stagedir, f"ranks {text}")
     dist.init_process_group("gloo", init_method="file://" + store,
                             world_size=world, rank=rank)
     solo = [dist.new_group([r]) for r in range(world)]
     mesh = make_mesh((world,), ("data",), group=dist.group.WORLD)
-    res = {"cases": _scenarios(world, True, mesh, rank),
-           "functional": _functional_cases(mesh, rank, world),
-           "golden": _golden_cases(make_mesh((1,), ("data",),
-                                             group=solo[rank]), 1)}
+    stage("cases")
+    res = {"cases": _scenarios(world, True, mesh, rank)}
+    stage("functional")
+    res["functional"] = _functional_cases(mesh, rank, world)
+    stage("goldens")
+    res["golden"] = _golden_cases(make_mesh((1,), ("data",),
+                                            group=solo[rank]), 1)
     if world == 2:
         res["golden"].update(_golden_cases(mesh, 2))
     try:
@@ -609,6 +623,11 @@ def _rank_main(rank, world, store, outdir):
         json.dump(res, f)
 
 
+def _stage(stagedir, text):
+    with open(os.path.join(stagedir, "stage"), "w") as f:
+        f.write(text)
+
+
 def _launch(args, env=None):
     return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
                             + args, stdout=subprocess.PIPE,
@@ -616,8 +635,13 @@ def _launch(args, env=None):
                             env=env)
 
 
+# the launched processes' OpenMP and torch pools one thread each
+THREADS = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+SPAWN_TIMEOUT = 300
+
+
 def _reference_env(n):
-    env = dict(os.environ)
+    env = {**os.environ, **THREADS}
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + f" --xla_force_host_platform_device_count={n}"
                         ).strip()
@@ -629,7 +653,7 @@ def _reference_env(n):
 
 
 def _port_env():
-    env = dict(os.environ)
+    env = {**os.environ, **THREADS}
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(REPO, "src"), env.get("PYTHONPATH")) if p)
     return env
@@ -643,20 +667,45 @@ def _results(world):
     world size's four processes start together."""
     if not _CACHE:
         pytest.importorskip("jax")
+        tmp = tempfile.mkdtemp(prefix="multicard_")
+        atexit.register(shutil.rmtree, tmp, True)
         procs = {}
         for w in WORLDS:
-            procs[("ref", w)] = _launch(["--worker", str(w)],
-                                        _reference_env(w))
-            procs[("port", w)] = _launch(["--ranks", str(w)], _port_env())
-        outs = {}
-        for key, p in procs.items():
-            stdout, stderr = p.communicate(timeout=600)
-            assert p.returncode == 0, stderr[-3000:]
-            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+            for side, flag, env in (("ref", "--worker", _reference_env(w)),
+                                    ("port", "--ranks", _port_env())):
+                d = os.path.join(tmp, f"{side}{w}")
+                os.makedirs(d)
+                procs[(side, w)] = (_launch([flag, str(w), d], env), d)
+        outs = _wait(procs, SPAWN_TIMEOUT)
         for w in WORLDS:
             _CACHE[w] = (outs[("ref", w)],
                          {int(r): v for r, v in outs[("port", w)].items()})
     return _CACHE[world]
+
+
+def _wait(procs, timeout):
+    """Each process's last stdout line as JSON; a process still running
+    at ``timeout`` seconds is killed (with the others) and the call
+    fails naming every process's last stage (``<dir>/stage``)."""
+    deadline = time.monotonic() + timeout
+    outs = {}
+    try:
+        for key, (p, d) in procs.items():
+            stdout, stderr = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
+            assert p.returncode == 0, (key, stderr[-3000:])
+            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+    except subprocess.TimeoutExpired:
+        for p, _ in procs.values():
+            p.kill()
+        stages = {}
+        for key, (p, d) in procs.items():
+            p.communicate()
+            path = os.path.join(d, "stage")
+            stages[key] = (open(path).read() if os.path.exists(path)
+                           else "not started")
+        pytest.fail(f"ran past {timeout} s; last stages {stages}")
+    return outs
 
 
 # -- the tests ----------------------------------------------------------------
@@ -780,12 +829,13 @@ def test_every_rank_agrees_and_group_size_is_checked(world):
             f"{{'data': {2 * world}}} has {2 * world} shards")
 
 
-def _spawn_ranks(world):
+def _spawn_ranks(world, stagedir):
     """Run ``_rank_main`` on ``world`` spawned ranks; print {rank:
     results} as one JSON line."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(world, os.path.join(tmp, "store"), tmp),
+        mp.spawn(_rank_main, args=(world, os.path.join(tmp, "store"), tmp,
+                                   stagedir),
                  nprocs=world, join=True)
         out = {}
         for r in range(world):
@@ -798,6 +848,7 @@ if __name__ == "__main__":
     if sys.argv[1] == "--worker":        # the reference under shard_map
         from repro.jaxcompat import make_mesh as jmesh
         n = int(sys.argv[2])
+        _stage(sys.argv[3], "reference cases")
         print(json.dumps(_scenarios(n, False, jmesh((n,), ("data",)))))
     elif sys.argv[1] == "--ranks":       # the port's ranks
-        _spawn_ranks(int(sys.argv[2]))
+        _spawn_ranks(int(sys.argv[2]), sys.argv[3])

@@ -34,6 +34,17 @@ NSL2 = 12                   # 4,096 slots, capacity 2,048
 CAP = 1 << (NSL2 - 1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One torch thread for this file's tests: the tier-1 run puts six
+    test workers on the machine's cores, where a pool as wide as the cores
+    in each only contends with the others; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _i32(x: int) -> int:
     x &= 0xFFFFFFFF
     return x - (1 << 32) if x >= 1 << 31 else x

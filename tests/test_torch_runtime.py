@@ -42,6 +42,17 @@ SCHEDULES = ("random", "gang", "rr")
 PACKAGES = (JR, TR)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One torch thread for this file's tests: the tier-1 run puts six
+    test workers on the machine's cores, where a pool as wide as the cores
+    in each only contends with the others; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _events(hist):
     return [dataclasses.astuple(e) for e in hist]
 

@@ -26,7 +26,8 @@ from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import param_specs as jparam_specs  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import make_mesh  # noqa: E402
-from repro_torch.distributed.sharding import (P, _assemble,  # noqa: E402
+from repro_torch.distributed.sharding import (DataParallel, P,  # noqa: E402
+                                              _assemble,
                                               block_cuts, check_mesh,
                                               coords, data_dim, model_dim,
                                               shard)
@@ -150,11 +151,14 @@ def test_spec_normalises_as_the_reference():
 
 
 def test_model_axis_is_refused_by_name():
+    """Training over "model" runs the dense and moe families (a leaf cut
+    over both axes has its data dimension); the other families are
+    refused by name."""
     m = make_mesh((2, 2), ("data", "model"))
-    with pytest.raises(ValueError, match='"model" are not ported'):
-        data_dim(P("data", "model"), m)
-    with pytest.raises(ValueError, match='"model" are not ported'):
-        steps.make_train_step(configs.get_config("h2o-danube-1.8b-smoke"),
+    assert data_dim(P("data", "model"), m) == 0
+    with pytest.raises(ValueError, match='the ssm family over "model" is '
+                                         'not ported'):
+        steps.make_train_step(configs.get_config("mamba2-130m-smoke"),
                               pspecs={}, mesh=m)
 
 
@@ -189,7 +193,7 @@ def test_two_dimensional_blocks(name, mesh):
     for spec in (P("data", "model", None), P("model", None, "data"),
                  P(None, None, "model"), P("data", None, None), P()):
         rows = torch.stack([shard(small, spec, m, r) for r in range(n)])
-        dd = data_dim(spec, m, model_ok=True)
+        dd = data_dim(spec, m)
         assert torch.equal(_assemble(rows, dd, model_dim(spec, m), m),
                            small), spec
 
@@ -201,28 +205,27 @@ def test_model_dim_coords_and_cuts():
     assert model_dim(P("data", None), m) is None
     assert model_dim(P(None, "model"), make_mesh((2, 1), ("data", "model"))
                      ) is None
-    assert data_dim(P("data", "model"), m, model_ok=True) == 0
+    assert data_dim(P("data", "model"), m) == 0
     assert [coords(m, r) for r in range(8)] == [
         (d, j) for d in range(2) for j in range(4)]
     assert block_cuts(P("model", "data"), m, 6) == [(1, 2, 1), (0, 4, 2)]
     with pytest.raises(ValueError, match="sequence-sharded branch"):
-        data_dim(P(None, ("data", "model")), m, model_ok=True)
-    with pytest.raises(ValueError, match='"model" are not ported for'):
-        data_dim(P(None, "model"), m)
+        data_dim(P(None, ("data", "model")), m)
+    assert data_dim(P(None, "model"), m) is None
 
 
 def test_serve_mesh_refusals_by_name():
     m = make_mesh((1, 2), ("data", "model"))
-    check_mesh(m, configs.get_config("yi-34b-smoke"), serve=True)
-    check_mesh(m, configs.get_config("deepseek-moe-16b-smoke"), serve=True)
+    check_mesh(m, configs.get_config("yi-34b-smoke"))
+    check_mesh(m, configs.get_config("deepseek-moe-16b-smoke"))
     for arch, family in (("mamba2-130m-smoke", "ssm"),
                          ("zamba2-7b-smoke", "hybrid"),
                          ("llama-3.2-vision-11b-smoke", "vlm"),
                          ("hubert-xlarge-smoke", "audio")):
         with pytest.raises(ValueError, match=f"the {family} family over "
                                              f'"model" is not ported'):
-            check_mesh(m, configs.get_config(arch), serve=True)
-    with pytest.raises(ValueError, match="for training"):
-        check_mesh(m)
+            check_mesh(m, configs.get_config(arch))
+    with pytest.raises(ValueError, match="takes TensorParallel"):
+        DataParallel(m, {})
     with pytest.raises(ValueError, match="must be the last axis"):
-        check_mesh(make_mesh((2, 1), ("model", "data")), serve=True)
+        check_mesh(make_mesh((2, 1), ("model", "data")))

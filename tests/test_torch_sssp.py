@@ -31,6 +31,17 @@ GRAPHS = ("road", "kron")
 LAYOUTS = ("packed", "split")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One torch thread for this file's tests: the tier-1 run puts six
+    test workers on the machine's cores, where a pool as wide as the cores
+    in each only contends with the others; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _graph(name, pkg):
     return (pkg.road_like(144) if name == "road"
             else pkg.kron_like(200, avg_deg=6, seed=2))

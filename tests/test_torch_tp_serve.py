@@ -42,9 +42,12 @@ step equal to ``serve_collectives``, the blocks drawn by
 ``init_params_block`` equal to ``interop.params_block_from_numpy`` of the
 whole parameters, MoE slots (layer 0 of the prefill) equal on every rank
 of the model axis and to the reference's ticket rule under its
-``_dp_groups``, integer for integer, and the refusals (training over
-"model", an ssm config over "model", ``cache_pspecs``' sequence-sharded
-branch) raising by name."""
+``_dp_groups``, integer for integer, and the refusals (an ssm config
+served or trained over "model", ``cache_pspecs``' sequence-sharded
+branch) raising by name, and training a dense config over "model"
+taken (``tests/test_torch_tp_train.py`` holds it).  A launched process
+still running after SPAWN_TIMEOUT seconds is killed and the test fails
+naming each process's last stage."""
 
 import atexit
 import dataclasses
@@ -54,6 +57,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -128,9 +132,10 @@ def _slots_oracle(gates, k, e, g, capacity_factor):
 # -- the reference ------------------------------------------------------------
 
 
-def _reference(devices, outdir):
+def _reference(devices, outdir, stagedir):
     """Every case on every mesh of ``devices`` forced host devices; each
-    (mesh, case)'s logits, tokens and caches to ``outdir``."""
+    (mesh, case)'s logits, tokens and caches to ``outdir``, its stage to
+    ``stagedir``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -154,6 +159,7 @@ def _reference(devices, outdir):
             lambda s: NamedSharding(mesh, s), t, is_leaf=isp)
         with jax.set_mesh(mesh):
             for case in CASES:
+                _stage(stagedir, f"reference {key} {case}")
                 cfg, jcfg = _cfg(configs, case), _cfg(jconfigs, case)
                 s = CASES[case][2]
                 params = jax.tree.map(jnp.asarray, params_to_numpy(
@@ -318,9 +324,12 @@ def _refusals(mesh):
     out = {}
     cfg = configs.get_config("h2o-danube-1.8b").reduced()
     seq = init_decode_cache(cfg, 1, 64, device="meta")
+    ssm = configs.get_config("mamba2-130m").reduced()
     attempts = {
         "train": lambda: steps.make_train_step(
             cfg, pspecs=steps.state_pspecs(cfg).master, mesh=mesh),
+        "train_ssm": lambda: steps.make_train_step(
+            ssm, pspecs=steps.state_pspecs(ssm).master, mesh=mesh),
         "ssm": lambda: steps.make_prefill_step(
             configs.get_config("mamba2-130m").reduced(),
             steps.param_specs(configs.get_config("mamba2-130m").reduced()),
@@ -351,6 +360,8 @@ def _rank_main(rank, world, store, outdir):
             continue
         mesh = make_mesh(shape, ("data", "model"), group=dist.group.WORLD)
         for case in CASES:
+            if rank == 0:
+                _stage(outdir, f"ranks {key} {case}")
             res[f"{key}/{case}"] = _run_case(key, case, mesh, rank, outdir)
         res[f"{key}/refused"] = _refusals(mesh)
     dist.barrier()
@@ -370,6 +381,11 @@ def _spawn_ranks(world, outdir):
     print(json.dumps(out))
 
 
+def _stage(outdir, text):
+    with open(os.path.join(outdir, "stage"), "w") as f:
+        f.write(text)
+
+
 def _launch(args, env):
     return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
                             + args, stdout=subprocess.PIPE,
@@ -377,8 +393,39 @@ def _launch(args, env):
                             env=env)
 
 
+def _wait(procs, timeout):
+    """Each process's last stdout line as JSON; a process still running
+    at ``timeout`` seconds is killed (with the others) and the call
+    fails naming every process's last stage (``outdir/stage``)."""
+    deadline = time.monotonic() + timeout
+    outs = {}
+    try:
+        for key, (p, d) in procs.items():
+            stdout, stderr = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
+            assert p.returncode == 0, (key, stderr[-3000:])
+            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+    except subprocess.TimeoutExpired:
+        for p, _ in procs.values():
+            p.kill()
+        stages = {}
+        for key, (p, d) in procs.items():
+            p.communicate()
+            path = os.path.join(d, "stage")
+            stages[key] = (open(path).read() if os.path.exists(path)
+                           else "not started")
+        pytest.fail(f"ran past {timeout} s; last stages {stages}")
+    return outs
+
+
+# the launched processes' OpenMP and torch pools one thread each (the
+# ranks also call ``torch.set_num_threads(1)``)
+THREADS = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+SPAWN_TIMEOUT = 300
+
+
 def _env(n=None):
-    env = dict(os.environ)
+    env = {**os.environ, **THREADS}
     if n is not None:
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                             + f" --xla_force_host_platform_device_count={n}"
@@ -402,15 +449,14 @@ def _results():
         atexit.register(shutil.rmtree, tmp, True)
         procs = {}
         for w in (2, 4):
-            procs[("ref", w)] = _launch(["--worker", str(w), tmp], _env(w))
+            d = os.path.join(tmp, f"stage{w}")
+            os.makedirs(d)
+            procs[("ref", w)] = (_launch(["--worker", str(w), tmp, d],
+                                         _env(w)), d)
             d = os.path.join(tmp, f"ranks{w}")
             os.makedirs(d)
-            procs[("port", w)] = _launch(["--ranks", str(w), d], _env())
-        outs = {}
-        for key, p in procs.items():
-            stdout, stderr = p.communicate(timeout=900)
-            assert p.returncode == 0, stderr[-3000:]
-            outs[key] = json.loads(stdout.strip().splitlines()[-1])
+            procs[("port", w)] = (_launch(["--ranks", str(w), d], _env()), d)
+        outs = _wait(procs, SPAWN_TIMEOUT)
         _CACHE.update(ref={**outs[("ref", 2)], **outs[("ref", 4)]},
                       port={w: {int(r): v for r, v in outs[("port", w)]
                                 .items()} for w in (2, 4)},
@@ -584,7 +630,9 @@ def test_what_is_not_ported_is_refused_by_name(mesh):
     world = MESHES[mesh][0] * MESHES[mesh][1]
     for r, v in res["port"][world].items():
         got = v[f"{mesh}/refused"]
-        assert '"model" are not ported for training' in got["train"], r
+        assert got["train"] is None, r    # training over "model" is ported
+        assert 'ssm family' in got["train_ssm"] and \
+            "not ported" in got["train_ssm"], r
         assert 'ssm family' in got["ssm"] and "not ported" in got["ssm"]
         if MESHES[mesh][0] > 1:
             assert "sequence-sharded branch" in got["seq_cache"], r
@@ -594,6 +642,7 @@ def test_what_is_not_ported_is_refused_by_name(mesh):
 
 if __name__ == "__main__":
     if sys.argv[1] == "--worker":        # the reference on forced devices
-        print(json.dumps(_reference(int(sys.argv[2]), sys.argv[3])))
+        print(json.dumps(_reference(int(sys.argv[2]), sys.argv[3],
+                                    sys.argv[4])))
     elif sys.argv[1] == "--ranks":       # the port's ranks
         _spawn_ranks(int(sys.argv[2]), sys.argv[3])

@@ -8,7 +8,7 @@ labels) from numpy seeds.  On the CPU attention's flash path takes
 ``flash_attention_plain`` and, under autograd, the plain backward.
 
 Tolerances (those of ``tests/test_torch_models.py`` and
-``tests/test_torch_train.py``):
+``tests/test_torch_train_grads.py``):
 
 * float32 parameters (the hybrid and the vlm families: the comparison is
   of the algorithm): logits within ``LOGITS`` (2e-4 absolute; 9e-6
